@@ -1,0 +1,28 @@
+"""In-memory metrics: the counters and gauges of tpu_ddp/utils/metrics.py's
+``MetricsLogger`` that the serving engine uses (no JSONL sink yet)."""
+
+from __future__ import annotations
+
+
+class MetricsLogger:
+    """Event counters (:meth:`inc`) and gauge accumulators
+    (:meth:`observe`), queryable after a run."""
+
+    def __init__(self):
+        self.counters: dict[str, int] = {}
+        self.gauges: dict[str, dict] = {}
+
+    def inc(self, name: str, n: int = 1) -> int:
+        """Bump (and return) a counter."""
+        self.counters[name] = self.counters.get(name, 0) + n
+        return self.counters[name]
+
+    def observe(self, name: str, value: float) -> None:
+        """Accumulate one gauge sample: count/total/max/last."""
+        g = self.gauges.setdefault(
+            name, {"count": 0, "total": 0.0, "max": 0.0, "last": 0.0})
+        v = float(value)
+        g["count"] += 1
+        g["total"] += v
+        g["max"] = max(g["max"], v)
+        g["last"] = v
