@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (tpu_ddp_torch): the quickest
-proof that the port builds and serves on the card.
+proof that the port builds, serves and trains on the card.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. refuse to run without CUDA;
-2. build every kernel of the serving path from ``tpu_ddp_torch/ops/csrc``
-   with nvcc (one process per source, all started together);
+2. build every kernel from ``tpu_ddp_torch/ops/csrc`` with nvcc (one
+   process per source, all started together);
 3. hold the int8 matmul kernel against its plain PyTorch version at the
    TransformerLM-large projection and head shapes, M in {8, 32}
    (max |kernel - plain| <= 1e-4 * max |plain|), and time the kernel,
@@ -26,18 +26,59 @@ Phases, each fatal on failure (exit code 1, no result line):
 6. one decode step's logits through the kernel against the same step
    through the plain version (max |delta| <= 5e-2 * max |plain|: bf16
    activations re-round at every layer, so a last-bit difference in one
-   f32 sum can move a bf16 activation by one unit, 2**-8 relative).
+   f32 sum can move a bf16 activation by one unit, 2**-8 relative);
+7. the BatchNorm+ReLU kernels (bn_stats, bn_norm_relu, bn_bwd_stats,
+   bn_bwd_dx) against their plain versions at the eight VGG-11 conv
+   outputs of a batch of 256, each kernel fed the same inputs as its
+   plain version: y and dx within 1e-4 * max |plain|, mean within
+   1e-4 * mean |x|, inv within 1e-4 * max inv, dbias and dscale within
+   1e-4 * sum |terms| (the sums run in another order); then the whole
+   autograd op against autograd through the plain forward. Each kernel
+   is timed beside its bound, its plain version and
+   ``torch.var_mean`` (statistics), and the op beside the yardstick
+   ``F.relu(F.batch_norm(..., training=True))`` forward and
+   forward+backward;
+8. the fused SGD kernel against its plain version on VGG-11's 34 leaves
+   over 3 steps: params and momentum bit for bit equal; timed beside its
+   bound, the plain version and ``torch.optim.SGD(fused=True)``;
+9. small parity: a narrow VGG trainer (f32, TF32 off, both kernel knobs)
+   on the card against the same trainer on the CPU, where the kernels are
+   their plain versions, 3 steps: losses within 1e-3 relative and params
+   within rtol 1e-3 / atol 1e-4 (cuDNN's f32 convolutions sum in another
+   order, about 1e-6 relative, and three steps of lr 0.1 through
+   batch-statistics BN amplify that);
+10. train: ``run_part("part1")``, the CLI's entry point, with
+   ``TPU_DDP_PALLAS_SGD=1 TPU_DDP_PALLAS_BN=1``: VGG-11 (vgg11_cifar10,
+   full width) at batch 256 for 40 iterations on the synthetic CIFAR-10
+   stand-in, then the test-set pass. Every logged loss must be finite,
+   the ``Test set:`` line printed, and the launch counts exact, from 0:
+   SGD once per step, the backward BN kernels 8 per step, the forward
+   ones 8 per step and per eval batch. Prints the reference's timer
+   (iterations 1-39), images/s and peak memory, then a profiler window
+   over 5 steps: the device's idle share and the top kernels;
+11. one whole train step through the kernels against the same step
+   through the plain versions (same params, same batch): loss within
+   1e-2 relative and every param within 5e-2 * the step's largest
+   update (bf16 activations re-round at every layer, so a last-bit
+   difference in a statistic can move a bf16 activation by 2**-8);
+12. part 3 (``DistributedDataParallel``, 25 MB buckets) at world 1 over
+   NCCL: 20 iterations on the card with finite losses.
 
-Prints the card's name and power limit, the serving metrics, one
-``{"kernels": [...]}`` line, and last the contract line
-``{"ok": true, "device": {...}}``.
+Prints the card's name and power limit, the serving and training
+metrics, one ``{"kernels": [...]}`` line (six kernels), and last the
+contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
+import os
+import re
+import socket
 import subprocess
 import sys
 import time
@@ -46,11 +87,28 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core
-# FLOP/s. The int8 weights are exact in bf16, so bf16 is the fastest
-# type the same products could run in.
+# H100 SXM published peaks (dense): HBM3 bytes/s, bf16 tensor-core FLOP/s
+# and f32 FLOP/s outside the tensor cores. The int8 weights are exact in
+# bf16, so bf16 is the fastest type the same products could run in; the
+# BN and SGD kernels do f32 elementwise arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+
+# VGG-11's conv outputs at batch 256 as (R = N*H*W, C) rows, with the
+# number of conv units of each shape: 8 BN+ReLU calls per pass.
+BN_SHAPES = [((262144, 64), 1), ((65536, 128), 1), ((16384, 256), 2),
+             ((4096, 512), 2), ((1024, 512), 2)]
+# Bytes each BN kernel moves per element (f32 rows in and out) and its
+# flops per element: stats reads x; norm reads x, writes y; bwd_stats
+# reads x, g; bwd_dx reads x, g, writes dx.
+BN_BYTES_PER_ELEM = {"bn_stats": 4, "bn_norm_relu": 8, "bn_bwd_stats": 8,
+                     "bn_bwd_dx": 12}
+BN_FLOPS_PER_ELEM = {"bn_stats": 3, "bn_norm_relu": 4, "bn_bwd_stats": 8,
+                     "bn_bwd_dx": 10}
+# Per-channel vectors each BN kernel reads and writes (f32).
+BN_CHAN_VECTORS = {"bn_stats": 2, "bn_norm_relu": 4, "bn_bwd_stats": 6,
+                   "bn_bwd_dx": 6}
 
 # TransformerLM-large's int8 matmuls: (K, N) and launches per pass.
 LARGE_SHAPES = {"wqkv": ((2048, 6144), 12), "wo": ((2048, 2048), 12),
@@ -365,6 +423,462 @@ def traced_run(eng) -> dict:
             "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
 
 
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for f32 elementwise work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _timing_label(*results) -> str:
+    return ("profiler" if all(r["device_ms"] is not None for r in results)
+            else "cuda-events")
+
+
+def check_bn(dev, gen) -> dict:
+    """Phase 7: the four BN+ReLU kernels at VGG-11's eight conv outputs."""
+    import torch.nn.functional as F
+
+    from tpu_ddp_torch.ops import bn_relu as tb
+    kernels = {"bn_stats": (tb.bn_stats, tb.bn_stats_ref),
+               "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
+               "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
+               "bn_bwd_dx": (tb.bn_bwd_dx, tb.bn_bwd_dx_ref)}
+    shapes = []
+    for (r, c), units in BN_SHAPES:
+        n_el = r * c
+        side = int(math.isqrt(r // 256))
+        copies = max(2, math.ceil(2 * L2_BYTES / (8 * n_el)))
+        xs = [torch.randn(r, c, generator=gen, device=dev) * 2 + 0.3
+              for _ in range(copies)]
+        gs = [torch.randn(r, c, generator=gen, device=dev)
+              for _ in range(copies)]
+        s = 0.5 + torch.rand(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        x, g = xs[0], gs[0]
+        # Each kernel against its plain version on the same inputs.
+        mean, inv = tb.bn_stats_ref(x)
+        y = tb.bn_norm_relu_ref(x, mean, inv, s, b)
+        db, ds = tb.bn_bwd_stats_ref(x, g, mean, inv, s, b)
+        dx = tb.bn_bwd_dx_ref(x, g, mean, inv, s, b, db, ds)
+        km, ki = tb.bn_stats(x)
+        ky = tb.bn_norm_relu(x, mean, inv, s, b)
+        kdb, kds = tb.bn_bwd_stats(x, g, mean, inv, s, b)
+        kdx = tb.bn_bwd_dx(x, g, mean, inv, s, b, db, ds)
+        torch.cuda.synchronize()
+        x_hat = (x - mean) * inv
+        errs = {
+            "bn_stats": (float((km - mean).abs().max()),
+                         1e-4 * float(x.abs().mean(0).max())),
+            "bn_stats_inv": (float((ki - inv).abs().max()),
+                             1e-4 * float(inv.abs().max())),
+            "bn_norm_relu": (float((ky - y).abs().max()),
+                             1e-4 * float(y.abs().max())),
+            "bn_bwd_stats": (float((kdb - db).abs().max()),
+                             1e-4 * float(g.abs().sum(0).max())),
+            "bn_bwd_stats_dscale": (float((kds - ds).abs().max()),
+                                    1e-4 * float((g * x_hat).abs().sum(0)
+                                                 .max())),
+            "bn_bwd_dx": (float((kdx - dx).abs().max()),
+                          1e-4 * float(dx.abs().max())),
+        }
+        # The whole autograd op against autograd through the plain
+        # forward, at the model's initial scale 1 and bias 0.
+        grads = []
+        for fn in (tb.batch_norm_relu, tb.batch_norm_relu_ref):
+            leaves = [x.clone().requires_grad_(),
+                      torch.ones(c, device=dev, requires_grad=True),
+                      torch.zeros(c, device=dev, requires_grad=True)]
+            out = fn(*leaves)
+            grads.append([out.detach(), *torch.autograd.grad(
+                out, leaves, g)])
+        (oy, odx, ods, odb), (py, pdx, pds, pdb) = grads
+        x_hat0 = (x - x.mean(0)) * torch.rsqrt(x.var(0, correction=0)
+                                               + tb.BN_EPS)
+        errs.update({
+            "op_y": (float((oy - py).abs().max()),
+                     1e-4 * float(py.abs().max())),
+            "op_dx": (float((odx - pdx).abs().max()),
+                      1e-4 * float(pdx.abs().max())),
+            "op_dscale": (float((ods - pds).abs().max()),
+                          1e-4 * float((g * x_hat0).abs().sum(0).max())),
+            "op_dbias": (float((odb - pdb).abs().max()),
+                         1e-4 * float(g.abs().sum(0).max())),
+        })
+        for what, (err, tol) in errs.items():
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"{what} disagrees with its plain version at R={r} "
+                     f"C={c}: max|d|={err} vs tol {tol}")
+
+        row = {"r": r, "c": c, "units": units, "copies": copies,
+               "errors": {k: v[0] for k, v in errs.items()},
+               "tols": {k: v[1] for k, v in errs.items()}}
+        reps = 10 * copies
+        args = {"bn_stats": [(xi,) for xi in xs],
+                "bn_norm_relu": [(xi, mean, inv, s, b) for xi in xs],
+                "bn_bwd_stats": [(xi, gi, mean, inv, s, b)
+                                 for xi, gi in zip(xs, gs)],
+                "bn_bwd_dx": [(xi, gi, mean, inv, s, b, db, ds)
+                              for xi, gi in zip(xs, gs)]}
+        for name, (kern, plain) in kernels.items():
+            k_t = timed(kern, args[name], reps)
+            p_t = timed(plain, args[name], max(4, reps // 4))
+            bound, by = _bound(
+                BN_BYTES_PER_ELEM[name] * n_el
+                + 4 * BN_CHAN_VECTORS[name] * c,
+                BN_FLOPS_PER_ELEM[name] * n_el)
+            row[name] = {"ms": k_t["ms"], "event_ms": k_t["event_ms"],
+                         "plain_ms": p_t["ms"], "bound_ms": bound,
+                         "bound_by": by,
+                         "timing": _timing_label(k_t, p_t)}
+        lib = timed(lambda t: torch.var_mean(t, dim=0, correction=0),
+                    args["bn_stats"], reps)
+        row["bn_stats"]["library_ms"] = lib["ms"]
+
+        # The op against the PyTorch yardstick, forward and
+        # forward+backward (grads of x, scale and bias), the yardstick on
+        # the NCHW channels_last view of the same rows.
+        sg = s.detach().requires_grad_()
+        bg = b.detach().requires_grad_()
+
+        def nhwc(t):
+            return t.view(256, side, side, c)
+
+        def op_fwd(t):
+            return tb.batch_norm_relu(nhwc(t), sg, bg)
+
+        def lib_fwd(t):
+            return F.relu(F.batch_norm(nhwc(t).permute(0, 3, 1, 2), None,
+                                       None, sg, bg, training=True,
+                                       eps=tb.BN_EPS))
+
+        def op_fwd_bwd(t, gt):
+            t = t.detach().requires_grad_()
+            return torch.autograd.grad(op_fwd(t), (t, sg, bg), nhwc(gt))
+
+        def lib_fwd_bwd(t, gt):
+            t = t.detach().requires_grad_()
+            return torch.autograd.grad(lib_fwd(t), (t, sg, bg),
+                                       nhwc(gt).permute(0, 3, 1, 2))
+
+        pairs = list(zip(xs, gs))
+        with torch.no_grad():
+            fwd_ms = timed(op_fwd, args["bn_stats"], reps)["ms"]
+            lib_fwd_ms = timed(lib_fwd, args["bn_stats"], reps)["ms"]
+        row["op"] = {
+            "fwd_ms": fwd_ms,
+            "fwd_bwd_ms": timed(op_fwd_bwd, pairs, reps)["ms"],
+            "library_fwd_ms": lib_fwd_ms,
+            "library_fwd_bwd_ms": timed(lib_fwd_bwd, pairs, reps)["ms"]}
+        del xs, gs, args, pairs
+        shapes.append(row)
+        print(json.dumps({"bn_relu_shape": row}), flush=True)
+
+    def per_step(key, sub=None):
+        total = 0.0
+        for row in shapes:
+            v = row[key] if sub is None else row[key][sub]
+            if v is None:
+                return None
+            total += v * row["units"]
+        return total
+
+    out = {"shapes": shapes, "kernels": {}}
+    for name in kernels:
+        bound_bytes = sum(row["units"] * (BN_BYTES_PER_ELEM[name] * row["r"]
+                                          * row["c"] + 4 * row["c"]
+                                          * BN_CHAN_VECTORS[name])
+                          for row in shapes)
+        bound_flops = sum(row["units"] * BN_FLOPS_PER_ELEM[name] * row["r"]
+                          * row["c"] for row in shapes)
+        bound, by = _bound(bound_bytes, bound_flops)
+        err_keys = [k for k in shapes[0]["errors"] if k.startswith(name)]
+        out["kernels"][name] = {
+            "ms": per_step(name, "ms"), "plain_ms": per_step(name,
+                                                             "plain_ms"),
+            "event_ms": per_step(name, "event_ms"),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": per_step(name, "library_ms")
+            if name == "bn_stats" else None,
+            "max_abs_err": max(row["errors"][k] for row in shapes
+                               for k in err_keys),
+            "timing": ",".join(sorted({row[name]["timing"]
+                                       for row in shapes}))}
+    out["op_per_step"] = {k: per_step("op", k) for k in
+                          ("fwd_ms", "fwd_bwd_ms", "library_fwd_ms",
+                           "library_fwd_bwd_ms")}
+    return out
+
+
+def check_sgd(dev, gen) -> dict:
+    """Phase 8: the fused SGD kernel on VGG-11's 34 leaves."""
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.ops import sgd as tsgd
+    hp = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    shapes = [p.shape for p in get_model("VGG11").parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    p0 = [torch.randn(s, generator=gen, device=dev) * 0.05 for s in shapes]
+    grads = [torch.randn(s, generator=gen, device=dev) * 1e-2
+             for s in shapes]
+    kp, rp = [p.clone() for p in p0], [p.clone() for p in p0]
+    kb, rb = ([torch.zeros_like(p) for p in p0] for _ in range(2))
+    for _ in range(3):
+        tsgd.fused_sgd_step(kp, grads, kb, **hp)
+        tsgd.fused_sgd_step_ref(rp, grads, rb, **hp)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(kp + kb, rp + rb))
+    if err != 0.0:
+        fail(f"fused_sgd_step differs from its plain version: max|d|={err}"
+             " (must be bit for bit equal)")
+    kern = timed(lambda: tsgd.fused_sgd_step(kp, grads, kb, **hp), [()], 50)
+    plain = timed(lambda: tsgd.fused_sgd_step_ref(rp, grads, rb, **hp),
+                  [()], 20)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in p0]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    opt = torch.optim.SGD(lib_params, fused=True, **hp)
+    lib = timed(opt.step, [()], 50)
+    bound, by = _bound(20 * n, 5 * n)
+    return {"leaves": len(shapes), "elements": n, "max_abs_err": err,
+            "ms": kern["ms"], "event_ms": kern["event_ms"],
+            "plain_ms": plain["ms"], "library_ms": lib["ms"],
+            "bound_ms": bound, "bound_by": by,
+            "timing": _timing_label(kern, plain, lib)}
+
+
+NARROW_VGG = (16, "M", 32, "M", 32, 32, "M", 64, 64, "M", 64, 64, "M")
+
+
+def train_parity(dev) -> dict:
+    """Phase 9: a narrow VGG trainer on the card vs on the CPU."""
+    import itertools
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vgg import VGGModel
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    train, _ = create_data_loaders(batch_size=16, synthetic_size=64)
+    batches = list(itertools.islice(iter(train), 3))
+    runs = {}
+    for where in ("cpu", dev):
+        cfg = TrainConfig(pallas_sgd=True, pallas_bn=True,
+                          compute_dtype="float32")
+        model = VGGModel("narrow", NARROW_VGG, compute_dtype=torch.float32,
+                         use_pallas_bn=True)
+        tr = Trainer(model, cfg, device=where)
+        state = tr.init_state()
+        losses = []
+        for x, y in batches:
+            state, loss = tr.train_step(state, x, y)
+            losses.append(float(loss))
+        runs[str(where)] = (losses, [p.detach().cpu() for p in state.params])
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    worst = 0.0
+    for a, b in zip(pc, pg):
+        excess = ((a - b).abs() - (1e-4 + 1e-3 * a.abs())).max()
+        worst = max(worst, float((a - b).abs().max()))
+        if float(excess) > 0 or not torch.isfinite(b).all():
+            fail(f"small parity: params differ beyond rtol 1e-3 / atol "
+                 f"1e-4 (max|d|={float((a - b).abs().max())})")
+    if not loss_rel <= 1e-3:
+        fail(f"small parity: losses differ by {loss_rel} relative > 1e-3 "
+             f"(cpu {lc}, cuda {lg})")
+    return {"steps": len(batches), "losses_cpu": lc, "losses_cuda": lg,
+            "max_loss_rel_diff": loss_rel, "max_param_diff": worst}
+
+
+class _Tee(io.TextIOBase):
+    """Write to the real stdout and keep a copy."""
+
+    def __init__(self, out):
+        self.out = out
+        self.buf = io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_part_captured(part: str, argv) -> tuple[int, str, float]:
+    from tpu_ddp_torch.parts import run_part
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = run_part(part, argv)
+    torch.cuda.synchronize()
+    return rc, tee.buf.getvalue(), time.perf_counter() - t0
+
+
+def _bn_wrappers():
+    from tpu_ddp_torch.ops import bn_relu as tb
+    return {"bn_stats": tb.bn_stats, "bn_norm_relu": tb.bn_norm_relu,
+            "bn_bwd_stats": tb.bn_bwd_stats, "bn_bwd_dx": tb.bn_bwd_dx}
+
+
+TRAIN_ITERS = 40
+SYNTH_SIZE = 10240
+
+
+def train_part1(dev) -> dict:
+    """Phase 10: part 1 through the CLI's entry point, both knobs on."""
+    from tpu_ddp_torch.ops import sgd as tsgd
+    for name in ("TPU_DDP_GLOBAL_BATCH", "TPU_DDP_COMPUTE_DTYPE",
+                 "TPU_DDP_LR"):
+        os.environ.pop(name, None)  # vgg11_cifar10 as published
+    os.environ.update(TPU_DDP_PALLAS_SGD="1", TPU_DDP_PALLAS_BN="1",
+                      TPU_DDP_MAX_ITERS=str(TRAIN_ITERS),
+                      TPU_DDP_SYNTH_SIZE=str(SYNTH_SIZE))
+    wrappers = {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    rc, out, wall = _run_part_captured("part1", ["--device", str(dev)])
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if rc != 0:
+        fail(f"run_part('part1') returned {rc}")
+    losses = [(int(i), float(v)) for i, v in
+              re.findall(r"\[epoch 0, iter (\d+)\] loss: (\S+)", out)]
+    if [i for i, _ in losses] != [20, 40] or not all(
+            math.isfinite(v) for _, v in losses):
+        fail(f"part1 loss lines wrong or not finite: {losses}")
+    test = re.search(r"Test set: average loss (\S+), accuracy (\d+)/(\d+)",
+                     out)
+    if test is None or not math.isfinite(float(test.group(1))):
+        fail("part1 printed no finite 'Test set:' line")
+    timer = re.search(r"timing over iterations 1-39: total (\d+) ns, "
+                      r"average (\d+) ns", out)
+    if timer is None:
+        fail("part1 printed no timer line")
+    steps = TRAIN_ITERS
+    eval_batches = math.ceil(int(test.group(3)) / 256)
+    want = {"sgd": steps, "bn_bwd_stats": 8 * steps, "bn_bwd_dx": 8 * steps,
+            "bn_stats": 8 * (steps + eval_batches),
+            "bn_norm_relu": 8 * (steps + eval_batches)}
+    if counts != want:
+        fail(f"part1 launch counts {counts}, expected {want} ({steps} "
+             f"steps, {eval_batches} eval batches)")
+    avg_ms = int(timer.group(2)) / 1e6
+    return {"steps": steps, "eval_batches": eval_batches,
+            "losses": losses, "test_loss": float(test.group(1)),
+            "test_correct": int(test.group(2)),
+            "test_seen": int(test.group(3)), "launches": counts,
+            "avg_iter_ms": avg_ms, "images_per_s": 256 / (avg_ms / 1e3),
+            "wall_s": wall, "peak_mem_gib": peak}
+
+
+def train_step_checks(dev) -> dict:
+    """Phase 10's profiler window and phase 11: VGG-11 at batch 256 with
+    both knobs (still on from phase 10), one step through the kernels vs
+    the same step through the plain versions."""
+    import itertools
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.ops import bn_relu as tb
+    from tpu_ddp_torch.ops import sgd as tsgd
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    from torch.profiler import ProfilerActivity, profile
+    cfg = TrainConfig.preset("vgg11_cifar10")
+    model = get_model(cfg.model, use_pallas_bn=cfg.pallas_bn,
+                      compute_dtype=getattr(torch, cfg.compute_dtype))
+    tr = Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    train, _ = create_data_loaders(batch_size=256, synthetic_size=2560)
+    batches = list(itertools.islice(iter(train), 8))
+    for x, y in batches[:3]:
+        state, loss = tr.train_step(state, x, y)
+        float(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x, y in batches[3:]:
+            state, loss = tr.train_step(state, x, y)
+            float(loss)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = _device_us(prof)
+    busy_ms = sum(dev_us.values()) / 1e3
+    names = {"bn_stats": ("bn_stats_kernel", "bn_stats_finish"),
+             "bn_norm_relu": ("bn_norm_relu_kernel",),
+             "bn_bwd_stats": ("bn_bwd_stats_kernel", "bn_bwd_finish"),
+             "bn_bwd_dx": ("bn_bwd_dx_kernel",), "sgd": ("sgd_kernel",)}
+    ours = {k: sum(v for n, v in dev_us.items()
+                   if any(p in n for p in pats)) / 1e3 / 5
+            for k, pats in names.items()}
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    window = {"steps": 5, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "device_idle_share": 1 - busy_ms / wall_ms,
+              "ported_kernels_ms_per_step": ours,
+              "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
+
+    x, y = batches[0]
+    with torch.no_grad():
+        p0 = [p.clone() for p in state.params]
+        m0 = [b.clone() for b in state.opt_state["momentum"]]
+    state, lk = tr.train_step(state, x, y)
+    with torch.no_grad():
+        pk = [p.clone() for p in state.params]
+        for p, a in zip(state.params, p0):
+            p.copy_(a)
+        for b, a in zip(state.opt_state["momentum"], m0):
+            b.copy_(a)
+    with mock.patch.multiple(tb, bn_stats=tb.bn_stats_ref,
+                             bn_norm_relu=tb.bn_norm_relu_ref,
+                             bn_bwd_stats=tb.bn_bwd_stats_ref,
+                             bn_bwd_dx=tb.bn_bwd_dx_ref), \
+            mock.patch.object(tsgd, "fused_sgd_step",
+                              tsgd.fused_sgd_step_ref):
+        state, lp = tr.train_step(state, x, y)
+    torch.cuda.synchronize()
+    lk, lp = float(lk), float(lp)
+    with torch.no_grad():
+        update = max(float((a - b).abs().max()) for a, b in zip(pk, p0))
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(pk, state.params))
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
+        fail(f"train step loss: kernels {lk} vs plain {lp} (tol 1e-2 rel)")
+    if not diff <= 5e-2 * update:
+        fail(f"train step params: kernels vs plain max|d|={diff} > 5e-2 x "
+             f"largest update {update}")
+    return {"traced_window": window,
+            "step_check": {"loss_kernels": lk, "loss_plain": lp,
+                           "max_param_diff": diff, "largest_update": update,
+                           "tol": 5e-2 * update}}
+
+
+def part3_nccl(dev) -> dict:
+    """Phase 12: part 3 (DDP) at world 1 over NCCL."""
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ["TPU_DDP_MAX_ITERS"] = "20"
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rc, out, wall = _run_part_captured(
+        "part3", ["--num-nodes", "1", "--rank", "0", "--master-ip",
+                  "127.0.0.1", "--master-port", str(port), "--device",
+                  str(dev)])
+    losses = [float(v) for v in
+              re.findall(r"\[epoch 0, iter \d+\] loss: (\S+)", out)]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if rc != 0 or "strategy=fused" not in out \
+            or f"Backend: {backend}" not in out:
+        fail(f"part3 did not run DistributedDataParallel over {backend}")
+    if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+        fail(f"part3 losses missing or not finite: {losses}")
+    if "Test set:" not in out or dist.is_initialized():
+        fail("part3 printed no 'Test set:' line or left its group open")
+    return {"iters": 20, "losses": losses, "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -403,6 +917,20 @@ def main() -> None:
     serve = serve_large(dev, args.seed)
     print(json.dumps({"serve": serve}), flush=True)
 
+    bn = check_bn(dev, gen)
+    print(json.dumps({"bn_relu": {k: v for k, v in bn.items()
+                                  if k != "shapes"}}), flush=True)
+    sgd = check_sgd(dev, gen)
+    print(json.dumps({"sgd": sgd}), flush=True)
+    tparity = train_parity(dev)
+    print(json.dumps({"train_small_parity": tparity}), flush=True)
+    train = train_part1(dev)
+    print(json.dumps({"train": train}), flush=True)
+    step = train_step_checks(dev)
+    print(json.dumps({"train_step": step}), flush=True)
+    ddp = part3_nccl(dev)
+    print(json.dumps({"part3_nccl": ddp}), flush=True)
+
     def per_pass(m, key):
         return sum(r[key] * r["per_pass"] for r in rows if r["m"] == m)
 
@@ -426,15 +954,48 @@ def main() -> None:
         "timing": ",".join(sorted({r["timing"] for r in rows})),
         "prefill_chunk_ms": per_pass(32, "ms"),
         "prefill_chunk_library_ms": per_pass(32, "library_ms"),
+    }, {
+        "name": "sgd",
+        "route": "cuda",
+        "source": "tpu_ddp_torch/ops/csrc/sgd.cu",
+        "replaces": "tpu_ddp/ops/pallas/sgd.py:48",
+        "launches": train["launches"]["sgd"],
+        # Times and bound: one optimizer step over VGG-11's 34 leaves.
+        **{k: sgd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "event_ms",
+                               "timing")},
     }]
+    replaces = {"bn_stats": 139, "bn_norm_relu": 151, "bn_bwd_stats": 207,
+                "bn_bwd_dx": 218}
+    for name, line in replaces.items():
+        k = bn["kernels"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_ddp_torch/ops/csrc/bn_relu.cu",
+            "replaces": f"tpu_ddp/ops/pallas/bn_relu.py:{line}",
+            "launches": train["launches"][name],
+            # Times and bound: one train step's 8 calls at batch 256.
+            **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "event_ms", "timing")},
+        })
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "build": build, "shapes": rows,
                        "small_parity": parity, "serve": serve,
+                       "bn_relu": bn, "sgd": sgd,
+                       "train_small_parity": tparity, "train": train,
+                       "train_step": step, "part3_nccl": ddp,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
           f"tokens/s over {serve['requests']} requests", flush=True)
+    print(f"train: VGG-11 batch 256, {train['avg_iter_ms']:.2f} ms/iter "
+          f"over iterations 1-39, {train['images_per_s']:.0f} images/s, "
+          f"peak {train['peak_mem_gib']:.2f} GiB; device idle "
+          f"{100 * step['traced_window']['device_idle_share']:.1f}% of a "
+          f"traced 5-step window", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

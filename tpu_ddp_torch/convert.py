@@ -1,11 +1,16 @@
-"""Carry a tpu_ddp TransformerLM parameter tree into the port.
+"""Carry tpu_ddp parameter trees into the port and back.
 
-The port keeps the JAX package's parameter layouts (``wqkv`` (dm, 3, H,
-hd), ``wo`` (H, hd, dm), ``w1`` (dm, d_ff), ...), so conversion is a
-checked copy: every leaf the model needs must be present with the shape
-:meth:`TransformerLM.param_shapes` gives, and lands as a tensor of the
-model's ``param_dtype`` on ``device``. This is the one place a layout
-would change if the two packages ever diverge.
+TransformerLM: the port keeps the JAX package's parameter layouts
+(``wqkv`` (dm, 3, H, hd), ``wo`` (H, hd, dm), ``w1`` (dm, d_ff), ...), so
+conversion is a checked copy: every leaf the model needs must be present
+with the shape :meth:`TransformerLM.param_shapes` gives, and lands as a
+tensor of the model's ``param_dtype`` on ``device``.
+
+VGG: the JAX model's conv kernels are HWIO and the port's OIHW; each
+unit's ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``;
+the head keeps its (C, classes) layout. :func:`vgg_params_from_jax` and
+:func:`vgg_params_to_jax` are checked copies both ways. This module is
+the one place a layout changes between the two packages.
 """
 
 from __future__ import annotations
@@ -47,3 +52,62 @@ def params_from_jax(model, tree, device=None) -> dict:
             device=dev, dtype=model.param_dtype)
 
     return conv("params", model.param_shapes(), tree)
+
+
+def _checked(path, arr, want):
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(want):
+        raise ValueError(f"{path}: expected shape {tuple(want)}, got "
+                         f"{tuple(arr.shape)}")
+    return arr
+
+
+def vgg_params_from_jax(model, tree, device=None) -> dict:
+    """Map a JAX VGG tree (``{"features": ({"kernel", "bias",
+    "bn_scale", "bn_bias"}, ...), "head": {"kernel", "bias"}}`` of numpy
+    arrays) to a state dict for ``model`` (a port ``VGGModel``) on
+    ``device`` (``None`` means ``"cuda"``): load it with
+    ``model.load_state_dict``. Any pytree of the same structure converts,
+    gradients included."""
+    dev = resolve_device(device)
+    feats = tree["features"]
+    if len(feats) != len(model.features):
+        raise ValueError(f"params/features: expected {len(model.features)}"
+                         f" conv units, got {len(feats)}")
+    out = {}
+    for i, (unit, leaf) in enumerate(zip(model.features, feats)):
+        o, c_in = unit.weight.shape[:2]
+        pre = f"params/features/{i}"
+        kernel = _checked(f"{pre}/kernel", leaf["kernel"], (3, 3, c_in, o))
+        out.update({
+            f"features.{i}.weight": kernel.transpose(3, 2, 0, 1),
+            f"features.{i}.bias": _checked(f"{pre}/bias", leaf["bias"], (o,)),
+            f"features.{i}.bn.weight": _checked(f"{pre}/bn_scale",
+                                                leaf["bn_scale"], (o,)),
+            f"features.{i}.bn.bias": _checked(f"{pre}/bn_bias",
+                                              leaf["bn_bias"], (o,)),
+        })
+    head = tree["head"]
+    out["head.weight"] = _checked("params/head/kernel", head["kernel"],
+                                  model.head.weight.shape)
+    out["head.bias"] = _checked("params/head/bias", head["bias"],
+                                model.head.bias.shape)
+    return {k: torch.as_tensor(np.array(v, np.float32, order="C")).to(
+        device=dev, dtype=model.param_dtype) for k, v in out.items()}
+
+
+def vgg_params_to_jax(model) -> dict:
+    """The port ``VGGModel``'s parameters as a JAX VGG tree of numpy f32
+    arrays (HWIO kernels), for ``tpu_ddp``'s ``VGGModel.apply``."""
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    feats = tuple({
+        "kernel": np.ascontiguousarray(arr(u.weight).transpose(2, 3, 1, 0)),
+        "bias": arr(u.bias),
+        "bn_scale": arr(u.bn.weight),
+        "bn_bias": arr(u.bn.bias),
+    } for u in model.features)
+    return {"features": feats,
+            "head": {"kernel": arr(model.head.weight),
+                     "bias": arr(model.head.bias)}}

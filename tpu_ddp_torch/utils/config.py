@@ -1,7 +1,12 @@
-"""Serving configuration: the serve fields of tpu_ddp/utils/config.py's
-``TrainConfig``, with the same names, defaults, ``TPU_DDP_*`` env
-variables and validation, so a knob means the same thing in both
-packages. The training fields arrive with the slices that use them.
+"""Run configuration: the fields of tpu_ddp/utils/config.py's
+``TrainConfig`` that the port's slices use (serving and the VGG training
+ladder), with the same names, defaults, ``TPU_DDP_*`` env variables and
+validation, so a knob means the same thing in both packages.
+
+A knob of the JAX package that the port does not carry yet is refused,
+never ignored: its field is absent (passing it is a ``TypeError``) and
+setting its env variable to anything but the default raises
+``NotImplementedError`` naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -9,10 +14,111 @@ from __future__ import annotations
 import dataclasses
 import os
 
+# Shared seed applied on every node so parameter init is identical across
+# replicas (reference part1/main.py:14,115-117).
+SEED = 89395
+
+# Global batch is fixed; per-node batch = int(global / world_size)
+# (reference part2/part2b/main.py:177).
+GLOBAL_BATCH_SIZE = 256
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+# Env knobs of the JAX package that the port does not implement yet:
+# name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
+_UNPORTED_ENV = {
+    "TPU_DDP_OVERLAP": (_FALSE, "item 9.2 (parallel/overlap.py)"),
+    "TPU_DDP_BUCKET_MB": (("25",), "item 9.2 (parallel/overlap.py)"),
+    "TPU_DDP_GRAD_COMPRESS": (("none",), "item 9.3 (parallel/compress.py)"),
+    "TPU_DDP_STEPS_PER_DISPATCH": (("1",),
+                                   "item 9.5 (train/pipeline.py)"),
+    "TPU_DDP_DISPATCH_DEPTH": (("0",), "item 9.5 (train/pipeline.py)"),
+    "TPU_DDP_PREFETCH": (("0",), "item 9.11 (data/prefetch.py)"),
+    "TPU_DDP_GUARD": (_FALSE, "item 9.6 (resilience/guard.py)"),
+    "TPU_DDP_GUARD_MAX_BAD": ((), "item 9.6 (resilience/guard.py)"),
+    "TPU_DDP_CHAOS_FAULTS": ((), "item 9.6 (resilience/chaos.py)"),
+    "TPU_DDP_FAIL_AT_STEP": ((), "item 9.6 (resilience/chaos.py)"),
+    "TPU_DDP_ELASTIC_RESHARD": (_FALSE, "item 9.6 (resilience/elastic.py)"),
+    "TPU_DDP_ELASTIC_DIR": ((), "item 9.6 (resilience/elastic.py)"),
+    "TPU_DDP_REMAT": (("none",), "item 9.7 (memory/policy.py)"),
+    "TPU_DDP_ACT_DTYPE": (("compute",), "item 9.7 (memory/policy.py)"),
+    "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
+    "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
+    "TPU_DDP_CKPT_EVERY": (("0",), "item 8 (utils/checkpoint.py)"),
+    "TPU_DDP_CHECK_REPLICAS_EVERY": (("0",),
+                                     "item 8 (utils/invariants.py)"),
+    "TPU_DDP_NATIVE_LOADER": (_FALSE, "item 9.11 (data/native.py)"),
+    "TPU_DDP_SHARD_EVAL": (_FALSE, "item 9.11 (sharded evaluation)"),
+    "TPU_DDP_METRICS_FILE": ((), "item 9.11 (utils/metrics.py JSONL sink)"),
+}
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    """Parse a boolean env var; unset -> default, junk -> ValueError."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    low = raw.strip().lower()
+    if low in _TRUE:
+        return True
+    if low in _FALSE:
+        return False
+    raise ValueError(f"{name}={raw!r}: expected a boolean "
+                     f"(1/0/true/false/yes/no/on/off)")
+
+
+def refuse_unported_env() -> None:
+    """Raise ``NotImplementedError`` for any set env knob of the JAX
+    package that the port does not implement yet."""
+    for name, (off, item) in _UNPORTED_ENV.items():
+        raw = os.environ.get(name)
+        if raw is None or raw == "" or raw.strip().lower() in off:
+            continue
+        raise NotImplementedError(
+            f"{name}={raw!r}: not ported to tpu_ddp_torch yet (ROADMAP "
+            f"Queue 1 {item}); unset it to run the port")
+
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The run configuration (serve fields only, for now)."""
+    """One run's configuration (defaults = the reference's)."""
+
+    # Model / data.
+    model: str = "VGG11"
+    num_classes: int = 10
+    image_size: int = 32
+    in_channels: int = 3
+    dataset: str = "cifar10"
+
+    # Optimizer: SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    # (reference part1/main.py:124-125).
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+
+    # Loop shape (reference part1/main.py:17,128).
+    global_batch_size: int = GLOBAL_BATCH_SIZE
+    epochs: int = 1
+    seed: int = SEED
+
+    # Loss print every 20 iters, timing over iterations 1..39 with
+    # iteration 0 discarded as warm-up (reference part1/main.py:82-91).
+    log_every: int = 20
+    timing_first_iter: int = 1
+    timing_last_iter: int = 39
+
+    compute_dtype: str = "bfloat16"   # conv/matmul dtype
+    param_dtype: str = "float32"      # master params and momentum
+    # Hand-written kernels (ops/csrc/): the fused SGD update (ops/sgd.py)
+    # and the fused BatchNorm+ReLU (ops/bn_relu.py). Off by default, as
+    # in the JAX package. Env: TPU_DDP_PALLAS_SGD / TPU_DDP_PALLAS_BN.
+    pallas_sgd: bool = False
+    pallas_bn: bool = False
+
+    # Cap on iterations per epoch (None = full epoch). Env:
+    # TPU_DDP_MAX_ITERS.
+    max_iters: int | None = None
 
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
@@ -33,6 +139,28 @@ class TrainConfig:
     decode_quant: str = "none"
 
     def __post_init__(self):
+        if self.max_iters is None:
+            env = os.environ.get("TPU_DDP_MAX_ITERS")
+            if env:
+                self.max_iters = int(env)
+        env_bs = os.environ.get("TPU_DDP_GLOBAL_BATCH")
+        if env_bs:
+            self.global_batch_size = int(env_bs)
+        self.pallas_sgd = _env_bool("TPU_DDP_PALLAS_SGD", self.pallas_sgd)
+        self.pallas_bn = _env_bool("TPU_DDP_PALLAS_BN", self.pallas_bn)
+        env_cd = os.environ.get("TPU_DDP_COMPUTE_DTYPE")
+        if env_cd:
+            if env_cd not in ("bfloat16", "float32", "float16"):
+                raise ValueError(f"TPU_DDP_COMPUTE_DTYPE={env_cd!r}: "
+                                 "expected bfloat16|float32|float16")
+            self.compute_dtype = env_cd
+        env_lr = os.environ.get("TPU_DDP_LR")
+        if env_lr:
+            lr = float(env_lr)
+            if not lr > 0:  # also rejects NaN
+                raise ValueError(f"TPU_DDP_LR={env_lr!r}: expected a "
+                                 "positive learning rate")
+            self.learning_rate = lr
         env_ss = os.environ.get("TPU_DDP_SERVE_SLOTS")
         if env_ss:
             self.serve_slots = int(env_ss)
@@ -68,3 +196,33 @@ class TrainConfig:
             raise ValueError(
                 f"decode_quant={self.decode_quant!r}: expected "
                 "none|int8 (TPU_DDP_DECODE_QUANT)")
+
+    def per_node_batch_size(self, world_size: int) -> int:
+        # int(256 / world_size), as in reference part2/part2b/main.py:177.
+        return int(self.global_batch_size / world_size)
+
+    @classmethod
+    def preset(cls, name: str, **overrides) -> "TrainConfig":
+        """Named run configurations (the JAX package's ``PRESETS``)."""
+        if name in _UNPORTED_PRESETS:
+            raise NotImplementedError(
+                f"preset {name!r} is not ported to tpu_ddp_torch yet "
+                f"(ROADMAP Queue 1 {_UNPORTED_PRESETS[name]})")
+        try:
+            base = dict(PRESETS[name])
+        except KeyError:
+            raise ValueError(
+                f"unknown preset {name!r}; available: {sorted(PRESETS)}"
+            ) from None
+        base.update(overrides)
+        return cls(**base)
+
+
+# The reference ladder's configuration.
+PRESETS = {
+    "vgg11_cifar10": {},
+}
+_UNPORTED_PRESETS = {
+    "resnet50_imagenet": "item 9.10 (models/resnet.py, data/imagenet.py)",
+    "vit_cifar10": "item 9.10 (models/vit.py)",
+}

@@ -1,16 +1,22 @@
-"""In-memory metrics: the counters and gauges of tpu_ddp/utils/metrics.py's
-``MetricsLogger`` that the serving engine uses (no JSONL sink yet)."""
+"""In-memory metrics: the counters, gauges and event records of
+tpu_ddp/utils/metrics.py's ``MetricsLogger`` that the serving engine and
+the trainer use (no JSONL sink yet)."""
 
 from __future__ import annotations
 
 
 class MetricsLogger:
-    """Event counters (:meth:`inc`) and gauge accumulators
-    (:meth:`observe`), queryable after a run."""
+    """Event counters (:meth:`inc`), gauge accumulators (:meth:`observe`)
+    and event records (:meth:`log`), queryable after a run."""
 
     def __init__(self):
         self.counters: dict[str, int] = {}
         self.gauges: dict[str, dict] = {}
+        self.events: list[dict] = []
+
+    def log(self, event: str, **fields) -> None:
+        """Record one event (``train_iter``, ``epoch``, ``eval``)."""
+        self.events.append({"event": event, **fields})
 
     def inc(self, name: str, n: int = 1) -> int:
         """Bump (and return) a counter."""
