@@ -4,8 +4,8 @@ interpret mode on the CPU) on the same numpy-seeded inputs.
 
 Tolerances are those of tests/test_pallas.py:92-114: forward rtol 1e-4 /
 atol 1e-5, gradients 2e-4 (both sides sum in f32, in different orders).
-On the card, the kernels against their plain versions: y and dx within
-1e-4 * max |plain|, the per-channel sums within 1e-4 * sum |terms|.
+The kernels themselves run only on the card, where chip_smoke.py holds
+them against these plain versions.
 """
 
 import jax
@@ -128,34 +128,3 @@ def test_op_rejects_a_non_contiguous_activation():
     with pytest.raises(ValueError, match="C-contiguous"):
         tb.batch_norm_relu(x, torch.ones(8), torch.zeros(8))
 
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    """Each kernel against its plain version on the card, from the same
-    inputs (elementwise passes bitwise up to the summed statistics)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for r, c in [(262144, 64), (16384, 256), (1024, 512), (300, 3),
-                 (999, 96)]:
-        x = torch.randn(r, c, generator=gen, device="cuda")
-        g = torch.randn(r, c, generator=gen, device="cuda")
-        s = 0.5 + torch.rand(c, generator=gen, device="cuda")
-        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        mean, inv = tb.bn_stats_ref(x)
-        km, ki = tb.bn_stats(x)
-        assert float((km - mean).abs().max()) <= 1e-4 * float(
-            x.abs().mean(0).max())
-        assert float(((ki - inv) / inv).abs().max()) <= 1e-4
-        y = tb.bn_norm_relu_ref(x, mean, inv, s, b)
-        ky = tb.bn_norm_relu(x, mean, inv, s, b)
-        assert float((ky - y).abs().max()) <= 1e-4 * float(y.abs().max())
-        db, ds = tb.bn_bwd_stats_ref(x, g, mean, inv, s, b)
-        kdb, kds = tb.bn_bwd_stats(x, g, mean, inv, s, b)
-        assert float((kdb - db).abs().max()) <= 1e-4 * float(g.abs().sum(0).max())
-        assert float((kds - ds).abs().max()) <= 1e-4 * float(
-            (g * (x - mean) * inv).abs().sum(0).max())
-        dx = tb.bn_bwd_dx_ref(x, g, mean, inv, s, b, db, ds)
-        kdx = tb.bn_bwd_dx(x, g, mean, inv, s, b, db, ds)
-        torch.cuda.synchronize()
-        assert float((kdx - dx).abs().max()) <= 1e-4 * float(dx.abs().max())

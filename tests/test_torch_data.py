@@ -4,6 +4,8 @@ batches must be bitwise equal for the same seed, epoch, rank and world —
 the port's images are the JAX NHWC arrays transposed to NCHW views."""
 
 import pickle
+import tarfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from tpu_ddp.data import augment as jaug
 from tpu_ddp.data import loader as jloader
 from tpu_ddp.data import sampler as jsampler
 from tpu_ddp_torch.data import augment as taug
+from tpu_ddp_torch.data import cifar10 as tcifar
 from tpu_ddp_torch.data import loader as tloader
 from tpu_ddp_torch.data import sampler as tsampler
 
@@ -82,18 +85,54 @@ def test_synthetic_size_env_applies_to_both(monkeypatch):
 def test_on_disk_batches_match(tmp_path):
     """The real-data path: pickled CIFAR-10 batch files (here small fake
     ones in the standard format) load identically."""
-    d = tmp_path / "cifar-10-batches-py"
-    d.mkdir()
-    rng = np.random.default_rng(3)
-    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
-    for name in names:
-        blob = {b"data": rng.integers(0, 256, size=(7, 3072)).astype(
-            np.uint8), b"labels": rng.integers(0, 10, size=7).tolist()}
-        with open(d / name, "wb") as f:
-            pickle.dump(blob, f)
+    _write_batches(tmp_path / "cifar-10-batches-py",
+                   np.random.default_rng(3))
     kw = dict(rank=1, world_size=2, batch_size=4, root=str(tmp_path))
     jtr, jte = jloader.create_data_loaders(native=False, **kw)
     ttr, tte = tloader.create_data_loaders(**kw)
     _same_batches(jtr, ttr, 0)
     _same_batches(jte, tte, 0)
     assert tte.images_u8.shape == (7, 32, 32, 3)
+
+
+def test_search_roots_stay_inside_the_checkout(monkeypatch, tmp_path):
+    """Only a named root, ``~/data`` and the repo's ``data/`` are read:
+    no root above the working directory, no system-wide path."""
+    monkeypatch.delenv("CIFAR10_DIR", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    repo_data = str(Path(tcifar.__file__).resolve().parents[2] / "data")
+    assert tcifar.search_roots() == [(str(tmp_path / "data"), False),
+                                     (repo_data, False)]
+    monkeypatch.setenv("CIFAR10_DIR", "/named")
+    assert tcifar.search_roots()[0] == ("/named", True)
+    assert tcifar.search_roots("/given") == [("/given", True)]
+
+
+def _write_batches(d, rng, n=7):
+    d.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        blob = {b"data": rng.integers(0, 256, size=(n, 3072)).astype(
+            np.uint8), b"labels": rng.integers(0, 10, size=n).tolist()}
+        with open(d / name, "wb") as f:
+            pickle.dump(blob, f)
+
+
+@pytest.mark.parametrize("named", [True, False])
+def test_tarball_unpacked_only_into_a_named_root(named, monkeypatch,
+                                                 tmp_path):
+    src = tmp_path / "src"
+    _write_batches(src / "cifar-10-batches-py", np.random.default_rng(4))
+    home = tmp_path / "home"
+    (home / "data").mkdir(parents=True)
+    with tarfile.open(home / "data" / "cifar-10-python.tar.gz",
+                      "w:gz") as tf:
+        tf.add(src / "cifar-10-batches-py", arcname="cifar-10-batches-py")
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.delenv("CIFAR10_DIR", raising=False)
+    monkeypatch.setenv("TPU_DDP_SYNTH_SIZE", "20")
+    if named:
+        monkeypatch.setenv("CIFAR10_DIR", str(home / "data"))
+    images, _, meta = tcifar.load_cifar10(split="test")
+    assert meta["synthetic"] is not named
+    assert (home / "data" / "cifar-10-batches-py").exists() is named
+    assert images.shape == ((7 if named else 20), 32, 32, 3)

@@ -310,6 +310,16 @@ def test_config_env_knobs(monkeypatch):
                                                   0.9, 1e-4)
 
 
+@pytest.mark.parametrize("field,value", [("param_dtype", "bfloat16"),
+                                         ("image_size", 64),
+                                         ("dataset", "imagenet")])
+def test_config_refuses_what_the_port_cannot_honour(field, value):
+    """A non-f32 param dtype raises; fields of the JAX config that the
+    port has no use for (CIFAR-10's shape and name) are not accepted."""
+    with pytest.raises((NotImplementedError, TypeError)):
+        TrainConfig(**{field: value})
+
+
 def test_syncing_rung_needs_a_process_group():
     with pytest.raises(ValueError, match="process group"):
         Trainer(_port_model(), TrainConfig(pallas_bn=True),

@@ -1,10 +1,16 @@
 """CIFAR-10 dataset: local load + normalization constants.
 
 The port's own copy of tpu_ddp/data/cifar10.py (numpy only): the standard
-``cifar-10-batches-py`` pickle format from the usual on-disk locations,
-else a deterministic synthetic stand-in with the real shapes and dtypes.
-Arrays stay NHWC uint8 here, bitwise the JAX package's; the loader
-(data/loader.py) hands them to PyTorch as NCHW views.
+``cifar-10-batches-py`` pickle format, else a deterministic synthetic
+stand-in with the real shapes and dtypes. Arrays stay NHWC uint8 here,
+bitwise the JAX package's; the loader (data/loader.py) hands them to
+PyTorch as NCHW views.
+
+Where it looks (:func:`search_roots`) is narrower than the JAX package's
+list: a root the caller names (``root``, else ``CIFAR10_DIR``), then
+``~/data`` and the repo's own ``data/``. Nothing outside those is read,
+and a ``cifar-10-python.tar.gz`` is unpacked only into a root the caller
+named, so two checkouts never share or write each other's data.
 
 Normalization constants are the reference's (part1/main.py:20-21).
 """
@@ -14,6 +20,7 @@ from __future__ import annotations
 import os
 import pickle
 import tarfile
+from pathlib import Path
 
 import numpy as np
 
@@ -23,19 +30,22 @@ CIFAR10_STD = np.array([63.0, 62.1, 66.7], dtype=np.float32) / 255.0
 _TRAIN_FILES = [f"data_batch_{i}" for i in range(1, 6)]
 _TEST_FILES = ["test_batch"]
 
-# Candidate roots, including the reference's relative roots
-# (part1/main.py:34 "./../data", part2b/main.py:76 "./../../data").
-_SEARCH_ROOTS = [
-    os.environ.get("CIFAR10_DIR", ""),
-    "./data", "../data", "../../data",
-    os.path.expanduser("~/data"),
-    "/data", "/tmp/data",
-]
+_REPO_DATA = Path(__file__).resolve().parents[2] / "data"
+
+
+def search_roots(root: str | None = None) -> list[tuple[str, bool]]:
+    """``(directory, named)`` pairs in search order; ``named`` marks a
+    root the caller chose, the only kind a tarball is unpacked into."""
+    if root:
+        return [(root, True)]
+    env = os.environ.get("CIFAR10_DIR", "")
+    roots = [(env, True)] if env else []
+    return roots + [(os.path.expanduser("~/data"), False),
+                    (str(_REPO_DATA), False)]
 
 
 def _find_batches_dir(root: str | None = None):
-    roots = [root] if root else [r for r in _SEARCH_ROOTS if r]
-    for r in roots:
+    for r, named in search_roots(root):
         cand = os.path.join(r, "cifar-10-batches-py")
         if os.path.isdir(cand):
             return cand
@@ -43,10 +53,10 @@ def _find_batches_dir(root: str | None = None):
                 os.path.join(r, "data_batch_1")):
             return r
         tgz = os.path.join(r, "cifar-10-python.tar.gz")
-        if os.path.isfile(tgz):
+        if named and os.path.isfile(tgz):
             with tarfile.open(tgz) as tf:
-                tf.extractall(r)
-            return os.path.join(r, "cifar-10-batches-py")
+                tf.extractall(r, filter="data")
+            return cand
     return None
 
 

@@ -84,8 +84,8 @@ class ConvUnit(nn.Module):
         y = y.float() + self.bias.float().view(1, -1, 1, 1)
         if use_pallas_bn:
             from tpu_ddp_torch.ops.bn_relu import batch_norm_relu
-            # The model's layout; a no-op for a channels_last conv output.
-            y = y.contiguous(memory_format=torch.channels_last)
+            # A channels_last conv output makes this NHWC view contiguous;
+            # batch_norm_relu raises on any other layout.
             out = batch_norm_relu(y.permute(0, 2, 3, 1),
                                   self.bn.weight.float(),
                                   self.bn.bias.float(), BN_EPS).to(cd)

@@ -267,9 +267,9 @@ class _BatchNormReLU(torch.autograd.Function):
         x, mean, inv, scale, bias = ctx.saved_tensors
         x2d = _rows_of(x, "x")
         # Autograd hands back the gradient in the layout its consumer
-        # made; the VGG model's is already contiguous, so this is a no-op
-        # there.
-        g2d = _rows_of(g.contiguous(), "the gradient")
+        # made: in the VGG model a channels_last conv or pool, so the
+        # NHWC rows are contiguous. Any other layout raises.
+        g2d = _rows_of(g, "the gradient")
         s32, b32 = scale.float(), bias.float()
         dbias, dscale = bn_bwd_stats(x2d, g2d, mean, inv, s32, b32)
         dx = bn_bwd_dx(x2d, g2d, mean, inv, s32, b32, dbias, dscale)

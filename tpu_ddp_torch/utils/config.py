@@ -84,12 +84,9 @@ def refuse_unported_env() -> None:
 class TrainConfig:
     """One run's configuration (defaults = the reference's)."""
 
-    # Model / data.
+    # Model (the data is CIFAR-10, the only dataset ported).
     model: str = "VGG11"
     num_classes: int = 10
-    image_size: int = 32
-    in_channels: int = 3
-    dataset: str = "cifar10"
 
     # Optimizer: SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
     # (reference part1/main.py:124-125).
@@ -109,7 +106,9 @@ class TrainConfig:
     timing_last_iter: int = 39
 
     compute_dtype: str = "bfloat16"   # conv/matmul dtype
-    param_dtype: str = "float32"      # master params and momentum
+    # Master params and momentum; the port keeps them f32 (the fused SGD
+    # and BN kernels take f32), so any other value raises.
+    param_dtype: str = "float32"
     # Hand-written kernels (ops/csrc/): the fused SGD update (ops/sgd.py)
     # and the fused BatchNorm+ReLU (ops/bn_relu.py). Off by default, as
     # in the JAX package. Env: TPU_DDP_PALLAS_SGD / TPU_DDP_PALLAS_BN.
@@ -154,6 +153,10 @@ class TrainConfig:
                 raise ValueError(f"TPU_DDP_COMPUTE_DTYPE={env_cd!r}: "
                                  "expected bfloat16|float32|float16")
             self.compute_dtype = env_cd
+        if self.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={self.param_dtype!r}: tpu_ddp_torch keeps "
+                "params and momentum in float32")
         env_lr = os.environ.get("TPU_DDP_LR")
         if env_lr:
             lr = float(env_lr)
