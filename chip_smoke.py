@@ -69,10 +69,44 @@ Phases, each fatal on failure (exit code 1, no result line):
    update (bf16 activations re-round at every layer, so a last-bit
    difference in a statistic can move a bf16 activation by 2**-8);
 12. part 3 (``DistributedDataParallel``, 25 MB buckets) at world 1 over
-   NCCL: 20 iterations on the card with finite losses.
+   NCCL: 20 iterations on the card with finite losses;
+13. the three flash-attention kernels (forward, dk/dv, dq) against their
+   plain versions, each fed the plain forward's lse and delta, at
+   TransformerLM-large's attention call (4, 2048, 16 heads, 128) bf16
+   causal, with v a strided view of a fused qkv tensor, and at edge
+   shapes (ragged L, D in {32, 36, 64}, GQA with KV in {4, 1},
+   non-causal, f32 at L <= 384). Bounds on max |kernel - plain|: o, dq,
+   dk, dv 2e-2 x max |plain| in bf16 (p and ds rounded to bf16 at another
+   running max), 2e-5 (o) and 2e-4 (grads) in f32; lse 1e-3 absolute in
+   bf16, 1e-5 in f32. Each kernel is timed at the main shape (12 calls
+   per step) beside its bound, its plain version and SDPA's flash
+   backend (forward; its backward for the two sweeps);
+14. small parity: TransformerLM-tiny (2 layers, d_model 128, 4 heads of
+   32, vocab 1024) at seq 256, f32, flash on: three ``LMTrainer`` steps on
+   the card against the same steps on the CPU, where the kernels are
+   their plain versions: losses within 1e-4 relative with the trainer's
+   AdamW; and with AdamW eps 1e-3 (smooth where a gradient is near 0, see
+   ``lm_parity``) losses within 1e-4 and params within rtol 1e-3 / atol
+   1e-5;
+15. train the LM: ``LMTrainer`` as ``bench.py:run_lm_bench`` drives it —
+   TransformerLM-large (735,154,176 f32 params from seed 0), batch 4 x
+   seq 2048, flash on, ``remat="none"``, bf16 compute, AdamW — 2 warm-up
+   steps, then 10 timed steps on one repeated batch: every loss finite,
+   the last below the first, and the flash launch counts exact from 0
+   (12 of each per step). Prints ms per step, tokens/s, MFU (3 x forward
+   FLOPs / step time / 989e12) and peak memory, then a profiler window
+   over 3 steps: the device's idle share and its top kernels;
+16. one step's loss and gradients through the kernels against the same
+   through the plain versions (same params, same batch): loss within
+   1e-2 relative, every gradient leaf within 5e-2 x its largest |g|, and
+   the AdamW update within 5e-2 x the step's largest update wherever the
+   plain gradient is above 5e-2 of its leaf's largest (below that the
+   sign-like first moments of AdamW can differ, and those elements are
+   counted); then one step under ``remat="blocks"``: 24 forward launches
+   and a loss within 1e-3 relative of the ``"none"`` step's.
 
 Prints the card's name and power limit, the serving and training
-metrics, one ``{"kernels": [...]}`` line (six kernels), and last the
+metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
 contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -80,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -324,6 +359,7 @@ def serve_large(dev, seed: int) -> dict:
     from tpu_ddp_torch.ops import quant
     from tpu_ddp_torch.ops.quant_matmul import int8_matmul, int8_matmul_ref
     from tpu_ddp_torch.serve.engine import ServeEngine, decode_logits
+    from tpu_ddp_torch.utils.tree import tree_leaves
 
     model = make_transformer("TransformerLM-large")
     t0 = time.perf_counter()
@@ -397,7 +433,7 @@ def serve_large(dev, seed: int) -> dict:
         if not r.done:
             fail("probe request did not finish")
     return {"model": model.name, "params": sum(
-        p.numel() for p in _leaves(params)), "setup_s": setup_s,
+        p.numel() for p in tree_leaves(params)), "setup_s": setup_s,
         "requests": len(reqs), "prompt_lens": [int(v) for v in lens],
         "new_tokens": tokens, "engine_steps": steps,
         "prefill_chunks": chunks, "decode_steps": dsteps,
@@ -999,15 +1035,406 @@ def part3_nccl(dev) -> dict:
     return {"iters": 20, "losses": losses, "wall_s": wall}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
+# Flash attention (phase 13): TransformerLM-large's attention call, and
+# edge shapes as (B, L, H, KV, D, causal, dtype): ragged L, D in {32, 64}
+# and one that takes the scalar loads (D % 8 != 0), grouped K/V with
+# KV in {4, 1}, non-causal, and f32 at L <= 384.
+FLASH_MAIN = (4, 2048, 16, 16, 128)
+FLASH_EDGE = [
+    (2, 100, 16, 16, 128, True, torch.bfloat16),
+    (2, 130, 16, 16, 64, True, torch.bfloat16),
+    (1, 1000, 16, 16, 128, True, torch.bfloat16),
+    (2, 256, 16, 16, 32, True, torch.bfloat16),
+    (2, 300, 16, 16, 64, False, torch.bfloat16),
+    (2, 512, 16, 4, 128, True, torch.bfloat16),
+    (2, 384, 16, 1, 64, True, torch.bfloat16),
+    (2, 130, 16, 4, 32, False, torch.bfloat16),
+    (1, 200, 8, 2, 36, True, torch.bfloat16),
+    (1, 384, 16, 16, 128, True, torch.float32),
+    (1, 100, 16, 4, 32, False, torch.float32),
+    (1, 257, 16, 1, 64, True, torch.float32),
+]
+# Bounds on max |kernel - plain|: o, dq, dk, dv times max |plain| (bf16:
+# the rounding of p and ds to bf16 lands at another running max in the
+# online softmax; f32: summation order), lse absolute.
+FLASH_TOL = {torch.bfloat16: {"o": 2e-2, "grad": 2e-2, "lse": 1e-3},
+             torch.float32: {"o": 2e-5, "grad": 2e-4, "lse": 1e-5}}
+FLASH_LAYERS = 12  # launches of each flash kernel per LM-large train step
+
+
+def _flash_inputs(shape, causal, dtype, gen, dev, fused_v=True):
+    """q, k (contiguous, as RoPE leaves them), v (a strided view of a
+    fused (B, L, 3, H, D) product when KV == H, as the model's qkv split
+    gives it) and dO."""
+    b, L, h, kvh, d = shape
+    q = torch.randn(b, L, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, L, kvh, d, generator=gen, device=dev).to(dtype)
+    if fused_v and kvh == h:
+        v = torch.randn(b, L, 3, h, d, generator=gen, device=dev).to(
+            dtype)[:, :, 2]
     else:
-        yield tree
+        v = torch.randn(b, L, kvh, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(b, L, h, d, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _flash_errors(fa, q, k, v, do, causal):
+    """Each flash kernel against its plain version on the same inputs:
+    ({what: (err, tol)}, plain (o, lse, delta))."""
+    tol = FLASH_TOL[q.dtype]
+    po, plse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.attention_delta(po, do)
+    pdk, pdv = fa.flash_bwd_kv_plain(q, k, v, do, plse, delta, causal)
+    pdq = fa.flash_bwd_q_plain(q, k, v, do, plse, delta, causal)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    dk, dv = fa.flash_bwd_kv(q, k, v, do, plse, delta, causal)
+    dq = fa.flash_bwd_q(q, k, v, do, plse, delta, causal)
+    torch.cuda.synchronize()
+
+    def err(a, b, tol_rel):
+        return (float((a.float() - b.float()).abs().max()),
+                tol_rel * float(b.float().abs().max()))
+
+    errs = {"o": err(o, po, tol["o"]),
+            "lse": (float((lse - plse).abs().max()), tol["lse"]),
+            "dq": err(dq, pdq, tol["grad"]),
+            "dk": err(dk, pdk, tol["grad"]),
+            "dv": err(dv, pdv, tol["grad"])}
+    for t in (o, lse, dq, dk, dv):
+        if not bool(torch.isfinite(t.float()).all()):
+            errs["finite"] = (math.inf, 0.0)
+    return errs, (po, plse, delta)
+
+
+def _flash_work(shape, causal, itemsize):
+    """(FLOPs, bytes) of one fwd, dk/dv and dq call: 2 D FLOP per (q, k)
+    pair and product — fwd q.k and p.v; dk/dv q.k, dO.v, p^T.dO, ds^T.q;
+    dq q.k, dO.v, ds.k — over the pairs this mask keeps; each input read
+    once and each output written once."""
+    b, L, h, kvh, d = shape
+    pairs = b * h * (L * (L + 1) // 2 if causal else L * L)
+    q_b, kv_b, row_b = b * L * h * d * itemsize, b * L * kvh * d * itemsize, \
+        b * h * L * 4
+    return {"fwd": (4 * d * pairs, 2 * q_b + 2 * kv_b + row_b),
+            "bwd_kv": (8 * d * pairs, 2 * q_b + 4 * kv_b + 2 * row_b),
+            "bwd_q": (6 * d * pairs, 3 * q_b + 2 * kv_b + 2 * row_b)}
+
+
+def check_flash(dev, gen) -> dict:
+    """Phase 13: the three flash kernels against their plain versions at
+    LM-large's attention call and at the edge shapes; each timed at the
+    main shape beside its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpu_ddp_torch.ops import flash_attention as fa
+    edge = {}
+    for b, L, h, kvh, d, causal, dtype in FLASH_EDGE:
+        q, k, v, do = _flash_inputs((b, L, h, kvh, d), causal, dtype, gen,
+                                    dev)
+        errs, _ = _flash_errors(fa, q, k, v, do, causal)
+        where = (f"B={b} L={L} H={h} KV={kvh} D={d} causal={causal} "
+                 f"{dtype}")
+        _fail_on(errs, where)
+        edge[where] = {k_: list(v_) for k_, v_ in errs.items()}
+    shape = FLASH_MAIN
+    q, k, v, do = _flash_inputs(shape, True, torch.bfloat16, gen, dev)
+    errs, (po, plse, delta) = _flash_errors(fa, q, k, v, do, True)
+    _fail_on(errs, f"the LM-large shape {shape}")
+    del po
+    reps = 20
+    kern = {"fwd": timed(lambda: fa.flash_fwd(q, k, v, True), [()], reps),
+            "bwd_kv": timed(lambda: fa.flash_bwd_kv(q, k, v, do, plse, delta,
+                                                    True), [()], reps),
+            "bwd_q": timed(lambda: fa.flash_bwd_q(q, k, v, do, plse, delta,
+                                                  True), [()], reps)}
+    plain = {"fwd": timed(lambda: fa.flash_fwd_plain(q, k, v, True), [()], 3),
+             "bwd_kv": timed(lambda: fa.flash_bwd_kv_plain(
+                 q, k, v, do, plse, delta, True), [()], 3),
+             "bwd_q": timed(lambda: fa.flash_bwd_q_plain(
+                 q, k, v, do, plse, delta, True), [()], 3)}
+    # The yardstick: SDPA's flash backend on the same values in its
+    # (B, H, L, D) layout, forward, and backward alone (kernels 3 and 4
+    # together), causal.
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        with torch.no_grad():
+            lib_fwd = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), [()], reps)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = float((out.transpose(1, 2).float()
+                         - fa.flash_fwd(q, k, v, True)[0].float()).abs().max())
+        lib_bwd = timed(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), [()], reps)
+    del out, qt, kt, vt, dot
+    work = _flash_work(shape, True, 2)
+    rows = {}
+    for name in ("fwd", "bwd_kv", "bwd_q"):
+        flops, nbytes = work[name]
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        lib = lib_fwd if name == "fwd" else lib_bwd
+        rows[name] = {
+            "max_abs_err": errs["o" if name == "fwd" else
+                                "dq" if name == "bwd_q" else "dk"][0],
+            "ms_per_call": kern[name]["ms"],
+            "ms": FLASH_LAYERS * kern[name]["ms"],
+            "event_ms": FLASH_LAYERS * kern[name]["event_ms"],
+            "plain_ms": FLASH_LAYERS * plain[name]["ms"],
+            "library_ms": FLASH_LAYERS * lib["ms"],
+            "bound_ms": FLASH_LAYERS * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "timing": _timing_label(kern[name], plain[name], lib)}
+        if name == "bwd_kv":
+            rows[name]["max_abs_err_dv"] = errs["dv"][0]
+    return {"shape": shape, "errors": {k_: list(v_) for k_, v_ in errs.items()},
+            "library_fwd_max_abs_err": lib_err, "edge_shapes": edge,
+            "kernels": rows}
+
+
+def _flash_wrappers():
+    from tpu_ddp_torch.ops import flash_attention as fa
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_kv": fa.flash_bwd_kv,
+            "flash_bwd_q": fa.flash_bwd_q}
+
+
+def lm_parity(dev) -> dict:
+    """Phase 14: a 2-layer narrow LM (TransformerLM-tiny: d_model 128, 4
+    heads of 32, vocab 1024) at seq 256, f32, flash on: three LMTrainer
+    steps on the card against the same steps on the CPU, where the flash
+    kernels are their plain versions.
+
+    Run twice: with the trainer's AdamW (eps 1e-8), holding the losses;
+    and with eps 1e-3, holding the losses and every param. AdamW's step
+    lr * m / (sqrt(v) + eps) is ill-conditioned where |g| is near eps: an
+    f32 rounding difference in a gradient that sums to nearly 0 moves
+    that element's step by up to lr (3e-4), whatever the kernels do. With
+    eps 1e-3 the step is smooth in g, so the params show the gradients'
+    agreement."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.optim import AdamW
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
+    model = make_transformer("TransformerLM-tiny", max_seq_len=256,
+                             compute_dtype=torch.float32, use_flash=True)
+    params0 = model.init(torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(3).integers(0, model.vocab_size,
+                                               size=(4, 257))
+    out = {"steps": 3, "seq": 256}
+    for eps, hold_params in ((1e-8, False), (1e-3, True)):
+        runs = {}
+        for where in ("cpu", dev):
+            tr = LMTrainer(model, device=where, optimizer=AdamW(eps=eps))
+            # A copy on each side: the trainer updates params in place.
+            state = tr.init_state(params=tree_unflatten(
+                params0, [t.clone().to(where)
+                          for t in tree_leaves(params0)]))
+            x, y = tr.put_batch(*make_lm_batch(tokens))
+            losses = []
+            for _ in range(3):
+                state, loss = tr.train_step(state, x, y)
+                losses.append(float(loss))
+            runs[str(where)] = (losses, [p.detach().cpu()
+                                         for p in tree_leaves(state.params)])
+        (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+        worst, excess = 0.0, 0.0
+        for a, b in zip(pc, pg):
+            if not torch.isfinite(b).all():
+                fail(f"LM small parity (eps {eps}): non-finite params")
+            worst = max(worst, float((a - b).abs().max()))
+            excess = max(excess, float(((a - b).abs()
+                                        - (1e-5 + 1e-3 * a.abs())).max()))
+        if hold_params and excess > 0:
+            fail(f"LM small parity (eps {eps}): params differ beyond rtol "
+                 f"1e-3 / atol 1e-5 (max|d|={worst})")
+        if not loss_rel <= 1e-4:
+            fail(f"LM small parity (eps {eps}): losses differ by {loss_rel}"
+                 f" relative > 1e-4 (cpu {lc}, cuda {lg})")
+        out[f"adamw_eps_{eps:g}"] = {
+            "losses_cpu": lc, "losses_cuda": lg,
+            "max_loss_rel_diff": loss_rel, "max_param_diff": worst,
+            "params_held": hold_params}
+    return out
+
+
+LM_BATCH, LM_SEQ, LM_WARMUP, LM_STEPS, LM_TRACED = 4, 2048, 2, 10, 3
+
+
+def _large_trainer(dev):
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    model = make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                             use_flash=True, remat="none")
+    tr = LMTrainer(model, device=dev)
+    tokens = np.random.default_rng(0).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    return model, tr, tr.put_batch(*make_lm_batch(tokens))
+
+
+def train_lm(dev, seed: int) -> dict:
+    """Phase 15: the main path, ``LMTrainer`` as ``bench.py:run_lm_bench``
+    drives it: TransformerLM-large, batch 4 x seq 2048, flash on,
+    ``remat="none"``, bf16 compute, seed 0, one repeated batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ddp_torch.utils.flops import transformer_fwd_flops
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    model, tr, (x, y) = _large_trainer(dev)
+    t0 = time.perf_counter()
+    state = tr.init_state(seed=seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = []
+    for _ in range(LM_WARMUP):
+        state, loss = tr.train_step(state, x, y)
+        losses.append(float(loss))
+    torch.cuda.reset_peak_memory_stats(dev)
+    wrappers = _flash_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_losses = []
+    for _ in range(LM_STEPS):
+        state, loss = tr.train_step(state, x, y)
+        timed_losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses += [float(v) for v in timed_losses]
+    want = {k: model.num_layers * LM_STEPS for k in wrappers}
+    if counts != want:
+        fail(f"LM launch counts {counts}, expected {want} ({LM_STEPS} "
+             f"steps x {model.num_layers} layers)")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"LM losses not finite or not falling: {losses}")
+    step_s = wall / LM_STEPS
+    fwd_flops = transformer_fwd_flops(model, LM_BATCH, LM_SEQ)
+
+    # A profiler window over a few more steps: the device's idle share
+    # and where its time goes.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_TRACED):
+            state, loss = tr.train_step(state, x, y)
+        float(loss)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = _device_us(prof)
+    busy_ms = sum(dev_us.values()) / 1e3
+    names = {"flash_fwd": "flash_fwd_kernel",
+             "flash_bwd_kv": "flash_bwd_kv_kernel",
+             "flash_bwd_q": "flash_bwd_q_kernel"}
+    ours = {k: sum(v for n, v in dev_us.items() if p in n) / 1e3 / LM_TRACED
+            for k, p in names.items()}
+    gemm = sum(v for n, v in dev_us.items()
+               if re.search(r"gemm|sm90_xmma|cutlass|nvjet", n)) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    # The trace slows the host far more than the card, so the window's
+    # idle share overstates the untraced one; the device time per step
+    # against the untraced step time gives the latter.
+    window = {"steps": LM_TRACED, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "device_idle_share": 1 - busy_ms / wall_ms,
+              "device_ms_per_step": busy_ms / LM_TRACED,
+              "untraced_idle_share": 1 - busy_ms / LM_TRACED / (step_s * 1e3),
+              "flash_ms_per_step": ours,
+              "gemm_ms_per_step": gemm / LM_TRACED,
+              "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
+    return {"model": model.name, "params": sum(
+        p.numel() for p in tree_leaves(state.params)), "batch": LM_BATCH,
+        "seq": LM_SEQ, "setup_s": setup_s, "warmup_steps": LM_WARMUP,
+        "timed_steps": LM_STEPS, "losses": losses, "launches": counts,
+        "ms_per_step": step_s * 1e3,
+        "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+        "fwd_flops": fwd_flops,
+        "mfu": 3 * fwd_flops / step_s / BF16_FLOP_PER_S,
+        "peak_mem_gib": peak, "traced_window": window,
+        "_trainer": tr, "_state": state, "_batch": (x, y)}
+
+
+def lm_step_checks(dev, run: dict) -> dict:
+    """Phase 16: one step's gradients and update through the kernels
+    against the same through the plain versions (same params, same
+    batch); then one step under ``remat="blocks"``."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.train.lm import LMTrainer
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    tr, state, (x, y) = run["_trainer"], run["_state"], run["_batch"]
+    leaves = tree_leaves(state.params)
+    lk, gk = tr._loss_and_grads(leaves, state.params, x, y)
+    with mock.patch.multiple(fa, flash_fwd=fa.flash_fwd_plain,
+                             flash_bwd_kv=fa.flash_bwd_kv_plain,
+                             flash_bwd_q=fa.flash_bwd_q_plain):
+        lp, gp = tr._loss_and_grads(leaves, state.params, x, y)
+    torch.cuda.synchronize()
+    lk, lp = float(lk), float(lp)
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
+        fail(f"LM step loss: kernels {lk} vs plain {lp} (tol 1e-2 rel)")
+    # Gradients leaf by leaf within 5e-2 of the leaf's largest. AdamW's
+    # update is lr * m / (sqrt(v) + eps): about +-lr wherever |g| >> eps,
+    # so where a gradient is within bf16 noise of 0 the two updates may
+    # take opposite signs. The params are held to 5e-2 x the step's
+    # largest update where the plain gradient is above that noise (5e-2
+    # of its leaf's largest); elsewhere the share that differs is
+    # reported.
+    opt = tr.optimizer
+    grad_worst, upd_largest, upd_worst, n_loose, n_all = 0.0, 0.0, 0.0, 0, 0
+    for i, (p, a, b) in enumerate(zip(leaves, gk, gp)):
+        gmax = float(b.abs().max())
+        d = float((a - b).abs().max())
+        grad_worst = max(grad_worst, d / max(gmax, 1e-30))
+        if d > 5e-2 * gmax:
+            fail(f"LM step grads: leaf {i} {tuple(p.shape)} kernels vs "
+                 f"plain max|d|={d} > 5e-2 x {gmax}")
+        outs = []
+        for g in (a, b):
+            pi = [p.detach().clone()]
+            st = {"mu": [state.opt_state["mu"][i].clone()],
+                  "nu": [state.opt_state["nu"][i].clone()],
+                  "count": state.opt_state["count"]}
+            opt.apply(pi, [g], st)
+            outs.append(pi[0] - p.detach())
+        upd_largest = max(upd_largest, float(outs[1].abs().max()))
+        diff = (outs[0] - outs[1]).abs()
+        firm = b.abs() > 5e-2 * gmax
+        upd_worst = max(upd_worst, float(torch.where(firm, diff, 0).max()))
+        n_loose += int(((diff > 5e-2 * opt.learning_rate) & ~firm).sum())
+        n_all += p.numel()
+    if not upd_worst <= 5e-2 * upd_largest:
+        fail(f"LM step params: kernels vs plain max|d|={upd_worst} > 5e-2 x"
+             f" largest update {upd_largest} where |g| is above noise")
+    del gk, gp
+
+    # remat="blocks": the backward recomputes each block's flash forward.
+    model_b = dataclasses.replace(tr.model, remat="blocks")
+    trb = LMTrainer(model_b, device=dev)
+    wrappers = _flash_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    lb, _ = trb._loss_and_grads(leaves, state.params, x, y)
+    lb = float(lb)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {"flash_fwd": 2 * model_b.num_layers,
+            "flash_bwd_kv": model_b.num_layers,
+            "flash_bwd_q": model_b.num_layers}
+    if counts != want:
+        fail(f"remat='blocks' launch counts {counts}, expected {want}")
+    if not abs(lb - lk) <= 1e-3 * abs(lk):
+        fail(f"remat='blocks' loss {lb} vs 'none' {lk} (tol 1e-3 rel)")
+    return {"loss_kernels": lk, "loss_plain": lp,
+            "max_grad_rel_diff": grad_worst,
+            "largest_update": upd_largest, "max_firm_update_diff": upd_worst,
+            "update_tol": 5e-2 * upd_largest,
+            "near_zero_grad_elements_beyond_5e-2_lr": n_loose,
+            "elements": n_all, "remat_blocks_loss": lb,
+            "remat_blocks_launches": counts}
 
 
 def main() -> None:
@@ -1050,6 +1477,16 @@ def main() -> None:
     print(json.dumps({"train_step": step}), flush=True)
     ddp = part3_nccl(dev)
     print(json.dumps({"part3_nccl": ddp}), flush=True)
+
+    flash = check_flash(dev, gen)
+    print(json.dumps({"flash": flash}), flush=True)
+    lparity = lm_parity(dev)
+    print(json.dumps({"lm_small_parity": lparity}), flush=True)
+    lm = train_lm(dev, args.seed)
+    lm_step = lm_step_checks(dev, lm)
+    lm = {k: v for k, v in lm.items() if not k.startswith("_")}
+    print(json.dumps({"lm_train": lm}), flush=True)
+    print(json.dumps({"lm_step": lm_step}), flush=True)
 
     def per_pass(m, key):
         return sum(r[key] * r["per_pass"] for r in rows if r["m"] == m)
@@ -1100,6 +1537,25 @@ def main() -> None:
                                        "bound_ms", "bound_by", "library_ms",
                                        "event_ms", "timing")},
         })
+    replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
+                "flash_bwd_q": ("bwd_q", 357)}
+    for name, (key, line) in replaces.items():
+        k = flash["kernels"][key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"tpu_ddp/ops/pallas/flash_attention.py:{line}",
+            "launches": lm["launches"][name],
+            # Times and bound: one LM-large train step's 12 calls at
+            # (4, 2048, 16, 128) bf16, causal; the library call is SDPA's
+            # flash backend, forward for flash_fwd and its backward (dq,
+            # dk and dv together) for the two sweeps.
+            **{key_: k[key_] for key_ in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "event_ms",
+                                          "timing")},
+        })
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "build": build, "shapes": rows,
@@ -1107,6 +1563,8 @@ def main() -> None:
                        "bn_relu": bn, "sgd": sgd,
                        "train_small_parity": tparity, "train": train,
                        "train_step": step, "part3_nccl": ddp,
+                       "flash": flash, "lm_small_parity": lparity,
+                       "lm_train": lm, "lm_step": lm_step,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -1116,6 +1574,13 @@ def main() -> None:
           f"peak {train['peak_mem_gib']:.2f} GiB; device idle "
           f"{100 * step['traced_window']['device_idle_share']:.1f}% of a "
           f"traced 5-step window", flush=True)
+    print(f"lm: TransformerLM-large batch {lm['batch']} x seq {lm['seq']}, "
+          f"{lm['ms_per_step']:.1f} ms/step, {lm['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {100 * lm['mfu']:.1f}%, peak "
+          f"{lm['peak_mem_gib']:.2f} GiB; device idle "
+          f"{100 * lm['traced_window']['untraced_idle_share']:.1f}% "
+          f"untraced, {100 * lm['traced_window']['device_idle_share']:.1f}% "
+          f"of a traced {LM_TRACED}-step window", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ TransformerLM: the port keeps the JAX package's parameter layouts
 (``wqkv`` (dm, 3, H, hd), ``wo`` (H, hd, dm), ``w1`` (dm, d_ff), ...), so
 conversion is a checked copy: every leaf the model needs must be present
 with the shape :meth:`TransformerLM.param_shapes` gives, and lands as a
-tensor of the model's ``param_dtype`` on ``device``.
+tensor of the model's ``param_dtype`` on ``device``. :func:`params_to_jax`
+is the way back (numpy f32 leaves), and :func:`adamw_state_from_jax`
+carries the JAX AdamW state (``mu``, ``nu`` trees and ``count``) into the
+port's leaf lists.
 
 VGG: the JAX model's conv kernels are HWIO and the port's OIHW; each
 unit's ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``;
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from tpu_ddp_torch.utils.device import resolve_device
+from tpu_ddp_torch.utils.tree import tree_leaves
 
 
 def params_from_jax(model, tree, device=None) -> dict:
@@ -52,6 +56,29 @@ def params_from_jax(model, tree, device=None) -> dict:
             device=dev, dtype=model.param_dtype)
 
     return conv("params", model.param_shapes(), tree)
+
+
+def params_to_jax(params):
+    """The port's TransformerLM parameter tree (or any tree of the same
+    structure, e.g. gradients or a moment) as nested dicts and tuples of
+    numpy f32 arrays, the JAX package's layout."""
+    if isinstance(params, dict):
+        return {k: params_to_jax(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return tuple(params_to_jax(v) for v in params)
+    return params.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def adamw_state_from_jax(model, opt_state, device=None) -> dict:
+    """The JAX ``AdamW`` state of a TransformerLM (``{"mu": tree, "nu":
+    tree, "count": int32}``, numpy leaves) as the port's AdamW state:
+    ``mu`` and ``nu`` leaf lists in the order of ``tree_leaves(params)``
+    and an int ``count``."""
+    return {"mu": tree_leaves(params_from_jax(model, opt_state["mu"],
+                                              device)),
+            "nu": tree_leaves(params_from_jax(model, opt_state["nu"],
+                                              device)),
+            "count": int(np.asarray(opt_state["count"]))}
 
 
 def _checked(path, arr, want):

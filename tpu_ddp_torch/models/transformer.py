@@ -1,13 +1,21 @@
-"""Decoder-only transformer LM — the serving slice of
-tpu_ddp/models/transformer.py.
+"""Decoder-only transformer LM (tpu_ddp/models/transformer.py): the
+decode path and the training forward of the dense model, on one device.
 
 Same conventions as the JAX package: parameters are a plain dict of
 tensors in the JAX layouts (``wqkv`` (dm, 3, H, hd), ``wo`` (H, hd, dm),
 ``w1`` (dm, d_ff), ...), f32 parameters with a bf16 compute dtype, f32
 softmax/LN statistics, and a frozen dataclass for the static config.
-Only what the decode path needs is here: RoPE, LayerNorm, the QKV and
-vocabulary projections (routed through ops/quant.py ``qdot``) and the
-dense presets. Training ``apply`` arrives with the LM-training slice.
+
+Serving projects through ops/quant.py ``qdot`` (f32 products, or the int8
+kernel). The training forward (:meth:`TransformerLM.apply`) projects
+through :func:`train_dot`: one matmul in the compute dtype — in f32 the
+JAX package's f32 dot exactly; in bf16 one bf16 GEMM with f32 sums whose
+output is rounded to bf16 before the JAX package's cast, so the ``w1``
+output (the GELU input) and the logits carry bf16 rounding that JAX's
+f32 ``preferred_element_type`` does not. Attention goes through
+``parallel/ring_attention.py:attend``, to the flash kernels when
+``use_flash``. Sequence, tensor and expert parallelism, dropout and MoE
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +23,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+
+from tpu_ddp_torch.memory.policy import (check_training_policy,
+                                         validate_act_dtype, validate_remat,
+                                         wrap_stage)
+from tpu_ddp_torch.parallel.ring_attention import attend
 
 
 def rope(x, positions, base: float = 10000.0):
@@ -64,6 +78,19 @@ class TransformerLM:
     max_seq_len: int = 2048
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # Mixture of experts (JAX: tpu_ddp/parallel/moe.py): not ported; any
+    # value but 0 raises.
+    moe_experts: int = 0
+    # Attention through the flash kernels (ops/flash_attention.py) instead
+    # of full_attention.
+    use_flash: bool = False
+    # Memory policy (memory/policy.py): "blocks" recomputes each block in
+    # the backward from its saved input. Serving ignores both fields.
+    remat: str = "none"
+    act_dtype: str = "compute"
+    # Dropout on the embedding and the residual branches: not ported; any
+    # rate but 0 raises.
+    dropout_rate: float = 0.0
 
     @property
     def head_dim(self) -> int:
@@ -79,6 +106,16 @@ class TransformerLM:
         return self.kv_heads != self.num_heads
 
     def __post_init__(self):
+        validate_remat(self.remat)
+        validate_act_dtype(self.act_dtype)
+        if self.dropout_rate != 0.0:
+            raise NotImplementedError(
+                f"dropout_rate={self.dropout_rate}: dropout is not ported to "
+                "tpu_ddp_torch yet (ROADMAP Queue 1 item 10.3)")
+        if self.moe_experts:
+            raise NotImplementedError(
+                f"moe_experts={self.moe_experts}: MoE is not ported to "
+                "tpu_ddp_torch yet (ROADMAP Queue 1 item 10.8)")
         if self.kv_heads < 1:
             raise ValueError(f"num_kv_heads must be >= 1, got "
                              f"{self.kv_heads}")
@@ -127,11 +164,13 @@ class TransformerLM:
 
         return build("", self.param_shapes())
 
-    def qkv_proj(self, blk, y, pos):
+    def qkv_proj(self, blk, y, pos, dot=None):
         """Projected + RoPE'd q (B, L, H, hd) and k/v (B, L, KV, hd) from
         normalized input ``y``: one fused "wqkv" matmul for MHA, separate
-        "wq"/"wkv" for GQA, each through ``qdot``."""
+        "wq"/"wkv" for GQA, each through ``dot`` (``qdot`` by default;
+        training passes :func:`train_dot`)."""
         from tpu_ddp_torch.ops.quant import qdot
+        qdot = dot or qdot
         cd = self.compute_dtype
         b, lc, hd = y.shape[0], y.shape[1], self.head_dim
         h = self.num_heads
@@ -147,11 +186,77 @@ class TransformerLM:
             k, v = kvp[:, :, 0], kvp[:, :, 1]
         return rope(q, pos), rope(k, pos), v
 
-    def project(self, params, x):
-        """Vocabulary projection of post-LN activations through ``qdot``:
-        f32 logits, never rounded to the compute dtype."""
+    def project(self, params, x, dot=None):
+        """Vocabulary projection of post-LN activations through ``dot``
+        (``qdot`` by default: f32 logits, never rounded to the compute
+        dtype); returns f32 logits."""
         from tpu_ddp_torch.ops.quant import qdot
-        return qdot(x, params["head"], self.compute_dtype).to(torch.float32)
+        dot = dot or qdot
+        return dot(x, params["head"], self.compute_dtype).to(torch.float32)
+
+    # ---- training forward ---------------------------------------------
+
+    def check_seq_len(self, local_len: int) -> None:
+        """Validate the sequence length against ``max_seq_len``."""
+        if local_len > self.max_seq_len:
+            raise ValueError(f"sequence length {local_len} exceeds "
+                             f"max_seq_len={self.max_seq_len}")
+
+    def apply(self, params, tokens):
+        """tokens: (B, L) integer ids -> logits (B, L, V) f32."""
+        return self.apply_with_aux(params, tokens)[0]
+
+    def apply_with_aux(self, params, tokens):
+        """Like :meth:`apply`, with the mean MoE auxiliary loss (0.0: the
+        port's model is dense)."""
+        x, aux = self.trunk_with_aux(params, tokens)
+        return self.project(params, x, dot=train_dot), aux
+
+    def trunk_with_aux(self, params, tokens):
+        """Embed -> blocks -> final LayerNorm: ((B, L, dm) activations,
+        aux). Under ``remat="blocks"`` each block is one checkpoint region
+        whose backward recomputes it (flash forward included)."""
+        cd = self.compute_dtype
+        lc = tokens.shape[1]
+        self.check_seq_len(lc)
+        check_training_policy(self.remat, self.act_dtype)
+        pos = torch.arange(lc, device=tokens.device)
+        x = F.embedding(tokens.long(), params["embed"]).to(cd)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        blk_fn = (self.block_apply_aux if self.remat == "none"
+                  else wrap_stage(self._block_entry, self.remat))
+        for blk in params["blocks"]:
+            x, a = blk_fn(blk, x, pos)
+            aux = aux + a
+        x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        return x, aux / max(self.num_layers, 1)
+
+    def block_apply(self, blk, x, pos):
+        """One transformer block: (B, L, dm) -> (B, L, dm)."""
+        return self.block_apply_aux(blk, x, pos)[0]
+
+    def _block_entry(self, blk, x, pos):
+        """:meth:`block_apply_aux` with the residual stream re-entering
+        ``compute_dtype``: the checkpoint region's entry point."""
+        return self.block_apply_aux(blk, x.to(self.compute_dtype), pos)
+
+    def block_apply_aux(self, blk, x, pos):
+        """LN1 -> qkv -> attention -> wo + residual -> LN2 -> w1 -> GELU
+        (tanh, f32) -> w2 + residual; returns (x, aux = 0)."""
+        cd = self.compute_dtype
+        b, lc = x.shape[0], x.shape[1]
+        h, hd = self.num_heads, self.head_dim
+        y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
+        q, k, v = self.qkv_proj(blk, y, pos, dot=train_dot)
+        o = attend(q, k, v, causal=True, flash=self.use_flash)
+        o = train_dot(o.reshape(b, lc, h * hd), blk["wo"], cd,
+                      reshape=(h * hd, self.d_model)).to(cd)
+        x = x + o
+        y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
+        y = train_dot(y, blk["w1"], cd).to(torch.float32)
+        y = F.gelu(y, approximate="tanh").to(cd)
+        y = train_dot(y, blk["w2"], cd).to(cd)
+        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def head_apply(self, params, x):
         """Final LayerNorm + LM head: (B, L, dm) -> (B, L, V) f32."""
@@ -159,10 +264,19 @@ class TransformerLM:
         return self.project(params, x)
 
 
+def train_dot(y, w, cd, reshape=None):
+    """The training forward's matmul: ``y @ w`` with ``w`` cast to the
+    compute dtype ``cd`` (and reshaped), both operands in ``cd``, result
+    in ``cd`` (f32 sums inside the GEMM). Differentiable."""
+    w = w.to(cd)
+    if reshape is not None:
+        w = w.reshape(reshape)
+    return torch.matmul(y.to(cd), w)
+
+
 def make_transformer(name: str = "TransformerLM-small",
                      **kwargs) -> TransformerLM:
-    """The dense presets of tpu_ddp/models/transformer.py (training-only
-    fields such as ``remat`` left out)."""
+    """The dense presets of tpu_ddp/models/transformer.py."""
     presets = {
         "TransformerLM-tiny": dict(num_layers=2, num_heads=4, d_model=128,
                                    d_ff=512, vocab_size=1024),
@@ -172,7 +286,7 @@ def make_transformer(name: str = "TransformerLM-small",
                                    d_ff=3072, vocab_size=32000),
         "TransformerLM-large": dict(num_layers=12, num_heads=16,
                                     d_model=2048, d_ff=8192,
-                                    vocab_size=32000),
+                                    vocab_size=32000, remat="blocks"),
         "TransformerLM-tiny-8k": dict(num_layers=2, num_heads=4,
                                       d_model=128, d_ff=512,
                                       vocab_size=1024,
