@@ -75,12 +75,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    TransformerLM-large's attention call (4, 2048, 16 heads, 128) bf16
    causal, with v a strided view of a fused qkv tensor, and at edge
    shapes (ragged L, D in {32, 36, 64}, GQA with KV in {4, 1},
-   non-causal, f32 at L <= 384). Bounds on max |kernel - plain|: o, dq,
-   dk, dv 2e-2 x max |plain| in bf16 (p and ds rounded to bf16 at another
-   running max), 2e-5 (o) and 2e-4 (grads) in f32; lse 1e-3 absolute in
-   bf16, 1e-5 in f32. Each kernel is timed at the main shape (12 calls
-   per step) beside its bound, its plain version and SDPA's flash
-   backend (forward; its backward for the two sweeps);
+   non-causal, f32 at L <= 384). Each output is held row by row (the
+   D-vector of one position and head): the worst row's |kernel - plain|
+   / |plain| within 2e-2 in bf16 (p and ds rounded to bf16 at another
+   running max), 1e-5 for o and 2e-5 for dq, dk, dv in f32; lse
+   within 1e-4 absolute in bf16, 1e-5 in f32. At the main shape every
+   bound must also catch a planted fault, the plain outputs with the last
+   64 keys dropped for the last 64 queries. Each kernel is timed at the
+   main shape (12 calls per step) beside its bound, its plain version
+   and SDPA's flash backend (forward; its backward for the two sweeps);
 14. small parity: TransformerLM-tiny (2 layers, d_model 128, 4 heads of
    32, vocab 1024) at seq 256, f32, flash on: three ``LMTrainer`` steps on
    the card against the same steps on the CPU, where the kernels are
@@ -98,12 +101,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    over 3 steps: the device's idle share and its top kernels;
 16. one step's loss and gradients through the kernels against the same
    through the plain versions (same params, same batch): loss within
-   1e-2 relative, every gradient leaf within 5e-2 x its largest |g|, and
-   the AdamW update within 5e-2 x the step's largest update wherever the
-   plain gradient is above 5e-2 of its leaf's largest (below that the
-   sign-like first moments of AdamW can differ, and those elements are
-   counted); then one step under ``remat="blocks"``: 24 forward launches
-   and a loss within 1e-3 relative of the ``"none"`` step's.
+   2e-4 relative, which must also catch the same step with the planted
+   fault in every layer's forward; every gradient leaf within 2e-2
+   relative (Frobenius), which cannot (the fault's reading is reported),
+   and the AdamW update within 5e-2 x the step's largest update wherever
+   the plain gradient is above 5e-2 of its leaf's largest (below that
+   the sign-like first moments of AdamW can differ, and those elements
+   are counted); then one step under
+   ``remat="blocks"``: 24 forward launches and a loss within 1e-5
+   relative of the ``"none"`` step's.
 
 Prints the card's name and power limit, the serving and training
 metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
@@ -518,7 +524,7 @@ def _fail_on(errs, where):
     for what, (err, tol) in errs.items():
         if not (math.isfinite(err) and err <= tol):
             fail(f"{what} disagrees with its plain version at {where}: "
-                 f"max|d|={err} vs tol {tol}")
+                 f"error {err} vs tol {tol}")
 
 
 def check_bn(dev, gen) -> dict:
@@ -1054,12 +1060,19 @@ FLASH_EDGE = [
     (1, 100, 16, 4, 32, False, torch.float32),
     (1, 257, 16, 1, 64, True, torch.float32),
 ]
-# Bounds on max |kernel - plain|: o, dq, dk, dv times max |plain| (bf16:
-# the rounding of p and ds to bf16 lands at another running max in the
-# online softmax; f32: summation order), lse absolute.
-FLASH_TOL = {torch.bfloat16: {"o": 2e-2, "grad": 2e-2, "lse": 1e-3},
-             torch.float32: {"o": 2e-5, "grad": 2e-4, "lse": 1e-5}}
+# Each output is held row by row: the worst over its rows (the D-vector
+# of one position and head) of |kernel_r - plain_r| / |plain_r|, with the
+# row norm floored at 1e-3 of the tensor's RMS row norm; lse absolute.
+# bf16: the kernels and the plain versions round p (and ds) to bf16 at
+# other running maxima and sum in other orders, so rows part by about one
+# bf16 unit (2**-8 = 3.9e-3). The bounds sit between those readings and
+# the readings of a planted fault: the plain outputs with the last 64
+# keys dropped for the last 64 queries (_dropped_tile), which every run
+# also checks they catch. f32: summation order only.
+FLASH_TOL = {torch.bfloat16: {"o": 2e-2, "grad": 2e-2, "lse": 1e-4},
+             torch.float32: {"o": 1e-5, "grad": 2e-5, "lse": 1e-5}}
 FLASH_LAYERS = 12  # launches of each flash kernel per LM-large train step
+FAULT_TILE = 64
 
 
 def _flash_inputs(shape, causal, dtype, gen, dev, fused_v=True):
@@ -1078,9 +1091,21 @@ def _flash_inputs(shape, causal, dtype, gen, dev, fused_v=True):
     return q, k, v, do
 
 
+def _readings(a, b) -> dict:
+    """How far ``a`` lies from ``b`` (both (B, L, heads, D)): the worst
+    row's relative error (the bound's reading), the whole tensor's
+    relative Frobenius error, and max |a - b|."""
+    a, b = a.float(), b.float()
+    dn, bn = (a - b).norm(dim=-1), b.norm(dim=-1)
+    floor = 1e-3 * float(bn.square().mean().sqrt())
+    return {"row": float((dn / bn.clamp_min(floor)).max()),
+            "frob": float((a - b).norm() / b.norm()),
+            "max_abs": float((a - b).abs().max())}
+
+
 def _flash_errors(fa, q, k, v, do, causal):
     """Each flash kernel against its plain version on the same inputs:
-    ({what: (err, tol)}, plain (o, lse, delta))."""
+    ({what: (reading, tol)}, {what: readings}, plain outputs)."""
     tol = FLASH_TOL[q.dtype]
     po, plse = fa.flash_fwd_plain(q, k, v, causal)
     delta = fa.attention_delta(po, do)
@@ -1090,20 +1115,59 @@ def _flash_errors(fa, q, k, v, do, causal):
     dk, dv = fa.flash_bwd_kv(q, k, v, do, plse, delta, causal)
     dq = fa.flash_bwd_q(q, k, v, do, plse, delta, causal)
     torch.cuda.synchronize()
-
-    def err(a, b, tol_rel):
-        return (float((a.float() - b.float()).abs().max()),
-                tol_rel * float(b.float().abs().max()))
-
-    errs = {"o": err(o, po, tol["o"]),
-            "lse": (float((lse - plse).abs().max()), tol["lse"]),
-            "dq": err(dq, pdq, tol["grad"]),
-            "dk": err(dk, pdk, tol["grad"]),
-            "dv": err(dv, pdv, tol["grad"])}
+    reads = {"o": _readings(o, po), "dq": _readings(dq, pdq),
+             "dk": _readings(dk, pdk), "dv": _readings(dv, pdv)}
+    errs = {w: (r["row"], tol["o" if w == "o" else "grad"])
+            for w, r in reads.items()}
+    errs["lse"] = (float((lse - plse).abs().max()), tol["lse"])
     for t in (o, lse, dq, dk, dv):
         if not bool(torch.isfinite(t.float()).all()):
             errs["finite"] = (math.inf, 0.0)
-    return errs, (po, plse, delta)
+    plain = {"o": po, "lse": plse, "delta": delta, "dq": pdq, "dk": pdk,
+             "dv": pdv}
+    return errs, reads, plain
+
+
+def _dropped_tile(q, k, v, do, plain) -> dict:
+    """The planted fault: the plain outputs as a causal kernel would give
+    them that skipped the last 64-key tile for the last 64 queries, with
+    p and ds rounded as the kernels round them; o and lse alone when
+    ``do`` is None."""
+    b, L, h, d = q.shape
+    kvh, n = k.shape[2], FAULT_TILE
+    g, t, scale = h // kvh, slice(L - n, L), 1.0 / math.sqrt(d)
+
+    def heads(x, rep):  # (B, n, heads, D) -> (B, H, n, D) f32
+        return x[:, t].float().repeat_interleave(rep, 2).transpose(1, 2)
+
+    qt, kt, vt = heads(q, 1), heads(k, g), heads(v, g)
+    lse = plain["lse"][..., t, None]
+    if do is not None:
+        dot, delta = heads(do, 1), plain["delta"][..., t, None]
+    s = (qt @ kt.transpose(-1, -2) * scale).masked_fill(
+        torch.ones(n, n, dtype=torch.bool, device=q.device).triu(1), -1e30)
+    p = torch.exp(s - lse)
+    pr = p.to(q.dtype).float()
+    if do is not None:
+        ds = p * (dot @ vt.transpose(-1, -2) - delta) * scale
+        dsr = ds.to(q.dtype).float()
+
+    def fold(x):  # (B, H, n, D) per q head -> (B, n, KV, D)
+        return x.reshape(b, kvh, g, n, d).sum(2).transpose(1, 2)
+
+    kept = 1.0 - p.sum(-1, keepdim=True)
+    out = {"lse": plain["lse"].clone(), "o": plain["o"].float().clone()}
+    out["lse"][..., t] += torch.log(kept[..., 0])
+    out["o"][:, t] = ((out["o"][:, t].transpose(1, 2) - pr @ vt)
+                      / kept).transpose(1, 2)
+    if do is not None:
+        out["dq"] = plain["dq"].float().clone()
+        out["dq"][:, t] -= (dsr @ kt).transpose(1, 2)
+        for w, x in (("dk", dsr.transpose(-1, -2) @ qt),
+                     ("dv", pr.transpose(-1, -2) @ dot)):
+            out[w] = plain[w].float().clone()
+            out[w][:, t] -= fold(x)
+    return {w: x.to(plain[w].dtype) for w, x in out.items()}
 
 
 def _flash_work(shape, causal, itemsize):
@@ -1132,17 +1196,30 @@ def check_flash(dev, gen) -> dict:
     for b, L, h, kvh, d, causal, dtype in FLASH_EDGE:
         q, k, v, do = _flash_inputs((b, L, h, kvh, d), causal, dtype, gen,
                                     dev)
-        errs, _ = _flash_errors(fa, q, k, v, do, causal)
+        errs, reads, _ = _flash_errors(fa, q, k, v, do, causal)
         where = (f"B={b} L={L} H={h} KV={kvh} D={d} causal={causal} "
                  f"{dtype}")
         _fail_on(errs, where)
-        edge[where] = {k_: list(v_) for k_, v_ in errs.items()}
+        edge[where] = {"bounds": {k_: list(v_) for k_, v_ in errs.items()},
+                       "readings": reads}
     shape = FLASH_MAIN
     q, k, v, do = _flash_inputs(shape, True, torch.bfloat16, gen, dev)
-    errs, (po, plse, delta) = _flash_errors(fa, q, k, v, do, True)
+    errs, reads, plain = _flash_errors(fa, q, k, v, do, True)
     _fail_on(errs, f"the LM-large shape {shape}")
-    del po
-    reps = 20
+    # Each bound must catch the planted fault at this shape.
+    faulty = _dropped_tile(q, k, v, do, plain)
+    fault = {w: _readings(faulty[w], plain[w]) for w in ("o", "dq", "dk",
+                                                           "dv")}
+    fault["lse"] = {"abs": float((faulty["lse"] - plain["lse"]).abs()
+                                 .max())}
+    for w, (_, tol) in errs.items():
+        seen = fault[w]["row"] if w != "lse" else fault[w]["abs"]
+        if not seen > tol:
+            fail(f"the {w} bound {tol} misses the planted fault (a dropped "
+                 f"tile reads {seen})")
+    plse, delta = plain["lse"], plain["delta"]
+    del plain, faulty
+    reps = 50
     kern = {"fwd": timed(lambda: fa.flash_fwd(q, k, v, True), [()], reps),
             "bwd_kv": timed(lambda: fa.flash_bwd_kv(q, k, v, do, plse, delta,
                                                     True), [()], reps),
@@ -1163,7 +1240,7 @@ def check_flash(dev, gen) -> dict:
             lib_fwd = timed(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), [()], reps)
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_err = float((out.transpose(1, 2).float()
+        lib_err = float((out.detach().transpose(1, 2).float()
                          - fa.flash_fwd(q, k, v, True)[0].float()).abs().max())
         lib_bwd = timed(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True), [()], reps)
@@ -1176,8 +1253,9 @@ def check_flash(dev, gen) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         lib = lib_fwd if name == "fwd" else lib_bwd
         rows[name] = {
-            "max_abs_err": errs["o" if name == "fwd" else
-                                "dq" if name == "bwd_q" else "dk"][0],
+            "max_abs_err": reads["o" if name == "fwd" else
+                                 "dq" if name == "bwd_q" else "dk"][
+                                     "max_abs"],
             "ms_per_call": kern[name]["ms"],
             "ms": FLASH_LAYERS * kern[name]["ms"],
             "event_ms": FLASH_LAYERS * kern[name]["event_ms"],
@@ -1187,8 +1265,10 @@ def check_flash(dev, gen) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "timing": _timing_label(kern[name], plain[name], lib)}
         if name == "bwd_kv":
-            rows[name]["max_abs_err_dv"] = errs["dv"][0]
-    return {"shape": shape, "errors": {k_: list(v_) for k_, v_ in errs.items()},
+            rows[name]["max_abs_err_dv"] = reads["dv"]["max_abs"]
+    return {"shape": shape,
+            "bounds": {k_: list(v_) for k_, v_ in errs.items()},
+            "readings": reads, "planted_fault_readings": fault,
             "library_fwd_max_abs_err": lib_err, "edge_shapes": edge,
             "kernels": rows}
 
@@ -1359,10 +1439,19 @@ def train_lm(dev, seed: int) -> dict:
         "_trainer": tr, "_state": state, "_batch": (x, y)}
 
 
+# The loss bound sits between the kernels' reading and the planted
+# fault's, which each run checks it catches; the gradients' bound cannot
+# separate them (bf16 rounding through 12 layers reads about as high),
+# so it holds the wiring and the fault's reading is reported.
+LM_STEP_TOL = {"loss": 2e-4, "grad": 2e-2}
+
+
 def lm_step_checks(dev, run: dict) -> dict:
-    """Phase 16: one step's gradients and update through the kernels
+    """Phase 16: one step's loss, gradients and update through the kernels
     against the same through the plain versions (same params, same
-    batch); then one step under ``remat="blocks"``."""
+    batch); the same step with the planted fault in every layer's forward
+    (the plain forward with a tile dropped) shows what these bounds can
+    see; then one step under ``remat="blocks"``."""
     from tpu_ddp_torch.ops import flash_attention as fa
     from tpu_ddp_torch.train.lm import LMTrainer
     from tpu_ddp_torch.utils.tree import tree_leaves
@@ -1373,26 +1462,47 @@ def lm_step_checks(dev, run: dict) -> dict:
                              flash_bwd_kv=fa.flash_bwd_kv_plain,
                              flash_bwd_q=fa.flash_bwd_q_plain):
         lp, gp = tr._loss_and_grads(leaves, state.params, x, y)
+
+    def faulty_fwd(q, k, v, causal):
+        o, lse = fa.flash_fwd_plain(q, k, v, causal)
+        f = _dropped_tile(q, k, v, None, {"o": o, "lse": lse})
+        return f["o"], f["lse"]
+
+    with mock.patch.multiple(fa, flash_fwd=faulty_fwd,
+                             flash_bwd_kv=fa.flash_bwd_kv_plain,
+                             flash_bwd_q=fa.flash_bwd_q_plain):
+        lf, gf = tr._loss_and_grads(leaves, state.params, x, y)
     torch.cuda.synchronize()
-    lk, lp = float(lk), float(lp)
-    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
-        fail(f"LM step loss: kernels {lk} vs plain {lp} (tol 1e-2 rel)")
-    # Gradients leaf by leaf within 5e-2 of the leaf's largest. AdamW's
-    # update is lr * m / (sqrt(v) + eps): about +-lr wherever |g| >> eps,
-    # so where a gradient is within bf16 noise of 0 the two updates may
-    # take opposite signs. The params are held to 5e-2 x the step's
-    # largest update where the plain gradient is above that noise (5e-2
-    # of its leaf's largest); elsewhere the share that differs is
+    lk, lp, lf = float(lk), float(lp), float(lf)
+
+    def frob(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    # The worst leaf's relative Frobenius error of its gradient.
+    grad_k = max(frob(a, b) for a, b in zip(gk, gp))
+    grad_f = max(frob(a, b) for a, b in zip(gf, gp))
+    loss_k, loss_f = abs(lk - lp) / abs(lp), abs(lf - lp) / abs(lp)
+    if not (math.isfinite(lk) and loss_k <= LM_STEP_TOL["loss"]):
+        fail(f"LM step loss: kernels {lk} vs plain {lp} (tol "
+             f"{LM_STEP_TOL['loss']} rel)")
+    if not loss_f > LM_STEP_TOL["loss"]:
+        fail(f"LM step loss bound {LM_STEP_TOL['loss']} misses the planted "
+             f"fault (it moves the loss by {loss_f} relative)")
+    if not grad_k <= LM_STEP_TOL["grad"]:
+        fail(f"LM step grads: kernels vs plain, worst leaf's relative "
+             f"Frobenius error {grad_k} > {LM_STEP_TOL['grad']}")
+    del gf
+    # AdamW's update is lr * m / (sqrt(v) + eps): about +-lr wherever
+    # |g| >> eps, so where a gradient is within bf16 noise of 0 the two
+    # updates may take opposite signs. The params are held to 5e-2 x the
+    # step's largest update where the plain gradient is above that noise
+    # (5e-2 of its leaf's largest); elsewhere the share that differs is
     # reported.
     opt = tr.optimizer
-    grad_worst, upd_largest, upd_worst, n_loose, n_all = 0.0, 0.0, 0.0, 0, 0
+    upd_largest, upd_worst, n_loose, n_all = 0.0, 0.0, 0, 0
     for i, (p, a, b) in enumerate(zip(leaves, gk, gp)):
         gmax = float(b.abs().max())
-        d = float((a - b).abs().max())
-        grad_worst = max(grad_worst, d / max(gmax, 1e-30))
-        if d > 5e-2 * gmax:
-            fail(f"LM step grads: leaf {i} {tuple(p.shape)} kernels vs "
-                 f"plain max|d|={d} > 5e-2 x {gmax}")
         outs = []
         for g in (a, b):
             pi = [p.detach().clone()]
@@ -1426,10 +1536,12 @@ def lm_step_checks(dev, run: dict) -> dict:
             "flash_bwd_q": model_b.num_layers}
     if counts != want:
         fail(f"remat='blocks' launch counts {counts}, expected {want}")
-    if not abs(lb - lk) <= 1e-3 * abs(lk):
-        fail(f"remat='blocks' loss {lb} vs 'none' {lk} (tol 1e-3 rel)")
-    return {"loss_kernels": lk, "loss_plain": lp,
-            "max_grad_rel_diff": grad_worst,
+    if not abs(lb - lk) <= 1e-5 * abs(lk):
+        fail(f"remat='blocks' loss {lb} vs 'none' {lk} (tol 1e-5 rel)")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_k,
+            "grad_worst_leaf_frob": grad_k, "tol": LM_STEP_TOL,
+            "planted_fault": {"loss": lf, "loss_rel_diff": loss_f,
+                              "grad_worst_leaf_frob": grad_f},
             "largest_update": upd_largest, "max_firm_update_diff": upd_worst,
             "update_tol": 5e-2 * upd_largest,
             "near_zero_grad_elements_beyond_5e-2_lr": n_loose,
@@ -1550,11 +1662,13 @@ def main() -> None:
             # Times and bound: one LM-large train step's 12 calls at
             # (4, 2048, 16, 128) bf16, causal; the library call is SDPA's
             # flash backend, forward for flash_fwd and its backward (dq,
-            # dk and dv together) for the two sweeps.
+            # dk and dv together) for the two sweeps. main_path_ms: the
+            # kernel's device time per step in phase 15's traced steps.
             **{key_: k[key_] for key_ in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "event_ms",
                                           "timing")},
+            "main_path_ms": lm["traced_window"]["flash_ms_per_step"][name],
         })
     if args.out:
         with open(args.out, "w") as fh:

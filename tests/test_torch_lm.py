@@ -107,6 +107,80 @@ def test_logits_and_grads_match_jax(use_flash, kv_heads):
                  _host(jgrads), 1e-5, "grad")
 
 
+@pytest.mark.parametrize("use_flash", [False, True])
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_bf16_logits_and_grads_match_jax(use_flash, kv_heads):
+    """bf16 compute, the main path's dtype, against the JAX bf16 apply.
+    Both round every projection and the residual stream to bf16, so the
+    sides part by bf16 units: measured on these inputs, the loss within
+    4.9e-5 relative, logits within 6.2e-3 and every parameter gradient
+    within 1.3e-2 of its norm (relative Frobenius)."""
+    kw = dict(max_seq_len=SEQ, use_flash=use_flash, num_kv_heads=kv_heads)
+    jm = jax_make("TransformerLM-tiny", compute_dtype=jnp.bfloat16, **kw)
+    tm = make_transformer("TransformerLM-tiny", compute_dtype=torch.bfloat16,
+                          **kw)
+    jparams = jm.init(jax.random.key(0))
+    x, y = make_lm_batch(_tokens(2))
+
+    def jloss(p):
+        logits = jm.apply(p, jnp.asarray(x))
+        return jnp.mean(jax_ce(logits.reshape(-1, 1024),
+                               jnp.asarray(y).reshape(-1))), logits
+
+    (jl, jlogits), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jparams)
+    params = params_from_jax(tm, _host(jparams), device="cpu")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    logits = tm.apply(params, torch.as_tensor(x))
+    loss = softmax_cross_entropy(logits.reshape(-1, 1024),
+                                 torch.as_tensor(y).reshape(-1)).mean()
+    grads = torch.autograd.grad(loss, leaves)
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    assert abs(float(loss.detach()) - float(jl)) <= 1e-4 * abs(float(jl))
+    assert rel(logits.detach().numpy(), np.asarray(jlogits)) <= 1e-2
+    # The logits are the head's f32 product, not bf16 values.
+    assert not torch.equal(logits, logits.bfloat16().float())
+    for g, w in zip(jax.tree.leaves(params_to_jax(tree_unflatten(params,
+                                                                  grads))),
+                    jax.tree.leaves(_host(jgrads))):
+        assert rel(g, w) <= 2e-2
+
+
+def test_bf16_projections_keep_f32_where_jax_does():
+    """The ``w1`` output (the GELU input) and the logits stay f32, as
+    ``jnp.dot(..., preferred_element_type=jnp.float32)`` leaves them; the
+    backward rounds the cotangent to bf16 and returns bf16 gradients."""
+    from tpu_ddp_torch.models.transformer import train_dot
+    rng = np.random.default_rng(11)
+    y = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    w = rng.normal(size=(64, 48)).astype(np.float32)
+    g = rng.normal(size=(2, 5, 48)).astype(np.float32)
+    want = np.asarray(jnp.dot(jnp.asarray(y, jnp.bfloat16),
+                              jnp.asarray(w, jnp.bfloat16),
+                              preferred_element_type=jnp.float32))
+    ty = torch.tensor(y).bfloat16().requires_grad_()
+    tw = torch.tensor(w).requires_grad_()
+    out = train_dot(ty, tw, torch.bfloat16, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-5)
+    assert not torch.equal(out, out.bfloat16().float())
+    dy, dw = torch.autograd.grad(out, (ty, tw), torch.tensor(g))
+    assert dy.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    gb = torch.tensor(g).bfloat16().float()
+    yb, wb = ty.detach().float(), torch.tensor(w).bfloat16().float()
+    np.testing.assert_array_equal(dy.float().numpy(),
+                                  (gb @ wb.T).bfloat16().float().numpy())
+    np.testing.assert_array_equal(
+        dw.numpy(), torch.einsum("bld,ble->de", yb, gb).bfloat16()
+        .float().numpy())
+
+
 def _trainers(use_flash=True, steps=3, **port_kw):
     """JAX and port trainers from the same weights, run ``steps`` steps
     on one batch of 4; returns both states and their losses."""

@@ -8,11 +8,12 @@ softmax/LN statistics, and a frozen dataclass for the static config.
 
 Serving projects through ops/quant.py ``qdot`` (f32 products, or the int8
 kernel). The training forward (:meth:`TransformerLM.apply`) projects
-through :func:`train_dot`: one matmul in the compute dtype — in f32 the
-JAX package's f32 dot exactly; in bf16 one bf16 GEMM with f32 sums whose
-output is rounded to bf16 before the JAX package's cast, so the ``w1``
-output (the GELU input) and the logits carry bf16 rounding that JAX's
-f32 ``preferred_element_type`` does not. Attention goes through
+through :func:`train_dot`: one matmul of compute-dtype operands with f32
+sums — in f32 the JAX package's f32 dot exactly; in bf16 a bf16 GEMM
+whose output stays f32 where the JAX package keeps its
+``preferred_element_type=jnp.float32`` result (the ``w1`` output, which
+is the GELU input, and the logits) and is rounded to bf16 where JAX casts
+it back (qkv, ``wo``, ``w2``). Attention goes through
 ``parallel/ring_attention.py:attend``, to the flash kernels when
 ``use_flash``. Sequence, tensor and expert parallelism, dropout and MoE
 are not ported yet.
@@ -210,39 +211,38 @@ class TransformerLM:
         """Like :meth:`apply`, with the mean MoE auxiliary loss (0.0: the
         port's model is dense)."""
         x, aux = self.trunk_with_aux(params, tokens)
-        return self.project(params, x, dot=train_dot), aux
+        return self.project(params, x, dot=_train_dot_f32), aux
 
     def trunk_with_aux(self, params, tokens):
         """Embed -> blocks -> final LayerNorm: ((B, L, dm) activations,
-        aux). Under ``remat="blocks"`` each block is one checkpoint region
-        whose backward recomputes it (flash forward included)."""
+        aux = 0.0). Under ``remat="blocks"`` each block is one checkpoint
+        region whose backward recomputes it (flash forward included)."""
         cd = self.compute_dtype
         lc = tokens.shape[1]
         self.check_seq_len(lc)
         check_training_policy(self.remat, self.act_dtype)
         pos = torch.arange(lc, device=tokens.device)
         x = F.embedding(tokens.long(), params["embed"]).to(cd)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        blk_fn = (self.block_apply_aux if self.remat == "none"
+        blk_fn = (self.block_apply if self.remat == "none"
                   else wrap_stage(self._block_entry, self.remat))
         for blk in params["blocks"]:
-            x, a = blk_fn(blk, x, pos)
-            aux = aux + a
+            x = blk_fn(blk, x, pos)
         x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
-        return x, aux / max(self.num_layers, 1)
-
-    def block_apply(self, blk, x, pos):
-        """One transformer block: (B, L, dm) -> (B, L, dm)."""
-        return self.block_apply_aux(blk, x, pos)[0]
-
-    def _block_entry(self, blk, x, pos):
-        """:meth:`block_apply_aux` with the residual stream re-entering
-        ``compute_dtype``: the checkpoint region's entry point."""
-        return self.block_apply_aux(blk, x.to(self.compute_dtype), pos)
+        return x, 0.0
 
     def block_apply_aux(self, blk, x, pos):
-        """LN1 -> qkv -> attention -> wo + residual -> LN2 -> w1 -> GELU
-        (tanh, f32) -> w2 + residual; returns (x, aux = 0)."""
+        """:meth:`block_apply` and the block's auxiliary loss (0.0)."""
+        return self.block_apply(blk, x, pos), 0.0
+
+    def _block_entry(self, blk, x, pos):
+        """:meth:`block_apply` with the residual stream re-entering
+        ``compute_dtype``: the checkpoint region's entry point."""
+        return self.block_apply(blk, x.to(self.compute_dtype), pos)
+
+    def block_apply(self, blk, x, pos):
+        """One transformer block, (B, L, dm) -> (B, L, dm): LN1 -> qkv ->
+        attention -> wo + residual -> LN2 -> w1 (f32 out) -> GELU (tanh,
+        f32) -> w2 + residual."""
         cd = self.compute_dtype
         b, lc = x.shape[0], x.shape[1]
         h, hd = self.num_heads, self.head_dim
@@ -253,10 +253,10 @@ class TransformerLM:
                       reshape=(h * hd, self.d_model)).to(cd)
         x = x + o
         y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
-        y = train_dot(y, blk["w1"], cd).to(torch.float32)
+        y = train_dot(y, blk["w1"], cd, out_dtype=torch.float32)
         y = F.gelu(y, approximate="tanh").to(cd)
         y = train_dot(y, blk["w2"], cd).to(cd)
-        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y
 
     def head_apply(self, params, x):
         """Final LayerNorm + LM head: (B, L, dm) -> (B, L, V) f32."""
@@ -264,14 +264,54 @@ class TransformerLM:
         return self.project(params, x)
 
 
-def train_dot(y, w, cd, reshape=None):
-    """The training forward's matmul: ``y @ w`` with ``w`` cast to the
-    compute dtype ``cd`` (and reshaped), both operands in ``cd``, result
-    in ``cd`` (f32 sums inside the GEMM). Differentiable."""
+def train_dot(y, w, cd, reshape=None, out_dtype=None):
+    """The training forward's matmul: ``y @ w`` with both operands cast to
+    the compute dtype ``cd`` (``w`` reshaped), f32 sums inside the GEMM,
+    the result in ``out_dtype`` (default ``cd``). Differentiable."""
     w = w.to(cd)
     if reshape is not None:
         w = w.reshape(reshape)
-    return torch.matmul(y.to(cd), w)
+    y = y.to(cd)
+    if out_dtype is None or out_dtype == cd:
+        return torch.matmul(y, w)
+    return _WideDot.apply(y, w, out_dtype)
+
+
+def _train_dot_f32(y, w, cd):
+    return train_dot(y, w, cd, out_dtype=torch.float32)
+
+
+def _mm(a, b, out_dtype):
+    """2-D ``a @ b`` of one dtype with f32 sums, returned in ``out_dtype``:
+    cuBLAS writes the wider type itself; on the CPU the operands are
+    widened (exact) and the f32 product is cast."""
+    if a.device.type != "cuda":
+        return torch.mm(a.float(), b.float()).to(out_dtype)
+    if out_dtype == a.dtype:
+        return torch.mm(a, b)
+    return torch.mm(a, b, out_dtype=out_dtype)
+
+
+class _WideDot(torch.autograd.Function):
+    """``y @ w`` of narrow operands with a wider output: JAX's ``jnp.dot``
+    with ``preferred_element_type``. The backward rounds the cotangent to
+    the operands' dtype and gives their dtype back, as the TPU's
+    default-precision dot and a narrow GEMM's own backward do."""
+
+    @staticmethod
+    def forward(ctx, y, w, out_dtype):
+        ctx.save_for_backward(y, w)
+        out = _mm(y.reshape(-1, y.shape[-1]), w, out_dtype)
+        return out.reshape(*y.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(y.dtype).reshape(-1, g.shape[-1])
+        y2 = y.reshape(-1, y.shape[-1])
+        dy = _mm(g, w.t(), y.dtype).reshape(y.shape)
+        dw = _mm(y2.t(), g, w.dtype)
+        return dy, dw, None
 
 
 def make_transformer(name: str = "TransformerLM-small",

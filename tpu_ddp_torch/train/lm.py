@@ -58,7 +58,7 @@ class LMTrainer:
                  grad_accum: int = 1, vocab_chunk: int = 0,
                  param_sharding: str = "replicated",
                  opt_sharding: str = "replicated", sp_mode: str = "ring",
-                 clip_grad_norm: float | None = None, dropout_seed: int = 0):
+                 clip_grad_norm: float | None = None):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if sp_mode not in ("ring", "ulysses"):
@@ -89,7 +89,6 @@ class LMTrainer:
             raise _unported(f"optimizer {type(optimizer).__name__} for the "
                             "LM trainer", "item 9.1 (ops/optim.py "
                             "Adafactor)")
-        del dropout_seed  # dropout is not ported (the model refuses it)
         self.model = model
         self.device = resolve_device(device)
         self.optimizer = optimizer or AdamW()
