@@ -81,9 +81,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    running max), 1e-5 for o and 2e-5 for dq, dk, dv in f32; lse
    within 1e-4 absolute in bf16, 1e-5 in f32. At the main shape every
    bound must also catch a planted fault, the plain outputs with the last
-   64 keys dropped for the last 64 queries. Each kernel is timed at the
-   main shape (12 calls per step) beside its bound, its plain version
-   and SDPA's flash backend (forward; its backward for the two sweeps);
+   64 keys dropped for the last 64 queries. The backward sweeps take the
+   wgmma route (``bwd_route``) at the main shape and at every bf16 edge
+   shape with D in {64, 128}, the mma.sync route at the rest; at the main
+   shape two launches of each wgmma sweep must give the same bits, and
+   the mma.sync sweeps are held to the same bounds there too. Each kernel
+   is timed at the main shape (12 calls per step) beside its bound, its
+   plain version and SDPA's flash backend (forward; its backward for the
+   two sweeps), and the mma.sync sweeps beside them;
 14. small parity: TransformerLM-tiny (2 layers, d_model 128, 4 heads of
    32, vocab 1024) at seq 256, f32, flash on: three ``LMTrainer`` steps on
    the card against the same steps on the CPU, where the kernels are
@@ -96,9 +101,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    seq 2048, flash on, ``remat="none"``, bf16 compute, AdamW — 2 warm-up
    steps, then 10 timed steps on one repeated batch: every loss finite,
    the last below the first, and the flash launch counts exact from 0
-   (12 of each per step). Prints ms per step, tokens/s, MFU (3 x forward
+   (12 of each per step, every backward launch on the wgmma route and
+   none on mma.sync). Prints ms per step, tokens/s, MFU (3 x forward
    FLOPs / step time / 989e12) and peak memory, then a profiler window
-   over 3 steps: the device's idle share and its top kernels;
+   over 3 steps: the device's idle share and its top kernels; then the
+   previous design on the same path, the mma.sync sweeps forced for 10
+   untraced steps and a 3-step profiler window;
 16. one step's loss and gradients through the kernels against the same
    through the plain versions (same params, same batch): loss within
    2e-4 relative, which must also catch the same step with the planted
@@ -108,8 +116,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    the plain gradient is above 5e-2 of its leaf's largest (below that
    the sign-like first moments of AdamW can differ, and those elements
    are counted); then one step under
-   ``remat="blocks"``: 24 forward launches and a loss within 1e-5
-   relative of the ``"none"`` step's.
+   ``remat="blocks"``: 24 forward launches, 12 of each wgmma sweep and a
+   loss within 1e-5 relative of the ``"none"`` step's.
 
 Prints the card's name and power limit, the serving and training
 metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
@@ -210,14 +218,37 @@ def build_all() -> dict:
         tmp.replace(out)
     for src in sources:
         cuda_build.load(src)
-    regs = {}
+    regs, kernels = {}, {}
     for src in sources:
         log = cuda_build.library_path(src).with_suffix(".log")
         if log.exists():
+            text = log.read_text()
             regs[src] = [ln.split("info    : ")[-1] for ln in
-                         log.read_text().splitlines() if "registers" in ln]
+                         text.splitlines() if "registers" in ln]
+            kernels.update(_ptxas_kernels(text))
     return {"sources": sources, "build_s": time.perf_counter() - t0,
-            "ptxas": regs}
+            "ptxas": regs, "ptxas_by_kernel": kernels}
+
+
+def _ptxas_kernels(text: str) -> dict:
+    """Registers per thread and spill bytes (stores + loads) of every
+    sm_90a entry function in an ``-Xptxas -v`` report, by mangled name."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)' for 'sm_90a'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if name and m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if name and m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def cuda_ms(fn, args_list, reps: int) -> float:
@@ -1200,7 +1231,8 @@ def check_flash(dev, gen) -> dict:
         where = (f"B={b} L={L} H={h} KV={kvh} D={d} causal={causal} "
                  f"{dtype}")
         _fail_on(errs, where)
-        edge[where] = {"bounds": {k_: list(v_) for k_, v_ in errs.items()},
+        edge[where] = {"bwd_route": fa.bwd_route(q, k, v, do),
+                       "bounds": {k_: list(v_) for k_, v_ in errs.items()},
                        "readings": reads}
     shape = FLASH_MAIN
     q, k, v, do = _flash_inputs(shape, True, torch.bfloat16, gen, dev)
@@ -1218,6 +1250,33 @@ def check_flash(dev, gen) -> dict:
             fail(f"the {w} bound {tol} misses the planted fault (a dropped "
                  f"tile reads {seen})")
     plse, delta = plain["lse"], plain["delta"]
+    route = fa.bwd_route(q, k, v, do)
+    if route != "wgmma":
+        fail(f"the LM-large shape takes the {route} backward, not wgmma")
+    # The wgmma sweeps use no atomics: two launches give the same bits.
+    runs = [(*fa.flash_bwd_kv(q, k, v, do, plse, delta, True),
+             fa.flash_bwd_q(q, k, v, do, plse, delta, True))
+            for _ in range(2)]
+    if not all(torch.equal(a, b_) for a, b_ in zip(*runs)):
+        fail("two launches of the wgmma backward sweeps differ")
+    del runs
+    # The mma.sync sweeps, which the route keeps for f32, other head dims
+    # and unaligned inputs, at the same shape: held to the same bounds,
+    # and timed beside the wgmma sweeps.
+    tol = FLASH_TOL[q.dtype]["grad"]
+    with mock.patch.object(fa, "bwd_route", lambda *_: "mma_sync"):
+        dk, dv = fa.flash_bwd_kv(q, k, v, do, plse, delta, True)
+        dq = fa.flash_bwd_q(q, k, v, do, plse, delta, True)
+        old_reads = {"dq": _readings(dq, plain["dq"]),
+                     "dk": _readings(dk, plain["dk"]),
+                     "dv": _readings(dv, plain["dv"])}
+        del dk, dv, dq
+        _fail_on({w: (r["row"], tol) for w, r in old_reads.items()},
+                 f"the LM-large shape {shape} (mma_sync route)")
+        old = {"bwd_kv": timed(lambda: fa.flash_bwd_kv(
+            q, k, v, do, plse, delta, True), [()], 20),
+            "bwd_q": timed(lambda: fa.flash_bwd_q(
+                q, k, v, do, plse, delta, True), [()], 20)}
     del plain, faulty
     reps = 50
     kern = {"fwd": timed(lambda: fa.flash_fwd(q, k, v, True), [()], reps),
@@ -1266,9 +1325,13 @@ def check_flash(dev, gen) -> dict:
             "timing": _timing_label(kern[name], plain[name], lib)}
         if name == "bwd_kv":
             rows[name]["max_abs_err_dv"] = reads["dv"]["max_abs"]
+        if name != "fwd":
+            rows[name].update(kernel_route=route,
+                              mma_sync_ms=FLASH_LAYERS * old[name]["ms"])
     return {"shape": shape,
             "bounds": {k_: list(v_) for k_, v_ in errs.items()},
             "readings": reads, "planted_fault_readings": fault,
+            "mma_sync_readings": old_reads,
             "library_fwd_max_abs_err": lib_err, "edge_shapes": edge,
             "kernels": rows}
 
@@ -1277,6 +1340,48 @@ def _flash_wrappers():
     from tpu_ddp_torch.ops import flash_attention as fa
     return {"flash_fwd": fa.flash_fwd, "flash_bwd_kv": fa.flash_bwd_kv,
             "flash_bwd_q": fa.flash_bwd_q}
+
+
+def _zero_launches(wrappers) -> None:
+    """Set every count to 0: an int, or a dict by route for the two
+    backward sweeps."""
+    for w in wrappers.values():
+        w.launches = (dict.fromkeys(w.launches, 0)
+                      if isinstance(w.launches, dict) else 0)
+
+
+def _launches(wrappers) -> dict:
+    return {k: dict(w.launches) if isinstance(w.launches, dict)
+            else w.launches for k, w in wrappers.items()}
+
+
+def _flash_want(fwd: int, bwd: int) -> dict:
+    """The exact counts of a run on the main path: every backward launch
+    on the wgmma route."""
+    return {"flash_fwd": fwd,
+            "flash_bwd_kv": {"wgmma": bwd, "mma_sync": 0},
+            "flash_bwd_q": {"wgmma": bwd, "mma_sync": 0}}
+
+
+# Each wrapper's kernels by name in a trace (neither name is a substring
+# of the other): the wgmma sweep first, then the mma.sync one.
+FLASH_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+                 "flash_bwd_kv": ("flash_bwd_kv_wgmma_kernel",
+                                  "flash_bwd_kv_kernel"),
+                 "flash_bwd_q": ("flash_bwd_q_wgmma_kernel",
+                                 "flash_bwd_q_kernel")}
+
+
+def _flash_window(prof, steps: int) -> dict:
+    """Device ms per step of each flash kernel in a trace, by wrapper and
+    by kernel name."""
+    dev_us = _device_us(prof)
+    by_kernel = {p: sum(v for n, v in dev_us.items() if p in n) / 1e3
+                 / steps for pats in FLASH_KERNELS.values() for p in pats}
+    return {"by_wrapper": {w: sum(by_kernel[p] for p in pats)
+                           for w, pats in FLASH_KERNELS.items()},
+            "by_kernel": by_kernel,
+            "device_ms_per_step": sum(dev_us.values()) / 1e3 / steps}
 
 
 def lm_parity(dev) -> dict:
@@ -1372,8 +1477,7 @@ def train_lm(dev, seed: int) -> dict:
         losses.append(float(loss))
     torch.cuda.reset_peak_memory_stats(dev)
     wrappers = _flash_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_launches(wrappers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed_losses = []
@@ -1382,10 +1486,11 @@ def train_lm(dev, seed: int) -> dict:
         timed_losses.append(loss)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = _launches(wrappers)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     losses += [float(v) for v in timed_losses]
-    want = {k: model.num_layers * LM_STEPS for k in wrappers}
+    n = model.num_layers * LM_STEPS
+    want = _flash_want(n, n)
     if counts != want:
         fail(f"LM launch counts {counts}, expected {want} ({LM_STEPS} "
              f"steps x {model.num_layers} layers)")
@@ -1408,11 +1513,7 @@ def train_lm(dev, seed: int) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = _device_us(prof)
     busy_ms = sum(dev_us.values()) / 1e3
-    names = {"flash_fwd": "flash_fwd_kernel",
-             "flash_bwd_kv": "flash_bwd_kv_kernel",
-             "flash_bwd_q": "flash_bwd_q_kernel"}
-    ours = {k: sum(v for n, v in dev_us.items() if p in n) / 1e3 / LM_TRACED
-            for k, p in names.items()}
+    flash = _flash_window(prof, LM_TRACED)
     gemm = sum(v for n, v in dev_us.items()
                if re.search(r"gemm|sm90_xmma|cutlass|nvjet", n)) / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
@@ -1424,9 +1525,37 @@ def train_lm(dev, seed: int) -> dict:
               "device_idle_share": 1 - busy_ms / wall_ms,
               "device_ms_per_step": busy_ms / LM_TRACED,
               "untraced_idle_share": 1 - busy_ms / LM_TRACED / (step_s * 1e3),
-              "flash_ms_per_step": ours,
+              "flash_ms_per_step": flash["by_wrapper"],
+              "flash_kernel_ms_per_step": flash["by_kernel"],
               "gemm_ms_per_step": gemm / LM_TRACED,
               "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
+
+    # The previous design on the same path: the mma.sync sweeps forced,
+    # LM_STEPS untraced steps and LM_TRACED traced ones, in this run.
+    from tpu_ddp_torch.ops import flash_attention as fa
+    with mock.patch.object(fa, "bwd_route", lambda *_: "mma_sync"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_STEPS):
+            state, loss = tr.train_step(state, x, y)
+        float(loss)
+        torch.cuda.synchronize()
+        old_step_s = (time.perf_counter() - t0) / LM_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LM_TRACED):
+                state, loss = tr.train_step(state, x, y)
+            float(loss)
+            torch.cuda.synchronize()
+    old = _flash_window(prof, LM_TRACED)
+    if not all(old["by_kernel"][p[-1]] > 0 for p in FLASH_KERNELS.values()):
+        fail(f"the forced mma.sync window ran no mma.sync sweep: {old}")
+    mma_sync = {"ms_per_step": old_step_s * 1e3,
+                "tokens_per_s": LM_BATCH * LM_SEQ / old_step_s,
+                "mfu": 3 * transformer_fwd_flops(model, LM_BATCH, LM_SEQ)
+                / old_step_s / BF16_FLOP_PER_S,
+                "device_ms_per_step": old["device_ms_per_step"],
+                "flash_ms_per_step": old["by_wrapper"]}
     return {"model": model.name, "params": sum(
         p.numel() for p in tree_leaves(state.params)), "batch": LM_BATCH,
         "seq": LM_SEQ, "setup_s": setup_s, "warmup_steps": LM_WARMUP,
@@ -1436,6 +1565,7 @@ def train_lm(dev, seed: int) -> dict:
         "fwd_flops": fwd_flops,
         "mfu": 3 * fwd_flops / step_s / BF16_FLOP_PER_S,
         "peak_mem_gib": peak, "traced_window": window,
+        "mma_sync_backward": mma_sync,
         "_trainer": tr, "_state": state, "_batch": (x, y)}
 
 
@@ -1526,14 +1656,11 @@ def lm_step_checks(dev, run: dict) -> dict:
     model_b = dataclasses.replace(tr.model, remat="blocks")
     trb = LMTrainer(model_b, device=dev)
     wrappers = _flash_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_launches(wrappers)
     lb, _ = trb._loss_and_grads(leaves, state.params, x, y)
     lb = float(lb)
-    counts = {k: w.launches for k, w in wrappers.items()}
-    want = {"flash_fwd": 2 * model_b.num_layers,
-            "flash_bwd_kv": model_b.num_layers,
-            "flash_bwd_q": model_b.num_layers}
+    counts = _launches(wrappers)
+    want = _flash_want(2 * model_b.num_layers, model_b.num_layers)
     if counts != want:
         fail(f"remat='blocks' launch counts {counts}, expected {want}")
     if not abs(lb - lk) <= 1e-5 * abs(lk):
@@ -1653,7 +1780,7 @@ def main() -> None:
                 "flash_bwd_q": ("bwd_q", 357)}
     for name, (key, line) in replaces.items():
         k = flash["kernels"][key]
-        kernels.append({
+        row = {
             "name": name,
             "route": "cuda",
             "source": "tpu_ddp_torch/ops/csrc/flash_attention.cu",
@@ -1669,7 +1796,25 @@ def main() -> None:
                                           "library_ms", "event_ms",
                                           "timing")},
             "main_path_ms": lm["traced_window"]["flash_ms_per_step"][name],
-        })
+        }
+        if name != "flash_fwd":
+            # The sweep's launches on its wgmma route; the previous design
+            # (the mma.sync sweep) beside it, timed in this run on the
+            # same path (phase 15's forced window) and alone (phase 13).
+            ptx = {kn: r for kn, r in build["ptxas_by_kernel"].items()
+                   if f"{name}_wgmma_kernel" in kn}
+            row.update(
+                launches=lm["launches"][name]["wgmma"],
+                mma_sync_launches=lm["launches"][name]["mma_sync"],
+                kernel_route=k["kernel_route"],
+                was_main_path_ms=lm["mma_sync_backward"][
+                    "flash_ms_per_step"][name],
+                was_ms=k["mma_sync_ms"],
+                registers=max((r["registers"] for r in ptx.values()),
+                              default=None),
+                spill_bytes=sum(r["spill_bytes"] for r in ptx.values())
+                if ptx else None)
+        kernels.append(row)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "build": build, "shapes": rows,

@@ -127,13 +127,70 @@ def test_strided_v_and_bf16_rounding_points():
 
 
 def test_the_cpu_route_launches_no_kernel():
-    before = (fa.flash_fwd.launches, fa.flash_bwd_kv.launches,
-              fa.flash_bwd_q.launches)
-    q, k, v, g = (torch.tensor(x, requires_grad=True)
-                  for x in _inputs(1, 16, 2, 1, 16))
-    torch.autograd.grad(fa.flash_attention(q, k, v, True), (q, k, v), g)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_kv.launches,
-            fa.flash_bwd_q.launches) == before
+    """A CPU tensor takes the plain versions: no launch is counted, on
+    either backward route, even for inputs the wgmma route would take."""
+    def counts():
+        return (fa.flash_fwd.launches, dict(fa.flash_bwd_kv.launches),
+                dict(fa.flash_bwd_q.launches))
+
+    before = counts()
+    assert set(before[1]) == set(before[2]) == set(fa.BWD_ROUTES)
+    for dtype, d in ((torch.float32, 16), (torch.bfloat16, 64)):
+        q, k, v, g = (torch.tensor(x).to(dtype).requires_grad_()
+                      for x in _inputs(1, 16, 2, 1, d))
+        if dtype == torch.bfloat16:
+            assert fa.bwd_route(q, k, v, g) == "wgmma"
+        torch.autograd.grad(fa.flash_attention(q, k, v, True), (q, k, v), g)
+    assert counts() == before
+
+
+def _route_inputs(case):
+    """(q, k, v, dO) as a call of the given kind would pass them; empty
+    tensors, since the route reads only dtype, shape, strides and
+    pointers."""
+    bf = torch.bfloat16
+    if case == "main":  # LM-large: q, k after RoPE, v a view of fused qkv
+        b, L, h, d = 4, 2048, 16, 128
+        v = torch.empty(b, L, 3, h, d, dtype=bf)[:, :, 2]
+        assert v.stride() == (L * 3 * h * d, 3 * h * d, d, 1)
+        return (torch.empty(b, L, h, d, dtype=bf),
+                torch.empty(b, L, h, d, dtype=bf), v,
+                torch.empty(b, L, h, d, dtype=bf))
+    shapes = {"gqa": ((2, 512, 16, 128), 4, bf),
+              "ragged": ((2, 100, 16, 128), 16, bf),
+              "d64": ((2, 384, 16, 64), 1, bf),
+              "f32": ((1, 384, 16, 128), 16, torch.float32),
+              "d36": ((1, 200, 8, 36), 2, bf)}
+    if case in shapes:
+        (b, L, h, d), kvh, dtype = shapes[case]
+        return (torch.empty(b, L, h, d, dtype=dtype),
+                torch.empty(b, L, kvh, d, dtype=dtype),
+                torch.empty(b, L, kvh, d, dtype=dtype),
+                torch.empty(b, L, h, d, dtype=dtype))
+    if case == "misaligned":  # a view 2 bytes past a 16-byte boundary
+        n = 2 * 64 * 4 * 64
+        q = torch.empty(n + 1, dtype=bf)[1:].view(2, 64, 4, 64)
+        assert q.data_ptr() % 16 == 2
+        k = torch.empty(2, 64, 4, 64, dtype=bf)
+        return q, k, k, k
+    if case == "odd_stride":  # a head stride of 68 elements (136 bytes)
+        q = torch.empty(1, 64, 2, 68, dtype=bf)[..., :64]
+        k = torch.empty(1, 64, 2, 64, dtype=bf)
+        return q, k, k, k
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("main", "wgmma"), ("gqa", "wgmma"), ("ragged", "wgmma"),
+    ("d64", "wgmma"), ("f32", "mma_sync"), ("d36", "mma_sync"),
+    ("misaligned", "mma_sync"), ("odd_stride", "mma_sync"),
+])
+def test_bwd_route(case, route):
+    """Which backward kernel a CUDA call launches, chosen before the
+    launch from dtype, head dim, strides and alignment: the wgmma sweeps
+    for bf16, D in {64, 128} and TMA-addressable inputs (the LM's main
+    path among them), the mma.sync sweeps for the rest."""
+    assert fa.bwd_route(*_route_inputs(case)) == route
 
 
 def _bad_inputs(case):

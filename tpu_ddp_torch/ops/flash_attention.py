@@ -1,14 +1,22 @@
 """Flash attention: exact softmax attention on (B, L, H, D) tensors,
 causal or not, with grouped-query K/V — the LM family's hot op.
 
-Counterpart of tpu_ddp/ops/pallas/flash_attention.py. Three kernels,
-each behind its own wrapper with a launch count:
+Counterpart of tpu_ddp/ops/pallas/flash_attention.py. Three Pallas
+kernels, each behind its own wrapper with a launch count:
 
 - :func:`flash_fwd` — the online-softmax forward, returning ``o`` and the
   logsumexp ``lse`` (B, H, L) f32 the backward needs (``_fwd_kernel``);
 - :func:`flash_bwd_kv` — the dk/dv sweep, accumulating every q head of a
   KV head's group (``_bwd_kv_kernel``);
 - :func:`flash_bwd_q` — the dq sweep (``_bwd_q_kernel``).
+
+Each backward sweep has two CUDA kernels, and :func:`bwd_route` picks
+one from the inputs before the launch: ``"wgmma"`` (Hopper's warpgroup
+products fed by TMA, for bf16 with D in {64, 128} and inputs the TMA can
+address: 16-byte aligned base pointers and B, L, head strides that are
+multiples of 16 bytes) or ``"mma_sync"`` (everything else the op takes:
+f32, other head dims, unaligned views). Each backward wrapper counts its
+launches per route in ``launches``, a dict keyed by route.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``ops/csrc/flash_attention.cu``, built with nvcc at first use) and never
@@ -150,9 +158,12 @@ def _lib():
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
     tail = [i, i, i, i, i, f, i, i, i, p]  # B H KV L D scale causal bf16 vec s
+    wg_tail = [i, i, i, i, i, f, i, p]     # B H KV L D scale causal s
     sigs = {"tdt_flash_fwd": [p] * 5 + [ll] * 9 + tail,
             "tdt_flash_bwd_kv": [p] * 8 + [ll] * 12 + tail,
-            "tdt_flash_bwd_q": [p] * 7 + [ll] * 12 + tail}
+            "tdt_flash_bwd_q": [p] * 7 + [ll] * 12 + tail,
+            "tdt_flash_bwd_kv_wgmma": [p] * 8 + [ll] * 12 + wg_tail,
+            "tdt_flash_bwd_q_wgmma": [p] * 7 + [ll] * 12 + wg_tail}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -171,6 +182,22 @@ def _vec(tensors, d: int) -> bool:
     return d % n == 0 and all(
         t.data_ptr() % 16 == 0 and all(s % n == 0 for s in _strides(t))
         for t in tensors)
+
+
+BWD_ROUTES = ("wgmma", "mma_sync")
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The backward kernel a CUDA call of :func:`flash_bwd_kv` or
+    :func:`flash_bwd_q` launches, from dtype, head dim, strides and base
+    pointers alone: ``"wgmma"`` for bf16 with D in {64, 128} when every
+    input allows 16-byte loads (what the TMA copies need), else
+    ``"mma_sync"``."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
+            and _vec((q, k, v, do), q.shape[-1])):
+        return "wgmma"
+    return "mma_sync"
 
 
 def _cuda_checks(name, q, extra=()):
@@ -230,7 +257,8 @@ def _bwd_inputs(name, q, k, v, do, lse, delta):
 def flash_bwd_kv(q, k, v, do, lse, delta, causal: bool = False):
     """``(dk, dv)``, each (B, L, KV, D) in k's dtype, from the forward's
     inputs, dO (like q), its lse and ``delta = rowsum(dO * o)`` (B, H, L)
-    f32. Each launch adds one to ``flash_bwd_kv.launches``."""
+    f32. Each launch adds one to ``flash_bwd_kv.launches[route]``, the
+    route :func:`bwd_route` picked."""
     b, L, h, kvh, d = _bwd_inputs("flash_bwd_kv", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_kv_plain(q, k, v, do, lse, delta, causal)
@@ -240,22 +268,28 @@ def flash_bwd_kv(q, k, v, do, lse, delta, causal: bool = False):
     dv = torch.empty((b, L, kvh, d), dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
+    route = bwd_route(q, k, v, do)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_kv", _lib().tdt_flash_bwd_kv, (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            b, h, kvh, L, d, 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), int(_vec((q, k, v, do), d)),
-            stream), (b, L, h, kvh, d))
-    flash_bwd_kv.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+                *_strides(do), b, h, kvh, L, d, 1.0 / math.sqrt(d),
+                int(causal))
+        if route == "wgmma":
+            fn, args = _lib().tdt_flash_bwd_kv_wgmma, args + (stream,)
+        else:
+            fn, args = _lib().tdt_flash_bwd_kv, args + (
+                int(q.dtype == torch.bfloat16),
+                int(_vec((q, k, v, do), d)), stream)
+        _launch(f"flash_bwd_kv ({route})", fn, args, (b, L, h, kvh, d))
+    flash_bwd_kv.launches[route] += 1
     return dk, dv
 
 
 def flash_bwd_q(q, k, v, do, lse, delta, causal: bool = False):
     """dq (B, L, H, D) like q; inputs as :func:`flash_bwd_kv`. Each launch
-    adds one to ``flash_bwd_q.launches``."""
+    adds one to ``flash_bwd_q.launches[route]``."""
     b, L, h, kvh, d = _bwd_inputs("flash_bwd_q", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_q_plain(q, k, v, do, lse, delta, causal)
@@ -264,22 +298,27 @@ def flash_bwd_q(q, k, v, do, lse, delta, causal: bool = False):
     dq = torch.empty((b, L, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
+    route = bwd_route(q, k, v, do)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_q", _lib().tdt_flash_bwd_q, (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            b, h, kvh, L, d, 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), int(_vec((q, k, v, do), d)),
-            stream), (b, L, h, kvh, d))
-    flash_bwd_q.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+                b, h, kvh, L, d, 1.0 / math.sqrt(d), int(causal))
+        if route == "wgmma":
+            fn, args = _lib().tdt_flash_bwd_q_wgmma, args + (stream,)
+        else:
+            fn, args = _lib().tdt_flash_bwd_q, args + (
+                int(q.dtype == torch.bfloat16),
+                int(_vec((q, k, v, do), d)), stream)
+        _launch(f"flash_bwd_q ({route})", fn, args, (b, L, h, kvh, d))
+    flash_bwd_q.launches[route] += 1
     return dq
 
 
 flash_fwd.launches = 0
-flash_bwd_kv.launches = 0
-flash_bwd_q.launches = 0
+flash_bwd_kv.launches = dict.fromkeys(BWD_ROUTES, 0)
+flash_bwd_q.launches = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def attention_delta(o, do):
