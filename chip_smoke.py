@@ -9,10 +9,17 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. refuse to run without CUDA;
 2. build every kernel from ``tpu_ddp_torch/ops/csrc`` with nvcc (one
    process per source, all started together);
-3. hold the int8 matmul kernel against its plain PyTorch version at the
-   TransformerLM-large projection and head shapes, M in {8, 32}
-   (max |kernel - plain| <= 1e-4 * max |plain|), and time the kernel,
-   the plain version and the bf16 ``torch.matmul`` yardstick;
+3. hold both int8 matmul routes (``int8_route``: ``"mma"``, bf16 tensor
+   cores fed by a cp.async ring, and ``"simt"``, the f32 design) against
+   their plain PyTorch version at the TransformerLM-large projection and
+   head shapes, M in {8, 32}, and at edge shapes (M in {1, 5, 13, 33,
+   64}, K not a multiple of the 64-row stage, N not a multiple of the
+   128-column tile, N not a multiple of 16 and f32 x for the simt route):
+   max |kernel - plain| <= 1e-4 * max |plain|. At the LM-large shapes,
+   which take the mma route, the bound must catch a planted fault (the
+   plain output with the last 64 rows of q, one stage, dropped) and two
+   mma launches must give the same bits; both routes are timed beside
+   the bound, the plain version and the bf16 ``torch.matmul`` yardstick;
 4. small parity: a TransformerLM-tiny engine on the card (f32 compute,
    int8 weights) against the same engine on the CPU, where the int8
    matmul is the plain version the CPU tests hold against the JAX
@@ -21,8 +28,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    weights, ``decode_quant="int8"``, 8 requests of 64-512 prompt tokens
    and 32 new tokens (half greedy, half at temperature 0.8); every
    request must finish with finite logprobs, the pool must balance, and
-   the int8 kernel's launch count must be 49 per engine pass (12 layers
-   x 4 projections + the head), counted from 0 just before the run;
+   the int8 launch counts must be 49 per engine pass (12 layers x 4
+   projections + the head), all on the mma route and none on simt,
+   counted from 0 just before the run; a traced decode window gives the
+   int8 kernels' device time per decode step, and a second one, with the
+   simt route forced, the previous design's;
 6. one decode step's logits through the kernel against the same step
    through the plain version (max |delta| <= 5e-2 * max |plain|: bf16
    activations re-round at every layer, so a last-bit difference in one
@@ -81,14 +91,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    running max), 1e-5 for o and 2e-5 for dq, dk, dv in f32; lse
    within 1e-4 absolute in bf16, 1e-5 in f32. At the main shape every
    bound must also catch a planted fault, the plain outputs with the last
-   64 keys dropped for the last 64 queries. The backward sweeps take the
-   wgmma route (``bwd_route``) at the main shape and at every bf16 edge
-   shape with D in {64, 128}, the mma.sync route at the rest; at the main
-   shape two launches of each wgmma sweep must give the same bits, and
-   the mma.sync sweeps are held to the same bounds there too. Each kernel
-   is timed at the main shape (12 calls per step) beside its bound, its
-   plain version and SDPA's flash backend (forward; its backward for the
-   two sweeps), and the mma.sync sweeps beside them;
+   64 keys dropped for the last 64 queries. Every kernel takes the wgmma
+   route (``fwd_route``, ``bwd_route``) at the main shape and at every
+   bf16 edge shape with D in {64, 128}, the mma.sync route at the rest;
+   at the main shape two launches of each wgmma kernel must give the
+   same bits, and the mma.sync kernels are held to the same bounds there
+   too. Each kernel is timed at the main shape (12 calls per step) beside
+   its bound, its plain version and SDPA's flash backend (forward; its
+   backward for the two sweeps), and the mma.sync kernels beside them;
 14. small parity: TransformerLM-tiny (2 layers, d_model 128, 4 heads of
    32, vocab 1024) at seq 256, f32, flash on: three ``LMTrainer`` steps on
    the card against the same steps on the CPU, where the kernels are
@@ -101,11 +111,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    seq 2048, flash on, ``remat="none"``, bf16 compute, AdamW — 2 warm-up
    steps, then 10 timed steps on one repeated batch: every loss finite,
    the last below the first, and the flash launch counts exact from 0
-   (12 of each per step, every backward launch on the wgmma route and
-   none on mma.sync). Prints ms per step, tokens/s, MFU (3 x forward
+   (12 of each per step, every launch on the wgmma route and none on
+   mma.sync). Prints ms per step, tokens/s, MFU (3 x forward
    FLOPs / step time / 989e12) and peak memory, then a profiler window
    over 3 steps: the device's idle share and its top kernels; then the
-   previous design on the same path, the mma.sync sweeps forced for 10
+   previous design on the same path, the mma.sync forward forced for 10
    untraced steps and a 3-step profiler window;
 16. one step's loss and gradients through the kernels against the same
    through the plain versions (same params, same batch): loss within
@@ -115,9 +125,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    and the AdamW update within 5e-2 x the step's largest update wherever
    the plain gradient is above 5e-2 of its leaf's largest (below that
    the sign-like first moments of AdamW can differ, and those elements
-   are counted); then one step under
-   ``remat="blocks"``: 24 forward launches, 12 of each wgmma sweep and a
-   loss within 1e-5 relative of the ``"none"`` step's.
+   are counted); then one step under ``remat="blocks"``: 24 wgmma
+   forward launches, 12 of each wgmma sweep and a loss within 1e-5
+   relative of the ``"none"`` step's.
 
 Prints the card's name and power limit, the serving and training
 metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
@@ -311,10 +321,57 @@ def timed(fn, args_list, reps: int) -> dict:
             "ms": dv if dv is not None else ev}
 
 
-def check_kernel(dev, gen) -> list[dict]:
+# Edge shapes (M, K, N, dtype) beside LARGE_SHAPES: one row, M in {5,
+# 13, 33, 64} (partial and several row tiles), K not a multiple of the
+# mma route's 64-row stage (2056, 520), N not a multiple of its 128-column
+# tile (2064), N not a multiple of 16 or K of 8 (the simt route), and f32
+# x (the simt route, the parity path).
+INT8_EDGE = [(1, 2048, 2048, torch.bfloat16), (5, 2056, 2048, torch.bfloat16),
+             (13, 2056, 6144, torch.bfloat16),
+             (33, 2048, 2064, torch.bfloat16), (64, 520, 4096, torch.bfloat16),
+             (8, 2048, 2050, torch.bfloat16), (3, 100, 70, torch.bfloat16),
+             (8, 2048, 2048, torch.float32), (40, 130, 201, torch.float32)]
+INT8_K_TILE = 64  # the mma route's k rows per stage: the planted fault's cut
+
+
+def _force(module, name, route):
+    """Patch ``module.name`` (a route function) to answer ``route``."""
+    return mock.patch.object(module, name, lambda *_: route)
+
+
+def _int8_err(fn, x, q, s, ref):
+    out = fn(x, q, s)
+    torch.cuda.synchronize()
+    return out, float((out - ref).abs().max())
+
+
+def check_kernel(dev, gen) -> dict:
+    """Phase 3: both int8 routes against the plain version at the ten
+    LM-large shapes and the edge shapes; at the LM-large shapes the bound
+    must catch a planted fault, two mma launches must give the same bits,
+    and each route is timed beside the bound, the plain version and
+    ``torch.matmul`` on a bf16 weight."""
+    from tpu_ddp_torch.ops import quant_matmul as qm
     from tpu_ddp_torch.ops.quant import dequantize, quantize_weight
-    from tpu_ddp_torch.ops.quant_matmul import int8_matmul, int8_matmul_ref
-    rows = []
+    int8_matmul, ref_fn = qm.int8_matmul, qm.int8_matmul_ref
+    rows, edge = [], []
+    for m, k, n, dtype in INT8_EDGE:
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        qw = quantize_weight(0.02 * torch.randn(k, n, generator=gen,
+                                                device=dev))
+        ref = ref_fn(x, qw.q, qw.s)
+        tol = 1e-4 * float(ref.abs().max())
+        route = qm.int8_route(x, qw.q)
+        errs = {route: _int8_err(int8_matmul, x, qw.q, qw.s, ref)[1]}
+        if route == "mma":
+            with _force(qm, "int8_route", "simt"):
+                errs["simt"] = _int8_err(int8_matmul, x, qw.q, qw.s, ref)[1]
+        for r, err in errs.items():
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"int8_matmul ({r}) disagrees with its plain version at"
+                     f" M={m} K={k} N={n} {dtype}: max|d|={err} vs tol {tol}")
+        edge.append({"m": m, "k": k, "n": n, "dtype": str(dtype),
+                     "route": route, "max_abs_err": errs, "tol": tol})
     for m in (8, 32):
         for name, ((k, n), per_pass) in LARGE_SHAPES.items():
             copies = max(2, math.ceil(2 * L2_BYTES / (k * n)))
@@ -322,19 +379,40 @@ def check_kernel(dev, gen) -> list[dict]:
                 torch.bfloat16)
             qws = [quantize_weight(0.02 * torch.randn(
                 k, n, generator=gen, device=dev)) for _ in range(copies)]
-            out = int8_matmul(x, qws[0].q, qws[0].s)
-            ref = int8_matmul_ref(x, qws[0].q, qws[0].s)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scale = float(ref.abs().max())
-            if not (out.shape == ref.shape and math.isfinite(err)
-                    and err <= 1e-4 * scale):
-                fail(f"int8_matmul disagrees with its plain version at "
-                     f"M={m} K={k} N={n}: max|d|={err} vs tol "
-                     f"{1e-4 * scale}")
+            q, sc = qws[0].q, qws[0].s
+            ref = ref_fn(x, q, sc)
+            tol = 1e-4 * float(ref.abs().max())
+            route = qm.int8_route(x, q)
+            if route != "mma":
+                fail(f"the LM-large shape M={m} K={k} N={n} takes the "
+                     f"{route} route, not mma")
+            out, err = _int8_err(int8_matmul, x, q, sc, ref)
+            again = int8_matmul(x, q, sc)
+            with _force(qm, "int8_route", "simt"):
+                _, err_simt = _int8_err(int8_matmul, x, q, sc, ref)
+            for r, e in (("mma", err), ("simt", err_simt)):
+                if not (out.shape == ref.shape and math.isfinite(e)
+                        and e <= tol):
+                    fail(f"int8_matmul ({r}) disagrees with its plain "
+                         f"version at M={m} K={k} N={n}: max|d|={e} vs tol "
+                         f"{tol}")
+            if not torch.equal(out, again):
+                fail(f"two launches of the mma route differ at M={m} K={k} "
+                     f"N={n}")
+            # The planted fault: the plain output with the last k-tile's
+            # rows of q dropped, which the bound must catch.
+            cut = k - INT8_K_TILE
+            fault = float((ref_fn(x[:, :cut], q[:cut], sc) - ref).abs()
+                          .max())
+            if not fault > tol:
+                fail(f"the int8 bound {tol} misses the planted fault (a "
+                     f"dropped k-tile reads {fault}) at M={m} K={k} N={n}")
+            del out, again
             args = [(x, qw.q, qw.s) for qw in qws]
             kern = timed(int8_matmul, args, 20 * copies)
-            plain = timed(int8_matmul_ref, args, 4 * copies)
+            with _force(qm, "int8_route", "simt"):
+                simt = timed(int8_matmul, args, 20 * copies)
+            plain = timed(ref_fn, args, 4 * copies)
             wbf = [(x, dequantize(qw).to(torch.bfloat16)) for qw in qws]
             lib = timed(torch.matmul, wbf, 20 * copies)
             del wbf, qws
@@ -343,20 +421,21 @@ def check_kernel(dev, gen) -> list[dict]:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / BF16_FLOP_PER_S * 1e3
             rows.append({"m": m, "k": k, "n": n, "proj": name,
-                         "per_pass": per_pass, "max_abs_err": err,
-                         "tol": 1e-4 * scale, "ms": kern["ms"],
+                         "per_pass": per_pass, "route": route,
+                         "max_abs_err": err, "simt_max_abs_err": err_simt,
+                         "tol": tol, "planted_fault_max_abs": fault,
+                         "ms": kern["ms"], "simt_ms": simt["ms"],
                          "plain_ms": plain["ms"], "library_ms": lib["ms"],
                          "event_ms": kern["event_ms"],
+                         "simt_event_ms": simt["event_ms"],
                          "plain_event_ms": plain["event_ms"],
                          "library_event_ms": lib["event_ms"],
-                         "timing": "profiler" if None not in (
-                             kern["device_ms"], plain["device_ms"],
-                             lib["device_ms"]) else "cuda-events",
+                         "timing": _timing_label(kern, simt, plain, lib),
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops
                          else "operations", "bytes": nbytes})
             print(json.dumps({"int8_matmul_shape": rows[-1]}), flush=True)
-    return rows
+    return {"shapes": rows, "edge_shapes": edge}
 
 
 def small_parity(dev) -> dict:
@@ -394,6 +473,7 @@ def small_parity(dev) -> dict:
 def serve_large(dev, seed: int) -> dict:
     from tpu_ddp_torch.models.transformer import make_transformer
     from tpu_ddp_torch.ops import quant
+    from tpu_ddp_torch.ops import quant_matmul as qm
     from tpu_ddp_torch.ops.quant_matmul import int8_matmul, int8_matmul_ref
     from tpu_ddp_torch.serve.engine import ServeEngine, decode_logits
     from tpu_ddp_torch.utils.tree import tree_leaves
@@ -411,7 +491,7 @@ def serve_large(dev, seed: int) -> dict:
     torch.cuda.synchronize()
 
     c0 = dict(eng.metrics.counters)
-    int8_matmul.launches = 0
+    int8_matmul.launches = dict.fromkeys(int8_matmul.launches, 0)
     lens = rng.integers(64, 513, size=8)
     t0 = time.perf_counter()
     reqs = [eng.submit(rng.integers(0, model.vocab_size, size=int(L)), 32,
@@ -420,17 +500,18 @@ def serve_large(dev, seed: int) -> dict:
     steps = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = int8_matmul.launches
+    launches = dict(int8_matmul.launches)
 
     chunks = eng.metrics.counters["serve_prefill_chunks"] \
         - c0.get("serve_prefill_chunks", 0)
     dsteps = eng.metrics.counters["serve_decode_steps"] \
         - c0.get("serve_decode_steps", 0)
     per_pass = 4 * model.num_layers + 1
-    if launches != per_pass * (chunks + dsteps) or launches == 0:
-        fail(f"int8_matmul launched {launches} times; the run made "
+    want = {"mma": per_pass * (chunks + dsteps), "simt": 0}
+    if launches != want or want["mma"] == 0:
+        fail(f"int8_matmul launched {launches} times by route; the run made "
              f"{chunks} prefill chunks + {dsteps} decode steps x "
-             f"{per_pass}")
+             f"{per_pass}, all on the mma route")
     for r in reqs:
         if not r.done or r.cancelled or r.quarantined \
                 or len(r.tokens) != 32:
@@ -466,6 +547,16 @@ def serve_large(dev, seed: int) -> dict:
              f"{step_tol}")
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     trace = traced_run(eng)
+    # The previous design on the same path: the same probe, its decode
+    # traced with the simt route forced.
+    probe += [eng.submit(rng.integers(0, model.vocab_size, size=64), 32)
+              for _ in range(eng.num_slots)]
+    while eng.sched.queue or eng.sched.prefill_slot() is not None:
+        eng.step()
+    with _force(qm, "int8_route", "simt"):
+        trace_simt = traced_run(eng)
+    if not trace_simt["int8_device_ms"]["simt"] > 0:
+        fail(f"the forced simt window ran no simt kernel: {trace_simt}")
     for r in probe:
         if not r.done:
             fail("probe request did not finish")
@@ -479,7 +570,14 @@ def serve_large(dev, seed: int) -> dict:
         "launches": launches, "decode_step_logit_err": step_err,
         "decode_step_logit_tol": step_tol,
         "decode_step_argmax_agreement": agree, "traced_window": trace,
+        "traced_window_simt": trace_simt,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+# The int8 kernels by name in a trace (no name is a substring of
+# another): each route's kernel and the simt route's split-K pass.
+INT8_KERNELS = {"mma": "int8_matmul_mma_kernel",
+                "simt": "int8_matmul_kernel", "reduce": "splitk_reduce"}
 
 
 def traced_run(eng) -> dict:
@@ -497,14 +595,19 @@ def traced_run(eng) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = _device_us(prof)
     busy_ms = sum(dev_us.values()) / 1e3
-    kern_ms = sum(v for k, v in dev_us.items()
-                  if "int8_matmul_kernel" in k or "splitk_reduce" in k) / 1e3
+    by_kernel = {p: sum(v for k, v in dev_us.items() if p in k) / 1e3
+                 for p in INT8_KERNELS.values()}
+    steps = eng.metrics.counters["serve_decode_steps"] \
+        - c0.get("serve_decode_steps", 0)
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-    return {"decode_steps": eng.metrics.counters["serve_decode_steps"]
-            - c0.get("serve_decode_steps", 0),
+    return {"decode_steps": steps,
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "int8_matmul_device_ms": kern_ms,
+            "int8_device_ms": {r: by_kernel[p]
+                               for r, p in INT8_KERNELS.items()},
+            "int8_matmul_device_ms": sum(by_kernel.values()),
+            "int8_ms_per_decode_step": sum(by_kernel.values()) / steps
+            if steps else None,
             "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
 
 
@@ -1231,7 +1334,8 @@ def check_flash(dev, gen) -> dict:
         where = (f"B={b} L={L} H={h} KV={kvh} D={d} causal={causal} "
                  f"{dtype}")
         _fail_on(errs, where)
-        edge[where] = {"bwd_route": fa.bwd_route(q, k, v, do),
+        edge[where] = {"fwd_route": fa.fwd_route(q, k, v),
+                       "bwd_route": fa.bwd_route(q, k, v, do),
                        "bounds": {k_: list(v_) for k_, v_ in errs.items()},
                        "readings": reads}
     shape = FLASH_MAIN
@@ -1251,20 +1355,32 @@ def check_flash(dev, gen) -> dict:
                  f"tile reads {seen})")
     plse, delta = plain["lse"], plain["delta"]
     route = fa.bwd_route(q, k, v, do)
-    if route != "wgmma":
-        fail(f"the LM-large shape takes the {route} backward, not wgmma")
-    # The wgmma sweeps use no atomics: two launches give the same bits.
-    runs = [(*fa.flash_bwd_kv(q, k, v, do, plse, delta, True),
+    if route != "wgmma" or fa.fwd_route(q, k, v) != "wgmma":
+        fail(f"the LM-large shape takes the {fa.fwd_route(q, k, v)} forward"
+             f" and the {route} backward, not wgmma")
+    # The wgmma kernels use no atomics: two launches give the same bits.
+    runs = [(*fa.flash_fwd(q, k, v, True),
+             *fa.flash_bwd_kv(q, k, v, do, plse, delta, True),
              fa.flash_bwd_q(q, k, v, do, plse, delta, True))
             for _ in range(2)]
     if not all(torch.equal(a, b_) for a, b_ in zip(*runs)):
-        fail("two launches of the wgmma backward sweeps differ")
+        fail("two launches of the wgmma kernels differ")
     del runs
-    # The mma.sync sweeps, which the route keeps for f32, other head dims
-    # and unaligned inputs, at the same shape: held to the same bounds,
-    # and timed beside the wgmma sweeps.
+    # The mma.sync forward and sweeps, which the routes keep for f32,
+    # other head dims and unaligned inputs, at the same shape: held to the
+    # same bounds, and timed beside the wgmma kernels.
+    with _force(fa, "fwd_route", "mma_sync"):
+        o, lse = fa.flash_fwd(q, k, v, True)
+        old_fwd = {"o": _readings(o, plain["o"]),
+                   "lse": {"abs": float((lse - plse).abs().max())}}
+        del o, lse
+        ftol = FLASH_TOL[q.dtype]
+        _fail_on({"o": (old_fwd["o"]["row"], ftol["o"]),
+                  "lse": (old_fwd["lse"]["abs"], ftol["lse"])},
+                 f"the LM-large shape {shape} (mma_sync forward)")
+        old_fwd_t = timed(lambda: fa.flash_fwd(q, k, v, True), [()], 20)
     tol = FLASH_TOL[q.dtype]["grad"]
-    with mock.patch.object(fa, "bwd_route", lambda *_: "mma_sync"):
+    with _force(fa, "bwd_route", "mma_sync"):
         dk, dv = fa.flash_bwd_kv(q, k, v, do, plse, delta, True)
         dq = fa.flash_bwd_q(q, k, v, do, plse, delta, True)
         old_reads = {"dq": _readings(dq, plain["dq"]),
@@ -1273,7 +1389,7 @@ def check_flash(dev, gen) -> dict:
         del dk, dv, dq
         _fail_on({w: (r["row"], tol) for w, r in old_reads.items()},
                  f"the LM-large shape {shape} (mma_sync route)")
-        old = {"bwd_kv": timed(lambda: fa.flash_bwd_kv(
+        old = {"fwd": old_fwd_t, "bwd_kv": timed(lambda: fa.flash_bwd_kv(
             q, k, v, do, plse, delta, True), [()], 20),
             "bwd_q": timed(lambda: fa.flash_bwd_q(
                 q, k, v, do, plse, delta, True), [()], 20)}
@@ -1325,13 +1441,12 @@ def check_flash(dev, gen) -> dict:
             "timing": _timing_label(kern[name], plain[name], lib)}
         if name == "bwd_kv":
             rows[name]["max_abs_err_dv"] = reads["dv"]["max_abs"]
-        if name != "fwd":
-            rows[name].update(kernel_route=route,
-                              mma_sync_ms=FLASH_LAYERS * old[name]["ms"])
+        rows[name].update(kernel_route=route,
+                          mma_sync_ms=FLASH_LAYERS * old[name]["ms"])
     return {"shape": shape,
             "bounds": {k_: list(v_) for k_, v_ in errs.items()},
             "readings": reads, "planted_fault_readings": fault,
-            "mma_sync_readings": old_reads,
+            "mma_sync_readings": {**old_reads, **old_fwd},
             "library_fwd_max_abs_err": lib_err, "edge_shapes": edge,
             "kernels": rows}
 
@@ -1356,16 +1471,16 @@ def _launches(wrappers) -> dict:
 
 
 def _flash_want(fwd: int, bwd: int) -> dict:
-    """The exact counts of a run on the main path: every backward launch
-    on the wgmma route."""
-    return {"flash_fwd": fwd,
+    """The exact counts of a run on the main path: every launch on the
+    wgmma route."""
+    return {"flash_fwd": {"wgmma": fwd, "mma_sync": 0},
             "flash_bwd_kv": {"wgmma": bwd, "mma_sync": 0},
             "flash_bwd_q": {"wgmma": bwd, "mma_sync": 0}}
 
 
 # Each wrapper's kernels by name in a trace (neither name is a substring
-# of the other): the wgmma sweep first, then the mma.sync one.
-FLASH_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+# of the other): the wgmma kernel first, then the mma.sync one.
+FLASH_KERNELS = {"flash_fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
                  "flash_bwd_kv": ("flash_bwd_kv_wgmma_kernel",
                                   "flash_bwd_kv_kernel"),
                  "flash_bwd_q": ("flash_bwd_q_wgmma_kernel",
@@ -1530,10 +1645,11 @@ def train_lm(dev, seed: int) -> dict:
               "gemm_ms_per_step": gemm / LM_TRACED,
               "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]}
 
-    # The previous design on the same path: the mma.sync sweeps forced,
+    # The previous design on the same path: the mma.sync forward forced
+    # (the backward's previous design is timed alone in phase 13),
     # LM_STEPS untraced steps and LM_TRACED traced ones, in this run.
     from tpu_ddp_torch.ops import flash_attention as fa
-    with mock.patch.object(fa, "bwd_route", lambda *_: "mma_sync"):
+    with _force(fa, "fwd_route", "mma_sync"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(LM_STEPS):
@@ -1548,8 +1664,10 @@ def train_lm(dev, seed: int) -> dict:
             float(loss)
             torch.cuda.synchronize()
     old = _flash_window(prof, LM_TRACED)
-    if not all(old["by_kernel"][p[-1]] > 0 for p in FLASH_KERNELS.values()):
-        fail(f"the forced mma.sync window ran no mma.sync sweep: {old}")
+    if not (old["by_kernel"]["flash_fwd_kernel"] > 0
+            and old["by_kernel"]["flash_fwd_wgmma_kernel"] == 0):
+        fail(f"the forced window did not run the mma.sync forward alone: "
+             f"{old}")
     mma_sync = {"ms_per_step": old_step_s * 1e3,
                 "tokens_per_s": LM_BATCH * LM_SEQ / old_step_s,
                 "mfu": 3 * transformer_fwd_flops(model, LM_BATCH, LM_SEQ)
@@ -1565,7 +1683,7 @@ def train_lm(dev, seed: int) -> dict:
         "fwd_flops": fwd_flops,
         "mfu": 3 * fwd_flops / step_s / BF16_FLOP_PER_S,
         "peak_mem_gib": peak, "traced_window": window,
-        "mma_sync_backward": mma_sync,
+        "mma_sync_forward": mma_sync,
         "_trainer": tr, "_state": state, "_batch": (x, y)}
 
 
@@ -1697,7 +1815,8 @@ def main() -> None:
     build = build_all()
     print(json.dumps({"build": build}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = check_kernel(dev, gen)
+    int8 = check_kernel(dev, gen)
+    rows = int8["shapes"]
     parity = small_parity(dev)
     print(json.dumps({"small_parity": parity}), flush=True)
     serve = serve_large(dev, args.seed)
@@ -1733,15 +1852,36 @@ def main() -> None:
     t_bytes = per_pass(8, "bytes") / HBM_BYTES_PER_S * 1e3
     t_ops = sum(2 * 8 * r["k"] * r["n"] * r["per_pass"] for r in rows
                 if r["m"] == 8) / BF16_FLOP_PER_S * 1e3
+    def ptxas(pattern):
+        """(max registers, total spill bytes) of the kernels whose
+        mangled name holds ``pattern``."""
+        ptx = [r for kn, r in build["ptxas_by_kernel"].items()
+               if pattern in kn]
+        return (max((r["registers"] for r in ptx), default=None),
+                sum(r["spill_bytes"] for r in ptx) if ptx else None)
+
+    def main_path(window):
+        return window["int8_ms_per_decode_step"]
+
+    regs, spills = ptxas(INT8_KERNELS["mma"])
     kernels = [{
         "name": "int8_matmul",
         "route": "cuda",
         "source": "tpu_ddp_torch/ops/csrc/int8_matmul.cu",
         "replaces": "tpu_ddp/ops/pallas/quant_matmul.py:83",
-        "launches": serve["launches"],
+        # Launches on the mma route (the simt route's beside it).
+        "launches": serve["launches"]["mma"],
+        "simt_launches": serve["launches"]["simt"],
+        "kernel_route": "mma",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # Times and bound: one decode step's 49 launches at M = 8.
+        # Times and bound: one decode step's 49 launches at M = 8, alone;
+        # main_path_ms: the int8 kernels' device time per decode step in
+        # phase 5's traced window. "was": the simt route (the previous
+        # design), alone and in a second traced window of this run.
         "ms": per_pass(8, "ms"),
+        "main_path_ms": main_path(serve["traced_window"]),
+        "was_ms": per_pass(8, "simt_ms"),
+        "was_main_path_ms": main_path(serve["traced_window_simt"]),
         "plain_ms": per_pass(8, "plain_ms"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1749,7 +1889,9 @@ def main() -> None:
         "event_ms": per_pass(8, "event_ms"),
         "timing": ",".join(sorted({r["timing"] for r in rows})),
         "prefill_chunk_ms": per_pass(32, "ms"),
+        "prefill_chunk_was_ms": per_pass(32, "simt_ms"),
         "prefill_chunk_library_ms": per_pass(32, "library_ms"),
+        "registers": regs, "spill_bytes": spills,
     }, {
         "name": "sgd",
         "route": "cuda",
@@ -1797,27 +1939,24 @@ def main() -> None:
                                           "timing")},
             "main_path_ms": lm["traced_window"]["flash_ms_per_step"][name],
         }
-        if name != "flash_fwd":
-            # The sweep's launches on its wgmma route; the previous design
-            # (the mma.sync sweep) beside it, timed in this run on the
-            # same path (phase 15's forced window) and alone (phase 13).
-            ptx = {kn: r for kn, r in build["ptxas_by_kernel"].items()
-                   if f"{name}_wgmma_kernel" in kn}
-            row.update(
-                launches=lm["launches"][name]["wgmma"],
-                mma_sync_launches=lm["launches"][name]["mma_sync"],
-                kernel_route=k["kernel_route"],
-                was_main_path_ms=lm["mma_sync_backward"][
-                    "flash_ms_per_step"][name],
-                was_ms=k["mma_sync_ms"],
-                registers=max((r["registers"] for r in ptx.values()),
-                              default=None),
-                spill_bytes=sum(r["spill_bytes"] for r in ptx.values())
-                if ptx else None)
+        # The kernel's launches on its wgmma route; the previous design
+        # (the mma.sync kernel) beside it, timed in this run alone (phase
+        # 13) and, for the forward, on the same path (phase 15's forced
+        # window).
+        regs, spills = ptxas(f"{name}_wgmma_kernel")
+        row.update(
+            launches=lm["launches"][name]["wgmma"],
+            mma_sync_launches=lm["launches"][name]["mma_sync"],
+            kernel_route=k["kernel_route"],
+            was_ms=k["mma_sync_ms"],
+            registers=regs, spill_bytes=spills)
+        if name == "flash_fwd":
+            row["was_main_path_ms"] = lm["mma_sync_forward"][
+                "flash_ms_per_step"][name]
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "build": build, "shapes": rows,
+            json.dump({"card": card, "build": build, "int8": int8,
                        "small_parity": parity, "serve": serve,
                        "bn_relu": bn, "sgd": sgd,
                        "train_small_parity": tparity, "train": train,

@@ -128,17 +128,20 @@ def test_strided_v_and_bf16_rounding_points():
 
 def test_the_cpu_route_launches_no_kernel():
     """A CPU tensor takes the plain versions: no launch is counted, on
-    either backward route, even for inputs the wgmma route would take."""
+    either route of any kernel, even for inputs the wgmma route would
+    take."""
+    wrappers = (fa.flash_fwd, fa.flash_bwd_kv, fa.flash_bwd_q)
+
     def counts():
-        return (fa.flash_fwd.launches, dict(fa.flash_bwd_kv.launches),
-                dict(fa.flash_bwd_q.launches))
+        return [dict(w.launches) for w in wrappers]
 
     before = counts()
-    assert set(before[1]) == set(before[2]) == set(fa.BWD_ROUTES)
+    assert all(set(c) == set(fa.ROUTES) for c in before)
     for dtype, d in ((torch.float32, 16), (torch.bfloat16, 64)):
         q, k, v, g = (torch.tensor(x).to(dtype).requires_grad_()
                       for x in _inputs(1, 16, 2, 1, d))
         if dtype == torch.bfloat16:
+            assert fa.fwd_route(q, k, v) == "wgmma"
             assert fa.bwd_route(q, k, v, g) == "wgmma"
         torch.autograd.grad(fa.flash_attention(q, k, v, True), (q, k, v), g)
     assert counts() == before
@@ -173,6 +176,11 @@ def _route_inputs(case):
         assert q.data_ptr() % 16 == 2
         k = torch.empty(2, 64, 4, 64, dtype=bf)
         return q, k, k, k
+    if case == "misaligned_do":  # q, k, v aligned; dO 2 bytes off
+        n = 2 * 64 * 4 * 64
+        do = torch.empty(n + 1, dtype=bf)[1:].view(2, 64, 4, 64)
+        k = torch.empty(2, 64, 4, 64, dtype=bf)
+        return k, k, k, do
     if case == "odd_stride":  # a head stride of 68 elements (136 bytes)
         q = torch.empty(1, 64, 2, 68, dtype=bf)[..., :64]
         k = torch.empty(1, 64, 2, 64, dtype=bf)
@@ -191,6 +199,26 @@ def test_bwd_route(case, route):
     for bf16, D in {64, 128} and TMA-addressable inputs (the LM's main
     path among them), the mma.sync sweeps for the rest."""
     assert fa.bwd_route(*_route_inputs(case)) == route
+
+
+@pytest.mark.parametrize("case,route", [
+    ("main", "wgmma"), ("gqa", "wgmma"), ("ragged", "wgmma"),
+    ("d64", "wgmma"), ("f32", "mma_sync"), ("d36", "mma_sync"),
+    ("misaligned", "mma_sync"), ("odd_stride", "mma_sync"),
+    ("misaligned_do", "wgmma"),
+])
+def test_fwd_route(case, route):
+    """Which forward kernel a CUDA call launches, by the backward's rule
+    without dO: the wgmma forward for bf16, D in {64, 128} and
+    TMA-addressable q, k, v, the mma.sync forward for the rest. Where dO
+    allows the TMA too, the forward and the backward take the same
+    route on the same inputs."""
+    q, k, v, do = _route_inputs(case)
+    assert fa.fwd_route(q, k, v) == route
+    if case == "misaligned_do":  # only dO keeps the backward off wgmma
+        assert fa.bwd_route(q, k, v, do) == "mma_sync"
+    else:
+        assert fa.bwd_route(q, k, v, do) == route
 
 
 def _bad_inputs(case):

@@ -19,7 +19,8 @@ from tpu_ddp.ops.pallas.quant_matmul import int8_matmul as pallas_int8_matmul
 from tpu_ddp_torch.convert import params_from_jax
 from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.ops import quant as tq
-from tpu_ddp_torch.ops.quant_matmul import (int8_matmul, int8_matmul_ref,
+from tpu_ddp_torch.ops.quant_matmul import (ROUTES, int8_matmul,
+                                            int8_matmul_ref, int8_route,
                                             split_k)
 
 # Aligned, unaligned and TransformerLM-large decode/prefill shapes (the
@@ -111,11 +112,13 @@ def test_int8_matmul_cpu_uses_plain_version_without_counting():
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.normal(size=(2, 3, 40)).astype(np.float32))
     qw = tq.quantize_weight(torch.as_tensor(_weights(rng, 40, 24)))
-    before = int8_matmul.launches
-    got = int8_matmul(x, qw.q, qw.s)
+    before = dict(int8_matmul.launches)
+    assert set(before) == set(ROUTES)
+    for xt in (x, x.to(torch.bfloat16)):
+        got = int8_matmul(xt, qw.q, qw.s)
+        assert torch.equal(got, int8_matmul_ref(xt, qw.q, qw.s))
+        assert tuple(got.shape) == (2, 3, 24)
     assert int8_matmul.launches == before
-    assert torch.equal(got, int8_matmul_ref(x, qw.q, qw.s))
-    assert tuple(got.shape) == (2, 3, 24)
 
 
 @pytest.mark.parametrize("bad", ["q_dtype", "k", "s_shape", "s_dtype"])
@@ -135,13 +138,62 @@ def test_int8_matmul_rejects_bad_inputs(bad):
         int8_matmul(x, q, s)
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("m,k,n,sms", [
     (8, 2048, 6144, 132), (8, 2048, 2048, 132), (32, 8192, 2048, 132),
-    (8, 2048, 32000, 132), (3, 100, 70, 132), (40, 300, 5, 1)])
-def test_split_k_covers_k_exactly(m, k, n, sms):
-    splits, kps = split_k(m, k, n, sms)
+    (8, 2048, 32000, 132), (3, 100, 70, 132), (40, 300, 5, 1),
+    (8, 2056, 2048, 132), (5, 8192, 2048, 132), (64, 2048, 8192, 132)])
+def test_split_k_covers_k_exactly(m, k, n, sms, route):
+    splits, kps = split_k(m, k, n, sms, route)
     assert splits >= 1 and kps >= 1
     assert (splits - 1) * kps < k <= splits * kps  # no empty split
+    if route == "mma" and splits > 1:
+        assert kps % 64 == 0  # whole stages of the cp.async ring
+        assert splits <= 16  # one cluster
+
+
+def _route_case(case):
+    """(x, q) as a call of the given kind would pass them; empty tensors,
+    since the route reads only dtype, shapes and pointers."""
+    bf = torch.bfloat16
+    shapes = {"decode": (8, 2048, 6144, bf), "prefill": (32, 8192, 2048, bf),
+              "head": (8, 2048, 32000, bf), "one_row": (1, 2048, 2048, bf),
+              "rows_64": (64, 2048, 8192, bf), "f32": (8, 2048, 2048,
+                                                       torch.float32),
+              "n_24": (8, 2048, 24, bf), "n_70": (8, 100, 70, bf),
+              "k_100": (8, 100, 64, bf), "k_2056": (13, 2056, 2048, bf)}
+    if case in shapes:
+        m, k, n, dtype = shapes[case]
+        return (torch.empty(m, k, dtype=dtype),
+                torch.empty(k, n, dtype=torch.int8))
+    q = torch.empty(256, 2048, dtype=torch.int8)
+    if case == "x_offset":  # x 2 bytes past a 16-byte boundary
+        return torch.empty(8 * 256 + 1, dtype=bf)[1:].view(8, 256), q
+    if case == "x_transposed":  # copied into a fresh buffer first
+        return torch.empty(256, 8, dtype=bf).t(), q
+    if case == "x_3d":  # (batch, rows, K), contiguous
+        return torch.empty(2, 4, 256, dtype=bf), q
+    if case in ("q_offset_4", "q_offset_16"):
+        off = int(case.rsplit("_", 1)[1])
+        qv = torch.empty(256 * 2048 + off, dtype=torch.int8)[off:]
+        return torch.empty(8, 256, dtype=bf), qv.view(256, 2048)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("decode", "mma"), ("prefill", "mma"), ("head", "mma"),
+    ("one_row", "mma"), ("rows_64", "mma"), ("k_2056", "mma"),
+    ("f32", "simt"), ("n_24", "simt"), ("n_70", "simt"),
+    ("k_100", "simt"), ("x_offset", "simt"), ("x_transposed", "mma"),
+    ("x_3d", "mma"), ("q_offset_4", "simt"), ("q_offset_16", "mma"),
+])
+def test_int8_route(case, route):
+    """Which kernel a CUDA call launches, chosen before the launch from
+    dtype, shapes and pointers: the tensor-core kernel for bf16 x whose
+    rows and q allow 16-byte copies (every serving shape, any M), the
+    f32 kernel for f32 x, ragged K or N and unaligned views."""
+    x, q = _route_case(case)
+    assert int8_route(x, q) == route
 
 
 def test_nll_drift_matches_jax():
@@ -165,9 +217,10 @@ def test_nll_drift_matches_jax():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_int8_matmul_kernel_matches_plain_on_card(dtype):
-    """The Hopper kernel against its plain version on the card, at the
-    TransformerLM-large shapes and ragged ones (max |d| <= 1e-4 *
-    max |plain|: only the f32 summation order differs)."""
+    """The Hopper kernels against their plain version on the card, at the
+    TransformerLM-large shapes and ragged ones, on the route each takes
+    (max |d| <= 1e-4 * max |plain|: only the f32 summation order
+    differs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -177,10 +230,11 @@ def test_int8_matmul_kernel_matches_plain_on_card(dtype):
             getattr(torch, dtype))
         qw = tq.quantize_weight(torch.randn(k, n, generator=gen,
                                             device="cuda"))
-        before = int8_matmul.launches
+        route = int8_route(x, qw.q)
+        before = int8_matmul.launches[route]
         got = int8_matmul(x, qw.q, qw.s)
         want = int8_matmul_ref(x, qw.q, qw.s)
         torch.cuda.synchronize()
-        assert int8_matmul.launches == before + 1
+        assert int8_matmul.launches[route] == before + 1
         err = float((got - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), (m, k, n, err)

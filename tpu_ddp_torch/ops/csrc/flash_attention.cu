@@ -4,7 +4,7 @@
 // consecutive q heads).
 //
 // Replaces the three Pallas calls of tpu_ddp/ops/pallas/flash_attention.py:
-//   tdt_flash_fwd            <- _fwd_kernel via _fwd_impl (call at :193)
+//   tdt_flash_fwd(_wgmma)    <- _fwd_kernel via _fwd_impl (call at :193)
 //   tdt_flash_bwd_kv(_wgmma) <- _bwd_kv_kernel            (call at :334)
 //   tdt_flash_bwd_q(_wgmma)  <- _bwd_q_kernel             (call at :357)
 // with the same arithmetic: scores s = (q . k) * scale in f32, masked by
@@ -26,8 +26,8 @@
 //
 // Two designs:
 //
-// mma.sync (every kernel of the forward; the backward for f32, D other
-// than 64 and 128, and inputs the TMA cannot address):
+// mma.sync (every kernel for f32, D other than 64 and 128, and inputs
+// the TMA cannot address):
 //   - FA-2 shape. A block of 4 warps owns a 64-row tile (q rows in the
 //     forward and the dq sweep, kv rows in the dk/dv sweep) and loops over
 //     64-row tiles of the other side, staged in shared memory. Each warp
@@ -50,23 +50,25 @@
 //   - Tiles load synchronously, and the B operands of p . v, ds^T . q,
 //     p^T . dO and ds . k are gathered with 16-bit shared-memory loads.
 //
-// wgmma (the backward sweeps for bf16, D in {64, 128}, TMA-addressable
-// inputs: the LM's main path):
-//   - One warpgroup per block owns 64 rows (kv rows in dk/dv, q rows in
-//     dq) and keeps that side's two tiles resident; the other side's two
-//     tiles stream through a two-stage ring of TMA copies completing on
-//     mbarriers, so the next pair loads while this one is multiplied.
+// wgmma (every kernel for bf16, D in {64, 128}, TMA-addressable inputs:
+// the LM's main path):
+//   - One warpgroup per block owns 64 rows (q rows in the forward and dq,
+//     kv rows in dk/dv) and keeps that side's tiles resident; the other
+//     side's two tiles stream through a two-stage ring of TMA copies
+//     completing on mbarriers, so the next pair loads while this one is
+//     multiplied.
 //   - Every product is a wgmma (m64nNk16, bf16 in, f32 accumulate). The
-//     recomputed scores come from shared memory (both operands K-major);
+//     scores come from shared memory (both operands K-major); p (forward),
 //     p^T and ds^T (dk/dv) or ds (dq) are formed in registers, rounded to
 //     bf16 in place and fed as the register A operand of the next wgmma,
-//     whose B (dO, q or K) is read MN-major from the same swizzled tile:
-//     no shared-memory round trip, no 16-bit gathers.
+//     whose B (V, dO, q or K) is read MN-major from the same swizzled
+//     tile: no shared-memory round trip, no 16-bit gathers.
 //   - Tiles are stored in the 128-byte swizzle both the TMA and wgmma
 //     name; rows past L arrive as zeros (and q rows past L get lse = +inf,
-//     so p = 0), so only the causal diagonal tile runs the per-element
-//     mask. exp(s * scale - lse) is one FMA and one ex2 with log2 e folded
-//     into the scale and lse.
+//     so p = 0), so only the causal diagonal tile (and in the forward a
+//     ragged last tile, whose zero keys score 0) runs the per-element
+//     mask. exp(s * scale - m) is one FMA and one ex2 with log2 e folded
+//     into the scale and m (the forward's running max, the backward's lse).
 //   - The dk/dv block loops over every q head of its KV group, so a KV
 //     head's gradient sums in registers: no atomics, the same bits every
 //     run, in both designs. Causal tile pairs entirely above the diagonal
@@ -76,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -598,10 +602,6 @@ constexpr int kRows = 64;            // rows of every tile: one warpgroup's M
 constexpr int kPanel = kRows * 128;  // bytes of one 64-column panel
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1):
 // start address, leading and stride byte offsets, each in 16-byte units.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
@@ -718,29 +718,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-// Wait for the phase of the given parity to complete. A copy that never
-// lands would hang the block, so after 2^24 polls the kernel traps and
-// the fault surfaces as a launch error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 24)) __trap();
-  }
 }
 
 // Rows [row, row + 64) of one head into a swizzled tile at dst, one TMA
@@ -1066,6 +1043,190 @@ flash_bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  ld, dq_acc, q0, r0, L, t);
 }
 
+// Forward, replacing _fwd_kernel (tpu_ddp/ops/pallas/flash_attention.py:
+// 125, called through _fwd_impl at :193); bound by its 2 products per
+// (q, k) pair at the bf16 tensor-core peak. Block (batch x head, q tile;
+// the heaviest q tiles first across every head) keeps its 64 q rows
+// resident and streams (K, V) tiles through a two-stage TMA ring. s =
+// q . K^T comes from shared memory (both K-major); the online softmax
+// runs on the accumulator rows in registers, in log2 units (scale * log2
+// e folded into one FMA before ex2); p is rounded to bf16 in place and
+// feeds o += p . V as the register A operand, with V read MN-major. Only
+// the causal diagonal tile and a ragged last tile (keys past L arrive as
+// zero rows, whose score 0 is not -inf) run the per-element mask. o is
+// normalised in registers, written into the q tile's swizzled panels and
+// stored by TMA (rows past L are clipped); lse = m + log(l) in f32.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to,
+                       float* __restrict__ lse, int H, int KV, int L,
+                       float scale_log2, int causal) {
+  constexpr int TILE = tile_bytes<DP>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t Qs = base, Ss = base + TILE;
+  const uint32_t bar0 = base + 5 * TILE;
+
+  const int bh = blockIdx.x;
+  const int n_qt = (L + kRows - 1) / kRows;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+  const int q0 = qt * kRows;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int n_kt = causal ? qt + 1 : n_qt;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows r0, r0 + 8
+
+  auto stage = [&](int kt) { return Ss + (kt & 1) * 2 * TILE; };
+  auto load_k_v = [&](int kt) {
+    const uint32_t bar = bar0 + 8 * (kt & 1);
+    mbar_expect(bar, 2 * TILE + (kt == 0 ? TILE : 0));
+    tma_tile<DP>(stage(kt), &tk, bar, kvh, kt * kRows, b);
+    tma_tile<DP>(stage(kt) + TILE, &tv, bar, kvh, kt * kRows, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar0);
+    mbar_init(bar0 + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_k_v(0);  // the barrier of stage 0 also counts q
+    tma_tile<DP>(Qs, &tq, bar0, h, q0, b);
+    if (n_kt > 1) load_k_v(1);
+  }
+
+  float o_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf};  // running max, log2 units
+  float l_i[2] = {0.f, 0.f};          // running sum of unrounded p
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const uint32_t Kst = stage(kt), Vst = Kst + TILE;
+    const int k0 = kt * kRows;
+    mbar_wait(bar0 + 8 * (kt & 1), (kt >> 1) & 1);
+
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss(s, desc_k(Qs, kk), desc_k(Kst, kk), kk);
+    }
+    wg_commit_wait();
+    pin(s);
+
+    // Scale into log2 units; mask by absolute position where a tile needs
+    // it (q row q0 + r sees key k0 + c iff c < L and, causal, k0 + c <= q0
+    // + r) with the -1e30 sentinel, as _fwd_kernel masks.
+    const bool mask = (causal && k0 + kRows > q0) || k0 + kRows > L;
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[4 * j + e] * scale_log2;
+        if (mask) {
+          const int c = k0 + 8 * j + 2 * t + (e & 1);
+          const int r = q0 + r0 + 8 * (e >> 1);
+          if (c >= L || (causal && c > r)) v = kNegInf;
+        }
+        s[4 * j + e] = v;
+        mt[e >> 1] = fmaxf(mt[e >> 1], v);
+      }
+    }
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m_i[i], row_max4(mt[i]));
+      alpha[i] = exp2f(m_i[i] - m_new);
+      m_i[i] = m_new;
+    }
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[4 * j + e] - m_i[e >> 1]);
+        ps[e >> 1] += p;
+        s[4 * j + e] = p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      pa[i] = pack2(s[2 * i], s[2 * i + 1]);  // p rounded to bf16
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_i[i] = alpha[i] * l_i[i] + row_sum4(ps[i]);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[4 * j + e] *= alpha[e >> 1];
+    }
+
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_rs(o_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+               pa[4 * kk + 3], desc_mn(Vst, kk));
+    }
+    wg_commit_wait();
+    pin(o_acc);
+
+    __syncthreads();  // every read of this stage is done
+    if (tid == 0 && kt + 2 < n_kt) load_k_v(kt + 2);
+  }
+
+  // o = acc / max(l, 1e-30) and lse = m + log(l), as _fwd_kernel ends.
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_safe = fmaxf(l_i[i], 1e-30f);
+    inv[i] = 1.f / l_safe;
+    const int row = q0 + r0 + 8 * i;
+    if (t == 0 && row < L) {
+      lse[static_cast<long long>(bh) * L + row] =
+          m_i[i] * (1.f / kLog2e) + logf(l_safe);
+    }
+  }
+  // Into the q tile (free since the last stage's barrier), in the 128-byte
+  // swizzle the TMA store reads: 16-byte chunk c of row r lies at chunk
+  // c ^ (r % 8).
+  unsigned char* qtile = smem_raw + (Qs - raw);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      const int off = (j / 8) * kPanel + r * 128 + (((j % 8) ^ (r % 8)) * 16) +
+                      4 * t;
+      *reinterpret_cast<uint32_t*>(qtile + off) =
+          pack2(o_acc[4 * j + 2 * i] * inv[i], o_acc[4 * j + 2 * i + 1] * inv[i]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p) {
+      asm volatile(
+          "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+          "[%0, {%2, %3, %4, %5}], [%1];\n"
+          ::"l"(reinterpret_cast<uint64_t>(&to)), "r"(Qs + p * kPanel),
+          "r"(64 * p), "r"(h), "r"(q0), "r"(b)
+          : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
 // ---- launchers -------------------------------------------------------------
 
 template <typename T, int DP>
@@ -1143,34 +1304,6 @@ int launch_bwd_q(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-
-// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
-// so that the library needs no link flag.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The 4-D tensor map (D, heads, L, B) of a bf16 (B, L, heads, D) tensor
 // with element strides (sb, sl, sh) and D contiguous: a (64, 1, 64, 1)
 // box, 128-byte swizzle, zeros past the edges.
@@ -1242,6 +1375,24 @@ int launch_bwd_q_wgmma(const Maps& m, const void* lse, const void* delta,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int launch_fwd_wgmma(const CUtensorMap& mq, const CUtensorMap& mk,
+                     const CUtensorMap& mv, const CUtensorMap& mo, void* lse,
+                     int B, int H, int KV, int L, float scale, int causal,
+                     cudaStream_t stream) {
+  // The q tile, two stages of (K, V), two barriers, 1024-byte alignment.
+  const size_t smem = 5 * tile_bytes<DP>() + 16 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (L + kRows - 1) / kRows);
+  flash_fwd_wgmma_kernel<DP><<<grid, 128, smem, stream>>>(
+      mq, mk, mv, mo, static_cast<float*>(lse), H, KV, L, scale * kLog2e,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. q is (B, L, H, D) and k, v
@@ -1271,6 +1422,34 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                                          scale, causal, vec, s)
                  : launch_fwd<float, 128>(q, k, v, o, lse, st, B, H, KV, L,
                                           D, scale, causal, vec, s);
+}
+
+// The wgmma forward: the same arguments as tdt_flash_fwd, for bf16
+// tensors with D in {64, 128} whose base pointers are 16-byte aligned and
+// whose B, L and head strides are multiples of 8 elements; o is the
+// contiguous (B, L, H, D) output. Returns the CUDA error code of its
+// launch, or cudaErrorInvalidValue if a tensor map cannot be encoded.
+extern "C" int tdt_flash_fwd_wgmma(const void* q, const void* k,
+                                   const void* v, void* o, void* lse,
+                                   long long qb, long long ql, long long qh,
+                                   long long kb, long long kl, long long kh,
+                                   long long vb, long long vl, long long vh,
+                                   int B, int H, int KV, int L, int D,
+                                   float scale, int causal, void* stream) {
+  CUtensorMap mq, mk, mv, mo;
+  const long long ol = static_cast<long long>(H) * D;
+  if ((D != 64 && D != 128) ||
+      !tensor_map(&mq, q, B, L, H, D, qb, ql, qh) ||
+      !tensor_map(&mk, k, B, L, KV, D, kb, kl, kh) ||
+      !tensor_map(&mv, v, B, L, KV, D, vb, vl, vh) ||
+      !tensor_map(&mo, o, B, L, H, D, L * ol, ol, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_fwd_wgmma<64>(mq, mk, mv, mo, lse, B, H, KV, L,
+                                        scale, causal, s)
+                 : launch_fwd_wgmma<128>(mq, mk, mv, mo, lse, B, H, KV, L,
+                                         scale, causal, s);
 }
 
 extern "C" int tdt_flash_bwd_kv(

@@ -3,10 +3,10 @@
 Each source under ``tpu_ddp_torch/ops/csrc/`` exposes a plain C entry
 point (device pointers, sizes and a stream), so it compiles in seconds
 without PyTorch's headers. The shared library goes into
-``tpu_ddp_torch/_build/`` under a name keyed on a hash of the source and
-the flags: an edit to either triggers a rebuild at first use, and an
-unchanged source is loaded from the earlier build. A failed build raises;
-there is no fallback.
+``tpu_ddp_torch/_build/`` under a name keyed on a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags: an edit to any triggers a
+rebuild at first use, and an unchanged source is loaded from the earlier
+build. A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -48,9 +48,10 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the build of ``csrc/<source>`` lands for the current source
-    text and flags."""
-    text = (CSRC / source).read_bytes()
+    """Where the build of ``csrc/<source>`` lands for the current text of
+    the source and of every header in ``csrc/``, and the flags."""
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / source, *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(text + "\0".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
 

@@ -10,13 +10,14 @@ kernels, each behind its own wrapper with a launch count:
   KV head's group (``_bwd_kv_kernel``);
 - :func:`flash_bwd_q` — the dq sweep (``_bwd_q_kernel``).
 
-Each backward sweep has two CUDA kernels, and :func:`bwd_route` picks
-one from the inputs before the launch: ``"wgmma"`` (Hopper's warpgroup
-products fed by TMA, for bf16 with D in {64, 128} and inputs the TMA can
-address: 16-byte aligned base pointers and B, L, head strides that are
-multiples of 16 bytes) or ``"mma_sync"`` (everything else the op takes:
-f32, other head dims, unaligned views). Each backward wrapper counts its
-launches per route in ``launches``, a dict keyed by route.
+Each kernel has two CUDA versions, and :func:`fwd_route` (the forward)
+and :func:`bwd_route` (the two sweeps) pick one from the inputs before
+the launch: ``"wgmma"`` (Hopper's warpgroup products fed by TMA, for
+bf16 with D in {64, 128} and inputs the TMA can address: 16-byte aligned
+base pointers and B, L, head strides that are multiples of 16 bytes) or
+``"mma_sync"`` (everything else the op takes: f32, other head dims,
+unaligned views). Each wrapper counts its launches per route in
+``launches``, a dict keyed by route.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``ops/csrc/flash_attention.cu``, built with nvcc at first use) and never
@@ -160,6 +161,7 @@ def _lib():
     tail = [i, i, i, i, i, f, i, i, i, p]  # B H KV L D scale causal bf16 vec s
     wg_tail = [i, i, i, i, i, f, i, p]     # B H KV L D scale causal s
     sigs = {"tdt_flash_fwd": [p] * 5 + [ll] * 9 + tail,
+            "tdt_flash_fwd_wgmma": [p] * 5 + [ll] * 9 + wg_tail,
             "tdt_flash_bwd_kv": [p] * 8 + [ll] * 12 + tail,
             "tdt_flash_bwd_q": [p] * 7 + [ll] * 12 + tail,
             "tdt_flash_bwd_kv_wgmma": [p] * 8 + [ll] * 12 + wg_tail,
@@ -184,20 +186,30 @@ def _vec(tensors, d: int) -> bool:
         for t in tensors)
 
 
-BWD_ROUTES = ("wgmma", "mma_sync")
+ROUTES = ("wgmma", "mma_sync")
 WGMMA_HEAD_DIMS = (64, 128)
+
+
+def _wgmma_takes(q, *others) -> bool:
+    """bf16 with D in {64, 128}, every tensor allowing 16-byte loads (what
+    the TMA copies need)."""
+    d = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+            and _vec((q, *others), d))
+
+
+def fwd_route(q, k, v) -> str:
+    """The forward kernel a CUDA call of :func:`flash_fwd` launches, from
+    dtype, head dim, strides and base pointers alone: ``"wgmma"`` when
+    q, k and v allow it, else ``"mma_sync"``."""
+    return "wgmma" if _wgmma_takes(q, k, v) else "mma_sync"
 
 
 def bwd_route(q, k, v, do) -> str:
     """The backward kernel a CUDA call of :func:`flash_bwd_kv` or
-    :func:`flash_bwd_q` launches, from dtype, head dim, strides and base
-    pointers alone: ``"wgmma"`` for bf16 with D in {64, 128} when every
-    input allows 16-byte loads (what the TMA copies need), else
-    ``"mma_sync"``."""
-    if (q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS
-            and _vec((q, k, v, do), q.shape[-1])):
-        return "wgmma"
-    return "mma_sync"
+    :func:`flash_bwd_q` launches, by :func:`fwd_route`'s rule with dO
+    among the inputs."""
+    return "wgmma" if _wgmma_takes(q, k, v, do) else "mma_sync"
 
 
 def _cuda_checks(name, q, extra=()):
@@ -222,7 +234,8 @@ def _launch(name, fn, args, shape):
 
 def flash_fwd(q, k, v, causal: bool = False):
     """``(o, lse)``: o (B, L, H, D) like q, lse (B, H, L) f32. Each launch
-    of the CUDA kernel adds one to ``flash_fwd.launches``."""
+    adds one to ``flash_fwd.launches[route]``, the route :func:`fwd_route`
+    picked."""
     b, L, h, kvh, d = _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal)
@@ -231,15 +244,20 @@ def flash_fwd(q, k, v, causal: bool = False):
     lse = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    route = fwd_route(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_fwd", _lib().tdt_flash_fwd, (
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
-            b, h, kvh, L, d, 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), int(_vec((q, k, v), d)), stream),
-            (b, L, h, kvh, d))
-    flash_fwd.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+                b, h, kvh, L, d, 1.0 / math.sqrt(d), int(causal))
+        if route == "wgmma":
+            fn, args = _lib().tdt_flash_fwd_wgmma, args + (stream,)
+        else:
+            fn, args = _lib().tdt_flash_fwd, args + (
+                int(q.dtype == torch.bfloat16), int(_vec((q, k, v), d)),
+                stream)
+        _launch(f"flash_fwd ({route})", fn, args, (b, L, h, kvh, d))
+    flash_fwd.launches[route] += 1
     return o, lse
 
 
@@ -316,9 +334,9 @@ def flash_bwd_q(q, k, v, do, lse, delta, causal: bool = False):
     return dq
 
 
-flash_fwd.launches = 0
-flash_bwd_kv.launches = dict.fromkeys(BWD_ROUTES, 0)
-flash_bwd_q.launches = dict.fromkeys(BWD_ROUTES, 0)
+flash_fwd.launches = dict.fromkeys(ROUTES, 0)
+flash_bwd_kv.launches = dict.fromkeys(ROUTES, 0)
+flash_bwd_q.launches = dict.fromkeys(ROUTES, 0)
 
 
 def attention_delta(o, do):
