@@ -45,13 +45,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    1e-4 * sum |terms| (the sums run in another order), the same at a
    few small shapes that take the kernels' scalar and ragged paths; then
    the whole autograd op against autograd through the plain forward.
-   Each kernel is timed beside its bound, its plain version and one
-   library call for the same pass: ``torch.var_mean`` (statistics),
-   ``torch.batch_norm_elemt`` (normalise), ``batch_norm_backward_reduce``
-   and ``batch_norm_backward_elemt`` (SyncBatchNorm's primitives, fed the
-   ReLU-masked gradient, since they have no ReLU); the op beside the
-   yardstick ``F.relu(F.batch_norm(..., training=True))`` forward and
-   forward+backward;
+   The two reductions run their one-pass route (``stats_route``) and,
+   forced, their two-stage route (the previous design), both held to the
+   same bounds; at each VGG-11 shape two one-pass launches, and a third
+   after a launch at another shape (the arrival counters' reset), must
+   give the same bits. Each kernel is timed beside its bound, its plain
+   version and one library call for the same pass, SyncBatchNorm's CUDA
+   primitives: ``torch.batch_norm_stats`` (statistics; ``torch.var_mean``
+   beside it), ``torch.batch_norm_elemt`` (normalise),
+   ``batch_norm_backward_reduce`` and ``batch_norm_backward_elemt`` (fed
+   the ReLU-masked gradient, since they have no ReLU), and the two
+   reductions' two-stage route; ``bn_stats`` also beside ``torch.sum``
+   over the same rows (one launch reading the same bytes); the op beside
+   the yardstick ``F.relu(F.batch_norm(..., training=True))`` forward
+   and forward+backward. The op computes its own statistics, so an
+   element at the ReLU's edge may take the other side: dx is held away
+   from the edge, dbias and dscale with those elements' terms taken out
+   (both counted);
 8. the fused SGD kernel against its plain version on a few odd leaves
    and on VGG-11's 34 leaves over 3 steps: params and momentum bit for
    bit equal; timed beside its bound, the plain version and
@@ -68,11 +78,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    stand-in, then the test-set pass. Every logged loss must be finite,
    the ``Test set:`` line printed, and the launch counts exact, from 0:
    SGD once per step, the backward BN kernels 8 per step, the forward
-   ones 8 per step and per eval batch. Prints the reference's timer
-   (iterations 1-39), images/s and peak memory, then a profiler window
-   over 5 steps: the device's idle share and the top kernels, and a
-   2-step window with shapes that names the ops behind the copy
-   kernels;
+   ones 8 per step and per eval batch, the two reductions all on the
+   one-pass route. Prints the reference's timer (iterations 1-39),
+   images/s and peak memory, then a profiler window over 5 steps: the
+   device's idle share, the top kernels and each ported kernel's device
+   time per step (the ``kernels`` line's ``main_path_ms``), and a 2-step
+   window with shapes that names the ops behind the copy kernels;
 11. one whole train step through the kernels against the same step
    through the plain versions (same params, same batch): loss within
    1e-2 relative and every param within 5e-2 * the step's largest
@@ -121,13 +132,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    through the plain versions (same params, same batch): loss within
    2e-4 relative, which must also catch the same step with the planted
    fault in every layer's forward; every gradient leaf within 2e-2
-   relative (Frobenius), which cannot (the fault's reading is reported),
-   and the AdamW update within 5e-2 x the step's largest update wherever
-   the plain gradient is above 5e-2 of its leaf's largest (below that
-   the sign-like first moments of AdamW can differ, and those elements
-   are counted); then one step under ``remat="blocks"``: 24 wgmma
-   forward launches, 12 of each wgmma sweep and a loss within 1e-5
-   relative of the ``"none"`` step's.
+   relative (Frobenius), which cannot (the fault's reading is reported);
+   the three flash kernels on the last layer's own q, k, v and dO from
+   the step, held row by row with phase 13's bounds (2e-2 in bf16; a
+   row's norm floored at a tenth of the RMS row norm, since some rows of
+   dq vanish on these activations), each gradient bound also catching
+   the fault on the same inputs; and the AdamW update within 5e-2 x the
+   step's largest update wherever the plain gradient is above 5e-2 of
+   its leaf's largest (below that the sign-like first moments of AdamW
+   can differ, and those elements are counted); then one step under
+   ``remat="blocks"``: 24 wgmma forward launches, 12 of each wgmma
+   sweep and a loss within 1e-5 relative of the ``"none"`` step's.
 
 Prints the card's name and power limit, the serving and training
 metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
@@ -168,6 +183,9 @@ BN_SHAPES = [((262144, 64), 1), ((65536, 128), 1), ((16384, 256), 2),
 # Small (R, C) rows that take the BN kernels' other paths: scalar loads
 # (C % 4 != 0), ragged row blocks, one channel.
 BN_EDGE_SHAPES = [(300, 3), (999, 96), (1000, 30), (33, 4), (517, 1)]
+# The shape launched between two launches at a VGG-11 shape in the
+# one-pass reductions' bit-identity check.
+BN_BITS_OTHER = (999, 96)
 # Odd SGD leaves beside VGG-11's: one element, ragged chunks, odd sizes.
 SGD_EDGE_SHAPES = [(1,), (7, 13), (4099,), (100001,)]
 # Bytes each BN kernel moves per element (f32 rows in and out) and its
@@ -654,6 +672,40 @@ def _bn_kernel_errors(tb, x, g, s, b):
     return errs, (mean, inv, y, db, ds, dx)
 
 
+def _bn_inputs(r, c, gen, dev):
+    """x, g (R, C) and scale, bias (C,) as phase 7 draws them."""
+    x = torch.randn(r, c, generator=gen, device=dev) * 2 + 0.3
+    g = torch.randn(r, c, generator=gen, device=dev)
+    s = 0.5 + torch.rand(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    return x, g, s, b
+
+
+def _two_stage_errors(tb, x, g, s, b):
+    """The two reductions' errors with the two-stage route forced (the
+    previous design), against the same bounds as the one-pass route."""
+    with _force(tb, "stats_route", "two_stage"):
+        errs, _ = _bn_kernel_errors(tb, x, g, s, b)
+    return {k: v for k, v in errs.items()
+            if k.startswith(("bn_stats", "bn_bwd_stats"))}
+
+
+def _stats_bits(tb, x, g, s, b, other) -> bool:
+    """Whether the one-pass reductions give the same bits on two launches
+    on (x, g) and on a third after a launch on ``other`` (another shape:
+    other counters and partials, so the counters' reset is exercised)."""
+    def outs(x, g, s, b):
+        mean, inv = tb.bn_stats(x)
+        return (mean, inv, *tb.bn_bwd_stats(x, g, mean, inv, s, b))
+    first = outs(x, g, s, b)
+    again = outs(x, g, s, b)
+    outs(*other)
+    third = outs(x, g, s, b)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, o) and torch.equal(a, t)
+               for a, o, t in zip(first, again, third))
+
+
 def _fail_on(errs, where):
     for what, (err, tol) in errs.items():
         if not (math.isfinite(err) and err <= tol):
@@ -669,14 +721,15 @@ def check_bn(dev, gen) -> dict:
 
     from tpu_ddp_torch.ops import bn_relu as tb
     edge = {}
+    other = _bn_inputs(*BN_BITS_OTHER, gen, dev)
     for r, c in BN_EDGE_SHAPES:
-        x = torch.randn(r, c, generator=gen, device=dev) * 2 + 0.3
-        g = torch.randn(r, c, generator=gen, device=dev)
-        s = 0.5 + torch.rand(c, generator=gen, device=dev)
-        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        x, g, s, b = _bn_inputs(r, c, gen, dev)
         errs, _ = _bn_kernel_errors(tb, x, g, s, b)
         _fail_on(errs, f"R={r} C={c}")
+        was = _two_stage_errors(tb, x, g, s, b)
+        _fail_on(was, f"R={r} C={c} (two_stage)")
         edge[f"{r}x{c}"] = {k: v[0] for k, v in errs.items()}
+        edge[f"{r}x{c}"]["two_stage"] = {k: v[0] for k, v in was.items()}
     kernels = {"bn_stats": (tb.bn_stats, tb.bn_stats_ref),
                "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
                "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
@@ -694,6 +747,11 @@ def check_bn(dev, gen) -> dict:
         b = 0.1 * torch.randn(c, generator=gen, device=dev)
         x, g = xs[0], gs[0]
         errs, (mean, inv, y, db, ds, dx) = _bn_kernel_errors(tb, x, g, s, b)
+        was = _two_stage_errors(tb, x, g, s, b)
+        _fail_on(was, f"R={r} C={c} (two_stage)")
+        if not _stats_bits(tb, x, g, s, b, other):
+            fail(f"two launches of the one-pass reductions differ at R={r} "
+                 f"C={c} (or after a launch at {BN_BITS_OTHER})")
         # The whole autograd op against autograd through the plain
         # forward, at the model's initial scale 1 and bias 0.
         grads = []
@@ -718,23 +776,41 @@ def check_bn(dev, gen) -> dict:
         if n_near > 1e-4 * x.numel():
             fail(f"op_dx: {n_near} of {x.numel()} elements within 1e-5 of "
                  f"the ReLU's edge at R={r} C={c}")
+        # An element that does fall on the other side moves dbias by its g
+        # and dscale by g * x_hat: those terms are taken out of the op's
+        # sums before they are held, and the elements counted. The op's
+        # statistics are the one-pass kernel's, the same bits every
+        # launch; the kernels pass g where y > 0, autograd through the
+        # plain clamp_min where y >= 0.
+        km, ki = tb.bn_stats(x)
+        xh_k = (x - km) * ki
+        moved = (xh_k > 0).float() - (((x - mean) * inv) >= 0).float()
+        flipped = moved != 0
+        n_flip = int(flipped.sum())
+        if bool((flipped & ~near_zero).any()):
+            fail(f"op: an element more than 1e-5 from the ReLU's edge "
+                 f"changed sides at R={r} C={c}")
+        flip_db = (g * moved).sum(0)
+        flip_ds = (g * xh_k * moved).sum(0)
         errs.update({
             "op_y": (float((oy - py).abs().max()),
                      1e-4 * float(py.abs().max())),
             "op_dx": (float(torch.where(near_zero, 0.0,
                                         (odx - pdx).abs()).max()),
                       1e-4 * float(pdx.abs().max())),
-            "op_dscale": (float((ods - pds).abs().max()),
+            "op_dscale": (float((ods - pds - flip_ds).abs().max()),
                           1e-4 * float((g * x_hat0).abs().sum(0).max())),
-            "op_dbias": (float((odb - pdb).abs().max()),
+            "op_dbias": (float((odb - pdb - flip_db).abs().max()),
                          1e-4 * float(g.abs().sum(0).max())),
         })
         _fail_on(errs, f"R={r} C={c}")
 
         row = {"r": r, "c": c, "units": units, "copies": copies,
-               "op_dx_near_relu_edge": n_near,
+               "op_dx_near_relu_edge": n_near, "op_relu_flips": n_flip,
                "errors": {k: v[0] for k, v in errs.items()},
-               "tols": {k: v[1] for k, v in errs.items()}}
+               "two_stage_errors": {k: v[0] for k, v in was.items()},
+               "tols": {k: v[1] for k, v in errs.items()},
+               "same_bits": True}
         reps = 10 * copies
         args = {"bn_stats": [(xi,) for xi in xs],
                 "bn_norm_relu": [(xi, mean, inv, s, b) for xi in xs],
@@ -753,17 +829,21 @@ def check_bn(dev, gen) -> dict:
                          "plain_ms": p_t["ms"], "bound_ms": bound,
                          "bound_by": by,
                          "timing": _timing_label(k_t, p_t)}
-        # Library calls for the same passes: var_mean for the statistics
-        # and SyncBatchNorm's CUDA primitives for the rest. These have no
-        # ReLU, so the backward ones take the ReLU-masked gradient, made
-        # outside the timing; their outputs are held to the plain
-        # versions below (recorded, not gated: they are yardsticks).
+            if name in ("bn_stats", "bn_bwd_stats"):
+                with _force(tb, "stats_route", "two_stage"):
+                    row[name]["was_ms"] = timed(kern, args[name], reps)["ms"]
+        # Library calls for the same passes: SyncBatchNorm's CUDA
+        # primitives (batch_norm_stats: mean and invstd; var_mean beside
+        # it). These have no ReLU, so the backward ones take the
+        # ReLU-masked gradient, made outside the timing; their outputs are
+        # held to the plain versions below (recorded, not gated: they are
+        # yardsticks).
         gms = [torch.where(tb.bn_norm_relu_ref(xi, mean, inv, s, b) > 0,
                            gi, 0.0) for xi, gi in zip(xs, gs)]
         count = torch.tensor([r], dtype=torch.int32, device=dev)
         sum_dy_xmu = ds / inv
         libs = {
-            "bn_stats": (lambda t: torch.var_mean(t, dim=0, correction=0),
+            "bn_stats": (lambda t: torch.batch_norm_stats(t, tb.BN_EPS),
                          args["bn_stats"]),
             "bn_norm_relu": (lambda t: torch.batch_norm_elemt(
                 t, s, b, mean, inv, tb.BN_EPS), args["bn_stats"]),
@@ -775,9 +855,23 @@ def check_bn(dev, gen) -> dict:
         }
         for name, (fn, largs) in libs.items():
             row[name]["library_ms"] = timed(fn, largs, reps)["ms"]
+
+        def var_mean(t):
+            return torch.var_mean(t, dim=0, correction=0)
+
+        row["bn_stats"]["library_var_mean_ms"] = timed(
+            var_mean, args["bn_stats"], reps)["ms"]
+        # Not the same function: one launch that reads the same rows and
+        # writes one scalar, PyTorch's full reduction. Its time is what a
+        # single reduction launch over these bytes costs on this card.
+        row["bn_stats"]["read_all_ms"] = timed(
+            torch.sum, args["bn_stats"], reps)["ms"]
         red = libs["bn_bwd_stats"][0](x, gms[0])
+        lib_mean, lib_inv = libs["bn_stats"][0](x)
         row["library_errors"] = {
-            "bn_stats": float((libs["bn_stats"][0](x)[1] - mean).abs().max()),
+            "bn_stats": max(float((lib_mean - mean).abs().max()),
+                            float((lib_inv - inv).abs().max())),
+            "bn_stats_var_mean": float((var_mean(x)[1] - mean).abs().max()),
             "bn_norm_relu": float((libs["bn_norm_relu"][0](x).clamp_min(0)
                                    - y).abs().max()),
             "bn_bwd_stats": max(float((red[3] - db).abs().max()),
@@ -846,6 +940,8 @@ def check_bn(dev, gen) -> dict:
         out["kernels"][name] = {
             "ms": per_step(name, "ms"), "plain_ms": per_step(name,
                                                              "plain_ms"),
+            **({"was_ms": per_step(name, "was_ms")}
+               if name in ("bn_stats", "bn_bwd_stats") else {}),
             "event_ms": per_step(name, "event_ms"),
             "bound_ms": bound, "bound_by": by,
             "library_ms": per_step(name, "library_ms"),
@@ -855,6 +951,8 @@ def check_bn(dev, gen) -> dict:
                                for k in err_keys),
             "timing": ",".join(sorted({row[name]["timing"]
                                        for row in shapes}))}
+    for key in ("library_var_mean_ms", "read_all_ms"):
+        out["kernels"]["bn_stats"][key] = per_step("bn_stats", key)
     out["op_per_step"] = {k: per_step("op", k) for k in
                           ("fwd_ms", "fwd_bwd_ms", "library_fwd_ms",
                            "library_fwd_bwd_ms")}
@@ -984,6 +1082,15 @@ def _bn_wrappers():
 
 TRAIN_ITERS = 40
 SYNTH_SIZE = 10240
+# Each VGG kernel wrapper's kernels by name in a trace (no name is a
+# substring of another wrapper's): for the two reductions, the one-pass
+# kernel and the two-stage pair.
+VGG_KERNELS = {"bn_stats": ("bn_stats_onepass_kernel", "bn_stats_kernel",
+                            "bn_stats_finish"),
+               "bn_norm_relu": ("bn_norm_relu_kernel",),
+               "bn_bwd_stats": ("bn_bwd_stats_onepass_kernel",
+                                "bn_bwd_stats_kernel", "bn_bwd_finish"),
+               "bn_bwd_dx": ("bn_bwd_dx_kernel",), "sgd": ("sgd_kernel",)}
 
 
 def train_part1(dev) -> dict:
@@ -997,10 +1104,9 @@ def train_part1(dev) -> dict:
                       TPU_DDP_SYNTH_SIZE=str(SYNTH_SIZE))
     wrappers = {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
     torch.cuda.reset_peak_memory_stats(dev)
-    for w in wrappers.values():
-        w.launches = 0
+    _zero_launches(wrappers)
     rc, out, wall = _run_part_captured("part1", ["--device", str(dev)])
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = _launches(wrappers)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if rc != 0:
         fail(f"run_part('part1') returned {rc}")
@@ -1019,8 +1125,11 @@ def train_part1(dev) -> dict:
         fail("part1 printed no timer line")
     steps = TRAIN_ITERS
     eval_batches = math.ceil(int(test.group(3)) / 256)
-    want = {"sgd": steps, "bn_bwd_stats": 8 * steps, "bn_bwd_dx": 8 * steps,
-            "bn_stats": 8 * (steps + eval_batches),
+    want = {"sgd": steps,
+            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
+            "bn_bwd_dx": 8 * steps,
+            "bn_stats": {"one_pass": 8 * (steps + eval_batches),
+                         "two_stage": 0},
             "bn_norm_relu": 8 * (steps + eval_batches)}
     if counts != want:
         fail(f"part1 launch counts {counts}, expected {want} ({steps} "
@@ -1093,13 +1202,9 @@ def train_step_checks(dev) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = _device_us(prof)
     busy_ms = sum(dev_us.values()) / 1e3
-    names = {"bn_stats": ("bn_stats_kernel", "bn_stats_finish"),
-             "bn_norm_relu": ("bn_norm_relu_kernel",),
-             "bn_bwd_stats": ("bn_bwd_stats_kernel", "bn_bwd_finish"),
-             "bn_bwd_dx": ("bn_bwd_dx_kernel",), "sgd": ("sgd_kernel",)}
     ours = {k: sum(v for n, v in dev_us.items()
                    if any(p in n for p in pats)) / 1e3 / 5
-            for k, pats in names.items()}
+            for k, pats in VGG_KERNELS.items()}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     window = {"steps": 5, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "device_idle_share": 1 - busy_ms / wall_ms,
@@ -1225,21 +1330,23 @@ def _flash_inputs(shape, causal, dtype, gen, dev, fused_v=True):
     return q, k, v, do
 
 
-def _readings(a, b) -> dict:
+def _readings(a, b, floor: float = 1e-3) -> dict:
     """How far ``a`` lies from ``b`` (both (B, L, heads, D)): the worst
-    row's relative error (the bound's reading), the whole tensor's
-    relative Frobenius error, and max |a - b|."""
+    row's relative error (the bound's reading; a row's norm floored at
+    ``floor`` x the RMS row norm), the whole tensor's relative Frobenius
+    error, and max |a - b|."""
     a, b = a.float(), b.float()
     dn, bn = (a - b).norm(dim=-1), b.norm(dim=-1)
-    floor = 1e-3 * float(bn.square().mean().sqrt())
+    floor = floor * float(bn.square().mean().sqrt())
     return {"row": float((dn / bn.clamp_min(floor)).max()),
             "frob": float((a - b).norm() / b.norm()),
             "max_abs": float((a - b).abs().max())}
 
 
-def _flash_errors(fa, q, k, v, do, causal):
+def _flash_errors(fa, q, k, v, do, causal, floor: float = 1e-3):
     """Each flash kernel against its plain version on the same inputs:
-    ({what: (reading, tol)}, {what: readings}, plain outputs)."""
+    ({what: (reading, tol)}, {what: readings}, plain outputs); rows
+    floored at ``floor`` x the RMS row norm (``_readings``)."""
     tol = FLASH_TOL[q.dtype]
     po, plse = fa.flash_fwd_plain(q, k, v, causal)
     delta = fa.attention_delta(po, do)
@@ -1249,8 +1356,9 @@ def _flash_errors(fa, q, k, v, do, causal):
     dk, dv = fa.flash_bwd_kv(q, k, v, do, plse, delta, causal)
     dq = fa.flash_bwd_q(q, k, v, do, plse, delta, causal)
     torch.cuda.synchronize()
-    reads = {"o": _readings(o, po), "dq": _readings(dq, pdq),
-             "dk": _readings(dk, pdk), "dv": _readings(dv, pdv)}
+    reads = {w: _readings(t, p, floor) for w, t, p in
+             (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk),
+              ("dv", dv, pdv))}
     errs = {w: (r["row"], tol["o" if w == "o" else "grad"])
             for w, r in reads.items()}
     errs["lse"] = (float((lse - plse).abs().max()), tol["lse"])
@@ -1458,8 +1566,8 @@ def _flash_wrappers():
 
 
 def _zero_launches(wrappers) -> None:
-    """Set every count to 0: an int, or a dict by route for the two
-    backward sweeps."""
+    """Set every count to 0: an int, or a dict by route for the routed
+    wrappers."""
     for w in wrappers.values():
         w.launches = (dict.fromkeys(w.launches, 0)
                       if isinstance(w.launches, dict) else 0)
@@ -1688,10 +1796,60 @@ def train_lm(dev, seed: int) -> dict:
 
 
 # The loss bound sits between the kernels' reading and the planted
-# fault's, which each run checks it catches; the gradients' bound cannot
-# separate them (bf16 rounding through 12 layers reads about as high),
-# so it holds the wiring and the fault's reading is reported.
+# fault's, which each run checks it catches; the leaves' gradient bound
+# cannot separate them (bf16 rounding through 12 layers reads about as
+# high), so it holds the wiring and the fault's reading is reported. The
+# gradients that do separate them are the last layer's attention-input
+# gradients on that layer's own q, k, v and dO, held row by row with
+# phase 13's bounds: the fault moves whole rows (the last 64 queries and
+# keys), the kernels a few bf16 units per row.
 LM_STEP_TOL = {"loss": 2e-4, "grad": 2e-2}
+
+
+@contextlib.contextmanager
+def _last_attention_inputs(fa):
+    """Within the block, the flash op's first backward call's (q, k, v,
+    dO, causal): the backward runs the layers last to first, so the LM's
+    last layer."""
+    backward, out = fa._FlashAttention.backward, {}
+
+    def capture(ctx, do):
+        if not out:
+            q, k, v = (t.detach() for t in ctx.saved_tensors[:3])
+            out.update(q=q, k=k, v=v, do=do.detach(), causal=ctx.causal)
+        return backward(ctx, do)
+
+    with mock.patch.object(fa._FlashAttention, "backward",
+                           staticmethod(capture)):
+        yield out
+
+
+def _last_layer_check(fa, inputs) -> dict:
+    """The three flash kernels against their plain versions on the last
+    layer's q, k, v and dO from the step, row by row with phase 13's
+    bounds; each gradient bound must also catch the planted fault.
+
+    On the LM's own activations some rows of dq vanish in exact
+    arithmetic (a causal layer's first query has one key, so ds = 0;
+    nearly one-hot rows come close), and there both sides hold rounding
+    noise alone. So a row's norm is floored at a tenth of the RMS row
+    norm here, not at phase 13's thousandth."""
+    q, k, v, do, causal = (inputs[n] for n in ("q", "k", "v", "do",
+                                               "causal"))
+    errs, reads, plain = _flash_errors(fa, q, k, v, do, causal, floor=0.1)
+    faulty = _dropped_tile(q, k, v, do, plain)
+    fault = {w: _readings(faulty[w], plain[w], floor=0.1)
+             for w in ("dq", "dk", "dv")}
+    out = {"readings": reads, "lse": errs["lse"][0],
+           "tol": {w: t for w, (_, t) in errs.items()},
+           "planted_fault": fault}
+    print(json.dumps({"lm_last_layer": out}), flush=True)
+    _fail_on(errs, "the LM step's last layer")
+    for w, r in fault.items():
+        if not r["row"] > errs[w][1]:
+            fail(f"the LM step's last-layer {w} bound {errs[w][1]} misses "
+                 f"the planted fault (it reads {r['row']})")
+    return out
 
 
 def lm_step_checks(dev, run: dict) -> dict:
@@ -1705,7 +1863,8 @@ def lm_step_checks(dev, run: dict) -> dict:
     from tpu_ddp_torch.utils.tree import tree_leaves
     tr, state, (x, y) = run["_trainer"], run["_state"], run["_batch"]
     leaves = tree_leaves(state.params)
-    lk, gk = tr._loss_and_grads(leaves, state.params, x, y)
+    with _last_attention_inputs(fa) as last:
+        lk, gk = tr._loss_and_grads(leaves, state.params, x, y)
     with mock.patch.multiple(fa, flash_fwd=fa.flash_fwd_plain,
                              flash_bwd_kv=fa.flash_bwd_kv_plain,
                              flash_bwd_q=fa.flash_bwd_q_plain):
@@ -1740,6 +1899,9 @@ def lm_step_checks(dev, run: dict) -> dict:
     if not grad_k <= LM_STEP_TOL["grad"]:
         fail(f"LM step grads: kernels vs plain, worst leaf's relative "
              f"Frobenius error {grad_k} > {LM_STEP_TOL['grad']}")
+    with torch.no_grad():
+        last_layer = _last_layer_check(fa, last)
+    del last
     del gf
     # AdamW's update is lr * m / (sqrt(v) + eps): about +-lr wherever
     # |g| >> eps, so where a gradient is within bf16 noise of 0 the two
@@ -1785,6 +1947,7 @@ def lm_step_checks(dev, run: dict) -> dict:
         fail(f"remat='blocks' loss {lb} vs 'none' {lk} (tol 1e-5 rel)")
     return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_k,
             "grad_worst_leaf_frob": grad_k, "tol": LM_STEP_TOL,
+            "last_layer_attention": last_layer,
             "planted_fault": {"loss": lf, "loss_rel_diff": loss_f,
                               "grad_worst_leaf_frob": grad_f},
             "largest_update": upd_largest, "max_firm_update_diff": upd_worst,
@@ -1907,17 +2070,34 @@ def main() -> None:
                 "bn_bwd_dx": 218}
     for name, line in replaces.items():
         k = bn["kernels"][name]
-        kernels.append({
+        row = {
             "name": name,
             "route": "cuda",
             "source": "tpu_ddp_torch/ops/csrc/bn_relu.cu",
             "replaces": f"tpu_ddp/ops/pallas/bn_relu.py:{line}",
             "launches": train["launches"][name],
-            # Times and bound: one train step's 8 calls at batch 256.
+            # Times and bound: one train step's 8 calls at batch 256, alone;
+            # main_path_ms: the wrapper's device time per step in phase
+            # 10's traced window.
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "event_ms", "timing")},
-        })
+            "main_path_ms": step["traced_window"][
+                "ported_kernels_ms_per_step"][name],
+        }
+        if name in ("bn_stats", "bn_bwd_stats"):
+            # Launches on the one-pass route (the two-stage route's beside
+            # it); "was": the two-stage route forced, alone, this run.
+            regs, spills = ptxas(f"{name}_onepass_kernel")
+            row.update(
+                launches=train["launches"][name]["one_pass"],
+                two_stage_launches=train["launches"][name]["two_stage"],
+                kernel_route="one_pass", was_ms=k["was_ms"],
+                registers=regs, spill_bytes=spills)
+        if name == "bn_stats":
+            row.update(library_var_mean_ms=k["library_var_mean_ms"],
+                       read_all_ms=k["read_all_ms"])
+        kernels.append(row)
     replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
                 "flash_bwd_q": ("bwd_q", 357)}
     for name, (key, line) in replaces.items():

@@ -8,6 +8,9 @@ The kernels themselves run only on the card, where chip_smoke.py holds
 them against these plain versions.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,12 +83,18 @@ def test_bf16_input_computes_in_f32_and_returns_bf16():
     assert torch.equal(got, want)
 
 
+def _counts(wrapper):
+    """A copy of a wrapper's launch count: an int, or a dict by route."""
+    n = wrapper.launches
+    return dict(n) if isinstance(n, dict) else n
+
+
 def test_cpu_route_is_the_plain_version_and_counts_nothing():
     x, scale, bias = _inputs((64, 8), seed=5)
     x2d, s, b = map(torch.from_numpy, (x, scale, bias))
     g2d = torch.from_numpy(np.random.default_rng(6).normal(
         size=x.shape).astype(np.float32))
-    before = [w.launches for w in (tb.bn_stats, tb.bn_norm_relu,
+    before = [_counts(w) for w in (tb.bn_stats, tb.bn_norm_relu,
                                    tb.bn_bwd_stats, tb.bn_bwd_dx)]
     mean, inv = tb.bn_stats(x2d)
     assert all(torch.equal(a, b_) for a, b_ in
@@ -95,7 +104,7 @@ def test_cpu_route_is_the_plain_version_and_counts_nothing():
     db, ds = tb.bn_bwd_stats(x2d, g2d, mean, inv, s, b)
     assert torch.equal(tb.bn_bwd_dx(x2d, g2d, mean, inv, s, b, db, ds),
                        tb.bn_bwd_dx_ref(x2d, g2d, mean, inv, s, b, db, ds))
-    after = [w.launches for w in (tb.bn_stats, tb.bn_norm_relu,
+    after = [_counts(w) for w in (tb.bn_stats, tb.bn_norm_relu,
                                   tb.bn_bwd_stats, tb.bn_bwd_dx)]
     assert after == before
 
@@ -128,3 +137,111 @@ def test_op_rejects_a_non_contiguous_activation():
     with pytest.raises(ValueError, match="C-contiguous"):
         tb.batch_norm_relu(x, torch.ones(8), torch.zeros(8))
 
+
+# VGG-11's conv outputs at batch 256 as (R, C) rows, and the small rows
+# that take the kernels' scalar and ragged paths (chip_smoke.py's
+# BN_SHAPES and BN_EDGE_SHAPES).
+VGG_ROWS = [(262144, 64), (65536, 128), (16384, 256), (4096, 512),
+            (1024, 512)]
+EDGE_ROWS = [(300, 3), (999, 96), (1000, 30), (33, 4), (517, 1)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("name", ["bn_stats", "bn_bwd_stats"])
+@pytest.mark.parametrize("r,c", VGG_ROWS + EDGE_ROWS)
+def test_stats_plan_covers_every_row_once(r, c, name, sms):
+    """The one-pass launch plan: every row in exactly one block, no empty
+    block, whole clusters, every channel in one column block, at most one
+    wave of blocks, and each lane walks its minimum of rows unless the
+    layer is too small for more than one block."""
+    vec = 4 if c % 4 == 0 else 1
+    per_sm = 4
+    plan = tb.stats_plan(name, r, c, vec, sms, per_sm)
+    assert 1 <= plan.cluster <= 8 and plan.blocks % plan.cluster == 0
+    assert plan.partials == plan.blocks // plan.cluster
+    assert 1 <= plan.blocks <= r
+    assert plan.blocks * plan.columns <= max(sms * 2, plan.columns)
+    rows = [plan.rows(r, b) for b in range(plan.blocks)]
+    assert all(len(rr) > 0 for rr in rows)
+    assert [i for rr in rows for i in rr] == list(range(r))
+    assert (plan.columns - 1) * plan.width < c <= plan.columns * plan.width
+    assert plan.width <= 32 * vec
+    assert plan.lanes * (plan.width // vec) <= 256
+    if plan.blocks > 1:
+        least = min(len(rr) for rr in rows)
+        assert least >= plan.lanes * tb._MIN_ROWS_PER_LANE[name]
+
+
+def test_stats_plan_fills_the_card_at_vgg_shapes():
+    """The largest VGG-11 layer takes one wave of two blocks per SM; a
+    small layer takes fewer, fuller blocks."""
+    big = tb.stats_plan("bn_stats", 262144, 64, 4, 132, 4)
+    assert 132 * 2 - 8 < big.blocks <= 132 * 2 and big.cluster == 8
+    assert tb.stats_plan("bn_stats", 262144, 64, 4, 132, 1).blocks == 128
+    small = tb.stats_plan("bn_stats", 1024, 512, 4, 132, 4)
+    assert small.blocks * small.columns < 132
+    assert small.partials <= 2
+
+
+def test_stats_plan_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="multiple of vec"):
+        tb.stats_plan("bn_stats", 64, 6, 4, 132, 4)
+    too_wide = 4 * tb._ONE_PASS_GROUPS * (tb._COUNTERS + 1)
+    with pytest.raises(ValueError, match="column blocks"):
+        tb.stats_plan("bn_bwd_stats", 64, too_wide, 4, 132, 4)
+
+
+@pytest.mark.parametrize("r,c", VGG_ROWS + EDGE_ROWS)
+def test_stats_route_is_one_pass_on_the_main_path(r, c):
+    assert tb.stats_route(r, c) == "one_pass"
+
+
+def test_workspace_is_one_per_device_and_stream():
+    saved = dict(tb._WORKSPACES)
+    tb._WORKSPACES.clear()
+    try:
+        a = tb._workspace("cpu", 11)
+        assert tb._workspace(torch.device("cpu"), 11) is a
+        b = tb._workspace("cpu", 12)
+        assert b is not a
+        for ws in (a, b):
+            assert ws.dtype == torch.int32
+            assert tuple(ws.shape) == (tb._COUNTERS,)
+            assert not ws.any()
+        assert set(tb._WORKSPACES) == {(torch.device("cpu"), 11),
+                                       (torch.device("cpu"), 12)}
+    finally:
+        tb._WORKSPACES.clear()
+        tb._WORKSPACES.update(saved)
+
+
+def test_cpu_route_allocates_no_workspace():
+    saved = dict(tb._WORKSPACES)
+    tb._WORKSPACES.clear()
+    try:
+        x, scale, bias = _inputs((4, 4, 4, 8), seed=7)
+        ts = [torch.from_numpy(v).requires_grad_() for v in (x, scale, bias)]
+        tb.batch_norm_relu(*ts).backward(torch.ones(x.shape))
+        x2d = torch.from_numpy(x).reshape(-1, 8)
+        tb.bn_stats(x2d)
+        assert tb._WORKSPACES == {}
+    finally:
+        tb._WORKSPACES.clear()
+        tb._WORKSPACES.update(saved)
+
+
+def test_entry_point_argtypes_match_the_source():
+    """Every C entry point of csrc/bn_relu.cu has the ctypes signature the
+    wrapper declares, parameter for parameter (a missing one would pass
+    the stream as a 32-bit int)."""
+    src = (Path(tb.__file__).parent / "csrc" / tb._SOURCE).read_text()
+    found = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = ""
+        for param in m.group(2).split(","):
+            param = param.strip()
+            kinds += ("P" if param.startswith("int*") else
+                      "p" if "*" in param else
+                      "f" if param.startswith("float") else "i")
+        found[m.group(1)] = kinds
+    assert found == tb._ARGTYPES

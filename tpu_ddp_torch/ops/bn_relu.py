@@ -15,10 +15,19 @@ whose halves are the JAX kernels' four passes over the (R, C) row view:
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``ops/csrc/bn_relu.cu``, built with nvcc at first use) and adds one to
-its ``launches`` count (``bn_stats`` and ``bn_bwd_stats`` each run a
-partials kernel and a small combine, counted as one launch); on a CPU
-tensor it computes its plain PyTorch version (``*_ref`` below, the same
-arithmetic op by op). A failed build or launch raises; nothing falls back.
+its ``launches`` count; on a CPU tensor it computes its plain PyTorch
+version (``*_ref`` below, the same arithmetic op by op). A failed build
+or launch raises; nothing falls back.
+
+The two reductions, ``bn_stats`` and ``bn_bwd_stats``, have two CUDA
+designs, picked by :func:`stats_route` before the launch: ``"one_pass"``
+(one launch whose last block to arrive combines the blocks' partials in
+a fixed order, sized by :func:`stats_plan`: the main path) and
+``"two_stage"`` (a partials kernel and a second, per-channel combine
+launch: the previous design, kept for the same-run comparison). Their
+``launches`` are dicts keyed by route. The one-pass kernels count their
+arrivals in a zeroed workspace that :func:`_workspace` allocates once per
+(device, stream) and that every launch leaves zeroed.
 The kernels take only C-contiguous f32 (R, C) rows: the VGG model keeps
 its activations ``channels_last``, so the conv output's NHWC view is
 already that, with no copy.
@@ -27,6 +36,7 @@ already that, with no copy.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -40,6 +50,20 @@ _SOURCE = "bn_relu.cu"
 _THREADS = 256        # kThreads in the source
 _BLOCKS_PER_SM = 4    # row blocks per SM the grid aims for
 _ROWS_PER_LANE = 8    # rows a thread walks at least before more blocks
+STATS_ROUTES = ("one_pass", "two_stage")
+# The one-pass kernels: channel groups per block, most blocks in a
+# cluster, column counters in a workspace (kOnePassGroups, kMaxCluster,
+# kCounters in the source); the blocks per SM their grid aims for (at
+# most their occupancy: 4 on an H100), and the rows each lane walks at
+# least, two steps of the kernel's unrolled loads (kStatsUnroll,
+# kBwdUnroll). Two blocks per SM, rather than four, keep the partials the
+# last block sums few; on an H100 they were the faster grid at every
+# VGG-11 shape.
+_ONE_PASS_GROUPS = 32
+_MAX_CLUSTER = 8
+_COUNTERS = 1024
+_ONE_PASS_BLOCKS_PER_SM = 2
+_MIN_ROWS_PER_LANE = {"bn_stats": 8, "bn_bwd_stats": 4}
 
 
 # ---- plain versions (the CPU route and the kernels' yardstick) -----------
@@ -95,6 +119,14 @@ def _num_sms(device_index: int) -> int:
 _ARGTYPES = {
     # x, R, C, vec, blocks, ps, pq, eps, mean, inv, stream
     "tdt_bn_stats": "piiiippfppp",
+    # x, R, C, vec, blocks, cluster, ps, pq, counters, eps, mean, inv,
+    # stream
+    "tdt_bn_stats_onepass": "piiiiipppfppp",
+    # x, g, mean, inv, scale, bias, R, C, vec, blocks, cluster, pdb, pds,
+    # counters, dbias, dscale, stream
+    "tdt_bn_bwd_stats_onepass": "ppppppiiiiipppppp",
+    # bwd, vec, &blocks_per_sm
+    "tdt_bn_onepass_blocks_per_sm": "iiP",
     # x, mean, inv, scale, bias, y, R, C, vec, blocks, stream
     "tdt_bn_norm_relu": "ppppppiiiip",
     # x, g, mean, inv, scale, bias, R, C, vec, blocks, pdb, pds, dbias,
@@ -104,7 +136,8 @@ _ARGTYPES = {
     # count, inv_count, stream
     "tdt_bn_bwd_dx": "pppppppppiiiiffp",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "P": ctypes.POINTER(ctypes.c_int)}
 
 
 def _fn(name: str):
@@ -161,6 +194,104 @@ def _route(name, rows, chans):
     return r, c, vec, blocks
 
 
+def stats_route(r: int, c: int) -> str:
+    """The design a CUDA call of :func:`bn_stats` or :func:`bn_bwd_stats`
+    launches on (R, C) rows: always ``"one_pass"``. The ``"two_stage"``
+    kernels run only where a caller forces this function's answer, to
+    time the previous design beside the new one in the same run."""
+    return "one_pass"
+
+
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """A one-pass launch: ``blocks`` row blocks (a multiple of
+    ``cluster``) in each of ``columns`` column blocks of ``width``
+    channels, ``lanes`` threads per channel group; the cluster leaders
+    write ``partials = blocks // cluster`` rows per reduced quantity."""
+    blocks: int
+    cluster: int
+    columns: int
+    lanes: int
+    width: int
+
+    @property
+    def partials(self) -> int:
+        return self.blocks // self.cluster
+
+    def rows(self, r: int, b: int) -> range:
+        """The rows block ``b`` reduces (``block_rows`` in the source)."""
+        return range(b * r // self.blocks, (b + 1) * r // self.blocks)
+
+
+def stats_plan(name: str, r: int, c: int, vec: int, sms: int,
+               per_sm: int) -> StatsPlan:
+    """The one-pass grid for ``name`` (``"bn_stats"`` or
+    ``"bn_bwd_stats"``) on (R, C) rows at ``vec`` channels per thread, on
+    a card of ``sms`` SMs that hold ``per_sm`` of its blocks each.
+
+    A block covers at most 32 channel groups, so a wide layer spreads its
+    combine over several column blocks. The row blocks make one wave of
+    ``min(per_sm, 2)`` blocks per SM, but each lane walks at least
+    ``_MIN_ROWS_PER_LANE[name]`` rows: a small layer gets fewer, fuller
+    blocks, so its combine stays short. Blocks form clusters of up to 8,
+    whose leaders write one partial row each."""
+    if c % vec:
+        raise ValueError(f"{name}: C={c} is not a multiple of vec={vec}")
+    groups = c // vec
+    per_block = min(groups, _ONE_PASS_GROUPS)
+    lanes = _THREADS // per_block
+    columns = math.ceil(groups / per_block)
+    if columns > _COUNTERS:
+        raise ValueError(f"{name}: {c} channels need {columns} column "
+                         f"blocks; the workspace counts {_COUNTERS}")
+    slots = max(1, sms * min(per_sm, _ONE_PASS_BLOCKS_PER_SM) // columns)
+    blocks = max(1, min(slots, r // (lanes * _MIN_ROWS_PER_LANE[name])))
+    cluster = min(_MAX_CLUSTER, 1 << (blocks.bit_length() - 1))
+    return StatsPlan(blocks=blocks // cluster * cluster, cluster=cluster,
+                     columns=columns, lanes=lanes, width=per_block * vec)
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device, stream: int) -> torch.Tensor:
+    """The one-pass kernels' arrival counters for ``stream`` (a raw
+    stream handle) on ``device``: zeroed once, left zeroed by every
+    launch. Launches on one stream run in order, so they share it."""
+    key = (torch.device(device), stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(_COUNTERS, dtype=torch.int32,
+                                            device=device)
+    return ws
+
+
+@functools.cache
+def _blocks_per_sm(name: str, vec: int, device_index: int) -> int:
+    """Resident blocks per SM of ``name``'s one-pass kernel at ``vec``,
+    from the CUDA occupancy calculator."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _fn("tdt_bn_onepass_blocks_per_sm")(
+            int(name == "bn_bwd_stats"), vec, ctypes.byref(out))
+    if err or out.value < 1:
+        raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
+                           f"{err}, {out.value} blocks per SM)")
+    return out.value
+
+
+def _one_pass(name, x2d, vec):
+    """(plan, partials (2, P, C), counters) of a one-pass launch."""
+    r, c = x2d.shape
+    idx = x2d.device.index
+    plan = stats_plan(name, r, c, vec, _num_sms(idx),
+                      _blocks_per_sm(name, vec, idx))
+    part = torch.empty((2, plan.partials, c), dtype=torch.float32,
+                       device=x2d.device)
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    return plan, part, _workspace(x2d.device, stream)
+
+
 def _launch(name, x, *args):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -171,18 +302,29 @@ def _launch(name, x, *args):
 
 
 def bn_stats(x2d, eps=BN_EPS):
-    """Per-channel (mean, inv) of (R, C) f32 rows; kernel 6."""
+    """Per-channel (mean, inv) of (R, C) f32 rows; kernel 6. Each CUDA
+    launch adds one to ``bn_stats.launches[route]``, the route
+    :func:`stats_route` picked."""
     route = _route("bn_stats", (x2d,), ())
     if route is None:
         return bn_stats_ref(x2d, eps)
     r, c, vec, blocks = route
-    part = torch.empty((2, blocks, c), dtype=torch.float32, device=x2d.device)
+    which = stats_route(r, c)
     mean = torch.empty((c,), dtype=torch.float32, device=x2d.device)
     inv = torch.empty_like(mean)
-    _launch("tdt_bn_stats", x2d, x2d.data_ptr(), r, c, vec, blocks,
-            part[0].data_ptr(), part[1].data_ptr(), float(eps),
-            mean.data_ptr(), inv.data_ptr())
-    bn_stats.launches += 1
+    if which == "one_pass":
+        plan, part, ws = _one_pass("bn_stats", x2d, vec)
+        _launch("tdt_bn_stats_onepass", x2d, x2d.data_ptr(), r, c, vec,
+                plan.blocks, plan.cluster, part[0].data_ptr(),
+                part[1].data_ptr(), ws.data_ptr(), float(eps),
+                mean.data_ptr(), inv.data_ptr())
+    else:
+        part = torch.empty((2, blocks, c), dtype=torch.float32,
+                           device=x2d.device)
+        _launch("tdt_bn_stats", x2d, x2d.data_ptr(), r, c, vec, blocks,
+                part[0].data_ptr(), part[1].data_ptr(), float(eps),
+                mean.data_ptr(), inv.data_ptr())
+    bn_stats.launches[which] += 1
     return mean, inv
 
 
@@ -201,19 +343,28 @@ def bn_norm_relu(x2d, mean, inv, scale, bias):
 
 
 def bn_bwd_stats(x2d, g2d, mean, inv, scale, bias):
-    """Per-channel (dbias, dscale) with the ReLU mask; kernel 8."""
+    """Per-channel (dbias, dscale) with the ReLU mask; kernel 8. Each CUDA
+    launch adds one to ``bn_bwd_stats.launches[route]``."""
     route = _route("bn_bwd_stats", (x2d, g2d), (mean, inv, scale, bias))
     if route is None:
         return bn_bwd_stats_ref(x2d, g2d, mean, inv, scale, bias)
     r, c, vec, blocks = route
-    part = torch.empty((2, blocks, c), dtype=torch.float32, device=x2d.device)
+    which = stats_route(r, c)
     dbias = torch.empty((c,), dtype=torch.float32, device=x2d.device)
     dscale = torch.empty_like(dbias)
-    _launch("tdt_bn_bwd_stats", x2d, x2d.data_ptr(), g2d.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), r, c, vec, blocks, part[0].data_ptr(),
-            part[1].data_ptr(), dbias.data_ptr(), dscale.data_ptr())
-    bn_bwd_stats.launches += 1
+    ptrs = (x2d.data_ptr(), g2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), r, c, vec)
+    if which == "one_pass":
+        plan, part, ws = _one_pass("bn_bwd_stats", x2d, vec)
+        _launch("tdt_bn_bwd_stats_onepass", x2d, *ptrs, plan.blocks,
+                plan.cluster, part[0].data_ptr(), part[1].data_ptr(),
+                ws.data_ptr(), dbias.data_ptr(), dscale.data_ptr())
+    else:
+        part = torch.empty((2, blocks, c), dtype=torch.float32,
+                           device=x2d.device)
+        _launch("tdt_bn_bwd_stats", x2d, *ptrs, blocks, part[0].data_ptr(),
+                part[1].data_ptr(), dbias.data_ptr(), dscale.data_ptr())
+    bn_bwd_stats.launches[which] += 1
     return dbias, dscale
 
 
@@ -234,8 +385,10 @@ def bn_bwd_dx(x2d, g2d, mean, inv, scale, bias, dbias, dscale):
     return dx
 
 
-for _w in (bn_stats, bn_norm_relu, bn_bwd_stats, bn_bwd_dx):
-    _w.launches = 0
+bn_stats.launches = dict.fromkeys(STATS_ROUTES, 0)
+bn_bwd_stats.launches = dict.fromkeys(STATS_ROUTES, 0)
+bn_norm_relu.launches = 0
+bn_bwd_dx.launches = 0
 
 
 # ---- the differentiable op ------------------------------------------------
