@@ -142,11 +142,47 @@ Phases, each fatal on failure (exit code 1, no result line):
    its leaf's largest (below that the sign-like first moments of AdamW
    can differ, and those elements are counted); then one step under
    ``remat="blocks"``: 24 wgmma forward launches, 12 of each wgmma
-   sweep and a loss within 1e-5 relative of the ``"none"`` step's.
+   sweep and a loss within 1e-5 relative of the ``"none"`` step's;
+17. the SGD kernel's ``skip`` flag (the step guard gates the update on
+   the device) on VGG-11's 34 leaves and the odd leaves: with skip 0 the
+   bits of the plain version and of the unflagged kernel, with skip 1
+   (f32 or int32) params and momentum byte-identical to their inputs and
+   the launch counted; the flagged, skipped and unflagged launches timed
+   together;
+18. fault tolerance on VGG-11 at batch 256, both kernels, through
+   ``run_part("part1")`` and the ``Trainer`` it drives, cuDNN in
+   deterministic mode (no autotuning) for steps 1-4 only: (1) 40
+   iterations straight, against 20 with ``TPU_DDP_CKPT_EVERY=20`` and 20
+   more resumed with ``--resume`` in a fresh ``Trainer``: the step-40
+   checkpoints' sha256 digests equal leaf for leaf; (2) ``nan-grad@25``:
+   exactly step 25 skipped, params and momentum digests equal before and
+   after it, the loss finite again at step 26; (3) ``nan-grad@p1.0`` with
+   ``TPU_DDP_GUARD_MAX_BAD=3``: ``TrainingDivergedError`` at step 3, the
+   state unchanged; (4) ``corrupt-ckpt@20``: the newest checkpoint
+   quarantined to ``step_00000020.corrupt`` and step 10 restored by the
+   next ``--resume``; (5) the iteration time (1-39) with the guard on
+   (the default) and with ``TPU_DDP_GUARD=0``, in turns (on, off, off,
+   on), and the save and verified-restore times of the 74 MB state;
+19. the restarting launcher on the card: ``python -m tpu_ddp_torch.launch
+   part1 --nproc 1 --max-restarts 1 --ckpt-dir D`` with a chaos
+   ``hard-exit@30``, a sentinel directory, 40 iterations, checkpoints
+   every 20 and ``TPU_DDP_CUDNN_DETERMINISTIC=1``: exactly one restart,
+   the second attempt resumes at step 20, the run exits 0 and prints
+   ``Test set:``, every logged loss is finite, and the step-40 checkpoint
+   equals phase 18's straight run digest for digest;
+20. the LM trainer's checkpoint at full width: TransformerLM-large
+   (735,154,176 params) with its AdamW state after phase 15's steps is
+   saved (8.8 GB: f32 params, mu and nu; free disk checked first, at
+   least twice that) and, after the first trainer is freed, restored
+   into a fresh ``LMTrainer``: the next step's loss bit-identical to the
+   original trainer's next step on the same batch (the second step's
+   equality reported); save and restore seconds and GB/s.
 
-Prints the card's name and power limit, the serving and training
-metrics, one ``{"kernels": [...]}`` line (nine kernels), and last the
-contract line ``{"ok": true, "device": {...}}``.
+Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
+and are removed at the end. Prints the card's name and power limit, the
+serving and training metrics, each phase's seconds, one
+``{"kernels": [...]}`` line (nine kernels), and last the contract line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1957,6 +1993,508 @@ def lm_step_checks(dev, run: dict) -> dict:
             "remat_blocks_launches": counts}
 
 
+# ---- phases 17-20: fault tolerance ------------------------------------
+
+# Checkpoints of phases 18-20 are written here, inside the checkout (a
+# directory .gitignore lists), and removed when the script ends.
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_chip_smoke_ckpt")
+VGG_STATE_BYTES = 2 * 9231114 * 4  # params and momentum, f32
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_sgd_skip(dev, gen) -> dict:
+    """Phase 17: the fused SGD kernel's ``skip`` flag on VGG-11's 34 leaves
+    and the odd ``SGD_EDGE_SHAPES``: with skip 0 the bits of the plain
+    version and of the unflagged kernel; with skip 1 (f32 or int32) params
+    and momentum byte-identical to their inputs and the launch counted;
+    the flagged kernel timed beside the unflagged one (row 5)."""
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.ops import sgd as tsgd
+    hp = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    zero = torch.zeros((), device=dev)
+    one = torch.ones((), device=dev)
+    vgg = [p.shape for p in get_model("VGG11").parameters()]
+    out = {}
+    for label, shapes in (("edge", SGD_EDGE_SHAPES), ("vgg11", vgg)):
+        p0 = [torch.randn(s, generator=gen, device=dev) * 0.05
+              for s in shapes]
+        grads = [torch.randn(s, generator=gen, device=dev) * 1e-2
+                 for s in shapes]
+        b0 = [torch.randn(s, generator=gen, device=dev) * 1e-3
+              for s in shapes]
+        runs = {}
+        for name, fn, skip in (("flag0", tsgd.fused_sgd_step, zero),
+                               ("unflagged", tsgd.fused_sgd_step, None),
+                               ("plain", tsgd.fused_sgd_step_ref, None)):
+            p, b = [t.clone() for t in p0], [t.clone() for t in b0]
+            fn(p, grads, b, skip=skip, **hp)
+            runs[name] = p + b
+        torch.cuda.synchronize()
+        for name in ("unflagged", "plain"):
+            if not all(_same_bits(a, c) for a, c in zip(runs["flag0"],
+                                                        runs[name])):
+                fail(f"sgd with skip=0 differs from the {name} update on "
+                     f"{label} leaves (must be bit for bit equal)")
+        for skip in (one, torch.ones((), dtype=torch.int32, device=dev)):
+            p, b = [t.clone() for t in p0], [t.clone() for t in b0]
+            n0 = tsgd.fused_sgd_step.launches
+            tsgd.fused_sgd_step(p, grads, b, skip=skip, **hp)
+            torch.cuda.synchronize()
+            if tsgd.fused_sgd_step.launches != n0 + math.ceil(
+                    len(shapes) / 80):
+                fail("a skipped sgd launch was not counted")
+            if not all(_same_bits(a, c) for a, c in zip(p + b, p0 + b0)):
+                fail(f"sgd with skip={skip.item()} changed {label} params "
+                     f"or momentum (must leave them byte-identical)")
+        out[label] = {"leaves": len(shapes), "skip0_bitwise": True,
+                      "skip1_unchanged": True}
+    p, b = [t.clone() for t in p0], [t.clone() for t in b0]
+    flagged = timed(lambda: tsgd.fused_sgd_step(p, grads, b, skip=zero,
+                                                **hp), [()], 50)
+    unflagged = timed(lambda: tsgd.fused_sgd_step(p, grads, b, **hp),
+                      [()], 50)
+    skipped = timed(lambda: tsgd.fused_sgd_step(p, grads, b, skip=one,
+                                                **hp), [()], 50)
+    n = sum(math.prod(s) for s in vgg)
+    bound, by = _bound(20 * n + 4, 5 * n)
+    out.update(flagged_ms=flagged["ms"], unflagged_ms=unflagged["ms"],
+               skipped_ms=skipped["ms"], flagged_event_ms=flagged["event_ms"],
+               bound_ms=bound, bound_by=by,
+               timing=_timing_label(flagged, unflagged, skipped))
+    return out
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set (value) or unset (None) env variables for the block."""
+    old = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = old
+
+
+# The ladder's knobs for phases 18-19: vgg11_cifar10 as published, both
+# kernels, the synthetic stand-in of phase 10; no fault unless a run sets
+# one.
+VGG_ENV = dict(TPU_DDP_PALLAS_SGD="1", TPU_DDP_PALLAS_BN="1",
+               TPU_DDP_SYNTH_SIZE=str(SYNTH_SIZE), TPU_DDP_GLOBAL_BATCH=None,
+               TPU_DDP_COMPUTE_DTYPE=None, TPU_DDP_LR=None,
+               TPU_DDP_CKPT_EVERY=None, TPU_DDP_CHAOS_FAULTS=None,
+               TPU_DDP_CHAOS_SENTINEL=None, TPU_DDP_GUARD=None,
+               TPU_DDP_GUARD_MAX_BAD=None, TPU_DDP_CUDNN_DETERMINISTIC=None)
+
+
+def _part1(dev, argv, **env) -> str:
+    """``run_part("part1")`` on the card under VGG_ENV and ``env``; fails
+    unless it returns 0 and prints a finite ``Test set:`` line."""
+    with _env(**{**VGG_ENV, **env}):
+        rc, out, _ = _run_part_captured("part1", ["--device", str(dev),
+                                                  *argv])
+    test = re.search(r"Test set: average loss (\S+),", out)
+    if rc != 0 or test is None or not math.isfinite(float(test.group(1))):
+        fail(f"part1 {argv} {env}: rc {rc}, no finite 'Test set:' line")
+    return out
+
+
+def _timer_ms(out: str) -> float:
+    m = re.search(r"timing over iterations 1-39: total \d+ ns, average "
+                  r"(\d+) ns", out)
+    if m is None:
+        fail("part1 printed no timer line")
+    return int(m.group(1)) / 1e6
+
+
+def _step_digests(directory, step) -> dict:
+    with open(os.path.join(directory, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)["digests"]
+
+
+def _state_digests(trainer, state) -> dict:
+    """sha256 per leaf of params and momentum (the step left out)."""
+    from tpu_ddp_torch.resilience.integrity import leaf_digest
+    from tpu_ddp_torch.utils.tree import keyed_leaves
+    host = trainer.state_to_host(state)
+    host.pop("step")
+    return {k: leaf_digest(v) for k, v in keyed_leaves(host)}
+
+
+def vgg_resilience(dev) -> dict:
+    """Phase 18: checkpoints, mid-epoch resume and the guard on VGG-11 at
+    batch 256 with both kernels, cuDNN deterministic for 1-4."""
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.resilience.guard import TrainingDivergedError
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils import checkpoint as ckpt
+    from tpu_ddp_torch.utils.config import TrainConfig
+    root = os.path.join(CKPT_ROOT, "vgg")
+    res = {}
+    with _deterministic_cudnn(), _env(**VGG_ENV):
+        # 1. 40 iterations straight, against 20 and 20 more resumed.
+        a, b = os.path.join(root, "straight"), os.path.join(root, "resumed")
+        out = _part1(dev, ["--ckpt-dir", a], TPU_DDP_MAX_ITERS=40,
+                     TPU_DDP_CKPT_EVERY=20)
+        res["deterministic_iter_ms"] = _timer_ms(out)
+        _part1(dev, ["--ckpt-dir", b], TPU_DDP_MAX_ITERS=20,
+               TPU_DDP_CKPT_EVERY=20)
+        out = _part1(dev, ["--ckpt-dir", b, "--resume"], TPU_DDP_MAX_ITERS=40,
+                     TPU_DDP_CKPT_EVERY=20)
+        if f"resumed from {b} at step 20 (epoch 0, iter 20)" not in out:
+            fail("phase 18: the resumed run did not pick up at step 20")
+        want = _step_digests(a, 40)
+        got = _step_digests(b, 40)
+        if got != want or ckpt.all_steps(a) != [20, 40]:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            fail(f"phase 18: resumed VGG-11 differs from the straight run "
+                 f"at step 40 on {len(bad)} leaves: {bad[:4]}")
+        res["resume"] = {"leaves": len(want), "bitwise_equal": True}
+
+        # 2. nan-grad@25: one step skipped, the state unchanged by it.
+        cfg = TrainConfig.preset("vgg11_cifar10")
+        train, _ = create_data_loaders(batch_size=256,
+                                       synthetic_size=SYNTH_SIZE,
+                                       seed=cfg.seed)
+        cfg.pallas_sgd = cfg.pallas_bn = True
+        model = get_model(cfg.model, use_pallas_bn=True,
+                          compute_dtype=getattr(torch, cfg.compute_dtype))
+        tr = Trainer(model, cfg, device=dev)
+        state = tr.init_state()
+        lines = []
+        with _env(TPU_DDP_CHAOS_FAULTS="nan-grad@25"):
+            losses = []
+            for start, stop in ((0, 24), (24, 25), (25, 26)):
+                tr.config.max_iters = stop
+                if stop == 25:
+                    before = _state_digests(tr, state)
+                state, stats = tr.train_epoch(state, train, start_iter=start,
+                                              log=lines.append)
+                losses.append(stats["last_loss"])
+                if stop == 25:
+                    after = _state_digests(tr, state)
+        skipped = [e["step"] for e in tr.metrics.events
+                   if e["event"] == "step_skipped"]
+        if skipped != [25] or tr.guard.total_skipped != 1 \
+                or state.step != 26:
+            fail(f"phase 18: nan-grad@25 skipped steps {skipped}, "
+                 f"state at step {state.step}")
+        if before != after:
+            fail("phase 18: the skipped step 25 changed params or momentum")
+        if not math.isfinite(losses[2]):
+            fail(f"phase 18: the loss at step 26 is {losses[2]} (expected "
+                 f"finite again after the skipped step)")
+        # The loss of the poisoned step is reported, not held: the BN
+        # kernels clamp a NaN variance to 0 and their ReLU maps NaN to 0,
+        # so the card's forward can read finite where the plain version's
+        # is NaN; the gradients are NaN either way, and the guard reads
+        # both.
+        res["nan_grad"] = {"skipped_steps": skipped,
+                           "state_unchanged": True,
+                           "loss_step_25": str(losses[1]),
+                           "loss_step_26": losses[2]}
+
+        # 3. nan-grad on every step: TrainingDivergedError at the third.
+        with _env(TPU_DDP_CHAOS_FAULTS="nan-grad@p1.0",
+                  TPU_DDP_GUARD_MAX_BAD="3"):
+            cfg3 = TrainConfig.preset("vgg11_cifar10")
+            cfg3.pallas_sgd = cfg3.pallas_bn = True
+            tr3 = Trainer(model, cfg3, device=dev)
+            state3 = tr3.init_state()
+            d0 = _state_digests(tr3, state3)
+            try:
+                tr3.train_epoch(state3, train, log=lines.append)
+                fail("phase 18: nan-grad@p1.0 did not raise "
+                     "TrainingDivergedError")
+            except TrainingDivergedError as e:
+                diverged = str(e)
+        if tr3.guard.last_step != 3 or _state_digests(tr3, state3) != d0:
+            fail(f"phase 18: TrainingDivergedError at step "
+                 f"{tr3.guard.last_step} (expected 3), or skipped steps "
+                 f"changed the state")
+        res["diverged"] = {"at_step": tr3.guard.last_step,
+                           "message": diverged}
+        del tr, tr3, state, state3
+
+        # 4. corrupt-ckpt: the newest is quarantined, the previous used.
+        c = os.path.join(root, "corrupt")
+        _part1(dev, ["--ckpt-dir", c], TPU_DDP_MAX_ITERS=20,
+               TPU_DDP_CKPT_EVERY=10,
+               TPU_DDP_CHAOS_FAULTS="corrupt-ckpt@20")
+        out = _part1(dev, ["--ckpt-dir", c, "--resume"], TPU_DDP_MAX_ITERS=20,
+                     TPU_DDP_CKPT_EVERY=10)
+        if "[ckpt] step 20 failed verification" not in out \
+                or f"resumed from {c} at step 10" not in out \
+                or not os.path.isdir(os.path.join(c, "step_00000020"
+                                                     ".corrupt")):
+            fail("phase 18: the corrupt step-20 checkpoint was not "
+                 "quarantined with step 10 restored")
+        res["corrupt_ckpt"] = {"quarantined": "step_00000020.corrupt",
+                               "restored_step": 10}
+
+    # 5. VGG-11 iteration time, guard on (the default) and off, in turns.
+    times = {"on": [], "off": []}
+    for guard in ("on", "off", "off", "on", "on", "off"):
+        out = _part1(dev, [], TPU_DDP_MAX_ITERS=40,
+                     TPU_DDP_GUARD=None if guard == "on" else "0")
+        times[guard].append(_timer_ms(out))
+    res["iter_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    res["iter_ms_runs"] = times
+    res["guard_costs"] = _guard_costs(dev)
+
+    # Save and verified restore of the 74 MB VGG-11 state, alone.
+    cfg = TrainConfig.preset("vgg11_cifar10")
+    model = get_model(cfg.model, use_pallas_bn=cfg.pallas_bn,
+                      compute_dtype=getattr(torch, cfg.compute_dtype))
+    tr = Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    d = os.path.join(root, "timing")
+    save_s, restore_s = [], []
+    for rep in range(3):
+        state.step = rep + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(d, state)
+        save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = tr.restore_checkpoint(d)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        if back.step != rep + 1:
+            fail("phase 18: the timed restore read the wrong step")
+    nbytes = os.path.getsize(os.path.join(d, "step_00000003",
+                                          "arrays.npz"))
+    res["ckpt_io"] = {"bytes": nbytes, "save_s": min(save_s),
+                      "restore_s": min(restore_s),
+                      "save_gb_per_s": nbytes / min(save_s) / 1e9,
+                      "restore_gb_per_s": nbytes / min(restore_s) / 1e9,
+                      "save_s_runs": save_s, "restore_s_runs": restore_s}
+    res["_straight_digests"] = want
+    return res
+
+
+def _guard_costs(dev) -> dict:
+    """Where the guard's time goes on VGG-11 at batch 256: one trainer's
+    step with the guard on and off in turns (synchronized per step, the
+    timer's protocol, batches already on the card), the same trainer's
+    epoch loop on and off in turns, the host time of ``nonfinite_flag``
+    over the 34 gradients and of the one ``[loss, skipped]`` read against
+    ``float(loss)``, and the flag's device time."""
+    import itertools
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.resilience.guard import nonfinite_flag
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    cfg = TrainConfig.preset("vgg11_cifar10")
+    cfg.pallas_sgd = cfg.pallas_bn = True
+    model = get_model(cfg.model, use_pallas_bn=True,
+                      compute_dtype=getattr(torch, cfg.compute_dtype))
+    tr = Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    train, _ = create_data_loaders(batch_size=256, synthetic_size=2560)
+    batches = [(x.to(dev), y.to(dev))
+               for x, y in itertools.islice(iter(train), 4)]
+    guard = tr.guard
+    step_ms = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        tr.guard = guard if mode == "on" else None
+        for i in range(20):
+            x, y = batches[i % 4]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, fused = tr._step(state, x, y)
+            torch.cuda.synchronize()
+            (fused.tolist() if fused is not None else float(loss))
+            step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    # The same trainer's epoch loop (the timer over iterations 1-39),
+    # 40 iterations per epoch, the guard on and off in turns.
+    epoch_ms = {"on": [], "off": []}
+    tr.config.max_iters = TRAIN_ITERS
+    train40, _ = create_data_loaders(batch_size=256,
+                                     synthetic_size=SYNTH_SIZE)
+    for mode in ("on", "off", "off", "on"):
+        tr.guard = guard if mode == "on" else None
+        state, stats = tr.train_epoch(state, train40, log=lambda _: None)
+        epoch_ms[mode].append(stats["avg_iter_s"] * 1e3)
+    tr.guard = guard
+    grads = [p.grad for p in state.params]
+
+    def host_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    flag = nonfinite_flag(loss, grads)
+    out = {
+        "step_ms_median": {k: sorted(v)[len(v) // 2]
+                           for k, v in step_ms.items()},
+        "epoch_iter_ms": epoch_ms,
+        "flag_host_us": host_us(lambda: nonfinite_flag(loss, grads)),
+        "flag_device_ms": timed(lambda: nonfinite_flag(loss, grads),
+                                [()], 50)["ms"],
+        "read_fused_us": host_us(
+            lambda: torch.stack([loss.float(), flag]).tolist()),
+        "read_loss_us": host_us(lambda: float(loss)),
+    }
+    del tr, state, grads
+    return out
+
+
+LAUNCH_TIMEOUT_S = 600
+
+
+def launcher_drill(dev, straight: dict) -> dict:
+    """Phase 19: ``python -m tpu_ddp_torch.launch part1 --nproc 1
+    --max-restarts 1 --ckpt-dir D`` on the card, a chaos hard-exit at step
+    30, 40 iterations, cuDNN deterministic: one restart, the resume at
+    step 20, a finished run, and the step-40 checkpoint equal to phase
+    18's straight run."""
+    d = os.path.join(CKPT_ROOT, "launch")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPU_DDP_")}
+    env.update({k: v for k, v in VGG_ENV.items() if v is not None})
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    env.update(TPU_DDP_MAX_ITERS="40", TPU_DDP_CKPT_EVERY="20",
+               TPU_DDP_CHAOS_FAULTS="hard-exit@30",
+               TPU_DDP_CHAOS_SENTINEL=os.path.join(CKPT_ROOT, "sentinel"),
+               TPU_DDP_CUDNN_DETERMINISTIC="1")
+    t0 = time.perf_counter()
+    # A process group of its own, so a launcher past its time is stopped
+    # with the workers it spawned.
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_ddp_torch.launch", "part1", "--nproc",
+         "1", "--max-restarts", "1", "--ckpt-dir", d], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"phase 19: the launcher ran past {LAUNCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    losses = [(int(i), float(v)) for i, v in
+              re.findall(r"\[epoch 0, iter (\d+)\] loss: (\S+)", out)]
+    checks = {
+        "exit 0": proc.returncode == 0,
+        "one restart": out.count("[launch] attempt failed (rc=13); "
+                                 "restart 1") == 1
+        and "restart 2" not in out,
+        "fault at step 30": "injecting hard-exit at step 30" in out,
+        "resume at step 20": f"resumed from {d} at step 20 (epoch 0, "
+                             "iter 20)" in out,
+        "finished": "Test set: average loss" in out
+        and "[launch] recovered after 1 restart(s)" in out,
+        "finite losses": [i for i, _ in losses] == [20, 40]
+        and all(math.isfinite(v) for _, v in losses),
+    }
+    if not all(checks.values()):
+        fail(f"phase 19: {[k for k, v in checks.items() if not v]} "
+             f"failed; rc {proc.returncode}; output tail:\n{out[-3000:]}\n"
+             f"{err[-2000:]}")
+    got = _step_digests(d, 40)
+    if got != straight:
+        bad = sorted(k for k in straight if got.get(k) != straight[k])
+        fail(f"phase 19: the restarted run's step-40 state differs from "
+             f"phase 18's straight run on {len(bad)} leaves: {bad[:4]}")
+    return {"restarts": 1, "losses": losses, "wall_s": wall,
+            "bitwise_equal_to_straight_run": True}
+
+
+def lm_checkpoint(dev, run: dict) -> dict:
+    """Phase 20: TransformerLM-large with its AdamW state after phase 15's
+    steps saved (f32 params, mu and nu), restored into a fresh
+    ``LMTrainer`` after the first is freed, and the next step's loss
+    compared bit for bit."""
+    import gc
+    import shutil
+
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    tr, state, (x, y) = (run.pop("_trainer"), run.pop("_state"),
+                         run.pop("_batch"))
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    need = 3 * n * 4
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    if free < 2 * need:
+        fail(f"phase 20: {free / 1e9:.1f} GB free under {CKPT_ROOT}, "
+             f"under twice the {need / 1e9:.1f} GB checkpoint")
+    d = os.path.join(CKPT_ROOT, "lm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.save_checkpoint(d, state)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    step = state.step
+    state, l1 = tr.train_step(state, x, y)
+    state, l2 = tr.train_step(state, x, y)
+    want = (l1.clone(), l2.clone())
+    torch.cuda.synchronize()
+    del tr, state, l1, l2
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, tr2, _ = _large_trainer(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state2 = tr2.restore_checkpoint(d)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if state2.step != step:
+        fail(f"phase 20: restored step {state2.step}, saved {step}")
+    state2, m1 = tr2.train_step(state2, x, y)
+    state2, m2 = tr2.train_step(state2, x, y)
+    torch.cuda.synchronize()
+    if not _same_bits(m1.float().reshape(1), want[0].float().reshape(1)):
+        fail(f"phase 20: the restored trainer's next loss {float(m1)!r} "
+             f"differs from the original's {float(want[0])!r}")
+    out = {"params": n, "bytes": nbytes, "step": step,
+           "save_s": save_s, "restore_s": restore_s,
+           "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "next_loss": float(m1), "next_loss_bitwise_equal": True,
+           "second_loss": float(m2),
+           "second_loss_bitwise_equal": _same_bits(
+               m2.float().reshape(1), want[1].float().reshape(1)),
+           "disk_free_gb": free / 1e9}
+    del tr2, state2
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1975,39 +2513,64 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
-    build = build_all()
+    phase_s = {}
+
+    def phase(label, fn, *a):
+        """Run one phase and keep its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    build = phase("2_build", build_all)
     print(json.dumps({"build": build}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    int8 = check_kernel(dev, gen)
+    int8 = phase("3_int8", check_kernel, dev, gen)
     rows = int8["shapes"]
-    parity = small_parity(dev)
+    parity = phase("4_small_parity", small_parity, dev)
     print(json.dumps({"small_parity": parity}), flush=True)
-    serve = serve_large(dev, args.seed)
+    serve = phase("5-6_serve", serve_large, dev, args.seed)
     print(json.dumps({"serve": serve}), flush=True)
 
-    bn = check_bn(dev, gen)
+    bn = phase("7_bn_relu", check_bn, dev, gen)
     print(json.dumps({"bn_relu": {k: v for k, v in bn.items()
                                   if k != "shapes"}}), flush=True)
-    sgd = check_sgd(dev, gen)
+    sgd = phase("8_sgd", check_sgd, dev, gen)
     print(json.dumps({"sgd": sgd}), flush=True)
-    tparity = train_parity(dev)
+    tparity = phase("9_train_small_parity", train_parity, dev)
     print(json.dumps({"train_small_parity": tparity}), flush=True)
-    train = train_part1(dev)
+    train = phase("10_train", train_part1, dev)
     print(json.dumps({"train": train}), flush=True)
-    step = train_step_checks(dev)
+    step = phase("10-11_train_step", train_step_checks, dev)
     print(json.dumps({"train_step": step}), flush=True)
-    ddp = part3_nccl(dev)
+    ddp = phase("12_part3_nccl", part3_nccl, dev)
     print(json.dumps({"part3_nccl": ddp}), flush=True)
 
-    flash = check_flash(dev, gen)
+    flash = phase("13_flash", check_flash, dev, gen)
     print(json.dumps({"flash": flash}), flush=True)
-    lparity = lm_parity(dev)
+    lparity = phase("14_lm_small_parity", lm_parity, dev)
     print(json.dumps({"lm_small_parity": lparity}), flush=True)
-    lm = train_lm(dev, args.seed)
-    lm_step = lm_step_checks(dev, lm)
-    lm = {k: v for k, v in lm.items() if not k.startswith("_")}
-    print(json.dumps({"lm_train": lm}), flush=True)
+    lm = phase("15_lm_train", train_lm, dev, args.seed)
+    lm_step = phase("16_lm_step", lm_step_checks, dev, lm)
+    print(json.dumps({"lm_train": {k: v for k, v in lm.items()
+                                   if not k.startswith("_")}}), flush=True)
     print(json.dumps({"lm_step": lm_step}), flush=True)
+
+    sgd_skip = phase("17_sgd_skip", check_sgd_skip, dev, gen)
+    print(json.dumps({"sgd_skip": sgd_skip}), flush=True)
+    try:
+        resil = phase("18_vgg_resilience", vgg_resilience, dev)
+        straight = resil.pop("_straight_digests")
+        print(json.dumps({"vgg_resilience": resil}), flush=True)
+        drill = phase("19_launcher", launcher_drill, dev, straight)
+        print(json.dumps({"launcher": drill}), flush=True)
+        lm_ckpt = phase("20_lm_checkpoint", lm_checkpoint, dev, lm)
+        print(json.dumps({"lm_checkpoint": lm_ckpt}), flush=True)
+    finally:
+        import shutil
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    lm = {k: v for k, v in lm.items() if not k.startswith("_")}
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
         return sum(r[key] * r["per_pass"] for r in rows if r["m"] == m)
@@ -2065,6 +2628,12 @@ def main() -> None:
         **{k: sgd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "event_ms",
                                "timing")},
+        # Phase 17: the step guard's gated launch (skip pointer read as
+        # 0: the main path's launch), and one that skips (flag 1), beside
+        # the ungated launch, timed together.
+        "flagged_ms": sgd_skip["flagged_ms"],
+        "skipped_ms": sgd_skip["skipped_ms"],
+        "unflagged_ms": sgd_skip["unflagged_ms"],
     }]
     replaces = {"bn_stats": 139, "bn_norm_relu": 151, "bn_bwd_stats": 207,
                 "bn_bwd_dx": 218}
@@ -2143,6 +2712,9 @@ def main() -> None:
                        "train_step": step, "part3_nccl": ddp,
                        "flash": flash, "lm_small_parity": lparity,
                        "lm_train": lm, "lm_step": lm_step,
+                       "sgd_skip": sgd_skip, "vgg_resilience": resil,
+                       "launcher": drill, "lm_checkpoint": lm_ckpt,
+                       "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -2159,6 +2731,15 @@ def main() -> None:
           f"{100 * lm['traced_window']['untraced_idle_share']:.1f}% "
           f"untraced, {100 * lm['traced_window']['device_idle_share']:.1f}% "
           f"of a traced {LM_TRACED}-step window", flush=True)
+    ck = resil["ckpt_io"]
+    print(f"resilience: VGG-11 {resil['iter_ms']['on']:.2f} ms/iter with "
+          f"the guard on, {resil['iter_ms']['off']:.2f} off; checkpoint "
+          f"save {ck['save_gb_per_s']:.2f} GB/s, verified restore "
+          f"{ck['restore_gb_per_s']:.2f} GB/s ({ck['bytes'] / 1e6:.1f} MB); "
+          f"LM-large save {lm_ckpt['save_gb_per_s']:.2f} GB/s, restore "
+          f"{lm_ckpt['restore_gb_per_s']:.2f} GB/s "
+          f"({lm_ckpt['bytes'] / 1e9:.2f} GB); launcher drill "
+          f"{drill['wall_s']:.1f} s", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

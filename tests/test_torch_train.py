@@ -326,9 +326,17 @@ def test_syncing_rung_needs_a_process_group():
                 strategy="all_reduce", device="cpu")
 
 
-def test_ckpt_dir_is_refused(tmp_path):
+def test_ckpt_dir_is_refused(tmp_path, monkeypatch):
+    """Checkpoints are ported (tests/test_torch_checkpoint.py); what is
+    still refused around ``--ckpt-dir``: ``--resume`` without it, an
+    argparse error before any rendezvous, and the elastic knobs that would
+    reshard instead of restarting from it (ROADMAP item 9.6b)."""
     from tpu_ddp_torch.parts import run_part
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(SystemExit):
+        run_part("part2b", ["--num-nodes", "2", "--device", "cpu",
+                            "--resume"])
+    monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "1")
+    with pytest.raises(NotImplementedError, match="item 9.6b"):
         run_part("part1", ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
 
 

@@ -12,8 +12,12 @@ port's leaf lists.
 VGG: the JAX model's conv kernels are HWIO and the port's OIHW; each
 unit's ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``;
 the head keeps its (C, classes) layout. :func:`vgg_params_from_jax` and
-:func:`vgg_params_to_jax` are checked copies both ways. This module is
-the one place a layout changes between the two packages.
+:func:`vgg_params_to_jax` are checked copies both ways, and
+:func:`vgg_momentum_to_jax`/:func:`vgg_momentum_from_jax` carry SGD's
+momentum (a leaf list in parameter order) through the same
+transpositions. :func:`adamw_state_to_jax` is the LM's AdamW state's way
+back. This module is the one place a layout changes between the two
+packages.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from tpu_ddp_torch.utils.device import resolve_device
-from tpu_ddp_torch.utils.tree import tree_leaves
+from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 def params_from_jax(model, tree, device=None) -> dict:
@@ -81,6 +85,16 @@ def adamw_state_from_jax(model, opt_state, device=None) -> dict:
             "count": int(np.asarray(opt_state["count"]))}
 
 
+def adamw_state_to_jax(params, opt_state) -> dict:
+    """The port's AdamW state of a TransformerLM (``mu`` and ``nu`` leaf
+    lists in the order of ``tree_leaves(params)``, an int ``count``) as
+    the JAX ``AdamW`` state: ``{"count": int32, "mu": tree, "nu": tree}``
+    of numpy arrays, the inverse of :func:`adamw_state_from_jax`."""
+    return {"count": np.int32(opt_state["count"]),
+            "mu": params_to_jax(tree_unflatten(params, opt_state["mu"])),
+            "nu": params_to_jax(tree_unflatten(params, opt_state["nu"]))}
+
+
 def _checked(path, arr, want):
     arr = np.asarray(arr)
     if tuple(arr.shape) != tuple(want):
@@ -126,15 +140,37 @@ def vgg_params_from_jax(model, tree, device=None) -> dict:
 def vgg_params_to_jax(model) -> dict:
     """The port ``VGGModel``'s parameters as a JAX VGG tree of numpy f32
     arrays (HWIO kernels), for ``tpu_ddp``'s ``VGGModel.apply``."""
-    def arr(t):
-        return t.detach().to("cpu", torch.float32).numpy().copy()
+    return vgg_momentum_to_jax(model, list(model.parameters()))
+
+
+def vgg_momentum_to_jax(model, momentum) -> dict:
+    """A leaf list in ``model.parameters()`` order (SGD momentum, or the
+    parameters themselves) as a JAX VGG tree of numpy f32 arrays: each
+    leaf goes through its parameter's transposition (OIHW -> HWIO for the
+    conv kernels), as the JAX optimizer's momentum mirrors its params."""
+    names = [name for name, _ in model.named_parameters()]
+    if len(momentum) != len(names):
+        raise ValueError(f"{len(momentum)} leaves for {len(names)} "
+                         "parameters")
+    by_name = dict(zip(names, momentum))
+
+    def arr(name):
+        return by_name[name].detach().to("cpu", torch.float32).numpy().copy()
 
     feats = tuple({
-        "kernel": np.ascontiguousarray(arr(u.weight).transpose(2, 3, 1, 0)),
-        "bias": arr(u.bias),
-        "bn_scale": arr(u.bn.weight),
-        "bn_bias": arr(u.bn.bias),
-    } for u in model.features)
+        "kernel": np.ascontiguousarray(
+            arr(f"features.{i}.weight").transpose(2, 3, 1, 0)),
+        "bias": arr(f"features.{i}.bias"),
+        "bn_scale": arr(f"features.{i}.bn.weight"),
+        "bn_bias": arr(f"features.{i}.bn.bias"),
+    } for i in range(len(model.features)))
     return {"features": feats,
-            "head": {"kernel": arr(model.head.weight),
-                     "bias": arr(model.head.bias)}}
+            "head": {"kernel": arr("head.weight"), "bias": arr("head.bias")}}
+
+
+def vgg_momentum_from_jax(model, tree, device=None) -> list:
+    """A JAX VGG tree (momentum, or any tree shaped like the params) as a
+    leaf list in ``model.parameters()`` order on ``device`` (``None``
+    means ``"cuda"``): the inverse of :func:`vgg_momentum_to_jax`."""
+    sd = vgg_params_from_jax(model, tree, device)
+    return [sd[name] for name, _ in model.named_parameters()]

@@ -49,6 +49,12 @@ def main(argv=None) -> int:
     from tpu_ddp_torch.parts.common import parse_arguments
     args = parse_arguments(argv, require_num_nodes=True)
     refuse_unported_lm_env()
+    if args.ckpt_dir:
+        # The JAX CLI has no checkpoints either; LMTrainer.save_checkpoint
+        # and restore_checkpoint are the API.
+        raise NotImplementedError(
+            "--ckpt-dir/--resume: examples/lm_train.py does not checkpoint;"
+            " call LMTrainer.save_checkpoint/restore_checkpoint")
 
     import numpy as np
     import torch

@@ -17,6 +17,13 @@
 // kChunk elements of one leaf and streams it with 16-byte loads (scalar
 // for a ragged tail or unaligned pointers).
 //
+// The step guard (tpu_ddp/resilience/guard.py's select_update) gates the
+// update on the device: `skip` points at a 0-d f32 flag that the guard
+// computed on the card, and every block reads it and returns without
+// writing when it is nonzero, so a flagged step leaves p and buf exactly
+// as they were and the host never waits for the flag. A null `skip` is
+// the ungated update. The arithmetic is the same either way.
+//
 // Rounding: the _rn intrinsics keep nvcc from contracting a multiply and
 // an add into one fused operation, so every element rounds exactly as the
 // plain PyTorch version (ops/sgd.py:fused_sgd_step_ref) rounds it, op by
@@ -49,7 +56,8 @@ __device__ __forceinline__ void update(float& p, float g, float& b, float lr,
 
 __global__ void __launch_bounds__(kThreads)
 sgd_kernel(const SgdTable table, int leaves, float lr, float momentum,
-           float wd, int vec) {
+           float wd, int vec, const float* skip) {
+  if (skip != nullptr && *skip != 0.f) return;  // uniform over the grid
   const int chunk = blockIdx.x;
   int leaf = 0;
   while (leaf + 1 < leaves && table.chunk0[leaf + 1] <= chunk) ++leaf;
@@ -90,11 +98,13 @@ sgd_kernel(const SgdTable table, int leaves, float lr, float momentum,
 // Plain C entry point, loaded with ctypes. p, g, b are host arrays of
 // `leaves` device addresses (int64) of f32 tensors and n their element
 // counts; leaves <= 80 (the wrapper splits larger sets). vec = 1 when
-// every pointer is 16-byte aligned. Returns the CUDA error code of the
+// every pointer is 16-byte aligned. skip is a device address of one f32
+// (nonzero: write nothing) or null. Returns the CUDA error code of the
 // launch (0 on success); -1 if the table does not fit.
 extern "C" int tdt_sgd(const int64_t* p, const int64_t* g, const int64_t* b,
                        const int64_t* n, int leaves, float lr,
-                       float momentum, float wd, int vec, void* stream) {
+                       float momentum, float wd, int vec,
+                       const float* skip, void* stream) {
   if (leaves < 1 || leaves > kMaxLeaves) return -1;
   SgdTable table;
   int chunks = 0;
@@ -109,6 +119,6 @@ extern "C" int tdt_sgd(const int64_t* p, const int64_t* g, const int64_t* b,
   table.chunk0[leaves] = chunks;
   if (chunks == 0) return 0;
   sgd_kernel<<<chunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, leaves, lr, momentum, wd, vec);
+      table, leaves, lr, momentum, wd, vec, skip);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,13 +42,15 @@ class SGD:
         return {"momentum": [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def apply(self, params, grads, state: dict) -> dict:
+    def apply(self, params, grads, state: dict, skip=None) -> dict:
         """One update of ``params`` and ``state["momentum"]``, in place;
-        returns ``state``."""
+        returns ``state``. ``skip``: the step guard's 0-d device flag
+        (nonzero leaves both as they were; ops/sgd.py)."""
         step = (_sgd.fused_sgd_step if self.use_pallas
                 else _sgd.fused_sgd_step_ref)
         step(params, grads, state["momentum"], lr=self.learning_rate,
-             momentum=self.momentum, weight_decay=self.weight_decay)
+             momentum=self.momentum, weight_decay=self.weight_decay,
+             skip=skip)
         return state
 
 

@@ -12,6 +12,12 @@ the plain versions of the kernels over gloo). The shrink knobs
 ``TPU_DDP_MAX_ITERS``, ``TPU_DDP_GLOBAL_BATCH``, ``TPU_DDP_SYNTH_SIZE``
 and ``TPU_DDP_COMPUTE_DTYPE`` and the kernel knobs ``TPU_DDP_PALLAS_SGD``
 and ``TPU_DDP_PALLAS_BN`` work as in the JAX package.
+
+``--ckpt-dir D`` writes a checkpoint at every epoch's end (and every
+``TPU_DDP_CKPT_EVERY`` steps); ``--resume`` restores the newest verified
+one and picks up mid-epoch where it was written. The launcher
+(``python -m tpu_ddp_torch.launch``) adds ``--resume`` when it restarts a
+failed run.
 """
 
 from __future__ import annotations
@@ -43,9 +49,11 @@ def parse_arguments(argv=None, require_num_nodes: bool = False):
     p.add_argument("--config", type=str, default="vgg11_cifar10",
                    help="named run preset (the port has vgg11_cifar10)")
     p.add_argument("--ckpt-dir", type=str, default=None,
-                   help="checkpoint directory (not ported yet)")
+                   help="checkpoint directory (epoch ends, and every "
+                        "TPU_DDP_CKPT_EVERY steps)")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --ckpt-dir (not ported yet)")
+                   help="resume from the newest verified checkpoint in "
+                        "--ckpt-dir")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default), cuda:N or cpu")
     args = p.parse_args(argv)
@@ -69,10 +77,6 @@ def run_part(part: str, argv=None):
     strategy = canonical_strategy(part)
     distributed = part != "part1"
     args = parse_arguments(argv, require_num_nodes=distributed)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir/--resume: checkpoints are not ported to "
-            "tpu_ddp_torch yet (ROADMAP Queue 1 item 8)")
     refuse_unported_env()
     world_size = args.num_nodes or 1
     if world_size <= 1:
@@ -89,6 +93,9 @@ def run_part(part: str, argv=None):
 
     import torch
     cfg = TrainConfig.preset(args.config, epochs=args.epochs)
+    if cfg.cudnn_deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     batch_size = cfg.per_node_batch_size(world_size)
     train_loader, test_loader = create_data_loaders(
         rank=rank, world_size=world_size, batch_size=batch_size,
@@ -97,14 +104,37 @@ def run_part(part: str, argv=None):
                       use_pallas_bn=cfg.pallas_bn,
                       compute_dtype=getattr(torch, cfg.compute_dtype))
     trainer = Trainer(model, cfg, strategy=strategy, device=ctx.device)
-    state = trainer.init_state()
+    start_epoch = start_iter = 0
+    if args.resume:
+        state = trainer.restore_checkpoint(args.ckpt_dir)
+        # Completed epochs = step // iterations per epoch; a mid-epoch
+        # checkpoint also places the run step % iterations into its
+        # epoch, and those batches are skipped (JAX parts/common.py).
+        iters_per_epoch = len(train_loader)
+        if cfg.max_iters is not None:
+            iters_per_epoch = min(iters_per_epoch, cfg.max_iters)
+        iters_per_epoch = max(iters_per_epoch, 1)
+        start_epoch = state.step // iters_per_epoch
+        start_iter = state.step % iters_per_epoch
+        print(f"[{part}] resumed from {args.ckpt_dir} at step {state.step} "
+              f"(epoch {start_epoch}, iter {start_iter})")
+    else:
+        state = trainer.init_state()
     print(f"[{part}] strategy={strategy} world_size={world_size} "
           f"rank={rank} dp_slots=1 per-node batch={batch_size} "
           f"platform={ctx.device.type}")
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         # Per-epoch reshuffle hook (reference part2/part2b/main.py:189).
         train_loader.set_epoch(epoch)
-        state, stats = trainer.train_epoch(state, train_loader, epoch=epoch)
+        state, stats = trainer.train_epoch(
+            state, train_loader, epoch=epoch, ckpt_dir=args.ckpt_dir,
+            start_iter=start_iter if epoch == start_epoch else 0)
+        # Epoch-end checkpoint, unless the cadence just wrote this step.
+        if args.ckpt_dir and not (cfg.ckpt_every_iters and state.step
+                                  % cfg.ckpt_every_iters == 0):
+            path = trainer.save_checkpoint(args.ckpt_dir, state)
+            if path:
+                print(f"[{part}] checkpoint saved: {path}")
         trainer.evaluate(state, test_loader)
         print(f"[{part}] epoch {epoch}: avg iter "
               f"{stats['avg_iter_s']:.4f}s over {stats['timed_iters']} timed "

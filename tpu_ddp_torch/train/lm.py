@@ -8,6 +8,9 @@ full-batch gradient), one mean of every gradient over the group when it
 has more than one process (the dp ``pmean`` of ``_sync_grads``), then
 AdamW, in place. ``train_step`` returns the local mean loss, as each JAX
 shard does. Next-token shift happens on the host (``make_lm_batch``).
+Checkpoints use the JAX package's format and tree (``save_checkpoint``,
+``restore_checkpoint``), so they move between the packages. Like the JAX
+LM trainer it has no step guard.
 
 The JAX trainer's other axes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item: FSDP and ZeRO-1/2,
@@ -164,3 +167,103 @@ class LMTrainer:
         """The parameters as the JAX package's tree of numpy arrays."""
         from tpu_ddp_torch.convert import params_to_jax
         return params_to_jax(state.params)
+
+    # ---- checkpoint / resume (tpu_ddp/train/lm.py:218-300) -------------
+
+    def sharding_plan(self):
+        """This trainer's layout as the JAX ``LMTrainer``'s
+        ``ShardingPlan``: everything replicated over ``dp``, the block
+        matrices spelled as the JAX model's tensor-parallel specs at
+        tp 1 (all ``None``)."""
+        from tpu_ddp_torch.parallel.redistribute import P, ShardingPlan
+
+        def spec(name, node):
+            if isinstance(node, dict):
+                return {k: spec(k, v) for k, v in node.items()}
+            if isinstance(node, tuple) and node and isinstance(node[0],
+                                                               dict):
+                return tuple(spec(name, b) for b in node)
+            blk = name in ("wqkv", "wq", "wkv", "wo", "w1", "w2")
+            return P(*[None] * len(node)) if blk else P()
+
+        params = spec("", self.model.param_shapes())
+        return ShardingPlan(
+            strategy="lmtrainer",
+            mesh_axes=(("dp", self.dp), ("sp", 1), ("mp", 1), ("pp", 1),
+                       ("ep", 1)),
+            param_specs=params,
+            opt_specs={"mu": params, "nu": params, "count": P()},
+            batch_spec=P(("dp", "ep"), "sp"))
+
+    def state_to_host(self, state: LMTrainState) -> dict:
+        """``state`` as the JAX package's canonical host tree:
+        ``{"opt_state": {"count", "mu", "nu"}, "params", "step"}`` of
+        numpy arrays (f32 leaves, int32 count, int64 step)."""
+        from tpu_ddp_torch.convert import adamw_state_to_jax, params_to_jax
+        return {"opt_state": adamw_state_to_jax(state.params,
+                                                state.opt_state),
+                "params": params_to_jax(state.params),
+                "step": np.int64(state.step)}
+
+    def save_checkpoint(self, directory: str, state: LMTrainState,
+                        keep_last: int | None = None,
+                        background: bool = False) -> str | None:
+        """Rank 0 writes ``state`` at its step (the state is replicated);
+        returns the path (None on other ranks). ``background=True``
+        copies to host memory now and writes on a thread; call
+        :meth:`wait_for_checkpoints` before reading it back."""
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return None
+        from tpu_ddp_torch.utils import checkpoint as ckpt
+        tree = self.state_to_host(state)
+        self.sharding_plan().save(directory)
+        if background:
+            if getattr(self, "_async_writer", None) is None:
+                self._async_writer = ckpt.AsyncCheckpointWriter()
+            return self._async_writer.submit(directory, tree, state.step,
+                                             keep_last=keep_last)
+        return ckpt.save_checkpoint(directory, tree, step=state.step,
+                                    keep_last=keep_last)
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until any background checkpoint write is on disk."""
+        writer = getattr(self, "_async_writer", None)
+        if writer is not None:
+            writer.wait()
+
+    def restore_checkpoint(self, directory: str,
+                           step: int | None = None) -> LMTrainState:
+        """Load a checkpoint onto this trainer's device: the newest that
+        passes digest verification when ``step`` is None (a corrupt one
+        is quarantined and the previous one tried), else that step."""
+        from tpu_ddp_torch.convert import (adamw_state_from_jax,
+                                           params_from_jax)
+        from tpu_ddp_torch.parallel.redistribute import warn_if_incompatible
+        from tpu_ddp_torch.resilience.integrity import \
+            restore_newest_verified
+        from tpu_ddp_torch.utils import checkpoint as ckpt
+        warn_if_incompatible(directory, self.sharding_plan())
+
+        def shapes(node):
+            if isinstance(node, dict):
+                return {k: shapes(v) for k, v in node.items()}
+            if isinstance(node, tuple) and node and isinstance(node[0],
+                                                               dict):
+                return tuple(shapes(b) for b in node)
+            return ckpt.shape_leaf(node)
+
+        params = shapes(self.model.param_shapes())
+        template = {"opt_state": {"count": ckpt.shape_leaf((), np.int32),
+                                  "mu": params, "nu": params},
+                    "params": params, "step": np.int64(0)}
+        if step is None:
+            host, _ = restore_newest_verified(directory, template)
+        else:
+            host, _ = ckpt.restore_checkpoint(directory, template, step)
+        params = params_from_jax(self.model, host["params"], self.device)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return LMTrainState(
+            params=params, step=int(host["step"]),
+            opt_state=adamw_state_from_jax(self.model, host["opt_state"],
+                                           self.device))

@@ -1,7 +1,8 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
-``TrainConfig`` that the port's slices use (serving and the VGG training
-ladder), with the same names, defaults, ``TPU_DDP_*`` env variables and
-validation, so a knob means the same thing in both packages.
+``TrainConfig`` that the port's slices use (serving, the VGG training
+ladder, checkpoints and the step guard), with the same names, defaults,
+``TPU_DDP_*`` env variables and validation, so a knob means the same
+thing in both packages.
 
 A knob of the JAX package that the port does not carry yet is refused,
 never ignored: its field is absent (passing it is a ``TypeError``) and
@@ -35,19 +36,13 @@ _UNPORTED_ENV = {
                                    "item 9.5 (train/pipeline.py)"),
     "TPU_DDP_DISPATCH_DEPTH": (("0",), "item 9.5 (train/pipeline.py)"),
     "TPU_DDP_PREFETCH": (("0",), "item 9.11 (data/prefetch.py)"),
-    "TPU_DDP_GUARD": (_FALSE, "item 9.6 (resilience/guard.py)"),
-    "TPU_DDP_GUARD_MAX_BAD": ((), "item 9.6 (resilience/guard.py)"),
-    "TPU_DDP_CHAOS_FAULTS": ((), "item 9.6 (resilience/chaos.py)"),
-    "TPU_DDP_FAIL_AT_STEP": ((), "item 9.6 (resilience/chaos.py)"),
-    "TPU_DDP_ELASTIC_RESHARD": (_FALSE, "item 9.6 (resilience/elastic.py)"),
-    "TPU_DDP_ELASTIC_DIR": ((), "item 9.6 (resilience/elastic.py)"),
+    "TPU_DDP_ELASTIC_RESHARD": (_FALSE,
+                                "item 9.6b (resilience/elastic.py)"),
+    "TPU_DDP_ELASTIC_DIR": ((), "item 9.6b (resilience/elastic.py)"),
     "TPU_DDP_REMAT": (("none",), "item 9.7 (memory/policy.py)"),
     "TPU_DDP_ACT_DTYPE": (("compute",), "item 9.7 (memory/policy.py)"),
     "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
-    "TPU_DDP_CKPT_EVERY": (("0",), "item 8 (utils/checkpoint.py)"),
-    "TPU_DDP_CHECK_REPLICAS_EVERY": (("0",),
-                                     "item 8 (utils/invariants.py)"),
     "TPU_DDP_NATIVE_LOADER": (_FALSE, "item 9.11 (data/native.py)"),
     "TPU_DDP_SHARD_EVAL": (_FALSE, "item 9.11 (sharded evaluation)"),
     "TPU_DDP_METRICS_FILE": ((), "item 9.11 (utils/metrics.py JSONL sink)"),
@@ -118,6 +113,26 @@ class TrainConfig:
     # Cap on iterations per epoch (None = full epoch). Env:
     # TPU_DDP_MAX_ITERS.
     max_iters: int | None = None
+    # Mid-epoch checkpoint cadence in steps (0 = epoch ends only); env
+    # TPU_DDP_CKPT_EVERY. Enables resume after a mid-epoch failure
+    # (launch.py:launch_elastic).
+    ckpt_every_iters: int = 0
+    # Replica-consistency check cadence in steps (0 = off); env
+    # TPU_DDP_CHECK_REPLICAS_EVERY (utils/invariants.py).
+    check_replicas_every: int = 0
+    # Step guard (resilience/guard.py): skip updates whose loss or
+    # gradient norm is not finite, so the state passes a bad batch
+    # unchanged. On by default (a healthy step is bit-identical to an
+    # unguarded one); env TPU_DDP_GUARD=0 disables.
+    guard_nonfinite: bool = True
+    # Consecutive skipped steps before train_epoch raises
+    # TrainingDivergedError; env TPU_DDP_GUARD_MAX_BAD.
+    guard_max_bad_steps: int = 3
+    # The port's own knob (the JAX package runs on XLA, which sums in a
+    # fixed order): cuDNN's deterministic algorithms, no autotuning, so
+    # two runs of the same steps give the same bits (resume drills).
+    # Applied by parts/common.py:run_part; env TPU_DDP_CUDNN_DETERMINISTIC.
+    cudnn_deterministic: bool = False
 
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
@@ -145,6 +160,19 @@ class TrainConfig:
         env_bs = os.environ.get("TPU_DDP_GLOBAL_BATCH")
         if env_bs:
             self.global_batch_size = int(env_bs)
+        env_ck = os.environ.get("TPU_DDP_CKPT_EVERY")
+        if env_ck:
+            self.ckpt_every_iters = int(env_ck)
+        env_rc = os.environ.get("TPU_DDP_CHECK_REPLICAS_EVERY")
+        if env_rc:
+            self.check_replicas_every = int(env_rc)
+        self.guard_nonfinite = _env_bool("TPU_DDP_GUARD",
+                                         self.guard_nonfinite)
+        env_gb = os.environ.get("TPU_DDP_GUARD_MAX_BAD")
+        if env_gb:
+            self.guard_max_bad_steps = int(env_gb)
+        self.cudnn_deterministic = _env_bool("TPU_DDP_CUDNN_DETERMINISTIC",
+                                             self.cudnn_deterministic)
         self.pallas_sgd = _env_bool("TPU_DDP_PALLAS_SGD", self.pallas_sgd)
         self.pallas_bn = _env_bool("TPU_DDP_PALLAS_BN", self.pallas_bn)
         env_cd = os.environ.get("TPU_DDP_COMPUTE_DTYPE")
