@@ -45,6 +45,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    1e-4 * sum |terms| (the sums run in another order), the same at a
    few small shapes that take the kernels' scalar and ragged paths; then
    the whole autograd op against autograd through the plain forward.
+   Inputs holding NaN (whole NaN rows of x; scattered NaN elements of x
+   and g) at a VGG-11 shape and two edge shapes, on both routes of the
+   reductions: every output NaN exactly where the plain version's is and
+   within the bounds above elsewhere.
    The two reductions run their one-pass route (``stats_route``) and,
    forced, their two-stage route (the previous design), both held to the
    same bounds; at each VGG-11 shape two one-pass launches, and a third
@@ -155,8 +159,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    iterations straight, against 20 with ``TPU_DDP_CKPT_EVERY=20`` and 20
    more resumed with ``--resume`` in a fresh ``Trainer``: the step-40
    checkpoints' sha256 digests equal leaf for leaf; (2) ``nan-grad@25``:
-   exactly step 25 skipped, params and momentum digests equal before and
-   after it, the loss finite again at step 26; (3) ``nan-grad@p1.0`` with
+   exactly step 25 skipped, its loss NaN (as on the CPU), params and
+   momentum digests equal before and after it, the loss finite again at
+   step 26; (3) ``nan-grad@p1.0`` with
    ``TPU_DDP_GUARD_MAX_BAD=3``: ``TrainingDivergedError`` at step 3, the
    state unchanged; (4) ``corrupt-ckpt@20``: the newest checkpoint
    quarantined to ``step_00000020.corrupt`` and step 10 restored by the
@@ -176,13 +181,61 @@ Phases, each fatal on failure (exit code 1, no result line):
    least twice that) and, after the first trainer is freed, restored
    into a fresh ``LMTrainer``: the next step's loss bit-identical to the
    original trainer's next step on the same batch (the second step's
-   equality reported); save and restore seconds and GB/s.
+   equality reported); save and restore seconds and GB/s; the checkpoint
+   and a host copy of its params stay for phase 25.
+
+Phases 21-26 serve TransformerLM-large at full width and depth (seed
+weights, ``decode_quant="int8"`` unless a phase says otherwise) through
+``ServeEngine.submit/step/run``; each path's int8 launches are counted
+from 0 just before it and must equal what the engine's own pass counters
+give (49 per prefill chunk and per target pass, 4j + 1 per pass of a
+j-block int8 draft), all on the mma route:
+
+21. speculation on phase 5's 8 requests at k=0, ``chain`` at k=4 (the
+   stream equal to k=0 bit for bit, tokens and logprobs), ``self-2`` at
+   k=4 on the int8 target and ``quant`` at k=4 against an fp bf16 k=0
+   stream (each bit for bit, or else greedy tokens may part only where
+   the k=0 top-2 logit gap is at most 1e-2, the first divergent position
+   and gap reported); the pool's refcount identity after every step; a
+   planted fault in the accept rule (one more proposal accepted than
+   ``accept_length`` gives) must change the stream; acceptance, tokens
+   per engine step and tokens/s per family;
+22. the prefix cache: after a request carrying a 256-token system prompt
+   runs to completion, 8 requests of that prompt plus tails of 32-256
+   tokens (``make_shared_prefix_workload``, 32 new each) must each hit
+   exactly 16 blocks, save 8 x 8 prefill chunks and give the uncached
+   run's streams bit for bit; with a 200-token system prompt, a request
+   whose prompt is exactly the 12 cached blocks takes the copy-on-write
+   block: greedy tokens equal (a divergence only at a top-2 gap of at
+   most 1e-2) and logprobs within 0.1 over the agreeing positions;
+23. tenants ``gold=3,bronze=1,batch=1:1`` (weight, queue deadline ms),
+   queue limit 20, 24 requests submitted at once into 8 slots: 4 shed at
+   the door (never gold), every ``batch`` request shed by its 1 ms
+   deadline, the admission order equal to stride scheduling's over the
+   queue, completed + cancelled + shed == submitted per tenant after
+   every step; TTFT per tenant;
+24. ``make_long_prompt_workload``: 4 requests of 1536 prompt tokens and
+   16 new through the single-tier pool, through ``kv_tiers=2`` with bf16
+   cold pages and 2 hot pages (bit for bit equal to the single tier,
+   most of the live context cold) and through ``kv_tiers=3`` with int8
+   cold pages and 99 cold pages (demotions, promotions and spills all
+   above 0, the tier accounting after every step, finite logprobs;
+   greedy agreement with the single tier reported); hot, cold and host
+   bytes;
+25. ``ServeEngine.from_checkpoint`` on phase 20's checkpoint against an
+   engine built on the same params in memory: every leaf equal and the
+   streams equal bit for bit;
+26. the load generator: ``calibrate_rate`` on 16 requests of
+   ``make_workload`` (64-256 prompt tokens, 16-32 new), then
+   ``run_load`` at half the calibrated rate: every request completes and
+   the accounting holds; TTFT p50/p99, TPOT and goodput reported.
 
 Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
-``{"kernels": [...]}`` line (nine kernels), and last the contract line
-``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
+each path of phases 21-26 beside its main-path count), and last the
+contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -219,6 +272,9 @@ BN_SHAPES = [((262144, 64), 1), ((65536, 128), 1), ((16384, 256), 2),
 # Small (R, C) rows that take the BN kernels' other paths: scalar loads
 # (C % 4 != 0), ragged row blocks, one channel.
 BN_EDGE_SHAPES = [(300, 3), (999, 96), (1000, 30), (33, 4), (517, 1)]
+# Shapes at which phase 7 feeds the kernels NaN (a VGG-11 shape and two
+# edge shapes).
+BN_NAN_SHAPES = [(4096, 512), (999, 96), (300, 3)]
 # The shape launched between two launches at a VGG-11 shape in the
 # one-pass reductions' bit-identity check.
 BN_BITS_OTHER = (999, 96)
@@ -529,7 +585,7 @@ def serve_large(dev, seed: int) -> dict:
     from tpu_ddp_torch.ops import quant
     from tpu_ddp_torch.ops import quant_matmul as qm
     from tpu_ddp_torch.ops.quant_matmul import int8_matmul, int8_matmul_ref
-    from tpu_ddp_torch.serve.engine import ServeEngine, decode_logits
+    from tpu_ddp_torch.serve.engine import ServeEngine, bank_logits
     from tpu_ddp_torch.utils.tree import tree_leaves
 
     model = make_transformer("TransformerLM-large")
@@ -588,9 +644,9 @@ def serve_large(dev, seed: int) -> dict:
     inputs = eng.bank_inputs(dslots)
     args = (model, eng.block_size, eng._decode_params, eng.pool.k,
             eng.pool.v, *inputs[:3])
-    lk = decode_logits(*args)
+    lk = bank_logits(*args)
     with mock.patch.object(quant, "int8_matmul", int8_matmul_ref):
-        lp = decode_logits(*args)
+        lp = bank_logits(*args)
     torch.cuda.synchronize()
     rows = torch.as_tensor(dslots, device=dev)
     lk, lp = lk[rows], lp[rows]
@@ -742,6 +798,59 @@ def _stats_bits(tb, x, g, s, b, other) -> bool:
                for a, o, t in zip(first, again, third))
 
 
+def _nan_agree(kern, plain):
+    """(NaN positions differ?, max |kernel - plain| over the elements both
+    hold finite)."""
+    kn, pn = torch.isnan(kern), torch.isnan(plain)
+    both = ~kn & ~pn
+    err = float((kern - plain).abs()[both].max()) if bool(both.any()) \
+        else 0.0
+    return bool((kn != pn).any()), err
+
+
+def _bn_nan_errors(tb, x, g, s, b) -> dict:
+    """The four kernels on inputs holding NaN, each fed the plain
+    version's inputs: every output NaN exactly where the plain version's
+    is, and within phase 7's bounds (over the plain version's finite
+    elements) elsewhere. Returns {what: (NaN count of the plain output,
+    max error, tolerance)}; fails on a NaN mismatch or an error past its
+    bound."""
+    mean, inv = tb.bn_stats_ref(x)
+    y = tb.bn_norm_relu_ref(x, mean, inv, s, b)
+    db, ds = tb.bn_bwd_stats_ref(x, g, mean, inv, s, b)
+    dx = tb.bn_bwd_dx_ref(x, g, mean, inv, s, b, db, ds)
+    km, ki = tb.bn_stats(x)
+    ky = tb.bn_norm_relu(x, mean, inv, s, b)
+    kdb, kds = tb.bn_bwd_stats(x, g, mean, inv, s, b)
+    kdx = tb.bn_bwd_dx(x, g, mean, inv, s, b, db, ds)
+    torch.cuda.synchronize()
+
+    def fin_max(t):
+        t = t.abs()[~torch.isnan(t)]
+        return float(t.max()) if t.numel() else 0.0
+
+    xf = torch.nan_to_num(x, nan=0.0)
+    gf = torch.nan_to_num(g, nan=0.0)
+    pairs = {"bn_stats": (km, mean, 1e-4 * fin_max(xf.abs().mean(0))),
+             "bn_stats_inv": (ki, inv, 1e-4 * fin_max(inv)),
+             "bn_norm_relu": (ky, y, 1e-4 * fin_max(y)),
+             "bn_bwd_stats": (kdb, db, 1e-4 * fin_max(gf.abs().sum(0))),
+             "bn_bwd_stats_dscale": (
+                 kds, ds, 1e-4 * fin_max((gf * (xf - mean) * inv).abs()
+                                         .sum(0))),
+             "bn_bwd_dx": (kdx, dx, 1e-4 * fin_max(dx))}
+    out = {}
+    for what, (k, p, tol) in pairs.items():
+        differ, err = _nan_agree(k, p)
+        if differ or not err <= tol:
+            fail(f"{what} on NaN inputs: NaN positions differ from the "
+                 f"plain version's ({differ}) or error {err} > {tol}")
+        out[what] = (int(torch.isnan(p).sum()), err, tol)
+    if out["bn_norm_relu"][0] == 0:
+        fail("phase 7's NaN inputs gave the plain forward no NaN")
+    return out
+
+
 def _fail_on(errs, where):
     for what, (err, tol) in errs.items():
         if not (math.isfinite(err) and err <= tol):
@@ -766,6 +875,24 @@ def check_bn(dev, gen) -> dict:
         _fail_on(was, f"R={r} C={c} (two_stage)")
         edge[f"{r}x{c}"] = {k: v[0] for k, v in errs.items()}
         edge[f"{r}x{c}"]["two_stage"] = {k: v[0] for k, v in was.items()}
+    # NaN inputs: whole NaN rows of x (every channel's statistics NaN),
+    # and scattered NaN elements of x in every third channel and of g in
+    # others; each on both routes of the two reductions.
+    nan_cases = {}
+    for r, c in BN_NAN_SHAPES:
+        for kind in ("rows", "elements"):
+            x, g, s, b = _bn_inputs(r, c, gen, dev)
+            if kind == "rows":
+                x[[1, r // 2]] = float("nan")
+            else:
+                x[r // 3, ::3] = float("nan")
+                g[r // 2, 1::3] = float("nan")
+            for route in ("one_pass", "two_stage"):
+                with _force(tb, "stats_route", route):
+                    res = _bn_nan_errors(tb, x, g, s, b)
+                nan_cases[f"{r}x{c}/{kind}/{route}"] = {
+                    k: {"plain_nans": v[0], "err": v[1]}
+                    for k, v in res.items()}
     kernels = {"bn_stats": (tb.bn_stats, tb.bn_stats_ref),
                "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
                "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
@@ -963,7 +1090,8 @@ def check_bn(dev, gen) -> dict:
             total += v * row["units"]
         return total
 
-    out = {"shapes": shapes, "edge_shapes": edge, "kernels": {}}
+    out = {"shapes": shapes, "edge_shapes": edge, "nan_cases": nan_cases,
+           "kernels": {}}
     for name in kernels:
         bound_bytes = sum(row["units"] * (BN_BYTES_PER_ELEM[name] * row["r"]
                                           * row["c"] + 4 * row["c"]
@@ -2210,11 +2338,13 @@ def vgg_resilience(dev) -> dict:
         if not math.isfinite(losses[2]):
             fail(f"phase 18: the loss at step 26 is {losses[2]} (expected "
                  f"finite again after the skipped step)")
-        # The loss of the poisoned step is reported, not held: the BN
-        # kernels clamp a NaN variance to 0 and their ReLU maps NaN to 0,
-        # so the card's forward can read finite where the plain version's
-        # is NaN; the gradients are NaN either way, and the guard reads
-        # both.
+        # The poisoned step's loss is NaN, as on the CPU and in the JAX
+        # package: the BN kernels keep a NaN variance and their ReLU keeps
+        # a NaN (phase 7's NaN shapes hold them to the plain versions).
+        if not math.isnan(losses[1]):
+            fail(f"phase 18: the poisoned step 25 read a loss of "
+                 f"{losses[1]!r}, not NaN: a kernel on the forward path "
+                 f"maps NaN to a finite value")
         res["nan_grad"] = {"skipped_steps": skipped,
                            "state_unchanged": True,
                            "loss_step_25": str(losses[1]),
@@ -2458,6 +2588,9 @@ def lm_checkpoint(dev, run: dict) -> dict:
     save_s = time.perf_counter() - t0
     nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
     step = state.step
+    # Phase 25 serves this checkpoint against these params in memory.
+    saved = {"dir": d, "step": step, "params": _to_device_tree(
+        {k: v for k, v in state.params.items()}, "cpu")}
     state, l1 = tr.train_step(state, x, y)
     state, l2 = tr.train_step(state, x, y)
     want = (l1.clone(), l2.clone())
@@ -2491,8 +2624,555 @@ def lm_checkpoint(dev, run: dict) -> dict:
     del tr2, state2
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(d, ignore_errors=True)
+    out["_saved"] = saved
     return out
+
+
+# ---- phases 21-26: the rest of single-card serving ---------------------
+#
+# TransformerLM-large at full width and depth from seed weights, int8
+# decode unless a phase says otherwise. Each path's int8 launches are
+# counted from 0 just before it runs and held to the engine's own pass
+# counters: 49 per prefill chunk and per target pass under an int8 target,
+# 4j + 1 per pass of a j-block int8 draft.
+
+SPEC_K = 4
+# Greedy tokens of two streams meant to be equal may part only where the
+# reference's top-2 logit gap is at most this (a near-tie, reported).
+NEAR_TIE = 1e-2
+# Logprob bound of the prefix cache's copy-on-write request against the
+# uncached run, over the positions where the tokens agree.
+COW_LOGPROB_TOL = 0.1
+
+
+def _serve_requests(model, seed: int, n: int = 8):
+    """Phase 5's requests, drawn as phase 5 draws them: (prompt, new
+    tokens, temperature, seed), half greedy, half at temperature 0.8."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, model.vocab_size, size=40)  # phase 5's warm-up
+    lens = rng.integers(64, 513, size=8)
+    return [(rng.integers(0, model.vocab_size, size=int(L)), 32,
+             0.0 if i % 2 == 0 else 0.8, i)
+            for i, L in enumerate(lens)][:n]
+
+
+def _serve_engine(model, params, dev, **kw):
+    from tpu_ddp_torch.serve.engine import ServeEngine
+    kw.setdefault("decode_quant", "int8")
+    return ServeEngine(model, params, device=dev, **kw)
+
+
+def _zero_int8():
+    from tpu_ddp_torch.ops.quant_matmul import int8_matmul
+    int8_matmul.launches = dict.fromkeys(int8_matmul.launches, 0)
+
+
+def _int8_launches() -> dict:
+    from tpu_ddp_torch.ops.quant_matmul import int8_matmul
+    return dict(int8_matmul.launches)
+
+
+def _want_int8(eng, c0: dict) -> int:
+    """The int8 launches the engine's pass counters since ``c0`` imply."""
+    c = eng.metrics.counters
+    d = {k: c.get(k, 0) - c0.get(k, 0) for k in
+         ("serve_prefill_chunks", "serve_target_passes",
+          "serve_draft_passes")}
+    L = eng.model.num_layers
+    target = 4 * L + 1 if eng.decode_quant == "int8" else 0
+    draft_int8 = eng._spec_kind == "quant" or eng.decode_quant == "int8"
+    draft = 4 * eng.draft_layers + 1 if draft_int8 else 0
+    return (target * (d["serve_prefill_chunks"] + d["serve_target_passes"])
+            + draft * d["serve_draft_passes"])
+
+
+def _drive(eng, reqs, label: str, check=None) -> dict:
+    """Submit ``reqs`` (prompt, new, temperature, seed[, tenant]) and step
+    the engine to idle, ``check(eng)`` after every step; the int8
+    launches of the run are held to the pass counters. Returns the
+    handles and the run's numbers."""
+    c0 = dict(eng.metrics.counters)
+    torch.cuda.synchronize()
+    _zero_int8()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, n, temperature=t, seed=s) for p, n, t, s
+               in reqs]
+    steps = 0
+    while eng.step():
+        steps += 1
+        if check is not None:
+            check(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _int8_launches()
+    want = _want_int8(eng, c0)
+    if launches != {"mma": want, "simt": 0}:
+        fail(f"{label}: int8_matmul launched {launches} times by route; "
+             f"the engine's pass counters give {want}, all on mma")
+    for h in handles:
+        if not h.done or h.quarantined or h.cancelled or h.shed:
+            fail(f"{label}: request {h.rid} did not finish cleanly")
+        if not all(math.isfinite(lp) for lp in h.logprobs):
+            fail(f"{label}: request {h.rid} has non-finite logprobs")
+    c = eng.metrics.counters
+    tokens = sum(len(h.tokens) for h in handles)
+    dsteps = c.get("serve_decode_steps", 0) - c0.get("serve_decode_steps",
+                                                      0)
+    return {"handles": handles, "wall_s": wall, "engine_steps": steps,
+            "decode_steps": dsteps, "tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "tokens_per_engine_step": tokens / max(steps, 1),
+            "tokens_per_decode_step": tokens / max(dsteps, 1),
+            "prefill_chunks": c.get("serve_prefill_chunks", 0)
+            - c0.get("serve_prefill_chunks", 0),
+            "target_passes": c.get("serve_target_passes", 0)
+            - c0.get("serve_target_passes", 0),
+            "draft_passes": c.get("serve_draft_passes", 0)
+            - c0.get("serve_draft_passes", 0),
+            "int8_launches": launches["mma"]}
+
+
+def _refs_ok(eng) -> None:
+    if not eng.accounting_ok():
+        fail(f"refcount accounting broken at engine step {eng._step_n} "
+             f"(spec {eng.spec_draft} k={eng.spec_k}, prefix cache "
+             f"{eng.prefix is not None}, tiers {eng.kv_tiers})")
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "handles"}
+
+
+def _top2_gap(model, params, prompt, tokens, pos: int) -> float:
+    """The top-2 logit gap of the reference stream at emitted position
+    ``pos``, from the decode-path forward over prompt + tokens."""
+    from tpu_ddp_torch.ops.quant import decode_forward_logits
+    seq = np.concatenate([np.asarray(prompt), np.asarray(tokens[:pos])])
+    dev = params["embed"].device
+    logits = decode_forward_logits(
+        model, params, torch.as_tensor(seq, device=dev)[None])[0, -1]
+    top = torch.topk(logits.double(), 2).values
+    return float(top[0] - top[1])
+
+
+def _compare_streams(ref, got, model=None, params=None) -> dict:
+    """Two runs of the same requests: bit for bit, or else the first
+    divergent position of each request and (given ``params``, the
+    reference's decode dict) the reference's top-2 gap there."""
+    out = {"bitwise": True, "diverged": []}
+    for a, b in zip(ref, got):
+        if a.tokens == b.tokens and a.logprobs == b.logprobs:
+            continue
+        out["bitwise"] = False
+        n = min(len(a.tokens), len(b.tokens))
+        first = next((i for i in range(n) if a.tokens[i] != b.tokens[i]),
+                     None)
+        lp = next(i for i in range(max(len(a.logprobs), len(b.logprobs)))
+                  if i >= n or a.logprobs[i] != b.logprobs[i])
+        row = {"rid": a.rid, "temperature": a.temperature,
+               "first_token_diff": first, "first_logprob_diff": lp,
+               "max_logprob_diff_before": max(
+                   (abs(x - y) for x, y in zip(a.logprobs[:first or n],
+                                               b.logprobs[:first or n])),
+                   default=0.0)}
+        if first is not None and params is not None:
+            row["ref_top2_gap"] = _top2_gap(model, params, a.prompt,
+                                            a.tokens, first)
+        out["diverged"].append(row)
+    return out
+
+
+def _hold_near_tie(cmp: dict, label: str) -> None:
+    """The fallback gate for streams meant to be bitwise: greedy tokens may
+    part only at a near-tie of the reference (top-2 gap <= NEAR_TIE)."""
+    for row in cmp["diverged"]:
+        if row["temperature"] == 0 and row["first_token_diff"] is not None \
+                and not row.get("ref_top2_gap", 1.0) <= NEAR_TIE:
+            fail(f"{label}: greedy tokens part from the k=0 stream at a "
+                 f"top-2 gap above {NEAR_TIE}: {row}")
+
+
+def serve_spec(dev, model, params, seed: int) -> dict:
+    """Phase 21: speculation on phase 5's 8 requests — k=0, chain at k=4
+    (bit for bit), self-2 at k=4 on the int8 target, quant at k=4 against
+    an fp bf16 k=0 stream, and a planted fault in the accept rule."""
+    from tpu_ddp_torch.serve import engine as se
+    from tpu_ddp_torch.serve.speculative import accept_length
+    reqs = _serve_requests(model, seed)
+
+    out, runs = {}, {}
+    for label, kw in (("k0", {}),
+                      ("chain", dict(spec_k=SPEC_K, spec_draft="chain")),
+                      ("self2", dict(spec_k=SPEC_K, spec_draft="self-2")),
+                      ("k0_fp", dict(decode_quant="none")),
+                      ("quant", dict(spec_k=SPEC_K, spec_draft="quant",
+                                     decode_quant="none"))):
+        eng = _serve_engine(model, params, dev, **kw)
+        run = _drive(eng, reqs, f"phase 21 {label}", _refs_ok)
+        run["spec"] = eng.spec_stats()
+        if label == "self2":
+            qp = eng._decode_params
+        del eng
+        runs[label] = run
+        out[label] = _summary(run)
+        print(json.dumps({"spec_run": {label: out[label]}}), flush=True)
+    h = {k: r["handles"] for k, r in runs.items()}
+    chain = _compare_streams(h["k0"], h["chain"])
+    if not chain["bitwise"]:
+        fail(f"phase 21: the chain stream differs from k=0: {chain}")
+    self2 = _compare_streams(h["k0"], h["self2"], model, qp)
+    _hold_near_tie(self2, "phase 21 self-2")
+    quant = _compare_streams(h["k0_fp"], h["quant"], model, params)
+    _hold_near_tie(quant, "phase 21 quant")
+    out.update(chain_vs_k0=chain, self2_vs_k0=self2, quant_vs_k0_fp=quant)
+    # The planted fault: one more proposal accepted than the rule gives.
+    def one_more(drafted, target, k):
+        return min(accept_length(drafted, target, k) + 1, k)
+
+    eng = _serve_engine(model, params, dev, spec_k=SPEC_K,
+                        spec_draft="self-2")
+    with mock.patch.object(se, "accept_length", one_more):
+        faulty = _drive(eng, reqs, "phase 21 planted fault")
+    del eng
+    caught = _compare_streams(h["k0"], faulty["handles"])
+    if caught["bitwise"]:
+        fail("phase 21: accepting one more proposal than accept_length "
+             "gives left the stream equal to k=0; the gate cannot see it")
+    out["planted_fault"] = {"caught": True,
+                            "requests_differing": len(caught["diverged"])}
+    return out
+
+
+def serve_prefix(dev, model, params, seed: int) -> dict:
+    """Phase 22: the prefix cache on 8 requests sharing a 256-token system
+    prompt (tails of 32-256 tokens, 32 new each) after one request
+    carrying the bare system prompt ran to completion, against the same
+    requests without the cache; then a 200-token system prompt with a
+    request whose whole prompt is cached (the copy-on-write block)."""
+    from tpu_ddp_torch.serve.loadgen import make_shared_prefix_workload
+    out = {}
+    for plen in (256, 200):
+        specs = make_shared_prefix_workload(
+            8, model.vocab_size, seed=seed, prefix_len=plen,
+            tail_len=(32, 257), max_new=(32, 33))
+        system = np.asarray(specs[0].prompt[:plen])
+        reqs = [(np.asarray(sp.prompt), sp.max_new_tokens,
+                 sp.temperature, sp.seed) for sp in specs]
+        cow = []
+        if plen == 200:
+            # A prompt that is the cached blocks exactly: its last token
+            # re-runs in a private copy of the last shared block.
+            full = plen // 16 * 16
+            cow = [(system[:full], 32, 0.0, 99)]
+        res = {}
+        for cached in (False, True):
+            eng = _serve_engine(model, params, dev, prefix_cache=cached)
+            warm = _drive(eng, [(system, 32, 0.0, 77)],
+                          f"phase 22 warm-up ({plen}, cache {cached})")
+            if cached:
+                hits = [eng.prefix_cached_len(p) for p, *_ in reqs + cow]
+                s0 = dict(eng.prefix.stats())
+            run = _drive(eng, reqs + cow,
+                         f"phase 22 ({plen}, cache {cached})", _refs_ok)
+            run["warm_chunks"] = warm["prefill_chunks"]
+            if cached:
+                st = eng.prefix.stats()
+                run["hits_tokens"] = hits
+                run["stats"] = {k: st[k] - s0.get(k, 0) for k in
+                                ("hit_requests", "cached_blocks_served",
+                                 "tokens_saved")}
+            res[cached] = run
+            del eng
+        off, on = res[False], res[True]
+        bs = 16
+        want_hit = plen // bs * bs
+        if plen == 256:
+            if on["hits_tokens"] != [want_hit] * 8:
+                fail(f"phase 22: cached lengths {on['hits_tokens']}, "
+                     f"expected {want_hit} for each of the 8")
+            if on["stats"]["cached_blocks_served"] != 8 * (plen // bs):
+                fail(f"phase 22: {on['stats']} blocks served, expected "
+                     f"{8 * plen // bs}")
+            saved = off["prefill_chunks"] - on["prefill_chunks"]
+            if saved != 8 * plen // 32:
+                fail(f"phase 22: {saved} prefill chunks saved, expected "
+                     f"{8 * plen // 32} (8 x {plen} cached tokens)")
+            cmp = _compare_streams(off["handles"], on["handles"])
+            if not cmp["bitwise"]:
+                fail(f"phase 22: prefix on differs from off: {cmp}")
+        else:
+            cmp = _compare_streams(off["handles"], on["handles"], model,
+                                   _quantized(model, params))
+            _hold_near_tie(cmp, "phase 22 (200-token prompt)")
+            for row in cmp["diverged"]:
+                if row["max_logprob_diff_before"] > COW_LOGPROB_TOL:
+                    fail(f"phase 22: logprobs differ by more than "
+                         f"{COW_LOGPROB_TOL}: {row}")
+            if on["hits_tokens"][-1] != want_hit - 1:
+                fail(f"phase 22: the copy-on-write request cached "
+                     f"{on['hits_tokens'][-1]} tokens, expected "
+                     f"{want_hit - 1}")
+        out[f"system_{plen}"] = {
+            "uncached": _summary(off), "cached": _summary(on),
+            "chunks_saved": off["prefill_chunks"] - on["prefill_chunks"],
+            "streams": cmp}
+        print(json.dumps({"prefix": {plen: out[f"system_{plen}"]}}),
+              flush=True)
+    return out
+
+
+def _quantized(model, params):
+    from tpu_ddp_torch.ops.quant import quantize_params
+    return quantize_params(model, params)
+
+
+TENANT_CLASSES = "gold=3,bronze=1,batch=1:1"
+
+
+def _stride_order(queue, weights) -> list:
+    """The plain version of stride admission: the rids of ``queue``
+    (request handles in submit order) in the order weighted fair queueing
+    admits them, with no retirement or budget in the way."""
+    passes, vtime, order = {}, 0.0, []
+    queue = list(queue)
+    while queue:
+        heads = {}
+        for r in queue:
+            heads.setdefault(r.tenant, r)
+        t = min(heads, key=lambda t: (passes.get(t, vtime),
+                                      -weights.get(t, 1), heads[t].rid))
+        r = heads[t]
+        queue.remove(r)
+        order.append(r.rid)
+        p = max(passes.get(t, 0.0), vtime)
+        vtime = p
+        passes[t] = p + (len(r.prompt) + r.max_new_tokens) / \
+            weights.get(t, 1)
+    return order
+
+
+def serve_tenants(dev, model, params, seed: int) -> dict:
+    """Phase 23: tenant classes gold=3, bronze=1 and batch=1 with a 1 ms
+    queue deadline; 24 requests submitted at once into 8 slots, queue
+    limit 20."""
+    from tpu_ddp_torch.serve.scheduler import parse_tenant_classes
+    rng = np.random.default_rng(seed + 23)
+    names = ("gold", "bronze", "batch")
+    eng = _serve_engine(model, params, dev, tenant_classes=TENANT_CLASSES,
+                        queue_limit=20)
+    weights = {n: c.weight for n, c in
+               parse_tenant_classes(TENANT_CLASSES).items()}
+    admitted = []
+    fill = eng.sched._fill_slot
+
+    def record(i, req):
+        ok = fill(i, req)
+        if ok:
+            admitted.append(req.rid)
+        return ok
+
+    c0 = dict(eng.metrics.counters)
+    _zero_int8()
+    t0 = time.perf_counter()
+    handles = [eng.submit(rng.integers(0, model.vocab_size,
+                                       size=int(rng.integers(32, 129))), 16,
+                          seed=i, tenant=names[i % 3]) for i in range(24)]
+    door = [h.rid for h in handles if h.shed]
+    time.sleep(0.002)   # past batch's 1 ms deadline before the first step
+    queued = [r for r in eng.sched.queue if r.tenant != "batch"]
+    with mock.patch.object(eng.sched, "_fill_slot", record):
+        while eng.step():
+            if not (eng.accounting_ok() and eng.tenant_accounting_ok()):
+                fail("phase 23: accounting broken")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _int8_launches()
+    want = _want_int8(eng, c0)
+    if launches != {"mma": want, "simt": 0}:
+        fail(f"phase 23: int8_matmul launched {launches}, expected {want}")
+    if len(door) != 4:
+        fail(f"phase 23: {len(door)} requests shed at the door of a "
+             f"20-deep queue holding 24, expected 4")
+    by_rid = {h.rid: h for h in handles}
+    if any(by_rid[r].tenant == "gold" for r in door):
+        fail("phase 23: a gold request was shed at the door")
+    batch = [h for h in handles if h.tenant == "batch"]
+    if not all(h.shed and not h.tokens for h in batch):
+        fail("phase 23: a batch request was not shed by its 1 ms deadline")
+    expected = _stride_order(queued, weights)
+    if admitted != expected:
+        fail(f"phase 23: admission order {admitted}, stride scheduling "
+             f"gives {expected}")
+    per = {}
+    for name in names:
+        hs = [h for h in handles if h.tenant == name]
+        c = eng.tenant_counts[name]
+        if c["completed"] + c["cancelled"] + c["shed"] != c["submitted"] \
+                or c["submitted"] != len(hs):
+            fail(f"phase 23: tenant {name} ledger {c}")
+        done = [h for h in hs if not h.shed]
+        if not all(h.done and len(h.tokens) == 16 for h in done):
+            fail(f"phase 23: a {name} request did not finish")
+        ttft = sorted(h.ttft_s * 1e3 for h in done)
+        per[name] = dict(c, ttft_ms_median=ttft[len(ttft) // 2]
+                         if ttft else None,
+                         ttft_ms_max=ttft[-1] if ttft else None)
+    del eng
+    return {"tenants": per, "door_shed": door, "admission_order": admitted,
+            "wall_s": wall, "int8_launches": launches["mma"]}
+
+
+# Phase 24's tier sizes in blocks of 16 tokens (slot 0 of each tier is its
+# null page): 2 hot pages, one prefill chunk's two target blocks or the
+# decode frontiers, so a chunk demotes the frontier the next decode
+# promotes; 99 cold pages hold one 1552-token context (97 blocks) but not
+# a decoding request's and the next prompt's together, so pages spill.
+TIER_HBM_BLOCKS = 3
+TIER_COLD_BLOCKS = 100
+
+
+def serve_tiers(dev, model, params, seed: int) -> dict:
+    """Phase 24: 4 requests of 1536 prompt tokens (16 new, greedy)
+    through the single-tier pool, through kv_tiers=2 with a bf16 cold
+    tier (2 hot pages: nearly all the live context cold; bit for bit),
+    and through kv_tiers=3 with an int8 cold tier too small for two
+    contexts (pages spill to the host)."""
+    from tpu_ddp_torch.serve.loadgen import make_long_prompt_workload
+    specs = make_long_prompt_workload(4, model.vocab_size, seed=seed,
+                                      prompt_len=1536, max_new=(16, 17))
+    reqs = [(np.asarray(sp.prompt), sp.max_new_tokens, sp.temperature,
+             sp.seed) for sp in specs]
+    cfgs = (("tiers1", {}),
+            ("tiers2_bf16", dict(kv_tiers=2, kv_cold_dtype="bf16",
+                                 hbm_blocks=TIER_HBM_BLOCKS)),
+            ("tiers3_int8", dict(kv_tiers=3, kv_cold_dtype="int8",
+                                 hbm_blocks=TIER_HBM_BLOCKS,
+                                 cold_blocks=TIER_COLD_BLOCKS)))
+    out, runs = {}, {}
+    for label, kw in cfgs:
+        eng = _serve_engine(model, params, dev, **kw)
+        peak = {"spill": 0, "cold": 0, "hot": 0}
+
+        def check(e):
+            if not e.accounting_ok():
+                fail(f"phase 24 {label}: tier accounting broken")
+            tc = e.pool.tier_counts()
+            for k in peak:
+                peak[k] = max(peak[k], tc[k])
+
+        run = _drive(eng, reqs, f"phase 24 {label}", check)
+        pool = eng.pool
+        page = model.num_layers * pool.block_size * model.kv_heads \
+            * model.head_dim
+        cold_page = page * (1 if pool.cold_dtype_name == "int8" else 2) \
+            + model.num_layers * pool.block_size * 4
+        run["moves"] = dict(pool.moves)
+        run["peak_blocks"] = peak
+        run["bytes"] = {
+            "hot": 2 * pool.k.numel() * pool.k.element_size(),
+            "cold": (2 * (pool.cold_k.numel() * pool.cold_k.element_size()
+                          + pool.cold_sk.numel() * 4)
+                     if pool.cold_k is not None else 0),
+            "host_peak": 2 * peak["spill"] * cold_page,
+            "live_context_peak": 2 * (peak["hot"] + peak["cold"]
+                                      + peak["spill"]) * page
+            * pool.k.element_size()}
+        del eng
+        runs[label] = run
+        out[label] = _summary(run)
+        print(json.dumps({"tiers": {label: out[label]}}), flush=True)
+    h = {k: r["handles"] for k, r in runs.items()}
+    bf = _compare_streams(h["tiers1"], h["tiers2_bf16"])
+    if not bf["bitwise"]:
+        fail(f"phase 24: kv_tiers=2 with bf16 cold pages differs from the "
+             f"single tier: {bf}")
+    r2 = runs["tiers2_bf16"]
+    if not r2["peak_blocks"]["cold"] >= r2["peak_blocks"]["hot"]:
+        fail(f"phase 24: under half the live context was cold: "
+             f"{r2['peak_blocks']}")
+    m3 = runs["tiers3_int8"]["moves"]
+    if not (m3["demote"] > 0 and m3["promote"] > 0 and m3["spill"] > 0):
+        fail(f"phase 24: kv_tiers=3 moved {m3}; every kind must be > 0")
+    i8 = _compare_streams(h["tiers1"], h["tiers3_int8"], model,
+                          _quantized(model, params))
+    agree = [sum(a == b for a, b in zip(x.tokens, y.tokens)) / len(x.tokens)
+             for x, y in zip(h["tiers1"], h["tiers3_int8"])]
+    out.update(bf16_vs_tiers1=bf, int8_vs_tiers1=i8,
+               int8_greedy_agreement=agree)
+    return out
+
+
+def serve_checkpoint(dev, model, saved: dict) -> dict:
+    """Phase 25: the LM-large checkpoint phase 20 wrote, served through
+    ``ServeEngine.from_checkpoint``, against an engine built on the same
+    params in memory: the streams equal bit for bit."""
+    from tpu_ddp_torch.serve.engine import ServeEngine
+    reqs = _serve_requests(model, 25, n=4)
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_checkpoint(model, saved["dir"],
+                                      decode_quant="int8", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mem = _to_device_tree(saved["params"], dev)
+    for name, a, b in _paired_leaves(eng.params, mem):
+        if not torch.equal(a, b):
+            fail(f"phase 25: restored leaf {name} differs from the saved")
+    got = _drive(eng, reqs, "phase 25 from_checkpoint")
+    del eng
+    ref_eng = _serve_engine(model, mem, dev)
+    ref = _drive(ref_eng, reqs, "phase 25 in memory")
+    del ref_eng
+    cmp = _compare_streams(ref["handles"], got["handles"])
+    if not cmp["bitwise"]:
+        fail(f"phase 25: the checkpoint's stream differs: {cmp}")
+    return {"load_s": load_s, "step": saved["step"],
+            "from_checkpoint": _summary(got), "in_memory": _summary(ref),
+            "bitwise": True}
+
+
+def _to_device_tree(tree, dev):
+    """A detached copy of a parameter tree on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device_tree(v, dev) for v in tree)
+    return tree.detach().to(dev, copy=True)
+
+
+def _paired_leaves(a, b, prefix=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from _paired_leaves(a[k], b[k], f"{prefix}/{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _paired_leaves(x, y, f"{prefix}/{i}")
+    else:
+        yield prefix, a, b
+
+
+def serve_load(dev, model, params, seed: int) -> dict:
+    """Phase 26: ``calibrate_rate`` on 16 requests of ``make_workload``,
+    then ``run_load`` at half the calibrated rate."""
+    from tpu_ddp_torch.serve.loadgen import (calibrate_rate, make_workload,
+                                             run_load)
+    specs = make_workload(16, model.vocab_size, seed=seed,
+                          prompt_len=(64, 257), max_new=(16, 33))
+    eng = _serve_engine(model, params, dev)
+    rate = calibrate_rate(lambda: eng, specs)
+    c0 = dict(eng.metrics.counters)
+    _zero_int8()
+    res = run_load(eng, specs, rate / 2, seed=seed)
+    torch.cuda.synchronize()
+    launches = _int8_launches()
+    want = _want_int8(eng, c0)
+    if launches != {"mma": want, "simt": 0}:
+        fail(f"phase 26: int8_matmul launched {launches}, expected {want}")
+    if not (res["accounting_ok"] and res["n_completed"] == len(specs)
+            and eng.accounting_ok()
+            and eng.pool.free_count == eng.pool.total_usable):
+        fail(f"phase 26: completion or accounting failed: {res}")
+    del eng
+    return dict(res, calibrated_rate_rps=rate, int8_launches=launches["mma"])
 
 
 def main() -> None:
@@ -2565,7 +3245,32 @@ def main() -> None:
         drill = phase("19_launcher", launcher_drill, dev, straight)
         print(json.dumps({"launcher": drill}), flush=True)
         lm_ckpt = phase("20_lm_checkpoint", lm_checkpoint, dev, lm)
+        saved = lm_ckpt.pop("_saved")
         print(json.dumps({"lm_checkpoint": lm_ckpt}), flush=True)
+
+        from tpu_ddp_torch.models.transformer import make_transformer
+        smodel = make_transformer("TransformerLM-large")
+        sparams = smodel.init(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        spec = phase("21_spec", serve_spec, dev, smodel, sparams,
+                     args.seed)
+        print(json.dumps({"spec": spec}), flush=True)
+        prefix = phase("22_prefix", serve_prefix, dev, smodel, sparams,
+                       args.seed)
+        tenants = phase("23_tenants", serve_tenants, dev, smodel, sparams,
+                        args.seed)
+        print(json.dumps({"tenants": tenants}), flush=True)
+        tiers = phase("24_tiers", serve_tiers, dev, smodel, sparams,
+                      args.seed)
+        print(json.dumps({"tiers": tiers}), flush=True)
+        ckpt_serve = phase("25_serve_checkpoint", serve_checkpoint, dev,
+                           smodel, saved)
+        print(json.dumps({"serve_checkpoint": ckpt_serve}), flush=True)
+        del saved
+        load = phase("26_loadgen", serve_load, dev, smodel, sparams,
+                     args.seed)
+        print(json.dumps({"loadgen": load}), flush=True)
+        del sparams
     finally:
         import shutil
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
@@ -2618,6 +3323,19 @@ def main() -> None:
         "prefill_chunk_was_ms": per_pass(32, "simt_ms"),
         "prefill_chunk_library_ms": per_pass(32, "library_ms"),
         "registers": regs, "spill_bytes": spills,
+        # Launches on each path of phases 21-26, each counted from 0 just
+        # before its run (all on the mma route).
+        "launches_by_path": {
+            **{f"spec_{k}": spec[k]["int8_launches"]
+               for k in ("k0", "chain", "self2", "quant")},
+            **{f"prefix_{n}_{c}": prefix[f"system_{n}"][c]["int8_launches"]
+               for n in (256, 200) for c in ("uncached", "cached")},
+            "tenants": tenants["int8_launches"],
+            **{k: tiers[k]["int8_launches"]
+               for k in ("tiers1", "tiers2_bf16", "tiers3_int8")},
+            "from_checkpoint": ckpt_serve["from_checkpoint"][
+                "int8_launches"],
+            "loadgen": load["int8_launches"]},
     }, {
         "name": "sgd",
         "route": "cuda",
@@ -2714,7 +3432,9 @@ def main() -> None:
                        "lm_train": lm, "lm_step": lm_step,
                        "sgd_skip": sgd_skip, "vgg_resilience": resil,
                        "launcher": drill, "lm_checkpoint": lm_ckpt,
-                       "phase_seconds": phase_s,
+                       "spec": spec, "prefix": prefix, "tenants": tenants,
+                       "tiers": tiers, "serve_checkpoint": ckpt_serve,
+                       "loadgen": load, "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -2740,6 +3460,21 @@ def main() -> None:
           f"{lm_ckpt['restore_gb_per_s']:.2f} GB/s "
           f"({lm_ckpt['bytes'] / 1e9:.2f} GB); launcher drill "
           f"{drill['wall_s']:.1f} s", flush=True)
+    sp = {k: spec[k] for k in ("k0", "chain", "self2", "quant")}
+    print("spec (k=4): " + ", ".join(
+        f"{k} {v['tokens_per_s']:.1f} tokens/s, "
+        f"{v['tokens_per_engine_step']:.2f} tokens/engine step"
+        + (f", acceptance {v['spec']['acceptance']:.3f}"
+           if v["spec"]["acceptance"] is not None else "")
+        for k, v in sp.items()), flush=True)
+    print(f"prefix: {prefix['system_256']['chunks_saved']} prefill chunks "
+          f"saved; tenants: "
+          + ", ".join(f"{n} TTFT median {t['ttft_ms_median']}"
+                      for n, t in tenants["tenants"].items())
+          + f"; tiers: int8 moves {tiers['tiers3_int8']['moves']}; "
+          f"loadgen: TTFT p50 {load['ttft_p50_ms']} p99 "
+          f"{load['ttft_p99_ms']} ms, TPOT p50 {load['tpot_p50_ms']} ms, "
+          f"goodput {load['goodput_tokens_per_sec']} tokens/s", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

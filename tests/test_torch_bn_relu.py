@@ -245,3 +245,71 @@ def test_entry_point_argtypes_match_the_source():
                       "f" if param.startswith("float") else "i")
         found[m.group(1)] = kinds
     assert found == tb._ARGTYPES
+
+
+def _nan_inputs(shape, kind, seed):
+    """``_inputs`` with NaN planted: whole rows of x (every channel's
+    statistics NaN), or scattered elements of x in every third channel
+    and of the upstream gradient g in others."""
+    x, scale, bias = _inputs(shape, seed)
+    g = np.random.default_rng(seed + 1).normal(size=shape).astype(np.float32)
+    x2, g2 = x.reshape(-1, shape[-1]), g.reshape(-1, shape[-1])
+    if kind == "rows":
+        x2[[1, len(x2) // 2]] = np.nan
+    else:
+        x2[len(x2) // 3, ::3] = np.nan
+        g2[len(g2) // 2, 1::3] = np.nan
+    return x, scale, bias, g
+
+
+def _same_nans(got, want, tol):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["rows", "elements"])
+@pytest.mark.parametrize("shape", [(16, 4, 4, 96), (64, 3)])
+def test_nan_inputs_keep_nan_where_jax_does(kind, shape):
+    """NaN in the batch stays NaN through the op and its gradients, at the
+    positions the JAX kernel gives (its plain route on the CPU; on the
+    card, chip_smoke.py phase 7 holds the CUDA kernels to the same plain
+    versions on the same kinds of input)."""
+    x, scale, bias, g = _nan_inputs(shape, kind, seed=7)
+
+    def jf(a, s, b):
+        return jnp.sum(jax_bn_relu(a, s, b) * jnp.asarray(g))
+
+    jy = jax_bn_relu(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    jg = jax.grad(jf, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale),
+                                         jnp.asarray(bias))
+    ts = [torch.from_numpy(v).requires_grad_() for v in (x, scale, bias)]
+    ty = tb.batch_norm_relu(*ts)
+    ty.backward(torch.from_numpy(g))
+    assert np.isnan(np.asarray(jy)).any()
+    _same_nans(ty.detach().numpy(), jy, 1e-4)
+    for got, want in zip((t.grad for t in ts), jg):
+        _same_nans(got.numpy(), want, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rows", "elements"])
+def test_kernels_keep_nan_like_the_plain_versions_on_card(kind):
+    """The four CUDA kernels on NaN inputs, each fed its plain version's
+    inputs: NaN exactly where the plain version has NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    x, scale, bias, g = _nan_inputs((4096, 512), kind, seed=8)
+    x, g, s, b = (torch.from_numpy(v).cuda() for v in (x, g, scale, bias))
+    mean, inv = tb.bn_stats_ref(x)
+    db, ds = tb.bn_bwd_stats_ref(x, g, mean, inv, s, b)
+    pairs = [(tb.bn_stats(x), (mean, inv)),
+             ((tb.bn_norm_relu(x, mean, inv, s, b),),
+              (tb.bn_norm_relu_ref(x, mean, inv, s, b),)),
+             (tb.bn_bwd_stats(x, g, mean, inv, s, b), (db, ds)),
+             ((tb.bn_bwd_dx(x, g, mean, inv, s, b, db, ds),),
+              (tb.bn_bwd_dx_ref(x, g, mean, inv, s, b, db, ds),))]
+    for got, want in pairs:
+        for a, w in zip(got, want):
+            assert torch.equal(torch.isnan(a), torch.isnan(w))

@@ -71,10 +71,7 @@ _UNPORTED_FLAGS = {
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
     "--devices-per-proc": "item 9.9 (launch.py; one device per process)",
-    **{flag: "item 2 (serving)" for flag in (
-        "--serve-queue-limit", "--serve-shed-ms", "--tenant-classes",
-        "--spec-k", "--spec-draft", "--decode-quant", "--kv-tiers",
-        "--kv-cold-dtype", "--cp-prefill")},
+    "--cp-prefill": "item 10.5 (context-parallel prefill)",
     **{flag: "item 11 (fleet, publish and DiLoCo)" for flag in (
         "--fleet-health", "--fleet-probe-backoff-ms",
         "--fleet-step-deadline-ms", "--fleet-retry-budget",
@@ -322,6 +319,97 @@ def _refuse_unported(argv: list) -> None:
                 f"{_UNPORTED_FLAGS[flag]})")
 
 
+def _serving_flags(p) -> None:
+    """The serving knobs, each exported to every rank as its env var."""
+    p.add_argument("--serve-queue-limit", type=int, default=None,
+                   help="bounded serving admission queue; submits "
+                        "beyond this many waiting requests are shed "
+                        "(0 = unbounded). Sets TPU_DDP_SERVE_QUEUE_LIMIT "
+                        "for every rank")
+    p.add_argument("--serve-shed-ms", type=float, default=None,
+                   help="shed a queued request that has not started "
+                        "prefill after this many ms (0 disables). Sets "
+                        "TPU_DDP_SERVE_SHED_MS for every rank")
+    p.add_argument("--tenant-classes", default=None,
+                   help="SLO classes for multi-tenant serving: comma-"
+                        "separated name=weight[:deadline_ms[:token_"
+                        "budget]] (e.g. 'gold=3,bronze=1'); empty = "
+                        "single-tenant FIFO. Sets "
+                        "TPU_DDP_TENANT_CLASSES for every rank")
+    p.add_argument("--spec-k", type=int, default=None,
+                   help="speculative decoding: proposals verified per "
+                        "serving engine step (0 = off). Sets "
+                        "TPU_DDP_SPEC_K for every rank")
+    p.add_argument("--spec-draft", default=None,
+                   help="draft family for speculation: 'chain' "
+                        "(bitwise-exact same-step schedule), "
+                        "'self-<j>' (early exit over the target's "
+                        "first j blocks) or 'quant' (full-depth int8 "
+                        "twin). Sets TPU_DDP_SPEC_DRAFT for every rank")
+    p.add_argument("--decode-quant", default=None,
+                   choices=("none", "int8"),
+                   help="weight-only int8 decode compute "
+                        "(ops/quant.py): per-channel quantization of "
+                        "every decode-path projection at engine "
+                        "construction. Sets TPU_DDP_DECODE_QUANT for "
+                        "every rank")
+    p.add_argument("--kv-tiers", type=int, default=None,
+                   choices=(1, 2, 3),
+                   help="tiered KV pool (serve/kv_pool.py): 1 = single "
+                        "tier, 2 adds a quantized cold tier on the "
+                        "device, 3 adds host-memory spill behind it. "
+                        "Sets TPU_DDP_KV_TIERS for every rank")
+    p.add_argument("--kv-cold-dtype", default=None,
+                   choices=("int8", "bf16"),
+                   help="cold-page codec for --kv-tiers >= 2: "
+                        "per-token-row int8 or a bf16 downcast "
+                        "(lossless under a bf16 hot cache dtype). "
+                        "Sets TPU_DDP_KV_COLD_DTYPE for every rank")
+
+
+def _serving_env(p, args) -> dict:
+    """The env the serving flags set, validated as the JAX launcher
+    validates them."""
+    env = {}
+    if args.serve_queue_limit is not None:
+        if args.serve_queue_limit < 0:
+            p.error(f"--serve-queue-limit must be >= 0, "
+                    f"got {args.serve_queue_limit}")
+        env["TPU_DDP_SERVE_QUEUE_LIMIT"] = str(args.serve_queue_limit)
+    if args.serve_shed_ms is not None:
+        if args.serve_shed_ms < 0:
+            p.error(f"--serve-shed-ms must be >= 0, "
+                    f"got {args.serve_shed_ms}")
+        env["TPU_DDP_SERVE_SHED_MS"] = str(args.serve_shed_ms)
+    if args.tenant_classes is not None:
+        for ent in args.tenant_classes.split(","):
+            if ent.strip() and "=" not in ent:
+                p.error(f"--tenant-classes entry {ent.strip()!r}: "
+                        "expected name=weight[:deadline_ms[:token_"
+                        "budget]]")
+        env["TPU_DDP_TENANT_CLASSES"] = args.tenant_classes
+    if args.spec_k is not None:
+        if args.spec_k < 0:
+            p.error(f"--spec-k must be >= 0, got {args.spec_k}")
+        env["TPU_DDP_SPEC_K"] = str(args.spec_k)
+    if args.spec_draft is not None:
+        sd = args.spec_draft.strip()
+        if sd not in ("chain", "quant") and not (
+                sd.startswith("self-")
+                and sd[len("self-"):].isdigit()
+                and int(sd[len("self-"):]) >= 1):
+            p.error(f"--spec-draft {args.spec_draft!r}: expected "
+                    "chain, self-<j> (j >= 1) or quant")
+        env["TPU_DDP_SPEC_DRAFT"] = args.spec_draft
+    if args.decode_quant is not None:
+        env["TPU_DDP_DECODE_QUANT"] = args.decode_quant
+    if args.kv_tiers is not None:
+        env["TPU_DDP_KV_TIERS"] = str(args.kv_tiers)
+    if args.kv_cold_dtype is not None:
+        env["TPU_DDP_KV_COLD_DTYPE"] = args.kv_cold_dtype
+    return env
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     _refuse_unported(argv)
@@ -348,11 +436,13 @@ def main(argv=None) -> int:
     p.add_argument("--heartbeat-timeout", type=float, default=None,
                    help="kill and restart a cluster whose ranks stop "
                         "completing steps for N seconds")
+    _serving_flags(p)
     args, extra = p.parse_known_args(argv)
+    env = _serving_env(p, args) or None
     try:
         res = launch_elastic(args.part, args.nproc,
                              max_restarts=args.max_restarts,
-                             extra_args=extra,
+                             extra_args=extra, env=env,
                              min_restart_interval=args.min_restart_interval,
                              restart_window=args.restart_window,
                              heartbeat_timeout=args.heartbeat_timeout,

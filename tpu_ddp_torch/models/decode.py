@@ -173,3 +173,43 @@ def sample_token(model, logits, temperature, seed, position):
     tok = torch.where(temperature > 0, sampled, greedy)
     logp = F.log_softmax(logits, dim=-1)
     return tok, torch.gather(logp, -1, tok[..., None])[..., 0]
+
+
+def verify_sample(model, logits, temperature, seed, positions):
+    """Multi-position sampling for speculative verification: ``logits``
+    (W, V) at ``positions`` (W,) under ONE request's (temperature, seed)
+    -> (tokens (W,), logprobs (W,)). Each column is exactly
+    :func:`sample_token` with the (seed, position) key the one-token
+    decode step uses at that position."""
+    w = logits.shape[0]
+    return sample_token(model, logits, temperature.expand(w),
+                        seed.expand(w), positions)
+
+
+def dense_params_from_checkpoint(model, directory: str,
+                                 step: int | None = None, device=None):
+    """Training checkpoint -> dense serving params, one call.
+
+    Every trainer of either package writes checkpoints in canonical
+    (dense, global) JAX layout, so any strategy's artifact restores here.
+    Reads only the ``params`` subtree against ``model``'s template
+    (optimizer state, step counter and compression carry are dropped),
+    verifying each leaf's digest (utils/checkpoint.py), and returns the
+    port's parameter dict on ``device`` (``None`` means ``"cuda"``).
+    ``model`` must be the dense config."""
+    check_decodable(model)
+    from tpu_ddp_torch.convert import params_from_jax
+    from tpu_ddp_torch.utils.checkpoint import restore_checkpoint, shape_leaf
+
+    def shapes(node):
+        if isinstance(node, dict):
+            return {k: shapes(v) for k, v in node.items()}
+        if isinstance(node, tuple) and node and isinstance(node[0], dict):
+            return tuple(shapes(b) for b in node)
+        return shape_leaf(node)
+
+    template = {"params": shapes(model.param_shapes())}
+    restored, _ = restore_checkpoint(
+        directory, template, step,
+        drop_extra=("opt_state", "step", "comp_state"))
+    return params_from_jax(model, restored["params"], device)

@@ -54,7 +54,12 @@
 //     by op, and the reductions differ from it only in summation order
 //     (the two-stage kernels keep their fused x*x and gy*x_hat).
 //   - The variance is the reference's max(E[x^2] - mean^2, 0); inv is
-//     1 / sqrt(var + eps).
+//     1 / sqrt(var + eps). The variance clamp and the forward ReLU use
+//     max_nan, which keeps a NaN as the plain versions' clamp_min and the
+//     TPU kernel's jnp.maximum do (fmaxf would return the 0). The
+//     backward's mask, g where y > 0 else 0, is the plain versions' and
+//     the TPU kernel's jnp.where as it stands: a NaN y masks its g to 0,
+//     and a NaN x_hat still reaches dscale and dx through the product.
 //
 // The wrapper (ops/bn_relu.py) passes only C-contiguous f32 tensors,
 // chooses VEC from C and the pointers' alignment, and sizes the grids
@@ -74,6 +79,12 @@ constexpr int kThreads = 256;
 constexpr int kOnePassGroups = 32;
 constexpr int kMaxCluster = 8;
 constexpr int kCounters = 1024;
+
+// max(v, lo) that keeps a NaN v (fmaxf returns lo for a NaN v); on every
+// other input the same bits as the `v > lo ? v : lo` it replaces.
+__device__ __forceinline__ float max_nan(float v, float lo) {
+  return (v > lo || v != v) ? v : lo;
+}
 
 // The thread's place: channel group (VEC channels), row lane, lanes per
 // block, channel groups per block.
@@ -219,7 +230,7 @@ __global__ void bn_stats_finish_kernel(const float* __restrict__ ps,
     q += pq[static_cast<size_t>(b) * C + c];
   }
   const float m = s / count;
-  const float var = fmaxf(q / count - m * m, 0.f);
+  const float var = max_nan(q / count - m * m, 0.f);
   mean[c] = m;
   inv[c] = 1.f / sqrtf(var + eps);
 }
@@ -253,7 +264,7 @@ bn_norm_relu_kernel(const float* __restrict__ x,
     for (int j = 0; j < VEC; ++j) {
       const float t =
           __fadd_rn(__fmul_rn(__fsub_rn(v[j], m[j]), a[j]), b[j]);
-      v[j] = t > 0.f ? t : 0.f;
+      v[j] = max_nan(t, 0.f);
     }
     Vec<VEC>::store(y + i, v);
   }
@@ -583,7 +594,7 @@ bn_stats_onepass_kernel(const float* __restrict__ x, int R, int C,
     const int c = blockIdx.y * width + t;
     if (c < C) {
       const float m = __fdiv_rn(ra[t], count);
-      const float var = fmaxf(
+      const float var = max_nan(
           __fsub_rn(__fdiv_rn(rb[t], count), __fmul_rn(m, m)), 0.f);
       mean[c] = m;
       inv[c] = 1.f / sqrtf(__fadd_rn(var, eps));

@@ -1,21 +1,25 @@
 """Iteration-level (continuous-batching) scheduler — the port of
-tpu_ddp/serve/scheduler.py with FIFO admission (no tenant classes or
-prefix cache yet). Pure host code.
+tpu_ddp/serve/scheduler.py (without the disaggregated prefill role and its
+peer schedulers, which are ROADMAP Queue 1 item 11). Pure host code.
 
-Batch membership is re-decided every model step: a fixed number of
-decode slots runs one whole-bank decode step per iteration; finished
-sequences retire and their slot and KV blocks are reusable on the next
-step. Prefill is chunked and interleaved, at most one chunk per step.
+Batch membership is re-decided every model step: a fixed number of decode
+slots runs one whole-bank decode step per iteration; finished sequences
+retire and their slot and KV blocks are reusable on the next step.
+Prefill is chunked and interleaved.
 
 Invariants:
 
-- **FIFO admission / no starvation.** Requests admit strictly in submit
-  order; if the queue head does not fit, nothing behind it is admitted.
-- **Admitted requests always finish.** Admission reserves the WORST
-  CASE block count ``ceil((prompt + max_new) / block_size)`` against the
-  pool's free blocks minus every live request's still-unallocated
-  reservation; blocks are then allocated lazily, and that allocation can
-  never fail.
+- **FIFO admission / no starvation.** Without tenant classes, requests
+  admit strictly in submit order; if the queue head does not fit,
+  nothing behind it is admitted.
+- **Admitted requests always finish.** Admission reserves the worst-case
+  block count ``ceil((prompt + max_new) / block_size)`` against
+  ``pool.allocatable`` minus every live request's still-unallocated
+  reservation; blocks are then allocated lazily and that allocation can
+  never fail. With a prefix index the ledger charges every draw an
+  admission makes on ``free + evictable``: fresh blocks (``need`` minus
+  cached hits, plus one for a copy-on-write copy) and each hit block
+  whose share pins a previously evictable cache entry.
 - **Page-pool accounting.** ``free + Σ unique-allocated == total usable``
   at every step, with refcounts equal to holder counts
   (``pool.refcount_ok``).
@@ -23,6 +27,16 @@ Invariants:
 ``mode="static"`` is the experiment baseline: admission waits until
 every slot is idle, fills all slots, then admits nothing until the whole
 batch drains.
+
+Multi-tenancy (``TPU_DDP_TENANT_CLASSES``): with tenant classes, admission
+switches from global FIFO to weighted fair queueing over per-tenant FIFO
+heads — stride scheduling: each tenant carries a virtual ``pass`` that
+advances by ``work / weight`` per admission, and the tenant with the
+smallest pass admits next. FIFO holds within each tenant, and an idle
+tenant re-joins at the current virtual time. Classes also carry an
+optional per-request queue deadline (the engine sheds past it) and an
+optional outstanding-token budget (a tenant at its budget is passed
+over until its own work retires).
 """
 
 from __future__ import annotations
@@ -30,6 +44,80 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from typing import Any
+
+DEFAULT_TENANT = "default"
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantClass:
+    """One tenant's SLO class: WFQ weight (higher = more admission
+    bandwidth, and sheds LAST under pressure), optional queued-TTFT
+    deadline, optional outstanding-token budget."""
+
+    name: str
+    weight: int = 1
+    deadline_ms: float = 0.0   # 0 = no per-class queue deadline
+    token_budget: int = 0      # 0 = unbounded outstanding tokens
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("tenant class needs a non-empty name")
+        if self.weight < 1:
+            raise ValueError(
+                f"tenant {self.name!r}: weight must be >= 1, "
+                f"got {self.weight}")
+        if self.deadline_ms < 0:
+            raise ValueError(
+                f"tenant {self.name!r}: deadline_ms must be >= 0")
+        if self.token_budget < 0:
+            raise ValueError(
+                f"tenant {self.name!r}: token_budget must be >= 0")
+
+
+def parse_tenant_classes(spec: str | None) -> dict[str, TenantClass]:
+    """Parse a ``TPU_DDP_TENANT_CLASSES`` value: comma-separated
+    ``name=weight[:deadline_ms[:token_budget]]`` entries. Empty/None
+    means no classes (single anonymous tenant, plain FIFO). Raises
+    ValueError with the offending entry on malformed input — a typo'd
+    class silently running as weight-1 would fake SLO coverage."""
+    out: dict[str, TenantClass] = {}
+    if not spec:
+        return out
+    for entry in str(spec).split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, eq, rest = entry.partition("=")
+        name = name.strip()
+        if not eq or not name:
+            raise ValueError(
+                f"bad tenant class {entry!r}: expected "
+                "name=weight[:deadline_ms[:token_budget]]")
+        if name in out:
+            raise ValueError(f"duplicate tenant class {name!r}")
+        parts = rest.split(":")
+        if len(parts) > 3:
+            raise ValueError(
+                f"bad tenant class {entry!r}: at most "
+                "weight:deadline_ms:token_budget")
+        try:
+            weight = int(parts[0])
+            deadline = float(parts[1]) if len(parts) > 1 and parts[1] \
+                else 0.0
+            budget = int(parts[2]) if len(parts) > 2 and parts[2] else 0
+        except ValueError:
+            raise ValueError(
+                f"bad tenant class {entry!r}: expected "
+                "name=weight[:deadline_ms[:token_budget]] with "
+                "numeric fields") from None
+        out[name] = TenantClass(name, weight, deadline, budget)
+    return out
+
+
+def tenant_of(request) -> str:
+    """The tenant a request belongs to (engine-independent handles
+    from older call sites default to the anonymous tenant)."""
+    return getattr(request, "tenant", DEFAULT_TENANT)
 
 
 @dataclasses.dataclass
@@ -48,7 +136,8 @@ class SlotState:
 
 
 class Scheduler:
-    def __init__(self, pool, num_slots: int, mode: str = "continuous"):
+    def __init__(self, pool, num_slots: int, mode: str = "continuous",
+                 prefix=None, tenants=None):
         if mode not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler mode {mode!r}; "
                              "expected 'continuous' or 'static'")
@@ -57,9 +146,23 @@ class Scheduler:
         self.pool = pool
         self.num_slots = num_slots
         self.mode = mode
+        # name -> TenantClass. None/empty = single anonymous tenant,
+        # admission stays plain FIFO. Tenants arriving without a
+        # configured class get an implicit weight-1 class: classes are
+        # scheduling policy, not an ACL.
+        self.tenants: dict[str, TenantClass] | None = \
+            dict(tenants) if tenants else None
+        self._tenant_pass: dict[str, float] = {}  # WFQ virtual passes
+        self._vtime = 0.0  # virtual time = pass of the last admission
+        # Optional fleet.prefix.PrefixIndex: admission consults it so
+        # shared-prompt requests adopt cached blocks instead of
+        # re-prefilling them.
+        self.prefix = prefix
         self.queue: deque = deque()
         self.slots: list[SlotState | None] = [None] * num_slots
         self._admit_seq = 0
+
+    # ---- queries -------------------------------------------------------
 
     @property
     def live(self) -> int:
@@ -67,15 +170,16 @@ class Scheduler:
 
     @property
     def reserved_unallocated(self) -> int:
-        """Blocks promised to live requests but not yet allocated."""
+        """Blocks promised to live requests but not yet allocated —
+        the amount the admission check must treat as already spent."""
         return sum(s.reserved - len(s.blocks)
                    for s in self.slots if s is not None)
 
     @property
     def pool_budget(self) -> int:
-        """Blocks an admission may draw on: free blocks minus every
-        outstanding reservation."""
-        return self.pool.free_count - self.reserved_unallocated
+        """Blocks an admission may draw on: the pool's allocatable count
+        minus every outstanding reservation."""
+        return self.pool.allocatable - self.reserved_unallocated
 
     def worst_case_blocks(self, request) -> int:
         return self.pool.blocks_for(len(request.prompt)
@@ -83,7 +187,8 @@ class Scheduler:
 
     def prefill_slot(self) -> int | None:
         """The slot to run a prefill chunk for this step: the OLDEST
-        admitted request still prefilling."""
+        admitted request still prefilling (FIFO among prefills — the
+        fairness rule extends inside the engine)."""
         best = None
         for i, s in enumerate(self.slots):
             if s is not None and s.phase == "prefill":
@@ -95,9 +200,12 @@ class Scheduler:
         return [i for i, s in enumerate(self.slots)
                 if s is not None and s.phase == "decode"]
 
+    # ---- lifecycle -----------------------------------------------------
+
     def enqueue(self, request) -> None:
-        """Validate feasibility and queue FIFO. A request whose worst
-        case exceeds the whole pool is rejected here, loudly."""
+        """Validate feasibility and queue FIFO. An infeasible request
+        (worst case exceeds the whole pool) is rejected HERE, loudly —
+        admitting it would starve the queue forever."""
         need = self.worst_case_blocks(request)
         if need > self.pool.total_usable:
             raise ValueError(
@@ -110,9 +218,14 @@ class Scheduler:
 
     def admit(self) -> list[int]:
         """Move queued requests into free slots under the reservation
-        rule, FIFO. Returns the newly filled slot indices."""
+        rule. Returns the newly filled slot indices."""
         if self.mode == "static" and self.live:
             return []  # static batching: drain fully before re-admitting
+        if self.tenants is None:
+            return self._admit_fifo()
+        return self._admit_wfq()
+
+    def _admit_fifo(self) -> list[int]:
         admitted = []
         for i in range(self.num_slots):
             if not self.queue or self.slots[i] is not None:
@@ -123,29 +236,159 @@ class Scheduler:
             admitted.append(i)
         return admitted
 
+    def _admit_wfq(self) -> list[int]:
+        """Weighted fair queueing over per-tenant FIFO heads (stride
+        scheduling). The WFQ-selected head inherits the FIFO
+        no-starvation rule: if it does not fit the pool budget,
+        NOTHING else is admitted this round — retirement frees blocks
+        monotonically and the tenant keeps the minimum pass until
+        served, so it eventually admits. Budget-capped tenants are
+        different: skipping them is the point (their own retirements
+        un-cap them)."""
+        admitted = []
+        free = [i for i in range(self.num_slots) if self.slots[i] is None]
+        capped: set[str] = set()
+        while free and self.queue:
+            heads: dict[str, Any] = {}
+            for r in self.queue:
+                heads.setdefault(tenant_of(r), r)
+            cand = [t for t in heads if t not in capped]
+            if not cand:
+                break
+            t = min(cand, key=lambda t: (
+                self._tenant_pass.get(t, self._vtime),
+                -self._class(t).weight, heads[t].rid))
+            req = heads[t]
+            cls = self._class(t)
+            work = len(req.prompt) + req.max_new_tokens
+            # Token budget: pass the tenant over while ITS live work
+            # exceeds the cap — but never wedge a request bigger than
+            # the whole budget (it admits when the tenant is idle).
+            live = self.tenant_live_tokens(t)
+            if cls.token_budget and live and live + work > cls.token_budget:
+                capped.add(t)
+                continue
+            if not self._fill_slot(free[0], req):
+                break  # reservation rule: stop, don't reorder past it
+            self._remove_queued(req)
+            admitted.append(free.pop(0))
+            # Stride advance: virtual time is the served tenant's pass
+            # BEFORE the increment; an idle tenant re-joining starts at
+            # the current virtual time (no hoarded credit).
+            t_pass = max(self._tenant_pass.get(t, 0.0), self._vtime)
+            self._vtime = t_pass
+            self._tenant_pass[t] = t_pass + work / cls.weight
+        return admitted
+
     def _fill_slot(self, i: int, req) -> bool:
-        """Reservation check + slot fill. False when the pool budget
-        cannot cover the request's worst case."""
+        """Reservation-rule check + slot fill for one request. False
+        when the pool budget cannot cover the draw (the caller stops
+        admitting; the request stays queued)."""
         need = self.worst_case_blocks(req)
-        if need > self.pool_budget:
+        hit = (self.prefix.plan(req.prompt, ns=tenant_of(req))
+               if self.prefix is not None else None)
+        # Every draw this admission makes on (free + evictable):
+        # fresh blocks (need minus cached hits, +1 for the CoW
+        # copy), plus each hit whose share pins a previously
+        # evictable cache entry.
+        draw = need
+        if hit is not None:
+            draw -= len(hit.blocks)
+            draw += 1 if hit.cow else 0
+            draw += sum(self.pool.refcount(b) == 1
+                        for b in hit.blocks)
+        if draw > self.pool_budget:
             return False
         slot = SlotState(request=req, admit_seq=self._admit_seq,
                          phase="prefill", reserved=need)
         self._admit_seq += 1
-        # Prompt blocks up front (prefill scatters into them); generation
-        # blocks arrive lazily.
-        for _ in range(self.pool.blocks_for(len(req.prompt))):
+        if hit is not None:
+            self.prefix.share(hit)  # no-op stats on a miss
+        if hit:
+            slot.blocks = list(hit.blocks)
+            if hit.cow:
+                # The last hit block would be written in place by
+                # the re-run of the final prompt token — swap in a
+                # private copy and drop our share of the original.
+                private = self.pool.cow(slot.blocks[-1])
+                self.pool.free([slot.blocks[-1]])
+                slot.blocks[-1] = private
+            slot.prefill_done = hit.cached_len
+            slot.length = hit.cached_len
+        # Remaining prompt blocks up front (prefill scatters into
+        # them this or next step); generation blocks arrive lazily.
+        for _ in range(self.pool.blocks_for(len(req.prompt))
+                       - len(slot.blocks)):
             slot.blocks.append(self.pool.alloc())
         self.slots[i] = slot
         return True
+
+    def _class(self, tenant: str) -> TenantClass:
+        cls = self.tenants.get(tenant) if self.tenants else None
+        return cls if cls is not None else TenantClass(tenant)
+
+    def _remove_queued(self, req) -> None:
+        """Drop ``req`` from the queue by IDENTITY — dataclass
+        equality would compare prompt arrays elementwise."""
+        for j, r in enumerate(self.queue):
+            if r is req:
+                del self.queue[j]
+                return
+        raise RuntimeError("request vanished from the queue mid-admit")
+
+    def tenant_live_tokens(self, tenant: str) -> int:
+        """Outstanding (unretired) token work tenant ``tenant`` holds
+        in live slots — the quantity its token budget caps."""
+        total = 0
+        for s in self.slots:
+            if s is None or tenant_of(s.request) != tenant:
+                continue
+            total += (len(s.request.prompt) - s.prefill_done) \
+                + (s.request.max_new_tokens - s.generated)
+        return total
 
     def ensure_block(self, idx: int) -> None:
         """Grow slot ``idx``'s table to cover writing position
         ``length`` (called before each decode step). Covered by the
         reservation, so ``alloc`` cannot fail."""
+        self.ensure_blocks(idx, 1)
+
+    def ensure_blocks(self, idx: int, width: int) -> None:
+        """Grow slot ``idx``'s table to cover writing positions
+        ``length .. length + width - 1`` — the speculative step's
+        k+1-wide generalization of :meth:`ensure_block`. Capped at the
+        request's ``prompt + max_new_tokens`` budget (positions beyond
+        it scatter to the null block in-graph), so the growth never
+        exceeds the admission-time worst-case ``reserved`` count and
+        ``alloc`` cannot fail."""
         s = self.slots[idx]
-        while s.length // self.pool.block_size >= len(s.blocks):
+        limit = len(s.request.prompt) + s.request.max_new_tokens
+        last = min(s.length + width - 1, limit - 1)
+        while last // self.pool.block_size >= len(s.blocks):
             s.blocks.append(self.pool.alloc())
+
+    def trim_blocks(self, idx: int) -> None:
+        """Free slot ``idx``'s tail blocks beyond what ``length``
+        needs — the speculative KV rollback. A
+        rejected proposal leaves over-allocated (and garbage-filled)
+        tail blocks; freeing whole blocks restores
+        ``free + Σ allocated == total`` with no new pool invariant.
+        Keeps the block holding position ``length`` (the next write
+        target), so a kept block's garbage tail is causally masked.
+
+        Tiered pools: the kept frontier block must be PROMOTED
+        before the tail is trimmed. A deep rollback can land the write
+        frontier in a block whose pages were demoted or spilled while
+        the speculative window raced ahead; the next decode step
+        scatters into that block's hot slot, so leaving it cold would
+        silently drop the accepted prefix's most recent tokens."""
+        s = self.slots[idx]
+        keep = s.length // self.pool.block_size + 1
+        if len(s.blocks) > keep:
+            if self.pool.tiers > 1:
+                self.pool.ensure_hot([s.blocks[keep - 1]])
+            self.pool.free(s.blocks[keep:])
+            del s.blocks[keep:]
 
     def retire(self, idx: int) -> None:
         """Free slot ``idx``'s blocks and reservation."""
@@ -153,7 +396,21 @@ class Scheduler:
         self.pool.free(s.blocks)
         self.slots[idx] = None
 
+    def release(self, idx: int) -> SlotState:
+        """Clear slot ``idx`` WITHOUT freeing its blocks — ownership
+        transfer, not retirement. The caller must hand the returned
+        state's blocks to another holder on the SAME pool or free them
+        itself."""
+        s = self.slots[idx]
+        self.slots[idx] = None
+        return s
+
     def accounting_ok(self) -> bool:
-        """The page-pool invariant, checkable at any step."""
-        return self.pool.refcount_ok(
-            [s.blocks for s in self.slots if s is not None])
+        """The page-pool invariant, checkable at any step: every holder
+        the scheduler knows about — live block tables plus the prefix
+        index — accounts for every refcount, and ``free + Σ
+        unique-allocated == total usable``."""
+        holders = [s.blocks for s in self.slots if s is not None]
+        if self.prefix is not None:
+            holders.append(self.prefix.held_blocks())
+        return self.pool.refcount_ok(holders)

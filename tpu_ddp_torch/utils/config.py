@@ -28,6 +28,7 @@ _FALSE = ("0", "false", "no", "off")
 
 # Env knobs of the JAX package that the port does not implement yet:
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
+_FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
     "TPU_DDP_OVERLAP": (_FALSE, "item 9.2 (parallel/overlap.py)"),
     "TPU_DDP_BUCKET_MB": (("25",), "item 9.2 (parallel/overlap.py)"),
@@ -42,10 +43,34 @@ _UNPORTED_ENV = {
     "TPU_DDP_REMAT": (("none",), "item 9.7 (memory/policy.py)"),
     "TPU_DDP_ACT_DTYPE": (("compute",), "item 9.7 (memory/policy.py)"),
     "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
+    "TPU_DDP_TUNE_SEMANTIC": (_FALSE, "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
     "TPU_DDP_NATIVE_LOADER": (_FALSE, "item 9.11 (data/native.py)"),
     "TPU_DDP_SHARD_EVAL": (_FALSE, "item 9.11 (sharded evaluation)"),
     "TPU_DDP_METRICS_FILE": ((), "item 9.11 (utils/metrics.py JSONL sink)"),
+    "TPU_DDP_PP_SCHEDULE": (("gpipe",), "item 10.7 (parallel/pipeline.py)"),
+    "TPU_DDP_PP_MICROBATCHES": (("0",),
+                                "item 10.7 (parallel/pipeline.py)"),
+    "TPU_DDP_PP_VIRTUAL": (("1",), "item 10.7 (parallel/pipeline.py)"),
+    "TPU_DDP_MOE_EXPERTS": (("0",), "item 10.8 (parallel/moe.py)"),
+    "TPU_DDP_MOE_TOP_K": (("1",), "item 10.8 (parallel/moe.py)"),
+    "TPU_DDP_MOE_CAPACITY": (("1.25",), "item 10.8 (parallel/moe.py)"),
+    "TPU_DDP_FLEET_ROLES": (("single",), _FLEET),
+    "TPU_DDP_ROUTER_POLICY": (("least-loaded",), _FLEET),
+    "TPU_DDP_KV_WIRE": (("none",), _FLEET),
+    "TPU_DDP_FLEET_HEALTH": (_TRUE, _FLEET),
+    "TPU_DDP_FLEET_HEALTH_BACKOFF_MS": (("200", "200.0"), _FLEET),
+    "TPU_DDP_FLEET_HEALTH_DEADLINE_MS": (("0", "0.0"), _FLEET),
+    "TPU_DDP_FLEET_RETRY_BUDGET": (("3",), _FLEET),
+    "TPU_DDP_FLEET_AUTOSCALE": (_FALSE, _FLEET),
+    "TPU_DDP_SCALE_COOLDOWN_MS": (("1000", "1000.0"), _FLEET),
+    "TPU_DDP_PUBLISH_EVERY": (("0",), _FLEET),
+    "TPU_DDP_PUBLISH_WIRE": (("none",), _FLEET),
+    "TPU_DDP_PUBLISH_MAX_STALENESS": (("0",), _FLEET),
+    "TPU_DDP_DILOCO_H": (("0",), _FLEET),
+    "TPU_DDP_DILOCO_OUTER_LR": (("0.7",), _FLEET),
+    "TPU_DDP_DILOCO_OUTER_MOMENTUM": (("0.9",), _FLEET),
+    "TPU_DDP_DILOCO_OUTER_WIRE": (("none",), _FLEET),
 }
 
 
@@ -63,6 +88,19 @@ def _env_bool(name: str, default: bool) -> bool:
                      f"(1/0/true/false/yes/no/on/off)")
 
 
+def _env_num(name: str, conv, default):
+    """Parse a numeric env var; unset -> default, junk -> ValueError
+    naming the variable."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return conv(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected "
+                         f"{conv.__name__}") from None
+
+
 def refuse_unported_env() -> None:
     """Raise ``NotImplementedError`` for any set env knob of the JAX
     package that the port does not implement yet."""
@@ -73,6 +111,17 @@ def refuse_unported_env() -> None:
         raise NotImplementedError(
             f"{name}={raw!r}: not ported to tpu_ddp_torch yet (ROADMAP "
             f"Queue 1 {item}); unset it to run the port")
+
+
+def refuse_cp_prefill(mode: str) -> None:
+    """Context-parallel prefill shards a chunk over a mesh's sp axis
+    (sp >= 2); the port serves on one card, so anything but "off"
+    raises naming the item that ports it."""
+    if mode != "off":
+        raise NotImplementedError(
+            f"cp_prefill={mode!r}: context-parallel prefill needs a mesh "
+            "with an sp axis of extent >= 2 and is not ported to "
+            "tpu_ddp_torch yet (ROADMAP Queue 1 item 10.5)")
 
 
 @dataclasses.dataclass
@@ -151,6 +200,36 @@ class TrainConfig:
     # "int8" quantizes every decode-path projection per output channel
     # at engine construction. Env: TPU_DDP_DECODE_QUANT.
     decode_quant: str = "none"
+    # Refcounted shared-prefix KV cache (fleet/prefix.py): requests that
+    # share a system prompt pay one prefill. Env: TPU_DDP_PREFIX_CACHE.
+    prefix_cache: bool = False
+    # Bounded admission queue: submits past this depth are shed at the
+    # door (0 = unbounded). Env: TPU_DDP_SERVE_QUEUE_LIMIT.
+    serve_queue_limit: int = 0
+    # A request still queued past this many ms is shed (0 = off). Env:
+    # TPU_DDP_SERVE_SHED_MS.
+    serve_shed_ms: float = 0.0
+    # Tenant SLO classes for weighted fair queueing (serve/scheduler.py):
+    # comma-separated "name=weight[:deadline_ms[:token_budget]]"; empty =
+    # one anonymous tenant, FIFO admission. Env: TPU_DDP_TENANT_CLASSES.
+    tenant_classes: str = ""
+    # Speculative decoding (serve/speculative.py): proposals verified per
+    # engine step (0 = off). Env: TPU_DDP_SPEC_K.
+    spec_k: int = 0
+    # Draft family: "chain", "self-<j>" or "quant". Env:
+    # TPU_DDP_SPEC_DRAFT.
+    spec_draft: str = "chain"
+    # Tiered KV pool (serve/kv_pool.py): 1 = single tier, 2 adds a
+    # quantized cold tier on the device, 3 a host spill tier behind it.
+    # Env: TPU_DDP_KV_TIERS.
+    kv_tiers: int = 1
+    # Cold-page codec for kv_tiers >= 2: "int8" or "bf16". Env:
+    # TPU_DDP_KV_COLD_DTYPE.
+    kv_cold_dtype: str = "int8"
+    # Context-parallel chunked prefill: only "off" is ported (the sharded
+    # chunk needs a mesh with sp >= 2, ROADMAP Queue 1 item 10.5). Env:
+    # TPU_DDP_CP_PREFILL.
+    cp_prefill: str = "off"
 
     def __post_init__(self):
         if self.max_iters is None:
@@ -227,6 +306,86 @@ class TrainConfig:
             raise ValueError(
                 f"decode_quant={self.decode_quant!r}: expected "
                 "none|int8 (TPU_DDP_DECODE_QUANT)")
+        self._serving_knobs()
+
+    def _serving_knobs(self) -> None:
+        """The serving extensions' env knobs, validated as the JAX
+        package validates them."""
+        self.prefix_cache = _env_bool("TPU_DDP_PREFIX_CACHE",
+                                      self.prefix_cache)
+        self.serve_queue_limit = _env_num(
+            "TPU_DDP_SERVE_QUEUE_LIMIT", int, self.serve_queue_limit)
+        if self.serve_queue_limit < 0:
+            raise ValueError(
+                f"serve_queue_limit must be >= 0, got "
+                f"{self.serve_queue_limit} (TPU_DDP_SERVE_QUEUE_LIMIT)")
+        self.serve_shed_ms = _env_num(
+            "TPU_DDP_SERVE_SHED_MS", float, self.serve_shed_ms)
+        if self.serve_shed_ms < 0:
+            raise ValueError(
+                f"serve_shed_ms must be >= 0, got "
+                f"{self.serve_shed_ms} (TPU_DDP_SERVE_SHED_MS)")
+        env_tc = os.environ.get("TPU_DDP_TENANT_CLASSES")
+        if env_tc is not None:
+            self.tenant_classes = env_tc
+        # Mirrors serve/scheduler.py parse_tenant_classes, which
+        # re-validates at engine construction.
+        for entry in str(self.tenant_classes).split(","):
+            entry = entry.strip()
+            if not entry:
+                continue
+            name, _, rest = entry.partition("=")
+            parts = rest.split(":")
+            ok = bool(name.strip()) and "=" in entry and \
+                1 <= len(parts) <= 3
+            if ok:
+                try:
+                    ok = float(parts[0]) >= 1 and all(
+                        float(p) >= 0 for p in parts[1:])
+                except ValueError:
+                    ok = False
+            if not ok:
+                raise ValueError(
+                    f"tenant_classes entry {entry!r}: expected "
+                    "name=weight[:deadline_ms[:token_budget]] "
+                    "(TPU_DDP_TENANT_CLASSES)")
+        self.spec_k = _env_num("TPU_DDP_SPEC_K", int, self.spec_k)
+        if self.spec_k < 0:
+            raise ValueError(
+                f"spec_k must be >= 0, got {self.spec_k} "
+                "(TPU_DDP_SPEC_K)")
+        env_sd = os.environ.get("TPU_DDP_SPEC_DRAFT")
+        if env_sd:
+            self.spec_draft = env_sd
+        # Mirrors serve/speculative.py parse_spec_draft.
+        sd = str(self.spec_draft).strip()
+        ok = sd in ("chain", "quant")
+        if not ok and sd.startswith("self-"):
+            ok = sd[len("self-"):].isdigit() and int(sd[5:]) >= 1
+        if not ok:
+            raise ValueError(
+                f"spec_draft={self.spec_draft!r}: expected "
+                "chain|self-<j>|quant (TPU_DDP_SPEC_DRAFT)")
+        self.kv_tiers = _env_num("TPU_DDP_KV_TIERS", int, self.kv_tiers)
+        if self.kv_tiers not in (1, 2, 3):
+            raise ValueError(
+                f"kv_tiers must be 1, 2 or 3, got {self.kv_tiers} "
+                "(TPU_DDP_KV_TIERS)")
+        env_kc = os.environ.get("TPU_DDP_KV_COLD_DTYPE")
+        if env_kc:
+            self.kv_cold_dtype = env_kc
+        if self.kv_cold_dtype not in ("int8", "bf16"):
+            raise ValueError(
+                f"kv_cold_dtype={self.kv_cold_dtype!r}: expected "
+                "int8|bf16 (TPU_DDP_KV_COLD_DTYPE)")
+        env_cp = os.environ.get("TPU_DDP_CP_PREFILL")
+        if env_cp:
+            self.cp_prefill = env_cp
+        if self.cp_prefill not in ("off", "ring", "ulysses"):
+            raise ValueError(
+                f"cp_prefill={self.cp_prefill!r}: expected "
+                "off|ring|ulysses (TPU_DDP_CP_PREFILL)")
+        refuse_cp_prefill(self.cp_prefill)
 
     def per_node_batch_size(self, world_size: int) -> int:
         # int(256 / world_size), as in reference part2/part2b/main.py:177.
