@@ -230,12 +230,52 @@ j-block int8 draft), all on the mma route:
    ``run_load`` at half the calibrated rate: every request completes and
    the accounting holds; TTFT p50/p99, TPOT and goodput reported.
 
+Phases 27-30 train with the JAX package's single-card recipe:
+
+27. TransformerLM-large (batch 4 x seq 2048, bf16, flash on) through
+   ``LMTrainer`` with ``Adafactor()`` (relative step size), a global-norm
+   clip of 1.0, dropout 0.1, ``vocab_chunk=4000`` and ``remat="dots"``:
+   2 warm-up steps, then 10 timed steps with every loss finite and the
+   flash launches exact from 0 (24 forward per step, the recompute
+   included, 12 of each sweep, all on the wgmma route); ms per step,
+   tokens/s, MFU and peak memory; then one step's loss and gradients
+   through the kernels against the plain versions with dropout on and
+   the same masks (one key), with phase 16's bounds (loss 2e-4 relative,
+   every gradient leaf 2e-2 relative Frobenius), and the three flash
+   kernels on the last layer's own q, k, v and dO from that step, row by
+   row, each gradient bound catching the planted fault there; the same
+   fault in every layer's forward is reported against the loss bound;
+28. the memory-policy and chunk matrix on LM-large with AdamW and dropout
+   off, all from the same start weights: remat none / blocks / dots under
+   act_dtype compute and f32, and ``vocab_chunk`` 4000 under none and
+   dots: peak memory and ms per step over 3 timed steps after one, the
+   flash launches exact (24 forward per step under blocks and dots), the
+   step-1 losses of none, blocks and dots within 1e-5 relative, the
+   act_dtype and chunk differences reported;
+29. VGG-11 part 1 through ``run_part`` under ``TPU_DDP_REMAT=blocks`` and
+   ``conv_stages`` with both kernels, 40 iterations each: the launch
+   counts exact with the recompute (the two forward BN kernels 16 per
+   step and 8 per eval batch, the backward ones 8 per step, SGD once);
+   then a ``Trainer`` under blocks with ``clip_grad_norm=1.0``: in a step
+   with cuDNN deterministic every recomputed BN input matches one forward
+   input bit for bit and its (mean, inv) equal the forward's bits, and
+   one step through the kernels is held to the plain versions as in
+   phase 11;
+30. the example entry points as subprocesses on the card:
+   ``python -m tpu_ddp_torch.examples.lm_text_train`` exits 0 with three
+   falling epoch losses and a sample, and ``python -m
+   tpu_ddp_torch.examples.lm_train --num-nodes 1`` with
+   ``TPU_DDP_LM_OPT=adafactor TPU_DDP_LM_CLIP=1.0
+   TPU_DDP_LM_PRESET=TransformerLM-large`` exits 0 with finite, falling
+   losses.
+
 Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
 ``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
-each path of phases 21-26 beside its main-path count), and last the
-contract line ``{"ok": true, "device": {...}}``.
+each path of phases 21-26, the flash kernels' on phases 27-28's and the
+BN and SGD kernels' on phase 29's, beside each main-path count), and
+last the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3175,6 +3215,405 @@ def serve_load(dev, model, params, seed: int) -> dict:
     return dict(res, calibrated_rate_rps=rate, int8_launches=launches["mma"])
 
 
+# ---- phases 27-30: the training recipe on one card ----------------------
+
+# Phase 27: TransformerLM-large trained with the JAX package's whole
+# single-card recipe: Adafactor (relative step size), a global-norm clip
+# of 1.0, dropout 0.1, the chunked-vocab loss in chunks of 4000 and
+# remat="dots".
+RECIPE_CLIP, RECIPE_CHUNK, RECIPE_DROPOUT = 1.0, 4000, 0.1
+# Phase 28: (remat, act_dtype, vocab_chunk) settings on LM-large with
+# AdamW and dropout off; one untimed step (its loss on the shared start
+# weights), then POLICY_STEPS timed steps.
+POLICY_MATRIX = (("none", "compute", 0), ("blocks", "compute", 0),
+                 ("dots", "compute", 0), ("none", "f32", 0),
+                 ("blocks", "f32", 0), ("dots", "f32", 0),
+                 ("none", "compute", RECIPE_CHUNK),
+                 ("dots", "compute", RECIPE_CHUNK))
+POLICY_STEPS = 3
+EXAMPLE_TIMEOUT_S = 300
+
+
+def _lm_large(dev, **kw):
+    from tpu_ddp_torch.models.transformer import make_transformer
+    return make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                            use_flash=True, **kw)
+
+
+def _lm_tokens(model, dev_trainer):
+    from tpu_ddp_torch.train.lm import make_lm_batch
+    tokens = np.random.default_rng(0).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    return dev_trainer.put_batch(*make_lm_batch(tokens))
+
+
+@contextlib.contextmanager
+def _first_sweep_inputs(fa):
+    """Within the block, the first ``flash_bwd_kv`` call's (q, k, v, dO,
+    causal): the LM's last layer. Read from the sweep's arguments, not
+    ``ctx.saved_tensors``, which a checkpoint region unpacks only once."""
+    real, out = fa.flash_bwd_kv, {}
+
+    def capture(q, k, v, do, lse, delta, causal=False):
+        if not out:
+            out.update(q=q.detach(), k=k.detach(), v=v.detach(),
+                       do=do.detach(), causal=causal)
+        return real(q, k, v, do, lse, delta, causal)
+
+    # The wrapper counts through its module name: the same dict.
+    capture.launches = real.launches
+    with mock.patch.object(fa, "flash_bwd_kv", capture):
+        yield out
+
+
+def _recipe_step_check(tr, state, x, y) -> dict:
+    """One step's loss and gradients through the kernels against the same
+    through the plain versions, with dropout on and the same masks (one
+    key: the masks are a function of it), held with phase 16's bounds,
+    and the three flash kernels on the last layer's own q, k, v and dO
+    from that step, row by row, each gradient bound catching the planted
+    fault there (phase 16's ``_last_layer_check``). The planted fault in
+    every layer's forward is reported against the loss bound, not held:
+    at these weights it moves the loss by less than the kernels may."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    leaves = tree_leaves(state.params)
+    rng = tr.step_key(state.step)
+    plain = dict(flash_bwd_kv=fa.flash_bwd_kv_plain,
+                 flash_bwd_q=fa.flash_bwd_q_plain)
+
+    def faulty_fwd(q, k, v, causal):
+        o, lse = fa.flash_fwd_plain(q, k, v, causal)
+        f = _dropped_tile(q, k, v, None, {"o": o, "lse": lse})
+        return f["o"], f["lse"]
+
+    with _first_sweep_inputs(fa) as last:
+        lk, gk = tr._loss_and_grads(leaves, state.params, x, y, rng)
+    with mock.patch.multiple(fa, flash_fwd=fa.flash_fwd_plain, **plain):
+        lp, gp = tr._loss_and_grads(leaves, state.params, x, y, rng)
+    grad = max(float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+               for a, b in zip(gk, gp))
+    del gk, gp
+    with mock.patch.multiple(fa, flash_fwd=faulty_fwd, **plain):
+        lf, _ = tr._loss_and_grads(leaves, state.params, x, y, rng)
+    torch.cuda.synchronize()
+    lk, lp, lf = float(lk), float(lp), float(lf)
+    loss_k, loss_f = abs(lk - lp) / abs(lp), abs(lf - lp) / abs(lp)
+    if not (math.isfinite(lk) and loss_k <= LM_STEP_TOL["loss"]):
+        fail(f"phase 27 step loss: kernels {lk} vs plain {lp} (tol "
+             f"{LM_STEP_TOL['loss']} rel)")
+    if not grad <= LM_STEP_TOL["grad"]:
+        fail(f"phase 27 step grads: worst leaf's relative Frobenius error "
+             f"{grad} > {LM_STEP_TOL['grad']}")
+    with torch.no_grad():
+        last_layer = _last_layer_check(fa, last)
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_k,
+            "grad_worst_leaf_frob": grad, "tol": LM_STEP_TOL,
+            "planted_fault_loss_rel_diff": loss_f,
+            "planted_fault_caught_by_loss_bound":
+                loss_f > LM_STEP_TOL["loss"],
+            "last_layer_attention": last_layer}
+
+
+def train_recipe(dev, seed: int) -> dict:
+    """Phase 27: TransformerLM-large through ``LMTrainer`` with Adafactor,
+    clip 1.0, dropout 0.1, ``vocab_chunk=4000`` and ``remat="dots"``,
+    batch 4 x seq 2048, bf16, flash on."""
+    from tpu_ddp_torch.ops.optim import Adafactor
+    from tpu_ddp_torch.train.lm import LMTrainer
+    from tpu_ddp_torch.utils.flops import transformer_fwd_flops
+    model = _lm_large(dev, remat="dots", dropout_rate=RECIPE_DROPOUT)
+    tr = LMTrainer(model, device=dev, optimizer=Adafactor(),
+                   clip_grad_norm=RECIPE_CLIP, vocab_chunk=RECIPE_CHUNK,
+                   dropout_seed=seed)
+    x, y = _lm_tokens(model, tr)
+    state = tr.init_state(seed=seed)
+    losses = []
+    for _ in range(LM_WARMUP):
+        state, loss = tr.train_step(state, x, y)
+        losses.append(float(loss))
+    torch.cuda.reset_peak_memory_stats(dev)
+    wrappers = _flash_wrappers()
+    _zero_launches(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(LM_STEPS):
+        state, loss = tr.train_step(state, x, y)
+        timed.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LM_STEPS
+    counts = _launches(wrappers)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses += [float(v) for v in timed]
+    n = model.num_layers * LM_STEPS
+    # "dots" runs each layer's flash forward again in the recompute.
+    want = _flash_want(2 * n, n)
+    if counts != want:
+        fail(f"phase 27 launch counts {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 27 losses not finite: {losses}")
+    fwd_flops = transformer_fwd_flops(model, LM_BATCH, LM_SEQ)
+    check = _recipe_step_check(tr, state, x, y)
+    return {"recipe": {"optimizer": "Adafactor()", "clip": RECIPE_CLIP,
+                       "dropout": RECIPE_DROPOUT,
+                       "vocab_chunk": RECIPE_CHUNK, "remat": "dots"},
+            "batch": LM_BATCH, "seq": LM_SEQ, "warmup_steps": LM_WARMUP,
+            "timed_steps": LM_STEPS, "losses": losses, "launches": counts,
+            "ms_per_step": step_s * 1e3,
+            "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+            "mfu": 3 * fwd_flops / step_s / BF16_FLOP_PER_S,
+            "peak_mem_gib": peak, "step_check": check}
+
+
+def policy_matrix(dev, seed: int) -> dict:
+    """Phase 28: peak memory and ms per step of LM-large (AdamW, dropout
+    off) under each (remat, act_dtype, vocab_chunk) of POLICY_MATRIX, all
+    from the same start weights; the step-1 losses of none, blocks and
+    dots (act_dtype compute) within 1e-5 relative, the act_dtype and
+    chunk differences reported."""
+    from tpu_ddp_torch.train.lm import LMTrainer
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    start = _lm_large(dev).init(torch.Generator(device=dev).manual_seed(
+        seed))
+    host = [p.detach().to("cpu", copy=True) for p in tree_leaves(start)]
+    out, counts_by = {}, {}
+    for remat, act, chunk in POLICY_MATRIX:
+        model = _lm_large(dev, remat=remat, act_dtype=act)
+        tr = LMTrainer(model, device=dev, vocab_chunk=chunk)
+        with torch.no_grad():
+            for p, h in zip(tree_leaves(start), host):
+                p.copy_(h)
+        state = tr.init_state(params=start)
+        x, y = _lm_tokens(model, tr)
+        state, loss1 = tr.train_step(state, x, y)
+        loss1 = float(loss1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        wrappers = _flash_wrappers()
+        _zero_launches(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(POLICY_STEPS):
+            state, loss = tr.train_step(state, x, y)
+        last = float(loss)
+        step_s = (time.perf_counter() - t0) / POLICY_STEPS
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        counts = _launches(wrappers)
+        n = model.num_layers * POLICY_STEPS
+        want = _flash_want(n if remat == "none" else 2 * n, n)
+        if counts != want:
+            fail(f"phase 28 {remat}/{act}/{chunk}: launch counts {counts},"
+                 f" expected {want}")
+        if not (math.isfinite(loss1) and math.isfinite(last)):
+            fail(f"phase 28 {remat}/{act}/{chunk}: losses {loss1}, {last}")
+        key = f"{remat}_{act}_chunk{chunk}"
+        counts_by[key] = counts
+        out[key] = {"step1_loss": loss1, "last_loss": last,
+                    "ms_per_step": step_s * 1e3,
+                    "tokens_per_s": LM_BATCH * LM_SEQ / step_s,
+                    "peak_mem_gib": peak}
+        del tr, state
+        torch.cuda.empty_cache()
+    ref = out["none_compute_chunk0"]["step1_loss"]
+    rel = {k: abs(v["step1_loss"] - ref) / abs(ref) for k, v in out.items()}
+    for k in ("blocks_compute_chunk0", "dots_compute_chunk0"):
+        if not rel[k] <= 1e-5:
+            fail(f"phase 28 step-1 loss of {k} differs from none's by "
+                 f"{rel[k]} relative (tol 1e-5)")
+    return {"steps": POLICY_STEPS, "settings": out,
+            "step1_loss_rel_diff_vs_none": rel, "launches": counts_by}
+
+
+def _record_bn_stats(tb):
+    """Within the block, every ``bn_stats`` call's (input, mean, inv)."""
+    calls, real = [], tb.bn_stats
+
+    def recorded(x2d, eps=tb.BN_EPS):
+        mean, inv = real(x2d, eps)
+        calls.append((x2d.detach().clone(), mean.clone(), inv.clone()))
+        return mean, inv
+
+    recorded.launches = real.launches  # counted through the module name
+    return calls, mock.patch.object(tb, "bn_stats", recorded)
+
+
+def vgg_policy(dev) -> dict:
+    """Phase 29: VGG-11 part 1 through ``run_part`` under
+    ``TPU_DDP_REMAT=blocks`` and ``conv_stages`` (40 iterations each, both
+    kernels): exact launch counts with the recompute; then, on a
+    ``Trainer`` under ``blocks`` with ``clip_grad_norm=1.0`` and cuDNN
+    deterministic, the recomputed BN statistics equal the forward's bits,
+    and one step through the kernels is held to the plain versions."""
+    import itertools
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.ops import bn_relu as tb
+    from tpu_ddp_torch.ops import sgd as tsgd
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    runs = {}
+    for remat in ("blocks", "conv_stages"):
+        wrappers = {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launches(wrappers)
+        out = _part1(dev, [], TPU_DDP_MAX_ITERS=TRAIN_ITERS,
+                     TPU_DDP_REMAT=remat)
+        counts = _launches(wrappers)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        losses = [(int(i), float(v)) for i, v in
+                  re.findall(r"\[epoch 0, iter (\d+)\] loss: (\S+)", out)]
+        if [i for i, _ in losses] != [20, 40] or not all(
+                math.isfinite(v) for _, v in losses):
+            fail(f"phase 29 {remat}: loss lines wrong or not finite: "
+                 f"{losses}")
+        seen = int(re.search(r"accuracy \d+/(\d+)", out).group(1))
+        steps, evals = TRAIN_ITERS, math.ceil(seen / 256)
+        # Each step's backward runs every unit's forward kernels again.
+        fwd = 8 * (2 * steps + evals)
+        want = {"sgd": steps,
+                "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
+                "bn_bwd_dx": 8 * steps,
+                "bn_stats": {"one_pass": fwd, "two_stage": 0},
+                "bn_norm_relu": fwd}
+        if counts != want:
+            fail(f"phase 29 {remat}: launch counts {counts}, expected "
+                 f"{want}")
+        avg_ms = _timer_ms(out)
+        runs[remat] = {"losses": losses, "launches": counts,
+                       "avg_iter_ms": avg_ms,
+                       "images_per_s": 256 / (avg_ms / 1e3),
+                       "peak_mem_gib": peak}
+
+    cfg = TrainConfig.preset("vgg11_cifar10", pallas_sgd=True,
+                             pallas_bn=True, remat="blocks")
+    model = get_model(cfg.model, use_pallas_bn=True,
+                      compute_dtype=getattr(torch, cfg.compute_dtype))
+    tr = Trainer(model, cfg, device=dev, clip_grad_norm=1.0)
+    state = tr.init_state()
+    train, _ = create_data_loaders(batch_size=256, synthetic_size=768)
+    batches = list(itertools.islice(iter(train), 3))
+    for x, y in batches[:2]:
+        state, loss = tr.train_step(state, x, y)
+    x, y = batches[2]
+    with torch.no_grad():
+        p0 = [p.clone() for p in state.params]
+        m0 = [b.clone() for b in state.opt_state["momentum"]]
+    calls, patch = _record_bn_stats(tb)
+    with _deterministic_cudnn(), patch:
+        state, lk = tr.train_step(state, x, y)
+    units = len(model.features)
+    if len(calls) != 2 * units:
+        fail(f"phase 29: {len(calls)} bn_stats calls in a blocks step, "
+             f"expected {2 * units}")
+    for xr, mean, inv in calls[units:]:
+        fwd = [c for c in calls[:units] if torch.equal(c[0], xr)]
+        if len(fwd) != 1:
+            fail("phase 29: a recomputed BN input differs from every "
+                 "forward input")
+        if not (_same_bits(fwd[0][1], mean) and _same_bits(fwd[0][2], inv)):
+            fail("phase 29: recomputed BN statistics differ from the "
+                 "forward's bits")
+    del calls
+    with torch.no_grad():
+        pk = [p.clone() for p in state.params]
+        for p, a in zip(state.params, p0):
+            p.copy_(a)
+        for b, a in zip(state.opt_state["momentum"], m0):
+            b.copy_(a)
+    # The plain step under the same cuDNN algorithms as the kernels' step,
+    # so the two differ only where the kernels do.
+    with mock.patch.multiple(tb, bn_stats=tb.bn_stats_ref,
+                             bn_norm_relu=tb.bn_norm_relu_ref,
+                             bn_bwd_stats=tb.bn_bwd_stats_ref,
+                             bn_bwd_dx=tb.bn_bwd_dx_ref), \
+            mock.patch.object(tsgd, "fused_sgd_step",
+                              tsgd.fused_sgd_step_ref), \
+            _deterministic_cudnn():
+        state, lp = tr.train_step(state, x, y)
+    torch.cuda.synchronize()
+    lk, lp = float(lk), float(lp)
+    with torch.no_grad():
+        update = max(float((a - b).abs().max()) for a, b in zip(pk, p0))
+        diffs = [float((a - b).abs().max())
+                 for a, b in zip(pk, state.params)]
+    diff = max(diffs)
+    worst = [n for n, _ in model.named_parameters()][diffs.index(diff)]
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
+        fail(f"phase 29 step loss: kernels {lk} vs plain {lp} (tol 1e-2)")
+    if not diff <= 5e-2 * update:
+        fail(f"phase 29 step params: kernels vs plain max|d|={diff} > "
+             f"5e-2 x largest update {update}")
+    return {"runs": runs, "recomputed_stats_bit_equal": True,
+            "bn_stats_calls_per_step": 2 * units,
+            "clip_step_check": {"clip": 1.0, "loss_kernels": lk,
+                                "loss_plain": lp, "max_param_diff": diff,
+                                "worst_param": worst,
+                                "largest_update": update,
+                                "tol": 5e-2 * update}}
+
+
+def _example(module: str, argv, env: dict) -> tuple[str, float]:
+    """Run ``python -m module argv`` on the card in a session of its own
+    (stopped with its children past EXAMPLE_TIMEOUT_S); fails unless it
+    exits 0. Returns its output and wall seconds."""
+    run_env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TPU_DDP_")}
+    run_env.update(env, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv],
+                            env=run_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"phase 30: {module} ran past {EXAMPLE_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"phase 30: {module} exited {proc.returncode}:\n{out[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def examples_on_card(dev) -> dict:
+    """Phase 30: the two example entry points as subprocesses on the
+    card: ``lm_text_train`` (falling epoch losses and a sample) and
+    ``lm_train`` with ``TPU_DDP_LM_OPT=adafactor TPU_DDP_LM_CLIP=1.0`` at
+    TransformerLM-large's width (finite, falling losses)."""
+    out, wall_text = _example("tpu_ddp_torch.examples.lm_text_train", [],
+                              {})
+    epochs = [float(v) for v in re.findall(r"mean loss (\S+)", out)]
+    sample = re.search(r"\[lm_text\] sample: (.*)", out)
+    if not (len(epochs) == 3 and all(math.isfinite(v) for v in epochs)
+            and all(b < a for a, b in zip(epochs, epochs[1:]))
+            and sample is not None):
+        fail(f"phase 30: lm_text_train epoch losses {epochs}, sample "
+             f"{sample}:\n{out[-2000:]}")
+    port = socket.socket()
+    port.bind(("127.0.0.1", 0))
+    free = str(port.getsockname()[1])
+    port.close()
+    out2, wall_lm = _example(
+        "tpu_ddp_torch.examples.lm_train",
+        ["--num-nodes", "1", "--master-ip", "127.0.0.1", "--master-port",
+         free],
+        {"TPU_DDP_LM_OPT": "adafactor", "TPU_DDP_LM_CLIP": "1.0",
+         "TPU_DDP_LM_PRESET": "TransformerLM-large"})
+    steps = [float(v) for v in re.findall(r"step \d+/\d+ loss (\S+)", out2)]
+    if not ("opt=adafactor" in out2 and "clip=1.0" in out2 and steps
+            and all(math.isfinite(v) for v in steps)
+            and steps[-1] < steps[0]):
+        fail(f"phase 30: lm_train losses {steps}:\n{out2[-2000:]}")
+    return {"lm_text_train": {"epoch_losses": epochs,
+                              "sample": sample.group(1), "wall_s": wall_text},
+            "lm_train": {"preset": "TransformerLM-large",
+                         "opt": "adafactor", "clip": 1.0, "losses": steps,
+                         "wall_s": wall_lm}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3275,6 +3714,16 @@ def main() -> None:
         import shutil
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     lm = {k: v for k, v in lm.items() if not k.startswith("_")}
+    torch.cuda.empty_cache()
+
+    recipe = phase("27_lm_recipe", train_recipe, dev, args.seed)
+    print(json.dumps({"lm_recipe": recipe}), flush=True)
+    matrix = phase("28_policy_matrix", policy_matrix, dev, args.seed)
+    print(json.dumps({"policy_matrix": matrix}), flush=True)
+    vpolicy = phase("29_vgg_policy", vgg_policy, dev)
+    print(json.dumps({"vgg_policy": vpolicy}), flush=True)
+    examples = phase("30_examples", examples_on_card, dev)
+    print(json.dumps({"examples": examples}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -3352,6 +3801,9 @@ def main() -> None:
         "flagged_ms": sgd_skip["flagged_ms"],
         "skipped_ms": sgd_skip["skipped_ms"],
         "unflagged_ms": sgd_skip["unflagged_ms"],
+        # Phase 29: part 1 under each remat mode, counted from 0.
+        "launches_by_path": {f"part1_{r}": v["launches"]["sgd"]
+                             for r, v in vpolicy["runs"].items()},
     }]
     replaces = {"bn_stats": 139, "bn_norm_relu": 151, "bn_bwd_stats": 207,
                 "bn_bwd_dx": 218}
@@ -3384,6 +3836,10 @@ def main() -> None:
         if name == "bn_stats":
             row.update(library_var_mean_ms=k["library_var_mean_ms"],
                        read_all_ms=k["read_all_ms"])
+        # Phase 29: part 1 under each remat mode (the forward kernels run
+        # again in the recompute), counted from 0.
+        row["launches_by_path"] = {f"part1_{r}": v["launches"][name]
+                                   for r, v in vpolicy["runs"].items()}
         kernels.append(row)
     replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
                 "flash_bwd_q": ("bwd_q", 357)}
@@ -3420,6 +3876,12 @@ def main() -> None:
         if name == "flash_fwd":
             row["was_main_path_ms"] = lm["mma_sync_forward"][
                 "flash_ms_per_step"][name]
+        # Phases 27-28: the recipe (remat "dots") and each memory-policy
+        # setting, counted from 0 just before the timed steps.
+        row["launches_by_path"] = {
+            "recipe": recipe["launches"][name],
+            **{f"policy_{k}": v[name]
+               for k, v in matrix["launches"].items()}}
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as fh:
@@ -3434,7 +3896,9 @@ def main() -> None:
                        "launcher": drill, "lm_checkpoint": lm_ckpt,
                        "spec": spec, "prefix": prefix, "tenants": tenants,
                        "tiers": tiers, "serve_checkpoint": ckpt_serve,
-                       "loadgen": load, "phase_seconds": phase_s,
+                       "loadgen": load, "lm_recipe": recipe,
+                       "policy_matrix": matrix, "vgg_policy": vpolicy,
+                       "examples": examples, "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -3475,6 +3939,18 @@ def main() -> None:
           f"loadgen: TTFT p50 {load['ttft_p50_ms']} p99 "
           f"{load['ttft_p99_ms']} ms, TPOT p50 {load['tpot_p50_ms']} ms, "
           f"goodput {load['goodput_tokens_per_sec']} tokens/s", flush=True)
+    print(f"recipe: LM-large Adafactor + clip {RECIPE_CLIP} + dropout "
+          f"{RECIPE_DROPOUT} + chunk {RECIPE_CHUNK} + dots, "
+          f"{recipe['ms_per_step']:.1f} ms/step, "
+          f"{recipe['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * recipe['mfu']:.1f}%, peak {recipe['peak_mem_gib']:.2f} "
+          f"GiB; policy: " + ", ".join(
+              f"{k} {v['ms_per_step']:.1f} ms {v['peak_mem_gib']:.2f} GiB"
+              for k, v in matrix["settings"].items())
+          + "; VGG: " + ", ".join(
+              f"{r} {v['avg_iter_ms']:.2f} ms/iter "
+              f"{v['peak_mem_gib']:.2f} GiB"
+              for r, v in vpolicy["runs"].items()), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,7 @@ from tpu_ddp.ops.optim import AdamW as JaxAdamW
 from tpu_ddp.parallel.mesh import make_mesh
 from tpu_ddp.train.lm import LMTrainer as JaxLMTrainer
 from tpu_ddp.utils import flops as jax_flops
-from tpu_ddp_torch.convert import (adamw_state_from_jax, params_from_jax,
+from tpu_ddp_torch.convert import (opt_state_from_jax, params_from_jax,
                                    params_to_jax)
 from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.ops import flash_attention as fa
@@ -217,7 +217,7 @@ def test_trainer_matches_jax_trainer():
         _assert_tree(params_to_jax(tree_unflatten(
             state.params, state.opt_state[name])), jopt[name], 1e-4, name)
     # The converter's way in gives the same state back.
-    back = adamw_state_from_jax(tt.model, jopt, device="cpu")
+    back = opt_state_from_jax(tt.model, tt.optimizer, jopt, device="cpu")
     for a, b in zip(back["mu"] + back["nu"],
                     state.opt_state["mu"] + state.opt_state["nu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
@@ -400,9 +400,6 @@ def test_one_process_cli_with_accumulation():
     (dict(param_sharding="fsdp"), "item 9.4"),
     (dict(opt_sharding="zero1"), "item 9.4"),
     (dict(opt_sharding="zero2"), "item 9.4"),
-    (dict(vocab_chunk=256), "item 10.1"),
-    (dict(clip_grad_norm=1.0), "item 10.4"),
-    (dict(optimizer=SGD()), "item 9.1"),
 ])
 def test_unported_trainer_knobs_raise(kwargs, item):
     _, tm = _models()
@@ -411,7 +408,6 @@ def test_unported_trainer_knobs_raise(kwargs, item):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(dropout_rate=0.1), "item 10.3"),
     (dict(moe_experts=4), "item 10.8"),
 ])
 def test_unported_model_fields_raise(kwargs, item):
@@ -419,20 +415,11 @@ def test_unported_model_fields_raise(kwargs, item):
         make_transformer("TransformerLM-tiny", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(remat="dots"),
-                                    dict(remat="conv_stages"),
-                                    dict(act_dtype="bf16")])
-def test_unported_memory_policies_raise_when_training(kwargs):
-    model = make_transformer("TransformerLM-tiny", max_seq_len=SEQ,
-                             compute_dtype=torch.float32, **kwargs)
-    tokens = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 9.7"):
-        model.apply(_fresh_params(model), tokens)
-
-
 def test_unported_schedule_and_sequence_parallel_raise():
-    with pytest.raises(NotImplementedError, match="item 9.1"):
-        AdamW(learning_rate=lambda step: 1e-3)
+    """A schedule runs on the plain SGD path only, as in the JAX package
+    (the kernel takes a static lr); sequence parallelism is not ported."""
+    with pytest.raises(ValueError, match="static lr"):
+        SGD(learning_rate=lambda step: 1e-3, use_pallas=True)
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="item 10.5"):
         attend(q, q, q, axis_name="sp", axis_size=2)
@@ -440,10 +427,9 @@ def test_unported_schedule_and_sequence_parallel_raise():
 
 @pytest.mark.parametrize("name,value", [
     ("TPU_DDP_LM_FSDP", "1"), ("TPU_DDP_LM_ZERO1", "1"),
-    ("TPU_DDP_LM_OPT_SHARD", "zero2"), ("TPU_DDP_LM_OPT", "adafactor"),
-    ("TPU_DDP_LM_CLIP", "1.0"), ("TPU_DDP_LM_TP", "2"),
+    ("TPU_DDP_LM_OPT_SHARD", "zero2"), ("TPU_DDP_LM_TP", "2"),
     ("TPU_DDP_LM_PP", "2"), ("TPU_DDP_LM_SP_MODE", "ulysses"),
-    ("TPU_DDP_REMAT", "blocks"),
+    ("TPU_DDP_AUTOTUNE", "search"),
 ])
 def test_unported_cli_env_raises(monkeypatch, name, value):
     from tpu_ddp_torch.examples.lm_train import main

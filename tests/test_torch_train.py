@@ -272,7 +272,7 @@ def test_unported_knobs_are_refused(monkeypatch):
     for name, value in (("TPU_DDP_OVERLAP", "1"),
                         ("TPU_DDP_GRAD_COMPRESS", "int8"),
                         ("TPU_DDP_STEPS_PER_DISPATCH", "4"),
-                        ("TPU_DDP_REMAT", "blocks"),
+                        ("TPU_DDP_PREFETCH", "2"),
                         ("TPU_DDP_AUTOTUNE", "search")):
         monkeypatch.setenv(name, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

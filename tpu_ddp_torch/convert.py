@@ -5,9 +5,7 @@ TransformerLM: the port keeps the JAX package's parameter layouts
 conversion is a checked copy: every leaf the model needs must be present
 with the shape :meth:`TransformerLM.param_shapes` gives, and lands as a
 tensor of the model's ``param_dtype`` on ``device``. :func:`params_to_jax`
-is the way back (numpy f32 leaves), and :func:`adamw_state_from_jax`
-carries the JAX AdamW state (``mu``, ``nu`` trees and ``count``) into the
-port's leaf lists.
+is the way back (numpy f32 leaves).
 
 VGG: the JAX model's conv kernels are HWIO and the port's OIHW; each
 unit's ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``;
@@ -15,9 +13,12 @@ the head keeps its (C, classes) layout. :func:`vgg_params_from_jax` and
 :func:`vgg_params_to_jax` are checked copies both ways, and
 :func:`vgg_momentum_to_jax`/:func:`vgg_momentum_from_jax` carry SGD's
 momentum (a leaf list in parameter order) through the same
-transpositions. :func:`adamw_state_to_jax` is the LM's AdamW state's way
-back. This module is the one place a layout changes between the two
-packages.
+transpositions. :func:`opt_state_to_jax` and :func:`opt_state_from_jax`
+carry any of the LM trainer's optimizer states (AdamW's ``mu``/``nu``,
+Adafactor's ``vr``/``vc``/``v``/``mu`` with their reduced shapes and
+``(1,)`` placeholders, SGD's ``momentum``), each slot a tree shaped like
+the params and ``count`` an int32, in the JAX package's layout. This module
+is the one place a layout changes between the two packages.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from tpu_ddp_torch.utils.device import resolve_device
-from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
+from tpu_ddp_torch.utils.tree import tree_unflatten
 
 
 def params_from_jax(model, tree, device=None) -> dict:
@@ -71,28 +72,6 @@ def params_to_jax(params):
     if isinstance(params, (tuple, list)):
         return tuple(params_to_jax(v) for v in params)
     return params.detach().to("cpu", torch.float32).numpy().copy()
-
-
-def adamw_state_from_jax(model, opt_state, device=None) -> dict:
-    """The JAX ``AdamW`` state of a TransformerLM (``{"mu": tree, "nu":
-    tree, "count": int32}``, numpy leaves) as the port's AdamW state:
-    ``mu`` and ``nu`` leaf lists in the order of ``tree_leaves(params)``
-    and an int ``count``."""
-    return {"mu": tree_leaves(params_from_jax(model, opt_state["mu"],
-                                              device)),
-            "nu": tree_leaves(params_from_jax(model, opt_state["nu"],
-                                              device)),
-            "count": int(np.asarray(opt_state["count"]))}
-
-
-def adamw_state_to_jax(params, opt_state) -> dict:
-    """The port's AdamW state of a TransformerLM (``mu`` and ``nu`` leaf
-    lists in the order of ``tree_leaves(params)``, an int ``count``) as
-    the JAX ``AdamW`` state: ``{"count": int32, "mu": tree, "nu": tree}``
-    of numpy arrays, the inverse of :func:`adamw_state_from_jax`."""
-    return {"count": np.int32(opt_state["count"]),
-            "mu": params_to_jax(tree_unflatten(params, opt_state["mu"])),
-            "nu": params_to_jax(tree_unflatten(params, opt_state["nu"]))}
 
 
 def _checked(path, arr, want):
@@ -174,3 +153,85 @@ def vgg_momentum_from_jax(model, tree, device=None) -> list:
     means ``"cuda"``): the inverse of :func:`vgg_momentum_to_jax`."""
     sd = vgg_params_from_jax(model, tree, device)
     return [sd[name] for name, _ in model.named_parameters()]
+
+
+def opt_slot_shapes(optimizer, shapes) -> dict:
+    """Each state slot's leaf shapes, in parameter order, for parameter
+    leaves of ``shapes``: the JAX optimizers' state layouts (``count``
+    aside)."""
+    from tpu_ddp_torch.ops.optim import SGD, Adafactor, AdamW
+    shapes = [tuple(s) for s in shapes]
+    if isinstance(optimizer, Adafactor):
+        per_leaf = [optimizer.slot_shapes(s) for s in shapes]
+        return {k: [d[k] for d in per_leaf]
+                for k in ("vr", "vc", "v", "mu")}
+    if isinstance(optimizer, AdamW):
+        return {"mu": shapes, "nu": shapes}
+    if isinstance(optimizer, SGD):
+        return {"momentum": shapes}
+    raise TypeError(f"no state layout for {type(optimizer).__name__}")
+
+
+def opt_state_to_jax(params, opt_state) -> dict:
+    """An optimizer state of the port (slots as leaf lists in the order
+    of ``tree_leaves(params)``, ``count`` an int or a 0-d tensor) as the
+    JAX optimizer's state: each slot a tree shaped like ``params`` of
+    numpy f32 arrays, ``count`` an int32."""
+    out = {}
+    for k, v in opt_state.items():
+        if k == "count":
+            out[k] = np.int32(int(v))
+        else:
+            out[k] = params_to_jax(tree_unflatten(params, v))
+    return out
+
+
+def opt_state_from_jax(model, optimizer, opt_state, device=None) -> dict:
+    """The inverse of :func:`opt_state_to_jax` for ``model``'s params:
+    every slot leaf checked against the optimizer's layout
+    (:func:`opt_slot_shapes`) and placed on ``device`` (``None`` means
+    ``"cuda"``). The count comes back as the optimizer keeps it: an int,
+    or a 0-d int32 device tensor for scheduled SGD."""
+    from tpu_ddp_torch.ops.optim import SGD
+    dev = resolve_device(device)
+    layout = model.param_shapes()
+    out = {}
+    for k, want in opt_slot_shapes(optimizer,
+                                   shape_leaves(layout)).items():
+        got = _leaves_like(f"opt_state/{k}", layout, opt_state[k])
+        out[k] = [torch.as_tensor(np.array(
+            _checked(f"opt_state/{k}/{i}", g, w), np.float32)).to(
+                device=dev, dtype=model.param_dtype)
+            for i, (g, w) in enumerate(zip(got, want))]
+    if "count" in opt_state:
+        count = int(np.asarray(opt_state["count"]))
+        out["count"] = (torch.tensor(count, dtype=torch.int32, device=dev)
+                        if isinstance(optimizer, SGD) else count)
+    return out
+
+
+def _leaves_like(path, want, got) -> list:
+    """The leaves of ``got`` in the order of the ``param_shapes()`` tree
+    ``want``, found by dict key (a JAX tree's dicts may be ordered
+    otherwise) and by tuple index."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{path}: expected keys {sorted(want)}")
+        return [x for k in want for x in _leaves_like(f"{path}/{k}",
+                                                       want[k], got[k])]
+    if isinstance(want, tuple) and want and isinstance(want[0], dict):
+        if len(got) != len(want):
+            raise ValueError(f"{path}: expected {len(want)} blocks, got "
+                             f"{len(got)}")
+        return [x for i, (w, g) in enumerate(zip(want, got))
+                for x in _leaves_like(f"{path}/{i}", w, g)]
+    return [got]
+
+
+def shape_leaves(node) -> list:
+    """The shape tuples of a ``param_shapes()`` tree, in leaf order."""
+    if isinstance(node, dict):
+        return [s for v in node.values() for s in shape_leaves(v)]
+    if isinstance(node, tuple) and node and isinstance(node[0], dict):
+        return [s for v in node for s in shape_leaves(v)]
+    return [node]

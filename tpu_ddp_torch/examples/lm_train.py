@@ -11,9 +11,12 @@ process; each process feeds its contiguous shard of the global batch, at
 sequence length 32 and f32 compute. Env knobs, with the JAX CLI's
 defaults: ``TPU_DDP_LM_STEPS`` (5), ``TPU_DDP_LM_PRESET``
 (TransformerLM-tiny), ``TPU_DDP_GLOBAL_BATCH`` (8), ``TPU_DDP_LM_ACCUM``
-(1). The knobs of axes the port does not carry yet (FSDP, ZeRO, the
-optimizer choice, clipping, tensor and pipeline parallelism, the
-sequence-parallel mode) raise when set to anything but their default.
+(1), ``TPU_DDP_LM_OPT`` (adamw; ``adafactor`` builds
+``Adafactor(min_dim_size_to_factor=8)`` as the JAX CLI does) and
+``TPU_DDP_LM_CLIP`` (the global-norm clip, 0 = off). The knobs of axes
+the port does not carry yet (FSDP, ZeRO, tensor and pipeline
+parallelism, the sequence-parallel mode) raise when set to anything but
+their default.
 """
 
 from __future__ import annotations
@@ -27,8 +30,6 @@ _UNPORTED_LM_ENV = {
     "TPU_DDP_LM_FSDP": ("0", "FSDP", "item 9.4"),
     "TPU_DDP_LM_ZERO1": ("0", "ZeRO-1", "item 9.4"),
     "TPU_DDP_LM_OPT_SHARD": ("replicated", "ZeRO-1/2", "item 9.4"),
-    "TPU_DDP_LM_OPT": ("adamw", "Adafactor", "item 9.1"),
-    "TPU_DDP_LM_CLIP": ("0", "gradient clipping", "item 10.4"),
     "TPU_DDP_LM_TP": ("1", "tensor parallelism", "item 10.6"),
     "TPU_DDP_LM_PP": ("1", "pipeline parallelism", "item 10.7"),
     "TPU_DDP_LM_SP_MODE": ("ring", "Ulysses attention", "item 10.5"),
@@ -60,6 +61,7 @@ def main(argv=None) -> int:
     import torch
 
     from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.optim import Adafactor
     from tpu_ddp_torch.parallel.bootstrap import (get_rank_from_hostname,
                                                   init_distributed_setup,
                                                   shutdown,
@@ -80,6 +82,16 @@ def main(argv=None) -> int:
     steps = int(os.environ.get("TPU_DDP_LM_STEPS", "5"))
     preset = os.environ.get("TPU_DDP_LM_PRESET", "TransformerLM-tiny")
     accum = int(os.environ.get("TPU_DDP_LM_ACCUM", "1"))
+    # TPU_DDP_LM_CLIP: global-norm gradient clip threshold (0 = off).
+    clip = float(os.environ.get("TPU_DDP_LM_CLIP", "0")) or None
+    opt_name = os.environ.get("TPU_DDP_LM_OPT", "adamw")
+    if opt_name == "adafactor":
+        optimizer = Adafactor(min_dim_size_to_factor=8)
+    elif opt_name == "adamw":
+        optimizer = None  # LMTrainer's AdamW default
+    else:
+        raise ValueError(f"TPU_DDP_LM_OPT={opt_name!r}: expected "
+                         "'adamw' or 'adafactor'")
     global_batch = int(os.environ.get("TPU_DDP_GLOBAL_BATCH", "8"))
     if global_batch % world:
         raise ValueError(f"TPU_DDP_GLOBAL_BATCH={global_batch} not "
@@ -88,11 +100,12 @@ def main(argv=None) -> int:
 
     model = make_transformer(preset, max_seq_len=seq_len,
                              compute_dtype=torch.float32)
-    trainer = LMTrainer(model, device=ctx.device, grad_accum=accum)
+    trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
+                        optimizer=optimizer, clip_grad_norm=clip)
     state = trainer.init_state(seed=0)
     print(f"[lm_train] rank={rank} world={world} dp={trainer.dp} "
           f"sp=1 tp=1 pp=1 fsdp=False "
-          f"opt_shard=replicated opt=adamw accum={accum} clip=None "
+          f"opt_shard=replicated opt={opt_name} accum={accum} clip={clip} "
           f"preset={preset}")
 
     # Deterministic synthetic tokens, identical on every process; each

@@ -65,8 +65,6 @@ _UNPORTED_FLAGS = {
     "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
     "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
     "--pp-virtual": "item 10.7 (parallel/pipeline.py)",
-    "--remat": "item 9.7 (memory/policy.py)",
-    "--act-dtype": "item 9.7 (memory/policy.py)",
     "--autotune": "item 9.8 (tune/)",
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
@@ -436,9 +434,27 @@ def main(argv=None) -> int:
     p.add_argument("--heartbeat-timeout", type=float, default=None,
                    help="kill and restart a cluster whose ranks stop "
                         "completing steps for N seconds")
+    p.add_argument("--remat", default=None,
+                   choices=("none", "blocks", "conv_stages", "dots"),
+                   help="activation rematerialisation policy "
+                        "(memory/policy.py): 'blocks' (per conv unit or "
+                        "transformer block), 'conv_stages' (per VGG "
+                        "between-pool group), 'dots' (save matmul outputs "
+                        "only). Sets TPU_DDP_REMAT for every rank")
+    p.add_argument("--act-dtype", default=None,
+                   choices=("compute", "bf16", "f32"),
+                   help="saved-residual dtype at remat-region boundaries "
+                        "(memory/policy.py); region arithmetic stays in "
+                        "the compute dtype. Sets TPU_DDP_ACT_DTYPE for "
+                        "every rank")
     _serving_flags(p)
     args, extra = p.parse_known_args(argv)
-    env = _serving_env(p, args) or None
+    env = _serving_env(p, args)
+    if args.remat is not None:
+        env["TPU_DDP_REMAT"] = args.remat
+    if args.act_dtype is not None:
+        env["TPU_DDP_ACT_DTYPE"] = args.act_dtype
+    env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,
                              max_restarts=args.max_restarts,

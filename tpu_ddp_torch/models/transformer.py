@@ -15,8 +15,18 @@ whose output stays f32 where the JAX package keeps its
 is the GELU input, and the logits) and is rounded to bf16 where JAX casts
 it back (qkv, ``wo``, ``w2``). Attention goes through
 ``parallel/ring_attention.py:attend``, to the flash kernels when
-``use_flash``. Sequence, tensor and expert parallelism, dropout and MoE
-are not ported yet.
+``use_flash``. The memory policy (``remat``, ``act_dtype``;
+memory/policy.py) and inverted dropout on the embedding and both
+residual branches apply inside :meth:`TransformerLM.trunk_with_aux`.
+Sequence, tensor and expert parallelism and MoE are not ported yet.
+
+Dropout masks come from a ``torch.Generator`` seeded, inside the region
+that uses it, from a key that is a pure function of the trainer's
+(dropout_seed, step, rank, microbatch) and the mask's (layer, site):
+:func:`fold_in` mirrors the JAX ``fold_in`` chain. A checkpoint region
+that recomputes in the backward draws the same mask again, which an
+outside generator's state would not give. The masks match the JAX
+package's in distribution (keep share, 1/keep scaling), not bit for bit.
 """
 
 from __future__ import annotations
@@ -26,10 +36,37 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from tpu_ddp_torch.memory.policy import (check_training_policy,
+from tpu_ddp_torch.memory.policy import (cast_saved, effective_remat,
                                          validate_act_dtype, validate_remat,
                                          wrap_stage)
 from tpu_ddp_torch.parallel.ring_attention import attend
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit key from ``key`` and the integer ``data`` (a
+    splitmix64 finaliser over the two): the port's counterpart of
+    ``jax.random.fold_in`` for dropout keys."""
+    z = (key ^ ((data + 1) * 0x9E3779B97F4A7C15)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def dropout(x, rate: float, key: int | None):
+    """Inverted dropout of ``x`` with a mask drawn from a generator
+    seeded with ``key`` (the identity when ``key`` is None or ``rate``
+    is 0): kept elements scaled by 1/keep in ``x``'s dtype, as the JAX
+    model's ``_dropout``."""
+    if key is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(key)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 def rope(x, positions, base: float = 10000.0):
@@ -86,11 +123,13 @@ class TransformerLM:
     # of full_attention.
     use_flash: bool = False
     # Memory policy (memory/policy.py): "blocks" recomputes each block in
-    # the backward from its saved input. Serving ignores both fields.
+    # the backward from its saved input, "dots" keeps its matmul outputs
+    # and recomputes the rest; act_dtype is the saved dtype of the
+    # residual stream between blocks. Serving ignores both fields.
     remat: str = "none"
     act_dtype: str = "compute"
-    # Dropout on the embedding and the residual branches: not ported; any
-    # rate but 0 raises.
+    # Inverted dropout on the embedding and both residual branches of
+    # every block, active only when the forward gets a dropout key.
     dropout_rate: float = 0.0
 
     @property
@@ -109,10 +148,9 @@ class TransformerLM:
     def __post_init__(self):
         validate_remat(self.remat)
         validate_act_dtype(self.act_dtype)
-        if self.dropout_rate != 0.0:
-            raise NotImplementedError(
-                f"dropout_rate={self.dropout_rate}: dropout is not ported to "
-                "tpu_ddp_torch yet (ROADMAP Queue 1 item 10.3)")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got "
+                             f"{self.dropout_rate}")
         if self.moe_experts:
             raise NotImplementedError(
                 f"moe_experts={self.moe_experts}: MoE is not ported to "
@@ -203,46 +241,59 @@ class TransformerLM:
             raise ValueError(f"sequence length {local_len} exceeds "
                              f"max_seq_len={self.max_seq_len}")
 
-    def apply(self, params, tokens):
-        """tokens: (B, L) integer ids -> logits (B, L, V) f32."""
-        return self.apply_with_aux(params, tokens)[0]
+    def apply(self, params, tokens, rng=None):
+        """tokens: (B, L) integer ids -> logits (B, L, V) f32. ``rng``, a
+        dropout key (:func:`fold_in`), switches dropout on; omit it for a
+        deterministic forward."""
+        return self.apply_with_aux(params, tokens, rng=rng)[0]
 
-    def apply_with_aux(self, params, tokens):
+    def apply_with_aux(self, params, tokens, rng=None):
         """Like :meth:`apply`, with the mean MoE auxiliary loss (0.0: the
         port's model is dense)."""
-        x, aux = self.trunk_with_aux(params, tokens)
+        x, aux = self.trunk_with_aux(params, tokens, rng=rng)
         return self.project(params, x, dot=_train_dot_f32), aux
 
-    def trunk_with_aux(self, params, tokens):
+    def trunk_with_aux(self, params, tokens, rng=None):
         """Embed -> blocks -> final LayerNorm: ((B, L, dm) activations,
-        aux = 0.0). Under ``remat="blocks"`` each block is one checkpoint
-        region whose backward recomputes it (flash forward included)."""
+        aux = 0.0), the whole forward but the vocabulary projection (the
+        chunked loss fuses that in, ops/loss.py). Under a remat policy
+        each block is one region (memory/policy.py:wrap_stage) whose
+        input is saved in ``act_dtype``; its backward recomputes it, the
+        flash forward and the dropout masks included. Block i's masks
+        derive from ``fold_in(rng, i)``, the embedding's from
+        ``fold_in(rng, num_layers)``."""
         cd = self.compute_dtype
         lc = tokens.shape[1]
         self.check_seq_len(lc)
-        check_training_policy(self.remat, self.act_dtype)
         pos = torch.arange(lc, device=tokens.device)
         x = F.embedding(tokens.long(), params["embed"]).to(cd)
-        blk_fn = (self.block_apply if self.remat == "none"
-                  else wrap_stage(self._block_entry, self.remat))
-        for blk in params["blocks"]:
-            x = blk_fn(blk, x, pos)
+        if rng is not None:
+            x = dropout(x, self.dropout_rate, fold_in(rng, self.num_layers))
+        remat = effective_remat(self.remat, "attn")
+        if remat == "none" and self.act_dtype == "compute":
+            blk_fn = self.block_apply
+        else:
+            blk_fn = wrap_stage(self._block_entry, remat)
+        for i, blk in enumerate(params["blocks"]):
+            r = fold_in(rng, i) if rng is not None else None
+            x = blk_fn(blk, cast_saved(x, self.act_dtype, cd), pos, r)
         x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
         return x, 0.0
 
-    def block_apply_aux(self, blk, x, pos):
+    def block_apply_aux(self, blk, x, pos, rng=None):
         """:meth:`block_apply` and the block's auxiliary loss (0.0)."""
-        return self.block_apply(blk, x, pos), 0.0
+        return self.block_apply(blk, x, pos, rng), 0.0
 
-    def _block_entry(self, blk, x, pos):
+    def _block_entry(self, blk, x, pos, rng=None):
         """:meth:`block_apply` with the residual stream re-entering
         ``compute_dtype``: the checkpoint region's entry point."""
-        return self.block_apply(blk, x.to(self.compute_dtype), pos)
+        return self.block_apply(blk, x.to(self.compute_dtype), pos, rng)
 
-    def block_apply(self, blk, x, pos):
+    def block_apply(self, blk, x, pos, rng=None):
         """One transformer block, (B, L, dm) -> (B, L, dm): LN1 -> qkv ->
-        attention -> wo + residual -> LN2 -> w1 (f32 out) -> GELU (tanh,
-        f32) -> w2 + residual."""
+        attention -> wo (+ dropout) + residual -> LN2 -> w1 (f32 out) ->
+        GELU (tanh, f32) -> w2 (+ dropout) + residual. The two branch
+        masks derive from ``rng`` (sites 0 and 1)."""
         cd = self.compute_dtype
         b, lc = x.shape[0], x.shape[1]
         h, hd = self.num_heads, self.head_dim
@@ -251,12 +302,15 @@ class TransformerLM:
         o = attend(q, k, v, causal=True, flash=self.use_flash)
         o = train_dot(o.reshape(b, lc, h * hd), blk["wo"], cd,
                       reshape=(h * hd, self.d_model)).to(cd)
-        x = x + o
+        r1 = r2 = None
+        if rng is not None:
+            r1, r2 = fold_in(rng, 0), fold_in(rng, 1)
+        x = x + dropout(o, self.dropout_rate, r1)
         y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
         y = train_dot(y, blk["w1"], cd, out_dtype=torch.float32)
         y = F.gelu(y, approximate="tanh").to(cd)
         y = train_dot(y, blk["w2"], cd).to(cd)
-        return x + y
+        return x + dropout(y, self.dropout_rate, r2)
 
     def head_apply(self, params, x):
         """Final LayerNorm + LM head: (B, L, dm) -> (B, L, V) f32."""

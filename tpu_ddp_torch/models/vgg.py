@@ -15,7 +15,14 @@ copy. Everything else follows the JAX model:
 - ``use_pallas_bn`` routes each conv unit through the fused BN+ReLU op
   (ops/bn_relu.py) on the f32 ``conv + bias``, then casts to
   ``compute_dtype`` (the JAX model's ``vgg.py:185-190``); off, the unit
-  runs the two-pass :func:`batch_norm` and ReLU in PyTorch.
+  runs the two-pass :func:`batch_norm` and ReLU in PyTorch;
+- the memory policy (memory/policy.py): ``remat="blocks"`` makes each
+  conv->bias->BN->ReLU unit one checkpoint region, ``"conv_stages"``
+  (and ``"dots"``, which finds no matrix product inside a stage) each
+  between-pool group with its pool; ``act_dtype`` is the saved dtype of
+  the activations between regions. A region's backward runs the unit
+  again, the BN kernels included; their one-pass reductions sum in a
+  fixed order, so the recomputed statistics are the forward's bits.
 
 Initialisation: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for conv and head
 weights and biases, BN scale 1 and bias 0, drawn from a CPU
@@ -24,11 +31,16 @@ weights and biases, BN scale 1 and bias 0, drawn from a CPU
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu_ddp_torch.memory.policy import (cast_saved, effective_remat,
+                                         validate_act_dtype, validate_remat,
+                                         wrap_stage)
 
 # Channel plans (reference part1/model.py:3-8). 'M' = 2x2/2 max-pool.
 VGG_CFG = {
@@ -112,8 +124,11 @@ class VGGModel(nn.Module):
                  in_channels: int = 3,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
-                 use_pallas_bn: bool = False):
+                 use_pallas_bn: bool = False, remat: str = "none",
+                 act_dtype: str = "compute"):
         super().__init__()
+        validate_remat(remat)
+        validate_act_dtype(act_dtype)
         if param_dtype != torch.float32:
             raise NotImplementedError(
                 "tpu_ddp_torch keeps VGG parameters in float32 (the fused "
@@ -125,6 +140,8 @@ class VGGModel(nn.Module):
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
         self.use_pallas_bn = use_pallas_bn
+        self.remat = remat
+        self.act_dtype = act_dtype
         units, c_in = [], in_channels
         for width in self.cfg:
             if width == "M":
@@ -157,15 +174,48 @@ class VGGModel(nn.Module):
         uniform(self.head.bias, self.head.weight.shape[0])
         return self
 
+    def stage_plan(self) -> tuple:
+        """``((n_convs, pool_after), ...)``: one entry per between-pool
+        group of ``cfg``, the region under ``remat="conv_stages"``."""
+        plan, n = [], 0
+        for width in self.cfg:
+            if width == "M":
+                plan.append((n, True))
+                n = 0
+            else:
+                n += 1
+        if n:
+            plan.append((n, False))
+        return tuple(plan)
+
+    def _unit(self, i, x):
+        return self.features[i](x, self.compute_dtype, self.use_pallas_bn)
+
+    def _stage(self, first, n, pool, x):
+        for i in range(first, first + n):
+            x = self._unit(i, x)
+        return max_pool_2x2(x) if pool else x
+
     def forward(self, x):
         cd = self.compute_dtype
         x = x.to(dtype=cd, memory_format=torch.channels_last)
-        units = iter(self.features)
-        for width in self.cfg:
-            if width == "M":
-                x = max_pool_2x2(x)
-            else:
-                x = next(units)(x, cd, self.use_pallas_bn)
+        remat = effective_remat(self.remat, "conv")
+        if remat in ("conv_stages", "dots"):
+            first = 0
+            for n, pool in self.stage_plan():
+                stage = wrap_stage(
+                    functools.partial(self._stage, first, n, pool), remat)
+                x = stage(cast_saved(x, self.act_dtype, cd))
+                first += n
+        else:
+            unit = wrap_stage(self._unit, remat)
+            i = 0
+            for width in self.cfg:
+                if width == "M":
+                    x = max_pool_2x2(x)
+                    continue
+                x = unit(i, cast_saved(x, self.act_dtype, cd))
+                i += 1
         # Flatten in the JAX model's NHWC order (the same as NCHW after
         # five pools leave 1x1).
         x = x.to(cd).permute(0, 2, 3, 1).reshape(x.shape[0], -1)

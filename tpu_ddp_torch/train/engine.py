@@ -12,7 +12,14 @@ in JAX): a flag from the loss and the local gradients, agreed over the
 process group, gates the update on the device, and a flagged step leaves
 params and momentum as they were. Dispatch is synchronous (the JAX
 engine's ``dispatch_depth=0``): one host read per step, of the step's
-``[loss, skipped]`` together. Instrumentation keeps the reference's
+``[loss, skipped]`` together. ``clip_grad_norm`` scales the synced
+gradients to that global norm (torch.nn.utils.clip_grad_norm_ semantics,
+a device scale, no host read) before the update; the guard reads them
+before the clip. The config's memory policy (``remat``, ``act_dtype``)
+is imprinted on the model (memory/policy.py:apply_policy), and a
+scheduled ``learning_rate`` gives scheduled SGD, whose count stays on the
+device and does not advance on a skipped step. Instrumentation keeps the
+reference's
 contract: the running loss printed every 20 iterations and the
 iteration-1..39 timer, which synchronizes the card before it stops the
 clock.
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -36,7 +44,8 @@ import torch.distributed as dist
 
 from tpu_ddp_torch.ops.loss import cross_entropy_loss
 from tpu_ddp_torch.ops.metrics import top1_correct
-from tpu_ddp_torch.ops.optim import SGD
+from tpu_ddp_torch.memory.policy import apply_policy
+from tpu_ddp_torch.ops.optim import SGD, clip_by_global_norm
 from tpu_ddp_torch.parallel.sync import canonical_strategy, get_sync_strategy
 from tpu_ddp_torch.resilience.guard import StepGuard, nonfinite_flag
 from tpu_ddp_torch.utils.config import TrainConfig, refuse_unported_env
@@ -48,7 +57,8 @@ from tpu_ddp_torch.utils.timing import IterationTimer
 @dataclasses.dataclass
 class TrainState:
     """``params`` are the model's parameter tensors, updated in place by
-    every step; ``opt_state`` holds the momentum buffers."""
+    every step; ``opt_state`` holds the momentum buffers (and, for a
+    scheduled lr, the step count on the device)."""
 
     params: list
     opt_state: Any
@@ -110,16 +120,21 @@ class Trainer:
     ``none`` needs an initialized ``torch.distributed`` process group
     (parallel/bootstrap.py), and ``fused`` wraps the model in
     ``DistributedDataParallel`` with 25 MB buckets. ``device=None`` means
-    the card.
+    the card. ``clip_grad_norm``: the global-norm clip of the synced
+    gradients (None: off). Under ``none`` with more than one process each
+    replica clips by its own norm, and a warning says so.
     """
 
     def __init__(self, model, config: TrainConfig | None = None,
                  strategy: str = "none", device=None,
-                 metrics: MetricsLogger | None = None):
+                 metrics: MetricsLogger | None = None,
+                 clip_grad_norm: float | None = None):
         refuse_unported_env()
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = apply_policy(model, remat=self.config.remat,
+                                  act_dtype=self.config.act_dtype
+                                  ).to(self.device)
         self.metrics = metrics if metrics is not None else MetricsLogger()
         self.strategy_name = strategy
         self.strategy = canonical_strategy(strategy)
@@ -132,6 +147,17 @@ class Trainer:
             raise ValueError(
                 f"strategy {strategy!r} needs a torch.distributed process "
                 "group (parallel/bootstrap.py:init_distributed_setup)")
+        if clip_grad_norm is not None and clip_grad_norm <= 0:
+            raise ValueError(
+                f"clip_grad_norm must be > 0, got {clip_grad_norm}")
+        if (clip_grad_norm is not None and self.strategy == "none"
+                and dist.is_initialized() and dist.get_world_size() > 1):
+            warnings.warn(
+                "clip_grad_norm with strategy 'none': each replica clips "
+                "by its own LOCAL gradient norm (no sync), so replicas "
+                "diverge; use a syncing rung for global-norm clipping.",
+                stacklevel=2)
+        self.clip_grad_norm = clip_grad_norm
         self.net = self.model
         if self.strategy == "fused":
             from torch.nn.parallel import DistributedDataParallel
@@ -178,21 +204,30 @@ class Trainer:
         world = dist.get_world_size() if dist.is_initialized() else 1
         axes = (("dp", world),) if self.strategy == "none" else (
             ("dp", world), ("sp", 1), ("mp", 1), ("pp", 1), ("ep", 1))
+        opt_specs = {"momentum": P()}
+        if self._scheduled:
+            opt_specs["count"] = P()
         return ShardingPlan(strategy=self.strategy_name,
                             mesh_axes=axes, param_specs=P(),
-                            opt_specs={"momentum": P()},
-                            batch_spec=P("dp"))
+                            opt_specs=opt_specs, batch_spec=P("dp"))
+
+    @property
+    def _scheduled(self) -> bool:
+        return callable(self.optimizer.learning_rate)
 
     def state_to_host(self, state: TrainState) -> dict:
         """``state`` as the JAX package's canonical host tree,
         ``{"opt_state": {"momentum": ...}, "params": ..., "step": int64}``,
         numpy leaves in JAX layouts (HWIO kernels; momentum through the
-        same transpositions as its parameter)."""
+        same transpositions as its parameter); scheduled SGD adds the
+        int32 ``opt_state["count"]``."""
         from tpu_ddp_torch.convert import (vgg_momentum_to_jax,
                                            vgg_params_to_jax)
-        return {"opt_state": {"momentum": vgg_momentum_to_jax(
-                    self.model, state.opt_state["momentum"])},
-                "params": vgg_params_to_jax(self.model),
+        opt = {"momentum": vgg_momentum_to_jax(
+            self.model, state.opt_state["momentum"])}
+        if "count" in state.opt_state:
+            opt["count"] = np.int32(state.opt_state["count"].item())
+        return {"opt_state": opt, "params": vgg_params_to_jax(self.model),
                 "step": np.int64(state.step)}
 
     def state_from_host(self, host: dict) -> TrainState:
@@ -205,11 +240,14 @@ class Trainer:
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 p.copy_(sd[name])
-        momentum = vgg_momentum_from_jax(
-            self.model, host["opt_state"]["momentum"], self.device)
+        opt = {"momentum": vgg_momentum_from_jax(
+            self.model, host["opt_state"]["momentum"], self.device)}
+        if self._scheduled:
+            opt["count"] = torch.tensor(
+                int(host["opt_state"]["count"]), dtype=torch.int32,
+                device=self.device)
         return TrainState(params=list(self.model.parameters()),
-                          opt_state={"momentum": momentum},
-                          step=int(host.get("step", 0)))
+                          opt_state=opt, step=int(host.get("step", 0)))
 
     def save_checkpoint(self, directory: str, state: TrainState,
                         keep_last: int | None = None,
@@ -253,7 +291,10 @@ class Trainer:
         from tpu_ddp_torch.utils import checkpoint as ckpt
         warn_if_incompatible(directory, self.sharding_plan())
         shapes = vgg_params_to_jax(self.model)
-        template = {"opt_state": {"momentum": shapes}, "params": shapes,
+        opt = {"momentum": shapes}
+        if self._scheduled:
+            opt["count"] = ckpt.shape_leaf((), np.int32)
+        template = {"opt_state": opt, "params": shapes,
                     "step": np.int64(0)}
         if step is None:
             host, _ = restore_newest_verified(directory, template)
@@ -281,6 +322,8 @@ class Trainer:
             skip = nonfinite_flag(loss, grads, self._guard_group)
             fused = torch.stack([loss.detach().float(), skip])
         self.sync_fn(grads)
+        if self.clip_grad_norm is not None:
+            clip_by_global_norm(grads, self.clip_grad_norm)
         self.optimizer.apply(state.params, grads, state.opt_state, skip=skip)
         self._last_fused = fused
         return (TrainState(state.params, state.opt_state, state.step + 1),

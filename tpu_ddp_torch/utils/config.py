@@ -1,6 +1,7 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
 ``TrainConfig`` that the port's slices use (serving, the VGG training
-ladder, checkpoints and the step guard), with the same names, defaults,
+ladder, checkpoints, the step guard and the memory policy), with the
+same names, defaults,
 ``TPU_DDP_*`` env variables and validation, so a knob means the same
 thing in both packages.
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Any
 
 # Shared seed applied on every node so parameter init is identical across
 # replicas (reference part1/main.py:14,115-117).
@@ -40,8 +42,6 @@ _UNPORTED_ENV = {
     "TPU_DDP_ELASTIC_RESHARD": (_FALSE,
                                 "item 9.6b (resilience/elastic.py)"),
     "TPU_DDP_ELASTIC_DIR": ((), "item 9.6b (resilience/elastic.py)"),
-    "TPU_DDP_REMAT": (("none",), "item 9.7 (memory/policy.py)"),
-    "TPU_DDP_ACT_DTYPE": (("compute",), "item 9.7 (memory/policy.py)"),
     "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
     "TPU_DDP_TUNE_SEMANTIC": (_FALSE, "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
@@ -133,8 +133,9 @@ class TrainConfig:
     num_classes: int = 10
 
     # Optimizer: SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
-    # (reference part1/main.py:124-125).
-    learning_rate: float = 0.1
+    # (reference part1/main.py:124-125). A schedule ``step -> lr``
+    # (ops/optim.py:warmup_cosine) gives scheduled SGD.
+    learning_rate: Any = 0.1
     momentum: float = 0.9
     weight_decay: float = 1e-4
 
@@ -182,6 +183,14 @@ class TrainConfig:
     # two runs of the same steps give the same bits (resume drills).
     # Applied by parts/common.py:run_part; env TPU_DDP_CUDNN_DETERMINISTIC.
     cudnn_deterministic: bool = False
+
+    # Memory policy (memory/policy.py): activation rematerialisation,
+    # "none" | "blocks" | "conv_stages" | "dots" (env TPU_DDP_REMAT), and
+    # the saved residuals' dtype between regions, "compute" | "bf16" |
+    # "f32" (env TPU_DDP_ACT_DTYPE). The trainers imprint both on the
+    # model (memory/policy.py:apply_policy).
+    remat: str = "none"
+    act_dtype: str = "compute"
 
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
@@ -252,6 +261,22 @@ class TrainConfig:
             self.guard_max_bad_steps = int(env_gb)
         self.cudnn_deterministic = _env_bool("TPU_DDP_CUDNN_DETERMINISTIC",
                                              self.cudnn_deterministic)
+        env_rm = os.environ.get("TPU_DDP_REMAT")
+        if env_rm:
+            self.remat = env_rm
+        env_ad = os.environ.get("TPU_DDP_ACT_DTYPE")
+        if env_ad:
+            self.act_dtype = env_ad
+        # Mirrors memory/policy.py, which validates again when a model
+        # takes the policy; here a bad value fails naming its env var.
+        if self.remat not in ("none", "blocks", "conv_stages", "dots"):
+            raise ValueError(
+                f"remat={self.remat!r}: expected "
+                "none|blocks|conv_stages|dots (TPU_DDP_REMAT)")
+        if self.act_dtype not in ("compute", "bf16", "f32"):
+            raise ValueError(
+                f"act_dtype={self.act_dtype!r}: expected "
+                "compute|bf16|f32 (TPU_DDP_ACT_DTYPE)")
         self.pallas_sgd = _env_bool("TPU_DDP_PALLAS_SGD", self.pallas_sgd)
         self.pallas_bn = _env_bool("TPU_DDP_PALLAS_BN", self.pallas_bn)
         env_cd = os.environ.get("TPU_DDP_COMPUTE_DTYPE")
