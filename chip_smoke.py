@@ -269,12 +269,46 @@ Phases 27-30 train with the JAX package's single-card recipe:
    TPU_DDP_LM_PRESET=TransformerLM-large`` exits 0 with finite, falling
    losses.
 
+Phases 31-34 run the rest of the data-parallel ladder:
+
+31. parts 1, 4 (ZeRO-1) and 5 (FSDP) through ``run_part`` at world 1 (4
+   and 5 over NCCL on a group of one), ``vgg11_cifar10`` at full width,
+   both kernels, 40 iterations and the test pass, cuDNN deterministic,
+   in turns 1, 4, 5, 5, 4, 1: the loss and ``Test set:`` lines of every
+   run must equal part 1's, and every launch count phase 10's (SGD once
+   per step over the flat shards); iteration ms (both turns and their
+   mean), images/s and peak memory for each;
+32. the per-rank device code on CUDA tensors: VGG-11's and LM-large's
+   flat shards at N = 1, 3 and 4 against the CPU's (VGG every rank bit
+   for bit, LM-large reassembled bit for bit and its first, largest and
+   padded leaves' shards against the CPU's); the int8 quantizer's bits
+   against the CPU's, its round trip within one block step, zeros exact,
+   64 draws unbiased within a stated bound that catches a planted
+   quarter-step bias; on a NCCL group of one the bf16 wire's two phases
+   and the int8 phase 1 against the CPU, and ``OverlapSync`` over VGG-11
+   in 4 MiB buckets: the buckets launch in reverse order from the hooks
+   inside the backward, the bucketed gradients the unbucketed ones bit
+   for bit;
+33. LM-large (batch 4 x seq 2048, bf16, flash, AdamW) at world 1 over
+   NCCL under ``opt_sharding`` zero1, zero2 (two microbatches) and
+   ``param_sharding='fsdp'``, 3 steps each from one start: the step-1
+   loss equal to the replicated run's bits (zero2's to the replicated
+   two-microbatch run's), the flash launches exact (12 layers per
+   microbatch per step, all wgmma); ms per step over steps 2-3, tokens/s
+   and peak memory;
+34. the ladder at world 2 over NCCL, one card per rank, when the machine
+   has two cards (every part, fused and zero under bf16 and int8, fused
+   with overlap; every rank the same params, the f32-wire rungs within
+   part 2b's tolerance); on one card it prints ``{"multi_card":
+   "skipped: 1 card"}``.
+
 Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
 ``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
-each path of phases 21-26, the flash kernels' on phases 27-28's and the
-BN and SGD kernels' on phase 29's, beside each main-path count), and
+each path of phases 21-26, the flash kernels' on phases 27-28's and 33's
+and the BN and SGD kernels' on phases 29's and 31's, beside each
+main-path count), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -3614,6 +3648,448 @@ def examples_on_card(dev) -> dict:
                          "wall_s": wall_lm}}
 
 
+# ---- phases 31-34: the rest of the data-parallel ladder -----------------
+
+
+def _ladder_run(dev, part: str) -> dict:
+    """One part through ``run_part`` at world 1 (parts 4 and 5 over NCCL
+    on a group of one), both kernels, 40 iterations, as phase 10."""
+    from tpu_ddp_torch.ops import sgd as tsgd
+    wrappers = {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    rc, out, wall = _run_part_captured(part, ["--device", str(dev)])
+    counts = _launches(wrappers)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if rc != 0:
+        fail(f"phase 31: run_part('{part}') returned {rc}")
+    losses = re.findall(r"\[epoch 0, iter \d+\] loss: \S+", out)
+    test = re.search(r"Test set: average loss (\S+), accuracy (\d+)/(\d+)",
+                     out)
+    timer = re.search(r"timing over iterations 1-39: total (\d+) ns, "
+                      r"average (\d+) ns", out)
+    if len(losses) != 2 or test is None or timer is None:
+        fail(f"phase 31: {part} printed no loss, Test set or timer "
+             f"lines:\n{out[-2000:]}")
+    steps = TRAIN_ITERS
+    eval_batches = math.ceil(int(test.group(3)) / 256)
+    want = {"sgd": steps,
+            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
+            "bn_bwd_dx": 8 * steps,
+            "bn_stats": {"one_pass": 8 * (steps + eval_batches),
+                         "two_stage": 0},
+            "bn_norm_relu": 8 * (steps + eval_batches)}
+    if counts != want:
+        fail(f"phase 31: {part} launch counts {counts}, expected {want}")
+    avg_ms = int(timer.group(2)) / 1e6
+    return {"loss_lines": losses, "test_line": test.group(0),
+            "launches": counts, "avg_iter_ms": avg_ms,
+            "images_per_s": 256 / (avg_ms / 1e3), "peak_mem_gib": peak,
+            "wall_s": wall}
+
+
+LADDER_TURNS = ("part1", "part4", "part5", "part5", "part4", "part1")
+
+
+def ladder_parts(dev) -> dict:
+    """Phase 31: parts 1, 4 and 5 at full width, world 1, the same seed
+    and cuDNN deterministic: at one rank ZeRO's and FSDP's layouts are
+    the identity, so their loss and test lines must be part 1's bits."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.update(TPU_DDP_PALLAS_SGD="1", TPU_DDP_PALLAS_BN="1",
+                      TPU_DDP_MAX_ITERS=str(TRAIN_ITERS),
+                      TPU_DDP_SYNTH_SIZE=str(SYNTH_SIZE))
+    runs = {}
+    # In turns (1, 4, 5, 5, 4, 1): the host-bound iteration drifts within
+    # a run, so each part's two readings straddle the others'.
+    with _env(TPU_DDP_CUDNN_DETERMINISTIC="1"), _deterministic_cudnn():
+        for part in LADDER_TURNS:
+            runs.setdefault(part, []).append(_ladder_run(dev, part))
+    ref = runs["part1"][0]
+    for part, rs in runs.items():
+        for r in rs:
+            if (r["loss_lines"], r["test_line"]) != (ref["loss_lines"],
+                                                     ref["test_line"]):
+                fail(f"phase 31: {part} {r['loss_lines']} {r['test_line']}"
+                     f" != part1 {ref['loss_lines']} {ref['test_line']}")
+            if r["launches"] != ref["launches"]:
+                fail(f"phase 31: {part} launches {r['launches']}")
+    out = {}
+    for part, rs in runs.items():
+        ms = float(np.mean([r["avg_iter_ms"] for r in rs]))
+        out[part] = {"loss_lines": rs[0]["loss_lines"],
+                     "test_line": rs[0]["test_line"],
+                     "launches": rs[0]["launches"],
+                     "avg_iter_ms_turns": [r["avg_iter_ms"] for r in rs],
+                     "avg_iter_ms": ms, "images_per_s": 256 / (ms / 1e3),
+                     "peak_mem_gib": max(r["peak_mem_gib"] for r in rs),
+                     "wall_s": sum(r["wall_s"] for r in rs)}
+    return out
+
+
+def _vgg_leaves(dev):
+    from tpu_ddp_torch.convert import VGGCanon
+    from tpu_ddp_torch.models.vgg import make_vgg
+    model = make_vgg("VGG11").to(dev)
+    canon = VGGCanon(model)
+    return canon, [t.detach().contiguous()
+                   for t in canon.leaves(list(model.parameters()))]
+
+
+def _layout_checks(dev) -> dict:
+    """Shards of VGG-11 and LM-large cut on the card against the CPU's:
+    VGG-11 every rank at N = 1, 3, 4 bit for bit with the host layout;
+    LM-large every rank's shards reassembled on the card bit for bit
+    into the leaves, and the first, largest and padded leaves' shards
+    bit for bit with the CPU's."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.parallel.zero import _FlatLayout
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    _, vgg = _vgg_leaves(dev)
+    host = [t.cpu().numpy() for t in vgg]
+    out = {}
+    for n in (1, 3, 4):
+        for r in range(n):
+            lay = _FlatLayout([t.shape for t in vgg], axis_size=n, rank=r)
+            buf, _ = lay.local_shards(vgg)
+            want = lay.local_host(lay.shard_params(host))
+            if not np.array_equal(buf.cpu().numpy(), want):
+                fail(f"phase 32: VGG-11 shard of rank {r}/{n} differs "
+                     "from the CPU's")
+        back = lay.leaves_of_rows(lay.rows(vgg))
+        if not all(torch.equal(a, b) for a, b in zip(back, vgg)):
+            fail(f"phase 32: VGG-11 rows at N={n} do not round-trip")
+    out["vgg11_leaves"] = len(vgg)
+    model = make_transformer("TransformerLM-large")
+    lm = tree_leaves(model.init(torch.Generator(device=dev).manual_seed(0)))
+    sizes = [t.numel() for t in lm]
+    for n in (1, 3, 4):
+        lay = _FlatLayout([t.shape for t in lm], axis_size=n)
+        padded = [i for i, s in enumerate(sizes) if s % n][:2]
+        probe = sorted({0, int(np.argmax(sizes)), *padded})
+        shards = []
+        for r in range(n):
+            lay.rank = r
+            buf, views = lay.local_shards(lm)
+            for i in probe:
+                c = lay.chunks[i]
+                ref = np.pad(lm[i].cpu().numpy().reshape(-1),
+                             (0, c * n - sizes[i]))[r * c:(r + 1) * c]
+                if not np.array_equal(views[i].cpu().numpy(), ref):
+                    fail(f"phase 32: LM-large leaf {i} shard of rank "
+                         f"{r}/{n} differs from the CPU's")
+            shards.append(buf)
+        back = lay.leaves_of_rows(torch.stack(shards))
+        if not all(torch.equal(a, b) for a, b in zip(back, lm)):
+            fail(f"phase 32: LM-large shards at N={n} do not reassemble")
+        del shards, back
+    out["lm_large_leaves"] = len(lm)
+    out["lm_large_params"] = sum(sizes)
+    return out
+
+
+def _quantizer_checks(dev) -> dict:
+    """The int8 wire's quantizer on the card: the same bits as the CPU's,
+    the round trip within one block step, zeros exact, unbiased over 64
+    draws, and a planted bias (noise shifted by a quarter step) caught by
+    the bound."""
+    from tpu_ddp_torch.parallel.compress import GradCompressor
+    comp = GradCompressor("int8", block_size=256)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(64, 4096, generator=g, device=dev)
+         * torch.logspace(-3, 4, 64, device=dev)[:, None])
+
+    def key(seed, leaf=0):
+        return GradCompressor.key(
+            torch.tensor(seed, dtype=torch.int64, device=dev), 0, leaf)
+
+    u = comp.uniform(x.shape, key(1))
+    q, s = comp.quant(x, u)
+    qc, sc = comp.quant(x.cpu(), comp.uniform(x.shape, key(1).cpu()))
+    if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+        fail("phase 32: int8 quantizer bits differ between card and CPU")
+    err = (comp.dequant(q, s) - x).abs()
+    step = s.repeat_interleave(256, dim=-1)
+    if not bool((err <= step * (1 + 1e-6)).all()):
+        fail("phase 32: int8 round trip beyond one block step")
+    zq, zs = comp.quant(torch.zeros(4096, device=dev),
+                        comp.uniform((4096,), key(5)))
+    if bool(zq.any()) or bool(comp.dequant(zq, zs).any()):
+        fail("phase 32: int8 zeros do not quantize exactly")
+    row = x[10]
+
+    def mean_err(shift):
+        acc = torch.zeros_like(row)
+        for k in range(64):
+            qq, ss = comp.quant(row, comp.uniform(row.shape, key(7, k))
+                                + shift)
+            acc += comp.dequant(qq, ss) - row
+        _, ss = comp.quant(row, comp.uniform(row.shape, key(7)))
+        return acc / 64 / ss.repeat_interleave(256)
+
+    e, bad = mean_err(0.0), mean_err(0.25)
+    unbiased = {"max_abs_steps": float(e.abs().max()),
+                "mean_steps": float(e.mean()),
+                "planted_mean_steps": float(bad.mean())}
+    # 64 draws: std <= 1/16 step per element (max of 4096 under 0.3),
+    # the average over 4096 elements under 0.01; the planted bias 0.25.
+    if not (unbiased["max_abs_steps"] < 0.3
+            and abs(unbiased["mean_steps"]) < 0.01):
+        fail(f"phase 32: int8 rounding biased {unbiased}")
+    if not unbiased["planted_mean_steps"] > 0.2:
+        fail(f"phase 32: the bias bound misses a planted bias {unbiased}")
+    return unbiased
+
+
+def _wire_and_overlap_checks(dev) -> dict:
+    """On a group of one over NCCL: the bf16 wire's two phases and the
+    int8 phase 1 on the card against the CPU's arithmetic, and
+    ``OverlapSync`` on VGG-11 (4 MiB buckets): the buckets launch in
+    reverse order from the hooks inside the backward, and the bucketed
+    gradients equal the unbucketed ones bit for bit."""
+    import torch.distributed as dist
+
+    from tpu_ddp_torch.convert import VGGCanon
+    from tpu_ddp_torch.models.vgg import make_vgg
+    from tpu_ddp_torch.parallel.compress import GradCompressor
+    from tpu_ddp_torch.parallel.overlap import BucketPlan, OverlapSync
+    group = dist.group.WORLD
+    x = torch.randn(1 << 20, device=dev)
+    bf = GradCompressor("bf16")
+    p1 = bf.phase1_finish(bf.phase1_launch(x, x.numel(), group))
+    full, _ = bf.phase2(p1, group)
+    want = x.cpu().to(torch.bfloat16).float()
+    if not (torch.equal(p1.cpu(), want) and torch.equal(full.cpu(), want)):
+        fail("phase 32: the bf16 wire's bits differ from the CPU cast")
+    i8 = GradCompressor("int8")
+    k = GradCompressor.key(torch.tensor(9, dtype=torch.int64, device=dev),
+                           0, 0)
+    pend = i8.phase1_launch(x, x.numel(), group, k)
+    m = i8.phase1_finish(pend)
+    q, s = i8.quant(x.cpu().view(1, -1), i8.uniform((1, x.numel()),
+                                                   k.cpu()))
+    if not torch.equal(m.cpu(), i8.dequant(q, s).view(-1)):
+        fail("phase 32: the int8 phase 1 differs from the CPU's")
+
+    model = make_vgg("VGG11").to(dev)
+    canon = VGGCanon(model)
+    params = list(model.parameters())
+    plan = BucketPlan(canon.shapes, 4)
+    sync = OverlapSync(plan, "all_reduce", group)
+    sync.attach([params[j] for j in canon.port_index], canon.leaf)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    xb = torch.randn(64, 3, 32, 32, device=dev, generator=gen)
+    yb = torch.randint(0, 10, (64,), device=dev, generator=gen)
+    from tpu_ddp_torch.ops.loss import cross_entropy_loss
+    with _deterministic_cudnn():
+        model.zero_grad(set_to_none=True)
+        sync.begin()
+        cross_entropy_loss(model(xb), yb).backward()
+        res, _, _ = sync.finish()
+        fired, after = list(sync.fired), list(sync.launched_after)
+        sync.detach()
+        ref = [canon.leaves([p.grad for p in params])[i].contiguous()
+               for i in range(len(params))]
+    if fired != list(range(plan.n_buckets)) or plan.n_buckets < 2:
+        fail(f"phase 32: buckets fired {fired}, expected "
+             f"{list(range(plan.n_buckets))}")
+    if not after[0] < len(params):
+        fail(f"phase 32: bucket 0 launched after all {len(params)} "
+             f"gradients ({after}): not inside the backward")
+    for kb, sh in enumerate(res):
+        for i, g in zip(plan.buckets[kb], plan.split(sh, kb)):
+            if not torch.equal(g, ref[i]):
+                fail(f"phase 32: bucketed gradient of leaf {i} differs "
+                     "from the unbucketed one")
+    return {"n_buckets": plan.n_buckets, "fired": fired,
+            "launched_after_grads": after, "leaves": len(params),
+            "bucket_bytes": plan.describe()["bucket_bytes"]}
+
+
+@contextlib.contextmanager
+def _group_of_one(dev):
+    """A NCCL process group of one rank on this host."""
+    from tpu_ddp_torch.parallel.bootstrap import (init_distributed_setup,
+                                                  shutdown)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ctx = init_distributed_setup("127.0.0.1", str(port), 0, 1, device=dev,
+                                 ddp=True)
+    try:
+        yield ctx
+    finally:
+        shutdown(ctx)
+
+
+def ladder_device_code(dev) -> dict:
+    """Phase 32: the per-rank device code of ZeRO, FSDP, the wires and
+    the bucket hooks on the card."""
+    out = {"layout": _layout_checks(dev),
+           "int8_quantizer": _quantizer_checks(dev)}
+    torch.cuda.empty_cache()
+    with _group_of_one(dev):
+        out["wire_and_overlap"] = _wire_and_overlap_checks(dev)
+    return out
+
+
+LM_SHARD_STEPS = 3
+
+
+def lm_sharded(dev, seed: int) -> dict:
+    """Phase 33: LM-large under zero1, zero2 (two microbatches) and fsdp
+    at world 1 over NCCL, each from the same start: the step-1 loss must
+    be the replicated run's bits (zero2's the replicated run's with the
+    same accumulation), the flash launches exact (12 layers per
+    microbatch each step); ms per step over steps 2-3, tokens/s and peak
+    memory."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    model = make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                             use_flash=True, remat="none")
+    tokens = np.random.default_rng(0).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    wrappers = _flash_wrappers()
+    runs = {}
+    with _group_of_one(dev):
+        for name, kw in (("replicated", {}),
+                         ("replicated_accum2", {"grad_accum": 2}),
+                         ("zero1", {"opt_sharding": "zero1"}),
+                         ("zero2", {"opt_sharding": "zero2",
+                                    "grad_accum": 2}),
+                         ("fsdp", {"param_sharding": "fsdp"})):
+            torch.cuda.empty_cache()
+            tr = LMTrainer(model, device=dev, **kw)
+            state = tr.init_state(seed=seed)
+            x, y = tr.put_batch(*make_lm_batch(tokens))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launches(wrappers)
+            losses, t1 = [], None
+            for i in range(LM_SHARD_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                state, loss = tr.train_step(state, x, y)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3 / (LM_SHARD_STEPS - 1)
+            counts = _launches(wrappers)
+            n = model.num_layers * tr.grad_accum * LM_SHARD_STEPS
+            if counts != _flash_want(n, n):
+                fail(f"phase 33: {name} flash launches {counts}, expected "
+                     f"{_flash_want(n, n)}")
+            vals = [float(v) for v in losses]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"phase 33: {name} losses not finite: {vals}")
+            runs[name] = {
+                "losses": vals, "loss1_hex": float(losses[0]).hex(),
+                "ms_per_step": ms,
+                "tokens_per_s": LM_BATCH * LM_SEQ / (ms / 1e3),
+                "peak_mem_gib": torch.cuda.max_memory_allocated(dev)
+                / 2 ** 30, "launches": counts}
+            del tr, state
+    for name, ref in (("zero1", "replicated"), ("fsdp", "replicated"),
+                      ("zero2", "replicated_accum2")):
+        if runs[name]["loss1_hex"] != runs[ref]["loss1_hex"]:
+            fail(f"phase 33: {name} step-1 loss {runs[name]['losses'][0]!r}"
+                 f" != {ref} {runs[ref]['losses'][0]!r}")
+    return runs
+
+
+LADDER_WORKER = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from tpu_ddp_torch.models.vgg import make_vgg
+from tpu_ddp_torch.parallel.bootstrap import init_distributed_setup, shutdown
+from tpu_ddp_torch.train.engine import Trainer
+from tpu_ddp_torch.utils.config import TrainConfig
+
+strategy, rank, world, port, cfg, out = sys.argv[1:]
+rank, world = int(rank), int(world)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+dev = f"cuda:{rank}"
+ctx = init_distributed_setup("127.0.0.1", port, rank, world, device=dev,
+                             ddp=True)
+config = TrainConfig(pallas_sgd=True, pallas_bn=True, **json.loads(cfg))
+trainer = Trainer(make_vgg("VGG11", use_pallas_bn=True), config,
+                  strategy=strategy, device=dev)
+state = trainer.init_state()
+gen = torch.Generator(device=dev).manual_seed(17 + rank)
+losses = []
+for _ in range(4):
+    x = torch.randn(128, 3, 32, 32, device=dev, generator=gen)
+    y = torch.randint(0, 10, (128,), device=dev, generator=gen)
+    state, loss = trainer.train_step(state, x, y)
+    losses.append(float(loss))
+host = trainer.params_to_host(state)
+leaves = [np.ascontiguousarray(a) for a in (
+    [v for f in host["features"] for v in (f["bias"], f["bn_bias"],
+                                           f["bn_scale"], f["kernel"])]
+    + [host["head"]["bias"], host["head"]["kernel"]])]
+np.savez(out, losses=np.array(losses), *leaves)
+shutdown(ctx)
+"""
+
+
+def ladder_multi_card(dev) -> dict:
+    """Phase 34: the ladder at world 2 over NCCL, one card per rank:
+    every part, fused and zero under bf16 and int8, fused with overlap;
+    4 steps of VGG-11 at batch 128 per rank. Every rank must end with
+    the same params; the f32-wire rungs within 1e-4 relative of part 2b
+    (the CPU ladder's tolerance). Skipped, and said so, on one card."""
+    if torch.cuda.device_count() < 2:
+        print(json.dumps({"multi_card": "skipped: 1 card"}), flush=True)
+        return {"skipped": "1 card"}
+    runs = {}
+    cases = [(p, p, {}) for p in ("part2a", "part2b", "part3", "part4",
+                                  "part5")]
+    cases += [(f"{s}_{w}", s, {"grad_compress": w})
+              for s in ("fused", "zero") for w in ("bf16", "int8")]
+    cases += [("fused_overlap", "fused", {"overlap": True})]
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for name, strategy, cfg in cases:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        outs = [os.path.join(CKPT_ROOT, f"{name}.{r}.npz") for r in (0, 1)]
+        os.makedirs(CKPT_ROOT, exist_ok=True)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", LADDER_WORKER, strategy, str(r), "2",
+             port, json.dumps(cfg), outs[r]], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"phase 34: {name} failed:\n{logs[0][-2000:]}"
+                 f"\n{logs[1][-2000:]}")
+        got = [np.load(o) for o in outs]
+        keys = [k for k in got[0].files if k != "losses"]
+        if not all(np.array_equal(got[0][k], got[1][k]) for k in keys):
+            fail(f"phase 34: {name}: the ranks' params differ")
+        runs[name] = {"losses": got[0]["losses"].tolist(),
+                      "params": {k: got[0][k] for k in keys}}
+    ref = runs["part2b"]["params"]
+    for name in ("part2a", "part3", "part4", "part5", "fused_overlap"):
+        for k, v in runs[name]["params"].items():
+            if not np.allclose(v, ref[k], rtol=1e-4, atol=1e-5):
+                fail(f"phase 34: {name} params leave part 2b's tolerance")
+    return {name: {"losses": r["losses"]} for name, r in runs.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3724,6 +4200,21 @@ def main() -> None:
     print(json.dumps({"vgg_policy": vpolicy}), flush=True)
     examples = phase("30_examples", examples_on_card, dev)
     print(json.dumps({"examples": examples}), flush=True)
+
+    ladder = phase("31_ladder_parts", ladder_parts, dev)
+    print(json.dumps({"ladder_parts": ladder}), flush=True)
+    torch.cuda.empty_cache()
+    ldev = phase("32_ladder_device_code", ladder_device_code, dev)
+    print(json.dumps({"ladder_device_code": ldev}), flush=True)
+    torch.cuda.empty_cache()
+    lshard = phase("33_lm_sharded", lm_sharded, dev, args.seed)
+    print(json.dumps({"lm_sharded": lshard}), flush=True)
+    try:
+        multi = phase("34_multi_card", ladder_multi_card, dev)
+    finally:
+        import shutil
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    print(json.dumps({"multi_card": multi}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -3801,9 +4292,13 @@ def main() -> None:
         "flagged_ms": sgd_skip["flagged_ms"],
         "skipped_ms": sgd_skip["skipped_ms"],
         "unflagged_ms": sgd_skip["unflagged_ms"],
-        # Phase 29: part 1 under each remat mode, counted from 0.
-        "launches_by_path": {f"part1_{r}": v["launches"]["sgd"]
-                             for r, v in vpolicy["runs"].items()},
+        # Phase 29: part 1 under each remat mode, counted from 0; phase
+        # 31: parts 4 and 5 (one launch per step over the flat shards).
+        "launches_by_path": {
+            **{f"part1_{r}": v["launches"]["sgd"]
+               for r, v in vpolicy["runs"].items()},
+            **{p: ladder[p]["launches"]["sgd"]
+               for p in ("part4", "part5")}},
     }]
     replaces = {"bn_stats": 139, "bn_norm_relu": 151, "bn_bwd_stats": 207,
                 "bn_bwd_dx": 218}
@@ -3838,8 +4333,10 @@ def main() -> None:
                        read_all_ms=k["read_all_ms"])
         # Phase 29: part 1 under each remat mode (the forward kernels run
         # again in the recompute), counted from 0.
-        row["launches_by_path"] = {f"part1_{r}": v["launches"][name]
-                                   for r, v in vpolicy["runs"].items()}
+        row["launches_by_path"] = {
+            **{f"part1_{r}": v["launches"][name]
+               for r, v in vpolicy["runs"].items()},
+            **{p: ladder[p]["launches"][name] for p in ("part4", "part5")}}
         kernels.append(row)
     replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
                 "flash_bwd_q": ("bwd_q", 357)}
@@ -3881,7 +4378,10 @@ def main() -> None:
         row["launches_by_path"] = {
             "recipe": recipe["launches"][name],
             **{f"policy_{k}": v[name]
-               for k, v in matrix["launches"].items()}}
+               for k, v in matrix["launches"].items()},
+            # Phase 33: LM-large under each sharded layout.
+            **{f"lm_{k}": lshard[k]["launches"][name]
+               for k in ("zero1", "zero2", "fsdp")}}
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as fh:
@@ -3898,7 +4398,9 @@ def main() -> None:
                        "tiers": tiers, "serve_checkpoint": ckpt_serve,
                        "loadgen": load, "lm_recipe": recipe,
                        "policy_matrix": matrix, "vgg_policy": vpolicy,
-                       "examples": examples, "phase_seconds": phase_s,
+                       "examples": examples, "ladder_parts": ladder,
+                       "ladder_device_code": ldev, "lm_sharded": lshard,
+                       "multi_card": multi, "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -3951,6 +4453,11 @@ def main() -> None:
               f"{r} {v['avg_iter_ms']:.2f} ms/iter "
               f"{v['peak_mem_gib']:.2f} GiB"
               for r, v in vpolicy["runs"].items()), flush=True)
+    print("ladder (world 1): " + ", ".join(
+        f"{p} {v['avg_iter_ms']:.2f} ms/iter {v['peak_mem_gib']:.2f} GiB"
+        for p, v in ladder.items()) + "; LM-large: " + ", ".join(
+        f"{k} {v['ms_per_step']:.1f} ms/step {v['peak_mem_gib']:.2f} GiB"
+        for k, v in lshard.items()), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -397,17 +397,6 @@ def test_one_process_cli_with_accumulation():
 # ---- what the port does not carry yet -------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(param_sharding="fsdp"), "item 9.4"),
-    (dict(opt_sharding="zero1"), "item 9.4"),
-    (dict(opt_sharding="zero2"), "item 9.4"),
-])
-def test_unported_trainer_knobs_raise(kwargs, item):
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        LMTrainer(tm, device="cpu", **kwargs)
-
-
-@pytest.mark.parametrize("kwargs,item", [
     (dict(moe_experts=4), "item 10.8"),
 ])
 def test_unported_model_fields_raise(kwargs, item):
@@ -426,8 +415,7 @@ def test_unported_schedule_and_sequence_parallel_raise():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("TPU_DDP_LM_FSDP", "1"), ("TPU_DDP_LM_ZERO1", "1"),
-    ("TPU_DDP_LM_OPT_SHARD", "zero2"), ("TPU_DDP_LM_TP", "2"),
+    ("TPU_DDP_LM_TP", "2"),
     ("TPU_DDP_LM_PP", "2"), ("TPU_DDP_LM_SP_MODE", "ulysses"),
     ("TPU_DDP_AUTOTUNE", "search"),
 ])

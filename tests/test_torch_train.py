@@ -269,8 +269,8 @@ def test_trainer_defaults_to_the_card():
 
 def test_unported_knobs_are_refused(monkeypatch):
     cfg = TrainConfig(pallas_bn=True)
-    for name, value in (("TPU_DDP_OVERLAP", "1"),
-                        ("TPU_DDP_GRAD_COMPRESS", "int8"),
+    for name, value in (("TPU_DDP_DISPATCH_DEPTH", "2"),
+                        ("TPU_DDP_ELASTIC_RESHARD", "1"),
                         ("TPU_DDP_STEPS_PER_DISPATCH", "4"),
                         ("TPU_DDP_PREFETCH", "2"),
                         ("TPU_DDP_AUTOTUNE", "search")):
@@ -278,14 +278,14 @@ def test_unported_knobs_are_refused(monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_port_model(), cfg, device="cpu")
         monkeypatch.delenv(name)
-    monkeypatch.setenv("TPU_DDP_OVERLAP", "0")  # the default: accepted
+    monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "0")  # the default
     Trainer(_port_model(), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sync.canonical_strategy("part4")
+        TrainConfig.preset("vit_cifar10")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig.preset("resnet50_imagenet")
     with pytest.raises(TypeError):
-        TrainConfig(overlap=True)
+        TrainConfig(steps_per_dispatch=4)
 
 
 def test_config_env_knobs(monkeypatch):

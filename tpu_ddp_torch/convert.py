@@ -155,6 +155,79 @@ def vgg_momentum_from_jax(model, tree, device=None) -> list:
     return [sd[name] for name, _ in model.named_parameters()]
 
 
+class VGGCanon:
+    """A port ``VGGModel``'s parameters in the JAX package's leaf order
+    and layouts: the canonical view the flat ZeRO/FSDP layout, the
+    bucket plan and the gradient wires work on, so their shards and
+    payloads hold the JAX package's bytes. The order is JAX's pytree
+    flatten of the VGG tree (per unit ``bias``, ``bn_bias``,
+    ``bn_scale``, ``kernel``; then the head's ``bias``, ``kernel``);
+    conv kernels are HWIO (the port's are OIHW)."""
+
+    _UNIT = (("bias", "bias"), ("bn_bias", "bn.bias"),
+             ("bn_scale", "bn.weight"), ("kernel", "weight"))
+
+    def __init__(self, model):
+        names = [n for n, _ in model.named_parameters()]
+        order, self.paths = [], []
+        for i in range(len(model.features)):
+            for key, attr in self._UNIT:
+                order.append(f"features.{i}.{attr}")
+                self.paths.append(("features", i, key))
+        for key, attr in (("bias", "bias"), ("kernel", "weight")):
+            order.append(f"head.{attr}")
+            self.paths.append(("head", key))
+        self.names = order
+        self.port_index = [names.index(n) for n in order]
+        shapes = dict((n, tuple(p.shape))
+                      for n, p in model.named_parameters())
+        self.kernel = [p[0] == "features" and p[2] == "kernel"
+                       for p in self.paths]
+        self.shapes = [
+            (s[2], s[3], s[1], s[0]) if k else s
+            for s, k in ((shapes[n], k) for n, k in zip(order,
+                                                        self.kernel))]
+
+    def leaves(self, tensors) -> list:
+        """Tensors in ``model.parameters()`` order (params, grads or
+        momentum) -> canonical views in JAX order."""
+        return [self.leaf(i, tensors[j])
+                for i, j in enumerate(self.port_index)]
+
+    def leaf(self, i: int, t):
+        """Leaf ``i``'s tensor in the port's layout -> a canonical
+        view."""
+        return t.permute(2, 3, 1, 0) if self.kernel[i] else t
+
+    def to_port(self, i: int, t):
+        """Canonical leaf ``i`` -> the port's layout (contiguous)."""
+        return t.permute(3, 2, 0, 1).contiguous() if self.kernel[i] else t
+
+    def tree(self, leaves) -> dict:
+        """Canonical leaves (numpy) -> the JAX VGG tree."""
+        n_units = (len(leaves) - 2) // 4
+        feats = tuple({} for _ in range(n_units))
+        head = {}
+        for path, leaf in zip(self.paths, leaves):
+            if path[0] == "features":
+                feats[path[1]][path[2]] = leaf
+            else:
+                head[path[1]] = leaf
+        return {"features": feats, "head": head}
+
+    def from_tree(self, tree, lead: tuple = ()) -> list:
+        """The JAX VGG tree -> canonical leaves (numpy), each checked to
+        be ``lead + shape`` (``lead=(dp,)``: the int8 wire's residual)."""
+        out = []
+        for path, want in zip(self.paths, self.shapes):
+            node = tree
+            for key in path:
+                node = node[key]
+            out.append(_checked("params/" + "/".join(map(str, path)),
+                                node, tuple(lead) + want))
+        return out
+
+
 def opt_slot_shapes(optimizer, shapes) -> dict:
     """Each state slot's leaf shapes, in parameter order, for parameter
     leaves of ``shapes``: the JAX optimizers' state layouts (``count``

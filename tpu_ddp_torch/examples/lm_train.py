@@ -13,10 +13,12 @@ defaults: ``TPU_DDP_LM_STEPS`` (5), ``TPU_DDP_LM_PRESET``
 (TransformerLM-tiny), ``TPU_DDP_GLOBAL_BATCH`` (8), ``TPU_DDP_LM_ACCUM``
 (1), ``TPU_DDP_LM_OPT`` (adamw; ``adafactor`` builds
 ``Adafactor(min_dim_size_to_factor=8)`` as the JAX CLI does) and
-``TPU_DDP_LM_CLIP`` (the global-norm clip, 0 = off). The knobs of axes
-the port does not carry yet (FSDP, ZeRO, tensor and pipeline
-parallelism, the sequence-parallel mode) raise when set to anything but
-their default.
+``TPU_DDP_LM_CLIP`` (the global-norm clip, 0 = off), ``TPU_DDP_LM_FSDP``
+(``1``: ``param_sharding='fsdp'``) and ``TPU_DDP_LM_OPT_SHARD``
+(``replicated``, ``zero1`` or ``zero2``; ``TPU_DDP_LM_ZERO1=1`` is the
+older spelling of ``zero1``). The knobs of axes the port does not carry
+yet (tensor and pipeline parallelism, the sequence-parallel mode) raise
+when set to anything but their default.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ import sys
 # name -> (the value that means "off", what it would switch on, ROADMAP
 # Queue 1 item).
 _UNPORTED_LM_ENV = {
-    "TPU_DDP_LM_FSDP": ("0", "FSDP", "item 9.4"),
-    "TPU_DDP_LM_ZERO1": ("0", "ZeRO-1", "item 9.4"),
-    "TPU_DDP_LM_OPT_SHARD": ("replicated", "ZeRO-1/2", "item 9.4"),
     "TPU_DDP_LM_TP": ("1", "tensor parallelism", "item 10.6"),
     "TPU_DDP_LM_PP": ("1", "pipeline parallelism", "item 10.7"),
     "TPU_DDP_LM_SP_MODE": ("ring", "Ulysses attention", "item 10.5"),
@@ -92,6 +91,11 @@ def main(argv=None) -> int:
     else:
         raise ValueError(f"TPU_DDP_LM_OPT={opt_name!r}: expected "
                          "'adamw' or 'adafactor'")
+    fsdp = os.environ.get("TPU_DDP_LM_FSDP", "0") == "1"
+    opt_shard = os.environ.get(
+        "TPU_DDP_LM_OPT_SHARD",
+        "zero1" if os.environ.get("TPU_DDP_LM_ZERO1", "0") == "1"
+        else "replicated")
     global_batch = int(os.environ.get("TPU_DDP_GLOBAL_BATCH", "8"))
     if global_batch % world:
         raise ValueError(f"TPU_DDP_GLOBAL_BATCH={global_batch} not "
@@ -101,11 +105,13 @@ def main(argv=None) -> int:
     model = make_transformer(preset, max_seq_len=seq_len,
                              compute_dtype=torch.float32)
     trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
-                        optimizer=optimizer, clip_grad_norm=clip)
+                        optimizer=optimizer, clip_grad_norm=clip,
+                        param_sharding="fsdp" if fsdp else "replicated",
+                        opt_sharding=opt_shard)
     state = trainer.init_state(seed=0)
     print(f"[lm_train] rank={rank} world={world} dp={trainer.dp} "
-          f"sp=1 tp=1 pp=1 fsdp=False "
-          f"opt_shard=replicated opt={opt_name} accum={accum} clip={clip} "
+          f"sp=1 tp=1 pp=1 fsdp={fsdp} "
+          f"opt_shard={opt_shard} opt={opt_name} accum={accum} clip={clip} "
           f"preset={preset}")
 
     # Deterministic synthetic tokens, identical on every process; each

@@ -26,6 +26,8 @@ CLI::
 
     python -m tpu_ddp_torch.launch part1 --nproc 1 --max-restarts 1 \\
         --ckpt-dir D [--device cuda|cpu] [part flags...]
+    python -m tpu_ddp_torch.launch part4 --nproc 4 --device cpu \\
+        [--grad-compress bf16|int8|int8-noef] [--overlap --bucket-mb 25]
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -52,15 +54,12 @@ from tpu_ddp_torch.resilience.watchdog import (HEARTBEAT_ENV,
                                                HeartbeatMonitor)
 
 REPO = Path(__file__).resolve().parent.parent
-PARTS = ("part1", "part2a", "part2b", "part3")
+PARTS = ("part1", "part2a", "part2b", "part3", "part4", "part5")
 
 # Flags of the JAX launcher that the port does not carry yet -> the ROADMAP
 # Queue 1 item that ports what they switch on.
 _UNPORTED_FLAGS = {
     "--elastic-reshard": "item 9.6b (resilience/elastic.py)",
-    "--grad-compress": "item 9.3 (parallel/compress.py)",
-    "--overlap": "item 9.2 (parallel/overlap.py)",
-    "--bucket-mb": "item 9.2 (parallel/overlap.py)",
     "--dispatch-depth": "item 9.5 (train/pipeline.py)",
     "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
     "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
@@ -154,8 +153,6 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
     if nproc < 1:
         raise ValueError("nproc must be >= 1")
     if part not in PARTS:
-        from tpu_ddp_torch.parallel.sync import canonical_strategy
-        canonical_strategy(part)  # raises naming the item for part4/5
         raise ValueError(f"unknown part {part!r}; available: {PARTS}")
     port = port or find_free_port()
     monitor = None
@@ -447,6 +444,25 @@ def main(argv=None) -> int:
                         "(memory/policy.py); region arithmetic stays in "
                         "the compute dtype. Sets TPU_DDP_ACT_DTYPE for "
                         "every rank")
+    p.add_argument("--grad-compress", default=None,
+                   choices=("none", "bf16", "int8", "int8-noef"),
+                   help="gradient wire format of the sync collectives "
+                        "(parallel/compress.py): bf16 halves, int8 about "
+                        "quarters the bytes on the wire (int8 carries an "
+                        "error-feedback residual; int8-noef is the "
+                        "ablation without it). Sets TPU_DDP_GRAD_COMPRESS "
+                        "for every rank")
+    p.add_argument("--overlap", action="store_true",
+                   help="bucket the gradients in reverse order and launch "
+                        "each bucket's collective from inside the "
+                        "backward (torch DDP's reducer; "
+                        "parallel/overlap.py), with the sharded weight "
+                        "update on the all_reduce/fused rungs. Sets "
+                        "TPU_DDP_OVERLAP for every rank")
+    p.add_argument("--bucket-mb", type=int, default=None,
+                   help="bucket payload target in MiB for --overlap "
+                        "(torch DDP's bucket_cap_mb; default 25). Sets "
+                        "TPU_DDP_BUCKET_MB for every rank")
     _serving_flags(p)
     args, extra = p.parse_known_args(argv)
     env = _serving_env(p, args)
@@ -454,6 +470,14 @@ def main(argv=None) -> int:
         env["TPU_DDP_REMAT"] = args.remat
     if args.act_dtype is not None:
         env["TPU_DDP_ACT_DTYPE"] = args.act_dtype
+    if args.grad_compress is not None:
+        env["TPU_DDP_GRAD_COMPRESS"] = args.grad_compress
+    if args.overlap:
+        env["TPU_DDP_OVERLAP"] = "1"
+    if args.bucket_mb is not None:
+        if args.bucket_mb <= 0:
+            p.error(f"--bucket-mb must be > 0, got {args.bucket_mb}")
+        env["TPU_DDP_BUCKET_MB"] = str(args.bucket_mb)
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,

@@ -116,9 +116,12 @@ class AdamW:
         return [p.dim() >= 2 for p in params]
 
     @torch.no_grad()
-    def apply(self, params, grads, state: dict) -> dict:
+    def apply(self, params, grads, state: dict, decay_mask=None) -> dict:
         """One update of ``params``, ``state["mu"]`` and ``state["nu"]``,
-        in place; returns ``state`` with the count advanced."""
+        in place; returns ``state`` with the count advanced.
+        ``decay_mask`` overrides the rank rule (the ZeRO and FSDP
+        wrappers pass the original leaves' mask: their flat slices are
+        all rank 1)."""
         count = state["count"] + 1
         c = _F32(count)
         bc1 = float(_F32(1.0) - _F32(self.b1) ** c)
@@ -136,7 +139,9 @@ class AdamW:
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
         del denom
-        decay = [i for i, d in enumerate(self.decay_mask(params)) if d]
+        if decay_mask is None:
+            decay_mask = self.decay_mask(params)
+        decay = [i for i, d in enumerate(decay_mask) if d]
         if self.weight_decay and decay:
             torch._foreach_add_([upd[i] for i in decay],
                                 [params[i] for i in decay],

@@ -5,11 +5,14 @@ checkpoints in the JAX package's schema, so a restoring trainer can check
 the saving world's layout before it touches a tensor, whichever package
 wrote it.
 
-The port's layouts are all replicated data parallel (every rank holds
-every leaf whole): specs are empty, or all-``None`` for the LM's matrices
-as the JAX model spells a tensor-parallel spec at tp 1. Redistribution
-between layouts (``redistribute_state``) comes with elastic membership
-(ROADMAP Queue 1 item 9.6b).
+The port's layouts are data parallel: replicated leaves have empty
+specs (all-``None`` for the LM's matrices, as the JAX model spells a
+tensor-parallel spec at tp 1), and the flat shards of ZeRO, FSDP, the
+sharded update and the int8 wire's residual are ``P("dp")``, as in the
+JAX trainers' plans. Checkpoints hold canonical shapes, so they restore
+across layouts; redistributing live state between layouts
+(``redistribute_state``) comes with elastic membership (ROADMAP Queue 1
+item 9.6b).
 """
 
 from __future__ import annotations

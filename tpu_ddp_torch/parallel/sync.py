@@ -15,6 +15,13 @@ fused      part3 ``DDP(model)`` (part3/main.py:    ``DistributedData-
                                                    25)``; the hook is the
                                                    identity, DDP syncs
                                                    inside backward
+zero       part4 (beyond the reference): ZeRO-1    identity: the optimizer
+           sharded optimizer state                 wrapper's reduce-scatter
+                                                   is the sync
+                                                   (parallel/zero.py ZeRO1)
+fsdp       part5: FSDP / ZeRO-3 sharded params     identity: the backward of
+                                                   the parameter all-gather
+                                                   reduce-scatters (ZeRO3)
 =========  ======================================  =========================
 
 Every rung leaves the mean of the replicas' gradients on every replica
@@ -67,6 +74,13 @@ SYNC_STRATEGIES = {
     "gather_scatter": sync_gather_scatter,
     "all_reduce": sync_all_reduce,
     "fused": sync_fused,
+    # ZeRO's reduce-scatter IS the sync: the grads enter the optimizer
+    # wrapper unsynced (train/engine.py), so the grads->grads hook is the
+    # identity, as in the JAX package.
+    "zero": sync_none,
+    # FSDP: the gradient reduce-scatter is the backward of the forward's
+    # parameter all-gather, so the hook is again the identity.
+    "fsdp": sync_none,
 }
 
 PART_TO_STRATEGY = {
@@ -74,10 +88,8 @@ PART_TO_STRATEGY = {
     "part2a": "gather_scatter",
     "part2b": "all_reduce",
     "part3": "fused",
-}
-_UNPORTED_PARTS = {
-    "part4": ("zero", "ROADMAP Queue 1 item 9.4 (parallel/zero.py ZeRO-1)"),
-    "part5": ("fsdp", "ROADMAP Queue 1 item 9.4 (parallel/zero.py ZeRO-3)"),
+    "part4": "zero",
+    "part5": "fsdp",
 }
 
 
@@ -85,10 +97,6 @@ def canonical_strategy(name: str) -> str:
     """Resolve a part alias ('part3') to its strategy name ('fused')."""
     if name in PART_TO_STRATEGY:
         return PART_TO_STRATEGY[name]
-    for part, (strategy, item) in _UNPORTED_PARTS.items():
-        if name in (part, strategy):
-            raise NotImplementedError(
-                f"{name!r} is not ported to tpu_ddp_torch yet ({item})")
     if name.startswith("part"):
         raise ValueError(
             f"unknown part alias {name!r}; available parts: "

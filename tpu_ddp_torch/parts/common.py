@@ -76,7 +76,10 @@ def run_part(part: str, argv=None):
 
     strategy = canonical_strategy(part)
     distributed = part != "part1"
-    args = parse_arguments(argv, require_num_nodes=distributed)
+    # Parts 4 and 5 run at one process too (their layouts are then the
+    # identity), so --num-nodes defaults to 1 there.
+    args = parse_arguments(argv, require_num_nodes=part in (
+        "part2a", "part2b", "part3"))
     refuse_unported_env()
     world_size = args.num_nodes or 1
     if world_size <= 1:
@@ -85,9 +88,16 @@ def run_part(part: str, argv=None):
         rank = args.rank
     else:
         rank = get_rank_from_hostname()
-    ctx = init_distributed_setup(args.master_ip, args.master_port, rank,
+    # DDP, ZeRO and FSDP run their collectives also at a world of one,
+    # whose group meets on this host (it has no peers to reach).
+    grouped = strategy in ("fused", "zero", "fsdp")
+    master_ip, master_port = args.master_ip, args.master_port
+    if world_size == 1 and grouped:
+        from tpu_ddp_torch.launch import find_free_port
+        master_ip, master_port = "127.0.0.1", str(find_free_port())
+    ctx = init_distributed_setup(master_ip, master_port, rank,
                                  world_size, device=args.device,
-                                 ddp=strategy == "fused")
+                                 ddp=grouped)
     if distributed:
         test_distributed_setup(ctx)
 
@@ -148,6 +158,7 @@ def main(argv=None) -> int:
     if not argv or argv[0] not in ("part1", "part2a", "part2b", "part3",
                                    "part4", "part5"):
         print("usage: python -m tpu_ddp_torch.parts "
-              "{part1,part2a,part2b,part3} [flags]", file=sys.stderr)
+              "{part1,part2a,part2b,part3,part4,part5} [flags]",
+              file=sys.stderr)
         return 2
     return run_part(argv[0], argv[1:])

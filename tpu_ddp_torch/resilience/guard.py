@@ -30,19 +30,27 @@ class TrainingDivergedError(RuntimeError):
     verified checkpoint."""
 
 
-def nonfinite_flag(loss, grads, process_group=None) -> torch.Tensor:
+def nonfinite_flag(loss, grads, process_group=None,
+                   extra_bad=None) -> torch.Tensor:
     """A 0-d f32 tensor on the loss's device, nonzero iff this step's
     update must be skipped: the loss or the f32 sum of squared ``grads``
     is not finite. With ``process_group`` the flag is summed over the
     group (one scalar ``all_reduce``), so every rank takes the same
     branch; without it the decision is local (one process, or the
     ``none`` rung, whose contract is no communication between replicas).
+    Under ZeRO, FSDP and the sharded update ``grads`` are this rank's
+    slices, so the sum catches a NaN on any rank's slice. ``extra_bad``:
+    a local count of non-finite entries seen upstream of ``grads`` (the
+    overlapped int8 wire counts the raw gradients, since a NaN can
+    vanish in the int8 cast; parallel/overlap.py).
     Stays on the device: a few launches whatever the number of leaves."""
     norms = torch._foreach_norm([g.float() if g.dtype != torch.float32
                                  else g for g in grads])
     gnorm = torch.linalg.vector_norm(torch.stack(norms))
     terms = torch.stack([loss.detach().float().reshape(()), gnorm])
     flag = torch.isfinite(terms).all().logical_not().float()
+    if extra_bad is not None:
+        flag = torch.maximum(flag, (extra_bad > 0).float())
     if process_group is not None:
         import torch.distributed as dist
         dist.all_reduce(flag, op=dist.ReduceOp.SUM, group=process_group)

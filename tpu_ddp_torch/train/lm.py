@@ -21,9 +21,23 @@ accumulation, the microbatch (models/transformer.py:fold_in), so a
 resumed run continues the same key sequence and ranks draw different
 masks.
 
+Sharded layouts (tpu_ddp/train/lm.py:406-500), AdamW or SGD:
+``opt_sharding='zero1'`` keeps the optimizer state as 1/dp flat shards
+(parallel/zero.py ``ZeRO1``: the reduce-scatter of the accumulated
+gradients is the sync, the update runs on the slices with the decay mask
+of the original leaves, an all-gather brings the parameters back);
+``'zero2'`` also reduce-scatters each microbatch's gradients at once and
+accumulates the f32 slices; ``param_sharding='fsdp'`` keeps the
+parameters themselves as the rank's flat shard buffer (``ZeRO3``), which
+each microbatch's forward all-gathers inside an autograd function whose
+backward reduce-scatters the gradients. Checkpoints of every layout hold
+canonical shapes and restore into any other, at any dp. Adafactor under
+these layouts needs the factored ZeRO-1 of the JAX package and raises,
+naming its item.
+
 The JAX trainer's other axes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item: FSDP and ZeRO-1/2,
-sequence and tensor parallelism.
+``NotImplementedError`` naming their ROADMAP item: sequence and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -35,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_ddp_torch.convert import opt_slot_shapes
+from tpu_ddp_torch.convert import opt_slot_shapes, shape_leaves
 from tpu_ddp_torch.models.transformer import fold_in
 from tpu_ddp_torch.ops.loss import (chunked_vocab_cross_entropy,
                                     softmax_cross_entropy)
@@ -43,7 +57,7 @@ from tpu_ddp_torch.ops.optim import (SGD, Adafactor, AdamW,
                                      clip_by_global_norm)
 from tpu_ddp_torch.parallel.sync import sync_all_reduce
 from tpu_ddp_torch.utils.device import resolve_device
-from tpu_ddp_torch.utils.tree import tree_leaves
+from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -59,16 +73,21 @@ def make_lm_batch(tokens: np.ndarray):
     return tokens[:, :-1], tokens[:, 1:]
 
 
+def _skeleton(shapes):
+    """A ``param_shapes()`` tree with None at its leaves (shape tuples
+    would read as tuple nodes), for ``tree_unflatten``."""
+    if isinstance(shapes, dict):
+        return {k: _skeleton(v) for k, v in shapes.items()}
+    if isinstance(shapes, tuple) and shapes and isinstance(shapes[0], dict):
+        return tuple(_skeleton(b) for b in shapes)
+    return None
+
+
 def _has_count(optimizer) -> bool:
     """Whether the optimizer's state carries a step count (SGD only with
     a scheduled lr)."""
     return not isinstance(optimizer, SGD) or callable(
         optimizer.learning_rate)
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to tpu_ddp_torch yet "
-                               f"(ROADMAP Queue 1 {item})")
 
 
 class LMTrainer:
@@ -97,12 +116,11 @@ class LMTrainer:
         if clip_grad_norm is not None and clip_grad_norm <= 0:
             raise ValueError(f"clip_grad_norm must be > 0, got "
                              f"{clip_grad_norm}")
-        if param_sharding == "fsdp":
-            raise _unported("param_sharding='fsdp'",
-                            "item 9.4 (parallel/zero.py ZeRO-3)")
-        if opt_sharding != "replicated":
-            raise _unported(f"opt_sharding={opt_sharding!r}",
-                            "item 9.4 (parallel/zero.py ZeRO-1/2)")
+        if param_sharding == "fsdp" and opt_sharding != "replicated":
+            raise ValueError(
+                f"opt_sharding={opt_sharding!r} is redundant under "
+                "param_sharding='fsdp' (ZeRO-3 already shards the "
+                "optimizer state)")
         if vocab_chunk < 0 or (vocab_chunk
                                and model.vocab_size % vocab_chunk):
             raise ValueError(f"vocab_size={model.vocab_size} not "
@@ -121,6 +139,21 @@ class LMTrainer:
         # The JAX trainer's dp axis: the process group.
         self.dp = dist.get_world_size() if dist.is_initialized() else 1
         self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.is_fsdp = param_sharding == "fsdp"
+        self.opt_zero1 = opt_sharding in ("zero1", "zero2")
+        self.opt_zero2 = opt_sharding == "zero2"
+        self._shapes = model.param_shapes()
+        self._skeleton = _skeleton(self._shapes)
+        group = dist.group.WORLD if dist.is_initialized() else None
+        self.layout = None
+        if self.opt_zero1:
+            from tpu_ddp_torch.parallel.zero import ZeRO1
+            self.layout = ZeRO1(self.optimizer,
+                                shape_leaves(self._shapes), group)
+        elif self.is_fsdp:
+            from tpu_ddp_torch.parallel.zero import ZeRO3
+            self.layout = ZeRO3(self.optimizer,
+                                shape_leaves(self._shapes), group)
 
     def init_state(self, seed: int = 0, params=None) -> LMTrainState:
         """Parameters from ``seed`` (a ``torch.Generator`` on the device),
@@ -135,6 +168,13 @@ class LMTrainer:
                 raise ValueError(f"parameter on {p.device}, trainer on "
                                  f"{self.device}")
             p.requires_grad_(True)
+        if self.layout is not None:
+            opt_state = self.layout.init(self.device)
+            if self.is_fsdp:
+                # At rest FSDP holds only this rank's shard of each leaf.
+                params = self.layout.local_shards(leaves)[0]
+                params.requires_grad_(True)
+            return LMTrainState(params=params, opt_state=opt_state)
         return LMTrainState(params=params,
                             opt_state=self.optimizer.init(leaves))
 
@@ -161,6 +201,11 @@ class LMTrainer:
         return fold_in(fold_in(self.dropout_seed, step), self.rank)
 
     def _loss_and_grads(self, leaves, params, inputs, targets, rng=None):
+        """(loss, grads w.r.t. ``leaves``); under FSDP ``params`` is the
+        shard buffer, all-gathered here for this microbatch."""
+        if self.is_fsdp:
+            params = tree_unflatten(
+                self._skeleton, self.layout.gather_params(params))
         if self.vocab_chunk:
             hidden, _ = self.model.trunk_with_aux(params, inputs, rng=rng)
             nll = chunked_vocab_cross_entropy(
@@ -178,16 +223,20 @@ class LMTrainer:
         as a 0-d f32 tensor). Parameters and optimizer state update in
         place."""
         params = state.params
-        leaves = tree_leaves(params)
+        leaves = [params] if self.is_fsdp else tree_leaves(params)
         A = self.grad_accum
         rng = self.step_key(state.step)
+        # ZeRO-2: each microbatch's gradients reduce-scattered at once,
+        # the f32 slices accumulated (1/dp of the accumulation buffer).
+        scatter = self.layout.scatter_grads if self.opt_zero2 else None
         if A == 1:
             loss, grads = self._loss_and_grads(leaves, params, inputs,
                                                targets, rng)
-            grads = list(grads)
+            grads = list(scatter(grads)[1] if scatter else grads)
         else:
-            grads = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in leaves]
+            grads = (self.layout.shard_zeros(self.device)[1] if scatter
+                     else [torch.zeros_like(p, dtype=torch.float32)
+                           for p in leaves])
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             for i, (x, y) in enumerate(zip(inputs.chunk(A),
                                            targets.chunk(A))):
@@ -195,23 +244,64 @@ class LMTrainer:
                 # index into the key.
                 r = fold_in(rng, i) if rng is not None else None
                 lm, g = self._loss_and_grads(leaves, params, x, y, r)
-                torch._foreach_add_(grads, [t.float() for t in g])
+                g = scatter(g)[1] if scatter else [t.float() for t in g]
+                torch._foreach_add_(grads, g)
                 loss = loss + lm
             inv = 1.0 / float(A)
             torch._foreach_mul_(grads, inv)
             loss = loss * inv
+        self._update(state, leaves, grads)
+        return (LMTrainState(params, state.opt_state, state.step + 1),
+                loss)
+
+    def _update(self, state, leaves, grads) -> None:
+        """The sync, the clip and the optimizer for this layout, in
+        place."""
+        z = self.layout
+        if self.is_fsdp:
+            # The gather's backward summed the shard over dp.
+            g_sh = z.views(grads[0].div_(float(z.axis_size)))
+            if self.clip_grad_norm is not None:
+                from tpu_ddp_torch.ops.optim import clip_scale_from_sq
+                torch._foreach_mul_(g_sh, clip_scale_from_sq(
+                    z.sq_norm(g_sh), self.clip_grad_norm))
+            z.apply(z.views(state.params.detach()), g_sh, state.opt_state)
+            return
+        if self.opt_zero1:
+            kw = dict(clip_norm=self.clip_grad_norm)
+            new = (z.apply_scattered(leaves, grads, state.opt_state, **kw)
+                   if self.opt_zero2
+                   else z.apply(leaves, grads, state.opt_state, **kw))
+            with torch.no_grad():
+                for p, t in zip(leaves, new):
+                    p.copy_(t)
+            return
         if self.dp > 1:
             sync_all_reduce(grads)
         if self.clip_grad_norm is not None:
             clip_by_global_norm(grads, self.clip_grad_norm)
         self.optimizer.apply(leaves, grads, state.opt_state)
-        return (LMTrainState(params, state.opt_state, state.step + 1),
-                loss)
+
+    def _full_params(self, state: LMTrainState):
+        """The parameter tree (FSDP: gathered, a collective)."""
+        if self.is_fsdp:
+            return tree_unflatten(self._skeleton, self.layout.gather(
+                state.params.detach()))
+        return state.params
+
+    def _full_opt(self, state: LMTrainState) -> dict:
+        """The optimizer state with full leaves in parameter order (the
+        sharded layouts gathered, a collective)."""
+        if self.layout is None:
+            return state.opt_state
+        return {k: v if k == "count"
+                else list(self.layout.gather(torch.cat(v)))
+                for k, v in state.opt_state.items()}
 
     def params_to_host(self, state: LMTrainState):
         """The parameters as the JAX package's tree of numpy arrays."""
         from tpu_ddp_torch.convert import params_to_jax
-        return params_to_jax(state.params)
+        return params_to_jax(self._full_params(state))
 
     # ---- checkpoint / resume (tpu_ddp/train/lm.py:218-300) -------------
 
@@ -234,13 +324,23 @@ class LMTrainer:
         shapes = self.model.param_shapes()
         params = spec("", shapes)
         # Bare Adafactor's state is replicated, reduced shapes and all;
-        # the other slots mirror their parameter's spec.
+        # the other slots mirror their parameter's spec. ZeRO's flat
+        # state is dp-sharded (the JAX wrapper's prefix spec), FSDP's
+        # params and state too, leaf by leaf.
         slot = spec("", shapes, repl=isinstance(self.optimizer, Adafactor))
+        strategy = "lmtrainer"
+        if self.is_fsdp:
+            params = slot = tree_unflatten(
+                self._skeleton, [P("dp")] * len(shape_leaves(shapes)))
+            strategy += "+fsdp"
+        elif self.opt_zero1:
+            slot = P("dp")
+            strategy += "+zero2" if self.opt_zero2 else "+zero1"
         opt = {k: slot for k in opt_slot_shapes(self.optimizer, [])}
         if _has_count(self.optimizer):
             opt["count"] = P()
         return ShardingPlan(
-            strategy="lmtrainer",
+            strategy=strategy,
             mesh_axes=(("dp", self.dp), ("sp", 1), ("mp", 1), ("pp", 1),
                        ("ep", 1)),
             param_specs=params, opt_specs=opt,
@@ -253,22 +353,23 @@ class LMTrainer:
         optimizer's slots in the JAX layout (AdamW ``mu``/``nu``,
         Adafactor ``vr``/``vc``/``v``/``mu``, SGD ``momentum``)."""
         from tpu_ddp_torch.convert import opt_state_to_jax, params_to_jax
-        return {"opt_state": opt_state_to_jax(state.params,
-                                              state.opt_state),
-                "params": params_to_jax(state.params),
+        params = self._full_params(state)
+        return {"opt_state": opt_state_to_jax(params, self._full_opt(state)),
+                "params": params_to_jax(params),
                 "step": np.int64(state.step)}
 
     def save_checkpoint(self, directory: str, state: LMTrainState,
                         keep_last: int | None = None,
                         background: bool = False) -> str | None:
-        """Rank 0 writes ``state`` at its step (the state is replicated);
-        returns the path (None on other ranks). ``background=True``
-        copies to host memory now and writes on a thread; call
-        :meth:`wait_for_checkpoints` before reading it back."""
-        if dist.is_initialized() and dist.get_rank() != 0:
+        """Every rank builds the canonical tree (sharded layouts gather),
+        rank 0 writes it at its step; returns the path (None on other
+        ranks). ``background=True`` copies to host memory now and writes
+        on a thread; call :meth:`wait_for_checkpoints` before reading it
+        back."""
+        tree = self.state_to_host(state)
+        if self.rank != 0:
             return None
         from tpu_ddp_torch.utils import checkpoint as ckpt
-        tree = self.state_to_host(state)
         self.sharding_plan().save(directory)
         if background:
             if getattr(self, "_async_writer", None) is None:
@@ -321,9 +422,17 @@ class LMTrainer:
         else:
             host, _ = ckpt.restore_checkpoint(directory, template, step)
         params = params_from_jax(self.model, host["params"], self.device)
-        for p in tree_leaves(params):
+        opt_state = opt_state_from_jax(self.model, self.optimizer,
+                                       host["opt_state"], self.device)
+        if self.layout is not None:
+            # Re-shard the canonical leaves for this trainer's dp.
+            opt_state = {k: v if k == "count" else
+                         [t.clone() for t in
+                          self.layout.local_shards(v)[1]]
+                         for k, v in opt_state.items()}
+            if self.is_fsdp:
+                params = self.layout.local_shards(tree_leaves(params))[0]
+        for p in ([params] if self.is_fsdp else tree_leaves(params)):
             p.requires_grad_(True)
-        return LMTrainState(
-            params=params, step=int(host["step"]),
-            opt_state=opt_state_from_jax(self.model, self.optimizer,
-                                         host["opt_state"], self.device))
+        return LMTrainState(params=params, step=int(host["step"]),
+                            opt_state=opt_state)

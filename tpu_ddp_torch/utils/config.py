@@ -1,6 +1,7 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
 ``TrainConfig`` that the port's slices use (serving, the VGG training
-ladder, checkpoints, the step guard and the memory policy), with the
+ladder with its gradient wires and bucketed overlap, checkpoints, the
+step guard and the memory policy), with the
 same names, defaults,
 ``TPU_DDP_*`` env variables and validation, so a knob means the same
 thing in both packages.
@@ -32,9 +33,6 @@ _FALSE = ("0", "false", "no", "off")
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
-    "TPU_DDP_OVERLAP": (_FALSE, "item 9.2 (parallel/overlap.py)"),
-    "TPU_DDP_BUCKET_MB": (("25",), "item 9.2 (parallel/overlap.py)"),
-    "TPU_DDP_GRAD_COMPRESS": (("none",), "item 9.3 (parallel/compress.py)"),
     "TPU_DDP_STEPS_PER_DISPATCH": (("1",),
                                    "item 9.5 (train/pipeline.py)"),
     "TPU_DDP_DISPATCH_DEPTH": (("0",), "item 9.5 (train/pipeline.py)"),
@@ -184,6 +182,20 @@ class TrainConfig:
     # Applied by parts/common.py:run_part; env TPU_DDP_CUDNN_DETERMINISTIC.
     cudnn_deterministic: bool = False
 
+    # Gradient wire format of the syncing rungs (parallel/compress.py):
+    # "none" (f32), "bf16", "int8" (with error feedback) or "int8-noef".
+    # Env: TPU_DDP_GRAD_COMPRESS. Needs dp > 1 and a syncing strategy;
+    # degrades to "none" with a warning otherwise.
+    grad_compress: str = "none"
+    # Bucketed overlap (parallel/overlap.py): ~bucket_mb-MiB buckets in
+    # reverse order, each bucket's collective launched from a gradient
+    # hook inside the backward, with the sharded update on all_reduce
+    # and fused. Needs dp > 1 and a replicated syncing rung; degrades to
+    # the unbucketed path with a warning otherwise. Env: TPU_DDP_OVERLAP,
+    # TPU_DDP_BUCKET_MB (torch DDP's bucket_cap_mb, 25 by default).
+    overlap: bool = False
+    bucket_mb: int = 25
+
     # Memory policy (memory/policy.py): activation rematerialisation,
     # "none" | "blocks" | "conv_stages" | "dots" (env TPU_DDP_REMAT), and
     # the saved residuals' dtype between regions, "compute" | "bf16" |
@@ -277,6 +289,23 @@ class TrainConfig:
             raise ValueError(
                 f"act_dtype={self.act_dtype!r}: expected "
                 "compute|bf16|f32 (TPU_DDP_ACT_DTYPE)")
+        env_gc = os.environ.get("TPU_DDP_GRAD_COMPRESS")
+        if env_gc:
+            self.grad_compress = env_gc
+        # Mirrors parallel/compress.py SPECS, which re-validates.
+        if self.grad_compress not in ("none", "bf16", "int8",
+                                      "int8-noef"):
+            raise ValueError(
+                f"grad_compress={self.grad_compress!r}: expected "
+                "none|bf16|int8|int8-noef (TPU_DDP_GRAD_COMPRESS)")
+        self.overlap = _env_bool("TPU_DDP_OVERLAP", self.overlap)
+        env_bm = os.environ.get("TPU_DDP_BUCKET_MB")
+        if env_bm:
+            self.bucket_mb = int(env_bm)
+        if self.bucket_mb <= 0:
+            raise ValueError(
+                f"bucket_mb must be > 0, got {self.bucket_mb} "
+                "(TPU_DDP_BUCKET_MB)")
         self.pallas_sgd = _env_bool("TPU_DDP_PALLAS_SGD", self.pallas_sgd)
         self.pallas_bn = _env_bool("TPU_DDP_PALLAS_BN", self.pallas_bn)
         env_cd = os.environ.get("TPU_DDP_COMPUTE_DTYPE")
