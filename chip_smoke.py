@@ -302,13 +302,56 @@ Phases 31-34 run the rest of the data-parallel ladder:
    part 2b's tolerance); on one card it prints ``{"multi_card":
    "skipped: 1 card"}``.
 
+Phases 35-37 run the image trainer's last model families:
+
+35. the BN+ReLU kernels at ResNet-50's eight (R, C) shapes at batch 256
+   (3,211,264 x 64 at the stem down to 12,544 x 512; 33 sites per
+   forward), on bf16 inputs cast to f32 rows as the op casts them, the
+   one-pass route: phase 7's bounds, each also catching a planted fault
+   (the reductions returning the previous launch's sums; the sums
+   missing the one-pass grid's last row block reported beside it), two
+   launches the same bits, NaN kept at the stem's shape; each kernel
+   timed beside its bound, its plain version and SyncBatchNorm's
+   primitive, and the op's casts (bf16 -> f32 x and g, f32 -> bf16 y and
+   dx), summed per step over the 33 sites;
+36. ResNet-50 (``resnet50_imagenet``: 25,557,032 params, batch 256,
+   224x224, 1000 classes, bf16) through ``run_part("part1")`` with both
+   kernels on the synthetic ImageNet stand-in (2048 train images, 8
+   steps; 512 val, 2 batches): finite losses, the ``Test set:`` line, and
+   the launch counts exact from 0 (``bn_stats``/``bn_norm_relu`` 330 on
+   the one-pass route, ``bn_bwd_stats``/``bn_bwd_dx`` 264, SGD 24: three
+   launches per step over 161 leaves); the SGD kernel over those 161
+   leaves bit for bit with its plain version, every launch of a skipped
+   step writing nothing; then a ``Trainer`` on one staged batch: ms per
+   step over 10 steps after 2, images/s, MFU (3 x forward FLOPs / step
+   time / 989e12), peak memory and a 5-step profiler window (idle share,
+   top kernels, the ported kernels' and the copy kernels' ms per step);
+   one step through the kernels against the plain versions with phase
+   11's bounds; one step under ``remat="blocks"``: 65 launches of each
+   forward BN kernel (the stem outside every block), 33 of each backward
+   one, the loss within 1e-5 relative of ``"none"``;
+37. ViT: ``vit_cifar10`` through ``run_part("part1")`` with the SGD
+   kernel, 40 iterations on ``full_attention`` (finite losses, ``Test
+   set:``, 40 SGD launches, no BN or flash launch); a ``Trainer`` on
+   ViT-tiny with the flash kernels at batch 256: launches exact (6 of
+   each kernel per step, all on the route ``fwd_route``/``bwd_route``
+   pick, none causal), one step's loss and gradients held to the plain
+   versions with phase 16's bounds and the three kernels row by row on
+   the last layer's own q, k, v and dO, each gradient bound catching the
+   planted fault (a quarter of the 64 keys dropped for the last quarter
+   of the queries); ViT-S16 on synthetic ImageNet at batch 256 (196
+   patches): 12 of each kernel per step, ms per step, MFU and peak; the
+   three kernels at both presets' calls, non-causal, held to their plain
+   versions and timed beside their bounds and SDPA's flash backend.
+
 Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
 ``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
 each path of phases 21-26, the flash kernels' on phases 27-28's and 33's
-and the BN and SGD kernels' on phases 29's and 31's, beside each
-main-path count), and
+and the BN and SGD kernels' on phases 29's, 31's and 36's (SGD's on
+37's too), beside each main-path count; the BN, SGD and flash rows also
+carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1608,13 +1651,14 @@ def _flash_errors(fa, q, k, v, do, causal, floor: float = 1e-3):
     return errs, reads, plain
 
 
-def _dropped_tile(q, k, v, do, plain) -> dict:
-    """The planted fault: the plain outputs as a causal kernel would give
-    them that skipped the last 64-key tile for the last 64 queries, with
-    p and ds rounded as the kernels round them; o and lse alone when
-    ``do`` is None."""
+def _dropped_tile(q, k, v, do, plain, causal: bool = True,
+                  tile: int = FAULT_TILE) -> dict:
+    """The planted fault: the plain outputs as a kernel would give them
+    that skipped the last ``tile`` keys for the last ``tile`` queries
+    (causal: the diagonal tile's kept half), with p and ds rounded as the
+    kernels round them; o and lse alone when ``do`` is None."""
     b, L, h, d = q.shape
-    kvh, n = k.shape[2], FAULT_TILE
+    kvh, n = k.shape[2], tile
     g, t, scale = h // kvh, slice(L - n, L), 1.0 / math.sqrt(d)
 
     def heads(x, rep):  # (B, n, heads, D) -> (B, H, n, D) f32
@@ -1624,8 +1668,10 @@ def _dropped_tile(q, k, v, do, plain) -> dict:
     lse = plain["lse"][..., t, None]
     if do is not None:
         dot, delta = heads(do, 1), plain["delta"][..., t, None]
-    s = (qt @ kt.transpose(-1, -2) * scale).masked_fill(
-        torch.ones(n, n, dtype=torch.bool, device=q.device).triu(1), -1e30)
+    s = qt @ kt.transpose(-1, -2) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool,
+                                     device=q.device).triu(1), -1e30)
     p = torch.exp(s - lse)
     pr = p.to(q.dtype).float()
     if do is not None:
@@ -2075,7 +2121,10 @@ def _last_layer_check(fa, inputs) -> dict:
     q, k, v, do, causal = (inputs[n] for n in ("q", "k", "v", "do",
                                                "causal"))
     errs, reads, plain = _flash_errors(fa, q, k, v, do, causal, floor=0.1)
-    faulty = _dropped_tile(q, k, v, do, plain)
+    # A quarter of a short sequence at most (ViT-tiny's 64 patches), so
+    # the fault leaves every query keys to attend to.
+    faulty = _dropped_tile(q, k, v, do, plain, causal,
+                           min(FAULT_TILE, q.shape[1] // 4))
     fault = {w: _readings(faulty[w], plain[w], floor=0.1)
              for w in ("dq", "dk", "dv")}
     out = {"readings": reads, "lse": errs["lse"][0],
@@ -3659,7 +3708,8 @@ def _ladder_run(dev, part: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_launches(wrappers)
-    rc, out, wall = _run_part_captured(part, ["--device", str(dev)])
+    rc, out, wall = _run_part_captured(part, ["--num-nodes", "1",
+                                              "--device", str(dev)])
     counts = _launches(wrappers)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if rc != 0:
@@ -3729,10 +3779,10 @@ def ladder_parts(dev) -> dict:
 
 
 def _vgg_leaves(dev):
-    from tpu_ddp_torch.convert import VGGCanon
+    from tpu_ddp_torch.convert import CanonicalView
     from tpu_ddp_torch.models.vgg import make_vgg
     model = make_vgg("VGG11").to(dev)
-    canon = VGGCanon(model)
+    canon = CanonicalView(model)
     return canon, [t.detach().contiguous()
                    for t in canon.leaves(list(model.parameters()))]
 
@@ -3850,7 +3900,7 @@ def _wire_and_overlap_checks(dev) -> dict:
     gradients equal the unbucketed ones bit for bit."""
     import torch.distributed as dist
 
-    from tpu_ddp_torch.convert import VGGCanon
+    from tpu_ddp_torch.convert import CanonicalView
     from tpu_ddp_torch.models.vgg import make_vgg
     from tpu_ddp_torch.parallel.compress import GradCompressor
     from tpu_ddp_torch.parallel.overlap import BucketPlan, OverlapSync
@@ -3873,7 +3923,7 @@ def _wire_and_overlap_checks(dev) -> dict:
         fail("phase 32: the int8 phase 1 differs from the CPU's")
 
     model = make_vgg("VGG11").to(dev)
-    canon = VGGCanon(model)
+    canon = CanonicalView(model)
     params = list(model.parameters())
     plan = BucketPlan(canon.shapes, 4)
     sync = OverlapSync(plan, "all_reduce", group)
@@ -4090,6 +4140,776 @@ def ladder_multi_card(dev) -> dict:
     return {name: {"losses": r["losses"]} for name, r in runs.items()}
 
 
+# ---- phases 35-37: ResNet-50 and ViT through the image trainer ----------
+
+# ResNet-50's BN+ReLU inputs at batch 256 as (R = N*H*W, C) rows, with the
+# number of sites of each shape: the stem, then each bottleneck's conv1 and
+# conv2, 33 per forward (a stride-2 block's conv1 runs at the stage's input
+# size, its conv2 at the output's).
+RESNET_BN_SHAPES = [((3211264, 64), 1), ((802816, 64), 6),
+                    ((802816, 128), 1), ((200704, 128), 7),
+                    ((200704, 256), 1), ((50176, 256), 11),
+                    ((50176, 512), 1), ((12544, 512), 5)]
+RESNET_BN_SITES = 33
+RESNET_SGD_LAUNCHES = 3   # 161 leaves, 80 per launch (ops/sgd.py)
+IMAGE_WARMUP, IMAGE_STEPS, IMAGE_TRACED = 2, 10, 5
+# Env knobs earlier phases leave set, cleared for a preset as published.
+PRESET_ENV = dict(TPU_DDP_MAX_ITERS=None, TPU_DDP_SYNTH_SIZE=None,
+                  TPU_DDP_GLOBAL_BATCH=None, TPU_DDP_COMPUTE_DTYPE=None,
+                  TPU_DDP_LR=None, TPU_DDP_REMAT=None, TPU_DDP_ACT_DTYPE=None,
+                  TPU_DDP_CKPT_EVERY=None, TPU_DDP_CHAOS_FAULTS=None,
+                  TPU_DDP_GUARD=None, TPU_DDP_CUDNN_DETERMINISTIC=None,
+                  IMAGENET_DIR=None, TPU_DDP_PALLAS_SGD="1",
+                  TPU_DDP_PALLAS_BN="1")
+
+
+# The one-pass reductions at ResNet-50's shapes are held to a bound on an
+# f32 sum of R terms t that grows as sqrt(R), not as R: |kernel - plain|
+# <= RED_K * eps * (|sum t| + sqrt(R) * max |t|) per channel, eps f32's
+# machine epsilon: the result's own rounding plus a random walk of R
+# roundings of terms' size. Phase 7's 1e-4 * sum|t| grows as R.
+RED_K = 32
+
+
+def _sum_tol(t):
+    """Per-channel bound on |delta sum_rows t| of (R, C) terms."""
+    eps = torch.finfo(torch.float32).eps
+    return RED_K * eps * (t.sum(0).abs()
+                          + math.sqrt(t.shape[0]) * t.abs().amax(0))
+
+
+def _reduction_tols(tb, x, g, s, b, mean, inv) -> dict:
+    """The four reduction outputs' bounds at ``x``, ``g``: dbias and
+    dscale straight from :func:`_sum_tol`; the mean as the sum's over R;
+    inv through var = E[x^2] - mean^2 and d rsqrt = inv^3 / 2 d var, plus
+    two ulps on each side for rsqrt. Each is the largest channel's."""
+    r = x.shape[0]
+    eps = torch.finfo(torch.float32).eps
+    m_tol = _sum_tol(x) / r
+    var_tol = _sum_tol(x * x) / r + 2 * mean.abs() * m_tol + m_tol ** 2
+    i_tol = 0.5 * inv ** 3 * var_tol + 4 * eps * inv
+    x_hat, gy = tb._masked_grad(x, g, mean, inv, s, b)
+    return {"bn_stats": float(m_tol.max()),
+            "bn_stats_inv": float(i_tol.max()),
+            "bn_bwd_stats": float(_sum_tol(gy).max()),
+            "bn_bwd_stats_dscale": float(_sum_tol(gy * x_hat).max())}
+
+
+def _bn_fault_readings(tb, x, g, s, b, plain, stale) -> dict:
+    """Two planted faults, read as ``_bn_kernel_errors`` reads the
+    kernels: ``"stale"``, the two reductions returning the sums of the
+    launch before (on ``stale``, another draw of x and g at this shape:
+    what a one-pass grid whose arrival counter fired early would hand
+    back; the elementwise kernels work from those statistics), and
+    ``"dropped_block"``, each kernel missing the one-pass grid's last row
+    block: the reductions' sums without it (still divided by R), the
+    elementwise kernels' outputs unwritten (zero) there."""
+    mean, inv, y, db, ds, dx = plain
+    r, c = x.shape
+    idx = x.device.index
+    plan = tb.stats_plan("bn_stats", r, c, 4, tb._num_sms(idx),
+                         tb._blocks_per_sm("bn_stats", 4, idx))
+    keep = plan.rows(r, plan.blocks - 1).start
+    xk = x[:keep]
+    fmean = xk.sum(0) / r
+    finv = torch.rsqrt(torch.clamp_min((xk * xk).sum(0) / r - fmean * fmean,
+                                       0.0) + tb.BN_EPS)
+    x_hat, gy = tb._masked_grad(x, g, mean, inv, s, b)
+    fdb, fds = gy[:keep].sum(0), (gy * x_hat)[:keep].sum(0)
+    del x_hat, gy
+    smean, sinv = tb.bn_stats_ref(stale[0])
+    sdb, sds = tb.bn_bwd_stats_ref(*stale, smean, sinv, s, b)
+    out = {"dropped_block": {
+        "rows": r - keep,
+        "bn_stats": float((fmean - mean).abs().max()),
+        "bn_stats_inv": float((finv - inv).abs().max()),
+        "bn_norm_relu": float(y[keep:].abs().max()),
+        "bn_bwd_stats": float((fdb - db).abs().max()),
+        "bn_bwd_stats_dscale": float((fds - ds).abs().max()),
+        "bn_bwd_dx": float(dx[keep:].abs().max())}}
+    out["stale"] = {
+        "bn_stats": float((smean - mean).abs().max()),
+        "bn_stats_inv": float((sinv - inv).abs().max()),
+        "bn_norm_relu": float((tb.bn_norm_relu_ref(
+            x, smean, sinv, s, b) - y).abs().max()),
+        "bn_bwd_stats": float((sdb - db).abs().max()),
+        "bn_bwd_stats_dscale": float((sds - ds).abs().max()),
+        "bn_bwd_dx": float((tb.bn_bwd_dx_ref(
+            x, g, mean, inv, s, b, sdb, sds) - dx).abs().max())}
+    return out
+
+
+def _timed_over_bound(fn, args_list, reps: int, bound: float) -> dict:
+    """``timed``, traced again (three tries in all) while the profiler's
+    reading lies under ``bound``, the least time the work can take: such
+    a reading is a trace that lost kernels. ``under_bound`` marks one
+    that stayed there."""
+    for _ in range(3):
+        t = timed(fn, args_list, reps)
+        if t["device_ms"] is not None and t["device_ms"] >= bound:
+            break
+    t["under_bound"] = t["ms"] < bound
+    return t
+
+
+def _bf16_rows(r, c, gen, dev, scale=1.0, shift=0.0):
+    """(R, C) rows drawn in f32, rounded to bf16 as the model's conv
+    outputs and gradients are."""
+    return (torch.randn(r, c, generator=gen, device=dev) * scale
+            + shift).to(torch.bfloat16)
+
+
+def check_bn_resnet(dev, gen) -> dict:
+    """Phase 35: the four BN+ReLU kernels at ResNet-50's eight shapes, on
+    the bf16 inputs the model gives them cast to f32 rows as the op casts
+    them: the elementwise kernels at phase 7's bounds, the reductions at
+    :func:`_reduction_tols`'s (growing as sqrt(R)); every bound catching
+    two planted faults (stale one-pass sums; the grid's last row block
+    dropped), two launches the same bits, NaN kept at the stem's shape;
+    timed beside the bound, the plain versions, SyncBatchNorm's
+    primitives and the op's casts."""
+    from tpu_ddp_torch.ops import bn_relu as tb
+    kernels = {"bn_stats": (tb.bn_stats, tb.bn_stats_ref),
+               "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
+               "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
+               "bn_bwd_dx": (tb.bn_bwd_dx, tb.bn_bwd_dx_ref)}
+    other = _bn_inputs(*BN_BITS_OTHER, gen, dev)
+    idx = dev.index or 0
+    shapes = []
+    for (r, c), sites in RESNET_BN_SHAPES:
+        n_el = r * c
+        xs16 = [_bf16_rows(r, c, gen, dev, 2.0, 0.3) for _ in range(2)]
+        gs16 = [_bf16_rows(r, c, gen, dev) for _ in range(2)]
+        xs, gs = [t.float() for t in xs16], [t.float() for t in gs16]
+        s = 0.5 + torch.rand(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        x, g = xs[0], gs[0]
+        errs, plain = _bn_kernel_errors(tb, x, g, s, b)
+        phase7_tols = {k: v[1] for k, v in errs.items()}
+        for what, tol in _reduction_tols(tb, x, g, s, b,
+                                         *plain[:2]).items():
+            errs[what] = (errs[what][0], tol)
+        _fail_on(errs, f"ResNet-50 R={r} C={c}")
+        fault = _bn_fault_readings(tb, x, g, s, b, plain, (xs[1], gs[1]))
+        for kind in ("stale", "dropped_block"):
+            for what, (_, tol) in errs.items():
+                if not fault[kind][what] > tol:
+                    fail(f"phase 35: the {what} bound {tol} misses the "
+                         f"planted {kind} fault at R={r} C={c} (it reads "
+                         f"{fault[kind][what]})")
+        if not _stats_bits(tb, x, g, s, b, other):
+            fail(f"phase 35: two launches of the one-pass reductions "
+                 f"differ at R={r} C={c}")
+        plan = {n: dataclasses.asdict(tb.stats_plan(
+            n, r, c, 4, tb._num_sms(idx), tb._blocks_per_sm(n, 4, idx)))
+            for n in ("bn_stats", "bn_bwd_stats")}
+        mean, inv, y, db, ds, dx = plain
+        row = {"r": r, "c": c, "sites": sites, "plan": plan,
+               "errors": {k: v[0] for k, v in errs.items()},
+               "tols": {k: v[1] for k, v in errs.items()},
+               "phase7_tols": phase7_tols,
+               "planted_fault": fault, "same_bits": True}
+        reps = 20
+        args = {"bn_stats": [(xi,) for xi in xs],
+                "bn_norm_relu": [(xi, mean, inv, s, b) for xi in xs],
+                "bn_bwd_stats": [(xi, gi, mean, inv, s, b)
+                                 for xi, gi in zip(xs, gs)],
+                "bn_bwd_dx": [(xi, gi, mean, inv, s, b, db, ds)
+                              for xi, gi in zip(xs, gs)]}
+        gms = [torch.where(tb.bn_norm_relu_ref(xi, mean, inv, s, b) > 0,
+                           gi, 0.0) for xi, gi in zip(xs, gs)]
+        count = torch.tensor([r], dtype=torch.int32, device=dev)
+        sum_dy_xmu = ds / inv
+        libs = {
+            "bn_stats": (lambda t: torch.batch_norm_stats(t, tb.BN_EPS),
+                         args["bn_stats"]),
+            "bn_norm_relu": (lambda t: torch.batch_norm_elemt(
+                t, s, b, mean, inv, tb.BN_EPS), args["bn_stats"]),
+            "bn_bwd_stats": (lambda t, gm: torch.batch_norm_backward_reduce(
+                gm, t, mean, inv, s, False, True, True), list(zip(xs, gms))),
+            "bn_bwd_dx": (lambda t, gm: torch.batch_norm_backward_elemt(
+                gm, t, mean, inv, s, db, sum_dy_xmu, count),
+                list(zip(xs, gms)))}
+        for name, (kern, plain_fn) in kernels.items():
+            bound, by = _bound(BN_BYTES_PER_ELEM[name] * n_el
+                               + 4 * BN_CHAN_VECTORS[name] * c,
+                               BN_FLOPS_PER_ELEM[name] * n_el)
+            k_t = _timed_over_bound(kern, args[name], reps, bound)
+            p_t = _timed_over_bound(plain_fn, args[name], 4, bound)
+            l_t = _timed_over_bound(libs[name][0], libs[name][1], reps,
+                                    bound)
+            row[name] = {"ms": k_t["ms"], "event_ms": k_t["event_ms"],
+                         "plain_ms": p_t["ms"], "library_ms": l_t["ms"],
+                         "library_event_ms": l_t["event_ms"],
+                         "bound_ms": bound, "bound_by": by,
+                         "under_bound": [w for w, t in (
+                             ("kernel", k_t), ("plain", p_t),
+                             ("library", l_t)) if t["under_bound"]],
+                         "timing": _timing_label(k_t, p_t, l_t)}
+        # The op's casts around the kernels: bf16 -> f32 rows (x in the
+        # forward; x and g in the backward) and f32 -> bf16 (y, dx).
+        row["casts"] = {
+            "up_ms": timed(lambda t: t.float(), [(t,) for t in xs16],
+                           reps)["ms"],
+            "down_ms": timed(lambda t: t.to(torch.bfloat16),
+                             [(t,) for t in xs], reps)["ms"]}
+        del xs, gs, xs16, gs16, gms, args, libs, plain
+        shapes.append(row)
+        print(json.dumps({"resnet_bn_shape": row}), flush=True)
+    # NaN at the stem's shape, on the main (one-pass) route.
+    (r, c), _ = RESNET_BN_SHAPES[0]
+    nan_cases = {}
+    for kind in ("rows", "elements"):
+        x = _bf16_rows(r, c, gen, dev, 2.0, 0.3).float()
+        g = _bf16_rows(r, c, gen, dev).float()
+        s = 0.5 + torch.rand(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        if kind == "rows":
+            x[[1, r // 2]] = float("nan")
+        else:
+            x[r // 3, ::3] = float("nan")
+            g[r // 2, 1::3] = float("nan")
+        res = _bn_nan_errors(tb, x, g, s, b)
+        nan_cases[f"{r}x{c}/{kind}"] = {
+            k: {"plain_nans": v[0], "err": v[1]} for k, v in res.items()}
+        del x, g
+    torch.cuda.empty_cache()
+
+    def per_step(fn):
+        return sum(row["sites"] * fn(row) for row in shapes)
+
+    out = {"shapes": shapes, "nan_cases": nan_cases, "kernels": {},
+           "casts_ms_per_step": per_step(
+               lambda w: 3 * w["casts"]["up_ms"] + 2 * w["casts"]["down_ms"])}
+    for name in kernels:
+        bound_bytes = per_step(lambda w: BN_BYTES_PER_ELEM[name] * w["r"]
+                               * w["c"] + 4 * BN_CHAN_VECTORS[name] * w["c"])
+        bound_flops = per_step(lambda w: BN_FLOPS_PER_ELEM[name] * w["r"]
+                               * w["c"])
+        bound, by = _bound(bound_bytes, bound_flops)
+        out["kernels"][name] = {
+            **{k: per_step(lambda w: w[name][k])
+               for k in ("ms", "event_ms", "plain_ms", "library_ms",
+                         "library_event_ms")},
+            "under_bound": sorted({f"{w['r']}x{w['c']}/{u}" for w in shapes
+                                   for u in w[name]["under_bound"]}),
+            "bound_ms": bound, "bound_by": by,
+            "max_abs_err": max(v for w in shapes
+                               for k, v in w["errors"].items()
+                               if k.startswith(name)),
+            "timing": ",".join(sorted({w[name]["timing"] for w in shapes}))}
+    return out
+
+
+def _resnet_sgd(dev, gen, shapes) -> dict:
+    """The SGD kernel on ResNet-50's 161 leaves (3 launches): bit for bit
+    its plain version over 3 steps; with ``skip`` set every launch writes
+    nothing; timed beside its bound, the plain version and
+    ``torch.optim.SGD(fused=True)``."""
+    from tpu_ddp_torch.ops import sgd as tsgd
+    hp = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    n = sum(math.prod(s) for s in shapes)
+    p0, grads, (kp, kb), (rp, rb) = _sgd_bitwise(tsgd, shapes, gen, dev, hp)
+    before = [t.clone() for t in kp + kb]
+    tsgd.fused_sgd_step.launches = 0
+    tsgd.fused_sgd_step(kp, grads, kb, skip=torch.ones((), device=dev), **hp)
+    torch.cuda.synchronize()
+    if tsgd.fused_sgd_step.launches != RESNET_SGD_LAUNCHES or not all(
+            _same_bits(a, b) for a, b in zip(kp + kb, before)):
+        fail(f"phase 36: a skipped step over ResNet-50's {len(shapes)} "
+             f"leaves changed the state or did not launch "
+             f"{RESNET_SGD_LAUNCHES} times")
+    bound, by = _bound(20 * n, 5 * n)
+    kern = _timed_over_bound(lambda: tsgd.fused_sgd_step(
+        kp, grads, kb, **hp), [()], 30, bound)
+    plain = _timed_over_bound(lambda: tsgd.fused_sgd_step_ref(
+        rp, grads, rb, **hp), [()], 10, bound)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in p0]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = _timed_over_bound(torch.optim.SGD(lib_params, fused=True,
+                                            **hp).step, [()], 30, bound)
+    return {"leaves": len(shapes), "elements": n, "max_abs_err": 0.0,
+            "launches_per_step": RESNET_SGD_LAUNCHES, "ms": kern["ms"],
+            "event_ms": kern["event_ms"], "plain_ms": plain["ms"],
+            "library_ms": lib["ms"], "bound_ms": bound, "bound_by": by,
+            "under_bound": [w for w, t in (("kernel", kern),
+                                           ("plain", plain), ("library", lib))
+                            if t["under_bound"]],
+            "timing": _timing_label(kern, plain, lib)}
+
+
+def _image_window(tr, state, batches, steps: int) -> tuple:
+    """A profiler window over ``steps`` train steps: (state, the device's
+    busy and idle share, the ported kernels' ms per step, the top
+    kernels, and a 2-step window with shapes naming the copy kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            state, loss = tr.train_step(state, *batches[i % len(batches)])
+        float(loss)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = _device_us(prof)
+    busy_ms = sum(dev_us.values()) / 1e3
+    kernels = {**VGG_KERNELS, **FLASH_KERNELS}
+    ours = {k: sum(v for n, v in dev_us.items()
+                   if any(p in n for p in pats)) / 1e3 / steps
+            for k, pats in kernels.items()}
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for i in range(2):
+            state, loss = tr.train_step(state, *batches[i % len(batches)])
+        float(loss)
+        torch.cuda.synchronize()
+    return state, {"steps": steps, "wall_ms": wall_ms,
+                   "device_busy_ms": busy_ms,
+                   "device_ms_per_step": busy_ms / steps,
+                   "device_idle_share": 1 - busy_ms / wall_ms,
+                   "ported_kernels_ms_per_step": ours,
+                   "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top],
+                   "copy_sources": _copy_sources(prof, steps=2)}
+
+
+def _timed_steps(tr, state, batches, dev) -> tuple:
+    """IMAGE_WARMUP steps, then IMAGE_STEPS timed ones (synchronized at
+    the end): (state, ms per step, peak GiB of the timed steps, losses)."""
+    losses = []
+    for i in range(IMAGE_WARMUP):
+        state, loss = tr.train_step(state, *batches[i % len(batches)])
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    timed_losses = []
+    for i in range(IMAGE_STEPS):
+        state, loss = tr.train_step(state, *batches[i % len(batches)])
+        timed_losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / IMAGE_STEPS
+    losses += [float(v) for v in timed_losses]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"image trainer losses not finite: {losses}")
+    return state, ms, torch.cuda.max_memory_allocated(dev) / 2 ** 30, losses
+
+
+def _restore(state, p0, m0) -> None:
+    with torch.no_grad():
+        for p, a in zip(state.params, p0):
+            p.copy_(a)
+        for b, a in zip(state.opt_state["momentum"], m0):
+            b.copy_(a)
+
+
+def resnet50_train(dev, gen) -> dict:
+    """Phase 36: ResNet-50 (resnet50_imagenet as published: 25,557,032
+    params, batch 256, 224x224, 1000 classes, bf16) through
+    ``run_part("part1")`` with both kernels on the synthetic ImageNet
+    stand-in, exact launch counts; then a ``Trainer`` on one staged batch:
+    ms per step, images/s, MFU, peak, a profiler window, one step through
+    the kernels against the plain versions, and one under
+    ``remat="blocks"``."""
+    from tpu_ddp_torch.data.imagenet import create_imagenet_loaders
+    from tpu_ddp_torch.models import get_model
+    from tpu_ddp_torch.ops import bn_relu as tb
+    from tpu_ddp_torch.ops import sgd as tsgd
+    from tpu_ddp_torch.train import engine
+    from tpu_ddp_torch.utils.config import TrainConfig
+    from tpu_ddp_torch.utils.flops import resnet_fwd_flops
+    wrappers = {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
+    losses, account = [], engine._LossWindow.account
+
+    def record(self, it, local_loss, step):
+        losses.append(local_loss)
+        return account(self, it, local_loss, step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    with _env(**PRESET_ENV), \
+            mock.patch.object(engine._LossWindow, "account", record):
+        rc, out, wall = _run_part_captured(
+            "part1", ["--config", "resnet50_imagenet", "--device", str(dev)])
+    counts = _launches(wrappers)
+    cli_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    test = re.search(r"Test set: average loss (\S+), accuracy (\d+)/(\d+)",
+                     out)
+    if rc != 0 or test is None or not math.isfinite(float(test.group(1))):
+        fail(f"phase 36: run_part resnet50_imagenet rc {rc}, no finite "
+             f"'Test set:' line:\n{out[-2000:]}")
+    steps = len(losses)
+    evals = math.ceil(int(test.group(3)) / 256)
+    if (steps, evals) != (8, 2) or not all(math.isfinite(v)
+                                           for v in losses):
+        fail(f"phase 36: {steps} steps and {evals} eval batches (expected "
+             f"8 and 2), losses {losses}")
+    fwd = RESNET_BN_SITES * (steps + evals)
+    want = {"sgd": RESNET_SGD_LAUNCHES * steps,
+            "bn_bwd_stats": {"one_pass": RESNET_BN_SITES * steps,
+                             "two_stage": 0},
+            "bn_bwd_dx": RESNET_BN_SITES * steps,
+            "bn_stats": {"one_pass": fwd, "two_stage": 0},
+            "bn_norm_relu": fwd}
+    if counts != want:
+        fail(f"phase 36: launch counts {counts}, expected {want}")
+    cli = {"steps": steps, "eval_batches": evals, "losses": losses,
+           "test_line": test.group(0), "launches": counts, "wall_s": wall,
+           "peak_mem_gib": cli_peak}
+    print(json.dumps({"resnet50_cli": cli}), flush=True)
+
+    cfg = TrainConfig.preset("resnet50_imagenet", pallas_sgd=True,
+                             pallas_bn=True)
+    model = get_model(cfg.model, num_classes=cfg.num_classes,
+                      use_pallas_bn=True, compute_dtype=torch.bfloat16)
+    sgd = _resnet_sgd(dev, gen, [p.shape for p in model.parameters()])
+    tr = engine.Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    with _env(IMAGENET_DIR=None):
+        train, _ = create_imagenet_loaders(batch_size=256,
+                                           synthetic_size=256)
+    x, y = next(iter(train))
+    batch = (x.to(dev), y.to(dev))
+    torch.cuda.empty_cache()
+    state, ms, peak, step_losses = _timed_steps(tr, state, [batch], dev)
+    fwd_flops = resnet_fwd_flops((3, 4, 6, 3), 224, 256, 1000)
+    state, window = _image_window(tr, state, [batch], IMAGE_TRACED)
+    window["untraced_idle_share"] = 1 - window["device_ms_per_step"] / ms
+    window["copy_share_of_device_time"] = (
+        window["copy_sources"]["total_ms_per_step"]
+        / window["device_ms_per_step"])
+
+    # One step through the kernels against the same step through the
+    # plain versions (phase 11's bounds), then one under remat="blocks".
+    with torch.no_grad():
+        p0 = [p.clone() for p in state.params]
+        m0 = [b.clone() for b in state.opt_state["momentum"]]
+    state, lk = tr.train_step(state, *batch)
+    with torch.no_grad():
+        pk = [p.clone() for p in state.params]
+    _restore(state, p0, m0)
+    with mock.patch.multiple(tb, bn_stats=tb.bn_stats_ref,
+                             bn_norm_relu=tb.bn_norm_relu_ref,
+                             bn_bwd_stats=tb.bn_bwd_stats_ref,
+                             bn_bwd_dx=tb.bn_bwd_dx_ref), \
+            mock.patch.object(tsgd, "fused_sgd_step",
+                              tsgd.fused_sgd_step_ref):
+        state, lp = tr.train_step(state, *batch)
+    torch.cuda.synchronize()
+    lk, lp = float(lk), float(lp)
+    with torch.no_grad():
+        update = max(float((a - b).abs().max()) for a, b in zip(pk, p0))
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(pk, state.params))
+    del pk
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
+        fail(f"phase 36 step loss: kernels {lk} vs plain {lp} (tol 1e-2)")
+    if not diff <= 5e-2 * update:
+        fail(f"phase 36 step params: kernels vs plain max|d|={diff} > "
+             f"5e-2 x largest update {update}")
+    _restore(state, p0, m0)
+    tr.model.remat = "blocks"
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    state, lb = tr.train_step(state, *batch)
+    lb = float(lb)
+    blocks_counts = _launches(wrappers)
+    blocks_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    tr.model.remat = "none"
+    fwd_b = RESNET_BN_SITES + (RESNET_BN_SITES - 1)  # the stem: no region
+    want_b = {"sgd": RESNET_SGD_LAUNCHES,
+              "bn_bwd_stats": {"one_pass": RESNET_BN_SITES, "two_stage": 0},
+              "bn_bwd_dx": RESNET_BN_SITES,
+              "bn_stats": {"one_pass": fwd_b, "two_stage": 0},
+              "bn_norm_relu": fwd_b}
+    if blocks_counts != want_b:
+        fail(f"phase 36 remat='blocks': launch counts {blocks_counts}, "
+             f"expected {want_b}")
+    if not abs(lb - lk) <= 1e-5 * abs(lk):
+        fail(f"phase 36 remat='blocks': loss {lb} vs none {lk} (tol 1e-5)")
+    del tr, state, model, p0, m0, batch
+    torch.cuda.empty_cache()
+    return {"cli": cli, "params": 25_557_032, "batch": 256,
+            "warmup_steps": IMAGE_WARMUP, "timed_steps": IMAGE_STEPS,
+            "losses": step_losses, "ms_per_step": ms,
+            "images_per_s": 256 / (ms / 1e3), "fwd_flops": fwd_flops,
+            "mfu": 3 * fwd_flops / (ms / 1e3) / BF16_FLOP_PER_S,
+            "peak_mem_gib": peak, "traced_window": window,
+            "step_check": {"loss_kernels": lk, "loss_plain": lp,
+                           "max_param_diff": diff, "largest_update": update,
+                           "tol": 5e-2 * update},
+            "remat_blocks": {"loss": lb, "launches": blocks_counts,
+                             "peak_mem_gib": blocks_peak},
+            "sgd_161_leaves": sgd}
+
+
+# The flash calls of the ViT presets at batch 256: (B, L, H, D) and
+# layers (calls of each kernel per step).
+VIT_FLASH = {"ViT-tiny": ((256, 64, 4, 64), 6),
+             "ViT-S16": ((256, 196, 6, 64), 12)}
+
+
+def _vit_qkv(shape, gen, dev):
+    """q, k, v as the model makes them (strided views of one fused
+    (B, L, 3, H, D) bf16 product) and a contiguous dO."""
+    b, L, h, d = shape
+    qkv = torch.randn(b, L, 3, h, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    do = torch.randn(b, L, h, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
+def _vit_flash_times(dev, gen, name) -> dict:
+    """The three flash kernels at a ViT preset's attention call,
+    non-causal: held to their plain versions with phase 13's bounds and
+    timed beside their bounds, the plain versions and SDPA's flash
+    backend (non-causal, forward; its backward for the two sweeps)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpu_ddp_torch.ops import flash_attention as fa
+    shape, layers = VIT_FLASH[name]
+    q, k, v, do = _vit_qkv(shape, gen, dev)
+    errs, reads, plain = _flash_errors(fa, q, k, v, do, False)
+    _fail_on(errs, f"{name}'s attention {shape} (non-causal)")
+    plse, delta = plain["lse"], plain["delta"]
+    del plain
+    # Enough input sets, cycled, that each call reads its inputs from HBM
+    # (ViT-tiny's four tensors, 34 MB, would sit in the 50 MB L2).
+    copies = max(1, math.ceil(2 * L2_BYTES / (4 * 2 * q.numel())))
+    sets = [(q, k, v, do)] + [_vit_qkv(shape, gen, dev)
+                              for _ in range(copies - 1)]
+    bwd_args = []
+    for q_, k_, v_, do_ in sets:
+        o_, lse_ = fa.flash_fwd(q_, k_, v_, False)
+        bwd_args.append((q_, k_, v_, do_, lse_, fa.attention_delta(o_, do_),
+                         False))
+    work = _flash_work((*shape[:3], shape[2], shape[3]), False, 2)
+    bounds = {key: max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+              * 1e3 for key, (flops, nbytes) in work.items()}
+    kern = {"fwd": _timed_over_bound(lambda q_, k_, v_, do_: fa.flash_fwd(
+        q_, k_, v_, False), sets, 30, bounds["fwd"]),
+            "bwd_kv": _timed_over_bound(fa.flash_bwd_kv, bwd_args, 30,
+                                        bounds["bwd_kv"]),
+            "bwd_q": _timed_over_bound(fa.flash_bwd_q, bwd_args, 30,
+                                       bounds["bwd_q"])}
+    slow = {"fwd": timed(lambda: fa.flash_fwd_plain(q, k, v, False), [()], 3),
+            "bwd_kv": timed(lambda: fa.flash_bwd_kv_plain(
+                q, k, v, do, plse, delta, False), [()], 3),
+            "bwd_q": timed(lambda: fa.flash_bwd_q_plain(
+                q, k, v, do, plse, delta, False), [()], 3)}
+    lib_sets = [tuple(t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in st) for st in sets]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        with torch.no_grad():
+            lib_fwd = _timed_over_bound(lambda q_, k_, v_, do_:
+                                        F.scaled_dot_product_attention(
+                                            q_, k_, v_), lib_sets, 30,
+                                        bounds["fwd"])
+        graphs = [(F.scaled_dot_product_attention(q_, k_, v_), (q_, k_, v_),
+                   do_) for q_, k_, v_, do_ in lib_sets]
+        lib_bwd = _timed_over_bound(lambda out, ins, do_: torch.autograd.grad(
+            out, ins, do_, retain_graph=True), graphs, 30,
+            max(bounds["bwd_kv"], bounds["bwd_q"]))
+    del graphs, lib_sets, bwd_args, sets
+    rows = {}
+    for key in ("fwd", "bwd_kv", "bwd_q"):
+        flops, nbytes = work[key]
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        lib = lib_fwd if key == "fwd" else lib_bwd
+        rows[key] = {"ms_per_call": kern[key]["ms"],
+                     "ms": layers * kern[key]["ms"],
+                     "plain_ms": layers * slow[key]["ms"],
+                     "library_ms": layers * lib["ms"],
+                     "bound_ms": layers * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes",
+                     "under_bound": kern[key]["under_bound"]
+                     or lib["under_bound"],
+                     "timing": _timing_label(kern[key], slow[key], lib)}
+    return {"shape": shape, "layers": layers, "input_sets": copies,
+            "fwd_route": fa.fwd_route(q, k, v),
+            "bwd_route": fa.bwd_route(q, k, v, do),
+            "bounds": {k_: list(v_) for k_, v_ in errs.items()},
+            "readings": reads, "kernels": rows}
+
+
+def _vit_trainer(dev, name, batches) -> tuple:
+    """A Trainer over ``make_vit(name, use_flash=True)`` (bf16, the SGD
+    kernel) on staged batches; the timed steps' flash launches exact, all
+    on the route ``fwd_route``/``bwd_route`` pick for the model's q, k, v,
+    none causal."""
+    from tpu_ddp_torch.models.vit import make_vit
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    from tpu_ddp_torch.utils.flops import vit_fwd_flops
+    model = make_vit(name, use_flash=True)
+    cfg = TrainConfig(model=name, num_classes=model.num_classes,
+                      image_size=model.image_size, pallas_sgd=True,
+                      dataset="cifar10" if name == "ViT-tiny" else "imagenet")
+    tr = Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    shape, layers = VIT_FLASH[name]
+    q, k, v, do = _vit_qkv(shape, torch.Generator(device=dev), dev)
+    routes = (fa.fwd_route(q, k, v), fa.bwd_route(q, k, v, do))
+    del q, k, v, do
+    wrappers = _flash_wrappers()
+    for i in range(IMAGE_WARMUP):
+        state, _ = tr.train_step(state, *batches[i % len(batches)])
+    _zero_launches(wrappers)
+    causal = []
+    real_apply = fa._FlashAttention.apply
+
+    def seen(q_, k_, v_, c_):
+        causal.append(c_)
+        return real_apply(q_, k_, v_, c_)
+
+    with mock.patch.object(fa._FlashAttention, "apply", seen):
+        state, ms, peak, losses = _timed_steps(tr, state, batches, dev)
+    counts = _launches(wrappers)
+    n = layers * (IMAGE_STEPS + IMAGE_WARMUP)
+    want = {w: {r: (n if r == route else 0) for r in ("wgmma", "mma_sync")}
+            for w, route in (("flash_fwd", routes[0]),
+                             ("flash_bwd_kv", routes[1]),
+                             ("flash_bwd_q", routes[1]))}
+    if counts != want or any(causal) or len(causal) != n:
+        fail(f"phase 37 {name}: flash launches {counts}, expected {want} "
+             f"({IMAGE_WARMUP}+{IMAGE_STEPS} steps x {layers} layers, "
+             f"non-causal; causal flags {set(causal)})")
+    fwd_flops = vit_fwd_flops(model, shape[0])
+    return tr, state, {
+        "model": name, "params": model.num_params(), "batch": shape[0],
+        "tokens": shape[1], "routes": list(routes), "launches": counts,
+        "losses": losses, "ms_per_step": ms,
+        "images_per_s": shape[0] / (ms / 1e3), "fwd_flops": fwd_flops,
+        "mfu": 3 * fwd_flops / (ms / 1e3) / BF16_FLOP_PER_S,
+        "peak_mem_gib": peak}
+
+
+def _vit_step_check(tr, x, y) -> dict:
+    """One step's loss and gradients through the flash kernels against
+    the plain versions (phase 16's bounds), the same with the planted
+    fault in every layer's forward (reported), and the three kernels row
+    by row on the last layer's own q, k, v and dO, each gradient bound
+    catching the fault there."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.ops.loss import cross_entropy_loss
+    model = tr.model
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss = cross_entropy_loss(model(x), y)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    with _last_attention_inputs(fa) as last:
+        lk, gk = loss_and_grads()
+    with mock.patch.multiple(fa, flash_fwd=fa.flash_fwd_plain,
+                             flash_bwd_kv=fa.flash_bwd_kv_plain,
+                             flash_bwd_q=fa.flash_bwd_q_plain):
+        lp, gp = loss_and_grads()
+    tile = min(FAULT_TILE, model.num_patches // 4)
+
+    def faulty_fwd(q, k, v, causal):
+        o, lse = fa.flash_fwd_plain(q, k, v, causal)
+        f = _dropped_tile(q, k, v, None, {"o": o, "lse": lse}, causal, tile)
+        return f["o"], f["lse"]
+
+    with mock.patch.multiple(fa, flash_fwd=faulty_fwd,
+                             flash_bwd_kv=fa.flash_bwd_kv_plain,
+                             flash_bwd_q=fa.flash_bwd_q_plain):
+        lf, gf = loss_and_grads()
+    lk, lp, lf = float(lk), float(lp), float(lf)
+
+    def frob(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    grad_k = max(frob(a, b) for a, b in zip(gk, gp))
+    grad_f = max(frob(a, b) for a, b in zip(gf, gp))
+    loss_k, loss_f = abs(lk - lp) / abs(lp), abs(lf - lp) / abs(lp)
+    if not (math.isfinite(lk) and loss_k <= LM_STEP_TOL["loss"]):
+        fail(f"phase 37 step loss: kernels {lk} vs plain {lp}")
+    if not grad_k <= LM_STEP_TOL["grad"]:
+        fail(f"phase 37 step grads: worst leaf's relative Frobenius error "
+             f"{grad_k} > {LM_STEP_TOL['grad']}")
+    if last["causal"]:
+        fail("phase 37: the ViT's attention ran causal")
+    with torch.no_grad():
+        last_layer = _last_layer_check(fa, last)
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_k,
+            "grad_worst_leaf_frob": grad_k, "tol": LM_STEP_TOL,
+            "planted_fault": {"tile": tile, "loss_rel_diff": loss_f,
+                              "grad_worst_leaf_frob": grad_f},
+            "last_layer_attention": last_layer}
+
+
+def vit_train(dev, gen) -> dict:
+    """Phase 37: (a) vit_cifar10 through ``run_part("part1")`` with the
+    SGD kernel, 40 iterations (full_attention, as the JAX CLI runs it);
+    (b) a Trainer on ViT-tiny with the flash kernels at batch 256, exact
+    non-causal launches, one step held to the plain versions; (c) ViT-S16
+    on synthetic ImageNet at batch 256 (L 196); the three kernels at both
+    shapes timed beside SDPA's non-causal flash backend."""
+    from tpu_ddp_torch.data.imagenet import create_imagenet_loaders
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.ops import sgd as tsgd
+    wrappers = {**_bn_wrappers(), **_flash_wrappers(),
+                "sgd": tsgd.fused_sgd_step}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    with _env(**{**PRESET_ENV, "TPU_DDP_PALLAS_BN": None,
+                 "TPU_DDP_MAX_ITERS": str(TRAIN_ITERS),
+                 "TPU_DDP_SYNTH_SIZE": str(SYNTH_SIZE)}):
+        rc, out, wall = _run_part_captured(
+            "part1", ["--config", "vit_cifar10", "--device", str(dev)])
+    counts = _launches(wrappers)
+    losses = [(int(i), float(v)) for i, v in
+              re.findall(r"\[epoch 0, iter (\d+)\] loss: (\S+)", out)]
+    test = re.search(r"Test set: average loss (\S+), accuracy (\d+)/(\d+)",
+                     out)
+    if rc != 0 or [i for i, _ in losses] != [20, 40] or not all(
+            math.isfinite(v) for _, v in losses) or test is None \
+            or not math.isfinite(float(test.group(1))):
+        fail(f"phase 37 vit_cifar10: rc {rc}, losses {losses}, no finite "
+             f"'Test set:' line:\n{out[-2000:]}")
+    want = {k: ({r: 0 for r in w.launches} if isinstance(w.launches, dict)
+                else 0) for k, w in wrappers.items()}
+    want["sgd"] = TRAIN_ITERS
+    if counts != want:
+        fail(f"phase 37 vit_cifar10: launch counts {counts}, expected "
+             f"{want}")
+    avg_ms = _timer_ms(out)
+    cli = {"losses": losses, "test_line": test.group(0), "launches": counts,
+           "avg_iter_ms": avg_ms, "images_per_s": 256 / (avg_ms / 1e3),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "wall_s": wall}
+    print(json.dumps({"vit_cli": cli}), flush=True)
+
+    train, _ = create_data_loaders(batch_size=256, synthetic_size=512)
+    batches = [(x.to(dev), y.to(dev)) for x, y in train]
+    tr, state, tiny = _vit_trainer(dev, "ViT-tiny", batches)
+    tiny["step_check"] = _vit_step_check(tr, *batches[0])
+    del tr, state, batches
+    torch.cuda.empty_cache()
+    with _env(IMAGENET_DIR=None):
+        train, _ = create_imagenet_loaders(batch_size=256,
+                                           synthetic_size=512)
+    batches = [(x.to(dev), y.to(dev)) for x, y in train]
+    tr, state, s16 = _vit_trainer(dev, "ViT-S16", batches)
+    del tr, state, batches
+    torch.cuda.empty_cache()
+    kernels = {name: _vit_flash_times(dev, gen, name) for name in VIT_FLASH}
+    return {"cli": cli, "vit_tiny": tiny, "vit_s16": s16,
+            "flash_kernels": kernels}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4215,6 +5035,15 @@ def main() -> None:
         import shutil
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     print(json.dumps({"multi_card": multi}), flush=True)
+    torch.cuda.empty_cache()
+
+    rbn = phase("35_resnet_bn", check_bn_resnet, dev, gen)
+    print(json.dumps({"resnet_bn": {k: v for k, v in rbn.items()
+                                    if k != "shapes"}}), flush=True)
+    resnet = phase("36_resnet50", resnet50_train, dev, gen)
+    print(json.dumps({"resnet50": resnet}), flush=True)
+    vit = phase("37_vit", vit_train, dev, gen)
+    print(json.dumps({"vit": vit}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -4298,7 +5127,15 @@ def main() -> None:
             **{f"part1_{r}": v["launches"]["sgd"]
                for r, v in vpolicy["runs"].items()},
             **{p: ladder[p]["launches"]["sgd"]
-               for p in ("part4", "part5")}},
+               for p in ("part4", "part5")},
+            # Phases 36-37: three launches per ResNet-50 step (161
+            # leaves), one per ViT step.
+            "resnet50_part1": resnet["cli"]["launches"]["sgd"],
+            "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
+                "sgd"],
+            "vit_cifar10_part1": vit["cli"]["launches"]["sgd"]},
+        # Phase 36: one optimizer step over ResNet-50's 161 leaves.
+        "resnet50": resnet["sgd_161_leaves"],
     }]
     replaces = {"bn_stats": 139, "bn_norm_relu": 151, "bn_bwd_stats": 207,
                 "bn_bwd_dx": 218}
@@ -4336,7 +5173,19 @@ def main() -> None:
         row["launches_by_path"] = {
             **{f"part1_{r}": v["launches"][name]
                for r, v in vpolicy["runs"].items()},
-            **{p: ladder[p]["launches"][name] for p in ("part4", "part5")}}
+            **{p: ladder[p]["launches"][name] for p in ("part4", "part5")},
+            # Phase 36: ResNet-50 through run_part (8 steps, 2 eval
+            # batches) and one remat="blocks" step.
+            "resnet50_part1": resnet["cli"]["launches"][name],
+            "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
+                name]}
+        # Phase 35: one ResNet-50 step's 33 calls at batch 256, alone, on
+        # the model's bf16 inputs cast to f32 rows; main_path_ms: phase
+        # 36's traced steps.
+        row["resnet50"] = {
+            **rbn["kernels"][name],
+            "main_path_ms": resnet["traced_window"][
+                "ported_kernels_ms_per_step"][name]}
         kernels.append(row)
     replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
                 "flash_bwd_q": ("bwd_q", 357)}
@@ -4381,7 +5230,14 @@ def main() -> None:
                for k, v in matrix["launches"].items()},
             # Phase 33: LM-large under each sharded layout.
             **{f"lm_{k}": lshard[k]["launches"][name]
-               for k in ("zero1", "zero2", "fsdp")}}
+               for k in ("zero1", "zero2", "fsdp")},
+            # Phase 37: the ViT trainers' timed steps, non-causal.
+            "vit_tiny": vit["vit_tiny"]["launches"][name],
+            "vit_s16": vit["vit_s16"]["launches"][name]}
+        # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
+        # beside SDPA's flash backend; main_path_ms: none traced.
+        for preset, res in vit["flash_kernels"].items():
+            row[preset] = res["kernels"][key]
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as fh:
@@ -4400,7 +5256,9 @@ def main() -> None:
                        "policy_matrix": matrix, "vgg_policy": vpolicy,
                        "examples": examples, "ladder_parts": ladder,
                        "ladder_device_code": ldev, "lm_sharded": lshard,
-                       "multi_card": multi, "phase_seconds": phase_s,
+                       "multi_card": multi, "resnet_bn": rbn,
+                       "resnet50": resnet, "vit": vit,
+                       "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
           f"{serve['ttft_ms_max']:.1f} ms; {serve['tokens_per_s']:.1f} "
@@ -4458,6 +5316,15 @@ def main() -> None:
         for p, v in ladder.items()) + "; LM-large: " + ", ".join(
         f"{k} {v['ms_per_step']:.1f} ms/step {v['peak_mem_gib']:.2f} GiB"
         for k, v in lshard.items()), flush=True)
+    print(f"resnet50: batch 256, {resnet['ms_per_step']:.1f} ms/step, "
+          f"{resnet['images_per_s']:.0f} images/s, MFU "
+          f"{100 * resnet['mfu']:.1f}%, peak {resnet['peak_mem_gib']:.2f} "
+          f"GiB; BN kernels {sum(rbn['kernels'][k]['ms'] for k in rbn['kernels']):.2f}"
+          f" ms/step alone, casts {rbn['casts_ms_per_step']:.2f} ms; vit: "
+          + ", ".join(f"{v['model']} {v['ms_per_step']:.1f} ms/step MFU "
+                      f"{100 * v['mfu']:.1f}%"
+                      for v in (vit["vit_tiny"], vit["vit_s16"])),
+          flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

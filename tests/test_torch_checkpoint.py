@@ -27,9 +27,10 @@ from tpu_ddp.train.engine import Trainer as JaxTrainer
 from tpu_ddp.train.lm import LMTrainer as JaxLMTrainer
 from tpu_ddp.utils import checkpoint as jax_ckpt
 from tpu_ddp.utils.config import TrainConfig as JaxConfig
-from tpu_ddp_torch.convert import (vgg_momentum_from_jax,
-                                   vgg_momentum_to_jax, vgg_params_from_jax,
-                                   vgg_params_to_jax)
+from tpu_ddp_torch.convert import (image_momentum_from_jax,
+                                   image_momentum_to_jax,
+                                   image_params_from_jax,
+                                   image_params_to_jax)
 from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.models.vgg import VGGModel
 from tpu_ddp_torch.parallel.redistribute import P, ShardingPlan
@@ -129,17 +130,17 @@ def test_momentum_converter_transposes_like_the_params():
     model = _port_trainer().model
     leaves = [torch.randn(p.shape, generator=torch.Generator().manual_seed(i))
               for i, p in enumerate(model.parameters())]
-    tree = vgg_momentum_to_jax(model, leaves)
-    for k, v in vgg_params_from_jax(model, tree, device="cpu").items():
+    tree = image_momentum_to_jax(model, leaves)
+    for k, v in image_params_from_jax(model, tree, device="cpu").items():
         np.testing.assert_array_equal(
             v.numpy(), dict(zip([n for n, _ in model.named_parameters()],
                                 leaves))[k].numpy())
-    back = vgg_momentum_from_jax(model, tree, device="cpu")
+    back = image_momentum_from_jax(model, tree, device="cpu")
     for a, b in zip(back, leaves):
         assert a.is_contiguous()
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    _assert_tree_equal(vgg_params_to_jax(model),
-                       vgg_momentum_to_jax(model, list(model.parameters())))
+    _assert_tree_equal(image_params_to_jax(model),
+                       image_momentum_to_jax(model, list(model.parameters())))
 
 
 # ---- cross-package round trips: VGG -----------------------------------------
@@ -173,11 +174,11 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path):
     state = tt.restore_checkpoint(str(tmp_path))
     assert state.step == 2
     jhost = jt.state_to_host(jstate)
-    want = vgg_params_from_jax(tt.model, jhost["params"], device="cpu")
+    want = image_params_from_jax(tt.model, jhost["params"], device="cpu")
     for name, p in tt.model.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), want[name].numpy(),
                                       err_msg=name)
-    for a, b in zip(state.opt_state["momentum"], vgg_momentum_from_jax(
+    for a, b in zip(state.opt_state["momentum"], image_momentum_from_jax(
             tt.model, jhost["opt_state"]["momentum"], device="cpu")):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert state.params[0] is next(tt.model.parameters())

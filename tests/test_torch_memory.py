@@ -28,8 +28,8 @@ from tpu_ddp.memory import policy as jpolicy
 from tpu_ddp.models import make_transformer as jax_make
 from tpu_ddp.models.vgg import VGGModel as JaxVGG
 from tpu_ddp.ops.loss import cross_entropy_loss as jax_ce
-from tpu_ddp_torch.convert import (params_from_jax, params_to_jax,
-                                   vgg_params_from_jax)
+from tpu_ddp_torch.convert import (image_params_from_jax, params_from_jax,
+                                   params_to_jax)
 from tpu_ddp_torch.memory import policy
 from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.models.vgg import VGGModel
@@ -173,7 +173,7 @@ def _vgg_pair(remat, act):
     tm = VGGModel("narrow", NARROW, compute_dtype=torch.float32,
                   use_pallas_bn=True, remat=remat, act_dtype=act)
     jp = jm.init(jax.random.key(89395))
-    tm.load_state_dict(vgg_params_from_jax(
+    tm.load_state_dict(image_params_from_jax(
         tm, jax.tree.map(np.asarray, jp), device="cpu"))
     return jm, jp, tm
 
@@ -193,7 +193,7 @@ def test_vgg_policy_matches_jax(remat, act):
     (_, jlogits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(jp)
     logits = tm(torch.from_numpy(x).permute(0, 3, 1, 2))
     cross_entropy_loss(logits, torch.from_numpy(y)).backward()
-    want = vgg_params_from_jax(tm, jax.tree.map(np.asarray, jgrads),
+    want = image_params_from_jax(tm, jax.tree.map(np.asarray, jgrads),
                                device="cpu")
     got = dict(tm.named_parameters())
     if act == "bf16":

@@ -26,7 +26,7 @@ from torch_ranks import (TINY, make_inputs, run_jax, run_vgg,
                          state_keys)
 from tpu_ddp.models.vgg import VGGModel as JaxVGG
 from tpu_ddp.parallel.overlap import BucketPlan as JaxBucketPlan
-from tpu_ddp_torch.convert import VGGCanon
+from tpu_ddp_torch.convert import CanonicalView
 from tpu_ddp_torch.models.vgg import VGGModel, make_vgg
 from tpu_ddp_torch.parallel.overlap import BucketPlan
 from tpu_ddp_torch.parallel.sync import PART_TO_STRATEGY
@@ -54,7 +54,7 @@ def test_bucket_plan_matches_jax(name, mb):
         jm = jax_make_vgg(name)
     template = jax.eval_shape(lambda: jm.init(jax.random.key(0)))
     want = JaxBucketPlan(template, mb)
-    got = BucketPlan(VGGCanon(model).shapes, mb)
+    got = BucketPlan(CanonicalView(model).shapes, mb)
     assert got.buckets == want.buckets
     assert got.bucket_sizes() == want.bucket_sizes()
     assert got.describe() == want.describe()
@@ -69,7 +69,7 @@ def test_overlapped_rung_equals_unbucketed_and_jax(part, inputs, tmp_path):
     over = run_vgg(tmp_path, part, 2, init=init, data=data, cfg=cfg,
                    every_rank=True, tag="over")
     plain = run_vgg(tmp_path, part, 2, init=init, data=data, tag="plain")
-    n_buckets = BucketPlan(VGGCanon(VGGModel("tiny", TINY)).shapes,
+    n_buckets = BucketPlan(CanonicalView(VGGModel("tiny", TINY)).shapes,
                            SMALL_MB).n_buckets
     for r in over:
         assert r["fired"].tolist() == [list(range(n_buckets))] * 3

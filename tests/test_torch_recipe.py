@@ -28,7 +28,7 @@ from tpu_ddp.train.engine import Trainer as JaxTrainer
 from tpu_ddp.train.lm import LMTrainer as JaxLMTrainer
 from tpu_ddp.utils.config import TrainConfig as JaxConfig
 from tpu_ddp_torch import launch
-from tpu_ddp_torch.convert import params_from_jax, vgg_params_from_jax
+from tpu_ddp_torch.convert import image_params_from_jax, params_from_jax
 from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.models.vgg import VGGModel
 from tpu_ddp_torch.ops import optim
@@ -157,7 +157,7 @@ def _vgg_pair(remat="none", clip=None, lr=None, pallas_sgd=True):
                   use_pallas_bn=True)
     tt = Trainer(tm, tcfg, device="cpu", clip_grad_norm=clip)
     js = jt.init_state(0)
-    tm.load_state_dict(vgg_params_from_jax(tm, _host(js.params),
+    tm.load_state_dict(image_params_from_jax(tm, _host(js.params),
                                            device="cpu"))
     # The JAX weights in place of the trainer's own init.
     params = list(tm.parameters())

@@ -29,7 +29,7 @@ from tpu_ddp.resilience import guard as jax_guard
 from tpu_ddp.resilience import watchdog as jax_watchdog
 from tpu_ddp.train.engine import Trainer as JaxTrainer
 from tpu_ddp.utils.config import TrainConfig as JaxConfig
-from tpu_ddp_torch.convert import vgg_params_from_jax
+from tpu_ddp_torch.convert import image_params_from_jax
 from tpu_ddp_torch.models.vgg import VGGModel
 from tpu_ddp_torch.ops import sgd as tsgd
 from tpu_ddp_torch.resilience import chaos, watchdog
@@ -55,7 +55,7 @@ def _pair(**cfg):
                           use_pallas_bn=True),
                  TrainConfig(**KNOBS, **cfg), device="cpu")
     state = tt.init_state()
-    tt.model.load_state_dict(vgg_params_from_jax(
+    tt.model.load_state_dict(image_params_from_jax(
         tt.model, jax.tree.map(np.asarray, jstate.params), device="cpu"))
     return jt, jstate, tt, state
 

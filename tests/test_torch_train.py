@@ -1,7 +1,7 @@
 """The port's training ladder (tpu_ddp_torch/train, parallel, parts) held
 against the JAX package's ``Trainer`` with both kernel knobs on
 (``pallas_sgd=pallas_bn=True``; the Pallas kernels in interpret mode),
-f32 compute, on the same weights (through ``convert.vgg_params_from_jax``)
+f32 compute, on the same weights (through ``convert.image_params_from_jax``)
 and the same batches.
 
 Tolerance for parameters after a few steps: rtol 1e-4 / atol 1e-5. Both
@@ -18,6 +18,7 @@ the whole batch, because BN takes its statistics per replica.
 """
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -34,8 +35,9 @@ from tpu_ddp.models.vgg import VGGModel as JaxVGG
 from tpu_ddp.parallel.mesh import make_mesh
 from tpu_ddp.train.engine import Trainer as JaxTrainer
 from tpu_ddp.utils.config import TrainConfig as JaxConfig
-from tpu_ddp_torch.convert import vgg_params_from_jax
+from tpu_ddp_torch.convert import image_params_from_jax
 from tpu_ddp_torch.data.loader import create_data_loaders
+from tpu_ddp_torch.models import get_model
 from tpu_ddp_torch.models.vgg import VGGModel
 from tpu_ddp_torch.parallel import sync
 from tpu_ddp_torch.train.engine import Trainer
@@ -62,7 +64,7 @@ def _host(tree):
 
 
 def _assert_params(model, jparams, rtol=RTOL, atol=ATOL):
-    want = vgg_params_from_jax(model, _host(jparams), device="cpu")
+    want = image_params_from_jax(model, _host(jparams), device="cpu")
     got = model.state_dict()
     for k, v in want.items():
         np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=rtol,
@@ -79,7 +81,7 @@ def test_part1_matches_jax_trainer():
     jstate = jt.init_state()
     tt = Trainer(_port_model(), cfg, device="cpu")
     state = tt.init_state()
-    tt.model.load_state_dict(vgg_params_from_jax(
+    tt.model.load_state_dict(image_params_from_jax(
         tt.model, _host(jstate.params), device="cpu"))
 
     jtrain, jtest = jax_loaders(batch_size=8, synthetic_size=40,
@@ -192,7 +194,7 @@ def ladder_inputs(tmp_path_factory):
     rng = np.random.default_rng(11)
     x = rng.normal(size=(2, 2, 4, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 10, size=(2, 2, 4)).astype(np.int64)
-    sd = vgg_params_from_jax(_port_model(), params, device="cpu")
+    sd = image_params_from_jax(_port_model(), params, device="cpu")
     path = tmp_path_factory.mktemp("ladder") / "inputs.npz"
     np.savez(path, x=x, y=y, **{"p/" + k: v.numpy() for k, v in sd.items()})
     return {"params": params, "x": x, "y": y, "path": path, "runs": {}}
@@ -280,10 +282,17 @@ def test_unported_knobs_are_refused(monkeypatch):
         monkeypatch.delenv(name)
     monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "0")  # the default
     Trainer(_port_model(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig.preset("vit_cifar10")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig.preset("resnet50_imagenet")
+    # Both scale-up presets build, as the JAX package defines them.
+    for name, model, classes in (("vit_cifar10", "ViT-tiny", 10),
+                                 ("resnet50_imagenet", "ResNet50", 1000)):
+        pcfg = TrainConfig.preset(name)
+        jcfg = JaxConfig.preset(name)
+        assert (pcfg.model, pcfg.num_classes, pcfg.image_size,
+                pcfg.dataset) == (jcfg.model, jcfg.num_classes,
+                                  jcfg.image_size, jcfg.dataset)
+        built = get_model(pcfg.model, num_classes=pcfg.num_classes,
+                          use_pallas_bn=pcfg.pallas_bn)
+        assert built.name == model and built.num_classes == classes
     with pytest.raises(TypeError):
         TrainConfig(steps_per_dispatch=4)
 
@@ -311,12 +320,13 @@ def test_config_env_knobs(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [("param_dtype", "bfloat16"),
-                                         ("image_size", 64),
-                                         ("dataset", "imagenet")])
+                                         ("image_size", 0),
+                                         ("dataset", "mnist")])
 def test_config_refuses_what_the_port_cannot_honour(field, value):
-    """A non-f32 param dtype raises; fields of the JAX config that the
-    port has no use for (CIFAR-10's shape and name) are not accepted."""
-    with pytest.raises((NotImplementedError, TypeError)):
+    """A non-f32 param dtype raises, and so do an image size below 1 and
+    a dataset run_part cannot load (cifar10 and imagenet, the JAX CLI's
+    two)."""
+    with pytest.raises((NotImplementedError, ValueError)):
         TrainConfig(**{field: value})
 
 
@@ -356,3 +366,135 @@ def test_bootstrap_helpers(capsys):
     shutdown(ctx)
     with pytest.raises(ValueError, match="out of range"):
         init_distributed_setup(rank=2, world_size=2, device="cpu")
+
+
+# ---- ResNet and ViT through the image trainer ---------------------------
+
+def _family_pair(family):
+    """(JAX model, port model, the trainer's knobs) of the shallow ResNet
+    (one bottleneck per stage, full widths, the 7x7/2 stem) or of ViT-tiny
+    narrowed as tests/test_vit.py narrows it."""
+    from tpu_ddp.models.resnet import ResNetModel as JaxResNet
+    from tpu_ddp.models.vit import make_vit as jax_make_vit
+    from tpu_ddp_torch.models.resnet import ResNetModel
+    from tpu_ddp_torch.models.vit import make_vit
+    if family == "resnet":
+        kw = dict(stage_blocks=(1, 1, 1, 1), num_classes=10,
+                  use_pallas_bn=True)
+        return (JaxResNet("shallow", compute_dtype=jnp.float32, **kw),
+                ResNetModel("shallow", compute_dtype=torch.float32, **kw),
+                dict(pallas_sgd=True, pallas_bn=True, learning_rate=1e-3))
+    narrow = dict(num_layers=2, d_model=64, d_ff=128, num_heads=2)
+    return (jax_make_vit("ViT-tiny", compute_dtype=jnp.float32, **narrow),
+            make_vit("ViT-tiny", compute_dtype=torch.float32,
+                     use_pallas_bn=True, **narrow),
+            dict(pallas_sgd=True))
+
+
+@pytest.mark.parametrize("family,batch", [("resnet", 4), ("vit", 4)])
+def test_resnet_and_vit_trainers_match_jax(family, batch, monkeypatch):
+    """Three ``Trainer`` steps (SGD kernel, and the BN+ReLU kernels for
+    ResNet: their plain versions here, the JAX side's Pallas kernels in
+    interpret mode) from the same init: per-step losses and the final
+    params within RTOL/ATOL.
+
+    ResNet: each step's port ReLUs take the derivatives the JAX step's
+    took (tests/relu_sites.py; a ReLU input within f32 noise of 0 may
+    take either side on either package, and moves a few gradient entries
+    by up to 1%). At lr 1e-3: at 0.1 the network diverges on these random
+    batches (loss 3.3 -> 34 in two steps); at 1e-3 each step still moves
+    the params by about 3e-4, 30x the tolerance."""
+    from relu_sites import BAND, force_port_relus, record_jax_relus
+    jm, tm, knobs = _family_pair(family)
+    knobs = dict(knobs, compute_dtype="float32")
+    tt = Trainer(tm, TrainConfig(**knobs), device="cpu")
+    state = tt.init_state()
+    # The JAX trainer starts from the port's init (the JAX ResNet's own
+    # init takes seconds eagerly) and zero momentum.
+    jt = JaxTrainer(jm, JaxConfig(**knobs), strategy="none")
+    host = tt.state_to_host(state)
+    jstate = jt.state_from_host({"params": host["params"],
+                                 "opt_state": host["opt_state"],
+                                 "step": 0})
+    rng = np.random.default_rng(3)
+    store = {}
+    if family == "resnet":
+        record_jax_relus(monkeypatch.setattr, store)
+    for step in range(3):
+        x = rng.normal(size=(batch, 32, 32, 3)).astype(np.float32)
+        y = rng.integers(0, 10, size=batch)
+        jstate, jloss = jt.train_step(jstate, *jt.put_batch(
+            x, y.astype(np.int32)))
+        jax.effects_barrier()
+        with monkeypatch.context() as patch:
+            forced = force_port_relus(patch.setattr, [
+                store[site][step] for site in sorted(store)])
+            state, loss = tt.train_step(
+                state, torch.from_numpy(x).permute(0, 3, 1, 2),
+                torch.from_numpy(y))
+        assert forced.sites == len(store)
+        assert max(forced.moved, default=0.0) < BAND
+        np.testing.assert_allclose(float(loss),
+                                   np.asarray(jloss).reshape(-1)[0],
+                                   rtol=RTOL, atol=ATOL)
+    want = image_params_from_jax(tt.model, _host(jt.params_to_host(jstate)),
+                                 device="cpu")
+    got = tt.model.state_dict()
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    assert tt.state_to_host(state)["params"].keys() == \
+        jt.state_to_host(jstate)["params"].keys()
+
+
+@pytest.mark.parametrize("preset,synth,seen", [
+    ("resnet50_imagenet", "8", 8), ("vit_cifar10", "32", 32)])
+def test_new_presets_run_part_on_cpu(preset, synth, seen, monkeypatch,
+                                     capsys):
+    """``run_part("part1", ["--config", preset, "--device", "cpu"])`` at
+    tiny env sizes, both kernel knobs (their plain versions here): one
+    iteration, then the test-set pass (ResNet-50 at full width and 224 px
+    on the synthetic ImageNet stand-in)."""
+    from tpu_ddp_torch.parts import run_part
+    for name, value in (("TPU_DDP_MAX_ITERS", "1"),
+                        ("TPU_DDP_SYNTH_SIZE", synth),
+                        ("TPU_DDP_GLOBAL_BATCH", "2"),
+                        ("TPU_DDP_COMPUTE_DTYPE", "float32"),
+                        ("TPU_DDP_PALLAS_SGD", "1"),
+                        ("TPU_DDP_PALLAS_BN", "1")):
+        monkeypatch.setenv(name, value)
+    monkeypatch.delenv("IMAGENET_DIR", raising=False)
+    assert run_part("part1", ["--config", preset, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[part1] strategy=none world_size=1" in out
+    assert "platform=cpu" in out
+    m = re.search(r"Test set: average loss (\S+), accuracy \d+/(\d+)", out)
+    assert m and np.isfinite(float(m.group(1)))
+    assert int(m.group(2)) == seen
+    if preset == "resnet50_imagenet":
+        assert "ImageNet train split not found" in out
+
+
+def test_run_part_refuses_other_channel_counts(monkeypatch):
+    """``in_channels`` reaches the model, and a count the loaders cannot
+    give (both give RGB) raises before any data is loaded."""
+    from tpu_ddp_torch.parts import run_part
+    from tpu_ddp_torch.utils import config
+    monkeypatch.setitem(config.PRESETS, "gray", dict(in_channels=1))
+    with pytest.raises(ValueError, match="in_channels=1"):
+        run_part("part1", ["--config", "gray", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("part", ["part4", "part5"])
+def test_sharded_parts_need_num_nodes(part, capsys):
+    """As in the JAX CLI (parts/common.py: every part but part 1), parts 4
+    and 5 without --num-nodes exit 2 with argparse's error, before any
+    rendezvous."""
+    from parts.common import parse_arguments as jax_parse
+    from tpu_ddp_torch.parts import run_part
+    with pytest.raises(SystemExit) as jax_exit:
+        jax_parse([], require_num_nodes=True)
+    with pytest.raises(SystemExit) as port_exit:
+        run_part(part, ["--device", "cpu"])
+    assert port_exit.value.code == jax_exit.value.code == 2
+    assert "--num-nodes" in capsys.readouterr().err

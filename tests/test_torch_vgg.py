@@ -1,6 +1,6 @@
 """The port's VGG (tpu_ddp_torch/models/vgg.py) held against the JAX
 package's ``VGGModel.apply`` in f32 on the same weights (through
-``convert.vgg_params_from_jax``) and the same numpy-seeded images, with
+``convert.image_params_from_jax``) and the same numpy-seeded images, with
 ``use_pallas_bn`` on (the JAX side's Pallas kernel in interpret mode) and
 off.
 
@@ -19,7 +19,7 @@ import torch
 from tpu_ddp.models.vgg import VGGModel as JaxVGG, batch_norm as jax_bn
 from tpu_ddp.models.vgg import make_vgg as jax_make_vgg
 from tpu_ddp.ops.loss import cross_entropy_loss as jax_ce
-from tpu_ddp_torch.convert import vgg_params_from_jax, vgg_params_to_jax
+from tpu_ddp_torch.convert import image_params_from_jax, image_params_to_jax
 from tpu_ddp_torch.models.vgg import (VGGModel, batch_norm, get_model,
                                       make_vgg)
 from tpu_ddp_torch.ops.loss import cross_entropy_loss
@@ -39,7 +39,7 @@ def _pair(name, cfg, pallas_bn):
         tm = VGGModel(name, cfg, compute_dtype=torch.float32,
                       use_pallas_bn=pallas_bn)
     jp = jm.init(jax.random.key(89395))
-    tm.load_state_dict(vgg_params_from_jax(
+    tm.load_state_dict(image_params_from_jax(
         tm, jax.tree.map(np.asarray, jp), device="cpu"))
     return jm, jp, tm
 
@@ -62,7 +62,7 @@ def test_logits_and_grads_match_jax(name, cfg, batch, pallas_bn):
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
                                rtol=1e-4, atol=1e-5)
     cross_entropy_loss(logits, torch.from_numpy(y)).backward()
-    want = vgg_params_from_jax(tm, jax.tree.map(np.asarray, jgrads),
+    want = image_params_from_jax(tm, jax.tree.map(np.asarray, jgrads),
                                device="cpu")
     got = dict(tm.named_parameters())
     assert set(want) == set(got)
@@ -85,7 +85,7 @@ def test_knob_off_batch_norm_matches_jax():
 
 def test_converter_round_trip_and_checks():
     jm, jp, tm = _pair("narrow", NARROW, False)
-    back = vgg_params_to_jax(tm)
+    back = image_params_to_jax(tm)
     want = jax.tree.map(np.asarray, jp)
     assert jax.tree.structure(back) == jax.tree.structure(want)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
@@ -93,7 +93,7 @@ def test_converter_round_trip_and_checks():
     bad = jax.tree.map(np.asarray, jp)
     bad["features"][1]["kernel"] = bad["features"][1]["kernel"][:, :, :-1]
     with pytest.raises(ValueError, match="features/1/kernel"):
-        vgg_params_from_jax(tm, bad, device="cpu")
+        image_params_from_jax(tm, bad, device="cpu")
 
 
 def test_vgg11_shape_and_size():
@@ -102,8 +102,10 @@ def test_vgg11_shape_and_size():
     assert len(list(m.parameters())) == 34
     jm = jax_make_vgg("VGG11")
     assert m.num_params() == jm.num_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("ResNet50")
+    # vgg.get_model is the model registry: every JAX image model name.
+    assert get_model("ResNet50").name == "ResNet50"
+    with pytest.raises(ValueError, match="available"):
+        get_model("VGG12")
 
 
 def test_activations_stay_channels_last():

@@ -7,12 +7,15 @@ with the shape :meth:`TransformerLM.param_shapes` gives, and lands as a
 tensor of the model's ``param_dtype`` on ``device``. :func:`params_to_jax`
 is the way back (numpy f32 leaves).
 
-VGG: the JAX model's conv kernels are HWIO and the port's OIHW; each
-unit's ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``;
-the head keeps its (C, classes) layout. :func:`vgg_params_from_jax` and
-:func:`vgg_params_to_jax` are checked copies both ways, and
-:func:`vgg_momentum_to_jax`/:func:`vgg_momentum_from_jax` carry SGD's
-momentum (a leaf list in parameter order) through the same
+The image models (VGG, ResNet, ViT) share one canonical view,
+:class:`CanonicalView`: the JAX tree's leaf order and layouts. The JAX
+models' conv kernels are HWIO and the port's OIHW; each conv's
+``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``; heads
+keep their (C, classes) layout and ViT keeps every JAX layout.
+:func:`image_params_from_jax` and :func:`image_params_to_jax` (also
+``resnet_params_*`` and ``vit_params_*``) are checked copies both ways,
+and :func:`image_momentum_to_jax`/:func:`image_momentum_from_jax` carry
+SGD's momentum (a leaf list in parameter order) through the same
 transpositions. :func:`opt_state_to_jax` and :func:`opt_state_from_jax`
 carry any of the LM trainer's optimizer states (AdamW's ``mu``/``nu``,
 Adafactor's ``vr``/``vc``/``v``/``mu`` with their reduced shapes and
@@ -82,111 +85,37 @@ def _checked(path, arr, want):
     return arr
 
 
-def vgg_params_from_jax(model, tree, device=None) -> dict:
-    """Map a JAX VGG tree (``{"features": ({"kernel", "bias",
-    "bn_scale", "bn_bias"}, ...), "head": {"kernel", "bias"}}`` of numpy
-    arrays) to a state dict for ``model`` (a port ``VGGModel``) on
-    ``device`` (``None`` means ``"cuda"``): load it with
-    ``model.load_state_dict``. Any pytree of the same structure converts,
-    gradients included."""
-    dev = resolve_device(device)
-    feats = tree["features"]
-    if len(feats) != len(model.features):
-        raise ValueError(f"params/features: expected {len(model.features)}"
-                         f" conv units, got {len(feats)}")
-    out = {}
-    for i, (unit, leaf) in enumerate(zip(model.features, feats)):
-        o, c_in = unit.weight.shape[:2]
-        pre = f"params/features/{i}"
-        kernel = _checked(f"{pre}/kernel", leaf["kernel"], (3, 3, c_in, o))
-        out.update({
-            f"features.{i}.weight": kernel.transpose(3, 2, 0, 1),
-            f"features.{i}.bias": _checked(f"{pre}/bias", leaf["bias"], (o,)),
-            f"features.{i}.bn.weight": _checked(f"{pre}/bn_scale",
-                                                leaf["bn_scale"], (o,)),
-            f"features.{i}.bn.bias": _checked(f"{pre}/bn_bias",
-                                              leaf["bn_bias"], (o,)),
-        })
-    head = tree["head"]
-    out["head.weight"] = _checked("params/head/kernel", head["kernel"],
-                                  model.head.weight.shape)
-    out["head.bias"] = _checked("params/head/bias", head["bias"],
-                                model.head.bias.shape)
-    return {k: torch.as_tensor(np.array(v, np.float32, order="C")).to(
-        device=dev, dtype=model.param_dtype) for k, v in out.items()}
+class CanonicalView:
+    """An image model's parameters (VGG, ResNet or ViT) in the JAX
+    package's leaf order and layouts: the canonical view the converters,
+    checkpoints, the flat ZeRO/FSDP layout, the bucket plan and the
+    gradient wires work on, so their trees, shards and payloads hold the
+    JAX package's bytes.
 
-
-def vgg_params_to_jax(model) -> dict:
-    """The port ``VGGModel``'s parameters as a JAX VGG tree of numpy f32
-    arrays (HWIO kernels), for ``tpu_ddp``'s ``VGGModel.apply``."""
-    return vgg_momentum_to_jax(model, list(model.parameters()))
-
-
-def vgg_momentum_to_jax(model, momentum) -> dict:
-    """A leaf list in ``model.parameters()`` order (SGD momentum, or the
-    parameters themselves) as a JAX VGG tree of numpy f32 arrays: each
-    leaf goes through its parameter's transposition (OIHW -> HWIO for the
-    conv kernels), as the JAX optimizer's momentum mirrors its params."""
-    names = [name for name, _ in model.named_parameters()]
-    if len(momentum) != len(names):
-        raise ValueError(f"{len(momentum)} leaves for {len(names)} "
-                         "parameters")
-    by_name = dict(zip(names, momentum))
-
-    def arr(name):
-        return by_name[name].detach().to("cpu", torch.float32).numpy().copy()
-
-    feats = tuple({
-        "kernel": np.ascontiguousarray(
-            arr(f"features.{i}.weight").transpose(2, 3, 1, 0)),
-        "bias": arr(f"features.{i}.bias"),
-        "bn_scale": arr(f"features.{i}.bn.weight"),
-        "bn_bias": arr(f"features.{i}.bn.bias"),
-    } for i in range(len(model.features)))
-    return {"features": feats,
-            "head": {"kernel": arr("head.weight"), "bias": arr("head.bias")}}
-
-
-def vgg_momentum_from_jax(model, tree, device=None) -> list:
-    """A JAX VGG tree (momentum, or any tree shaped like the params) as a
-    leaf list in ``model.parameters()`` order on ``device`` (``None``
-    means ``"cuda"``): the inverse of :func:`vgg_momentum_to_jax`."""
-    sd = vgg_params_from_jax(model, tree, device)
-    return [sd[name] for name, _ in model.named_parameters()]
-
-
-class VGGCanon:
-    """A port ``VGGModel``'s parameters in the JAX package's leaf order
-    and layouts: the canonical view the flat ZeRO/FSDP layout, the
-    bucket plan and the gradient wires work on, so their shards and
-    payloads hold the JAX package's bytes. The order is JAX's pytree
-    flatten of the VGG tree (per unit ``bias``, ``bn_bias``,
-    ``bn_scale``, ``kernel``; then the head's ``bias``, ``kernel``);
-    conv kernels are HWIO (the port's are OIHW)."""
-
-    _UNIT = (("bias", "bias"), ("bn_bias", "bn.bias"),
-             ("bn_scale", "bn.weight"), ("kernel", "weight"))
+    The model names each parameter's JAX tree path and layout
+    (``model.jax_leaf_paths()``); the order is JAX's pytree flatten of
+    that tree (dict keys sorted, tuple entries in order), so it is the
+    paths sorted: VGG per unit ``bias``, ``bn_bias``, ``bn_scale``,
+    ``kernel``, then the head; ResNet the head, the stages, the stem,
+    each conv's ``bn_bias``, ``bn_scale``, ``kernel``; ViT the blocks,
+    ``head``, ``ln_f``, ``patch``, ``pos``. Conv kernels are HWIO in the
+    view (the port's are OIHW); every other leaf is the port's
+    tensor."""
 
     def __init__(self, model):
-        names = [n for n, _ in model.named_parameters()]
-        order, self.paths = [], []
-        for i in range(len(model.features)):
-            for key, attr in self._UNIT:
-                order.append(f"features.{i}.{attr}")
-                self.paths.append(("features", i, key))
-        for key, attr in (("bias", "bias"), ("kernel", "weight")):
-            order.append(f"head.{attr}")
-            self.paths.append(("head", key))
-        self.names = order
-        self.port_index = [names.index(n) for n in order]
-        shapes = dict((n, tuple(p.shape))
-                      for n, p in model.named_parameters())
-        self.kernel = [p[0] == "features" and p[2] == "kernel"
-                       for p in self.paths]
-        self.shapes = [
-            (s[2], s[3], s[1], s[0]) if k else s
-            for s, k in ((shapes[n], k) for n, k in zip(order,
-                                                        self.kernel))]
+        named = [n for n, _ in model.named_parameters()]
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        entries = sorted(model.jax_leaf_paths(), key=lambda e: e[1])
+        if sorted(e[0] for e in entries) != sorted(named):
+            raise ValueError(f"{type(model).__name__}.jax_leaf_paths() "
+                             "does not name every parameter once")
+        self.names = [e[0] for e in entries]
+        self.paths = [e[1] for e in entries]
+        self.kernel = [e[2] == "conv" for e in entries]
+        self.port_index = [named.index(n) for n in self.names]
+        self.shapes = [(s[2], s[3], s[1], s[0]) if k else s
+                       for s, k in ((shapes[n], k) for n, k in
+                                    zip(self.names, self.kernel))]
 
     def leaves(self, tensors) -> list:
         """Tensors in ``model.parameters()`` order (params, grads or
@@ -203,29 +132,92 @@ class VGGCanon:
         """Canonical leaf ``i`` -> the port's layout (contiguous)."""
         return t.permute(3, 2, 0, 1).contiguous() if self.kernel[i] else t
 
-    def tree(self, leaves) -> dict:
-        """Canonical leaves (numpy) -> the JAX VGG tree."""
-        n_units = (len(leaves) - 2) // 4
-        feats = tuple({} for _ in range(n_units))
-        head = {}
+    def tree(self, leaves):
+        """Canonical leaves (numpy, or any leaf objects) -> the JAX
+        tree: dicts by key, tuples where the keys are indices."""
+        root = {}
         for path, leaf in zip(self.paths, leaves):
-            if path[0] == "features":
-                feats[path[1]][path[2]] = leaf
-            else:
-                head[path[1]] = leaf
-        return {"features": feats, "head": head}
+            node = root
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf
+        return _tuples(root)
 
     def from_tree(self, tree, lead: tuple = ()) -> list:
-        """The JAX VGG tree -> canonical leaves (numpy), each checked to
-        be ``lead + shape`` (``lead=(dp,)``: the int8 wire's residual)."""
+        """The JAX tree -> canonical leaves (numpy), each checked to be
+        ``lead + shape`` (``lead=(dp,)``: the int8 wire's residual)."""
         out = []
         for path, want in zip(self.paths, self.shapes):
+            where = "params/" + "/".join(map(str, path))
             node = tree
-            for key in path:
-                node = node[key]
-            out.append(_checked("params/" + "/".join(map(str, path)),
-                                node, tuple(lead) + want))
+            try:
+                for key in path:
+                    node = node[key]
+            except (KeyError, IndexError, TypeError):
+                raise ValueError(f"{where}: missing from the tree") from None
+            out.append(_checked(where, node, tuple(lead) + want))
         return out
+
+
+def _tuples(node):
+    if not isinstance(node, dict):
+        return node
+    out = {k: _tuples(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return tuple(out[i] for i in range(len(out)))
+    return out
+
+
+def image_params_from_jax(model, tree, device=None) -> dict:
+    """Map a JAX parameter tree of an image model (VGG, ResNet or ViT;
+    nested dicts and tuples of numpy arrays) to a state dict for the
+    port's ``model`` on ``device`` (``None`` means ``"cuda"``): load it
+    with ``model.load_state_dict``. Every leaf is checked against the
+    model's shape; conv kernels go HWIO -> OIHW, and each conv's
+    ``bn_scale``/``bn_bias`` become its BN unit's ``weight``/``bias``.
+    Any pytree of the same structure converts, gradients included."""
+    dev = resolve_device(device)
+    canon = CanonicalView(model)
+    out = {}
+    for i, arr in enumerate(canon.from_tree(tree)):
+        t = torch.as_tensor(np.array(arr, np.float32, order="C"))
+        out[canon.names[i]] = canon.to_port(i, t).to(
+            device=dev, dtype=model.param_dtype)
+    names = [n for n, _ in model.named_parameters()]
+    return {n: out[n] for n in names}
+
+
+def image_params_to_jax(model) -> dict:
+    """The port model's parameters as the JAX model's tree of numpy f32
+    arrays (HWIO conv kernels), for ``tpu_ddp``'s ``apply``."""
+    return image_momentum_to_jax(model, list(model.parameters()))
+
+
+def image_momentum_to_jax(model, momentum) -> dict:
+    """A leaf list in ``model.parameters()`` order (SGD momentum, or the
+    parameters themselves) as the JAX model's tree of numpy f32 arrays:
+    each leaf through its parameter's transposition, as the JAX
+    optimizer's momentum mirrors its params."""
+    canon = CanonicalView(model)
+    if len(momentum) != len(canon.names):
+        raise ValueError(f"{len(momentum)} leaves for {len(canon.names)} "
+                         "parameters")
+    return canon.tree([np.array(t.detach().to("cpu", torch.float32)
+                                .numpy(), order="C", copy=True)
+                       for t in canon.leaves(momentum)])
+
+
+def image_momentum_from_jax(model, tree, device=None) -> list:
+    """The inverse of :func:`image_momentum_to_jax`: a JAX tree shaped
+    like the params as a leaf list in ``model.parameters()`` order on
+    ``device`` (``None`` means ``"cuda"``)."""
+    sd = image_params_from_jax(model, tree, device)
+    return [sd[name] for name, _ in model.named_parameters()]
+
+
+# ResNet's and ViT's converters keep the names the README gives them.
+resnet_params_from_jax = vit_params_from_jax = image_params_from_jax
+resnet_params_to_jax = vit_params_to_jax = image_params_to_jax
 
 
 def opt_slot_shapes(optimizer, shapes) -> dict:

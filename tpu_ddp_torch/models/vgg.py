@@ -174,6 +174,22 @@ class VGGModel(nn.Module):
         uniform(self.head.bias, self.head.weight.shape[0])
         return self
 
+    def jax_leaf_paths(self) -> list:
+        """``(port parameter name, JAX tree path, layout)`` of every
+        parameter; ``"conv"`` marks an OIHW kernel that is HWIO in JAX
+        (convert.CanonicalView)."""
+        out = []
+        for i in range(len(self.features)):
+            out += [(f"features.{i}.weight", ("features", i, "kernel"),
+                     "conv"),
+                    (f"features.{i}.bias", ("features", i, "bias"), None),
+                    (f"features.{i}.bn.weight", ("features", i, "bn_scale"),
+                     None),
+                    (f"features.{i}.bn.bias", ("features", i, "bn_bias"),
+                     None)]
+        return out + [("head.weight", ("head", "kernel"), None),
+                      ("head.bias", ("head", "bias"), None)]
+
     def stage_plan(self) -> tuple:
         """``((n_convs, pool_after), ...)``: one entry per between-pool
         group of ``cfg``, the region under ``remat="conv_stages"``."""
@@ -249,14 +265,7 @@ def vgg19(**kw):
     return make_vgg("VGG19", **kw)
 
 
-def get_model(name: str, **kwargs) -> VGGModel:
-    """Look up a model factory by name (``tpu_ddp.models.get_model``);
-    the port has the VGG family so far."""
-    factories = {"VGG11": vgg11, "VGG13": vgg13, "VGG16": vgg16,
-                 "VGG19": vgg19}
-    if name not in factories:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to tpu_ddp_torch yet (ROADMAP "
-            "Queue 1 items 9.10 and 10); available: "
-            f"{sorted(factories)}")
-    return factories[name](**kwargs)
+def get_model(name: str, **kwargs):
+    """The model registry, ``tpu_ddp_torch.models.get_model``."""
+    from tpu_ddp_torch.models import get_model as registry
+    return registry(name, **kwargs)

@@ -2,7 +2,8 @@
 per-node launch contract (README.md:8-19)::
 
     python -m tpu_ddp_torch.parts partN --num-nodes N [--rank R
-        --master-ip IP --master-port P] [--device cuda|cpu]
+        --master-ip IP --master-port P] [--config NAME]
+        [--device cuda|cpu]
 
 with the same defaults (master 10.10.1.1:4000, rank from a ``nodeN``
 hostname), batch math (per node ``int(256/num_nodes)``), seed (89395),
@@ -11,7 +12,11 @@ process drives one device: ``--device`` (default: the card; ``cpu`` runs
 the plain versions of the kernels over gloo). The shrink knobs
 ``TPU_DDP_MAX_ITERS``, ``TPU_DDP_GLOBAL_BATCH``, ``TPU_DDP_SYNTH_SIZE``
 and ``TPU_DDP_COMPUTE_DTYPE`` and the kernel knobs ``TPU_DDP_PALLAS_SGD``
-and ``TPU_DDP_PALLAS_BN`` work as in the JAX package.
+and ``TPU_DDP_PALLAS_BN`` work as in the JAX package. ``--config`` picks
+a preset: ``vgg11_cifar10`` (the reference ladder, the default),
+``resnet50_imagenet`` (ResNet-50 on ImageNet, or its synthetic stand-in)
+or ``vit_cifar10`` (ViT-tiny, on ``full_attention`` as the JAX CLI runs
+it).
 
 ``--ckpt-dir D`` writes a checkpoint at every epoch's end (and every
 ``TPU_DDP_CKPT_EVERY`` steps); ``--resume`` restores the newest verified
@@ -28,8 +33,8 @@ import sys
 
 def parse_arguments(argv=None, require_num_nodes: bool = False):
     """The reference's flag surface (part2/part2a/main.py:20-32) plus
-    ``--device``. ``--num-nodes`` is required for the distributed parts
-    and defaults to 1 for part1."""
+    ``--device``. ``--num-nodes`` is required for every part but part 1,
+    where it defaults to 1 (the JAX CLI's contract)."""
     p = argparse.ArgumentParser()
     p.add_argument("--master-ip", type=str, default="10.10.1.1",
                    help="rendezvous coordinator IP (rank 0's)")
@@ -43,11 +48,15 @@ def parse_arguments(argv=None, require_num_nodes: bool = False):
                    help="process rank; default inferred from hostname "
                         "nodeN (reference part2/part2a/main.py:35-39)")
     p.add_argument("--data-root", type=str, default=None,
-                   help="CIFAR-10 batches dir (default: search standard "
-                        "paths, fall back to synthetic)")
+                   help="dataset root: CIFAR-10 batches dir, or ImageNet "
+                        "numpy-shard dir ({split}_images.npy/"
+                        "{split}_labels.npy) for --config "
+                        "resnet50_imagenet (default: search standard "
+                        "paths / IMAGENET_DIR, fall back to synthetic)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--config", type=str, default="vgg11_cifar10",
-                   help="named run preset (the port has vgg11_cifar10)")
+                   help="named run preset: vgg11_cifar10, "
+                        "resnet50_imagenet or vit_cifar10")
     p.add_argument("--ckpt-dir", type=str, default=None,
                    help="checkpoint directory (epoch ends, and every "
                         "TPU_DDP_CKPT_EVERY steps)")
@@ -65,8 +74,9 @@ def parse_arguments(argv=None, require_num_nodes: bool = False):
 def run_part(part: str, argv=None):
     """Wire one part (the reference's ``main()``,
     part2/part2b/main.py:169-195) and run train + eval."""
+    from tpu_ddp_torch.data.imagenet import create_imagenet_loaders
     from tpu_ddp_torch.data.loader import create_data_loaders
-    from tpu_ddp_torch.models.vgg import get_model
+    from tpu_ddp_torch.models import get_model
     from tpu_ddp_torch.parallel.bootstrap import (
         get_rank_from_hostname, init_distributed_setup, shutdown,
         test_distributed_setup)
@@ -76,10 +86,7 @@ def run_part(part: str, argv=None):
 
     strategy = canonical_strategy(part)
     distributed = part != "part1"
-    # Parts 4 and 5 run at one process too (their layouts are then the
-    # identity), so --num-nodes defaults to 1 there.
-    args = parse_arguments(argv, require_num_nodes=part in (
-        "part2a", "part2b", "part3"))
+    args = parse_arguments(argv, require_num_nodes=distributed)
     refuse_unported_env()
     world_size = args.num_nodes or 1
     if world_size <= 1:
@@ -106,13 +113,24 @@ def run_part(part: str, argv=None):
     if cfg.cudnn_deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+    if cfg.in_channels != 3:
+        raise ValueError(f"in_channels={cfg.in_channels}: the CIFAR-10 and "
+                         "ImageNet loaders give 3-channel (RGB) images")
     batch_size = cfg.per_node_batch_size(world_size)
-    train_loader, test_loader = create_data_loaders(
-        rank=rank, world_size=world_size, batch_size=batch_size,
-        root=args.data_root, seed=cfg.seed)
+    if cfg.dataset == "imagenet":
+        train_loader, test_loader = create_imagenet_loaders(
+            rank=rank, world_size=world_size, batch_size=batch_size,
+            root=args.data_root, seed=cfg.seed,
+            image_size=cfg.image_size, num_classes=cfg.num_classes)
+    else:
+        train_loader, test_loader = create_data_loaders(
+            rank=rank, world_size=world_size, batch_size=batch_size,
+            root=args.data_root, seed=cfg.seed)
     model = get_model(cfg.model, num_classes=cfg.num_classes,
+                      in_channels=cfg.in_channels,
                       use_pallas_bn=cfg.pallas_bn,
-                      compute_dtype=getattr(torch, cfg.compute_dtype))
+                      compute_dtype=getattr(torch, cfg.compute_dtype),
+                      remat=cfg.remat, act_dtype=cfg.act_dtype)
     trainer = Trainer(model, cfg, strategy=strategy, device=ctx.device)
     start_epoch = start_iter = 0
     if args.resume:

@@ -33,7 +33,8 @@ for the forward inside an autograd function whose backward
 reduce-scatters the gradients (``ZeRO3``); the model runs on the
 gathered leaves through ``torch.func.functional_call``, so the BN+ReLU
 kernels stay on its path. Both work in the JAX package's leaf order and
-layouts (``convert.VGGCanon``), so a rank's shards are JAX's bytes. The
+layouts (``convert.CanonicalView``, built from the model: VGG, ResNet or
+ViT), so a rank's shards are JAX's bytes. The
 config's ``grad_compress`` wraps every syncing rung with a bf16 or int8
 wire (parallel/compress.py; the int8 carry lives in
 ``TrainState.comp_state``, is checkpointed and rolls back on a skipped
@@ -61,7 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_ddp_torch.convert import VGGCanon
+from tpu_ddp_torch.convert import CanonicalView
 from tpu_ddp_torch.ops.loss import cross_entropy_loss
 from tpu_ddp_torch.ops.metrics import top1_correct
 from tpu_ddp_torch.memory.policy import apply_policy
@@ -163,7 +164,10 @@ class Trainer:
         self.strategy_name = strategy
         self.strategy = canonical_strategy(strategy)
         self.sync_fn = get_sync_strategy(strategy)
-        if self.model.use_pallas_bn != self.config.pallas_bn:
+        # A model without BatchNorm (ViT) carries no use_pallas_bn: its
+        # factory takes the knob and drops it, as the JAX one does.
+        bn = getattr(self.model, "use_pallas_bn", None)
+        if bn is not None and bn != self.config.pallas_bn:
             raise ValueError(
                 f"model built with use_pallas_bn={self.model.use_pallas_bn}"
                 f" but config.pallas_bn={self.config.pallas_bn}")
@@ -188,7 +192,7 @@ class Trainer:
         self._group = dist.group.WORLD if self.strategy != "none" else None
         self.is_zero = self.strategy == "zero"
         self.is_fsdp = self.strategy == "fsdp"
-        self._canon = VGGCanon(self.model)
+        self._canon = CanonicalView(self.model)
         self.optimizer = SGD(learning_rate=self.config.learning_rate,
                              momentum=self.config.momentum,
                              weight_decay=self.config.weight_decay,
@@ -357,8 +361,8 @@ class Trainer:
         return [self._np(t) for t in self._canon.leaves(state.params)]
 
     def params_to_host(self, state: TrainState) -> dict:
-        """The parameters as the JAX package's VGG tree of numpy arrays
-        (HWIO kernels); under FSDP a collective every rank enters."""
+        """The parameters as the JAX model's tree of numpy arrays (HWIO
+        conv kernels); under FSDP a collective every rank enters."""
         return self._canon.tree(self._canonical_params(state))
 
     def state_to_host(self, state: TrainState) -> dict:

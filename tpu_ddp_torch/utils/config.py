@@ -1,8 +1,8 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
-``TrainConfig`` that the port's slices use (serving, the VGG training
-ladder with its gradient wires and bucketed overlap, checkpoints, the
-step guard and the memory policy), with the
-same names, defaults,
+``TrainConfig`` that the port's slices use (serving, the image trainer's
+models and datasets, the training ladder with its gradient wires and
+bucketed overlap, checkpoints, the step guard and the memory policy),
+with the same names, defaults,
 ``TPU_DDP_*`` env variables and validation, so a knob means the same
 thing in both packages.
 
@@ -126,9 +126,12 @@ def refuse_cp_prefill(mode: str) -> None:
 class TrainConfig:
     """One run's configuration (defaults = the reference's)."""
 
-    # Model (the data is CIFAR-10, the only dataset ported).
+    # Model / data.
     model: str = "VGG11"
     num_classes: int = 10
+    image_size: int = 32
+    in_channels: int = 3              # run_part's loaders give 3 only
+    dataset: str = "cifar10"          # "cifar10" | "imagenet"
 
     # Optimizer: SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
     # (reference part1/main.py:124-125). A schedule ``step -> lr``
@@ -253,6 +256,13 @@ class TrainConfig:
     cp_prefill: str = "off"
 
     def __post_init__(self):
+        if self.dataset not in DATASETS:
+            raise ValueError(f"dataset={self.dataset!r}: expected one of "
+                             f"{'|'.join(DATASETS)}")
+        if self.image_size < 1 or self.in_channels < 1:
+            raise ValueError(
+                f"image_size={self.image_size}, in_channels="
+                f"{self.in_channels}: both must be >= 1")
         if self.max_iters is None:
             env = os.environ.get("TPU_DDP_MAX_ITERS")
             if env:
@@ -448,10 +458,6 @@ class TrainConfig:
     @classmethod
     def preset(cls, name: str, **overrides) -> "TrainConfig":
         """Named run configurations (the JAX package's ``PRESETS``)."""
-        if name in _UNPORTED_PRESETS:
-            raise NotImplementedError(
-                f"preset {name!r} is not ported to tpu_ddp_torch yet "
-                f"(ROADMAP Queue 1 {_UNPORTED_PRESETS[name]})")
         try:
             base = dict(PRESETS[name])
         except KeyError:
@@ -462,11 +468,14 @@ class TrainConfig:
         return cls(**base)
 
 
-# The reference ladder's configuration.
+# The datasets run_part can load (parts/common.py dispatches on them).
+DATASETS = ("cifar10", "imagenet")
+
+# The reference ladder's configuration, the ResNet-50 / ImageNet-1k
+# scale-up and ViT on CIFAR-10 (tpu_ddp/utils/config.py PRESETS).
 PRESETS = {
     "vgg11_cifar10": {},
-}
-_UNPORTED_PRESETS = {
-    "resnet50_imagenet": "item 9.10 (models/resnet.py, data/imagenet.py)",
-    "vit_cifar10": "item 9.10 (models/vit.py)",
+    "resnet50_imagenet": dict(model="ResNet50", num_classes=1000,
+                              image_size=224, dataset="imagenet"),
+    "vit_cifar10": dict(model="ViT-tiny"),
 }
