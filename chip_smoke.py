@@ -344,14 +344,38 @@ Phases 35-37 run the image trainer's last model families:
    three kernels at both presets' calls, non-causal, held to their plain
    versions and timed beside their bounds and SDPA's flash backend.
 
+38. the dispatch window: ``vgg11_cifar10`` part 1 through ``run_part``
+   (batch 256, bf16, both kernels, cuDNN deterministic), 60 iterations,
+   at ``TPU_DDP_DISPATCH_DEPTH`` 0, 2 and 4: loss lines, test line and
+   the epoch-end checkpoint's digests the same at every depth, launches
+   exact, forced syncs at most ceil(20 / depth) + 1 (read back from each
+   run's ``TPU_DDP_METRICS_FILE``); then one trainer's epoch loop at each
+   depth, traced and untraced: ms per iteration, host gap, idle share;
+39. K steps per dispatch: VGG-11 at K = 4 (3 groups) and 8 (2 groups),
+   each group one CUDA graph replay, the losses, params and momentum the
+   same bits as K * N eager steps, the counts exact (one warm-up step and
+   one captured group counted; replays reported), a skipped replay and a
+   stale staging buffer each breaking the bitwise gate, a poisoned batch
+   inside a group skipped as the eager step skips it; ms per iteration
+   from ``stop_many`` at K = 1, 4, 8, the capture's ms and a traced
+   window; ViT-tiny on the flash kernels at K = 4, bit for bit, flash
+   counts exact;
+40. the loop's host side: ``prefetch_to_device`` (pinned, a copy stream)
+   gives the loader's batches on the card, the native loader gives the
+   numpy loader's (within 1e-6) and the one-shot C++ transform's,
+   ``TPU_DDP_PROFILE_DIR`` writes a trace holding the kernels,
+   ``bench_collectives`` at world 1 over NCCL (outputs checked), and
+   ``mfu_fields`` with the H100's peak gives phases 36-37's MFU.
+
 Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
 ``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
 each path of phases 21-26, the flash kernels' on phases 27-28's and 33's
 and the BN and SGD kernels' on phases 29's, 31's and 36's (SGD's on
-37's too), beside each main-path count; the BN, SGD and flash rows also
-carry their ResNet-50 and ViT times from phases 35-37), and
+37's too) and 38-39's (the flash kernels' on 39's ViT-tiny group),
+beside each main-path count; the BN, SGD and flash rows also carry
+their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -4910,6 +4934,602 @@ def vit_train(dev, gen) -> dict:
             "flash_kernels": kernels}
 
 
+# Phases 38-40: the loop's host side. Phase 38 runs vgg11_cifar10 at
+# 60 iterations (20 past the timing window, where steps stay in flight)
+# at each dispatch depth; phase 39 holds K steps per dispatch (one CUDA
+# graph replay per group) to K * N eager steps, bit for bit.
+DISPATCH_DEPTHS = (0, 2, 4)
+DISPATCH_SYNTH = 15360
+DISPATCH_ITERS = DISPATCH_SYNTH // 256
+DISPATCH_TRACED = 12
+GRAPH_GROUPS = {4: 3, 8: 2}    # K -> groups N held to K * N eager steps
+GRAPH_TIMED = 40               # iterations of the stop_many timing epochs
+HOST_ENV = dict(TPU_DDP_DISPATCH_DEPTH=None, TPU_DDP_STEPS_PER_DISPATCH=None,
+                TPU_DDP_PREFETCH=None, TPU_DDP_NATIVE_LOADER=None,
+                TPU_DDP_SHARD_EVAL=None, TPU_DDP_METRICS_FILE=None,
+                TPU_DDP_PROFILE_DIR=None)
+
+
+def _kernel_calls(prof, pats) -> int:
+    """How many device launches of kernels named by ``pats`` a trace
+    holds (graph replays' kernels included, where the tracer sees
+    them)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(p in e.key for p in pats))
+
+
+TRACE_MARK = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+@contextlib.contextmanager
+def _counting_trace(warm):
+    """A CUDA trace for counting a graph's replayed kernels: ``warm()``
+    runs first, then a marker kernel, then the body; count with
+    :func:`_calls_after_mark`. The tracer may lose the first records of
+    the first graph launch it sees (one full run lost a replay's first
+    38 kernels, its first three BN sites), so ``warm`` replays a group
+    and undoes it, and only what follows the marker is counted."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm()
+        torch.cuda._sleep(1000)
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _calls_after_mark(prof, pats) -> int:
+    """Launches of kernels named by ``pats`` after the trace's marker
+    (one stream, so device order is launch order)."""
+    ev = sorted((e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.start_ns())
+    marks = [i for i, e in enumerate(ev) if TRACE_MARK in e.name()]
+    if len(marks) != 1:
+        fail(f"phase 39: {len(marks)} marker kernels in a counting trace")
+    return sum(1 for e in ev[marks[0] + 1:]
+               if any(p in e.name() for p in pats))
+
+
+def _warm_group(tr, state, start, batches, k) -> None:
+    """One K-step group replayed, then the state put back to ``start``."""
+    _graph_run(tr, state, batches[:k], k)
+    _restore_all(state, start)
+
+
+def _vgg_wrappers():
+    from tpu_ddp_torch.ops import sgd as tsgd
+    return {**_bn_wrappers(), "sgd": tsgd.fused_sgd_step}
+
+
+def _vgg_want(steps: int, forward_only: int = 0) -> dict:
+    """VGG-11's exact counts: 8 BN sites, one SGD launch per step."""
+    fwd = 8 * (steps + forward_only)
+    return {"sgd": steps,
+            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
+            "bn_bwd_dx": 8 * steps,
+            "bn_stats": {"one_pass": fwd, "two_stage": 0},
+            "bn_norm_relu": fwd}
+
+
+def _epoch_record(path) -> dict:
+    with open(path) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    if not lines or any({"ts", "rank", "event"} - set(ln) for ln in lines):
+        fail(f"metrics file {path}: lines without ts/rank/event")
+    events = [ln["event"] for ln in lines]
+    if events.count("epoch") != 1 or events.count("eval") != 1 \
+            or "train_iter" not in events:
+        fail(f"metrics file {path}: events {events}")
+    return next(ln for ln in lines if ln["event"] == "epoch")
+
+
+def _traced_epoch(tr, state, batches, sgd_per_step: float) -> tuple:
+    """One train_epoch under the profiler: (state, wall ms per iteration,
+    the device's busy ms per iteration, idle share, SGD launches the
+    trace saw per iteration)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = tr.train_epoch(state, batches, log=lambda s: None)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(_device_us(prof).values()) / 1e3
+    n = len(batches)
+    seen = _kernel_calls(prof, VGG_KERNELS["sgd"]) / n
+    return state, {"iters": n, "wall_ms_per_iter": wall / n,
+                   "device_ms_per_iter": busy / n,
+                   "device_idle_share": 1 - busy / wall,
+                   "sgd_launches_traced_per_iter": seen,
+                   "trace_sees_every_step": seen == sgd_per_step}
+
+
+def dispatch_window(dev) -> dict:
+    """Phase 38: vgg11_cifar10 part 1 through ``run_part`` at full width
+    (batch 256, bf16, both kernel knobs), 60 iterations, at dispatch
+    depth 0, 2 and 4 (cuDNN deterministic): the loss lines and the final
+    params and momentum (the epoch-end checkpoint's digests) the same
+    bits at every depth, launch counts exact, forced syncs at most
+    ceil(20 / depth) + 1 (the 20 untimed iterations, the final drain),
+    each run's JSONL metrics read back. Then the same trainer's epoch
+    loop at each depth under the profiler: ms per iteration, host gap
+    and the device's idle share."""
+    import itertools
+    import shutil
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    runs = {}
+    wrappers = _vgg_wrappers()
+    base = os.path.join(CKPT_ROOT, "dispatch")
+    try:
+        for depth in DISPATCH_DEPTHS:
+            ck = os.path.join(base, f"d{depth}")
+            metrics = os.path.join(base, f"metrics_d{depth}.jsonl")
+            _zero_launches(wrappers)
+            out = _part1(dev, ["--ckpt-dir", ck], **{
+                **HOST_ENV, "TPU_DDP_MAX_ITERS": None,
+                "TPU_DDP_SYNTH_SIZE": DISPATCH_SYNTH,
+                "TPU_DDP_CUDNN_DETERMINISTIC": 1,
+                "TPU_DDP_DISPATCH_DEPTH": depth,
+                "TPU_DDP_METRICS_FILE": metrics})
+            counts = _launches(wrappers)
+            test = re.search(r"accuracy \d+/(\d+)", out)
+            evals = math.ceil(int(test.group(1)) / 256)
+            want = _vgg_want(DISPATCH_ITERS, evals)
+            if counts != want:
+                fail(f"phase 38 depth {depth}: launches {counts}, expected "
+                     f"{want}")
+            rec = _epoch_record(metrics)
+            untimed = DISPATCH_ITERS - TRAIN_ITERS  # past iteration 39
+            bound = (DISPATCH_ITERS if depth == 0
+                     else math.ceil(untimed / depth) + 1)
+            if rec["dispatch_depth"] != depth or \
+                    rec["forced_syncs"] > bound or \
+                    rec["harvested"] != DISPATCH_ITERS:
+                fail(f"phase 38 depth {depth}: window stats {rec}, forced "
+                     f"syncs bound {bound}")
+            runs[depth] = {
+                "losses": re.findall(r"\] loss: (\S+)", out),
+                "test_line": re.search(r"Test set: .*", out).group(0),
+                "digests": _step_digests(ck, DISPATCH_ITERS),
+                "avg_iter_ms": _timer_ms(out), "launches": counts,
+                "window": {k: rec[k] for k in (
+                    "forced_syncs", "sync_deliveries", "host_gap_ms",
+                    "harvested", "max_in_flight")}}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    ref = runs[0]
+    for depth, run in runs.items():
+        for key in ("losses", "test_line", "digests"):
+            if run[key] != ref[key]:
+                fail(f"phase 38: depth {depth}'s {key} differ from depth "
+                     "0's")
+    for run in runs.values():
+        del run["digests"]
+    # The epoch loop of one trainer at each depth: the timing window off,
+    # so every step after the first may stay in flight.
+    tr = _phase_trainer(dev)
+    state = tr.init_state()
+    with _env(**PRESET_ENV):
+        train, _ = create_data_loaders(batch_size=256,
+                                       synthetic_size=2560)
+    host = list(itertools.islice(iter(train), 10))
+    batches = [host[i % len(host)] for i in range(DISPATCH_TRACED)]
+    tr.config.timing_first_iter, tr.config.timing_last_iter = 1, 0
+    state, _ = tr.train_epoch(state, batches[:4], log=lambda s: None)
+    traced = {}
+    for depth in DISPATCH_DEPTHS:
+        tr.config.dispatch_depth = depth
+        state, traced[depth] = _traced_epoch(tr, state, batches, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = tr.train_epoch(state, batches, log=lambda s: None)
+        torch.cuda.synchronize()
+        traced[depth].update(
+            untraced_ms_per_iter=(time.perf_counter() - t0) * 1e3
+            / len(batches), host_gap_ms=stats["host_gap_ms"],
+            forced_syncs=stats["forced_syncs"])
+    return {"iterations": DISPATCH_ITERS, "runs": runs, "traced": traced}
+
+
+def _phase_trainer(dev, model=None, **cfg_over):
+    """A vgg11_cifar10 trainer (both kernel knobs) built with the host
+    knobs unset and cuDNN deterministic."""
+    from tpu_ddp_torch.models import get_model
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    with _env(**PRESET_ENV, **HOST_ENV):
+        cfg = TrainConfig.preset("vgg11_cifar10", **cfg_over)
+        if model is None:
+            model = get_model(cfg.model, use_pallas_bn=True,
+                              compute_dtype=getattr(torch,
+                                                    cfg.compute_dtype))
+        return Trainer(model, cfg, device=dev)
+
+
+def _state_tensors(state) -> list:
+    return [*state.params, *state.opt_state["momentum"]]
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _eager_run(tr, state, batches) -> tuple:
+    """``len(batches)`` train steps; (losses, copies of params and
+    momentum after each step, skipped flags)."""
+    losses, after, skipped = [], [], []
+    for x, y in batches:
+        state, loss = tr.train_step(state, x, y)
+        losses.append(loss.float())
+        skipped.append(tr.last_step_skipped())
+        after.append([t.detach().clone() for t in _state_tensors(state)])
+    return torch.stack(losses), after, skipped
+
+
+def _graph_run(tr, state, batches, k) -> tuple:
+    """The same batches as groups of K through ``build_multi_step``:
+    (losses, the (K, 2) rows of every group)."""
+    multi = tr.build_multi_step(k)
+    losses, rows = [], []
+    for g in range(0, len(batches), k):
+        grp = batches[g:g + k]
+        state, loss = multi(state, *tr.put_batches(
+            [b[0] for b in grp], [b[1] for b in grp]))
+        losses.append(loss)
+        rows.append(tr._last_fused)
+    return torch.cat(losses), torch.cat(rows)
+
+
+def _total(count) -> int:
+    """A wrapper's launches over its routes."""
+    return sum(count.values()) if isinstance(count, dict) else count
+
+
+def _graph_case(tr, state, batches, k, groups, wrappers, per_step,
+                pats) -> dict:
+    """K-step groups against K * N eager steps from the same start: the
+    losses, params and momentum the same bits; the wrappers' counts
+    exact (they count one eager warm-up step and the K captured steps).
+    Then the same groups again from the same start, replays only, under
+    the profiler: the wrappers count nothing, and the trace holds each
+    wrapper's kernels (``pats``) replays times the captured launches of
+    one group, the same bits again."""
+    n = k * groups
+    start = [t.detach().clone() for t in _state_tensors(state)]
+    e_loss, e_after, _ = _eager_run(tr, state, batches[:n])
+
+    def same_as_eager(g_loss, what):
+        if not (torch.equal(g_loss, e_loss)
+                and _same(_state_tensors(state), e_after[-1])):
+            fail(f"phase 39 K={k}: {groups} graph groups ({what}) differ "
+                 f"from {n} eager steps (losses {g_loss.tolist()} vs "
+                 f"{e_loss.tolist()})")
+
+    _restore_all(state, start)
+    stats0 = dict(tr.graph_stats)
+    _zero_launches(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_loss, _ = _graph_run(tr, state, batches[:n], k)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = _launches(wrappers)
+    captures = tr.graph_stats["captures"] - stats0["captures"]
+    replays = tr.graph_stats["replays"] - stats0["replays"]
+    want = per_step(1 + k)
+    if (captures, replays) != (1, groups) or counts != want:
+        fail(f"phase 39 K={k}: {captures} captures, {replays} replays, "
+             f"launches {counts}; expected 1, {groups}, {want}")
+    same_as_eager(g_loss, "first run")
+    # The replays' own launches, read from a trace.
+    _restore_all(state, start)
+    with _counting_trace(lambda: _warm_group(tr, state, start, batches,
+                                             k)) as prof:
+        stats0 = dict(tr.graph_stats)
+        _zero_launches(wrappers)
+        g_loss, _ = _graph_run(tr, state, batches[:n], k)
+    captures = tr.graph_stats["captures"] - stats0["captures"]
+    replays = tr.graph_stats["replays"] - stats0["replays"]
+    host = {name: _total(c) for name, c in _launches(wrappers).items()}
+    group = {name: _total(c) for name, c in per_step(k).items()}
+    traced = {name: _calls_after_mark(prof, pats[name])
+              for name in wrappers}
+    want = {name: replays * c for name, c in group.items()}
+    if (captures, replays) != (0, groups) or any(host.values()) \
+            or traced != want:
+        fail(f"phase 39 K={k} replays: {captures} captures, {replays} "
+             f"replays, host-counted launches {host}, traced kernels "
+             f"{traced}; expected 0, {groups}, none, {want}")
+    same_as_eager(g_loss, "replays only")
+    return {"k": k, "groups": groups, "captures": 1,
+            "replays": groups, "capture_ms":
+                tr.graph_stats["capture_ms"][-1],
+            "launches_counted": counts,
+            "launches_replayed_traced": traced,
+            "wall_ms_first_run": wall, "bitwise": True,
+            "_eager": (e_loss, e_after)}
+
+
+def _restore_all(state, copies) -> None:
+    with torch.no_grad():
+        for t, c in zip(_state_tensors(state), copies):
+            t.copy_(c)
+
+
+def _planted(tr, state, batches, start, case, target, name) -> dict:
+    """Re-run ``case``'s groups from ``start`` under the profiler with
+    ``name`` of ``_StepGraph`` sabotaged on its second call: whether the
+    bitwise gate catches it, and whether the traced SGD kernels fall
+    short of replays times one group's (a skipped replay must; a stale
+    staging buffer launches all of them)."""
+    from tpu_ddp_torch.train import engine
+    real = getattr(engine._StepGraph, name)
+    calls = []
+
+    def sabotaged(self, *a):
+        calls.append(1)
+        if len(calls) != 2:
+            return real(self, *a)
+        return None
+
+    _restore_all(state, start)
+    with _counting_trace(lambda: _warm_group(tr, state, start, batches,
+                                             case["k"])) as prof:
+        replays0 = tr.graph_stats["replays"]
+        with mock.patch.object(engine._StepGraph, name, sabotaged):
+            g_loss, _ = _graph_run(tr, state, batches[:target], case["k"])
+    replays = tr.graph_stats["replays"] - replays0
+    e_loss, e_after = case["_eager"]
+    return {"bitwise": not (torch.equal(g_loss, e_loss)
+                            and _same(_state_tensors(state),
+                                      e_after[target - 1])),
+            "trace": _calls_after_mark(prof, VGG_KERNELS["sgd"])
+            != replays * case["k"]}
+
+
+def multi_step(dev) -> dict:
+    """Phase 39: VGG-11 (vgg11_cifar10, both kernels, batch 256, cuDNN
+    deterministic) at K = 4 and 8 steps per dispatch, each group one
+    CUDA graph replay, bit for bit against K * N eager train_steps, with
+    exact launch counts (the replays' kernels counted in a trace); two
+    planted faults (a skipped replay, a stale staging buffer) each break
+    the bitwise gate, and the skipped replay the trace's count; a state
+    made anew (state_from_host) captures again; a group with one
+    poisoned batch skips that step's update as the eager step does; ms
+    per iteration from ``stop_many`` through the epoch loop at K = 1, 4
+    and 8, the capture's ms and the device's idle share; ViT-tiny on the
+    flash kernels at K = 4, bit for bit against 4 eager steps with exact
+    flash launch counts."""
+    import itertools
+
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    wrappers = _vgg_wrappers()
+    out = {}
+    with _deterministic_cudnn():
+        tr = _phase_trainer(dev)
+        state = tr.init_state()
+        with _env(**PRESET_ENV):
+            train, _ = create_data_loaders(batch_size=256,
+                                           synthetic_size=GRAPH_TIMED * 256)
+        host = list(train)
+        batches = [(x.to(dev), y.to(dev)) for x, y in host[:16]]
+        for _ in range(2):  # cuDNN's and the kernels' first calls
+            state, _ = tr.train_step(state, *batches[-1])
+        # Detached: a copy that kept the parameters' autograd graph
+        # alive would keep their gradient accumulators, made on the
+        # default stream, and break the capture on its side stream.
+        start = [t.detach().clone() for t in _state_tensors(state)]
+        for k, groups in GRAPH_GROUPS.items():
+            _restore_all(state, start)
+            case = _graph_case(tr, state, batches, k, groups, wrappers,
+                               _vgg_want, VGG_KERNELS)
+            caught = {name: _planted(tr, state, batches, start, case,
+                                     k * groups, name)
+                      for name in ("replay", "stage")}
+            if not (caught["replay"]["bitwise"] and caught["replay"]["trace"]
+                    and caught["stage"]["bitwise"]):
+                fail(f"phase 39 K={k}: a gate missed a planted fault: "
+                     f"{caught}")
+            del case["_eager"]
+            out[f"k{k}"] = {**case, "planted_fault_caught": caught}
+        # A state made anew holds other momentum tensors than the graphs
+        # write: its first group captures again, the same bits as eager.
+        _restore_all(state, start)
+        e_loss, e_after, _ = _eager_run(tr, state, batches[:4])
+        _restore_all(state, start)
+        state = tr.state_from_host(tr.state_to_host(state))
+        caps = tr.graph_stats["captures"]
+        g_loss, _ = _graph_run(tr, state, batches[:4], 4)
+        recaptured = tr.graph_stats["captures"] - caps
+        if recaptured != 1 or not (
+                torch.equal(g_loss, e_loss)
+                and _same(_state_tensors(state), e_after[-1])):
+            fail(f"phase 39: a group on a state made anew captured "
+                 f"{recaptured} times; losses {g_loss.tolist()} vs eager "
+                 f"{e_loss.tolist()}")
+        out["new_state"] = {"captures": recaptured, "bitwise": True}
+        # The guard inside a group: batch 1 of a K=4 group poisoned.
+        _restore_all(state, start)
+        bad = [batches[0], (batches[1][0].clone(), batches[1][1])] + \
+            batches[2:4]
+        bad[1][0][0, 0, 0, 0] = float("nan")
+        e_loss, e_after, e_skip = _eager_run(tr, state, bad)
+        kept = _same(e_after[1], e_after[0])
+        _restore_all(state, start)
+        g_loss, rows = _graph_run(tr, state, bad, 4)
+        g_skip = [bool(v) for v in (rows[:, 1] != 0).tolist()]
+        same = _same(_state_tensors(state), e_after[-1])
+        if not (kept and same
+                and e_skip == g_skip == [False, True, False, False]):
+            fail(f"phase 39 guard in a group: eager skips {e_skip} (state "
+                 f"kept: {kept}), graph skips {g_skip}, final state the "
+                 f"same bits: {same}")
+        out["guard_in_group"] = {"skipped": g_skip, "bitwise": True}
+        # stop_many through the epoch loop, K = 1, 4, 8 (depth 2).
+        timing = {}
+        for k in (1, *GRAPH_GROUPS):
+            tr.config.steps_per_dispatch = k
+            state, stats = tr.train_epoch(state, host, log=lambda s: None)
+            timing[f"k{k}"] = {"avg_iter_ms": stats["avg_iter_s"] * 1e3,
+                               "timed_iters": stats["timed_iters"],
+                               "host_gap_ms": stats["host_gap_ms"]}
+        traced_batches = [host[i % len(host)] for i in range(24)]
+        tr.config.timing_first_iter, tr.config.timing_last_iter = 1, 0
+        for k in (1, *GRAPH_GROUPS):
+            tr.config.steps_per_dispatch = k
+            state, traced = _traced_epoch(tr, state, traced_batches, 1)
+            timing[f"k{k}"]["traced"] = traced
+        out["timing"] = timing
+        out["graph_stats"] = dict(tr.graph_stats)
+        del tr, state, batches, start
+        torch.cuda.empty_cache()
+        out["vit_tiny_k4"] = _vit_graph(dev)
+    return out
+
+
+def _vit_graph(dev) -> dict:
+    """ViT-tiny (flash on, the SGD kernel, batch 256) at K = 4: one graph
+    group bit for bit against 4 eager steps, the flash launches exact
+    (6 per kernel per step, counted at the warm-up step and the capture)."""
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    from tpu_ddp_torch.models.vit import make_vit
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.ops import sgd as tsgd
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    model = make_vit("ViT-tiny", use_flash=True)
+    with _env(**PRESET_ENV, **HOST_ENV):
+        cfg = TrainConfig(model="ViT-tiny", num_classes=model.num_classes,
+                          image_size=model.image_size, pallas_sgd=True)
+        train, _ = create_data_loaders(batch_size=256, synthetic_size=1024)
+    tr = Trainer(model, cfg, device=dev)
+    state = tr.init_state()
+    batches = [(x.to(dev), y.to(dev)) for x, y in train]
+    state, _ = tr.train_step(state, *batches[-1])
+    shape, layers = VIT_FLASH["ViT-tiny"]
+    q, k, v, do = _vit_qkv(shape, torch.Generator(device=dev), dev)
+    routes = (fa.fwd_route(q, k, v), fa.bwd_route(q, k, v, do))
+    del q, k, v, do
+    wrappers = {**_flash_wrappers(), "sgd": tsgd.fused_sgd_step}
+
+    def want(steps):
+        n = layers * steps
+        out = {w: {r: (n if r == route else 0) for r in ("wgmma",
+                                                          "mma_sync")}
+               for w, route in (("flash_fwd", routes[0]),
+                                ("flash_bwd_kv", routes[1]),
+                                ("flash_bwd_q", routes[1]))}
+        return {**out, "sgd": steps}
+
+    case = _graph_case(tr, state, batches, 4, 1, wrappers, want,
+                       {**FLASH_KERNELS, "sgd": VGG_KERNELS["sgd"]})
+    del case["_eager"]
+    return {**case, "routes": list(routes)}
+
+
+def host_side(dev, resnet: dict, vit: dict) -> dict:
+    """Phase 40: on the card, prefetch_to_device (pinned, side stream)
+    gives the plain loader's batches on the device; the native loader's
+    batches equal the numpy loader's (unaugmented, within 1e-6) and the
+    one-shot C++ transform's (augmented, bit for bit);
+    TPU_DDP_PROFILE_DIR writes a trace holding the kernels;
+    bench_collectives at world 1 over NCCL (each op's
+    output checked); mfu_fields with the H100's peak gives phase 36's
+    and 37's MFU."""
+    import glob
+    import itertools
+    import shutil
+
+    from tpu_ddp_torch.data import native
+    from tpu_ddp_torch.data.cifar10 import load_cifar10
+    from tpu_ddp_torch.data.loader import DataLoader, create_data_loaders
+    from tpu_ddp_torch.data.prefetch import prefetch_to_device
+    from tpu_ddp_torch.launch import find_free_port
+    from tpu_ddp_torch.parallel.bootstrap import (init_distributed_setup,
+                                                  shutdown)
+    from tpu_ddp_torch.utils.collectives import bench_collectives
+    from tpu_ddp_torch.utils.flops import mfu_fields, peak_tflops
+    out = {}
+    tr = _phase_trainer(dev)
+    with _env(**PRESET_ENV):
+        train, _ = create_data_loaders(batch_size=256, synthetic_size=2048)
+    plain = list(itertools.islice(iter(train), 4))
+    got = list(prefetch_to_device(itertools.islice(iter(train), 4),
+                                  tr.put_batch, 2))
+    ok = len(got) == 4
+    for (x, y), (gx, gy, ready) in zip(plain, got):
+        gx, gy = tr._consume(gx, gy, ready)
+        ok = ok and ready is not None and gx.is_cuda and torch.equal(
+            gx.cpu(), x) and torch.equal(gy.cpu(), y)
+        layout = gx.stride() == x.stride()
+    if not ok:
+        fail("phase 40: prefetch_to_device's batches differ from the "
+             "loader's")
+    out["prefetch"] = {"batches": 4, "same": True,
+                       "loader_strides_kept": layout}
+    with _env(**PRESET_ENV):
+        xs, ys, _ = load_cifar10(None, "train", 2048)
+    native.data_lib.get()  # the g++ build, outside the timed epoch
+    t0 = time.perf_counter()
+    nat = list(native.NativeDataLoader(xs, ys, 256, augment=False))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = list(DataLoader(xs, ys, 256, augment=False))
+    numpy_s = time.perf_counter() - t0
+    aug = next(iter(native.NativeDataLoader(xs, ys, 256, augment=True)))
+    one = native.transform_batch(xs, ys, np.arange(256), augment=True)
+    # C++ rounds the normalisation once where numpy rounds twice: within
+    # 1e-6 (the JAX package's own bound, tests/test_native.py).
+    err = max((a[0] - b[0]).abs().max().item() for a, b in zip(nat, ref))
+    same = (len(nat) == len(ref) and err <= 1e-6 and all(
+        torch.equal(a[1], b[1]) for a, b in zip(nat, ref))
+        and np.array_equal(aug[0].permute(0, 2, 3, 1).numpy(), one[0]))
+    if not same:
+        fail(f"phase 40: the native loader's batches differ from the "
+             f"numpy loader's (max |d| {err}) or the one-shot transform's")
+    out["native_loader"] = {"batches": len(nat), "max_abs_err": err,
+                            "native_epoch_s": native_s,
+                            "numpy_epoch_s": numpy_s}
+    prof_dir = os.path.join(CKPT_ROOT, "profile")
+    try:
+        _part1(dev, [], **{**HOST_ENV, "TPU_DDP_MAX_ITERS": 3,
+                           "TPU_DDP_SYNTH_SIZE": 2048,
+                           "TPU_DDP_PROFILE_DIR": prof_dir})
+        traces = glob.glob(os.path.join(prof_dir, "*.json"))
+        text = open(traces[0]).read() if len(traces) == 1 else ""
+        if "sgd_kernel" not in text or "bn_norm_relu_kernel" not in text:
+            fail(f"phase 40: TPU_DDP_PROFILE_DIR wrote {traces}, without "
+                 "the kernels")
+        out["profile"] = {"trace_bytes": len(text)}
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    ctx = init_distributed_setup("127.0.0.1", str(find_free_port()), 0, 1,
+                                 device=dev, ddp=True)
+    try:
+        out["collectives"] = bench_collectives(mb=4.0, iters=10,
+                                               device=dev, check=True)
+    finally:
+        shutdown(ctx)
+    peak, src = peak_tflops(dev)
+    mfu = {}
+    for name, res in (("resnet50", resnet),
+                      ("vit_tiny", vit["vit_tiny"]),
+                      ("vit_s16", vit["vit_s16"])):
+        f = mfu_fields(3 * res["fwd_flops"], res["ms_per_step"] / 1e3, dev)
+        if f["mfu"] is None or abs(f["mfu"] - res["mfu"]) > 5e-5:
+            fail(f"phase 40: mfu_fields gives {f['mfu']} for {name}, "
+                 f"phase 36/37 read {res['mfu']}")
+        mfu[name] = {"mfu_fields": f["mfu"], "phase": res["mfu"]}
+    out["mfu"] = {"peak_tflops": peak, "peak_source": src, **mfu}
+    return out
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5044,6 +5664,13 @@ def main() -> None:
     print(json.dumps({"resnet50": resnet}), flush=True)
     vit = phase("37_vit", vit_train, dev, gen)
     print(json.dumps({"vit": vit}), flush=True)
+    torch.cuda.empty_cache()
+    depths = phase("38_dispatch_window", dispatch_window, dev)
+    print(json.dumps({"dispatch_window": depths}), flush=True)
+    ksteps = phase("39_multi_step", multi_step, dev)
+    print(json.dumps({"multi_step": ksteps}), flush=True)
+    hostside = phase("40_host_side", host_side, dev, resnet, vit)
+    print(json.dumps({"host_side": hostside}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -5062,6 +5689,20 @@ def main() -> None:
 
     def main_path(window):
         return window["int8_ms_per_decode_step"]
+
+    def host_paths(name):
+        """Phases 38-39: part 1 at each dispatch depth, counted from 0;
+        the K-step groups' counted launches (one warm-up step and one
+        captured group) and, from a trace, the kernels their replays
+        ran (all routes)."""
+        out = {f"part1_depth{d}": run["launches"][name]
+               for d, run in depths["runs"].items()}
+        for k in GRAPH_GROUPS:
+            case = ksteps[f"k{k}"]
+            out[f"vgg_graph_k{k}_counted"] = case["launches_counted"][name]
+            out[f"vgg_graph_k{k}_replayed"] = case[
+                "launches_replayed_traced"][name]
+        return out
 
     regs, spills = ptxas(INT8_KERNELS["mma"])
     kernels = [{
@@ -5133,7 +5774,8 @@ def main() -> None:
             "resnet50_part1": resnet["cli"]["launches"]["sgd"],
             "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
                 "sgd"],
-            "vit_cifar10_part1": vit["cli"]["launches"]["sgd"]},
+            "vit_cifar10_part1": vit["cli"]["launches"]["sgd"],
+            **host_paths("sgd")},
         # Phase 36: one optimizer step over ResNet-50's 161 leaves.
         "resnet50": resnet["sgd_161_leaves"],
     }]
@@ -5178,7 +5820,7 @@ def main() -> None:
             # batches) and one remat="blocks" step.
             "resnet50_part1": resnet["cli"]["launches"][name],
             "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
-                name]}
+                name], **host_paths(name)}
         # Phase 35: one ResNet-50 step's 33 calls at batch 256, alone, on
         # the model's bf16 inputs cast to f32 rows; main_path_ms: phase
         # 36's traced steps.
@@ -5233,7 +5875,13 @@ def main() -> None:
                for k in ("zero1", "zero2", "fsdp")},
             # Phase 37: the ViT trainers' timed steps, non-causal.
             "vit_tiny": vit["vit_tiny"]["launches"][name],
-            "vit_s16": vit["vit_s16"]["launches"][name]}
+            "vit_s16": vit["vit_s16"]["launches"][name],
+            # Phase 39: ViT-tiny at K = 4 (one warm-up step and one
+            # captured group counted; the replay's kernels from a trace).
+            "vit_tiny_graph_k4_counted": ksteps["vit_tiny_k4"][
+                "launches_counted"][name],
+            "vit_tiny_graph_k4_replayed": ksteps["vit_tiny_k4"][
+                "launches_replayed_traced"][name]}
         # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
         # beside SDPA's flash backend; main_path_ms: none traced.
         for preset, res in vit["flash_kernels"].items():
@@ -5258,6 +5906,8 @@ def main() -> None:
                        "ladder_device_code": ldev, "lm_sharded": lshard,
                        "multi_card": multi, "resnet_bn": rbn,
                        "resnet50": resnet, "vit": vit,
+                       "dispatch_window": depths, "multi_step": ksteps,
+                       "host_side": hostside,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -5325,6 +5975,19 @@ def main() -> None:
                       f"{100 * v['mfu']:.1f}%"
                       for v in (vit["vit_tiny"], vit["vit_s16"])),
           flush=True)
+    tm = ksteps["timing"]
+    print("host side (VGG-11, batch 256): part 1 iteration ms at depth "
+          + ", ".join(f"{d}: {r['avg_iter_ms']:.2f}"
+                      for d, r in depths["runs"].items())
+          + "; untraced ms per untimed iteration "
+          + ", ".join(f"{d}: {r['untraced_ms_per_iter']:.2f}"
+                      for d, r in depths["traced"].items())
+          + "; K steps per dispatch ms/iter (stop_many) "
+          + ", ".join(f"K={k[1:]}: {v['avg_iter_ms']:.2f}"
+                      for k, v in tm.items())
+          + "; capture ms " + ", ".join(
+              f"K={k}: {ksteps[f'k{k}']['capture_ms']:.1f}"
+              for k in GRAPH_GROUPS), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,5 +73,9 @@ def test_real_shards_and_constants(tmp_path, monkeypatch):
             assert a.dtype == b.dtype and np.array_equal(a, b)
     with pytest.raises(ValueError, match="unknown dataset"):
         normalization_constants("mnist")
-    with pytest.raises(NotImplementedError, match="item 9.11"):
-        imagenet.create_imagenet_loaders(native=True)
+    # Memory-mapped real shards keep the numpy loader under native=True
+    # (the native one would copy the whole split), as in JAX.
+    ntrain, _ = imagenet.create_imagenet_loaders(batch_size=4, native=True)
+    jtrain, _ = jax_imagenet.create_imagenet_loaders(batch_size=4,
+                                                     native=True)
+    assert type(ntrain).__name__ == type(jtrain).__name__ == "DataLoader"

@@ -117,11 +117,29 @@ def test_sliding_restart_window(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--elastic-reshard", "item 9.6b"), ("--pp-schedule", "item 10.7"), ("--dispatch-depth", "item 9.5"),
+    ("--elastic-reshard", "item 9.6b"), ("--pp-schedule", "item 10.7"), ("--autotune", "item 9.8"),
     ("--platform", "item 9.9")])
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         launch.main(["part1", "--nproc", "1", flag])
+
+
+def test_dispatch_depth_flag_sets_the_env(monkeypatch):
+    """``--dispatch-depth N`` reaches every rank as
+    TPU_DDP_DISPATCH_DEPTH, as the JAX launcher exports it; a negative
+    depth is a usage error."""
+    seen = []
+
+    def fake(part, nproc, **kw):
+        seen.append(kw["env"])
+        return launch.LaunchResult()
+
+    monkeypatch.setattr(launch, "launch_elastic", fake)
+    assert launch.main(["part1", "--nproc", "1", "--dispatch-depth",
+                        "4"]) == 0
+    assert seen == [{"TPU_DDP_DISPATCH_DEPTH": "4"}]
+    with pytest.raises(SystemExit):
+        launch.main(["part1", "--nproc", "1", "--dispatch-depth", "-1"])
 
 
 def test_parts_and_exit_codes():

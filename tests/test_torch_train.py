@@ -271,10 +271,7 @@ def test_trainer_defaults_to_the_card():
 
 def test_unported_knobs_are_refused(monkeypatch):
     cfg = TrainConfig(pallas_bn=True)
-    for name, value in (("TPU_DDP_DISPATCH_DEPTH", "2"),
-                        ("TPU_DDP_ELASTIC_RESHARD", "1"),
-                        ("TPU_DDP_STEPS_PER_DISPATCH", "4"),
-                        ("TPU_DDP_PREFETCH", "2"),
+    for name, value in (("TPU_DDP_ELASTIC_RESHARD", "1"),
                         ("TPU_DDP_AUTOTUNE", "search")):
         monkeypatch.setenv(name, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -294,7 +291,32 @@ def test_unported_knobs_are_refused(monkeypatch):
                           use_pallas_bn=pcfg.pallas_bn)
         assert built.name == model and built.num_classes == classes
     with pytest.raises(TypeError):
-        TrainConfig(steps_per_dispatch=4)
+        TrainConfig(elastic_reshard=True)
+
+
+def test_dispatch_knobs_work(monkeypatch):
+    """The loop's host-side knobs, refused before they were ported, are
+    read as the JAX config reads them, and a trainer built under them
+    trains: the window at depth 3, two steps per dispatch, prefetch 2."""
+    for name, value in (("TPU_DDP_DISPATCH_DEPTH", "3"),
+                        ("TPU_DDP_STEPS_PER_DISPATCH", "2"),
+                        ("TPU_DDP_PREFETCH", "2")):
+        monkeypatch.setenv(name, value)
+    cfg, jcfg = TrainConfig(pallas_bn=True), JaxConfig()
+    assert (cfg.dispatch_depth, cfg.steps_per_dispatch,
+            cfg.device_prefetch) == (jcfg.dispatch_depth,
+                                     jcfg.steps_per_dispatch,
+                                     jcfg.device_prefetch) == (3, 2, 2)
+    batches = [(torch.randn(2, 3, 32, 32), torch.tensor([1, 2]))] * 3
+    for prefetch in ("2", "0"):  # prefetch takes the per-step path
+        monkeypatch.setenv("TPU_DDP_PREFETCH", prefetch)
+        tt = Trainer(_port_model(), TrainConfig(pallas_bn=True,
+                                                compute_dtype="float32"),
+                     device="cpu")
+        state, stats = tt.train_epoch(tt.init_state(), batches,
+                                      log=lambda s: None)
+        assert state.step == stats["iters"] == 3
+        assert stats["dispatch_depth"] == (3 if prefetch == "2" else 1)
 
 
 def test_config_env_knobs(monkeypatch):

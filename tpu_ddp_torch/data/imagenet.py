@@ -7,8 +7,9 @@ The port's own copy: real ImageNet is read from ``IMAGENET_DIR`` (or
 otherwise a deterministic class-conditional synthetic stand-in with
 ImageNet's shapes, drawn from the same seeds as the JAX package's, so
 the same call gives the same bytes. ``TPU_DDP_SYNTH_SIZE`` sizes it as
-there. The loaders are the port's ``DataLoader`` with ImageNet's
-normalisation and the same augmentation draws.
+there. The loaders are the port's ``DataLoader`` (or, with ``native``,
+its C++ ``NativeDataLoader``) with ImageNet's normalisation and the
+same augmentation draws as the JAX package's.
 """
 
 from __future__ import annotations
@@ -76,15 +77,12 @@ def create_imagenet_loaders(
 ):
     """(train_loader, test_loader) with the CIFAR facade's contract
     (data/loader.py): per-node batch in, train sharded by rank, val
-    unsharded. ``native=True`` (the C++ loader) raises: it is not ported
-    yet."""
-    from tpu_ddp_torch.data.loader import DataLoader
+    unsharded. ``native`` (or, when None, ``TPU_DDP_NATIVE_LOADER``)
+    picks the C++ loader, except over memory-mapped real shards, which
+    it would copy whole into memory (the JAX package's rule)."""
+    from tpu_ddp_torch.data.loader import DataLoader, pick_loader_cls
     from tpu_ddp_torch.data.sampler import DistributedShardSampler
 
-    if native:
-        raise NotImplementedError(
-            "the native ImageNet loader (tpu_ddp/data/native.py) is not "
-            "ported to tpu_ddp_torch yet (ROADMAP Queue 1 item 9.11)")
     train_x, train_y, meta_tr = load_imagenet(
         root, "train", synthetic_size, image_size, num_classes)
     test_x, test_y, meta_va = load_imagenet(
@@ -101,9 +99,15 @@ def create_imagenet_loaders(
         sampler = DistributedShardSampler(
             len(train_y), num_replicas=world_size, rank=rank,
             shuffle=False, drop_last=False)
-    train = DataLoader(train_x, train_y, batch_size, sampler=sampler,
-                       augment=True, seed=seed, mean=IMAGENET_MEAN,
-                       std=IMAGENET_STD)
-    test = DataLoader(test_x, test_y, batch_size, augment=False,
-                      mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    cls = pick_loader_cls(native)
+    if isinstance(train_x, np.memmap) and cls is not DataLoader:
+        print("[tpu_ddp_torch.data] real ImageNet shards are memory-mapped"
+              " -> numpy loader (the native loader would copy the full "
+              "split)")
+        cls = DataLoader
+    train = cls(train_x, train_y, batch_size, sampler=sampler,
+                augment=True, seed=seed, mean=IMAGENET_MEAN,
+                std=IMAGENET_STD)
+    test = cls(test_x, test_y, batch_size, augment=False,
+               mean=IMAGENET_MEAN, std=IMAGENET_STD)
     return train, test

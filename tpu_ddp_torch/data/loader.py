@@ -6,7 +6,10 @@ batch holds bitwise the JAX loader's values. The difference is the
 hand-off: batches are CPU tensors, images (N, C, H, W) float32 and labels
 int64. The images tensor is a free NCHW view of the NHWC array, so its
 memory is already ``torch.channels_last``, the layout the VGG model keeps;
-the trainer moves batches to its device.
+the trainer moves batches to its device. ``native=True`` (or
+``TPU_DDP_NATIVE_LOADER``) swaps in the C++ loader (data/native.py), and
+``shard_eval`` shards the test set by rank with weight triples for
+``Trainer.evaluate(sharded=True)``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ class DataLoader:
         seed: int = SEED,
         mean: np.ndarray = CIFAR10_MEAN,
         std: np.ndarray = CIFAR10_STD,
+        with_weights: bool = False,
     ):
         self.images_u8 = images_u8
         self.labels = np.asarray(labels, dtype=np.int32)
@@ -47,6 +51,10 @@ class DataLoader:
         self.epoch = 0
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
+        # True -> yield (images, labels, weights) triples, weight 0 on
+        # the sampler's wrap-padding rows (the process-sharded eval
+        # contract: each example counted once over the group).
+        self.with_weights = with_weights
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -61,8 +69,11 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
-        idx = (self.sampler.indices() if self.sampler is not None
-               else np.arange(len(self.labels)))
+        if self.sampler is not None:
+            idx, valid = self.sampler.indices_and_valid()
+        else:
+            idx = np.arange(len(self.labels))
+            valid = np.ones(len(idx), bool)
         rng = np.random.default_rng((self.seed, self.epoch))
         for start in range(0, len(idx), self.batch_size):
             sel = idx[start:start + self.batch_size]
@@ -73,8 +84,26 @@ class DataLoader:
             # transposed on-disk arrays), so the NCHW view is channels_last.
             x = torch.from_numpy(np.ascontiguousarray(
                 normalize(imgs, self.mean, self.std)))
-            yield (x.permute(0, 3, 1, 2),
-                   torch.from_numpy(self.labels[sel].astype(np.int64)))
+            batch = (x.permute(0, 3, 1, 2),
+                     torch.from_numpy(self.labels[sel].astype(np.int64)))
+            if self.with_weights:
+                batch += (torch.from_numpy(
+                    valid[start:start + self.batch_size]
+                    .astype(np.float32)),)
+            yield batch
+
+
+def pick_loader_cls(native: bool | None):
+    """``DataLoader``, or the C++ ``NativeDataLoader`` when ``native`` (or,
+    when it is None, ``TPU_DDP_NATIVE_LOADER``) asks for it. The native
+    class raises at construction when its library cannot be built."""
+    if native is None:
+        from tpu_ddp_torch.utils.config import _env_bool
+        native = _env_bool("TPU_DDP_NATIVE_LOADER", False)
+    if native:
+        from tpu_ddp_torch.data.native import NativeDataLoader
+        return NativeDataLoader
+    return DataLoader
 
 
 def create_data_loaders(
@@ -84,6 +113,8 @@ def create_data_loaders(
     root: str | None = None,
     seed: int = SEED,
     synthetic_size: int | None = None,
+    native: bool | None = None,
+    shard_eval: bool = False,
 ):
     """(train_loader, test_loader), the reference's L4 facade.
 
@@ -91,7 +122,10 @@ def create_data_loaders(
     part2/part2b/main.py:177). Train is sharded by rank with
     DistributedSampler semantics (``shuffle=False, drop_last=False``);
     test is unsharded, so every node evaluates the full set
-    (part2/part2b/main.py:89-93).
+    (part2/part2b/main.py:89-93), unless ``shard_eval`` at a world above
+    one shards it by rank too, yielding (images, labels, weights)
+    triples (wrap-padding rows weight 0) on the numpy loader. ``native``:
+    see :func:`pick_loader_cls`.
     """
     train_x, train_y, meta = load_cifar10(root, "train", synthetic_size)
     test_x, test_y, _ = load_cifar10(
@@ -106,7 +140,19 @@ def create_data_loaders(
         sampler = DistributedShardSampler(
             len(train_y), num_replicas=world_size, rank=rank,
             shuffle=False, drop_last=False)
-    train_loader = DataLoader(train_x, train_y, batch_size,
+    loader_cls = pick_loader_cls(native)
+    train_loader = loader_cls(train_x, train_y, batch_size,
                               sampler=sampler, augment=True, seed=seed)
-    test_loader = DataLoader(test_x, test_y, batch_size, augment=False)
+    if shard_eval and world_size > 1:
+        # Weights ride only the numpy loader (eval is unaugmented, and
+        # the native loader's threads buy nothing there), as in JAX.
+        test_loader = DataLoader(
+            test_x, test_y, batch_size,
+            sampler=DistributedShardSampler(
+                len(test_y), num_replicas=world_size, rank=rank,
+                shuffle=False, drop_last=False),
+            augment=False, with_weights=True)
+    else:
+        test_loader = loader_cls(test_x, test_y, batch_size,
+                                 augment=False)
     return train_loader, test_loader

@@ -6,7 +6,8 @@ document packing and rank-sharded epoch batches, on numpy.
 - :func:`pack_documents`: one stream ``[BOS] doc EOS [BOS] doc EOS ...``
   cut into (N, seq_len + 1) int32 rows (the +1 feeds ``make_lm_batch``'s
   shift); the tail remainder is dropped. The JAX package's numpy path,
-  row for row; its C++ packer (``native/``) is not ported.
+  row for row, or with ``use_native=True`` its C++ packer
+  (``native/tpu_ddp_text.cpp`` through data/native.py): the same rows.
 - :func:`epoch_batches`: this rank's (inputs, targets) batches over the
   rows, through the vision loaders' :class:`DistributedShardSampler`
   (wrap padding, stride sharding, a per-epoch shuffle seeded alike on
@@ -47,18 +48,22 @@ def pack_documents(docs, seq_len: int, add_bos: bool = True,
                    use_native: bool | None = None) -> np.ndarray:
     """Pack ``docs`` (a list of str or bytes) into (N, seq_len + 1) int32
     rows. Raises on empty input or a stream shorter than one row.
-    ``use_native=True`` (the JAX package's C++ packer) raises: only the
-    numpy path is ported, and it gives the same rows."""
-    if use_native:
-        raise NotImplementedError(
-            "use_native=True: the native text packer (native/) is not "
-            "ported to tpu_ddp_torch; the numpy path gives the same rows")
+    ``use_native=True`` packs in C++ (data/native.py builds the library,
+    or raises); ``None`` or ``False`` packs with numpy. Both give the
+    same rows."""
     if not docs:
         raise ValueError("pack_documents: no documents")
     row_len = seq_len + 1
+    blobs = [d.encode("utf-8") if isinstance(d, str) else bytes(d)
+             for d in docs]
+    if use_native:
+        from tpu_ddp_torch.data.native import pack_text
+        offsets = np.zeros(len(blobs) + 1, np.int64)
+        np.cumsum([len(b) for b in blobs], out=offsets[1:])
+        return pack_text(np.frombuffer(b"".join(blobs), np.uint8),
+                         offsets, len(blobs), row_len, add_bos)
     pieces = []
-    for d in docs:
-        data = d.encode("utf-8") if isinstance(d, str) else bytes(d)
+    for data in blobs:
         if add_bos:
             pieces.append(np.array([BOS_ID], np.int32))
         pieces.append(np.frombuffer(data, np.uint8).astype(np.int32)

@@ -60,7 +60,6 @@ PARTS = ("part1", "part2a", "part2b", "part3", "part4", "part5")
 # Queue 1 item that ports what they switch on.
 _UNPORTED_FLAGS = {
     "--elastic-reshard": "item 9.6b (resilience/elastic.py)",
-    "--dispatch-depth": "item 9.5 (train/pipeline.py)",
     "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
     "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
     "--pp-virtual": "item 10.7 (parallel/pipeline.py)",
@@ -463,6 +462,11 @@ def main(argv=None) -> int:
                    help="bucket payload target in MiB for --overlap "
                         "(torch DDP's bucket_cap_mb; default 25). Sets "
                         "TPU_DDP_BUCKET_MB for every rank")
+    p.add_argument("--dispatch-depth", type=int, default=None,
+                   help="async dispatch window: train steps kept in "
+                        "flight by the epoch loop (0 = synchronous; "
+                        "train/pipeline.py). Sets TPU_DDP_DISPATCH_DEPTH "
+                        "for every rank")
     _serving_flags(p)
     args, extra = p.parse_known_args(argv)
     env = _serving_env(p, args)
@@ -478,6 +482,11 @@ def main(argv=None) -> int:
         if args.bucket_mb <= 0:
             p.error(f"--bucket-mb must be > 0, got {args.bucket_mb}")
         env["TPU_DDP_BUCKET_MB"] = str(args.bucket_mb)
+    if args.dispatch_depth is not None:
+        if args.dispatch_depth < 0:
+            p.error(f"--dispatch-depth must be >= 0, "
+                    f"got {args.dispatch_depth}")
+        env["TPU_DDP_DISPATCH_DEPTH"] = str(args.dispatch_depth)
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,

@@ -68,8 +68,10 @@ class SGD:
         if callable(lr):
             count = state["count"] + 1
             lr = lr(count.float())
-            state["count"] = (count if skip is None
-                              else count - (skip != 0).to(torch.int32))
+            # In place, so a captured step (train/engine.py's K-step CUDA
+            # graph) reads and writes the same count tensor every replay.
+            state["count"].copy_(count if skip is None
+                                 else count - (skip != 0).to(torch.int32))
         step = (_sgd.fused_sgd_step if self.use_pallas
                 else _sgd.fused_sgd_step_ref)
         step(params, grads, state["momentum"], lr=lr,

@@ -18,6 +18,16 @@ a preset: ``vgg11_cifar10`` (the reference ladder, the default),
 or ``vit_cifar10`` (ViT-tiny, on ``full_attention`` as the JAX CLI runs
 it).
 
+The loop's host-side knobs work as in the JAX CLI:
+``TPU_DDP_DISPATCH_DEPTH`` (steps in flight, 2 by default),
+``TPU_DDP_STEPS_PER_DISPATCH`` (K steps per dispatch: one CUDA graph
+replay on the card), ``TPU_DDP_PREFETCH`` (host-to-device copies in
+flight), ``TPU_DDP_NATIVE_LOADER=1`` (the C++ loader, CIFAR-10 and
+ImageNet), ``TPU_DDP_SHARD_EVAL=1`` (the test set sharded over the
+group; CIFAR-10 at a world above one), ``TPU_DDP_METRICS_FILE`` (JSONL
+metrics, ``{rank}`` expands) and ``TPU_DDP_PROFILE_DIR`` (a
+``torch.profiler`` trace of the first epoch).
+
 ``--ckpt-dir D`` writes a checkpoint at every epoch's end (and every
 ``TPU_DDP_CKPT_EVERY`` steps); ``--resume`` restores the newest verified
 one and picks up mid-epoch where it was written. The launcher
@@ -82,7 +92,11 @@ def run_part(part: str, argv=None):
         test_distributed_setup)
     from tpu_ddp_torch.parallel.sync import canonical_strategy
     from tpu_ddp_torch.train.engine import Trainer
-    from tpu_ddp_torch.utils.config import TrainConfig, refuse_unported_env
+    from tpu_ddp_torch.utils.config import (TrainConfig, _env_bool,
+                                            refuse_unported_env)
+    from tpu_ddp_torch.utils.metrics import from_env as metrics_from_env
+    from tpu_ddp_torch.utils.profiling import (profile_dir_from_env,
+                                               profile_trace)
 
     strategy = canonical_strategy(part)
     distributed = part != "part1"
@@ -117,21 +131,30 @@ def run_part(part: str, argv=None):
         raise ValueError(f"in_channels={cfg.in_channels}: the CIFAR-10 and "
                          "ImageNet loaders give 3-channel (RGB) images")
     batch_size = cfg.per_node_batch_size(world_size)
+    # TPU_DDP_SHARD_EVAL=1: the test set sharded over the group, CIFAR-10
+    # only (the ImageNet loader keeps the replicated contract), and only
+    # at a world above one, as in the JAX CLI. TPU_DDP_NATIVE_LOADER is
+    # read by the loaders.
+    shard_eval = _env_bool("TPU_DDP_SHARD_EVAL", False)
     if cfg.dataset == "imagenet":
         train_loader, test_loader = create_imagenet_loaders(
             rank=rank, world_size=world_size, batch_size=batch_size,
             root=args.data_root, seed=cfg.seed,
             image_size=cfg.image_size, num_classes=cfg.num_classes)
+        shard_eval = False
     else:
         train_loader, test_loader = create_data_loaders(
             rank=rank, world_size=world_size, batch_size=batch_size,
-            root=args.data_root, seed=cfg.seed)
+            root=args.data_root, seed=cfg.seed, shard_eval=shard_eval)
+        shard_eval = shard_eval and world_size > 1
     model = get_model(cfg.model, num_classes=cfg.num_classes,
                       in_channels=cfg.in_channels,
                       use_pallas_bn=cfg.pallas_bn,
                       compute_dtype=getattr(torch, cfg.compute_dtype),
                       remat=cfg.remat, act_dtype=cfg.act_dtype)
-    trainer = Trainer(model, cfg, strategy=strategy, device=ctx.device)
+    metrics = metrics_from_env(rank=rank)
+    trainer = Trainer(model, cfg, strategy=strategy, device=ctx.device,
+                      metrics=metrics)
     start_epoch = start_iter = 0
     if args.resume:
         state = trainer.restore_checkpoint(args.ckpt_dir)
@@ -154,19 +177,23 @@ def run_part(part: str, argv=None):
     for epoch in range(start_epoch, cfg.epochs):
         # Per-epoch reshuffle hook (reference part2/part2b/main.py:189).
         train_loader.set_epoch(epoch)
-        state, stats = trainer.train_epoch(
-            state, train_loader, epoch=epoch, ckpt_dir=args.ckpt_dir,
-            start_iter=start_iter if epoch == start_epoch else 0)
+        # TPU_DDP_PROFILE_DIR: trace the first epoch run.
+        with profile_trace(profile_dir_from_env()
+                           if epoch == start_epoch else None):
+            state, stats = trainer.train_epoch(
+                state, train_loader, epoch=epoch, ckpt_dir=args.ckpt_dir,
+                start_iter=start_iter if epoch == start_epoch else 0)
         # Epoch-end checkpoint, unless the cadence just wrote this step.
         if args.ckpt_dir and not (cfg.ckpt_every_iters and state.step
                                   % cfg.ckpt_every_iters == 0):
             path = trainer.save_checkpoint(args.ckpt_dir, state)
             if path:
                 print(f"[{part}] checkpoint saved: {path}")
-        trainer.evaluate(state, test_loader)
+        trainer.evaluate(state, test_loader, sharded=shard_eval)
         print(f"[{part}] epoch {epoch}: avg iter "
               f"{stats['avg_iter_s']:.4f}s over {stats['timed_iters']} timed "
               f"iters; {stats['iters']} iters total")
+    metrics.close()
     shutdown(ctx)
     return 0
 

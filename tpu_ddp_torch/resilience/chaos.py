@@ -208,6 +208,13 @@ class FaultInjector:
     def active(self) -> bool:
         return bool(self.specs)
 
+    @property
+    def poisons_batches(self) -> bool:
+        """True iff a configured fault changes a batch on the host before
+        its copy to the device (``nan-grad``): only such faults turn
+        device prefetch off; the passive kinds compose with it."""
+        return any(s.kind == "nan-grad" for s in self.specs)
+
     # ---- firing logic --------------------------------------------------
 
     def rank(self) -> int:

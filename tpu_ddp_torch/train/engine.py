@@ -10,9 +10,7 @@ run eagerly on one device per process. The step is the JAX engine's
 sync, then ``optimizer.apply`` under the step guard (on by default, as
 in JAX): a flag from the loss and the local gradients, agreed over the
 process group, gates the update on the device, and a flagged step leaves
-params and momentum as they were. Dispatch is synchronous (the JAX
-engine's ``dispatch_depth=0``): one host read per step, of the step's
-``[loss, skipped]`` together. ``clip_grad_norm`` scales the synced
+params and momentum as they were. ``clip_grad_norm`` scales the synced
 gradients to that global norm (torch.nn.utils.clip_grad_norm_ semantics,
 a device scale, no host read) before the update; the guard reads them
 before the clip. The config's memory policy (``remat``, ``act_dtype``)
@@ -43,6 +41,21 @@ bucketed collectives launched from gradient hooks inside the backward,
 finished by a sharded update on all_reduce and fused
 (parallel/overlap.py). Both degrade to off, with a warning, where they
 have nothing to act on (the JAX engine's contract).
+
+The loop's host side (tpu_ddp/train/engine.py:1099-1720): the epoch
+loop keeps up to ``dispatch_depth`` steps in flight
+(train/pipeline.py:DispatchPipeline). Each step's ``[loss, skipped]``
+stays on the card until a pinned host copy, recorded behind it with an
+event, is harvested in step order, and every consumer (the loss print,
+the guard, heartbeats, the checkpoint and replica cadences) runs from
+harvested results. ``steps_per_dispatch`` K > 1 runs groups of K uniform
+batches per dispatch (:meth:`Trainer.build_multi_step`): on the card one
+replay of a CUDA graph captured over static ``(K, B, ...)`` staging
+buffers, on the CPU a plain loop of K steps; both bit-equal to K single
+steps. ``device_prefetch`` keeps host-to-device copies in flight
+(data/prefetch.py; :meth:`Trainer.put_batch` copies pinned batches on a
+side stream), and :meth:`Trainer.evaluate` can shard the test set over
+the group.
 
 Fault tolerance (resilience/): checkpoints in the JAX package's format
 (:meth:`Trainer.save_checkpoint`, :meth:`Trainer.restore_checkpoint`,
@@ -122,17 +135,23 @@ class _LossWindow:
         if it == cfg.timing_last_iter:
             self._log(self._timer.report(prefix=f"[epoch {self._epoch}] "))
 
-    def epoch_stats(self) -> dict:
+    def epoch_stats(self, pipeline: dict | None = None) -> dict:
+        """The epoch's record; ``pipeline`` carries the dispatch
+        window's stall accounting (train/pipeline.py) into it, and its
+        ``host_gap_ms`` into the metrics gauge of that name."""
         timer = self._timer
+        pipeline = pipeline or {}
+        if "host_gap_ms" in pipeline:
+            self._metrics.observe("host_gap_ms", pipeline["host_gap_ms"])
         self._metrics.log("epoch", epoch=self._epoch, iters=self.iters,
                           avg_iter_s=timer.average_s,
                           timed_iters=timer.count,
-                          last_loss=round(self.last_loss, 5))
+                          last_loss=round(self.last_loss, 5), **pipeline)
         return {"avg_iter_ns": timer.average_ns,
                 "avg_iter_s": timer.average_s,
                 "timed_iters": timer.count,
                 "last_loss": self.last_loss,
-                "iters": self.iters}
+                "iters": self.iters, **pipeline}
 
 
 class Trainer:
@@ -225,6 +244,12 @@ class Trainer:
         self._flat = None
         self._last_fused = None
         self._async_writer = None
+        self._copy_stream = None
+        self._multi_step_cache: dict = {}
+        # K-step CUDA graphs: captures, replays and each capture's ms
+        # (the wrappers count their launches at capture only, so a
+        # replay's launches are the capture's).
+        self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
 
     def _setup_compression(self) -> None:
         """The gradient wire (tpu_ddp/train/engine.py:227-246): any
@@ -709,9 +734,173 @@ class Trainer:
         return state, loss
 
     def last_step_skipped(self) -> bool:
-        """True iff the guard skipped the most recent step's update."""
+        """True iff the guard skipped the most recent step's update (for
+        a K-step group, its last step)."""
         fused = self._last_fused
-        return fused is not None and bool(fused[1] != 0)
+        return fused is not None and bool(fused.reshape(-1)[-1] != 0)
+
+    # ---- async dispatch (tpu_ddp/train/engine.py:1237-1350) ------------
+
+    @staticmethod
+    def _bundle(loss, fused):
+        """The step's ``[loss, skipped]`` on its device (skipped 0
+        without the guard)."""
+        if fused is not None:
+            return fused
+        loss = loss.detach().float()
+        return torch.stack([loss, torch.zeros_like(loss)])
+
+    def put_batch(self, images, labels) -> tuple:
+        """A host batch onto this trainer's device: ``(x, y, ready)``.
+        On the card the batch is pinned and copied on a side stream, and
+        ``ready`` is the copy's event, which the step makes the compute
+        stream wait on (:func:`data.prefetch.prefetch_to_device` keeps
+        such copies ahead of the step). Elsewhere, or for tensors already
+        on the card, ``ready`` is None."""
+        dev = self.device
+        if dev.type != "cuda" or images.device.type == "cuda":
+            return images.to(dev), labels.to(dev), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(dev)
+        hx, hy = images.pin_memory(), labels.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            x = hx.to(dev, non_blocking=True)
+            y = hy.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return x, y, ready
+
+    def _consume(self, x, y, ready):
+        """Order a put batch's copy before the step that reads it."""
+        if ready is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ready)
+            # The tensors came from the copy stream's pool: keep them
+            # alive until the compute stream is done with them.
+            x.record_stream(cur)
+            y.record_stream(cur)
+        return x, y
+
+    def _handle(self, bundle):
+        """A pipeline handle for a step's (or group's) bundle: on the
+        card a pinned host copy queued behind the step and an event
+        recorded after it (reading the copy once the event is done waits
+        for nothing); on the CPU the bundle itself."""
+        if bundle.device.type != "cuda":
+            return bundle
+        host = torch.empty(bundle.shape, dtype=bundle.dtype,
+                           pin_memory=True)
+        host.copy_(bundle, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(bundle.device))
+        return host, done
+
+    @staticmethod
+    def _host_rows(handle):
+        return (handle[0] if isinstance(handle, tuple) else handle).cpu()
+
+    def train_step_async(self, state: TrainState, images, labels,
+                         ready=None) -> tuple:
+        """Like :meth:`train_step` but returns ``(state, handle)`` without
+        any host synchronization: the step's ``[loss, skipped]`` handle
+        that the epoch loop pushes onto its
+        :class:`~tpu_ddp_torch.train.pipeline.DispatchPipeline` and reads
+        once with :meth:`_materialize_fused`. ``ready``: the copy event
+        of a :meth:`put_batch`."""
+        x, y = self._consume(images, labels, ready)
+        state, loss, fused = self._step(state, x, y)
+        return state, self._handle(self._bundle(loss, fused))
+
+    def _materialize_fused(self, handle) -> tuple[float, bool]:
+        """(local_loss, skipped) from a ready single-step handle."""
+        loss, skipped = self._host_rows(handle).reshape(-1).tolist()
+        return float(loss), skipped > 0
+
+    # ---- K steps per dispatch (tpu_ddp/train/engine.py:1099-1235) ------
+
+    def put_batches(self, images_k, labels_k) -> tuple:
+        """Stage K batches for :meth:`build_multi_step`: sequences of K
+        same-shape batches -> ``(xs, ys)``, K batches each, ``xs[j]``
+        laid out as the loader's batch (channels_last stays
+        channels_last). On the card they stay where they are: the
+        graph's :meth:`_StepGraph.stage` copies them straight into its
+        static buffers, so a group is copied to the device once."""
+        if self.device.type == "cuda":
+            return tuple(images_k), tuple(labels_k)
+        return (tuple(t.to(self.device) for t in images_k),
+                tuple(t.to(self.device) for t in labels_k))
+
+    def _graph_refusal(self) -> str | None:
+        """Why this trainer's step cannot be captured as a CUDA graph
+        yet, or None."""
+        if self.strategy != "none":
+            return (f"strategy {self.strategy_name!r} (its collectives "
+                    "and DDP's reducer)")
+        if self.config.remat != "none":
+            return f"remat={self.config.remat!r} (activation checkpoints)"
+        return None
+
+    def build_multi_step(self, k: int):
+        """A K-steps-per-dispatch call ``run(state, xs, ys) -> (state,
+        losses)``: ``xs``/``ys`` hold K batches each
+        (:meth:`put_batches`) and ``losses`` stacks the K local losses;
+        ``self._last_fused`` holds the group's (K, 2) ``[loss, skipped]``
+        rows. Each step is :meth:`train_step`'s, bit for bit.
+
+        On the card the group is one ``torch.cuda.CUDAGraph``, captured
+        once per (K, batch shapes, state tensors) over static staging
+        buffers and replayed once per group: the counterpart of the JAX
+        engine's one ``lax.scan`` dispatch. On the CPU it is a plain loop
+        of K steps.
+        A configuration whose step cannot be captured raises
+        ``NotImplementedError``; none runs eager steps under K > 1.
+        Memoised per K."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if k in self._multi_step_cache:
+            return self._multi_step_cache[k]
+        if self.device.type == "cuda":
+            why = self._graph_refusal()
+            if why is not None:
+                raise NotImplementedError(
+                    f"steps_per_dispatch={k} on the card captures the "
+                    f"step as a CUDA graph; {why} is not captured yet "
+                    "(ROADMAP Queue 1 item 9.5b)")
+            graphs: dict = {}
+            held: list = [None]
+
+            def run(state, xs, ys):
+                # The graphs write the tensors the state held at capture.
+                # A state made anew (init_state, state_from_host,
+                # restore_checkpoint) holds others: capture again for it.
+                ptrs = tuple(t.data_ptr() for t in _written(state))
+                if ptrs != held[0]:
+                    graphs.clear()
+                    held[0] = ptrs
+                key = (len(xs), tuple(xs[0].shape), xs[0].stride(),
+                       xs[0].dtype, tuple(ys[0].shape), ys[0].dtype)
+                if key not in graphs:
+                    graphs[key] = _StepGraph(self, state, xs, ys)
+                grp = graphs[key]
+                grp.stage(xs, ys)
+                grp.replay()
+                self.graph_stats["replays"] += 1
+                fused = grp.out.clone()
+                self._last_fused = fused
+                return (TrainState(state.params, state.opt_state,
+                                   state.step + k, state.comp_state),
+                        fused[:, 0])
+        else:
+            def run(state, xs, ys):
+                rows = []
+                for j in range(k):
+                    state, loss, fused = self._step(state, xs[j], ys[j])
+                    rows.append(self._bundle(loss, fused))
+                fused = torch.stack(rows)
+                self._last_fused = fused
+                return state, fused[:, 0]
+        self._multi_step_cache[k] = run
+        return run
 
     # ---- epoch loop (reference train_model, part1/main.py:52-93) -------
 
@@ -722,10 +911,20 @@ class Trainer:
         """``start_iter`` > 0 skips that many leading batches, the
         mid-epoch resume: the skipped batches are still drawn (the
         loader's augmentation draws per (seed, epoch) stay in step) but
-        not trained on."""
-        from tpu_ddp_torch.resilience.chaos import FaultInjector
-        from tpu_ddp_torch.resilience.watchdog import (heartbeat_from_env,
-                                                       touch_heartbeat)
+        not trained on.
+
+        Up to ``config.dispatch_depth`` steps stay in flight
+        (train/pipeline.py); the timed iterations 1-39 wait for their
+        step, as the reference's timer does. Depth 0 is forced while
+        chaos is active (faults land on exact steps) and, in a
+        multi-process run, while an in-loop cadence holds collectives
+        (every rank must run it at the same point, on the same step's
+        state)."""
+        from tpu_ddp_torch.data.prefetch import prefetch_to_device
+        from tpu_ddp_torch.resilience.chaos import (FaultInjector,
+                                                    chaos_env_active)
+        from tpu_ddp_torch.resilience.watchdog import heartbeat_from_env
+        from tpu_ddp_torch.train.pipeline import DispatchPipeline
         cfg = self.config
         timer = IterationTimer(cfg.timing_first_iter, cfg.timing_last_iter,
                                device=self.device)
@@ -734,63 +933,239 @@ class Trainer:
             batches = itertools.islice(iter(batches), start_iter, None)
         injector = FaultInjector.from_env(rank=self.rank)
         heartbeat = heartbeat_from_env(self.rank)
-        for it, (images, labels) in enumerate(batches, start=start_iter):
+        chaos = chaos_env_active()
+        # K steps per dispatch, unless something needs per-step host
+        # control: in-loop cadences, device prefetch, chaos (JAX's gate,
+        # tpu_ddp/train/engine.py:1427-1432).
+        on_harvest = self._harvester(window, heartbeat, injector, ckpt_dir,
+                                     lambda: state)
+        if (cfg.steps_per_dispatch > 1 and not cfg.ckpt_every_iters
+                and not cfg.check_replicas_every
+                and not cfg.device_prefetch and not chaos):
+            return self._train_epoch_multi(state, batches, timer, window,
+                                           start_iter, on_harvest)
+        use_prefetch = (cfg.device_prefetch > 0
+                        and not injector.poisons_batches)
+        stream = (prefetch_to_device(batches, self.put_batch,
+                                     cfg.device_prefetch)
+                  if use_prefetch else batches)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        collective_cadence = bool((ckpt_dir and cfg.ckpt_every_iters)
+                                  or cfg.check_replicas_every)
+        depth = (0 if chaos or (collective_cadence and world > 1)
+                 else cfg.dispatch_depth)
+        pipe = DispatchPipeline(depth)
+        for it, item in enumerate(stream, start=start_iter):
             if cfg.max_iters is not None and it >= cfg.max_iters:
                 break
             # nan-grad poisons this rank's batch (the guard then skips on
             # every rank); stalled-step and slow-rank sleep here.
             if injector.active and injector.before_step(state.step + 1):
-                images = FaultInjector.poison_images(images)
+                item = ((FaultInjector.poison_images(item[0]),)
+                        + tuple(item[1:]))
+            sync_iter = depth == 0 or it <= cfg.timing_last_iter
             timer.start()
-            state, loss, fused = self._step(state, images, labels)
+            x, y, ready = item if use_prefetch else (*item, None)
+            state, handle = self.train_step_async(state, x, y, ready)
             timer.stop(it)
-            if fused is None:
-                local_loss, skipped = float(loss), False
-            else:
-                local_loss, skipped = fused.tolist()
-            window.account(it, local_loss, state.step)
+            pipe.submit(handle,
+                        lambda h, i=it, s=state.step: on_harvest(
+                            i, s, self._materialize_fused(h)),
+                        sync=sync_iter)
+        pipe.drain()
+        return state, window.epoch_stats(pipeline=pipe.stats())
+
+    def _harvester(self, window, heartbeat, injector, ckpt_dir, current):
+        """The per-step consumer of harvested results, in step order.
+        Cadences test the harvested step and act on the CURRENT state
+        (``current()``), up to the window's depth ahead: safe in one
+        process (a checkpoint is stamped with its own step); multi-
+        process runs with such a cadence run at depth 0."""
+        from tpu_ddp_torch.resilience.watchdog import touch_heartbeat
+        cfg = self.config
+
+        def on_harvest(harv_it, harv_step, result):
+            local_loss, skipped = result
+            window.account(harv_it, local_loss, harv_step)
             if self.guard is not None:
                 # Raises after K skips in a row, before the cadence below
-                # can checkpoint the diverging run.
-                self.guard.record(state.step, bool(skipped), local_loss)
+                # can checkpoint the diverging run: at most the window's
+                # depth after the bad step ran.
+                self.guard.record(harv_step, skipped, local_loss)
             if heartbeat is not None:
-                touch_heartbeat(heartbeat[0], heartbeat[1], state.step)
+                touch_heartbeat(heartbeat[0], heartbeat[1], harv_step)
             if (ckpt_dir and cfg.ckpt_every_iters
-                    and state.step % cfg.ckpt_every_iters == 0):
-                self.save_checkpoint(ckpt_dir, state)
+                    and harv_step % cfg.ckpt_every_iters == 0):
+                self.save_checkpoint(ckpt_dir, current())
             if (cfg.check_replicas_every and not self.is_fsdp
-                    and state.step % cfg.check_replicas_every == 0):
+                    and harv_step % cfg.check_replicas_every == 0):
                 from tpu_ddp_torch.utils.invariants import \
                     check_replica_consistency
                 check_replica_consistency(
                     dict(self.model.named_parameters()))
             # hard-exit and corrupt-ckpt fire after the step's save, so a
-            # crash-step checkpoint is always on disk.
-            injector.after_step(state.step, ckpt_dir)
-        return state, window.epoch_stats()
+            # crash-step checkpoint is always on disk (chaos runs at
+            # depth 0, so harv_step is the step just taken).
+            injector.after_step(harv_step, ckpt_dir)
+
+        return on_harvest
+
+    def _train_epoch_multi(self, state, batches, timer, window, start_iter,
+                           on_harvest):
+        """The epoch loop with K optimizer steps per dispatch
+        (tpu_ddp/train/engine.py:1602-1720). Groups of K same-shape
+        batches run through :meth:`build_multi_step`; a group that mixes
+        shapes, and the tail shorter than K, take single steps. A group
+        that starts before the timing window is not timed (it holds the
+        capture); a timed group's time is spread over its K iterations
+        (``timer.stop_many``). Up to ``dispatch_depth // K`` groups stay
+        in flight, and each group's (K, 2) rows are read in one fetch,
+        then go to ``on_harvest`` one step at a time."""
+        from tpu_ddp_torch.train.pipeline import DispatchPipeline
+        cfg = self.config
+        K = cfg.steps_per_dispatch
+        multi = self.build_multi_step(K)
+        depth_groups = cfg.dispatch_depth // K
+        pipe = DispatchPipeline(depth_groups)
+
+        def harvest_group(first_it, last_step, handle):
+            rows = self._host_rows(handle).tolist()
+            for j, (loss, skipped) in enumerate(rows):
+                on_harvest(first_it + j, last_step - K + j + 1,
+                           (float(loss), skipped > 0))
+
+        it = start_iter
+        buf: list = []
+
+        def flush_singles():
+            nonlocal state, it
+            for bx, by in buf:
+                sync_iter = depth_groups == 0 or it <= timer.last_iter
+                timer.start()
+                state, handle = self.train_step_async(state, bx, by)
+                timer.stop(it)
+                pipe.submit(handle,
+                            lambda h, i=it, s=state.step: on_harvest(
+                                i, s, self._materialize_fused(h)),
+                            sync=sync_iter)
+                it += 1
+            buf.clear()
+
+        for item in batches:
+            if cfg.max_iters is not None and it + len(buf) >= cfg.max_iters:
+                break
+            buf.append(item)
+            if len(buf) < K:
+                continue
+            if len({(tuple(b[0].shape), tuple(b[1].shape))
+                    for b in buf}) == 1:
+                timed = it >= timer.first_iter
+                sync_group = depth_groups == 0 or it <= timer.last_iter
+                if timed:
+                    timer.start()
+                state, _ = multi(state, *self.put_batches(
+                    [b[0] for b in buf], [b[1] for b in buf]))
+                handle = self._handle(self._last_fused)
+                if timed:
+                    timer.stop_many(it, K)
+                pipe.submit(handle,
+                            lambda h, i=it, s=state.step: harvest_group(
+                                i, s, h),
+                            sync=sync_group)
+                it += K
+                buf.clear()
+            else:
+                flush_singles()  # non-uniform group: single steps
+        flush_singles()  # the tail shorter than K
+        pipe.drain()
+        return state, window.epoch_stats(pipeline=pipe.stats())
 
     # ---- eval (reference test_model, part1/main.py:96-111) -------------
 
     @torch.no_grad()
     def evaluate(self, state: TrainState, batches,
-                 log: Callable[[str], None] = print) -> dict:
-        """Full test-set pass, unsharded: every node evaluates the whole
-        set (part2/part2b/main.py:89-93). The loss is the mean of the
-        batch means (part1/main.py:108). Under FSDP the shards are
-        gathered once (a collective every rank enters)."""
+                 log: Callable[[str], None] = print,
+                 sharded: bool = False) -> dict:
+        """Full test-set pass. By default unsharded: every node evaluates
+        the whole set (part2/part2b/main.py:89-93), and the loss is the
+        mean of the batch means (part1/main.py:108). ``sharded=True``
+        (a syncing rung's group) splits the set over the group: each rank
+        evaluates its own batches, and the weighted loss and correct sums
+        and the weight total are summed with one ``all_reduce`` per
+        batch. A multi-process run needs the process-sharded loader's
+        (images, labels, weights) triples
+        (``create_data_loaders(shard_eval=True)``); wrap-padding rows
+        carry weight 0, and an unsharded pass drops them. BN takes its
+        statistics over the rank's batch, as under the JAX mesh. At
+        ``dispatch_depth`` > 0 the per-batch reads wait behind a window
+        of ``max(8, 4 * depth)`` batches (the JAX engine's lazy fetch).
+        Under FSDP the shards are gathered once (a collective every rank
+        enters)."""
         del state  # the parameters live in the model (FSDP: the shards)
+        from tpu_ddp_torch.ops.loss import softmax_cross_entropy
         full = (self.zero3.gather(self._flat.detach()) if self.is_fsdp
                 else None)
+        use_sharded = sharded and self._group is not None
+        world = dist.get_world_size() if dist.is_initialized() else 1
         total_loss, correct, seen, n_batches = 0.0, 0, 0, 0
-        for images, labels in batches:
+        depth = self.config.dispatch_depth
+        pending: list = []
+        max_pending = max(8, 4 * depth)
+
+        def resolve(rec):
+            nonlocal total_loss, correct, seen, n_batches
+            if rec[0] == "sharded":
+                loss_sum, corr, n = rec[1].tolist()
+                total_loss += loss_sum / max(n, 1.0)
+                correct += int(round(corr))
+                seen += int(round(n))
+            else:
+                _, loss, corr, n = rec
+                total_loss += float(loss)
+                correct += int(corr)
+                seen += n
+            n_batches += 1
+
+        def push(rec):
+            if depth == 0:
+                resolve(rec)
+                return
+            pending.append(rec)
+            if len(pending) > max_pending:
+                resolve(pending.pop(0))
+
+        for batch in batches:
+            images, labels = batch[0], batch[1]
+            weights = batch[2] if len(batch) > 2 else None
+            if weights is not None and not use_sharded:
+                keep = weights > 0
+                images, labels, weights = images[keep], labels[keep], None
+                if len(labels) == 0:
+                    continue
+            if use_sharded and weights is None and world > 1:
+                raise ValueError(
+                    "evaluate(sharded=True) in a multi-process run needs "
+                    "a process-sharded eval loader (weight triples): "
+                    "create_data_loaders(shard_eval=True). The replicated"
+                    " loader would be counted once per rank.")
             x = images.to(self.device, non_blocking=True)
             y = labels.to(self.device, non_blocking=True)
             logits = (self.model(x) if full is None
                       else self._forward(x, full))
-            total_loss += float(cross_entropy_loss(logits, y))
-            correct += int(top1_correct(logits, y))
-            seen += int(y.shape[0])
-            n_batches += 1
+            if use_sharded:
+                w = (torch.ones(y.shape, dtype=torch.float32)
+                     if weights is None else weights.float()
+                     ).to(self.device)
+                sums = torch.stack([
+                    (w * softmax_cross_entropy(logits, y)).sum(),
+                    (w * (logits.argmax(-1) == y)).sum(), w.sum()])
+                dist.all_reduce(sums, group=self._group)
+                push(("sharded", sums))
+            else:
+                push(("repl", cross_entropy_loss(logits, y),
+                      top1_correct(logits, y), int(y.shape[0])))
+        for rec in pending:
+            resolve(rec)
         avg_loss = total_loss / max(n_batches, 1)
         accuracy = correct / max(seen, 1)
         log(f"Test set: average loss {avg_loss:.4f}, "
@@ -799,3 +1174,96 @@ class Trainer:
                          test_accuracy=round(accuracy, 5), seen=seen)
         return {"test_loss": avg_loss, "test_accuracy": accuracy,
                 "correct": correct, "seen": seen}
+
+
+def _stack_like(tensors, device) -> torch.Tensor:
+    """(K, *shape) on ``device`` from K same-shape tensors, each slice
+    with the first tensor's layout (a channels_last batch stays
+    channels_last, so a staged step sees the loader's strides)."""
+    t0 = tensors[0]
+    shape = tuple(t0.shape)
+    if (t0.dim() == 4 and not t0.is_contiguous()
+            and t0.is_contiguous(memory_format=torch.channels_last)):
+        n, c, h, w = shape
+        out = torch.empty((len(tensors), n, h, w, c), dtype=t0.dtype,
+                          device=device).permute(0, 1, 4, 2, 3)
+    else:
+        out = torch.empty((len(tensors),) + shape, dtype=t0.dtype,
+                          device=device)
+    for j, t in enumerate(tensors):
+        out[j].copy_(t)
+    return out
+
+
+class _StepGraph:
+    """K train steps captured as one CUDA graph.
+
+    The graph reads the static staging buffers ``xs``/``ys`` (filled by
+    :meth:`stage` before each replay) and writes the parameters and
+    momentum in place and the (K, 2) ``[loss, skipped]`` rows into
+    ``out``. Before the capture one eager step runs on the capture
+    stream and is then undone: it builds the kernels, lets cuDNN choose
+    its algorithms and creates the BN kernels' arrival counters for that
+    stream (``ops/bn_relu.py:_workspace`` keys them by stream), so none
+    of these happens inside the capture. Everything the captured steps
+    allocate (the gradients, the BN partials, the saved activations)
+    comes from the graph's private pool, at the same addresses on every
+    replay."""
+
+    def __init__(self, trainer, state, xs, ys):
+        import time
+        dev = trainer.device
+        self.k = len(xs)
+        self.xs = _stack_like(xs, dev)
+        self.ys = _stack_like(ys, dev)
+        stream = getattr(trainer, "_graph_stream", None)
+        if stream is None:
+            stream = trainer._graph_stream = torch.cuda.Stream(dev)
+        saved = _snapshot(state)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            trainer._step(state, self.xs[0], self.ys[0])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        _restore(state, saved)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=stream):
+            rows = []
+            st = state
+            for j in range(self.k):
+                st, loss, fused = trainer._step(st, self.xs[j], self.ys[j])
+                rows.append(trainer._bundle(loss, fused))
+            self.out = torch.stack(rows)
+        trainer.graph_stats["captures"] += 1
+        trainer.graph_stats["capture_ms"].append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def stage(self, xs, ys) -> None:
+        """Copy a group's K batches into the static buffers (queued on
+        the current stream, ahead of the replay)."""
+        for j in range(self.k):
+            self.xs[j].copy_(xs[j], non_blocking=True)
+            self.ys[j].copy_(ys[j], non_blocking=True)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def _written(state: TrainState) -> list:
+    """Every tensor a step writes in place: params, momentum, a
+    scheduled lr's count."""
+    mom = state.opt_state["momentum"]
+    extra = [state.opt_state["count"]] if "count" in state.opt_state \
+        else []
+    return [*state.params, *mom, *extra]
+
+
+def _snapshot(state: TrainState) -> list:
+    """Copies of every tensor a step writes in place."""
+    return [(t, t.detach().clone()) for t in _written(state)]
+
+
+@torch.no_grad()
+def _restore(state: TrainState, saved: list) -> None:
+    for t, copy in saved:
+        t.copy_(copy)

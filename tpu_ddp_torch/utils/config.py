@@ -1,8 +1,9 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
 ``TrainConfig`` that the port's slices use (serving, the image trainer's
 models and datasets, the training ladder with its gradient wires and
-bucketed overlap, checkpoints, the step guard and the memory policy),
-with the same names, defaults,
+bucketed overlap, checkpoints, the step guard, the memory policy and
+the loop's host side: the dispatch window, K steps per dispatch and
+device prefetch), with the same names, defaults,
 ``TPU_DDP_*`` env variables and validation, so a knob means the same
 thing in both packages.
 
@@ -33,19 +34,12 @@ _FALSE = ("0", "false", "no", "off")
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
-    "TPU_DDP_STEPS_PER_DISPATCH": (("1",),
-                                   "item 9.5 (train/pipeline.py)"),
-    "TPU_DDP_DISPATCH_DEPTH": (("0",), "item 9.5 (train/pipeline.py)"),
-    "TPU_DDP_PREFETCH": (("0",), "item 9.11 (data/prefetch.py)"),
     "TPU_DDP_ELASTIC_RESHARD": (_FALSE,
                                 "item 9.6b (resilience/elastic.py)"),
     "TPU_DDP_ELASTIC_DIR": ((), "item 9.6b (resilience/elastic.py)"),
     "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
     "TPU_DDP_TUNE_SEMANTIC": (_FALSE, "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
-    "TPU_DDP_NATIVE_LOADER": (_FALSE, "item 9.11 (data/native.py)"),
-    "TPU_DDP_SHARD_EVAL": (_FALSE, "item 9.11 (sharded evaluation)"),
-    "TPU_DDP_METRICS_FILE": ((), "item 9.11 (utils/metrics.py JSONL sink)"),
     "TPU_DDP_PP_SCHEDULE": (("gpipe",), "item 10.7 (parallel/pipeline.py)"),
     "TPU_DDP_PP_MICROBATCHES": (("0",),
                                 "item 10.7 (parallel/pipeline.py)"),
@@ -160,6 +154,23 @@ class TrainConfig:
     # in the JAX package. Env: TPU_DDP_PALLAS_SGD / TPU_DDP_PALLAS_BN.
     pallas_sgd: bool = False
     pallas_bn: bool = False
+
+    # Host-to-device transfers kept in flight by the epoch loop
+    # (data/prefetch.py; 0 = none). Env: TPU_DDP_PREFETCH.
+    device_prefetch: int = 0
+    # > 1: the epoch loop runs groups of K uniform batches per dispatch
+    # (Trainer.build_multi_step: one CUDA graph replay on the card, K
+    # plain steps on the CPU; bit-equal to K single steps). Ragged tails
+    # and in-loop checkpoint/replica cadences, device prefetch and chaos
+    # take the per-step path. Env: TPU_DDP_STEPS_PER_DISPATCH.
+    steps_per_dispatch: int = 1
+    # Async dispatch window (train/pipeline.py): up to this many steps
+    # stay in flight and losses, guard flags, heartbeats and cadences run
+    # from HARVESTED steps, so a divergence can surface up to this many
+    # steps late. 0 = the reference's synchronous loop (forced while
+    # chaos is active; iterations of the timing window always wait).
+    # Env: TPU_DDP_DISPATCH_DEPTH.
+    dispatch_depth: int = 2
 
     # Cap on iterations per epoch (None = full epoch). Env:
     # TPU_DDP_MAX_ITERS.
@@ -318,6 +329,19 @@ class TrainConfig:
                 "(TPU_DDP_BUCKET_MB)")
         self.pallas_sgd = _env_bool("TPU_DDP_PALLAS_SGD", self.pallas_sgd)
         self.pallas_bn = _env_bool("TPU_DDP_PALLAS_BN", self.pallas_bn)
+        env_pf = os.environ.get("TPU_DDP_PREFETCH")
+        if env_pf:
+            self.device_prefetch = int(env_pf)
+        env_spd = os.environ.get("TPU_DDP_STEPS_PER_DISPATCH")
+        if env_spd:
+            self.steps_per_dispatch = int(env_spd)
+        env_dd = os.environ.get("TPU_DDP_DISPATCH_DEPTH")
+        if env_dd:
+            self.dispatch_depth = int(env_dd)
+        if self.dispatch_depth < 0:
+            raise ValueError(
+                f"dispatch_depth must be >= 0, got {self.dispatch_depth} "
+                "(0 = synchronous loop)")
         env_cd = os.environ.get("TPU_DDP_COMPUTE_DTYPE")
         if env_cd:
             if env_cd not in ("bfloat16", "float32", "float16"):

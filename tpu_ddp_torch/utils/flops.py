@@ -1,11 +1,106 @@
 """FLOP accounting for MFU (tpu_ddp/utils/flops.py): the forward FLOPs of
 one step of each model family, 2 per multiply-add, and training as 3x
 the forward (the backward's two products per forward product). The
-counts are the JAX package's, integer for integer."""
+counts are the JAX package's, integer for integer.
+
+:func:`peak_tflops` and :func:`device_hbm_gbps` give the card's bf16
+dense peak and memory rate by ``torch.cuda.get_device_name`` (published
+figures), overridable with ``TPU_DDP_PEAK_TFLOPS`` and
+``TPU_DDP_HBM_GBPS`` as in the JAX package; :func:`mfu_fields` is the
+JAX package's MFU block. XLA's cost analysis has no counterpart here, so
+``xla_flops_per_step`` is whatever the caller passes (None).
+"""
 
 from __future__ import annotations
 
+import os
+
+import torch
+
 TRAIN_FLOPS_MULT = 3
+
+# (substring of torch.cuda.get_device_name, bf16 dense peak TFLOP/s, HBM
+# GB/s), checked in order, first match wins. Published figures: H100 SXM
+# (HBM3) 989 and 3350, H100 PCIe 756 and 2000.
+_CARDS = (
+    ("H100 PCIe", 756.0, 2000.0),
+    ("H100", 989.0, 3350.0),
+)
+
+
+def _card_name(device) -> tuple[str, str | None]:
+    """(device type, card name or None) of a torch device or name."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type, None
+    return dev.type, torch.cuda.get_device_name(dev)
+
+
+def peak_tflops(device) -> tuple[float | None, str]:
+    """(bf16 dense peak TFLOP/s of ``device``, source string).
+
+    ``TPU_DDP_PEAK_TFLOPS`` overrides; a non-CUDA device or a card not in
+    the table gives (None, reason), so MFU is reported null rather than
+    wrong."""
+    env = os.environ.get("TPU_DDP_PEAK_TFLOPS")
+    if env:
+        try:
+            return float(env), "env:TPU_DDP_PEAK_TFLOPS"
+        except ValueError:
+            return None, f"unparseable TPU_DDP_PEAK_TFLOPS={env!r}"
+    kind, name = _card_name(device)
+    if name is None:
+        return None, f"non-CUDA device type {kind!r}: no peak table"
+    for sub, peak, _ in _CARDS:
+        if sub in name:
+            return peak, f"device name {name!r}"
+    return None, f"unknown device name {name!r}"
+
+
+def device_hbm_gbps(device, default: float = 3350.0) -> tuple[float, str]:
+    """(memory rate GB/s of ``device``, source label).
+
+    ``TPU_DDP_HBM_GBPS`` overrides; other devices fall back to
+    ``default`` (the H100 SXM's) with the label saying so: an estimate,
+    never a number that reads like the card's own."""
+    env = os.environ.get("TPU_DDP_HBM_GBPS")
+    if env:
+        try:
+            return float(env), "env:TPU_DDP_HBM_GBPS"
+        except ValueError:
+            pass
+    kind, name = _card_name(device)
+    for sub, _, bw in _CARDS:
+        if name is not None and sub in name:
+            return bw, f"device name {name!r}"
+    return default, (f"FALLBACK default (device type {kind!r}, name "
+                     f"{name!r} not in table) - estimate, not the real "
+                     "card's bandwidth")
+
+
+def mfu_fields(flops_per_step: float | None, step_seconds: float,
+               device, xla_flops_per_step: float | None = None) -> dict:
+    """The JAX bench's MFU block: achieved TFLOP/s, peak and MFU."""
+    peak, peak_src = peak_tflops(device)
+    out = {
+        "flops_per_step": flops_per_step,
+        "flops_source": "analytic" if flops_per_step is not None else None,
+        "xla_flops_per_step": xla_flops_per_step,
+        "peak_tflops_bf16": peak,
+        "peak_source": peak_src,
+        "achieved_tflops": None,
+        "mfu": None,
+    }
+    if flops_per_step is None and xla_flops_per_step is not None:
+        flops_per_step = xla_flops_per_step
+        out["flops_per_step"] = flops_per_step
+        out["flops_source"] = "xla_cost_analysis"
+    if flops_per_step and step_seconds > 0:
+        achieved = flops_per_step / step_seconds / 1e12
+        out["achieved_tflops"] = round(achieved, 3)
+        if peak:
+            out["mfu"] = round(achieved / peak, 4)
+    return out
 
 
 def vgg_fwd_flops(cfg, image_size: int, batch: int,
