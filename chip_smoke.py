@@ -365,16 +365,39 @@ Phases 35-37 run the image trainer's last model families:
    numpy loader's (within 1e-6) and the one-shot C++ transform's,
    ``TPU_DDP_PROFILE_DIR`` writes a trace holding the kernels,
    ``bench_collectives`` at world 1 over NCCL (outputs checked), and
-   ``mfu_fields`` with the H100's peak gives phases 36-37's MFU.
+   ``mfu_fields`` with the H100's peak gives phases 36-37's MFU;
+41. Adafactor under ZeRO-1: TransformerLM-large (batch 4 x seq 2048,
+   bf16, flash, phase 27's Adafactor, dropout, ``vocab_chunk`` and
+   ``remat="dots"``; no clip, which zero1 refuses) under
+   ``opt_sharding='zero1'`` (the row-sharded ``FactoredZeRO1``) at world
+   1 over NCCL and replicated, one warm-up step and three steps each:
+   the losses and every parameter the same bits, the flash launches
+   exact (24 forward and 12 of each sweep per step); ms per step and
+   peak memory beside phase 27's; the optimizer alone on one step's real
+   gradients, bit for bit; the three ``ValueError`` refusals (zero2,
+   fsdp, zero1 with a clip); ``redistribute_state`` zero1 -> replicated
+   -> zero1, bit for bit;
+42. elastic membership on the card: VGG-11 part 3 (DDP over NCCL at
+   world 1, batch 256, both kernels, cuDNN deterministic) through
+   ``run_part`` under ``TPU_DDP_ELASTIC_RESHARD`` with a membership epoch
+   (world 1, a fresh coordinator port) published after step 20: the
+   survivor's sequence (``state_to_host(local_only=True)``, the NCCL
+   group aborted, a new one, ``Trainer.rebind`` with DDP rebuilt,
+   ``state_from_host``) and its ack; the loss lines, test line and final
+   checkpoint digests equal to an uninterrupted run's, the BN and SGD
+   launches exact; the reshard's seconds; then VGG-11's live state
+   through parts 3 -> 4 -> 5 -> 3 with ``redistribute_state``, bit for
+   bit.
 
-Checkpoints of phases 18-20 go to ``_chip_smoke_ckpt/`` in the checkout
+Checkpoints of phases 18-20 and 42 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
 serving and training metrics, each phase's seconds, one
 ``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
 each path of phases 21-26, the flash kernels' on phases 27-28's and 33's
 and the BN and SGD kernels' on phases 29's, 31's and 36's (SGD's on
-37's too) and 38-39's (the flash kernels' on 39's ViT-tiny group),
-beside each main-path count; the BN, SGD and flash rows also carry
+37's too) and 38-39's (the flash kernels' on 39's ViT-tiny group and
+41's runs, the BN and SGD kernels' on 42's elastic run), beside each
+main-path count; the int8 row also the 32-row prefill's bound; the BN, SGD and flash rows also carry
 their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -5530,6 +5553,312 @@ def host_side(dev, resnet: dict, vit: dict) -> dict:
 
 
 
+LM_FZ_STEPS = 3
+
+
+def _lm_state_differ(tr, state, ref_tr, ref_state) -> int:
+    """How many leaves of two LM states (parameters and the optimizer's
+    full canonical slots, compared on the card) differ in any bit."""
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    a, b = tr._full_opt(state), ref_tr._full_opt(ref_state)
+    if a["count"] != b["count"] or state.step != ref_state.step:
+        return 1
+    pairs = list(zip(tree_leaves(state.params), tree_leaves(ref_state.params)))
+    pairs += [(x, y) for k in ("vr", "vc", "v", "mu")
+              for x, y in zip(a[k], b[k])]
+    return sum(not torch.equal(x, y) for x, y in pairs)
+
+
+def lm_factored_zero1(dev, seed: int, recipe: dict) -> dict:
+    """Phase 41: TransformerLM-large (batch 4 x seq 2048, bf16, flash)
+    with phase 27's Adafactor, dropout, chunked loss and ``remat="dots"``
+    under ``opt_sharding='zero1'`` (the row-sharded ``FactoredZeRO1``) at
+    world 1 over NCCL, beside the replicated Adafactor run with the same
+    settings (no clip: zero1 refuses one): one warm-up step and three
+    steps each, the losses and every parameter the same bits, the flash
+    launches exact; ms per step and peak memory beside phase 27's; the
+    optimizer alone on one step's real gradients bit for bit; the three
+    refusals; ``redistribute_state`` zero1 -> replicated -> zero1 bit for
+    bit. Each run's peak memory is counted above what was allocated
+    before it (the replicated run's state and parameters stay for the
+    comparison)."""
+    from tpu_ddp_torch.ops.optim import Adafactor
+    from tpu_ddp_torch.parallel.redistribute import redistribute_state
+    from tpu_ddp_torch.parallel.zero import FactoredZeRO1
+    from tpu_ddp_torch.train.lm import LMTrainer
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    model = _lm_large(dev, remat="dots", dropout_rate=RECIPE_DROPOUT)
+    refusals = {}
+    for name, kw in (("zero2", {"opt_sharding": "zero2"}),
+                     ("fsdp", {"param_sharding": "fsdp"}),
+                     ("zero1_clip", {"opt_sharding": "zero1",
+                                     "clip_grad_norm": RECIPE_CLIP})):
+        try:
+            LMTrainer(model, device=dev, optimizer=Adafactor(), **kw)
+        except ValueError as e:
+            refusals[name] = str(e)
+        else:
+            fail(f"phase 41: Adafactor under {kw} was not refused")
+    wrappers = _flash_wrappers()
+    runs, trainers, states, finals = {}, {}, {}, {}
+    with _group_of_one(dev):
+        for name in ("replicated", "zero1"):
+            torch.cuda.empty_cache()
+            tr = LMTrainer(model, device=dev, optimizer=Adafactor(),
+                           opt_sharding=name, vocab_chunk=RECIPE_CHUNK,
+                           dropout_seed=seed)
+            if (name == "zero1") != isinstance(tr.layout, FactoredZeRO1):
+                fail(f"phase 41: {name} built layout {tr.layout!r}")
+            # Peak memory is counted above what the earlier run still
+            # holds (its state and final parameters).
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            x, y = _lm_tokens(model, tr)
+            state = tr.init_state(seed=seed)
+            state, loss = tr.train_step(state, x, y)
+            losses = [loss]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launches(wrappers)
+            t0 = time.perf_counter()
+            for _ in range(LM_FZ_STEPS):
+                state, loss = tr.train_step(state, x, y)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / LM_FZ_STEPS
+            counts = _launches(wrappers)
+            n = model.num_layers * LM_FZ_STEPS
+            if counts != _flash_want(2 * n, n):
+                fail(f"phase 41: {name} flash launches {counts}, expected "
+                     f"{_flash_want(2 * n, n)}")
+            vals = [float(v) for v in losses]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"phase 41: {name} losses not finite: {vals}")
+            runs[name] = {"losses": vals,
+                          "losses_hex": [v.hex() for v in vals],
+                          "ms_per_step": ms,
+                          "tokens_per_s": LM_BATCH * LM_SEQ / (ms / 1e3),
+                          "peak_mem_gib": (torch.cuda.max_memory_allocated(
+                              dev) - base) / 2 ** 30, "launches": counts}
+            finals[name] = [t.detach().clone() for t in
+                            tree_leaves(state.params)]
+            trainers[name], states[name] = tr, state
+        if runs["zero1"]["losses_hex"] != runs["replicated"]["losses_hex"]:
+            fail(f"phase 41: zero1 losses {runs['zero1']['losses']} != "
+                 f"replicated {runs['replicated']['losses']}")
+        differ = sum(not torch.equal(a, b) for a, b in
+                     zip(finals["zero1"], finals["replicated"]))
+        if differ:
+            fail(f"phase 41: {differ} parameter leaves differ from the "
+                 "replicated run's bits")
+        del finals
+        # The optimizer alone: one step's gradients through both.
+        rtr, ztr = trainers["replicated"], trainers["zero1"]
+        leaves = tree_leaves(states["replicated"].params)
+        x, y = _lm_tokens(model, rtr)
+        _, grads = rtr._loss_and_grads(leaves, states["replicated"].params,
+                                       x, y, rtr.step_key(0))
+        grads = [g.float() for g in grads]
+        p_rep = [t.detach().clone() for t in leaves]
+        p_z = [t.detach().clone() for t in leaves]
+        full = ztr.layout.full_opt(states["zero1"].opt_state)
+        rep_opt = {k: (v if k == "count" else [t.clone() for t in v])
+                   for k, v in full.items()}
+        z_opt = ztr.layout.local_opt(full)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Adafactor().apply(p_rep, grads, rep_opt)
+        torch.cuda.synchronize()
+        rep_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        new = ztr.layout.apply(p_z, grads, z_opt)
+        torch.cuda.synchronize()
+        z_ms = (time.perf_counter() - t0) * 1e3
+        opt_differ = sum(not torch.equal(a, b) for a, b in zip(p_rep, new))
+        back = ztr.layout.full_opt(z_opt)
+        opt_differ += sum(not torch.equal(a, b) for k in ("vr", "vc", "v")
+                          for a, b in zip(rep_opt[k], back[k]))
+        if opt_differ:
+            fail(f"phase 41: FactoredZeRO1 on one step's gradients: "
+                 f"{opt_differ} leaves differ from Adafactor's bits")
+        del p_rep, p_z, grads, new, full, rep_opt, z_opt, back
+        # Live state zero1 -> replicated -> zero1, through the canonical
+        # host tree; compared with the source on the card.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        moved = redistribute_state(states["zero1"], ztr, rtr)
+        torch.cuda.synchronize()
+        redis_s = [time.perf_counter() - t0]
+        t0 = time.perf_counter()
+        back = redistribute_state(moved, rtr, ztr)
+        torch.cuda.synchronize()
+        redis_s.append(time.perf_counter() - t0)
+        redis_differ = (_lm_state_differ(rtr, moved, ztr, states["zero1"])
+                        + _lm_state_differ(ztr, back, ztr, states["zero1"]))
+        if redis_differ:
+            fail(f"phase 41: redistribute_state replicated <-> zero1: "
+                 f"{redis_differ} leaves differ")
+        del trainers, states, moved, back
+    torch.cuda.empty_cache()
+    return {"setting": {"optimizer": "Adafactor()",
+                        "dropout": RECIPE_DROPOUT,
+                        "vocab_chunk": RECIPE_CHUNK, "remat": "dots"},
+            "batch": LM_BATCH, "seq": LM_SEQ, "steps": LM_FZ_STEPS,
+            "runs": runs, "refusals": refusals,
+            "phase27_replicated_with_clip": {
+                "ms_per_step": recipe["ms_per_step"],
+                "peak_mem_gib": recipe["peak_mem_gib"]},
+            "optimizer_one_step_ms": {"replicated": rep_ms,
+                                      "zero1": z_ms},
+            "redistribute_s": {"zero1_to_replicated": redis_s[0],
+                               "replicated_to_zero1": redis_s[1]}}
+
+
+ELASTIC_ITERS = 40
+ELASTIC_AT = 20  # the membership epoch fires after this step
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _part3_run(dev, ckpt, **env) -> str:
+    """VGG-11 part 3 (DDP, NCCL at world 1) through ``run_part`` for
+    ELASTIC_ITERS iterations, both kernels, cuDNN deterministic."""
+    with _env(**{**VGG_ENV, "TPU_DDP_MAX_ITERS": str(ELASTIC_ITERS),
+                 "TPU_DDP_CUDNN_DETERMINISTIC": "1", **env}):
+        rc, out, _ = _run_part_captured(
+            "part3", ["--num-nodes", "1", "--rank", "0", "--master-ip",
+                      "127.0.0.1", "--master-port", str(_free_port()),
+                      "--device", str(dev), "--ckpt-dir", ckpt])
+    if rc != 0 or "Test set:" not in out:
+        fail(f"phase 42: part3 {env} returned {rc} or printed no 'Test "
+             "set:' line")
+    return out
+
+
+def _vgg_chain(dev) -> dict:
+    """VGG-11 live state through part 3 -> 4 -> 5 -> 3 at world 1 with
+    ``redistribute_state``: every move the canonical bits."""
+    from tpu_ddp_torch.models.vgg import make_vgg
+    from tpu_ddp_torch.parallel.redistribute import redistribute_state
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    from tpu_ddp_torch.utils.tree import keyed_leaves
+    cfg = TrainConfig(pallas_sgd=True, pallas_bn=True)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(256, 3, 32, 32, device=dev, generator=gen)
+    y = torch.randint(0, 10, (256,), device=dev, generator=gen)
+    out = {}
+    with _group_of_one(dev):
+        src = Trainer(make_vgg("VGG11", use_pallas_bn=True), cfg,
+                      strategy="fused", device=dev)
+        state, _ = src.train_step(src.init_state(), x, y)
+        want = keyed_leaves(src.state_to_host(state))
+        cur_tr, cur = src, state
+        for strategy in ("zero", "fsdp", "fused"):
+            dst = Trainer(make_vgg("VGG11", use_pallas_bn=True), cfg,
+                          strategy=strategy, device=dev)
+            cur = redistribute_state(cur, cur_tr, dst)
+            got = keyed_leaves(dst.state_to_host(cur))
+            differ = sum(not np.array_equal(a, b)
+                         for (_, a), (_, b) in zip(got, want))
+            if differ or len(got) != len(want):
+                fail(f"phase 42: redistribute to {strategy}: {differ} "
+                     "leaves differ")
+            out[f"to_{strategy}"] = "bit for bit"
+            cur_tr = dst
+        if redistribute_state(cur, cur_tr, cur_tr) is not cur:
+            fail("phase 42: redistribute onto the same trainer copied")
+    return out
+
+
+def elastic_card(dev) -> dict:
+    """Phase 42: VGG-11 part 3 (DDP over NCCL at world 1, batch 256, both
+    kernels) with a membership epoch (world 1, a fresh coordinator port)
+    published after step ELASTIC_AT through the controller's directory:
+    the survivor's whole sequence on the card (state_to_host local_only,
+    the NCCL group aborted, a new one, ``rebind`` with DDP rebuilt,
+    state_from_host); the loss lines, test line and the final
+    checkpoint's digests equal to an uninterrupted run's, the kernels'
+    launches exact over the run; the reshard's seconds. Then VGG-11's
+    live state through parts 3 -> 4 -> 5 -> 3 with ``redistribute_state``,
+    bit for bit."""
+    import shutil
+    from tpu_ddp_torch.resilience import chaos, elastic
+    root = os.path.join(CKPT_ROOT, "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    ctl_dir = os.path.join(root, "control")
+    elastic.write_membership(ctl_dir, {
+        "epoch": 0, "world": 1, "base_world": 1, "assignments": {"0": 0},
+        "coordinator": f"127.0.0.1:{_free_port()}", "joiners": [],
+        "dropped": []})
+    wrappers = _vgg_wrappers()
+    real_after = chaos.FaultInjector.after_step
+
+    def publish_epoch(self, step, ckpt_dir=None):
+        # The launcher's part at world 1: the next epoch's record.
+        if step == ELASTIC_AT:
+            elastic.write_membership(ctl_dir, {
+                "epoch": 1, "world": 1, "base_world": 1,
+                "assignments": {"0": 0},
+                "coordinator": f"127.0.0.1:{_free_port()}",
+                "joiners": [], "dropped": []})
+        return real_after(self, step, ckpt_dir)
+
+    reshard_s = []
+    real_apply = elastic.apply_membership
+
+    def timed_apply(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_apply(*a, **kw)
+        reshard_s.append(time.perf_counter() - t0)
+        return out
+
+    straight_dir = os.path.join(root, "straight")
+    straight = _part3_run(dev, straight_dir, TPU_DDP_ELASTIC_RESHARD=None,
+                          TPU_DDP_ELASTIC_DIR=None)
+    _zero_launches(wrappers)
+    with mock.patch.object(chaos.FaultInjector, "after_step",
+                           publish_epoch), \
+            mock.patch.object(elastic, "apply_membership", timed_apply):
+        elastic_out = _part3_run(
+            dev, os.path.join(root, "elastic"),
+            TPU_DDP_ELASTIC_RESHARD="1", TPU_DDP_ELASTIC_DIR=ctl_dir,
+            TPU_DDP_ELASTIC_RANK="0")
+    counts = _launches(wrappers)
+    m = re.search(r"\[elastic\] epoch 1: rank 0->0, world=1, resharded in "
+                  r"(\S+)s", elastic_out)
+    if m is None or len(reshard_s) != 1:
+        fail("phase 42: no reshard, or more than one, in the elastic run")
+    lines = {k: re.findall(r"\[epoch 0, iter \d+\] loss: \S+|Test set: .*",
+                           o) for k, o in (("straight", straight),
+                                           ("elastic", elastic_out))}
+    if lines["elastic"] != lines["straight"] or len(lines["straight"]) != 3:
+        fail(f"phase 42: loss and test lines {lines['elastic']} != "
+             f"uninterrupted {lines['straight']}")
+    if not os.path.exists(elastic.ack_path(ctl_dir, 1, 0)):
+        fail("phase 42: the survivor wrote no ack for epoch 1")
+    digests = _step_digests(os.path.join(root, "elastic"), ELASTIC_ITERS)
+    if digests != _step_digests(straight_dir, ELASTIC_ITERS):
+        fail("phase 42: final checkpoint digests differ from the "
+             "uninterrupted run's")
+    test = re.search(r"Test set: average loss \S+, accuracy \d+/(\d+)",
+                     straight)
+    eval_batches = math.ceil(int(test.group(1)) / 256)
+    want = _vgg_want(ELASTIC_ITERS, eval_batches)
+    if counts != want:
+        fail(f"phase 42: launch counts {counts}, expected {want}")
+    chain = _vgg_chain(dev)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"iters": ELASTIC_ITERS, "membership_epoch_after_step":
+            ELASTIC_AT, "reshard_s": reshard_s[0],
+            "lines": lines["elastic"], "launches": counts,
+            "eval_batches": eval_batches, "redistribute_vgg": chain}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5671,14 +6000,31 @@ def main() -> None:
     print(json.dumps({"multi_step": ksteps}), flush=True)
     hostside = phase("40_host_side", host_side, dev, resnet, vit)
     print(json.dumps({"host_side": hostside}), flush=True)
+    torch.cuda.empty_cache()
+    fzero = phase("41_lm_factored_zero1", lm_factored_zero1, dev,
+                  args.seed, recipe)
+    print(json.dumps({"lm_factored_zero1": fzero}), flush=True)
+    try:
+        ecard = phase("42_elastic_card", elastic_card, dev)
+    finally:
+        import shutil
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    print(json.dumps({"elastic_card": ecard}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
         return sum(r[key] * r["per_pass"] for r in rows if r["m"] == m)
 
-    t_bytes = per_pass(8, "bytes") / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(2 * 8 * r["k"] * r["n"] * r["per_pass"] for r in rows
-                if r["m"] == 8) / BF16_FLOP_PER_S * 1e3
+    def pass_bound(m):
+        """(ms, bound_by) of one engine pass's int8 work at M = m."""
+        t_bytes = per_pass(m, "bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(2 * m * r["k"] * r["n"] * r["per_pass"] for r in rows
+                    if r["m"] == m) / BF16_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    decode_bound, decode_by = pass_bound(8)
+    prefill_bound, prefill_by = pass_bound(32)
     def ptxas(pattern):
         """(max registers, total spill bytes) of the kernels whose
         mangled name holds ``pattern``."""
@@ -5724,14 +6070,16 @@ def main() -> None:
         "was_ms": per_pass(8, "simt_ms"),
         "was_main_path_ms": main_path(serve["traced_window_simt"]),
         "plain_ms": per_pass(8, "plain_ms"),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": decode_bound,
+        "bound_by": decode_by,
         "library_ms": per_pass(8, "library_ms"),
         "event_ms": per_pass(8, "event_ms"),
         "timing": ",".join(sorted({r["timing"] for r in rows})),
         "prefill_chunk_ms": per_pass(32, "ms"),
         "prefill_chunk_was_ms": per_pass(32, "simt_ms"),
         "prefill_chunk_library_ms": per_pass(32, "library_ms"),
+        "prefill_chunk_bound_ms": prefill_bound,
+        "prefill_chunk_bound_by": prefill_by,
         "registers": regs, "spill_bytes": spills,
         # Launches on each path of phases 21-26, each counted from 0 just
         # before its run (all on the mma route).
@@ -5775,7 +6123,9 @@ def main() -> None:
             "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
                 "sgd"],
             "vit_cifar10_part1": vit["cli"]["launches"]["sgd"],
-            **host_paths("sgd")},
+            **host_paths("sgd"),
+            # Phase 42: part 3 through a membership epoch (40 steps).
+            "part3_elastic": ecard["launches"]["sgd"]},
         # Phase 36: one optimizer step over ResNet-50's 161 leaves.
         "resnet50": resnet["sgd_161_leaves"],
     }]
@@ -5820,7 +6170,9 @@ def main() -> None:
             # batches) and one remat="blocks" step.
             "resnet50_part1": resnet["cli"]["launches"][name],
             "resnet50_remat_blocks": resnet["remat_blocks"]["launches"][
-                name], **host_paths(name)}
+                name], **host_paths(name),
+            # Phase 42: part 3 through a membership epoch (40 steps).
+            "part3_elastic": ecard["launches"][name]}
         # Phase 35: one ResNet-50 step's 33 calls at batch 256, alone, on
         # the model's bf16 inputs cast to f32 rows; main_path_ms: phase
         # 36's traced steps.
@@ -5881,7 +6233,11 @@ def main() -> None:
             "vit_tiny_graph_k4_counted": ksteps["vit_tiny_k4"][
                 "launches_counted"][name],
             "vit_tiny_graph_k4_replayed": ksteps["vit_tiny_k4"][
-                "launches_replayed_traced"][name]}
+                "launches_replayed_traced"][name],
+            # Phase 41: LM-large with Adafactor, replicated and under
+            # FactoredZeRO1 (remat "dots": the forward twice per layer).
+            **{f"lm_adafactor_{k}": v["launches"][name]
+               for k, v in fzero["runs"].items()}}
         # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
         # beside SDPA's flash backend; main_path_ms: none traced.
         for preset, res in vit["flash_kernels"].items():
@@ -5908,6 +6264,7 @@ def main() -> None:
                        "resnet50": resnet, "vit": vit,
                        "dispatch_window": depths, "multi_step": ksteps,
                        "host_side": hostside,
+                       "lm_factored_zero1": fzero, "elastic_card": ecard,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -5988,6 +6345,16 @@ def main() -> None:
           + "; capture ms " + ", ".join(
               f"K={k}: {ksteps[f'k{k}']['capture_ms']:.1f}"
               for k in GRAPH_GROUPS), flush=True)
+    fz = fzero["runs"]
+    print(f"factored zero1: LM-large Adafactor zero1 "
+          f"{fz['zero1']['ms_per_step']:.1f} ms/step "
+          f"{fz['zero1']['peak_mem_gib']:.2f} GiB, replicated "
+          f"{fz['replicated']['ms_per_step']:.1f} ms/step "
+          f"{fz['replicated']['peak_mem_gib']:.2f} GiB (phase 27, with "
+          f"clip: {recipe['ms_per_step']:.1f} ms, "
+          f"{recipe['peak_mem_gib']:.2f} GiB); elastic: VGG-11 part 3 "
+          f"resharded at world 1 in {ecard['reshard_s']:.3f} s",
+          flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

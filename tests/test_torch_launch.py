@@ -117,11 +117,31 @@ def test_sliding_restart_window(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--elastic-reshard", "item 9.6b"), ("--pp-schedule", "item 10.7"), ("--autotune", "item 9.8"),
+    ("--pp-schedule", "item 10.7"), ("--autotune", "item 9.8"),
     ("--platform", "item 9.9")])
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         launch.main(["part1", "--nproc", "1", flag])
+
+
+def test_elastic_reshard_flag_arms_the_elastic_loop(monkeypatch):
+    """``--elastic-reshard`` reaches every rank as TPU_DDP_ELASTIC_RESHARD
+    and the launcher's elastic loop (tests/test_torch_elastic.py runs the
+    drills), as in the JAX launcher."""
+    seen = []
+
+    def fake(part, nproc, **kw):
+        seen.append((kw["env"], kw["elastic_reshard"]))
+        return launch.LaunchResult(reshards=1)
+
+    monkeypatch.setattr(launch, "launch_elastic", fake)
+    assert launch.main(["part3", "--nproc", "2", "--elastic-reshard"]) == 0
+    assert seen == [({"TPU_DDP_ELASTIC_RESHARD": "1"}, True)]
+    # An absorbed departure does not fail the launch.
+    res = launch.LaunchResult(workers=[
+        launch.WorkerResult(rank=0, returncode=0),
+        launch.WorkerResult(rank=1, returncode=15, absorbed=True)])
+    assert res.ok
 
 
 def test_dispatch_depth_flag_sets_the_env(monkeypatch):

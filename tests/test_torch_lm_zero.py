@@ -11,7 +11,8 @@ JAX ``LMTrainer``'s.
 - At one process each layout is the identity: three steps equal the
   replicated trainer's bit for bit, and checkpoints move between the
   layouts exactly.
-- Adafactor under a sharded layout raises, naming its item.
+- Adafactor trains under zero1 (the row-sharded FactoredZeRO1) and is
+  refused under zero2 and fsdp.
 """
 
 import re
@@ -138,9 +139,19 @@ def test_checkpoints_move_between_layouts(tmp_path):
                                 dict(opt_sharding="zero2"),
                                 dict(param_sharding="fsdp")])
 def test_adafactor_under_a_sharded_layout_raises_naming_its_item(kw):
+    """Adafactor under zero1 is the row-sharded FactoredZeRO1 and
+    trains (tests/test_torch_factored_zero.py holds it to JAX); zero2
+    and fsdp are permanent refusals in the JAX trainer's words."""
+    from tpu_ddp_torch.parallel.zero import FactoredZeRO1
     _, tm = _models()
-    with pytest.raises(NotImplementedError,
-                       match=r"item 9\.4, FactoredZeRO1"):
+    if kw.get("opt_sharding") == "zero1":
+        tr = LMTrainer(tm, device="cpu", optimizer=Adafactor(), **kw)
+        assert isinstance(tr.layout, FactoredZeRO1)
+        state = tr.init_state(seed=0)
+        state, loss = tr.train_step(state, *tr.put_batch(*_tokens()))
+        assert np.isfinite(float(loss)) and state.step == 1
+        return
+    with pytest.raises(ValueError, match="Adafactor"):
         LMTrainer(tm, device="cpu", optimizer=Adafactor(), **kw)
 
 

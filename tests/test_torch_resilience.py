@@ -95,10 +95,14 @@ def test_guard_is_on_by_default_as_in_jax(monkeypatch):
         assert getattr(TrainConfig(), field) == want
         assert getattr(JaxConfig(), field) == want
         monkeypatch.delenv(name)
+    # Elastic membership is read as the JAX config reads it, and a
+    # trainer builds under it (the workers act on it only with the
+    # launcher's protocol directory).
     monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "1")
-    with pytest.raises(NotImplementedError, match="item 9.6b"):
-        Trainer(VGGModel("tiny", TINY, use_pallas_bn=True),
-                TrainConfig(pallas_bn=True), device="cpu")
+    assert TrainConfig().elastic_reshard is JaxConfig().elastic_reshard \
+        is True
+    Trainer(VGGModel("tiny", TINY, use_pallas_bn=True),
+            TrainConfig(pallas_bn=True), device="cpu")
 
 
 def test_nan_batch_is_skipped_bit_for_bit_as_in_jax():
@@ -284,7 +288,6 @@ def test_seeded_probabilistic_mode_fires_as_jax_does():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("host-loss@3", "item 9.6b"), ("host-join@3", "item 9.6b"),
     ("group-loss@1", "item 11"), ("replica-crash@1", "item 2.7")])
 def test_unported_kinds_raise_naming_their_item(spec, item, monkeypatch):
     with pytest.raises(NotImplementedError, match=item):

@@ -271,13 +271,14 @@ def test_trainer_defaults_to_the_card():
 
 def test_unported_knobs_are_refused(monkeypatch):
     cfg = TrainConfig(pallas_bn=True)
-    for name, value in (("TPU_DDP_ELASTIC_RESHARD", "1"),
-                        ("TPU_DDP_AUTOTUNE", "search")):
+    for name, value in (("TPU_DDP_AUTOTUNE", "search"),
+                        ("TPU_DDP_AUDIT", "on")):
         monkeypatch.setenv(name, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_port_model(), cfg, device="cpu")
         monkeypatch.delenv(name)
-    monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "0")  # the default
+    # Elastic membership is ported: a trainer builds under its knob.
+    monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "1")
     Trainer(_port_model(), cfg, device="cpu")
     # Both scale-up presets build, as the JAX package defines them.
     for name, model, classes in (("vit_cifar10", "ViT-tiny", 10),
@@ -290,8 +291,9 @@ def test_unported_knobs_are_refused(monkeypatch):
         built = get_model(pcfg.model, num_classes=pcfg.num_classes,
                           use_pallas_bn=pcfg.pallas_bn)
         assert built.name == model and built.num_classes == classes
+    assert TrainConfig(elastic_reshard=True).elastic_reshard
     with pytest.raises(TypeError):
-        TrainConfig(elastic_reshard=True)
+        TrainConfig(autotune="search")
 
 
 def test_dispatch_knobs_work(monkeypatch):
@@ -361,15 +363,25 @@ def test_syncing_rung_needs_a_process_group():
 def test_ckpt_dir_is_refused(tmp_path, monkeypatch):
     """Checkpoints are ported (tests/test_torch_checkpoint.py); what is
     still refused around ``--ckpt-dir``: ``--resume`` without it, an
-    argparse error before any rendezvous, and the elastic knobs that would
-    reshard instead of restarting from it (ROADMAP item 9.6b)."""
+    argparse error before any rendezvous. The elastic knob without the
+    launcher's protocol directory leaves the run as it was: part 1 trains
+    and checkpoints (the drills are tests/test_torch_elastic.py)."""
     from tpu_ddp_torch.parts import run_part
+    from tpu_ddp_torch.utils.checkpoint import latest_step
     with pytest.raises(SystemExit):
         run_part("part2b", ["--num-nodes", "2", "--device", "cpu",
                             "--resume"])
-    monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "1")
-    with pytest.raises(NotImplementedError, match="item 9.6b"):
-        run_part("part1", ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    for name, value in (("TPU_DDP_ELASTIC_RESHARD", "1"),
+                        ("TPU_DDP_MAX_ITERS", "1"),
+                        ("TPU_DDP_SYNTH_SIZE", "16"),
+                        ("TPU_DDP_GLOBAL_BATCH", "8"),
+                        ("TPU_DDP_COMPUTE_DTYPE", "float32"),
+                        ("CIFAR10_DIR", str(tmp_path / "none"))):
+        monkeypatch.setenv(name, value)
+    monkeypatch.delenv("TPU_DDP_ELASTIC_DIR", raising=False)
+    assert run_part("part1", ["--device", "cpu", "--ckpt-dir",
+                              str(tmp_path / "ckpt")]) == 0
+    assert latest_step(str(tmp_path / "ckpt")) == 1
 
 
 def test_bootstrap_helpers(capsys):

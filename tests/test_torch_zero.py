@@ -123,12 +123,18 @@ def test_without_a_group_the_layout_is_the_identity():
 
 
 def test_unported_wrappers_raise_naming_their_items():
+    """The model-parallel partition raises naming its items; Adafactor
+    on the flat layouts is a permanent refusal pointing to the
+    row-sharded FactoredZeRO1, which takes the partition's item too."""
     from tpu_ddp_torch.ops.optim import SGD, Adafactor
+    from tpu_ddp_torch.parallel.zero import FactoredZeRO1
     for cls in (ZeRO1, ZeRO3):
-        with pytest.raises(NotImplementedError, match="item 9.4"):
+        with pytest.raises(ValueError, match="FactoredZeRO1"):
             cls(Adafactor(), [(4, 4)])
         with pytest.raises(NotImplementedError, match="items 10.6-10.8"):
             cls(SGD(), [(4, 4)], param_specs=[("mp", None)])
+    with pytest.raises(NotImplementedError, match="item 10.6"):
+        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[("mp", None)])
 
 
 def _assert_state(got, want, rtol=RTOL, atol=ATOL, prefixes=("params",

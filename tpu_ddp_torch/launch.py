@@ -18,9 +18,22 @@ of ``python -m tpu_ddp_torch.parts partN`` with ``--rank i`` and a shared
   and ``--restart-window`` counts only recent restarts against the
   budget.
 
+- ``--elastic-reshard`` turns a lost rank from a cluster failure into
+  a membership epoch (resilience/elastic.py): the launcher keeps the
+  protocol directory, and when a rank exits (or its heartbeat stalls)
+  while others live, it writes the departure notice on its behalf,
+  publishes the next epoch (survivors keep the low ranks in worker-id
+  order, joiners take the highest, a fresh coordinator port) and waits
+  for every member's ack; the survivors reshard their live state. A
+  rank that exits 16 (``host-join``) is spawned again as a joiner of a
+  regrown epoch, restoring from the survivors' beacon. A survivor that
+  cannot carry its state exits 17, and that (or acks that do not come)
+  fails the attempt, so ``--max-restarts`` restarts from the checkpoint.
+
 Exit codes tell the failures apart: a chaos ``hard-exit`` is 13
-(``FAULT_EXIT_CODE``), a watchdog kill 14, a rank killed as a bystander
--9, a clean run 0.
+(``FAULT_EXIT_CODE``), a watchdog kill 14, ``host-loss`` 15,
+``host-join`` 16, a reshard that cannot carry live state 17, a rank
+killed as a bystander -9, a clean run 0.
 
 CLI::
 
@@ -28,6 +41,8 @@ CLI::
         --ckpt-dir D [--device cuda|cpu] [part flags...]
     python -m tpu_ddp_torch.launch part4 --nproc 4 --device cpu \\
         [--grad-compress bf16|int8|int8-noef] [--overlap --bucket-mb 25]
+    python -m tpu_ddp_torch.launch part3 --nproc 2 --device cpu \\
+        --elastic-reshard [--max-restarts 1 --ckpt-dir D]
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -59,7 +74,6 @@ PARTS = ("part1", "part2a", "part2b", "part3", "part4", "part5")
 # Flags of the JAX launcher that the port does not carry yet -> the ROADMAP
 # Queue 1 item that ports what they switch on.
 _UNPORTED_FLAGS = {
-    "--elastic-reshard": "item 9.6b (resilience/elastic.py)",
     "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
     "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
     "--pp-virtual": "item 10.7 (parallel/pipeline.py)",
@@ -92,6 +106,8 @@ class WorkerResult:
     rank: int
     returncode: int
     output: str = ""
+    # True when an elastic reshard absorbed this worker's departure.
+    absorbed: bool = False
 
 
 @dataclass
@@ -104,13 +120,19 @@ class LaunchResult:
     restarts: int = 0
     # True when the heartbeat watchdog killed this attempt.
     stalled: bool = False
+    # Membership epochs this attempt absorbed by live resharding, and
+    # the attempt's protocol directory (post-mortems).
+    reshards: int = 0
+    control_dir: str | None = None
+    # launch_elastic: the exit code of each earlier, failed attempt.
+    failed_attempts: list = field(default_factory=list)
 
     @property
     def returncode(self) -> int:
         if self.first_failure:
             return self.first_failure
         return next((w.returncode for w in self.workers
-                     if w.returncode != 0), 0)
+                     if w.returncode != 0 and not w.absorbed), 0)
 
     @property
     def ok(self) -> bool:
@@ -142,13 +164,20 @@ def _rank_device(device: str | None, rank: int, nproc: int) -> str | None:
 def launch(part: str, nproc: int, extra_args: list | None = None,
            device: str | None = None, port: int | None = None,
            env: dict | None = None,
-           heartbeat_timeout: float | None = None) -> LaunchResult:
+           heartbeat_timeout: float | None = None,
+           elastic_reshard: bool = False, ack_timeout: float = 120.0,
+           rejoin_delay: float = 1.0,
+           timeout: float | None = None) -> LaunchResult:
     """Run ``nproc`` rank processes of ``python -m tpu_ddp_torch.parts
     <part>`` and wait for all of them, or for the first failure or the
     watchdog. ``env`` is added to each worker's environment.
     ``heartbeat_timeout`` arms the watchdog: the workers get
     ``TPU_DDP_HEARTBEAT_DIR`` (a fresh temp dir) and beat once per
-    step."""
+    step. ``elastic_reshard`` (more than one rank) absorbs departures
+    into membership epochs (:func:`_run_elastic`): acks within
+    ``ack_timeout`` seconds, a ``host-join`` rank spawned again after
+    ``rejoin_delay``. ``timeout`` bounds the whole attempt: past it
+    every rank still running is killed (exit -9)."""
     if nproc < 1:
         raise ValueError("nproc must be >= 1")
     if part not in PARTS:
@@ -158,11 +187,31 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
     if heartbeat_timeout is not None:
         monitor = HeartbeatMonitor(tempfile.mkdtemp(prefix="tpu_ddp_hb_"),
                                    nproc, heartbeat_timeout)
+    control_dir = None
+    if elastic_reshard and nproc > 1:
+        from tpu_ddp_torch.resilience import elastic as _el
+        # The heartbeat directory doubles as the protocol directory when
+        # the watchdog is armed: one place to look in a post-mortem.
+        control_dir = (monitor.directory if monitor is not None
+                       else tempfile.mkdtemp(prefix="tpu_ddp_elastic_"))
+        _el.reset_control_dir(control_dir)
+        _el.write_membership(control_dir, {
+            "epoch": 0, "world": nproc, "base_world": nproc,
+            "assignments": {str(i): i for i in range(nproc)},
+            "coordinator": f"127.0.0.1:{port}",
+            "joiners": [], "dropped": []})
 
-    def spawn(rank: int):
+    def spawn(rank: int, join_epoch: int | None = None):
         child_env = dict(os.environ)
         if monitor is not None:
             child_env[HEARTBEAT_ENV] = monitor.directory
+        if control_dir is not None:
+            from tpu_ddp_torch.resilience import elastic as _el
+            child_env[_el.ELASTIC_ENV] = "1"
+            child_env[_el.ELASTIC_DIR_ENV] = control_dir
+            child_env[_el.ELASTIC_RANK_ENV] = str(rank)
+            if join_epoch is not None:
+                child_env[_el.ELASTIC_JOIN_ENV] = str(join_epoch)
         if env:
             child_env.update(env)
         # Workers share the launcher's working directory (relative paths
@@ -186,10 +235,14 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
         t.start()
         return proc, sink, t
 
+    if control_dir is not None:
+        return _run_elastic(spawn, nproc, control_dir, monitor,
+                            ack_timeout, rejoin_delay, timeout)
     spawned = [spawn(rank) for rank in range(nproc)]
     procs = [p for p, _, _ in spawned]
     # Poll every rank: a rank that dies early leaves the others blocked
     # in a collective.
+    deadline = None if timeout is None else time.monotonic() + timeout
     rcs: dict = {}
     first_failure = 0
     while len(rcs) < len(procs):
@@ -217,6 +270,15 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
                         rcs[rank] = proc.wait()
                 first_failure = STALL_EXIT_CODE
                 break
+            if deadline is not None and time.monotonic() > deadline:
+                print(f"[launch] timeout ({timeout:.0f}s) - killing the "
+                      "cluster", flush=True)
+                for rank, proc in enumerate(procs):
+                    if rank not in rcs:
+                        proc.kill()
+                        rcs[rank] = proc.wait()
+                first_failure = first_failure or -9
+                break
             time.sleep(0.05)
     result = LaunchResult(first_failure=first_failure,
                           stalled=first_failure == STALL_EXIT_CODE)
@@ -224,6 +286,175 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
         t.join(timeout=5)
         result.workers.append(WorkerResult(rank=rank, returncode=rcs[rank],
                                            output="\n".join(sink)))
+    return result
+
+
+def _run_elastic(spawn, nproc: int, control_dir: str,
+                 monitor: HeartbeatMonitor | None, ack_timeout: float,
+                 rejoin_delay: float, timeout: float | None = None
+                 ) -> LaunchResult:
+    """The elastic poll loop (tpu_ddp/launch.py:310-500): departures
+    become membership epochs instead of a cluster kill.
+
+    - a worker exits 0: done (success once every member has);
+    - a worker exits otherwise while others live: the notice on its
+      behalf, epoch + 1 (survivors keep the low ranks in worker-id
+      order, a fresh coordinator port), every survivor's ack awaited;
+    - it exited 16 (``host-join``): also spawned again after
+      ``rejoin_delay`` as the highest rank of a regrown epoch;
+    - exit 17, no survivor left, or acks that do not come: every worker
+      killed and the attempt failed, so ``launch_elastic`` restarts;
+    - a live worker's heartbeat stalls: that worker is killed and its
+      exit absorbed as above (every live worker stalled: the plain
+      watchdog kill, exit 14);
+    - past ``timeout``: every worker killed, the attempt failed (-9)."""
+    from tpu_ddp_torch.resilience import elastic as _el
+
+    live = {wid: spawn(wid) for wid in range(nproc)}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    epoch = reshards = 0
+    dropped: list = []
+    done: list = []              # (WorkerResult, output, thread)
+    pending_join: list = []      # (due, worker id)
+    first_failure = 0
+    stalled_flag = False
+
+    def record(wid, rc, sink, thread, absorbed=False):
+        done.append((WorkerResult(rank=wid, returncode=rc,
+                                  absorbed=absorbed), sink, thread))
+
+    def kill_all():
+        for wid, (proc, sink, t) in list(live.items()):
+            if proc.poll() is None:
+                proc.kill()
+            record(wid, proc.wait(), sink, t)
+            del live[wid]
+
+    def write_epoch(joiner=None):
+        nonlocal epoch, reshards
+        epoch += 1
+        reshards += 1
+        order = sorted(live)
+        if joiner is not None and joiner not in live:
+            order.append(joiner)
+        _el.write_membership(control_dir, {
+            "epoch": epoch, "world": len(order), "base_world": nproc,
+            "assignments": {str(w): i for i, w in enumerate(order)},
+            "coordinator": f"127.0.0.1:{find_free_port()}",
+            "joiners": [] if joiner is None else [joiner],
+            "dropped": sorted(dropped)})
+        return order
+
+    def await_acks(members):
+        stop = time.monotonic() + ack_timeout
+        if deadline is not None:
+            stop = min(stop, deadline)
+        while time.monotonic() < stop:
+            if all(os.path.exists(_el.ack_path(control_dir, epoch, w))
+                   for w in members):
+                if monitor is not None:
+                    # Survivors paused beating to rebuild: fresh grace.
+                    monitor.reset_grace()
+                return True
+            # A member dying mid-reshard fails the epoch.
+            if any(w in live and live[w][0].poll() is not None
+                   for w in members):
+                return False
+            time.sleep(0.05)
+        return False
+
+    def fall_back(what):
+        nonlocal first_failure
+        print(f"[launch] {what} failed to converge; falling back to "
+              "restart", flush=True)
+        first_failure = _el.RESHARD_FALLBACK_EXIT
+        kill_all()
+
+    while (live or pending_join) and not first_failure:
+        now = time.monotonic()
+        # 1. Spawn due joiners into a regrown epoch.
+        for item in [x for x in pending_join if x[0] <= now]:
+            pending_join.remove(item)
+            wid = item[1]
+            if not live:
+                first_failure = _el.HOST_JOIN_EXIT
+                break
+            _el.clear_departure(control_dir, wid)
+            if wid in dropped:
+                dropped.remove(wid)
+            members = write_epoch(joiner=wid)
+            live[wid] = spawn(wid, join_epoch=epoch)
+            print(f"[launch] epoch {epoch}: worker {wid} rejoining, "
+                  f"world={len(members)}", flush=True)
+            if not await_acks(members):
+                fall_back("rejoin epoch")
+                break
+        if first_failure:
+            break
+        # 2. Reap exits.
+        for wid in sorted(live):
+            proc, sink, t = live[wid]
+            rc = proc.poll()
+            if rc is None:
+                continue
+            del live[wid]
+            if rc == 0:
+                record(wid, 0, sink, t)
+                continue
+            if rc == _el.RESHARD_FALLBACK_EXIT or not live:
+                # Nothing to reshard around.
+                record(wid, rc, sink, t)
+                first_failure = rc
+                kill_all()
+                break
+            reason = {_el.HOST_LOSS_EXIT: "host-loss",
+                      _el.HOST_JOIN_EXIT: "host-join"}.get(rc, f"rc={rc}")
+            _el.announce_departure(control_dir, wid, reason)
+            record(wid, rc, sink, t, absorbed=True)
+            dropped.append(wid)
+            members = write_epoch()
+            print(f"[launch] epoch {epoch}: worker {wid} left ({reason}); "
+                  f"resharding onto {len(members)} survivor(s)", flush=True)
+            if not await_acks(members):
+                fall_back("reshard")
+                break
+            if rc == _el.HOST_JOIN_EXIT:
+                pending_join.append((time.monotonic() + rejoin_delay, wid))
+        if first_failure:
+            break
+        # 3. Stalls among the live workers: kill the wedged one and
+        #    absorb it above.
+        if monitor is not None and live:
+            stalled = monitor.stalled_ranks(ranks=sorted(live))
+            if stalled and len(stalled) == len(live):
+                print(f"[launch] heartbeat stall on every live rank "
+                      f"({monitor.timeout:.0f}s) - killing the cluster",
+                      flush=True)
+                first_failure = STALL_EXIT_CODE
+                stalled_flag = True
+                kill_all()
+                break
+            for wid in stalled:
+                print(f"[launch] rank {wid} heartbeat stalled "
+                      f"({monitor.timeout:.0f}s); killing it and "
+                      "resharding around it", flush=True)
+                live[wid][0].kill()
+        if deadline is not None and time.monotonic() > deadline:
+            print(f"[launch] timeout ({timeout:.0f}s) - killing the "
+                  "cluster", flush=True)
+            first_failure = -9
+            kill_all()
+            break
+        if live or pending_join:
+            time.sleep(0.05)
+
+    result = LaunchResult(first_failure=first_failure, reshards=reshards,
+                          stalled=stalled_flag, control_dir=control_dir)
+    for w, sink, t in done:
+        t.join(timeout=5)
+        w.output = "\n".join(sink)
+        result.workers.append(w)
+    result.workers.sort(key=lambda w: w.rank)
     return result
 
 
@@ -265,14 +496,16 @@ def launch_elastic(part: str, nproc: int, max_restarts: int = 0,
     makes the budget a sliding window (only restarts within the last
     ``restart_window`` seconds count), ``None`` a lifetime one. Extra
     ``kwargs`` reach :func:`launch` (``heartbeat_timeout`` arms the
-    watchdog on every attempt). Live resharding instead of a restart is
-    ROADMAP Queue 1 item 9.6b."""
+    watchdog on every attempt, ``elastic_reshard`` reshards live around
+    departures, and an attempt whose reshard fails, exit 17, restarts
+    here from the checkpoint)."""
     if max_restarts < 0:
         raise ValueError("max_restarts must be >= 0")
     extra = list(extra_args or [])
     ckpt_dir = _ckpt_dir_of(extra)
     restart_times: deque = deque()  # monotonic stamps of restarts done
     attempt = 0
+    failed: list = []
     while True:
         args = list(extra)
         if attempt > 0 and ckpt_dir and "--resume" not in args:
@@ -281,6 +514,7 @@ def launch_elastic(part: str, nproc: int, max_restarts: int = 0,
                 args.append("--resume")
         res = launch(part, nproc, extra_args=args, **kwargs)
         res.restarts = attempt
+        res.failed_attempts = list(failed)
         if res.ok:
             break
         now = time.monotonic()
@@ -292,6 +526,7 @@ def launch_elastic(part: str, nproc: int, max_restarts: int = 0,
         elif attempt >= max_restarts:
             break
         attempt += 1
+        failed.append(res.returncode)
         delay = backoff_delay(attempt, floor=min_restart_interval,
                               cap=backoff_cap)
         why = "stalled" if res.stalled else f"rc={res.returncode}"
@@ -467,6 +702,14 @@ def main(argv=None) -> int:
                         "flight by the epoch loop (0 = synchronous; "
                         "train/pipeline.py). Sets TPU_DDP_DISPATCH_DEPTH "
                         "for every rank")
+    p.add_argument("--elastic-reshard", action="store_true",
+                   help="on a membership change (a rank lost, stalled or "
+                        "rejoining) reshard the survivors' live state onto "
+                        "the new world instead of killing the cluster "
+                        "(resilience/elastic.py, parallel/redistribute.py); "
+                        "a failed reshard still falls back to "
+                        "--max-restarts checkpoint recovery. Sets "
+                        "TPU_DDP_ELASTIC_RESHARD for every rank")
     _serving_flags(p)
     args, extra = p.parse_known_args(argv)
     env = _serving_env(p, args)
@@ -487,6 +730,8 @@ def main(argv=None) -> int:
             p.error(f"--dispatch-depth must be >= 0, "
                     f"got {args.dispatch_depth}")
         env["TPU_DDP_DISPATCH_DEPTH"] = str(args.dispatch_depth)
+    if args.elastic_reshard:
+        env["TPU_DDP_ELASTIC_RESHARD"] = "1"
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,
@@ -495,6 +740,7 @@ def main(argv=None) -> int:
                              min_restart_interval=args.min_restart_interval,
                              restart_window=args.restart_window,
                              heartbeat_timeout=args.heartbeat_timeout,
+                             elastic_reshard=args.elastic_reshard,
                              device=args.device, port=args.port)
     except (ValueError, FileNotFoundError) as e:
         p.error(str(e))
@@ -502,6 +748,9 @@ def main(argv=None) -> int:
         print(f"[launch] rank {w.rank} exited {w.returncode}")
     if res.stalled:
         print("[launch] final attempt killed by the heartbeat watchdog")
+    if res.reshards:
+        print(f"[launch] absorbed {res.reshards} membership epoch(s) by "
+              "live resharding")
     if res.restarts:
         print(f"[launch] recovered after {res.restarts} restart(s)"
               if res.ok else f"[launch] gave up after {res.restarts} "

@@ -167,10 +167,13 @@ class Adafactor:
 
     The state is the JAX layout, leaf lists in parameter order: ``vr``,
     ``vc``, ``v`` and ``mu`` hold a ``(1,)`` f32 zero where a leaf does
-    not use the slot, so a checkpoint restores in either package. Bare
-    Adafactor only: the per-cell and ZeRO wrappers of
-    tpu_ddp/parallel/zero.py come with tensor parallelism and ZeRO
-    (ROADMAP Queue 1 items 10.6 and 9.4).
+    not use the slot, so a checkpoint restores in either package. Every
+    mean is written as a sum divided by the count (what ``torch.mean``
+    computes on the CPU), so the row-sharded ZeRO-1 of
+    parallel/zero.py (``FactoredZeRO1``), which sums its row blocks
+    across the group before it divides, gives these bits at a group of
+    one on any device. The per-cell wrapper of tensor parallelism
+    (``CellAdafactor``) comes with ROADMAP Queue 1 item 10.6.
     """
 
     learning_rate: Any = None       # None -> relative step size schedule
@@ -209,6 +212,15 @@ class Adafactor:
             return tuple(shape)
         k = plan[1]
         return (math.prod(shape[:k]), math.prod(shape[k:]))
+
+    def factoring_view(self, shape):
+        """``(lead, n, m)`` of the per-matrix view ``(*lead, n, m)`` the
+        factoring runs over (JAX ``_view_shape``), or None for a leaf
+        that keeps a full second moment (JAX ``_plan`` is None)."""
+        if self.plan(shape) is None:
+            return None
+        view = self.view_shape(shape)
+        return tuple(view[:-2]), view[-2], view[-1]
 
     def slot_shapes(self, shape) -> dict:
         """Each state slot's shape for a leaf of ``shape``."""
@@ -268,9 +280,10 @@ class Adafactor:
             view = self.view_shape(tuple(p.shape))
             g2v = g2.view(view)
             vr, vc = state["vr"][i], state["vc"][i]
-            vr.mul_(b2).add_(g2v.mean(dim=-1), alpha=omb2)
-            vc.mul_(b2).add_(g2v.mean(dim=-2), alpha=omb2)
-            r = vr / vr.mean(dim=-1, keepdim=True)
+            n, m = view[-2], view[-1]
+            vr.mul_(b2).add_(g2v.sum(dim=-1) / m, alpha=omb2)
+            vc.mul_(b2).add_(g2v.sum(dim=-2) / n, alpha=omb2)
+            r = vr / (vr.sum(dim=-1, keepdim=True) / n)
             u = (g32.view(view) * torch.rsqrt(r)[..., :, None]
                  * torch.rsqrt(vc)[..., None, :]).view(p.shape)
         else:
@@ -278,15 +291,30 @@ class Adafactor:
             v.mul_(b2).add_(g2, alpha=omb2)
             u = g32 * torch.rsqrt(v)
         del g2
-        rms_u = u.square().mean().sqrt()
-        u = u / torch.clamp_min(rms_u / self.clip_threshold, 1.0)
+        u = self.clip_update(u, u.square().sum(), u.numel())
+        alpha = self.step_size(p, rho, lr)
+        p.sub_(self.leaf_step(p, u, state["mu"][i], dk, alpha))
+
+    def step_size(self, p, rho, lr):
+        """The step's scale for the whole leaf ``p``: ``lr``, or the
+        relative step ``rho * max(eps2, RMS(p))`` (a 0-d tensor)."""
         if lr is None:
             rms_p = p.float().square().mean().sqrt()
-            alpha = float(rho) * torch.clamp_min(rms_p, self.eps2)
-        else:
-            alpha = lr
+            return float(rho) * torch.clamp_min(rms_p, self.eps2)
+        return lr
+
+    def clip_update(self, u, sq_sum, numel: int):
+        """``u`` scaled down to RMS ``clip_threshold`` from the f32 sum of
+        its squares over the whole leaf."""
+        rms_u = (sq_sum / numel).sqrt()
+        return u / torch.clamp_min(rms_u / self.clip_threshold, 1.0)
+
+    def leaf_step(self, p, u, mu, dk: bool, alpha):
+        """What the update subtracts from ``p`` (or from a block of its
+        rows), in ``p``'s dtype: the clipped update ``u``, or the first
+        moment ``mu`` advanced in place by it, times ``alpha``, plus the
+        decoupled decay of ``p``."""
         if self.b1 is not None:
-            mu = state["mu"][i]
             mu.mul_(self.b1).add_(u.to(p.dtype), alpha=1 - self.b1)
             step = mu
         else:
@@ -294,7 +322,7 @@ class Adafactor:
         upd = alpha * step
         if dk and self.weight_decay:
             upd = upd + (alpha * self.weight_decay) * p
-        p.sub_(upd.to(p.dtype))
+        return upd.to(p.dtype)
 
 
 def global_sq_norm(grads) -> torch.Tensor:

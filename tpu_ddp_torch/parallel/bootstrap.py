@@ -7,6 +7,15 @@ explicitly (the reference's MASTER_ADDR/MASTER_PORT contract; nothing is
 read from a cluster environment): backend ``nccl`` on CUDA, ``gloo`` on
 the CPU. A world of one process needs no rendezvous, except for
 ``DistributedDataParallel`` (``ddp=True``), which needs a process group.
+
+Elastic membership (resilience/elastic.py) makes one group per
+membership epoch with :func:`elastic_bootstrap` (the same backend rule, a
+timeout on every collective, and under NCCL the watchdog set to abort a
+failed communicator and raise, ``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``
+unless the environment says otherwise) and drops it with
+:func:`elastic_teardown`, which aborts the communicators
+(``_abort_process_group``) instead of entering a teardown a dead peer
+could block.
 """
 
 from __future__ import annotations
@@ -100,4 +109,44 @@ def shutdown(ctx: DistributedContext) -> None:
     """``dist.destroy_process_group()`` (reference
     part2/part2a/main.py:207), when a group was made."""
     if ctx.coordinator is not None and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+#: seconds every collective of an elastic group may take.
+COLLECTIVE_TIMEOUT_S = 60.0
+
+
+def elastic_bootstrap(coordinator: str, world_size: int, rank: int,
+                      device, timeout_s: float = COLLECTIVE_TIMEOUT_S
+                      ) -> DistributedContext:
+    """Join the world of one membership epoch at ``coordinator``
+    (``"ip:port"``); rank 0 hosts the store. Safe after
+    :func:`elastic_teardown`."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up; call elastic_teardown() "
+                           "before joining another")
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
+        torch.cuda.set_device(dev)
+    init = f"tcp://{coordinator}"
+    dist.init_process_group(backend, init_method=init,
+                            world_size=world_size, rank=rank,
+                            timeout=timedelta(seconds=timeout_s))
+    return DistributedContext(rank=rank, world_size=world_size, device=dev,
+                              coordinator=init, backend=backend)
+
+
+def elastic_teardown() -> None:
+    """Abandon the current process group without a barrier: abort its
+    communicators (``_abort_process_group``, where this PyTorch has it),
+    then destroy whatever is left."""
+    if not dist.is_initialized():
+        return
+    from torch.distributed import distributed_c10d as c10d
+    abort = getattr(c10d, "_abort_process_group", None)
+    if abort is not None:
+        abort()
+    if dist.is_initialized():
         dist.destroy_process_group()

@@ -10,9 +10,9 @@ specs (all-``None`` for the LM's matrices, as the JAX model spells a
 tensor-parallel spec at tp 1), and the flat shards of ZeRO, FSDP, the
 sharded update and the int8 wire's residual are ``P("dp")``, as in the
 JAX trainers' plans. Checkpoints hold canonical shapes, so they restore
-across layouts; redistributing live state between layouts
-(``redistribute_state``) comes with elastic membership (ROADMAP Queue 1
-item 9.6b).
+across layouts, and :func:`redistribute_state` moves live state from one
+trainer's layout to another's through the same canonical host form (the
+survivor's half of elastic membership, resilience/elastic.py).
 """
 
 from __future__ import annotations
@@ -131,6 +131,26 @@ class ShardingPlan:
         with open(path) as f:
             return cls.from_json(f.read())
 
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(self.mesh_axes)
+
+    def resolve_axes(self, n_devices: int) -> dict:
+        """Axis sizes for a new world of ``n_devices``: the model axes
+        keep their sizes and ``dp`` takes what remains. A world the model
+        axes do not divide cannot be resharded onto (that membership
+        change forces a restart)."""
+        sizes = dict(self.mesh_axes)
+        model = 1
+        for name, size in sizes.items():
+            if name != DATA_AXIS:
+                model *= size
+        if n_devices % model != 0:
+            raise ValueError(f"cannot resolve plan onto {n_devices} devices: "
+                             f"model axes need a multiple of {model}")
+        sizes[DATA_AXIS] = n_devices // model
+        return sizes
+
     def compatible_with(self, other: "ShardingPlan") -> bool:
         """Same layout contract (strategy, specs, stage order), any world
         size."""
@@ -160,3 +180,20 @@ def warn_if_incompatible(directory: str, mine: ShardingPlan) -> None:
             f"checkpoint was written by layout {saved.strategy!r} "
             f"{dict(saved.mesh_axes)}; restoring into {mine.strategy!r} "
             f"{dict(mine.mesh_axes)} via canonical shapes.", stacklevel=3)
+
+
+def redistribute_state(state, src_trainer, dst_trainer):
+    """Move live training state from ``src_trainer``'s layout to
+    ``dst_trainer``'s (tpu_ddp/parallel/redistribute.py:235-252).
+
+    When the two plans are equal and the trainers hold the same process
+    group and model (an image trainer's parameters live in its model),
+    the state is already where it belongs and comes back as it is.
+    Otherwise it goes to the canonical host tree on the source
+    (``state_to_host``) and from there into the destination's layout
+    (``state_from_host``)."""
+    if (src_trainer.sharding_plan() == dst_trainer.sharding_plan()
+            and src_trainer._group is dst_trainer._group
+            and src_trainer.model is dst_trainer.model):
+        return state
+    return dst_trainer.state_from_host(src_trainer.state_to_host(state))

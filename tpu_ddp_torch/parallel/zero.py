@@ -34,11 +34,20 @@ Without an initialized process group the layout runs with N = 1 and no
 collective (the identity); with one, every collective is issued, also at
 a world of one (NCCL then moves nothing but runs the same calls).
 
+- :class:`FactoredZeRO1` (JAX ``FactoredZeRO1``): ZeRO-1 for Adafactor,
+  whose factored moments the flat slices would destroy. It shards by
+  ROWS of each leaf's factoring view ``(*lead, n, m)``: rank r owns rows
+  ``[r * n_loc, (r + 1) * n_loc)`` (zero-padded to ``n_loc * N``), the
+  reduce-scatter hands it the group mean of that row block, ``vr`` and
+  ``mu`` shard with the rows, ``vc`` stays whole, and one ``all_reduce``
+  of the column sums and ``vr`` sums and one of the update's squared
+  sums carry the cross-row statistics; an all-gather reassembles the
+  rows. Leaves too small to factor take ZeRO-1's flat chunks.
+
 The model-parallel partition of the JAX layout (``param_specs``,
-``_leaf_partition``: tp/ep/pp-sharded leaves laid out per cell) comes
-with tensor, expert and pipeline parallelism (ROADMAP Queue 1 items
-10.6-10.8), and the factored ZeRO-1 for Adafactor (``FactoredZeRO1``)
-with item 9.4's rest.
+``_leaf_partition``: tp/ep/pp-sharded leaves laid out per cell, and
+``FactoredZeRO1``'s per-cell factoring) comes with tensor, expert and
+pipeline parallelism (ROADMAP Queue 1 items 10.6-10.8).
 """
 
 from __future__ import annotations
@@ -91,6 +100,11 @@ class _FlatLayout:
         self.offsets = np.concatenate([[0], np.cumsum(self.chunks)]
                                       ).astype(int).tolist()
         self.total_chunk = self.offsets[-1]
+
+    def decay_mask(self) -> list:
+        """The decay policy on the ORIGINAL ranks (the slices are all
+        rank 1)."""
+        return [len(s) >= 2 for s in self.shapes]
 
     # ---- host side (numpy, canonical layout) ----------------------------
 
@@ -203,6 +217,19 @@ class _FlatLayout:
         """This rank's shard buffer -> every canonical full leaf."""
         return self.leaves_of_rows(self.all_gather_rows(buf))
 
+    def full_opt(self, state) -> dict:
+        """An inner optimizer state over this rank's shards -> its full
+        canonical leaves (a collective every rank enters)."""
+        return {k: v if k == "count" else list(self.gather(torch.cat(v)))
+                for k, v in state.items()}
+
+    def local_opt(self, full) -> dict:
+        """The inverse of :meth:`full_opt`: this rank's shards of full
+        canonical state leaves, no collective."""
+        return {k: v if k == "count"
+                else [t.clone() for t in self.local_shards(v)[1]]
+                for k, v in full.items()}
+
     def sq_norm(self, slices):
         """The global f32 sum of squares of dp-scattered slices: each
         rank's squared sum, one scalar ``all_reduce``."""
@@ -210,6 +237,19 @@ class _FlatLayout:
         if self.group is not None:
             dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self.group)
         return sq
+
+
+def _refuse_factored(inner) -> None:
+    """The flat layouts cannot host Adafactor (the JAX optimizer's
+    ``map_param_like`` refusal)."""
+    from tpu_ddp_torch.ops.optim import Adafactor
+    if isinstance(inner, Adafactor):
+        raise ValueError(
+            "Adafactor's factored state is shape-coupled to its original "
+            "leaves and cannot be re-laid-out by the flat ZeRO/FSDP "
+            "wrappers; use tpu_ddp_torch.parallel.zero.FactoredZeRO1 "
+            "(LMTrainer(opt_sharding='zero1')) which shards the factored "
+            "state natively, or AdamW under FSDP")
 
 
 def _inner_apply(inner, params, grads, state, decay_mask, skip):
@@ -231,19 +271,8 @@ class ZeRO1(_FlatLayout):
 
     def __init__(self, inner, shapes, group=None, param_specs=None):
         super().__init__(shapes, group, param_specs=param_specs)
-        from tpu_ddp_torch.ops.optim import Adafactor
-        if isinstance(inner, Adafactor):
-            raise NotImplementedError(
-                "Adafactor under ZeRO needs the row-sharded FactoredZeRO1 "
-                "(tpu_ddp/parallel/zero.py), not ported to tpu_ddp_torch "
-                "yet (ROADMAP Queue 1 item 9.4, FactoredZeRO1); the "
-                "per-cell CellAdafactor comes with item 10.6")
+        _refuse_factored(inner)
         self.inner = inner
-
-    def decay_mask(self) -> list:
-        """The decay policy on the ORIGINAL ranks (the slices are all
-        rank 1)."""
-        return [len(s) >= 2 for s in self.shapes]
 
     def init(self, device):
         _, views = self.shard_zeros(device)
@@ -298,17 +327,8 @@ class ZeRO3(_FlatLayout):
 
     def __init__(self, inner, shapes, group=None, param_specs=None):
         super().__init__(shapes, group, param_specs=param_specs)
-        from tpu_ddp_torch.ops.optim import Adafactor
-        if isinstance(inner, Adafactor):
-            raise NotImplementedError(
-                "Adafactor's factored state cannot ride the flat FSDP "
-                "layout; its sharded form (FactoredZeRO1) is not ported "
-                "to tpu_ddp_torch yet (ROADMAP Queue 1 item 9.4, "
-                "FactoredZeRO1)")
+        _refuse_factored(inner)
         self.inner = inner
-
-    def decay_mask(self) -> list:
-        return [len(s) >= 2 for s in self.shapes]
 
     def shard_host(self, leaves, device):
         """Canonical host leaves -> this rank's shard buffer on
@@ -332,3 +352,384 @@ class ZeRO3(_FlatLayout):
         already divided by N)."""
         return _inner_apply(self.inner, shards, grads, state,
                             self.decay_mask(), skip)
+
+
+class FactoredZeRO1(_FlatLayout):
+    """Adafactor with its state sharded 1/N over ``group`` by rows of
+    each leaf's factoring view (JAX ``FactoredZeRO1``, data-parallel
+    form).
+
+    Each leaf's block on a rank is, for a factored leaf, its row block
+    ``(*lead, n_loc, m)`` (``n_loc = ceil(n / N)``, the last rank's tail
+    zero rows), else the flat chunk of :class:`ZeRO1`. All of a rank's
+    blocks sit side by side in one buffer (``offsets``, ``chunks``), so
+    one reduce-scatter and one all-gather of :class:`_FlatLayout` move
+    every leaf. The state a rank holds: ``vr`` ``(*lead, n_loc)``,
+    ``vc`` ``(*lead, m)`` whole, ``v`` the flat chunk (unfactored
+    leaves), ``mu`` the leaf's block (with ``b1``); a ``(1,)`` f32 zero
+    where a leaf does not use the slot, as in the JAX layout. At a group
+    of one every sum is the replicated Adafactor's, so the step is its
+    bits. ``axis_size`` and ``rank`` override the group's (host-side
+    conversions only). ``param_specs`` (the per-cell form of tensor
+    parallelism) raises, naming its item."""
+
+    def __init__(self, inner, shapes, group=None, param_specs=None,
+                 dtype=torch.float32, axis_size: int | None = None,
+                 rank: int | None = None):
+        from tpu_ddp_torch.ops.optim import Adafactor
+        if param_specs is not None:
+            raise NotImplementedError(
+                "FactoredZeRO1 over model-parallel leaves (param_specs: "
+                "per-cell factoring, the CellAdafactor semantic) is not "
+                "ported to tpu_ddp_torch yet (ROADMAP Queue 1 item 10.6)")
+        if not isinstance(inner, Adafactor):
+            raise ValueError("FactoredZeRO1 wraps factored optimizers "
+                             "(Adafactor); use ZeRO1 for elementwise ones")
+        super().__init__(shapes, group, axis_size=axis_size, rank=rank)
+        self.inner = inner
+        self.dtype = dtype
+        n_ax = self.axis_size
+        self.geoms = []
+        for i, shape in enumerate(self.shapes):
+            view = inner.factoring_view(shape)
+            if view is None:
+                self.geoms.append(None)
+                continue
+            lead, n, m = view
+            n_loc = _chunk(n, n_ax)
+            self.geoms.append((lead, n, m, n_loc))
+            self.chunks[i] = math.prod(lead) * n_loc * m
+        self.offsets = np.concatenate([[0], np.cumsum(self.chunks)]
+                                      ).astype(int).tolist()
+        self.total_chunk = self.offsets[-1]
+
+    def _rows_here(self, n: int, n_loc: int) -> tuple:
+        """``(lo, real)``: this rank's first row and how many of its
+        ``n_loc`` rows are real (the rest are padding)."""
+        lo = self.rank * n_loc
+        return lo, max(0, min(n_loc, n - lo))
+
+    def _chunk_here(self, t, i: int):
+        """This rank's chunk of flat leaf ``i``: a view, or a copy with
+        zeros past the leaf's end."""
+        c, s = self.chunks[i], self.sizes[i]
+        lo, hi = min(self.rank * c, s), min((self.rank + 1) * c, s)
+        blk = t.detach().reshape(-1)[lo:hi]
+        return (torch.nn.functional.pad(blk, (0, c - (hi - lo)))
+                if hi - lo < c else blk)
+
+    # ---- the block layout of leaves -----------------------------------
+
+    def rows(self, leaves, dtype=torch.float32):
+        """``(N, total_chunk)``: row r holds every leaf's r-th block (the
+        reduce-scatter's send buffer)."""
+        n_ax = self.axis_size
+        parts = []
+        for t, geom, s, c in zip(leaves, self.geoms, self.sizes,
+                                 self.chunks):
+            t = t.detach().to(dtype)
+            if geom is None:
+                flat = t.reshape(-1)
+                if c * n_ax != s:
+                    flat = torch.nn.functional.pad(flat, (0, c * n_ax - s))
+                parts.append(flat.view(n_ax, c))
+                continue
+            lead, n, m, n_loc = geom
+            x = t.reshape(lead + (n, m))
+            if n_loc * n_ax != n:
+                x = torch.nn.functional.pad(x, (0, 0, 0, n_loc * n_ax - n))
+            x = x.reshape(lead + (n_ax, n_loc, m)).movedim(len(lead), 0)
+            parts.append(x.reshape(n_ax, c))
+        return torch.cat(parts, dim=1)
+
+    def leaves_of_rows(self, rows) -> list:
+        """``(N, total_chunk)`` -> the full leaves (padding dropped)."""
+        n_ax = self.axis_size
+        out = []
+        for o, c, s, shape, geom in zip(self.offsets, self.chunks,
+                                        self.sizes, self.shapes,
+                                        self.geoms):
+            x = rows[:, o:o + c]
+            if geom is None:
+                out.append(x.reshape(-1)[:s].view(shape))
+                continue
+            lead, n, m, n_loc = geom
+            x = x.reshape((n_ax,) + lead + (n_loc, m)).movedim(0, len(lead))
+            out.append(x.reshape(lead + (n_ax * n_loc, m))[..., :n, :]
+                       .reshape(shape))
+        return out
+
+    def blocks(self, buf) -> list:
+        """Per-leaf views of a ``(total_chunk,)`` buffer in their block
+        shapes."""
+        return [v if g is None else v.view(g[0] + (g[3], g[2]))
+                for v, g in zip(self.views(buf), self.geoms)]
+
+    def local_blocks(self, leaves) -> list:
+        """This rank's block of each full leaf, no collective: a view of
+        the leaf, or a copy with zero rows past the leaf's end."""
+        out = []
+        for i, (t, geom) in enumerate(zip(leaves, self.geoms)):
+            t = t.detach().to(self.dtype)
+            if geom is None:
+                out.append(self._chunk_here(t, i))
+                continue
+            lead, n, m, n_loc = geom
+            lo, real = self._rows_here(n, n_loc)
+            blk = t.reshape(lead + (n, m))[..., lo:lo + real, :]
+            out.append(torch.nn.functional.pad(blk, (0, 0, 0, n_loc - real))
+                       if real < n_loc else blk)
+        return out
+
+    # ---- state ----------------------------------------------------------
+
+    def init(self, device) -> dict:
+        b1 = self.inner.b1 is not None
+        state = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for geom, c in zip(self.geoms, self.chunks):
+            one = torch.zeros((1,), dtype=torch.float32, device=device)
+            if geom is None:
+                shapes = {"vr": None, "vc": None, "v": (c,)}
+            else:
+                lead, n, m, n_loc = geom
+                shapes = {"vr": lead + (n_loc,), "vc": lead + (m,),
+                          "v": None}
+            for k, shape in shapes.items():
+                state[k].append(one.clone() if shape is None else
+                                torch.zeros(shape, dtype=torch.float32,
+                                            device=device))
+            state["mu"].append(
+                torch.zeros(c, dtype=self.dtype, device=device).view(
+                    (c,) if geom is None else geom[0] + (geom[3], geom[2]))
+                if b1 else one)
+        state["count"] = 0
+        return state
+
+    def _gather_cat(self, tensors) -> list:
+        """Every rank's copy of each tensor of ``tensors`` (same shapes on
+        every rank): ``(N, numel)`` per tensor, one all-gather."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        if self.group is None:
+            rows = flat.reshape(1, -1)
+        else:
+            rows = torch.empty(self.axis_size * flat.numel(),
+                               dtype=flat.dtype, device=flat.device)
+            dist.all_gather_into_tensor(rows, flat, group=self.group)
+            rows = rows.view(self.axis_size, -1)
+        out, o = [], 0
+        for t in tensors:
+            out.append(rows[:, o:o + t.numel()])
+            o += t.numel()
+        return out
+
+    def full_opt(self, state) -> dict:
+        """The state as the replicated Adafactor's full leaves (a
+        collective every rank enters): the canonical form."""
+        n_ax = self.axis_size
+        idx_f = [i for i, g in enumerate(self.geoms) if g is not None]
+        vr = list(state["vr"])
+        for i, rows in zip(idx_f, self._gather_cat(
+                [state["vr"][i] for i in idx_f]) if idx_f else []):
+            lead, n, _, n_loc = self.geoms[i]
+            vr[i] = rows.reshape((n_ax,) + lead + (n_loc,)).movedim(
+                0, len(lead)).reshape(lead + (n_ax * n_loc,))[..., :n]
+        idx_v = [i for i, g in enumerate(self.geoms) if g is None]
+        v = list(state["v"])
+        for i, rows in zip(idx_v, self._gather_cat(
+                [state["v"][i] for i in idx_v]) if idx_v else []):
+            v[i] = rows.reshape(-1)[:self.sizes[i]].view(self.shapes[i])
+        mu = list(state["mu"])
+        if self.inner.b1 is not None:
+            mu = self.leaves_of_rows(self.all_gather_rows(torch.cat(
+                [t.reshape(-1) for t in state["mu"]])))
+        return {"vr": vr, "vc": list(state["vc"]), "v": v, "mu": mu,
+                "count": state["count"]}
+
+    def local_opt(self, full) -> dict:
+        """The inverse of :meth:`full_opt`: this rank's state from the
+        full (canonical) leaves, no collective."""
+        out = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for i, geom in enumerate(self.geoms):
+            if geom is None:
+                out["vr"].append(full["vr"][i].clone())
+                out["vc"].append(full["vc"][i].clone())
+                out["v"].append(self._chunk_here(full["v"][i].float(),
+                                                 i).clone())
+                continue
+            lead, n, m, n_loc = geom
+            lo, real = self._rows_here(n, n_loc)
+            vr = full["vr"][i].reshape(lead + (n,))[..., lo:lo + real]
+            out["vr"].append(torch.nn.functional.pad(
+                vr.float(), (0, n_loc - real)) if n_loc > real
+                else vr.float().clone())
+            out["vc"].append(full["vc"][i].float().clone())
+            out["v"].append(full["v"][i].float().clone())
+        out["mu"] = [t.clone() for t in (
+            self.local_blocks(full["mu"]) if self.inner.b1 is not None
+            else full["mu"])]
+        out["count"] = full["count"]
+        return out
+
+    def state_specs(self) -> dict:
+        """Each slot's per-leaf partition specs over the global layout,
+        as the JAX wrapper gives them: ``vr`` and ``mu`` sharded along
+        the view's rows, flat leaves' ``v`` and ``mu`` along their
+        chunks, the rest replicated."""
+        from tpu_ddp_torch.parallel.redistribute import P
+        dp, b1 = "dp", self.inner.b1 is not None
+        out = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for geom in self.geoms:
+            if geom is None:
+                out["vr"].append(P())
+                out["vc"].append(P())
+                out["v"].append(P(dp))
+                out["mu"].append(P(dp) if b1 else P())
+                continue
+            lead = [None] * len(geom[0])
+            out["vr"].append(P(*lead, dp))
+            out["vc"].append(P())
+            out["v"].append(P())
+            out["mu"].append(P(*lead, dp, None) if b1 else P())
+        return out
+
+    # ---- host side (numpy; the JAX wrapper's global layout) -------------
+
+    def canonical_opt_template(self) -> dict:
+        """Each slot's canonical (checkpoint) leaf shapes: the replicated
+        Adafactor's."""
+        from tpu_ddp_torch.convert import opt_slot_shapes
+        return opt_slot_shapes(self.inner, self.shapes)
+
+    def canonicalize_opt_host(self, state) -> dict:
+        """Global-layout host state (the JAX wrapper's: ``vr`` rows and
+        ``mu`` rows padded to ``n_loc * N``, flat leaves padded to
+        ``chunk * N``) -> canonical shapes."""
+        out = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for i, geom in enumerate(self.geoms):
+            shape, s = self.shapes[i], self.sizes[i]
+            vr, vc, v = (np.asarray(state[k][i]) for k in ("vr", "vc", "v"))
+            mu = np.asarray(state["mu"][i])
+            out["vc"].append(vc)
+            if geom is None:
+                out["vr"].append(vr)
+                out["v"].append(v[:s].reshape(shape))
+                if self.inner.b1 is not None:
+                    mu = mu[:s].reshape(shape)
+            else:
+                n = geom[1]
+                out["vr"].append(vr[..., :n])
+                out["v"].append(v)
+                if self.inner.b1 is not None:
+                    mu = mu[..., :n, :].reshape(shape)
+            out["mu"].append(mu)
+        out["count"] = state["count"]
+        return out
+
+    def flatten_opt(self, state) -> dict:
+        """Canonical host state -> the global layout (the inverse of
+        :meth:`canonicalize_opt_host`)."""
+        n_ax = self.axis_size
+        out = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for i, geom in enumerate(self.geoms):
+            c, s = self.chunks[i], self.sizes[i]
+            vr, vc, v = (np.asarray(state[k][i]) for k in ("vr", "vc", "v"))
+            mu = np.asarray(state["mu"][i])
+            out["vc"].append(vc)
+            if geom is None:
+                out["vr"].append(vr)
+                out["v"].append(np.pad(v.reshape(-1), (0, c * n_ax - s)))
+                if self.inner.b1 is not None:
+                    mu = np.pad(mu.reshape(-1), (0, c * n_ax - s))
+            else:
+                lead, n, m, n_loc = geom
+                pad = n_loc * n_ax - n
+                out["vr"].append(np.pad(vr, [(0, 0)] * len(lead)
+                                        + [(0, pad)]))
+                out["v"].append(v)
+                if self.inner.b1 is not None:
+                    mu = np.pad(mu.reshape(lead + (n, m)),
+                                [(0, 0)] * len(lead) + [(0, pad), (0, 0)])
+            out["mu"].append(mu)
+        out["count"] = state["count"]
+        return out
+
+    # ---- the sharded update ---------------------------------------------
+
+    @torch.no_grad()
+    def apply(self, params, grads, state, skip=None, clip_norm=None):
+        """One sharded Adafactor step from UNSYNCED ``grads`` (the
+        reduce-scatter is the sync); returns the updated full leaves,
+        identical on every rank. ``clip_norm`` is refused: Adafactor
+        already clips by update RMS."""
+        if clip_norm is not None:
+            raise ValueError(
+                "clip_norm with FactoredZeRO1 (Adafactor) is not "
+                "supported - Adafactor already clips by update RMS "
+                "(ops/optim.py); use AdamW/SGD or drop the clip")
+        if skip is not None:
+            raise ValueError("FactoredZeRO1 takes no step guard flag")
+        o, n_ax = self.inner, self.axis_size
+        count = state["count"] + 1
+        beta2t, rho, lr = o.schedule_terms(count)
+        b2, omb2 = float(beta2t), float(np.float32(1.0) - beta2t)
+        decay = self.decay_mask()
+        g_buf = self.reduce_scatter_sum(self.rows(grads))
+        g_buf /= n_ax
+        g_loc = self.blocks(g_buf)
+        # The second moments, and the cross-row sums of the factored
+        # leaves (column sums of g^2, the new vr's sum) in one buffer.
+        us, stats = [None] * len(g_loc), []
+        for i, (g, geom) in enumerate(zip(g_loc, self.geoms)):
+            g2 = g.square().add_(o.eps1)
+            if geom is None:
+                v = state["v"][i]
+                v.mul_(b2).add_(g2, alpha=omb2)
+                us[i] = g * torch.rsqrt(v)
+                continue
+            lead, n, m, n_loc = geom
+            _, real = self._rows_here(n, n_loc)
+            vr = state["vr"][i]
+            vr.mul_(b2).add_(g2.sum(dim=-1) / m, alpha=omb2)
+            stats += [g2[..., :real, :].sum(dim=-2),
+                      vr[..., :real].sum(dim=-1)]
+        sums = self._sum_over_group(stats)
+        k = 0
+        for i, (g, geom) in enumerate(zip(g_loc, self.geoms)):
+            if geom is None:
+                continue
+            n = geom[1]
+            col, vr_sum = sums[k], sums[k + 1]
+            k += 2
+            vc, vr = state["vc"][i], state["vr"][i]
+            vc.mul_(b2).add_(col / n, alpha=omb2)
+            r = vr / (vr_sum / n)[..., None]
+            us[i] = (g * torch.rsqrt(r)[..., :, None]
+                     * torch.rsqrt(vc)[..., None, :])
+        # The update-RMS clip is one scalar per whole leaf.
+        sq = self._sum_over_group([torch.stack(
+            [u.square().sum() for u in us])])[0]
+        p_loc = self.local_blocks(params)
+        out = torch.empty(self.total_chunk, dtype=self.dtype,
+                          device=g_buf.device)
+        for i, (p, u, pl, dst) in enumerate(zip(params, us, p_loc,
+                                               self.blocks(out))):
+            u = o.clip_update(u, sq[i], self.sizes[i])
+            alpha = o.step_size(p, rho, lr)
+            torch.sub(pl, o.leaf_step(pl, u, state["mu"][i], decay[i],
+                                      alpha), out=dst)
+        state["count"] = count
+        return self.gather(out)
+
+    def _sum_over_group(self, tensors) -> list:
+        """Each tensor summed over the group (one ``all_reduce`` of their
+        concatenation); the identity without a group."""
+        if not tensors:
+            return []
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        if self.group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        out, o = [], 0
+        for t in tensors:
+            out.append(flat[o:o + t.numel()].view(t.shape))
+            o += t.numel()
+        return out

@@ -33,6 +33,16 @@ metrics, ``{rank}`` expands) and ``TPU_DDP_PROFILE_DIR`` (a
 one and picks up mid-epoch where it was written. The launcher
 (``python -m tpu_ddp_torch.launch``) adds ``--resume`` when it restarts a
 failed run.
+
+Under elastic membership (the launcher's ``--elastic-reshard``;
+resilience/elastic.py) a membership change out of the epoch loop goes
+through ``apply_membership``: the live state is resharded onto the new
+world, the loaders are made again at the new rank and world, and the
+epoch resumes at the first batch not trained on. A joining process
+meets the world through ``join_world`` and starts from the survivors'
+beacon. The per-node batch follows the launch world, so the global
+batch scales with the live world (the elastic-DDP contract, the JAX
+CLI's).
 """
 
 from __future__ import annotations
@@ -91,9 +101,11 @@ def run_part(part: str, argv=None):
         get_rank_from_hostname, init_distributed_setup, shutdown,
         test_distributed_setup)
     from tpu_ddp_torch.parallel.sync import canonical_strategy
+    from tpu_ddp_torch.resilience import elastic as _elastic
     from tpu_ddp_torch.train.engine import Trainer
     from tpu_ddp_torch.utils.config import (TrainConfig, _env_bool,
                                             refuse_unported_env)
+    from tpu_ddp_torch.utils.device import resolve_device
     from tpu_ddp_torch.utils.metrics import from_env as metrics_from_env
     from tpu_ddp_torch.utils.profiling import (profile_dir_from_env,
                                                profile_trace)
@@ -109,18 +121,43 @@ def run_part(part: str, argv=None):
         rank = args.rank
     else:
         rank = get_rank_from_hostname()
-    # DDP, ZeRO and FSDP run their collectives also at a world of one,
-    # whose group meets on this host (it has no peers to reach).
-    grouped = strategy in ("fused", "zero", "fsdp")
-    master_ip, master_port = args.master_ip, args.master_port
-    if world_size == 1 and grouped:
-        from tpu_ddp_torch.launch import find_free_port
-        master_ip, master_port = "127.0.0.1", str(find_free_port())
-    ctx = init_distributed_setup(master_ip, master_port, rank,
-                                 world_size, device=args.device,
-                                 ddp=grouped)
-    if distributed:
-        test_distributed_setup(ctx)
+    # A JOINING process meets the world through the launcher's membership
+    # record (the launch world is gone) and starts from the beacon the
+    # surviving rank 0 wrote.
+    join_epoch = _elastic.join_epoch_from_env()
+    elastic_ctl = _elastic.ElasticController.from_env()
+    base_world = world_size
+    beacon = None
+    if join_epoch is not None:
+        membership = _elastic.join_world(elastic_ctl, join_epoch,
+                                         resolve_device(args.device))
+        rank = int(membership["assignments"][str(elastic_ctl.worker_id)])
+        world_size = int(membership["world"])
+        base_world = int(membership.get("base_world", world_size))
+        beacon = _elastic.beacon_dir(elastic_ctl.directory,
+                                     int(membership["epoch"]))
+        import torch.distributed as dist
+        from tpu_ddp_torch.parallel.bootstrap import DistributedContext
+        ctx = DistributedContext(
+            rank=rank, world_size=world_size,
+            device=resolve_device(args.device),
+            coordinator=f"tcp://{membership['coordinator']}",
+            backend=dist.get_backend())
+        print(f"[{part}] joined elastic epoch {membership['epoch']} as "
+              f"rank {rank}/{world_size}")
+    else:
+        # DDP, ZeRO and FSDP run their collectives also at a world of
+        # one, whose group meets on this host (it has no peers to reach).
+        grouped = strategy in ("fused", "zero", "fsdp")
+        master_ip, master_port = args.master_ip, args.master_port
+        if world_size == 1 and grouped:
+            from tpu_ddp_torch.launch import find_free_port
+            master_ip, master_port = "127.0.0.1", str(find_free_port())
+        ctx = init_distributed_setup(master_ip, master_port, rank,
+                                     world_size, device=args.device,
+                                     ddp=grouped)
+        if distributed:
+            test_distributed_setup(ctx)
 
     import torch
     cfg = TrainConfig.preset(args.config, epochs=args.epochs)
@@ -130,23 +167,31 @@ def run_part(part: str, argv=None):
     if cfg.in_channels != 3:
         raise ValueError(f"in_channels={cfg.in_channels}: the CIFAR-10 and "
                          "ImageNet loaders give 3-channel (RGB) images")
-    batch_size = cfg.per_node_batch_size(world_size)
+    # The per-node batch follows the LAUNCH world: a membership change
+    # keeps each worker's batch, and the global batch follows the live
+    # world.
+    batch_size = cfg.per_node_batch_size(base_world)
     # TPU_DDP_SHARD_EVAL=1: the test set sharded over the group, CIFAR-10
     # only (the ImageNet loader keeps the replicated contract), and only
     # at a world above one, as in the JAX CLI. TPU_DDP_NATIVE_LOADER is
     # read by the loaders.
-    shard_eval = _env_bool("TPU_DDP_SHARD_EVAL", False)
-    if cfg.dataset == "imagenet":
-        train_loader, test_loader = create_imagenet_loaders(
+    want_shard_eval = _env_bool("TPU_DDP_SHARD_EVAL", False)
+
+    def loaders(rank, world_size):
+        """(train, test, shard_eval) for this rank of this world."""
+        if cfg.dataset == "imagenet":
+            return create_imagenet_loaders(
+                rank=rank, world_size=world_size, batch_size=batch_size,
+                root=args.data_root, seed=cfg.seed,
+                image_size=cfg.image_size,
+                num_classes=cfg.num_classes) + (False,)
+        return create_data_loaders(
             rank=rank, world_size=world_size, batch_size=batch_size,
             root=args.data_root, seed=cfg.seed,
-            image_size=cfg.image_size, num_classes=cfg.num_classes)
-        shard_eval = False
-    else:
-        train_loader, test_loader = create_data_loaders(
-            rank=rank, world_size=world_size, batch_size=batch_size,
-            root=args.data_root, seed=cfg.seed, shard_eval=shard_eval)
-        shard_eval = shard_eval and world_size > 1
+            shard_eval=want_shard_eval) + (want_shard_eval
+                                           and world_size > 1,)
+
+    train_loader, test_loader, shard_eval = loaders(rank, world_size)
     model = get_model(cfg.model, num_classes=cfg.num_classes,
                       in_channels=cfg.in_channels,
                       use_pallas_bn=cfg.pallas_bn,
@@ -156,7 +201,18 @@ def run_part(part: str, argv=None):
     trainer = Trainer(model, cfg, strategy=strategy, device=ctx.device,
                       metrics=metrics)
     start_epoch = start_iter = 0
-    if args.resume:
+    if beacon is not None:
+        # The joiner's state is the canonical host tree the surviving
+        # rank 0 wrote at the membership epoch: a live hand-off.
+        import json
+        import os
+        state = trainer.restore_checkpoint(beacon)
+        with open(os.path.join(beacon, "beacon_meta.json")) as f:
+            meta = json.load(f)
+        start_epoch, start_iter = int(meta["epoch"]), int(meta["next_iter"])
+        print(f"[{part}] joined with beaconed state at step {state.step} "
+              f"(epoch {start_epoch}, iter {start_iter})")
+    elif args.resume:
         state = trainer.restore_checkpoint(args.ckpt_dir)
         # Completed epochs = step // iterations per epoch; a mid-epoch
         # checkpoint also places the run step % iterations into its
@@ -174,15 +230,29 @@ def run_part(part: str, argv=None):
     print(f"[{part}] strategy={strategy} world_size={world_size} "
           f"rank={rank} dp_slots=1 per-node batch={batch_size} "
           f"platform={ctx.device.type}")
-    for epoch in range(start_epoch, cfg.epochs):
+    epoch, pending_iter = start_epoch, start_iter
+    while epoch < cfg.epochs:
         # Per-epoch reshuffle hook (reference part2/part2b/main.py:189).
         train_loader.set_epoch(epoch)
-        # TPU_DDP_PROFILE_DIR: trace the first epoch run.
-        with profile_trace(profile_dir_from_env()
-                           if epoch == start_epoch else None):
-            state, stats = trainer.train_epoch(
-                state, train_loader, epoch=epoch, ckpt_dir=args.ckpt_dir,
-                start_iter=start_iter if epoch == start_epoch else 0)
+        try:
+            # TPU_DDP_PROFILE_DIR: trace the first epoch run.
+            with profile_trace(profile_dir_from_env()
+                               if epoch == start_epoch else None):
+                state, stats = trainer.train_epoch(
+                    state, train_loader, epoch=epoch,
+                    ckpt_dir=args.ckpt_dir, start_iter=pending_iter)
+        except _elastic.MembershipChange as chg:
+            # A peer left or is joining: reshard the live state onto the
+            # new world and resume this epoch where it stopped.
+            res = _elastic.apply_membership(trainer, chg, elastic_ctl)
+            if res is None:
+                return 0  # this worker is not in the new world
+            state, rank, world_size = res.state, res.rank, res.world
+            train_loader, test_loader, shard_eval = loaders(rank,
+                                                            world_size)
+            pending_iter = res.next_iter
+            continue
+        pending_iter = 0
         # Epoch-end checkpoint, unless the cadence just wrote this step.
         if args.ckpt_dir and not (cfg.ckpt_every_iters and state.step
                                   % cfg.ckpt_every_iters == 0):
@@ -193,6 +263,7 @@ def run_part(part: str, argv=None):
         print(f"[{part}] epoch {epoch}: avg iter "
               f"{stats['avg_iter_s']:.4f}s over {stats['timed_iters']} timed "
               f"iters; {stats['iters']} iters total")
+        epoch += 1
     metrics.close()
     shutdown(ctx)
     return 0

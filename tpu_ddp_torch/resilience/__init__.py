@@ -10,9 +10,9 @@ parameters).
 - :mod:`.watchdog`: per-rank heartbeat files; the launcher kills and
   restarts a cluster whose heartbeats stall.
 - :mod:`.chaos`: seeded fault injection, one drill per recovery path.
-
-Elastic membership (``resilience/elastic.py``) is ROADMAP Queue 1 item
-9.6b.
+- :mod:`.elastic`: membership epochs; survivors of a lost rank reshard
+  their live state onto the new world instead of restarting from a
+  checkpoint, and a returning rank joins from the survivors' beacon.
 """
 
 from tpu_ddp_torch.resilience.chaos import (  # noqa: F401

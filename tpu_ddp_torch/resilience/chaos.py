@@ -9,12 +9,18 @@ fault kind                recovery path it drills
 ``stalled-step``          heartbeat watchdog kill + launcher restart
 ``corrupt-ckpt``          digest verification + quarantine + fallback
 ``slow-rank``             straggler tolerance (run completes, slower)
+``host-loss``             elastic membership: survivors reshard live
+``host-join``             elastic membership: shrink, then regrow from
+                          the survivors' state beacon
 ========================  =============================================
 
-The JAX package's other kinds parse with the same grammar, but a
+``host-loss`` and ``host-join`` die like a preempted host: when the
+elastic protocol is armed they write their departure notice
+(resilience/elastic.py) first, then exit with 15 (gone for good) or 16
+(coming back), which tell the elastic launcher what to do. The JAX
+package's other kinds parse with the same grammar, but a
 :class:`FaultInjector` configured with one raises ``NotImplementedError``
-naming its ROADMAP item: ``host-loss`` and ``host-join`` (elastic
-membership), ``group-loss`` (DiLoCo) and the serving kinds.
+naming its ROADMAP item: ``group-loss`` (DiLoCo) and the serving kinds.
 
 Faults are configured by env, so they reach launcher-spawned workers
 unchanged (the same variables as the JAX package):
@@ -42,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import random
+import sys
 import time
 
 import numpy as np
@@ -58,8 +65,6 @@ SERVE_FAULT_KINDS = ("replica-crash", "slow-replica", "edge-drop",
                      "flash-crowd", "tenant-storm")
 # Kinds that parse but that no injector of the port executes yet.
 _UNPORTED_KINDS = {
-    "host-loss": "item 9.6b (elastic membership, resilience/elastic.py)",
-    "host-join": "item 9.6b (elastic membership, resilience/elastic.py)",
     "group-loss": "item 11 (DiLoCo, train/outer.py)",
     **{k: "item 2.7 (serving chaos drills, fleet/resilience.py)"
        for k in SERVE_FAULT_KINDS},
@@ -291,7 +296,27 @@ class FaultInjector:
                 self._announce(spec, step)
                 self._mark_sentinel(spec, step)
                 os._exit(FAULT_EXIT_CODE)
+        for spec in self.specs:
+            if spec.kind in ("host-loss", "host-join") \
+                    and self._fires(spec, step):
+                self._announce(spec, step)
+                self._mark_sentinel(spec, step)
+                self._graceful_preemption(spec)
         maybe_inject_failure(step)
+
+    def _graceful_preemption(self, spec: FaultSpec) -> None:
+        """Die like a preempted host: the departure notice first (when the
+        elastic protocol is armed), then an exit whose code tells the
+        launcher whether this host comes back."""
+        from tpu_ddp_torch.resilience import elastic
+        if elastic.elastic_env_active():
+            elastic.announce_departure(
+                os.environ[elastic.ELASTIC_DIR_ENV],
+                int(os.environ.get(elastic.ELASTIC_RANK_ENV, "0")),
+                reason=spec.kind)
+        sys.stdout.flush()
+        os._exit(elastic.HOST_LOSS_EXIT if spec.kind == "host-loss"
+                 else elastic.HOST_JOIN_EXIT)
 
     @staticmethod
     def poison_images(images):

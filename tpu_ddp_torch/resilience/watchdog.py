@@ -14,7 +14,11 @@ wedged inside a C++ collective, which cannot answer anything else.
 Grace: until the first heartbeat appears the watchdog stays silent
 (start-up and the first kernel builds can exceed the deadline); a rank
 that has never beaten is measured from the cluster's first beat.
-Pure host code.
+:meth:`HeartbeatMonitor.reset_grace` gives every rank a fresh deadline:
+the elastic launcher calls it after a membership epoch, when the
+survivors paused beating to meet again and rebuild. Its stall check
+covers the live members only (``stalled_ranks(ranks=...)``), so a
+departed worker's stale file does not trip it. Pure host code.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ class HeartbeatMonitor:
         self.directory = directory
         self.nproc = nproc
         self.timeout = timeout
+        self._grace: float | None = None
 
     def beats(self) -> dict:
         """{rank: mtime} for every rank with a heartbeat file."""
@@ -80,16 +85,32 @@ class HeartbeatMonitor:
                 continue
         return out
 
-    def stalled_ranks(self, now: float | None = None) -> list:
+    def reset_grace(self, now: float | None = None) -> None:
+        """Give every rank a fresh ``timeout`` before it can stall."""
+        self._grace = time.time() if now is None else now
+
+    def stalled_ranks(self, now: float | None = None, ranks=None) -> list:
         """Ranks silent for more than ``timeout``, ascending; none before
-        the first beat, and a rank that never beat counts from it."""
+        the first beat (or grace reset), a rank that never beat counts
+        from the earliest of them, and no beat counts from before the
+        last grace reset. ``ranks`` limits the check (the elastic
+        launcher's live workers)."""
         beats = self.beats()
-        if not beats:
+        if not beats and self._grace is None:
             return []  # grace: nobody has ever beaten
         now = time.time() if now is None else now
-        first = min(beats.values())
-        return [rank for rank in range(self.nproc)
-                if now - beats.get(rank, first) > self.timeout]
+        anchors = list(beats.values())
+        if self._grace is not None:
+            anchors.append(self._grace)
+        first = min(anchors)
+        out = []
+        for rank in (range(self.nproc) if ranks is None else ranks):
+            beat = beats.get(rank, first)
+            if self._grace is not None:
+                beat = max(beat, self._grace)
+            if now - beat > self.timeout:
+                out.append(rank)
+        return sorted(out)
 
     def stalled(self, now: float | None = None) -> bool:
         return bool(self.stalled_ranks(now))

@@ -61,7 +61,11 @@ Fault tolerance (resilience/): checkpoints in the JAX package's format
 (:meth:`Trainer.save_checkpoint`, :meth:`Trainer.restore_checkpoint`,
 the canonical host tree of :meth:`Trainer.state_to_host`), mid-epoch
 resume (``train_epoch``'s ``start_iter``), the checkpoint cadence, the
-replica check, chaos faults and the launcher's heartbeat.
+replica check, chaos faults and the launcher's heartbeat. Under elastic
+membership (resilience/elastic.py) the epoch loop checks the protocol
+once per step boundary and hands the live state up as a
+``MembershipChange``; :meth:`Trainer.rebind` rebuilds what is bound to
+the process group for the world that follows.
 """
 
 from __future__ import annotations
@@ -205,10 +209,6 @@ class Trainer:
                 "diverge; use a syncing rung for global-norm clipping.",
                 stacklevel=2)
         self.clip_grad_norm = clip_grad_norm
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.dp = (dist.get_world_size() if dist.is_initialized()
-                   and self.strategy != "none" else 1)
-        self._group = dist.group.WORLD if self.strategy != "none" else None
         self.is_zero = self.strategy == "zero"
         self.is_fsdp = self.strategy == "fsdp"
         self._canon = CanonicalView(self.model)
@@ -216,6 +216,30 @@ class Trainer:
                              momentum=self.config.momentum,
                              weight_decay=self.config.weight_decay,
                              use_pallas=self.config.pallas_sgd)
+        self._bind_group()
+        self.guard = (StepGuard(self.config.guard_max_bad_steps,
+                                metrics=self.metrics)
+                      if self.config.guard_nonfinite else None)
+        self._flat = None
+        self._last_fused = None
+        self._async_writer = None
+        self._copy_stream = None
+        self._multi_step_cache: dict = {}
+        # K-step CUDA graphs: captures, replays and each capture's ms
+        # (the wrappers count their launches at capture only, so a
+        # replay's launches are the capture's).
+        self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
+
+    def _bind_group(self) -> None:
+        """Every part bound to the process group now up: the rank, dp and
+        group, the flat ZeRO/FSDP layouts, the gradient wire, the overlap
+        buckets and their hooks, ``DistributedDataParallel`` (25 MB
+        buckets, on the rung that syncs through it: ``fused`` without a
+        compressed wire or bucketed overlap) and the guard's group."""
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.dp = (dist.get_world_size() if dist.is_initialized()
+                   and self.strategy != "none" else 1)
+        self._group = dist.group.WORLD if self.strategy != "none" else None
         if self.is_zero:
             from tpu_ddp_torch.parallel.zero import ZeRO1
             self.zero = ZeRO1(self.optimizer, self._canon.shapes,
@@ -238,18 +262,31 @@ class Trainer:
         # group with one scalar all_reduce, except under 'none', whose
         # contract is no communication between replicas.
         self._guard_group = self._group
-        self.guard = (StepGuard(self.config.guard_max_bad_steps,
-                                metrics=self.metrics)
-                      if self.config.guard_nonfinite else None)
+
+    def rebind(self) -> None:
+        """Re-resolve every part bound to the process group against the
+        group now up: the trainer's half of a membership change
+        (tpu_ddp/train/engine.py ``rebind_mesh``). The rank and dp, the
+        flat ZeRO/FSDP layouts, the gradient wire (degraded to none below
+        dp 2, back on when the world regrows), the overlap buckets and
+        their hooks, ``DistributedDataParallel`` and its reducer (built
+        anew on the new group: its constructor broadcasts rank 0's
+        parameters, a collective every member enters), the guard's group,
+        and the memoised K-step graphs. State is not placed here: take it
+        through :meth:`state_to_host` before the old group goes and
+        :meth:`state_from_host` after this call (which keeps the int8
+        carry when dp is unchanged and resets it otherwise)."""
+        import gc
+        if self._overlap is not None:
+            self._overlap.detach()
+        # Drop the old wrapper first: its reducer's autograd hooks go
+        # with it, before the new one registers its own.
+        self.net = self.model
+        gc.collect()
+        self._bind_group()
         self._flat = None
         self._last_fused = None
-        self._async_writer = None
-        self._copy_stream = None
-        self._multi_step_cache: dict = {}
-        # K-step CUDA graphs: captures, replays and each capture's ms
-        # (the wrappers count their launches at capture only, so a
-        # replay's launches are the capture's).
-        self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
+        self._multi_step_cache = {}
 
     def _setup_compression(self) -> None:
         """The gradient wire (tpu_ddp/train/engine.py:227-246): any
@@ -264,7 +301,7 @@ class Trainer:
                 f"grad_compress={self.compressor.spec!r} needs a dp>1 "
                 "mesh and a syncing strategy (got "
                 f"strategy={self.strategy_name!r}, dp={self.dp}); "
-                "compression disabled.", stacklevel=3)
+                "compression disabled.", stacklevel=4)
             self.compressor = get_compressor("none")
         self._comp_stateful = self._comp_active and self.compressor.stateful
 
@@ -281,7 +318,7 @@ class Trainer:
             warnings.warn(
                 "overlap=True needs a dp>1 mesh and a replicated "
                 f"syncing rung (got strategy={self.strategy_name!r}, "
-                f"dp={self.dp}); bucketed overlap disabled.", stacklevel=3)
+                f"dp={self.dp}); bucketed overlap disabled.", stacklevel=4)
         if not active:
             return
         from tpu_ddp_torch.parallel.overlap import (SCATTER_KINDS,
@@ -390,7 +427,8 @@ class Trainer:
         conv kernels); under FSDP a collective every rank enters."""
         return self._canon.tree(self._canonical_params(state))
 
-    def state_to_host(self, state: TrainState) -> dict:
+    def state_to_host(self, state: TrainState,
+                      local_only: bool = False) -> dict:
         """``state`` as the JAX package's canonical host tree,
         ``{"opt_state": {"momentum": ...}, "params": ..., "step": int64}``,
         numpy leaves in JAX layouts (HWIO kernels; momentum through the
@@ -398,7 +436,23 @@ class Trainer:
         int32 ``opt_state["count"]``, the int8 wire ``comp_state``
         (``seed``, and each rank's residual stacked ``(dp, *shape)``).
         Sharded layouts are gathered into canonical shapes: a collective
-        every rank enters."""
+        every rank enters.
+
+        ``local_only=True`` is the membership-change path: a peer may be
+        dead, so no collective may run. State sharded across processes
+        (ZeRO, FSDP, the sharded update at more than one process) cannot
+        be had then and raises ``RuntimeError`` (the elastic loop falls
+        back to a restart from checkpoint); the int8 carry's residual,
+        sharded too, is left out (reset after the reshard)."""
+        multiproc = dist.is_initialized() and dist.get_world_size() > 1
+        if local_only and multiproc and (
+                self.is_zero or self.is_fsdp
+                or self._sharded_update is not None):
+            raise RuntimeError(
+                "live state of a cross-process ZeRO/FSDP/sharded-update "
+                "run cannot be snapshotted without the lost peer's "
+                "shards; this membership change needs a checkpoint "
+                "restart")
         canon = self._canon
         mom = state.opt_state["momentum"]
         layout = self._layout()
@@ -415,7 +469,7 @@ class Trainer:
         tree = {"opt_state": opt,
                 "params": canon.tree(self._canonical_params(state)),
                 "step": np.int64(state.step)}
-        if state.comp_state is not None:
+        if state.comp_state is not None and not (local_only and multiproc):
             host = self.compressor.state_to_host(state.comp_state,
                                                  self._group)
             if "residual" in host:
@@ -916,13 +970,16 @@ class Trainer:
         Up to ``config.dispatch_depth`` steps stay in flight
         (train/pipeline.py); the timed iterations 1-39 wait for their
         step, as the reference's timer does. Depth 0 is forced while
-        chaos is active (faults land on exact steps) and, in a
-        multi-process run, while an in-loop cadence holds collectives
-        (every rank must run it at the same point, on the same step's
-        state)."""
+        chaos is active (faults land on exact steps), under elastic
+        membership (a survivor carries the previous step's whole state)
+        and, in a multi-process run, while an in-loop cadence holds
+        collectives (every rank must run it at the same point, on the
+        same step's state)."""
         from tpu_ddp_torch.data.prefetch import prefetch_to_device
         from tpu_ddp_torch.resilience.chaos import (FaultInjector,
                                                     chaos_env_active)
+        from tpu_ddp_torch.resilience.elastic import (ElasticController,
+                                                      MembershipChange)
         from tpu_ddp_torch.resilience.watchdog import heartbeat_from_env
         from tpu_ddp_torch.train.pipeline import DispatchPipeline
         cfg = self.config
@@ -932,16 +989,24 @@ class Trainer:
         if start_iter:
             batches = itertools.islice(iter(batches), start_iter, None)
         injector = FaultInjector.from_env(rank=self.rank)
-        heartbeat = heartbeat_from_env(self.rank)
+        # The membership watch (resilience/elastic.py): checked once per
+        # step boundary; a change hands the live state up as a
+        # MembershipChange, and parts/common.py reshards and resumes the
+        # epoch at its next_iter. The heartbeat file is the worker's, as
+        # the launcher watches its live workers by id.
+        elastic = ElasticController.from_env()
+        heartbeat = heartbeat_from_env(
+            self.rank if elastic is None else elastic.worker_id)
         chaos = chaos_env_active()
         # K steps per dispatch, unless something needs per-step host
-        # control: in-loop cadences, device prefetch, chaos (JAX's gate,
-        # tpu_ddp/train/engine.py:1427-1432).
+        # control: in-loop cadences, device prefetch, chaos, the
+        # membership watch (JAX's gate, tpu_ddp/train/engine.py:1425-1435).
         on_harvest = self._harvester(window, heartbeat, injector, ckpt_dir,
                                      lambda: state)
         if (cfg.steps_per_dispatch > 1 and not cfg.ckpt_every_iters
                 and not cfg.check_replicas_every
-                and not cfg.device_prefetch and not chaos):
+                and not cfg.device_prefetch and not chaos
+                and elastic is None):
             return self._train_epoch_multi(state, batches, timer, window,
                                            start_iter, on_harvest)
         use_prefetch = (cfg.device_prefetch > 0
@@ -952,28 +1017,70 @@ class Trainer:
         world = dist.get_world_size() if dist.is_initialized() else 1
         collective_cadence = bool((ckpt_dir and cfg.ckpt_every_iters)
                                   or cfg.check_replicas_every)
+        # Under the membership watch the window is synchronous too: the
+        # state a survivor carries is the previous step's, whole.
         depth = (0 if chaos or (collective_cadence and world > 1)
-                 else cfg.dispatch_depth)
+                 or elastic is not None else cfg.dispatch_depth)
         pipe = DispatchPipeline(depth)
         for it, item in enumerate(stream, start=start_iter):
             if cfg.max_iters is not None and it >= cfg.max_iters:
                 break
+            if elastic is not None and elastic.changed():
+                # Batch `it` is drawn but not trained on: the resumed
+                # epoch starts from it.
+                pipe.drain()
+                raise MembershipChange(membership=elastic.read(),
+                                       state=state, epoch=epoch,
+                                       next_iter=it)
             # nan-grad poisons this rank's batch (the guard then skips on
             # every rank); stalled-step and slow-rank sleep here.
             if injector.active and injector.before_step(state.step + 1):
                 item = ((FaultInjector.poison_images(item[0]),)
                         + tuple(item[1:]))
             sync_iter = depth == 0 or it <= cfg.timing_last_iter
-            timer.start()
-            x, y, ready = item if use_prefetch else (*item, None)
-            state, handle = self.train_step_async(state, x, y, ready)
-            timer.stop(it)
-            pipe.submit(handle,
-                        lambda h, i=it, s=state.step: on_harvest(
-                            i, s, self._materialize_fused(h)),
-                        sync=sync_iter)
+            prev_state = state
+            try:
+                timer.start()
+                x, y, ready = item if use_prefetch else (*item, None)
+                state, handle = self.train_step_async(state, x, y, ready)
+                timer.stop(it)
+                pipe.submit(handle,
+                            lambda h, i=it, s=state.step: on_harvest(
+                                i, s, self._materialize_fused(h)),
+                            sync=sync_iter)
+            except RuntimeError as e:
+                # A peer that died mid-collective surfaces here, often
+                # before its notice: if the launcher confirms a
+                # membership change, this step never happened.
+                self._raise_membership_change(e, elastic, prev_state,
+                                              epoch, it, heartbeat)
+                raise
         pipe.drain()
         return state, window.epoch_stats(pipeline=pipe.stats())
+
+    def _raise_membership_change(self, exc, elastic, state, epoch, it,
+                                 heartbeat, wait_s: float = 60.0) -> None:
+        """A step that failed because a PEER died becomes a
+        ``MembershipChange`` carrying ``state`` (the failed step's input:
+        the replicated rungs update nothing before their collectives
+        complete), once the launcher or the leaving rank confirms the
+        change through the protocol directory within ``wait_s`` seconds;
+        the heartbeat keeps beating meanwhile. Unconfirmed, it returns
+        and the caller raises the original error."""
+        if elastic is None:
+            return
+        import time
+        from tpu_ddp_torch.resilience.elastic import MembershipChange
+        from tpu_ddp_torch.resilience.watchdog import touch_heartbeat
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            if elastic.changed():
+                raise MembershipChange(membership=elastic.read(),
+                                       state=state, epoch=epoch,
+                                       next_iter=it) from exc
+            if heartbeat is not None:
+                touch_heartbeat(heartbeat[0], heartbeat[1], state.step)
+            time.sleep(0.1)
 
     def _harvester(self, window, heartbeat, injector, ckpt_dir, current):
         """The per-step consumer of harvested results, in step order.

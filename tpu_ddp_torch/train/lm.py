@@ -32,8 +32,10 @@ parameters themselves as the rank's flat shard buffer (``ZeRO3``), which
 each microbatch's forward all-gathers inside an autograd function whose
 backward reduce-scatters the gradients. Checkpoints of every layout hold
 canonical shapes and restore into any other, at any dp. Adafactor under
-these layouts needs the factored ZeRO-1 of the JAX package and raises,
-naming its item.
+``opt_sharding='zero1'`` runs the row-sharded ``FactoredZeRO1``
+(tpu_ddp/train/lm.py:463-512): its factored moments cannot ride the flat
+slices, so it refuses ``'zero2'``, ``param_sharding='fsdp'`` and a
+global-norm clip (it clips by update RMS), with the JAX trainer's words.
 
 The JAX trainer's other axes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item: sequence and tensor
@@ -144,12 +146,34 @@ class LMTrainer:
         self.opt_zero2 = opt_sharding == "zero2"
         self._shapes = model.param_shapes()
         self._skeleton = _skeleton(self._shapes)
+        factored = isinstance(self.optimizer, Adafactor)
+        if factored and self.opt_zero2:
+            raise ValueError(
+                "opt_sharding='zero2' (dp-scattered flat gradient "
+                "accumulation) does not compose with Adafactor's "
+                "row-sharded factored state; use 'zero1' or an "
+                "elementwise optimizer")
+        if factored and self.opt_zero1 and clip_grad_norm is not None:
+            raise ValueError(
+                "clip_grad_norm with opt_sharding='zero1' Adafactor is not "
+                "supported (Adafactor already clips by update RMS, "
+                "ops/optim.py); use AdamW/SGD or drop the clip")
+        if factored and self.is_fsdp:
+            raise ValueError(
+                "param_sharding='fsdp' re-lays leaves out flat, which "
+                "cannot host Adafactor's factored state; use AdamW/SGD "
+                "under fsdp, or opt_sharding='zero1' with Adafactor "
+                "(per-cell FactoredZeRO1)")
         group = dist.group.WORLD if dist.is_initialized() else None
+        self._group = group
         self.layout = None
         if self.opt_zero1:
-            from tpu_ddp_torch.parallel.zero import ZeRO1
-            self.layout = ZeRO1(self.optimizer,
-                                shape_leaves(self._shapes), group)
+            from tpu_ddp_torch.parallel.zero import FactoredZeRO1, ZeRO1
+            self.layout = (
+                FactoredZeRO1(self.optimizer, shape_leaves(self._shapes),
+                              group, dtype=model.param_dtype)
+                if factored else
+                ZeRO1(self.optimizer, shape_leaves(self._shapes), group))
         elif self.is_fsdp:
             from tpu_ddp_torch.parallel.zero import ZeRO3
             self.layout = ZeRO3(self.optimizer,
@@ -294,9 +318,7 @@ class LMTrainer:
         sharded layouts gathered, a collective)."""
         if self.layout is None:
             return state.opt_state
-        return {k: v if k == "count"
-                else list(self.layout.gather(torch.cat(v)))
-                for k, v in state.opt_state.items()}
+        return self.layout.full_opt(state.opt_state)
 
     def params_to_host(self, state: LMTrainState):
         """The parameters as the JAX package's tree of numpy arrays."""
@@ -337,6 +359,10 @@ class LMTrainer:
             slot = P("dp")
             strategy += "+zero2" if self.opt_zero2 else "+zero1"
         opt = {k: slot for k in opt_slot_shapes(self.optimizer, [])}
+        if hasattr(self.layout, "state_specs"):
+            # FactoredZeRO1: vr (and mu) sharded by rows, leaf by leaf.
+            opt = {k: tree_unflatten(self._skeleton, v)
+                   for k, v in self.layout.state_specs().items()}
         if _has_count(self.optimizer):
             opt["count"] = P()
         return ShardingPlan(
@@ -390,8 +416,6 @@ class LMTrainer:
         """Load a checkpoint onto this trainer's device: the newest that
         passes digest verification when ``step`` is None (a corrupt one
         is quarantined and the previous one tried), else that step."""
-        from tpu_ddp_torch.convert import (opt_state_from_jax,
-                                           params_from_jax, shape_leaves)
         from tpu_ddp_torch.parallel.redistribute import warn_if_incompatible
         from tpu_ddp_torch.resilience.integrity import \
             restore_newest_verified
@@ -421,15 +445,19 @@ class LMTrainer:
             host, _ = restore_newest_verified(directory, template)
         else:
             host, _ = ckpt.restore_checkpoint(directory, template, step)
+        return self.state_from_host(host)
+
+    def state_from_host(self, host: dict) -> LMTrainState:
+        """The other half of :meth:`state_to_host`: the canonical host
+        tree onto this trainer's device, sharded for its layout and dp
+        whatever the saving world's."""
+        from tpu_ddp_torch.convert import opt_state_from_jax, params_from_jax
         params = params_from_jax(self.model, host["params"], self.device)
         opt_state = opt_state_from_jax(self.model, self.optimizer,
                                        host["opt_state"], self.device)
         if self.layout is not None:
             # Re-shard the canonical leaves for this trainer's dp.
-            opt_state = {k: v if k == "count" else
-                         [t.clone() for t in
-                          self.layout.local_shards(v)[1]]
-                         for k, v in opt_state.items()}
+            opt_state = self.layout.local_opt(opt_state)
             if self.is_fsdp:
                 params = self.layout.local_shards(tree_leaves(params))[0]
         for p in ([params] if self.is_fsdp else tree_leaves(params)):

@@ -1,9 +1,9 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
 ``TrainConfig`` that the port's slices use (serving, the image trainer's
 models and datasets, the training ladder with its gradient wires and
-bucketed overlap, checkpoints, the step guard, the memory policy and
-the loop's host side: the dispatch window, K steps per dispatch and
-device prefetch), with the same names, defaults,
+bucketed overlap, checkpoints, the step guard, elastic membership, the
+memory policy and the loop's host side: the dispatch window, K steps per
+dispatch and device prefetch), with the same names, defaults,
 ``TPU_DDP_*`` env variables and validation, so a knob means the same
 thing in both packages.
 
@@ -34,9 +34,6 @@ _FALSE = ("0", "false", "no", "off")
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
-    "TPU_DDP_ELASTIC_RESHARD": (_FALSE,
-                                "item 9.6b (resilience/elastic.py)"),
-    "TPU_DDP_ELASTIC_DIR": ((), "item 9.6b (resilience/elastic.py)"),
     "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
     "TPU_DDP_TUNE_SEMANTIC": (_FALSE, "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
@@ -190,6 +187,13 @@ class TrainConfig:
     # Consecutive skipped steps before train_epoch raises
     # TrainingDivergedError; env TPU_DDP_GUARD_MAX_BAD.
     guard_max_bad_steps: int = 3
+    # Elastic membership (resilience/elastic.py): on a rank lost, stalled
+    # or rejoining, survivors reshard their live state onto the new
+    # world instead of the cluster restarting from a checkpoint. Workers
+    # act on it only when the launcher also gives the protocol directory
+    # (TPU_DDP_ELASTIC_DIR). Env TPU_DDP_ELASTIC_RESHARD; launcher flag
+    # --elastic-reshard.
+    elastic_reshard: bool = False
     # The port's own knob (the JAX package runs on XLA, which sums in a
     # fixed order): cuDNN's deterministic algorithms, no autotuning, so
     # two runs of the same steps give the same bits (resume drills).
@@ -292,6 +296,8 @@ class TrainConfig:
         env_gb = os.environ.get("TPU_DDP_GUARD_MAX_BAD")
         if env_gb:
             self.guard_max_bad_steps = int(env_gb)
+        self.elastic_reshard = _env_bool("TPU_DDP_ELASTIC_RESHARD",
+                                         self.elastic_reshard)
         self.cudnn_deterministic = _env_bool("TPU_DDP_CUDNN_DETERMINISTIC",
                                              self.cudnn_deterministic)
         env_rm = os.environ.get("TPU_DDP_REMAT")
