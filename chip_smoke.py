@@ -387,7 +387,24 @@ Phases 35-37 run the image trainer's last model families:
    checkpoint digests equal to an uninterrupted run's, the BN and SGD
    launches exact; the reshard's seconds; then VGG-11's live state
    through parts 3 -> 4 -> 5 -> 3 with ``redistribute_state``, bit for
-   bit.
+   bit;
+43. K steps per dispatch on every rung, at world 1 over NCCL
+   (``vgg11_cifar10`` as published, both kernels, cuDNN deterministic):
+   parts 2a, 2b, 3, 4 and 5 at K = 4 over two groups, each group one
+   CUDA graph replay (``train/capture.py``), the ``[loss, skipped]``
+   rows, every parameter and all optimizer state the bits of 8 eager
+   steps, and a trace of the replays holding 8 SGD and 64 of each BN
+   kernel; part 3 with overlap (4 MiB buckets) and with the int8 wire
+   (both turned on at dp 1; the carry written in place), each catching a
+   planted fault (a stale staging buffer; a carry rebound instead of
+   written in place); part 1 under ``remat="conv_stages"`` with the
+   recompute's 128 forward BN launches; a poisoned batch inside a part-3
+   group skipped alone; ms per iteration through ``train_epoch`` at
+   K = 1 and 4 for parts 3, 4 and 5 with the capture's ms and a traced
+   window's idle share; then LM-large (AdamW, flash, block remat, no
+   dropout) at K = 2 through ``LMTrainer.build_multi_step``, replicated
+   and zero1: the bits of 2 eager steps, the flash launches exact at
+   capture and in a replay's trace, ms per step eager and replayed.
 
 Checkpoints of phases 18-20 and 42 go to ``_chip_smoke_ckpt/`` in the checkout
 and are removed at the end. Prints the card's name and power limit, the
@@ -2252,7 +2269,7 @@ def lm_step_checks(dev, run: dict) -> dict:
             pi = [p.detach().clone()]
             st = {"mu": [state.opt_state["mu"][i].clone()],
                   "nu": [state.opt_state["nu"][i].clone()],
-                  "count": state.opt_state["count"]}
+                  "count": state.opt_state["count"].clone()}
             opt.apply(pi, [g], st)
             outs.append(pi[0] - p.detach())
         upd_largest = max(upd_largest, float(outs[1].abs().max()))
@@ -5011,7 +5028,7 @@ def _calls_after_mark(prof, pats) -> int:
                 key=lambda e: e.start_ns())
     marks = [i for i, e in enumerate(ev) if TRACE_MARK in e.name()]
     if len(marks) != 1:
-        fail(f"phase 39: {len(marks)} marker kernels in a counting trace")
+        fail(f"{len(marks)} marker kernels in a counting trace")
     return sum(1 for e in ev[marks[0] + 1:]
                if any(p in e.name() for p in pats))
 
@@ -5859,6 +5876,406 @@ def elastic_card(dev) -> dict:
             "eval_batches": eval_batches, "redistribute_vgg": chain}
 
 
+# ---- phase 43: K steps per dispatch on every rung -----------------------
+
+LADDER_K, LADDER_GROUPS = 4, 2   # two K-step groups against 8 eager steps
+LADDER_PARTS = ("part2a", "part2b", "part3", "part4", "part5")
+LADDER_TIMED = ("part3", "part4", "part5")
+LM_GRAPH_K = 2
+
+
+def _rung_trainer(dev, part, wire_at_one=False, **cfg_over):
+    """A vgg11_cifar10 trainer (both kernel knobs) of ``part`` on the
+    group of one. ``wire_at_one``: the config's gradient wire and
+    bucketed overlap turned on at dp 1, where the trainer degrades them
+    (there is nothing to compress or bucket across one rank); their
+    device code and collectives run at any N, so the group of one
+    captures what a larger group would."""
+    import gc
+    import warnings
+    from tpu_ddp_torch.models import get_model
+    from tpu_ddp_torch.train.engine import Trainer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    with _env(**PRESET_ENV, **HOST_ENV), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = TrainConfig.preset("vgg11_cifar10", **cfg_over)
+        model = get_model(cfg.model, use_pallas_bn=True,
+                          compute_dtype=getattr(torch, cfg.compute_dtype))
+        tr = Trainer(model, cfg, strategy=part, device=dev)
+        if wire_at_one:
+            tr.net = tr.model  # DDP goes, and its reducer's hooks with it
+            gc.collect()
+            tr.dp = 2
+            tr._setup_compression()
+            tr._setup_overlap()
+            tr.dp = 1
+    return tr
+
+
+def _state_copy(tr, state) -> list:
+    """Copies of every tensor a step of ``tr`` writes in place."""
+    return [t.detach().clone() for t in tr._graph_written(state)]
+
+
+def _put_back(tr, state, copies) -> None:
+    with torch.no_grad():
+        for t, c in zip(tr._graph_written(state), copies):
+            t.copy_(c)
+
+
+def _same_state(tr, state, copies) -> bool:
+    return _same(tr._graph_written(state), copies)
+
+
+def _eager_rows(tr, state, batches) -> tuple:
+    """Eager train_steps: their ``[loss, skipped]`` rows, the state
+    after each step."""
+    rows, after = [], []
+    for x, y in batches:
+        state, loss = tr.train_step(state, x, y)
+        rows.append(tr._bundle(loss, tr._last_fused))
+        after.append(_state_copy(tr, state))
+    return torch.stack(rows), after
+
+
+def _group_rows(tr, state, batches, k) -> torch.Tensor:
+    """The same batches as K-step groups through ``build_multi_step``:
+    every group's (K, 2) rows."""
+    multi = tr.build_multi_step(k)
+    rows = []
+    for g in range(0, len(batches), k):
+        grp = batches[g:g + k]
+        state, _ = multi(state, *tr.put_batches([b[0] for b in grp],
+                                                [b[1] for b in grp]))
+        rows.append(tr._last_fused)
+    return torch.cat(rows)
+
+
+def _remat_want(steps: int) -> dict:
+    """VGG-11 under conv_stages: each BN site's forward kernels run
+    again in the recompute (phase 29's 16 forward launches per step)."""
+    want = _vgg_want(steps)
+    want["bn_stats"] = {"one_pass": 16 * steps, "two_stage": 0}
+    want["bn_norm_relu"] = 16 * steps
+    return want
+
+
+def _rung_case(tr, batches, label, per_step=_vgg_want) -> dict:
+    """Two K-step groups against 8 eager steps from the same start: the
+    ``[loss, skipped]`` rows and every tensor the step writes the same
+    bits. Then the groups again from the start, replays only, under the
+    profiler: the replays' BN and SGD kernels counted by name exactly,
+    and the same bits again. Returns the record and the eager run."""
+    wrappers = _vgg_wrappers()
+    k, n = LADDER_K, LADDER_K * LADDER_GROUPS
+    state = tr.init_state()
+    for _ in range(2):  # cuDNN's and the kernels' first calls
+        state, _ = tr.train_step(state, *batches[-1])
+    start = _state_copy(tr, state)
+    e_rows, e_after = _eager_rows(tr, state, batches[:n])
+
+    def same_as_eager(g_rows, what):
+        if not (torch.equal(g_rows, e_rows)
+                and _same_state(tr, state, e_after[-1])):
+            fail(f"phase 43 {label}: {LADDER_GROUPS} groups of {k} "
+                 f"({what}) differ from {n} eager steps (rows "
+                 f"{g_rows.tolist()} vs {e_rows.tolist()})")
+
+    _put_back(tr, state, start)
+    caps0 = tr.graph_stats["captures"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_rows = _group_rows(tr, state, batches[:n], k)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if tr.graph_stats["captures"] - caps0 != 1:
+        fail(f"phase 43 {label}: {tr.graph_stats['captures'] - caps0} "
+             "captures for one group shape")
+    same_as_eager(g_rows, "first run")
+    _put_back(tr, state, start)
+
+    def warm():
+        _group_rows(tr, state, batches[:k], k)
+        _put_back(tr, state, start)
+
+    with _counting_trace(warm) as prof:
+        reps0, caps0 = tr.graph_stats["replays"], tr.graph_stats["captures"]
+        _zero_launches(wrappers)
+        g_rows = _group_rows(tr, state, batches[:n], k)
+    replays = tr.graph_stats["replays"] - reps0
+    host = {name: _total(c) for name, c in _launches(wrappers).items()}
+    traced = {name: _calls_after_mark(prof, VGG_KERNELS[name])
+              for name in wrappers}
+    want = {name: _total(c) for name, c in per_step(replays * k).items()}
+    if (tr.graph_stats["captures"] - caps0, replays) != (0, LADDER_GROUPS) \
+            or any(host.values()) or traced != want:
+        fail(f"phase 43 {label} replays: {replays} replays, host-counted "
+             f"launches {host}, traced kernels {traced}; expected "
+             f"{LADDER_GROUPS}, none, {want}")
+    same_as_eager(g_rows, "replays only")
+    return {"k": k, "groups": LADDER_GROUPS, "bitwise": True,
+            "rows": g_rows.tolist(), "capture_ms":
+                tr.graph_stats["capture_ms"][-1],
+            "first_run_ms": first_ms, "replayed_traced": traced,
+            "_start": start, "_eager": (e_rows, e_after),
+            "_state": state}
+
+
+def _planted_ladder(tr, case, batches, label, patch) -> dict:
+    """The case's groups again from its start, captured anew under
+    ``patch`` (a fault planted in the capture): whether the bitwise gate
+    catches it. The trainer captures anew afterwards."""
+    state, n = case["_state"], LADDER_K * LADDER_GROUPS
+    e_rows, e_after = case["_eager"]
+    _put_back(tr, state, case["_start"])
+    tr._multi_step_cache.clear()
+    with patch:
+        g_rows = _group_rows(tr, state, batches[:n], LADDER_K)
+    caught = not (torch.equal(g_rows, e_rows)
+                  and _same_state(tr, state, e_after[-1]))
+    tr._multi_step_cache.clear()
+    _put_back(tr, state, case["_start"])
+    if not caught:
+        fail(f"phase 43 {label}: the bitwise gate missed a planted fault")
+    return {"caught": True}
+
+
+def _stale_stage():
+    """A stale staging buffer: the second group's batches never copied."""
+    from tpu_ddp_torch.train import engine
+    real, calls = engine._StepGraph.stage, []
+
+    def stage(self, xs, ys):
+        calls.append(1)
+        if len(calls) != 2:
+            real(self, xs, ys)
+
+    return mock.patch.object(engine._StepGraph, "stage", stage)
+
+
+def _carry_rebound():
+    """A carry that is not written in place: the step's new seed and
+    residual returned as new tensors (the state keeps the old ones)."""
+    from tpu_ddp_torch.parallel.compress import GradCompressor
+
+    def commit(skip, old, new):
+        return new
+
+    return mock.patch.object(GradCompressor, "commit",
+                             staticmethod(commit))
+
+
+def _guard_group(tr, case, batches) -> dict:
+    """One poisoned batch (the second) inside a K-step group: the graph
+    skips that step's update as the eager step does, the same bits."""
+    state, start = case["_state"], case["_start"]
+    bad = [batches[0], (batches[1][0].clone(), batches[1][1])] + \
+        batches[2:LADDER_K]
+    bad[1][0][0, 0, 0, 0] = float("nan")
+    _put_back(tr, state, start)
+    e_rows, e_after = _eager_rows(tr, state, bad)
+    kept = _same(e_after[1], e_after[0])
+    _put_back(tr, state, start)
+    g_rows = _group_rows(tr, state, bad, LADDER_K)
+    e_skip = [bool(v) for v in (e_rows[:, 1] != 0).tolist()]
+    g_skip = [bool(v) for v in (g_rows[:, 1] != 0).tolist()]
+    same = _same_state(tr, state, e_after[-1])
+    if not (kept and same and e_skip == g_skip
+            == [False, True, False, False]):
+        fail(f"phase 43 guard in a part-3 group: eager skips {e_skip} "
+             f"(state kept: {kept}), graph skips {g_skip}, final state "
+             f"the same bits: {same}")
+    _put_back(tr, state, start)
+    return {"skipped": g_skip, "bitwise": True}
+
+
+def _rung_timing(tr, state, host, traced_batches) -> dict:
+    """ms per iteration through ``train_epoch`` at K = 1 and K = 4 (the
+    iteration 1-39 timer, ``stop_many`` on groups), then a traced epoch
+    at each K with the timing window off: wall and device ms per
+    iteration and the device's idle share."""
+    cfg = tr.config
+    out = {}
+    first, last = cfg.timing_first_iter, cfg.timing_last_iter
+    for k in (1, LADDER_K):
+        cfg.steps_per_dispatch = k
+        cfg.timing_first_iter, cfg.timing_last_iter = first, last
+        state, stats = tr.train_epoch(state, host, log=lambda s: None)
+        cfg.timing_first_iter, cfg.timing_last_iter = 1, 0
+        state, traced = _traced_epoch(tr, state, traced_batches, 1)
+        out[f"k{k}"] = {"avg_iter_ms": stats["avg_iter_s"] * 1e3,
+                        "timed_iters": stats["timed_iters"],
+                        "traced": traced}
+    cfg.steps_per_dispatch = 1
+    cfg.timing_first_iter, cfg.timing_last_iter = first, last
+    out["capture_ms"] = list(tr.graph_stats["capture_ms"])
+    return out
+
+
+def _lm_graph(dev, seed: int, layout: str) -> dict:
+    """LM-large (batch 4 x seq 2048, bf16, flash, AdamW, the preset's
+    block remat, no dropout) under ``layout`` at K = 2: one group through
+    ``LMTrainer.build_multi_step`` against 2 eager steps from the same
+    start, the losses, parameters and AdamW state (count included) the
+    same bits; the capture's flash launches exact (its warm-up step and
+    the 2 captured steps), and a replay's kernels counted in a trace;
+    ms per step eager and replayed (each after the bit check, from the
+    same start)."""
+    from tpu_ddp_torch.train import capture
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    model = _lm_large(dev)
+    tr = LMTrainer(model, device=dev, opt_sharding=layout)
+    state = tr.init_state(seed=seed)
+    rng = np.random.default_rng(seed + 43)
+    pairs = [tr.put_batch(*make_lm_batch(rng.integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))))
+        for _ in range(LM_GRAPH_K)]
+    xs = torch.stack([x for x, _ in pairs])
+    ys = torch.stack([y for _, y in pairs])
+    state, _ = tr.train_step(state, xs[0], ys[0])  # first calls
+    written = capture.written(state)
+    start = [t.detach().clone() for t in written]
+
+    def put_back():
+        with torch.no_grad():
+            for t, c in zip(written, start):
+                t.copy_(c)
+
+    def eager():
+        st, losses = state, []
+        for j in range(LM_GRAPH_K):
+            st, loss = tr.train_step(st, xs[j], ys[j])
+            losses.append(loss)
+        return torch.stack(losses)
+
+    e_losses = eager()
+    e_after = [t.detach().clone() for t in written]
+    put_back()
+    wrappers = _flash_wrappers()
+    _zero_launches(wrappers)
+    multi = tr.build_multi_step(LM_GRAPH_K)
+    state, g_losses = multi(state, xs, ys)
+    counted = _launches(wrappers)
+    steps = 1 + LM_GRAPH_K  # the warm-up step and the captured ones
+    L = model.num_layers  # block remat: each forward runs again
+    want = _flash_want(2 * L * steps, L * steps)
+    if counted != want:
+        fail(f"phase 43 LM {layout}: capture launches {counted}, "
+             f"expected {want}")
+    if not (torch.equal(g_losses, e_losses) and _same(written, e_after)):
+        fail(f"phase 43 LM {layout}: the K={LM_GRAPH_K} group differs "
+             f"from {LM_GRAPH_K} eager steps ({g_losses.tolist()} vs "
+             f"{e_losses.tolist()})")
+    ms = {}
+    for name, fn in (("eager", eager), ("replay", lambda: multi(
+            state, xs, ys))):
+        put_back()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / LM_GRAPH_K
+    put_back()
+
+    def warm():
+        multi(state, xs, ys)
+        put_back()
+
+    with _counting_trace(warm) as prof:
+        _zero_launches(wrappers)
+        state, g_losses = multi(state, xs, ys)
+    traced = {name: _calls_after_mark(prof, FLASH_KERNELS[name][:1])
+              for name in wrappers}
+    want = {"flash_fwd": 2 * L * LM_GRAPH_K, "flash_bwd_kv": L * LM_GRAPH_K,
+            "flash_bwd_q": L * LM_GRAPH_K}
+    if traced != want or any(_total(c) for c in _launches(
+            wrappers).values()):
+        fail(f"phase 43 LM {layout}: replay traced {traced}, expected "
+             f"{want}")
+    if not (torch.equal(g_losses, e_losses) and _same(written, e_after)):
+        fail(f"phase 43 LM {layout}: the replay differs from eager")
+    return {"k": LM_GRAPH_K, "bitwise": True,
+            "losses": g_losses.tolist(), "capture_launches": counted,
+            "replay_traced": traced,
+            "capture_ms": tr.graph_stats["capture_ms"][-1],
+            "eager_ms_per_step": ms["eager"],
+            "replay_ms_per_step": ms["replay"]}
+
+
+def ladder_multi_step(dev, seed: int) -> dict:
+    """Phase 43: K steps per dispatch on every rung at world 1 over NCCL
+    (vgg11_cifar10 as published, both kernels, cuDNN deterministic):
+    parts 2a, 2b, 3, 4 and 5 at K = 4 over two groups, each group one
+    CUDA graph replay, bit for bit against 8 eager steps (rows, every
+    parameter and all optimizer state), the replays' BN and SGD kernels
+    counted exactly in a trace; part 3 with overlap (4 MiB buckets) and
+    with the int8 wire (its carry in place), each catching a planted
+    fault (a stale staging buffer, a carry rebound instead of written in
+    place); part 1 under remat=conv_stages with the recompute's
+    launches; a poisoned batch inside a part-3 group; ms per iteration
+    at K = 1 and 4 for parts 3, 4 and 5 through ``train_epoch``, with the
+    capture's ms and the traced idle share; then LM-large at K = 2
+    through ``LMTrainer.build_multi_step``, replicated and zero1."""
+    from tpu_ddp_torch.data.loader import create_data_loaders
+    out = {"rungs": {}, "variants": {}, "timing": {},
+           "versions": {"torch": torch.__version__,
+                        "cuda": torch.version.cuda,
+                        "nccl": ".".join(map(str, torch.cuda.nccl.version()))}}
+    with _deterministic_cudnn(), _group_of_one(dev):
+        with _env(**PRESET_ENV):
+            train, _ = create_data_loaders(
+                batch_size=256, synthetic_size=GRAPH_TIMED * 256)
+        host = list(train)
+        batches = [(x.to(dev), y.to(dev)) for x, y in host[:8]]
+        traced_batches = [host[i % len(host)] for i in range(24)]
+        for part in LADDER_PARTS:
+            tr = _rung_trainer(dev, part)
+            case = _rung_case(tr, batches, part)
+            if part == "part3":
+                out["guard_in_group"] = _guard_group(tr, case, batches)
+            if part in LADDER_TIMED:
+                out["timing"][part] = _rung_timing(tr, case["_state"],
+                                                   host, traced_batches)
+            out["rungs"][part] = {k: v for k, v in case.items()
+                                  if not k.startswith("_")}
+            del tr, case
+            torch.cuda.empty_cache()
+        for name, over, fault in (
+                ("part3_overlap", {"overlap": True, "bucket_mb": 4},
+                 _stale_stage),
+                ("part3_int8", {"grad_compress": "int8"}, _carry_rebound)):
+            tr = _rung_trainer(dev, "part3", wire_at_one=True, **over)
+            if (tr._overlap is None) == ("overlap" in over) or (
+                    tr._comp_stateful != ("grad_compress" in over)):
+                fail(f"phase 43 {name}: the variant is not on")
+            case = _rung_case(tr, batches, name)
+            if tr._comp_stateful:
+                # The carry's seed after the start's 2 steps and 8 more.
+                case["carry_seed"] = int(case["_state"].comp_state["seed"])
+                if case["carry_seed"] != tr.config.seed + 10:
+                    fail(f"phase 43 {name}: carry seed {case['carry_seed']}"
+                         f" after 10 steps from {tr.config.seed}")
+            case["planted_fault"] = _planted_ladder(tr, case, batches, name,
+                                                    fault())
+            if tr._overlap is not None:
+                case["buckets"] = tr._overlap.plan.n_buckets
+            out["variants"][name] = {k: v for k, v in case.items()
+                                     if not k.startswith("_")}
+            del tr, case
+            torch.cuda.empty_cache()
+        tr = _rung_trainer(dev, "part1", remat="conv_stages")
+        case = _rung_case(tr, batches, "part1 remat=conv_stages",
+                          per_step=_remat_want)
+        out["variants"]["part1_remat_conv_stages"] = {
+            k: v for k, v in case.items() if not k.startswith("_")}
+        del tr, case, batches
+        torch.cuda.empty_cache()
+        for layout in ("replicated", "zero1"):
+            out[f"lm_large_{layout}"] = _lm_graph(dev, seed, layout)
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6010,6 +6427,10 @@ def main() -> None:
         import shutil
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     print(json.dumps({"elastic_card": ecard}), flush=True)
+    torch.cuda.empty_cache()
+    lgraph = phase("43_ladder_multi_step", ladder_multi_step, dev,
+                   args.seed)
+    print(json.dumps({"ladder_multi_step": lgraph}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -6048,6 +6469,11 @@ def main() -> None:
             out[f"vgg_graph_k{k}_counted"] = case["launches_counted"][name]
             out[f"vgg_graph_k{k}_replayed"] = case[
                 "launches_replayed_traced"][name]
+        # Phase 43: two K = 4 replays of each rung, traced.
+        for part, case in {**lgraph["rungs"],
+                           **lgraph["variants"]}.items():
+            out[f"ladder_graph_{part}_replayed"] = case[
+                "replayed_traced"][name]
         return out
 
     regs, spills = ptxas(INT8_KERNELS["mma"])
@@ -6265,6 +6691,7 @@ def main() -> None:
                        "dispatch_window": depths, "multi_step": ksteps,
                        "host_side": hostside,
                        "lm_factored_zero1": fzero, "elastic_card": ecard,
+                       "ladder_multi_step": lgraph,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "

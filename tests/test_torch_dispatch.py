@@ -317,17 +317,31 @@ def test_grouped_path_gates():
 
 
 def test_card_capture_refuses_what_it_cannot_capture(monkeypatch):
-    """On the card every rung but ``none``, and remat, raise naming the
-    item that captures them; none runs eager steps under K > 1."""
+    """On the card every rung and every remat mode takes the graph route
+    (the call is built; capturing it needs the card), and what the card
+    still cannot capture, the LM's dropout, raises naming its item
+    (9.5c); none runs eager steps under K > 1."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.train.lm import LMTrainer
     tt, _ = _port()
     monkeypatch.setattr(tt, "device", torch.device("cuda", 0))
-    monkeypatch.setattr(tt, "strategy", "fused")
-    with pytest.raises(NotImplementedError, match="item 9.5b"):
-        tt.build_multi_step(4)
-    monkeypatch.setattr(tt, "strategy", "none")
-    monkeypatch.setattr(tt.config, "remat", "blocks")
-    with pytest.raises(NotImplementedError, match="item 9.5b"):
-        tt.build_multi_step(4)
+    for strategy in ("none", "gather_scatter", "all_reduce", "fused",
+                     "zero", "fsdp"):
+        for remat in ("none", "blocks", "conv_stages", "dots"):
+            monkeypatch.setattr(tt, "strategy", strategy)
+            monkeypatch.setattr(tt.config, "remat", remat)
+            tt._multi_step_cache.clear()
+            assert callable(tt.build_multi_step(4))
+    for rate in (0.0, 0.1):
+        lm = LMTrainer(make_transformer(
+            "TransformerLM-tiny", compute_dtype=torch.float32,
+            max_seq_len=32, dropout_rate=rate), device="cpu")
+        monkeypatch.setattr(lm, "device", torch.device("cuda", 0))
+        if rate == 0.0:
+            assert callable(lm.build_multi_step(2))
+            continue
+        with pytest.raises(NotImplementedError, match="item 9.5c"):
+            lm.build_multi_step(2)
 
 
 def test_card_graph_recaptures_for_a_new_state(monkeypatch):

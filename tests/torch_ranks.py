@@ -1,6 +1,7 @@
 """Multi-process gloo runs of the port's VGG ladder for the tests
 (test_torch_zero.py, test_torch_ladder4.py, test_torch_compress.py,
-test_torch_overlap.py), and the JAX ``Trainer`` runs they are held to.
+test_torch_overlap.py, test_torch_capture.py), and the JAX ``Trainer``
+runs they are held to.
 
 :func:`run_vgg` starts one subprocess per rank (each with a time limit,
 killed on the way out), all running :data:`WORKER`: a tiny VGG (f32
@@ -115,6 +116,117 @@ os._exit(0)
 """
 
 
+# K steps per dispatch across ranks (tests/test_torch_capture.py): for
+# each case (a strategy and config), one step from the JAX init that
+# records which state tensors changed and whether the trainer's written
+# set covers them (and, under the int8 wire, whether the carry kept its
+# tensors across that step and across a guard-skipped one), then the
+# epoch at each K of spec["ks"] from the same start.
+EPOCH_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+from tpu_ddp_torch.convert import CanonicalView
+from tpu_ddp_torch.models.vgg import VGGModel
+from tpu_ddp_torch.parallel.bootstrap import init_distributed_setup
+from tpu_ddp_torch.train.capture import tensors
+from tpu_ddp_torch.train.engine import Trainer
+from tpu_ddp_torch.utils.config import TrainConfig
+from tpu_ddp_torch.utils.tree import keyed_leaves
+
+torch.set_num_threads(1)
+spec = json.loads(sys.argv[1])
+rank, world = int(sys.argv[2]), spec["world"]
+init_distributed_setup("127.0.0.1", spec["port"], rank, world,
+                       device="cpu", ddp=True, timeout_s=90)
+d, p = np.load(spec["data"]), np.load(spec["init"])
+leaves = [p[f"p{i}"] for i in range(len(p.files))]
+batches = [(torch.from_numpy(d["x"][s, rank]).permute(0, 3, 1, 2)
+            .contiguous(), torch.from_numpy(d["y"][s, rank]))
+           for s in range(d["x"].shape[0])]
+out = {}
+
+
+def state_tensors(tr, st):
+    return [*tensors(st.params), *tensors(st.opt_state),
+            *tensors(st.comp_state), *tr.model.parameters(),
+            *([tr._flat] if tr._flat is not None else [])]
+
+
+for name, case in spec["cases"].items():
+    cfg = TrainConfig(pallas_sgd=True, pallas_bn=True,
+                      compute_dtype="float32", log_every=1,
+                      **case.get("cfg", {}))
+    model = VGGModel("tiny", tuple(spec["tiny"]),
+                     compute_dtype=torch.float32, use_pallas_bn=True)
+    tr = Trainer(model, cfg, strategy=case["strategy"], device="cpu")
+    host0 = tr.state_to_host(tr.init_state())
+    host0["params"] = CanonicalView(model).tree(leaves)
+    st = tr.state_from_host(host0)
+    cands = state_tensors(tr, st)
+    before = [t.detach().clone() for t in cands]
+    carry = tensors(st.comp_state)
+    ptrs = [t.data_ptr() for t in carry]
+    st, _ = tr.train_step(st, *batches[0])
+    changed = [t for t, b in zip(cands, before)
+               if not torch.equal(t.detach(), b)]
+    bases = {t.untyped_storage().data_ptr() for t in tr._graph_written(st)}
+    out[name + "/changed"] = np.array(len(changed))
+    out[name + "/written_covers"] = np.array(all(
+        t.untyped_storage().data_ptr() in bases for t in changed))
+    if carry:
+        kept = [t.clone() for t in carry]
+        x = batches[1][0].clone()
+        if rank == 0:
+            x[0, 0, 0, 0] = float("nan")
+        st, _ = tr.train_step(st, x, batches[1][1])
+        out[name + "/carry_in_place"] = np.array(
+            [t.data_ptr() for t in tensors(st.comp_state)] == ptrs)
+        out[name + "/carry_kept_on_skip"] = np.array(
+            tr.last_step_skipped()
+            and all(torch.equal(a, b) for a, b in
+                    zip(tensors(st.comp_state), kept)))
+    for k in spec["ks"]:
+        tr.config.steps_per_dispatch = k
+        lines = []
+        st, stats = tr.train_epoch(tr.state_from_host(host0), batches,
+                                   log=lines.append)
+        pre = f"{name}/k{k}/"
+        out[pre + "lines"] = np.array(lines)
+        out[pre + "iters"] = np.array(stats["iters"])
+        out[pre + "grouped"] = np.array(k in tr._multi_step_cache)
+        for key, v in keyed_leaves(tr.state_to_host(st)):
+            out[pre + key] = np.asarray(v)
+np.savez(spec["out"] + f".{rank}.npz", **out)
+torch.distributed.barrier()
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def start_epochs(tmp_path, world: int, cases: dict, init, data,
+                 ks=(2, 1), tag: str = "epochs"):
+    """Start one gloo run of :data:`EPOCH_WORKER` over ``cases`` (name ->
+    ``{"strategy": ..., "cfg": {...}}``); returns a call that waits for
+    it and returns every rank's record."""
+    out = str(tmp_path / tag)
+    spec = {"world": world, "port": str(free_port()), "cases": cases,
+            "ks": list(ks), "init": str(init), "data": str(data),
+            "out": out, "tiny": list(TINY)}
+    procs = start_ranks(
+        lambda r: ["-c", EPOCH_WORKER, json.dumps(spec), str(r)], world)
+
+    def finish() -> list:
+        wait_ranks(procs)
+        recs = []
+        for r in range(world):
+            with np.load(f"{out}.{r}.npz") as f:
+                recs.append({k: f[k] for k in f.files})
+        return recs
+
+    return finish
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -126,12 +238,21 @@ def run_ranks(argv_of_rank, world: int, timeout: float = 150,
     """Start ``world`` Python processes (``argv_of_rank(r)`` each), wait
     for all with a time limit, kill any still running, and require every
     one to exit 0. Returns their outputs."""
+    return wait_ranks(start_ranks(argv_of_rank, world, env), timeout)
+
+
+def start_ranks(argv_of_rank, world: int, env=None) -> list:
+    """The first half of :func:`run_ranks`: the started processes."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
                **(env or {}))
-    procs = [subprocess.Popen([sys.executable] + argv_of_rank(r), cwd=REPO,
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable] + argv_of_rank(r), cwd=REPO,
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def wait_ranks(procs, timeout: float = 150) -> list:
+    """The second half of :func:`run_ranks`."""
     logs = []
     try:
         for p in procs:
@@ -266,6 +387,28 @@ def run_jax(strategy: str, world: int, params, x, y, model: str = "vgg",
     rec = {jax.tree_util.keystr(p, simple=True, separator="."): np.asarray(v)
            for p, v in jax.tree_util.tree_flatten_with_path(host)[0]}
     rec["losses"] = np.array(losses)
+    return rec
+
+
+def run_jax_epoch(strategy: str, world: int, params, x, y, k: int,
+                  model: str = "vgg", **cfg) -> dict:
+    """The JAX ``Trainer``'s epoch over the ranks' batches (each step's
+    global batch the concatenation of the ranks') at ``k`` steps per
+    dispatch: its log lines and canonical host state, keyed like
+    :data:`EPOCH_WORKER`'s record."""
+    import jax
+    jt, state = jax_trainer(strategy, world, params, model=model,
+                            steps_per_dispatch=k, log_every=1, **cfg)
+    batches = [(x[s].reshape(-1, *x.shape[-3:]),
+                y[s].reshape(-1).astype(np.int32))
+               for s in range(x.shape[0])]
+    lines = []
+    state, stats = jt.train_epoch(state, batches, log=lines.append)
+    host = jt.state_to_host(state)
+    rec = {jax.tree_util.keystr(p, simple=True, separator="."): np.asarray(v)
+           for p, v in jax.tree_util.tree_flatten_with_path(host)[0]}
+    rec["lines"] = np.array(lines)
+    rec["iters"] = np.array(stats["iters"])
     return rec
 
 

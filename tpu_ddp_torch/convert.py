@@ -255,9 +255,8 @@ def opt_state_from_jax(model, optimizer, opt_state, device=None) -> dict:
     """The inverse of :func:`opt_state_to_jax` for ``model``'s params:
     every slot leaf checked against the optimizer's layout
     (:func:`opt_slot_shapes`) and placed on ``device`` (``None`` means
-    ``"cuda"``). The count comes back as the optimizer keeps it: an int,
-    or a 0-d int32 device tensor for scheduled SGD."""
-    from tpu_ddp_torch.ops.optim import SGD
+    ``"cuda"``). The count comes back as the optimizers keep it: a 0-d
+    int32 device tensor."""
     dev = resolve_device(device)
     layout = model.param_shapes()
     out = {}
@@ -270,8 +269,7 @@ def opt_state_from_jax(model, optimizer, opt_state, device=None) -> dict:
             for i, (g, w) in enumerate(zip(got, want))]
     if "count" in opt_state:
         count = int(np.asarray(opt_state["count"]))
-        out["count"] = (torch.tensor(count, dtype=torch.int32, device=dev)
-                        if isinstance(optimizer, SGD) else count)
+        out["count"] = torch.tensor(count, dtype=torch.int32, device=dev)
     return out
 
 

@@ -16,16 +16,24 @@ otherwise the same arithmetic runs leaf by leaf in PyTorch.
 
 A ``learning_rate`` may be a schedule, any callable ``step (f32, 1-based)
 -> lr`` such as :func:`warmup_cosine`, evaluated at the state's own
-count, so a resumed run continues the schedule. AdamW and Adafactor keep
-that count on the host (an int: the LM trainer has no step guard);
-scheduled SGD keeps it on the device (a 0-d int32 tensor), where the step
-guard's flag can hold it back without a host read. The per-step scalars
-are computed in f32, as the JAX package computes them.
+count, so a resumed run continues the schedule. The count is a 0-d int32
+tensor on the device (AdamW, Adafactor, scheduled SGD), advanced in
+place, and every term that depends on it is read or computed from it on
+the device: a step captured in a CUDA graph (train/engine.py,
+train/lm.py) then takes step t's terms on every replay, and the eager
+step the same bits. AdamW's bias corrections come from a table of the
+host's f32 values ``1 - b**t`` (:func:`_bias_table`: every t up to
+where the value rounds to 1), so they are the bits the host computes;
+Adafactor's ``beta2_t`` and relative step and a scheduled lr are
+computed on the device in f32. The step guard's flag can hold scheduled
+SGD's count back without a host read. The JAX checkpoint format keeps
+the count an int32 (convert.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -55,8 +63,7 @@ class SGD:
     def init(self, params) -> dict:
         state = {"momentum": [torch.zeros_like(p) for p in params]}
         if callable(self.learning_rate):
-            state["count"] = torch.zeros((), dtype=torch.int32,
-                                         device=params[0].device)
+            state["count"] = new_count(params)
         return state
 
     @torch.no_grad()
@@ -80,12 +87,45 @@ class SGD:
         return state
 
 
-def _host_lr(learning_rate, count: int):
-    """A static lr as it is, or the schedule at 1-based ``count`` (f32)
-    as a Python float."""
+def new_count(params) -> torch.Tensor:
+    """A fresh step count: a 0-d int32 zero on the parameters' device."""
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_table(b: float, device) -> torch.Tensor:
+    """``1 - b**t`` for t = 1, 2, ..., each as the JAX package computes it
+    (numpy f32), up to the first t where it rounds to 1.0, which every
+    later t gives too; on ``device``."""
+    if not 0.0 <= b < 1.0:
+        raise ValueError(f"AdamW's betas must lie in [0, 1), got {b}")
+    one, bf = _F32(1.0), _F32(b)
+    vals = [one - bf ** _F32(1)]
+    while vals[-1] != one:
+        vals.append(one - bf ** _F32(len(vals) + 1))
+    return torch.tensor(np.array(vals, np.float32), device=device)
+
+
+def _bias_correction(b: float, count) -> torch.Tensor:
+    """AdamW's ``1 - b**count`` at the 1-based 0-d int32 device ``count``:
+    a 0-d f32 read from :func:`_bias_table`, no host read."""
+    table = _bias_table(b, count.device)
+    idx = torch.clamp_max(count - 1, table.numel() - 1)
+    return table.index_select(0, idx.reshape(1).long()).reshape(())
+
+
+def _device_lr(learning_rate, c):
+    """A static lr as it is, or the schedule at the 1-based f32 count
+    ``c`` (a 0-d device tensor) as a 0-d device tensor."""
     if callable(learning_rate):
-        return float(learning_rate(_F32(count)))
+        return learning_rate(c)
     return learning_rate
+
+
+def ema_(v, b2, omb2, x):
+    """``v <- b2 * v + omb2 * x`` in place (the second-moment EMA of
+    Adafactor and its row-sharded wrapper, one expression for both)."""
+    return v.mul_(b2).add_(x * omb2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +151,8 @@ class AdamW:
     def init(self, params) -> dict:
         """State for a list of parameter leaves."""
         return {"mu": [torch.zeros_like(p) for p in params],
-                "nu": [torch.zeros_like(p) for p in params], "count": 0}
+                "nu": [torch.zeros_like(p) for p in params],
+                "count": new_count(params)}
 
     @staticmethod
     def decay_mask(params) -> list:
@@ -120,15 +161,14 @@ class AdamW:
     @torch.no_grad()
     def apply(self, params, grads, state: dict, decay_mask=None) -> dict:
         """One update of ``params``, ``state["mu"]`` and ``state["nu"]``,
-        in place; returns ``state`` with the count advanced.
+        in place; returns ``state`` with the count advanced in place.
         ``decay_mask`` overrides the rank rule (the ZeRO and FSDP
         wrappers pass the original leaves' mask: their flat slices are
         all rank 1)."""
         count = state["count"] + 1
-        c = _F32(count)
-        bc1 = float(_F32(1.0) - _F32(self.b1) ** c)
-        bc2 = float(_F32(1.0) - _F32(self.b2) ** c)
-        lr = _host_lr(self.learning_rate, count)
+        bc1 = _bias_correction(self.b1, count)
+        bc2 = _bias_correction(self.b2, count)
+        lr = _device_lr(self.learning_rate, count.to(torch.float32))
         mu, nu = state["mu"], state["nu"]
         grads = [g.to(p.dtype) for p, g in zip(params, grads)]
         torch._foreach_mul_(mu, self.b1)
@@ -148,8 +188,12 @@ class AdamW:
             torch._foreach_add_([upd[i] for i in decay],
                                 [params[i] for i in decay],
                                 alpha=self.weight_decay)
-        torch._foreach_add_(params, upd, alpha=-lr)
-        state["count"] = count
+        if isinstance(lr, torch.Tensor):
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(params, upd)
+        else:
+            torch._foreach_add_(params, upd, alpha=-lr)
+        state["count"].copy_(count)
         return state
 
 
@@ -242,38 +286,39 @@ class Adafactor:
                     else torch.float32
                 state[k].append(torch.zeros(shape, dtype=dt,
                                             device=p.device))
-        state["count"] = 0
+        state["count"] = new_count(params)
         return state
 
     @staticmethod
     def decay_mask(params) -> list:
         return [p.dim() >= 2 for p in params]
 
-    def schedule_terms(self, count: int):
-        """(beta2_t, rho, lr) for 1-based ``count``, in f32: rho is the
-        relative step's min(1e-2, 1/sqrt(t)) (None with an explicit lr),
-        lr None under the relative step."""
-        c = _F32(count)
-        beta2t = _F32(1.0) - c ** _F32(-self.decay_rate)
+    def schedule_terms(self, count):
+        """(beta2_t, rho, lr) for the 1-based 0-d int32 device ``count``,
+        0-d f32 device tensors: rho is the relative step's
+        min(1e-2, 1/sqrt(t)) (None with an explicit lr), lr None under
+        the relative step (a float for a static lr)."""
+        c = count.to(torch.float32)
+        beta2t = 1.0 - torch.pow(c, _F32(-self.decay_rate))
         if self.learning_rate is None:
-            rho = np.minimum(_F32(1e-2), _F32(1.0) / np.sqrt(c))
+            rho = torch.clamp_max(1.0 / torch.sqrt(c), _F32(1e-2))
             return beta2t, rho, None
-        return beta2t, None, _host_lr(self.learning_rate, count)
+        return beta2t, None, _device_lr(self.learning_rate, c)
 
     @torch.no_grad()
     def apply(self, params, grads, state: dict) -> dict:
         """One update of every leaf and its slots, in place; returns
-        ``state`` with the count advanced."""
+        ``state`` with the count advanced in place."""
         count = state["count"] + 1
         beta2t, rho, lr = self.schedule_terms(count)
         decay = self.decay_mask(params)
         for i, (p, g) in enumerate(zip(params, grads)):
             self._leaf_update(p, g, state, i, decay[i], beta2t, rho, lr)
-        state["count"] = count
+        state["count"].copy_(count)
         return state
 
     def _leaf_update(self, p, g, state, i, dk, beta2t, rho, lr):
-        b2, omb2 = float(beta2t), float(_F32(1.0) - beta2t)
+        b2, omb2 = beta2t, 1.0 - beta2t
         g32 = g.float()
         g2 = g32.square().add_(self.eps1)
         if self.plan(tuple(p.shape)) is not None:
@@ -281,14 +326,14 @@ class Adafactor:
             g2v = g2.view(view)
             vr, vc = state["vr"][i], state["vc"][i]
             n, m = view[-2], view[-1]
-            vr.mul_(b2).add_(g2v.sum(dim=-1) / m, alpha=omb2)
-            vc.mul_(b2).add_(g2v.sum(dim=-2) / n, alpha=omb2)
+            ema_(vr, b2, omb2, g2v.sum(dim=-1) / m)
+            ema_(vc, b2, omb2, g2v.sum(dim=-2) / n)
             r = vr / (vr.sum(dim=-1, keepdim=True) / n)
             u = (g32.view(view) * torch.rsqrt(r)[..., :, None]
                  * torch.rsqrt(vc)[..., None, :]).view(p.shape)
         else:
             v = state["v"][i]
-            v.mul_(b2).add_(g2, alpha=omb2)
+            ema_(v, b2, omb2, g2)
             u = g32 * torch.rsqrt(v)
         del g2
         u = self.clip_update(u, u.square().sum(), u.numel())
@@ -300,7 +345,7 @@ class Adafactor:
         relative step ``rho * max(eps2, RMS(p))`` (a 0-d tensor)."""
         if lr is None:
             rms_p = p.float().square().mean().sqrt()
-            return float(rho) * torch.clamp_min(rms_p, self.eps2)
+            return rho * torch.clamp_min(rms_p, self.eps2)
         return lr
 
     def clip_update(self, u, sq_sum, numel: int):
@@ -358,8 +403,8 @@ def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
                   floor: float = 0.0):
     """Linear warmup to ``peak_lr``, then cosine decay to ``floor`` at
     ``total_steps``. Returns ``step (1-based) -> lr`` in f32: on a tensor
-    step a 0-d tensor on its device (scheduled SGD's device count), on a
-    number a numpy f32 (the host counts of AdamW and Adafactor)."""
+    step a 0-d tensor on its device (the optimizers' device counts), on a
+    number a numpy f32."""
     if not 0 < warmup_steps < total_steps:
         raise ValueError(f"need 0 < warmup_steps={warmup_steps} < "
                          f"total_steps={total_steps}")

@@ -28,9 +28,11 @@ charges rank i its phase-1 error plus N times its phase-2 error on the
 chunk it owns, so the mean of the residuals is the whole error.
 
 The int8 carry is ``{"seed": 0-d int64 tensor, "residual": [...]}``
-(each rank's residual, leaves in canonical shapes). The seed stays on
-the device, so a guard-skipped step rolls it back (and the residual)
-with ``where`` and no host read (:meth:`GradCompressor.rollback`). The
+(each rank's residual, leaves in canonical shapes). A step writes the
+new carry into the carry's own tensors (:meth:`GradCompressor.commit`),
+so a step captured in a CUDA graph reads and writes the same tensors on
+every replay. The seed stays on the device, so a guard-skipped step
+keeps the old seed and residual with ``where`` and no host read. The
 rounding noise is a counter hash of (seed, rank, leaf, phase, element)
 in integer tensor arithmetic: the same bits on the CPU and the card,
 though not ``jax.random``'s, so int8 is held to JAX by its properties
@@ -151,17 +153,21 @@ class GradCompressor:
         return state
 
     @staticmethod
-    def rollback(skip, old, new):
-        """A guard-skipped step must not consume the carry: the old
-        residual and seed where ``skip`` is nonzero (on the device)."""
-        if new is None or skip is None:
-            return new
-        keep = skip != 0
-        out = {"seed": torch.where(keep, old["seed"], new["seed"])}
+    @torch.no_grad()
+    def commit(skip, old, new):
+        """The step's new carry written into ``old``'s own tensors, in
+        place, and ``old`` returned (None when stateless). A
+        guard-skipped step must not consume the carry: where ``skip`` is
+        nonzero (on the device) the old seed and residual stay."""
+        if new is None:
+            return old
+        pairs = [(old["seed"], new["seed"])]
         if "residual" in new:
-            out["residual"] = [torch.where(keep, o, n) for o, n in
-                               zip(old["residual"], new["residual"])]
-        return out
+            pairs += list(zip(old["residual"], new["residual"]))
+        keep = None if skip is None else skip != 0
+        for o, n in pairs:
+            o.copy_(n if keep is None else torch.where(keep, o, n))
+        return old
 
     # ---- quantization ---------------------------------------------------
 

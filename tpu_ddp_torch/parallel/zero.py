@@ -219,14 +219,17 @@ class _FlatLayout:
 
     def full_opt(self, state) -> dict:
         """An inner optimizer state over this rank's shards -> its full
-        canonical leaves (a collective every rank enters)."""
-        return {k: v if k == "count" else list(self.gather(torch.cat(v)))
+        canonical leaves (a collective every rank enters). The device
+        count is copied: a step advances it in place, so no two states
+        may share it."""
+        return {k: v.clone() if k == "count"
+                else list(self.gather(torch.cat(v)))
                 for k, v in state.items()}
 
     def local_opt(self, full) -> dict:
         """The inverse of :meth:`full_opt`: this rank's shards of full
-        canonical state leaves, no collective."""
-        return {k: v if k == "count"
+        canonical state leaves (the count copied), no collective."""
+        return {k: v.clone() if k == "count"
                 else [t.clone() for t in self.local_shards(v)[1]]
                 for k, v in full.items()}
 
@@ -502,7 +505,7 @@ class FactoredZeRO1(_FlatLayout):
                 torch.zeros(c, dtype=self.dtype, device=device).view(
                     (c,) if geom is None else geom[0] + (geom[3], geom[2]))
                 if b1 else one)
-        state["count"] = 0
+        state["count"] = torch.zeros((), dtype=torch.int32, device=device)
         return state
 
     def _gather_cat(self, tensors) -> list:
@@ -543,7 +546,7 @@ class FactoredZeRO1(_FlatLayout):
             mu = self.leaves_of_rows(self.all_gather_rows(torch.cat(
                 [t.reshape(-1) for t in state["mu"]])))
         return {"vr": vr, "vc": list(state["vc"]), "v": v, "mu": mu,
-                "count": state["count"]}
+                "count": state["count"].clone()}
 
     def local_opt(self, full) -> dict:
         """The inverse of :meth:`full_opt`: this rank's state from the
@@ -567,7 +570,7 @@ class FactoredZeRO1(_FlatLayout):
         out["mu"] = [t.clone() for t in (
             self.local_blocks(full["mu"]) if self.inner.b1 is not None
             else full["mu"])]
-        out["count"] = full["count"]
+        out["count"] = full["count"].clone()
         return out
 
     def state_specs(self) -> dict:
@@ -668,10 +671,11 @@ class FactoredZeRO1(_FlatLayout):
                 "(ops/optim.py); use AdamW/SGD or drop the clip")
         if skip is not None:
             raise ValueError("FactoredZeRO1 takes no step guard flag")
+        from tpu_ddp_torch.ops.optim import ema_
         o, n_ax = self.inner, self.axis_size
         count = state["count"] + 1
         beta2t, rho, lr = o.schedule_terms(count)
-        b2, omb2 = float(beta2t), float(np.float32(1.0) - beta2t)
+        b2, omb2 = beta2t, 1.0 - beta2t
         decay = self.decay_mask()
         g_buf = self.reduce_scatter_sum(self.rows(grads))
         g_buf /= n_ax
@@ -683,13 +687,13 @@ class FactoredZeRO1(_FlatLayout):
             g2 = g.square().add_(o.eps1)
             if geom is None:
                 v = state["v"][i]
-                v.mul_(b2).add_(g2, alpha=omb2)
+                ema_(v, b2, omb2, g2)
                 us[i] = g * torch.rsqrt(v)
                 continue
             lead, n, m, n_loc = geom
             _, real = self._rows_here(n, n_loc)
             vr = state["vr"][i]
-            vr.mul_(b2).add_(g2.sum(dim=-1) / m, alpha=omb2)
+            ema_(vr, b2, omb2, g2.sum(dim=-1) / m)
             stats += [g2[..., :real, :].sum(dim=-2),
                       vr[..., :real].sum(dim=-1)]
         sums = self._sum_over_group(stats)
@@ -701,7 +705,7 @@ class FactoredZeRO1(_FlatLayout):
             col, vr_sum = sums[k], sums[k + 1]
             k += 2
             vc, vr = state["vc"][i], state["vr"][i]
-            vc.mul_(b2).add_(col / n, alpha=omb2)
+            ema_(vc, b2, omb2, col / n)
             r = vr / (vr_sum / n)[..., None]
             us[i] = (g * torch.rsqrt(r)[..., :, None]
                      * torch.rsqrt(vc)[..., None, :])
@@ -717,7 +721,7 @@ class FactoredZeRO1(_FlatLayout):
             alpha = o.step_size(p, rho, lr)
             torch.sub(pl, o.leaf_step(pl, u, state["mu"][i], decay[i],
                                       alpha), out=dst)
-        state["count"] = count
+        state["count"].copy_(count)
         return self.gather(out)
 
     def _sum_over_group(self, tensors) -> list:

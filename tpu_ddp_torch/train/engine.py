@@ -49,10 +49,12 @@ stays on the card until a pinned host copy, recorded behind it with an
 event, is harvested in step order, and every consumer (the loss print,
 the guard, heartbeats, the checkpoint and replica cadences) runs from
 harvested results. ``steps_per_dispatch`` K > 1 runs groups of K uniform
-batches per dispatch (:meth:`Trainer.build_multi_step`): on the card one
-replay of a CUDA graph captured over static ``(K, B, ...)`` staging
-buffers, on the CPU a plain loop of K steps; both bit-equal to K single
-steps. ``device_prefetch`` keeps host-to-device copies in flight
+batches per dispatch (:meth:`Trainer.build_multi_step`), on every rung:
+on the card one replay of a CUDA graph captured over static
+``(K, B, ...)`` staging buffers (train/capture.py), collectives, DDP's
+reducer, the gradient wires, the bucket hooks and remat included; on the
+CPU a plain loop of K steps; both bit-equal to K single steps.
+``device_prefetch`` keeps host-to-device copies in flight
 (data/prefetch.py; :meth:`Trainer.put_batch` copies pinned batches on a
 side stream), and :meth:`Trainer.evaluate` can shard the test set over
 the group.
@@ -70,6 +72,7 @@ the process group for the world that follows.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import warnings
@@ -86,6 +89,8 @@ from tpu_ddp_torch.memory.policy import apply_policy
 from tpu_ddp_torch.ops.optim import SGD, clip_by_global_norm
 from tpu_ddp_torch.parallel.sync import canonical_strategy, get_sync_strategy
 from tpu_ddp_torch.resilience.guard import StepGuard, nonfinite_flag
+from tpu_ddp_torch.train import capture
+from tpu_ddp_torch.train.capture import written as _written
 from tpu_ddp_torch.utils.config import TrainConfig, refuse_unported_env
 from tpu_ddp_torch.utils.device import resolve_device
 from tpu_ddp_torch.utils.metrics import MetricsLogger
@@ -253,15 +258,39 @@ class Trainer:
         self.net = self.model
         if (self.strategy == "fused" and not self._comp_active
                 and self._overlap is None):
-            from torch.nn.parallel import DistributedDataParallel
-            self.net = DistributedDataParallel(
-                self.model, bucket_cap_mb=25,
-                device_ids=[self.device] if self.device.type == "cuda"
-                else None)
+            self._make_ddp(graphed=self.device.type == "cuda"
+                           and self.config.steps_per_dispatch > 1)
         # Step guard (resilience/guard.py). The flag is agreed across the
         # group with one scalar all_reduce, except under 'none', whose
         # contract is no communication between replicas.
         self._guard_group = self._group
+
+    def _make_ddp(self, graphed: bool) -> None:
+        """``self.net``: ``DistributedDataParallel`` over the model (25 MB
+        buckets; its constructor broadcasts rank 0's parameters, a
+        collective every rank enters). ``graphed`` (K-step graphs on the
+        card): built on the capture stream, whose gradient accumulators a
+        capture of the backward needs, and sampling its runtime
+        statistics on its first 10 iterations only, since a sampling
+        iteration syncs on the previous one's events."""
+        from torch.nn.parallel import DistributedDataParallel
+        card = self.device.type == "cuda"
+        with (torch.cuda.stream(self._capture_stream()) if graphed
+              else contextlib.nullcontext()):
+            self.net = DistributedDataParallel(
+                self.model, bucket_cap_mb=25,
+                device_ids=[self.device] if card else None)
+        if graphed:
+            self.net._set_ddp_runtime_logging_sample_rate(2 ** 31 - 1)
+        self._ddp_graphed = graphed
+        self._ddp_iters = 0
+
+    def _capture_stream(self):
+        """The side stream every K-step graph of this trainer is
+        captured on (made on first use)."""
+        if getattr(self, "_graph_stream", None) is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_stream
 
     def rebind(self) -> None:
         """Re-resolve every part bound to the process group against the
@@ -682,7 +711,9 @@ class Trainer:
             skip, new_comp = self._zero_update(state, loss)
         else:
             skip, new_comp = self._replicated_update(state, loss)
-        new_comp = GradCompressor.rollback(skip, comp, new_comp)
+        new_comp = GradCompressor.commit(skip, comp, new_comp)
+        if self.net is not self.model:
+            self._ddp_iters += 1
         fused = (None if skip is None
                  else torch.stack([loss.detach().float(), skip]))
         self._last_fused = fused
@@ -884,15 +915,10 @@ class Trainer:
         return (tuple(t.to(self.device) for t in images_k),
                 tuple(t.to(self.device) for t in labels_k))
 
-    def _graph_refusal(self) -> str | None:
-        """Why this trainer's step cannot be captured as a CUDA graph
-        yet, or None."""
-        if self.strategy != "none":
-            return (f"strategy {self.strategy_name!r} (its collectives "
-                    "and DDP's reducer)")
-        if self.config.remat != "none":
-            return f"remat={self.config.remat!r} (activation checkpoints)"
-        return None
+    def _graph_written(self, state) -> list:
+        """Every tensor a step of this trainer writes in place
+        (train/capture.py:written), FSDP's flat shard buffer included."""
+        return _written(state, [self._flat] if self.is_fsdp else [])
 
     def build_multi_step(self, k: int):
         """A K-steps-per-dispatch call ``run(state, xs, ys) -> (state,
@@ -903,43 +929,31 @@ class Trainer:
 
         On the card the group is one ``torch.cuda.CUDAGraph``, captured
         once per (K, batch shapes, state tensors) over static staging
-        buffers and replayed once per group: the counterpart of the JAX
-        engine's one ``lax.scan`` dispatch. On the CPU it is a plain loop
-        of K steps.
-        A configuration whose step cannot be captured raises
-        ``NotImplementedError``; none runs eager steps under K > 1.
-        Memoised per K."""
+        buffers and replayed once per group, on every rung (the
+        collectives, DDP's reducer, the wires, the bucket hooks and
+        remat inside the graph): the counterpart of the JAX engine's one
+        ``lax.scan`` dispatch. On the CPU it is a plain loop of K steps.
+        A capture the card refuses raises ``NotImplementedError`` with
+        the card's error (train/capture.py); none runs eager steps under
+        K > 1. Memoised per K."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if k in self._multi_step_cache:
             return self._multi_step_cache[k]
         if self.device.type == "cuda":
-            why = self._graph_refusal()
-            if why is not None:
-                raise NotImplementedError(
-                    f"steps_per_dispatch={k} on the card captures the "
-                    f"step as a CUDA graph; {why} is not captured yet "
-                    "(ROADMAP Queue 1 item 9.5b)")
-            graphs: dict = {}
-            held: list = [None]
+            if self.net is not self.model and not self._ddp_graphed:
+                # DDP built for eager steps: built again for capture. The
+                # old wrapper goes first, its reducer's hooks with it.
+                import gc
+                self.net = self.model
+                gc.collect()
+                self._make_ddp(graphed=True)
+            graphs = capture.GraphCache(
+                lambda st, xs, ys: _StepGraph(self, st, xs, ys))
 
             def run(state, xs, ys):
-                # The graphs write the tensors the state held at capture.
-                # A state made anew (init_state, state_from_host,
-                # restore_checkpoint) holds others: capture again for it.
-                ptrs = tuple(t.data_ptr() for t in _written(state))
-                if ptrs != held[0]:
-                    graphs.clear()
-                    held[0] = ptrs
-                key = (len(xs), tuple(xs[0].shape), xs[0].stride(),
-                       xs[0].dtype, tuple(ys[0].shape), ys[0].dtype)
-                if key not in graphs:
-                    graphs[key] = _StepGraph(self, state, xs, ys)
-                grp = graphs[key]
-                grp.stage(xs, ys)
-                grp.replay()
+                fused = graphs.run(state, self._graph_written(state), xs, ys)
                 self.graph_stats["replays"] += 1
-                fused = grp.out.clone()
                 self._last_fused = fused
                 return (TrainState(state.params, state.opt_state,
                                    state.step + k, state.comp_state),
@@ -1283,94 +1297,26 @@ class Trainer:
                 "correct": correct, "seen": seen}
 
 
-def _stack_like(tensors, device) -> torch.Tensor:
-    """(K, *shape) on ``device`` from K same-shape tensors, each slice
-    with the first tensor's layout (a channels_last batch stays
-    channels_last, so a staged step sees the loader's strides)."""
-    t0 = tensors[0]
-    shape = tuple(t0.shape)
-    if (t0.dim() == 4 and not t0.is_contiguous()
-            and t0.is_contiguous(memory_format=torch.channels_last)):
-        n, c, h, w = shape
-        out = torch.empty((len(tensors), n, h, w, c), dtype=t0.dtype,
-                          device=device).permute(0, 1, 4, 2, 3)
-    else:
-        out = torch.empty((len(tensors),) + shape, dtype=t0.dtype,
-                          device=device)
-    for j, t in enumerate(tensors):
-        out[j].copy_(t)
-    return out
-
-
-class _StepGraph:
-    """K train steps captured as one CUDA graph.
-
-    The graph reads the static staging buffers ``xs``/``ys`` (filled by
-    :meth:`stage` before each replay) and writes the parameters and
-    momentum in place and the (K, 2) ``[loss, skipped]`` rows into
-    ``out``. Before the capture one eager step runs on the capture
-    stream and is then undone: it builds the kernels, lets cuDNN choose
-    its algorithms and creates the BN kernels' arrival counters for that
-    stream (``ops/bn_relu.py:_workspace`` keys them by stream), so none
-    of these happens inside the capture. Everything the captured steps
-    allocate (the gradients, the BN partials, the saved activations)
-    comes from the graph's private pool, at the same addresses on every
-    replay."""
+class _StepGraph(capture.GraphGroup):
+    """K train steps of ``trainer`` as one CUDA graph
+    (train/capture.py:GraphGroup) on the trainer's capture stream,
+    writing the (K, 2) ``[loss, skipped]`` rows into ``out``. One eager
+    warm-up step runs first and is undone; under
+    ``DistributedDataParallel`` as many as take its reducer past
+    iteration 10, the last on which it samples runtime statistics (a
+    sampling iteration syncs on the previous one's events)."""
 
     def __init__(self, trainer, state, xs, ys):
-        import time
-        dev = trainer.device
-        self.k = len(xs)
-        self.xs = _stack_like(xs, dev)
-        self.ys = _stack_like(ys, dev)
-        stream = getattr(trainer, "_graph_stream", None)
-        if stream is None:
-            stream = trainer._graph_stream = torch.cuda.Stream(dev)
-        saved = _snapshot(state)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            trainer._step(state, self.xs[0], self.ys[0])
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        _restore(state, saved)
-        self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
-            rows = []
-            st = state
-            for j in range(self.k):
-                st, loss, fused = trainer._step(st, self.xs[j], self.ys[j])
-                rows.append(trainer._bundle(loss, fused))
-            self.out = torch.stack(rows)
+        def step(st, x, y):
+            st, loss, fused = trainer._step(st, x, y)
+            return st, trainer._bundle(loss, fused)
+
+        warmup = 1
+        if trainer.net is not trainer.model:
+            warmup = max(1, 11 - trainer._ddp_iters)
+        super().__init__(step, state, xs, ys, device=trainer.device,
+                         stream=trainer._capture_stream(),
+                         written_=trainer._graph_written(state),
+                         warmup=warmup)
         trainer.graph_stats["captures"] += 1
-        trainer.graph_stats["capture_ms"].append(
-            (time.perf_counter() - t0) * 1e3)
-
-    def stage(self, xs, ys) -> None:
-        """Copy a group's K batches into the static buffers (queued on
-        the current stream, ahead of the replay)."""
-        for j in range(self.k):
-            self.xs[j].copy_(xs[j], non_blocking=True)
-            self.ys[j].copy_(ys[j], non_blocking=True)
-
-    def replay(self) -> None:
-        self.graph.replay()
-
-
-def _written(state: TrainState) -> list:
-    """Every tensor a step writes in place: params, momentum, a
-    scheduled lr's count."""
-    mom = state.opt_state["momentum"]
-    extra = [state.opt_state["count"]] if "count" in state.opt_state \
-        else []
-    return [*state.params, *mom, *extra]
-
-
-def _snapshot(state: TrainState) -> list:
-    """Copies of every tensor a step writes in place."""
-    return [(t, t.detach().clone()) for t in _written(state)]
-
-
-@torch.no_grad()
-def _restore(state: TrainState, saved: list) -> None:
-    for t, copy in saved:
-        t.copy_(copy)
+        trainer.graph_stats["capture_ms"].append(self.capture_ms)

@@ -37,6 +37,14 @@ canonical shapes and restore into any other, at any dp. Adafactor under
 slices, so it refuses ``'zero2'``, ``param_sharding='fsdp'`` and a
 global-norm clip (it clips by update RMS), with the JAX trainer's words.
 
+K steps per dispatch (tpu_ddp/train/lm.py:338-391):
+:meth:`LMTrainer.build_multi_step` runs K steps per call, bit for bit
+K :meth:`LMTrainer.train_step` calls: on the CPU a loop, on the card one
+replay of a CUDA graph (train/capture.py) per (K, batch shapes, state
+tensors), in every layout, with ``grad_accum`` and the clip. Dropout is
+not captured yet (ROADMAP item 9.5c): each step seeds its masks from a
+host key, so a replayed step would draw one step's masks forever.
+
 The JAX trainer's other axes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item: sequence and tensor
 parallelism.
@@ -58,6 +66,7 @@ from tpu_ddp_torch.ops.loss import (chunked_vocab_cross_entropy,
 from tpu_ddp_torch.ops.optim import (SGD, Adafactor, AdamW,
                                      clip_by_global_norm)
 from tpu_ddp_torch.parallel.sync import sync_all_reduce
+from tpu_ddp_torch.train import capture
 from tpu_ddp_torch.utils.device import resolve_device
 from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -166,6 +175,10 @@ class LMTrainer:
                 "(per-cell FactoredZeRO1)")
         group = dist.group.WORLD if dist.is_initialized() else None
         self._group = group
+        self._multi_step_cache: dict = {}
+        self._graph_stream = None
+        # K-step CUDA graphs: captures, replays, each capture's ms.
+        self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
         self.layout = None
         if self.opt_zero1:
             from tpu_ddp_torch.parallel.zero import FactoredZeRO1, ZeRO1
@@ -277,6 +290,62 @@ class LMTrainer:
         self._update(state, leaves, grads)
         return (LMTrainState(params, state.opt_state, state.step + 1),
                 loss)
+
+    # ---- K steps per dispatch (tpu_ddp/train/lm.py:338-391) ------------
+
+    def build_multi_step(self, k: int):
+        """``run(state, inputs_k, targets_k) -> (state, losses)``: K steps
+        on K stacked batches ((K, B, L) tensors or sequences of K (B, L)
+        ones, from :meth:`put_batch`), ``losses`` the (K,) local mean
+        losses; each step is :meth:`train_step`'s, bit for bit. On the
+        card the K steps are one ``torch.cuda.CUDAGraph``, captured per
+        (K, batch shapes, state tensors) over static staging buffers and
+        replayed once per call (a state made anew is captured again); on
+        the CPU a loop. A model with dropout raises
+        ``NotImplementedError`` on the card (ROADMAP item 9.5c); nothing
+        runs eager steps under K > 1. Memoised per K."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if k in self._multi_step_cache:
+            return self._multi_step_cache[k]
+        if self.device.type != "cuda":
+            def run(state, inputs_k, targets_k):
+                losses = []
+                for j in range(k):
+                    state, loss = self.train_step(state, inputs_k[j],
+                                                  targets_k[j])
+                    losses.append(loss)
+                return state, torch.stack(losses)
+        else:
+            if self.model.dropout_rate > 0.0:
+                raise NotImplementedError(
+                    f"build_multi_step({k}) on the card captures K steps "
+                    "as a CUDA graph; dropout is not captured yet (each "
+                    "step seeds its masks' generator from the host key "
+                    "fold_in(fold_in(dropout_seed, step), rank), so a "
+                    "replay would draw one step's masks forever): ROADMAP "
+                    "Queue 1 item 9.5c")
+            def make(st, xs, ys):
+                if self._graph_stream is None:
+                    self._graph_stream = torch.cuda.Stream(self.device)
+                grp = capture.GraphGroup(
+                    self.train_step, st, xs, ys, device=self.device,
+                    stream=self._graph_stream,
+                    written_=capture.written(st))
+                self.graph_stats["captures"] += 1
+                self.graph_stats["capture_ms"].append(grp.capture_ms)
+                return grp
+
+            graphs = capture.GraphCache(make)
+
+            def run(state, inputs_k, targets_k):
+                losses = graphs.run(state, capture.written(state),
+                                    inputs_k, targets_k)
+                self.graph_stats["replays"] += 1
+                return (LMTrainState(state.params, state.opt_state,
+                                     state.step + k), losses)
+        self._multi_step_cache[k] = run
+        return run
 
     def _update(self, state, leaves, grads) -> None:
         """The sync, the clip and the optimizer for this layout, in
