@@ -405,17 +405,36 @@ Phases 35-37 run the image trainer's last model families:
    dropout) at K = 2 through ``LMTrainer.build_multi_step``, replicated
    and zero1: the bits of 2 eager steps, the flash launches exact at
    capture and in a replay's trace, ms per step eager and replayed.
+44. the autotuner (``tpu_ddp_torch/tune/``) at world 1 over NCCL on
+   ``vgg11_cifar10`` as published (batch 256, no knob env set):
+   ``tuned_vs_default`` over the live space (16 batches per trial, at
+   most 48 trials); the space must hold ``pallas_sgd`` and ``pallas_bn``,
+   no trial may be quarantined, and tuned >= default at the long
+   fidelity. Each trial's SGD and BN+ReLU launches are counted from 0:
+   with a kernel knob on, the wrapper's count equals its launches per
+   step (SGD 1, the forward BN kernels 8, 16 under remat, the backward
+   ones 8) times the steps it launched (eager steps, captured steps and
+   the undone warm-ups before a capture; a replay launches nothing from
+   the host), with the knob off 0. One trainer switched K = 4 -> 1 -> 4,
+   as a cached trial trainer is: its K = 1 steps the bits of the same
+   steps on a trainer whose DDP was built for eager steps, and no second
+   capture. Then ``run_part("part3")`` under ``TPU_DDP_AUTOTUNE=search``
+   (``steps_per_dispatch`` and ``pallas_bn`` searched, a fresh cache)
+   and again under ``cached``: the second run logs ``cache hit:
+   trials=0`` with the first run's overrides, its config equals the
+   tuned one, and both train their 16 iterations.
 
-Checkpoints of phases 18-20 and 42 go to ``_chip_smoke_ckpt/`` in the checkout
-and are removed at the end. Prints the card's name and power limit, the
-serving and training metrics, each phase's seconds, one
-``{"kernels": [...]}`` line (nine kernels; the int8 kernel's launches on
-each path of phases 21-26, the flash kernels' on phases 27-28's and 33's
-and the BN and SGD kernels' on phases 29's, 31's and 36's (SGD's on
-37's too) and 38-39's (the flash kernels' on 39's ViT-tiny group and
-41's runs, the BN and SGD kernels' on 42's elastic run), beside each
-main-path count; the int8 row also the 32-row prefill's bound; the BN, SGD and flash rows also carry
-their ResNet-50 and ViT times from phases 35-37), and
+Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
+``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
+Prints the card's name and power limit, the serving and training
+metrics, each phase's seconds, one ``{"kernels": [...]}`` line (nine
+kernels; the int8 kernel's launches on each path of phases 21-26, the
+flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
+phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
+kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
+on 42's elastic run and 44's trials), beside each main-path count; the
+int8 row also the 32-row prefill's bound; the BN, SGD and flash rows
+also carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -6276,6 +6295,251 @@ def ladder_multi_step(dev, seed: int) -> dict:
     return out
 
 
+TUNE_BATCHES = 16          # batches per trial epoch (K = 8 runs 2 groups)
+TUNE_MAX_TRIALS = 48       # the search's trial budget
+TUNE_TIMEOUT_S = 60.0      # one trial's warm-epoch ceiling
+TUNE_CLI_ITERS = 16        # iterations of each run_part("part3") in (c)
+TUNE_CLI_KNOBS = "steps_per_dispatch,pallas_bn"
+
+
+def _tune_env() -> dict:
+    """Every knob's env variable unset (a set one pins its knob, and the
+    search would skip it), the tuner's own and the shrink knobs too."""
+    from tpu_ddp_torch.tune.space import KNOBS
+    env = dict.fromkeys([k.env for k in KNOBS], None)
+    env.update(dict.fromkeys((
+        "TPU_DDP_AUTOTUNE", "TPU_DDP_TUNE_SEMANTIC", "TPU_DDP_TUNE_KNOBS",
+        "TPU_DDP_TUNE_ITERS", "TPU_DDP_TUNE_TIMEOUT_S",
+        "TPU_DDP_TUNE_MAX_TRIALS", "TPU_DDP_TUNE_WINDOWS",
+        "TPU_DDP_TUNE_CACHE_DIR", "TPU_DDP_CHECK_REPLICAS_EVERY"), None))
+    env.update({k: v for k, v in {**PRESET_ENV, **HOST_ENV}.items()
+                if v is None})
+    return env
+
+
+def _tune_want(runner, assignment, steps: int) -> dict:
+    """A trial's exact counts over ``steps`` host-launched steps: SGD
+    once per step with ``pallas_sgd``, the BN+ReLU kernels 8 per step
+    each with ``pallas_bn`` (the forward ones again in a remat
+    recompute); 0 with the knob off."""
+    def get(f):
+        return assignment.get(f, getattr(runner.base_cfg, f))
+
+    fwd = 16 if get("remat") != "none" else 8
+    bn = steps if get("pallas_bn") else 0
+    return {"sgd": steps if get("pallas_sgd") else 0,
+            "bn_stats": fwd * bn, "bn_norm_relu": fwd * bn,
+            "bn_bwd_stats": 8 * bn, "bn_bwd_dx": 8 * bn}
+
+
+def _counted_evaluate(real, wrappers, trials: list):
+    """``TrialRunner.evaluate`` with each trial's kernel launches counted
+    from 0 and its trainer's steps, captures, replays and warm-ups."""
+    def evaluate(self, assignment, fidelity="short"):
+        key = self.build_key(assignment)
+        known = self._trainers.get(key)
+        step0 = known[1].step if known else 0
+        gs0 = (dict(known[0].graph_stats) if known
+               else {"captures": 0, "replays": 0, "warmup_steps": 0})
+        _zero_launches(wrappers)
+        t0 = time.perf_counter()
+        sps, reason = real(self, assignment, fidelity)
+        rec = {"assignment": dict(assignment), "fidelity": fidelity,
+               "steps_per_s": sps, "reason": reason,
+               "wall_s": time.perf_counter() - t0,
+               "launches": {n: _total(c)
+                            for n, c in _launches(wrappers).items()}}
+        if sps is not None:
+            tr, st = self._trainers[key]
+            gs = {f: tr.graph_stats[f] - gs0[f]
+                  for f in ("captures", "replays", "warmup_steps")}
+            k = assignment.get("steps_per_dispatch",
+                               self.base_cfg.steps_per_dispatch)
+            steps = st.step - step0
+            eager = steps - gs["replays"] * k
+            host = eager + gs["captures"] * k + gs["warmup_steps"]
+            rec.update(steps=steps, eager_steps=eager, **gs,
+                       host_launched_steps=host,
+                       want=_tune_want(self, assignment, host))
+        trials.append(rec)
+        return sps, reason
+    return evaluate
+
+
+def _same_host_state(a: dict, b: dict) -> bool:
+    from tpu_ddp_torch.utils.tree import keyed_leaves
+    la, lb = keyed_leaves(a), keyed_leaves(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        np.array_equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def _k_switch(dev) -> dict:
+    """One part-3 trainer (both kernels) at K = 4, then K = 1, then K = 4
+    again, as the tuner switches K on a cached trial trainer: the first
+    K = 4 epoch rebuilds DDP for capture, the K = 1 epoch runs eager steps
+    on it and must give the bits of the same steps on a trainer whose DDP
+    was built for eager steps, from the same state, and the last K = 4
+    epoch replays the graph it has without capturing again."""
+    from tpu_ddp_torch.tune.runner import host_batches
+    quiet = dict(log=lambda s: None)
+    with _deterministic_cudnn():
+        tr = _rung_trainer(dev, "part3")
+        eager_ddp = not tr._ddp_graphed
+        batches = host_batches(tr.config, 2 * LADDER_K)
+        state = tr.init_state()
+        tr.config.steps_per_dispatch = LADDER_K
+        state, _ = tr.train_epoch(state, batches, **quiet)
+        caps = tr.graph_stats["captures"]
+        start = tr.state_to_host(state)
+        tr.config.steps_per_dispatch = 1
+        state, _ = tr.train_epoch(state, batches[:LADDER_K], **quiet)
+        got = tr.state_to_host(state)
+        ref = _rung_trainer(dev, "part3")
+        rstate = ref.state_from_host(start)
+        rstate, _ = ref.train_epoch(rstate, batches[:LADDER_K], **quiet)
+        same = _same_host_state(got, ref.state_to_host(rstate))
+        del ref, rstate
+        tr.config.steps_per_dispatch = LADDER_K
+        state, _ = tr.train_epoch(state, batches, **quiet)
+        recaptures = tr.graph_stats["captures"] - caps
+    rec = {"built_for_eager": eager_ddp, "graphed_after_k4":
+           tr._ddp_graphed, "captures_first_k4": caps,
+           "eager_bits_equal": same, "recaptures": recaptures}
+    if not (eager_ddp and tr._ddp_graphed and caps == 1 and same
+            and recaptures == 0):
+        fail(f"phase 44 K switch: {rec}")
+    return rec
+
+
+def _tune_cli(dev, cache: str) -> dict:
+    """``run_part("part3")`` under TPU_DDP_AUTOTUNE=search, then cached,
+    on one tuning cache: the configs ``tune.resolve`` hands the run, the
+    provenance lines, iterations trained and the test line of each."""
+    from tpu_ddp_torch import tune
+    real, resolved = tune.resolve, []
+
+    def recording(cfg, **kw):
+        out = real(cfg, **kw)
+        resolved.append(dataclasses.asdict(out))
+        return out
+
+    env = {**_tune_env(), "TPU_DDP_TUNE_CACHE_DIR": cache,
+           "TPU_DDP_TUNE_KNOBS": TUNE_CLI_KNOBS, "TPU_DDP_TUNE_ITERS": "8",
+           "TPU_DDP_MAX_ITERS": str(TUNE_CLI_ITERS),
+           "TPU_DDP_SYNTH_SIZE": "4096"}
+    runs = {}
+    for mode in ("search", "cached"):
+        with _env(**{**env, "TPU_DDP_AUTOTUNE": mode}), \
+                mock.patch.object(tune, "resolve", recording):
+            rc, out, wall = _run_part_captured(
+                "part3", ["--num-nodes", "1", "--device", str(dev)])
+        line = re.search(r"\[autotune\] (search|cache hit): trials=(\d+) "
+                         r"(?:quarantined=(\d+) .*?)?overrides=(\{.*?\})",
+                         out)
+        iters = re.search(r"; (\d+) iters total", out)
+        test = re.search(r"Test set: average loss (\S+),", out)
+        runs[mode] = {
+            "rc": rc, "wall_s": wall,
+            "line": line.group(0) if line else None,
+            "trials": int(line.group(2)) if line else None,
+            "quarantined": int(line.group(3) or 0) if line else None,
+            "overrides": json.loads(line.group(4)) if line else None,
+            "iters": int(iters.group(1)) if iters else None,
+            "test_loss": float(test.group(1)) if test else None}
+    s, c = runs["search"], runs["cached"]
+    ok = (s["rc"] == c["rc"] == 0 and s["line"] and c["line"]
+          and c["line"].startswith("[autotune] cache hit: trials=0")
+          and s["quarantined"] == 0 and s["trials"] > 0
+          and c["overrides"] == s["overrides"]
+          and len(resolved) == 2 and resolved[0] == resolved[1]
+          and resolved[1]["autotune"] == "off"
+          and s["iters"] == c["iters"] == TUNE_CLI_ITERS
+          and all(r["test_loss"] is not None
+                  and math.isfinite(r["test_loss"]) for r in runs.values()))
+    if not ok:
+        fail(f"phase 44 CLI: {runs}, resolved configs equal: "
+             f"{len(resolved) == 2 and resolved[0] == resolved[1]}")
+    return {**runs, "tuned_config": {
+        f: resolved[1][f] for f in ("steps_per_dispatch", "pallas_bn",
+                                    "pallas_sgd", "dispatch_depth")}}
+
+
+def autotune_card(dev) -> dict:
+    """Phase 44: the autotuner at world 1 over NCCL on vgg11_cifar10 as
+    published: the search with every trial's kernel launches counted, a
+    cached trial trainer switching K, and the CLI's search-then-cached
+    runs."""
+    import shutil
+    from tpu_ddp_torch import tune
+    from tpu_ddp_torch.tune import runner as trunner
+    wrappers = _vgg_wrappers()
+    trials: list = []
+    with _env(**_tune_env()), _group_of_one(dev):
+        with mock.patch.object(trunner.TrialRunner, "evaluate",
+                               _counted_evaluate(trunner.TrialRunner.evaluate,
+                                                 wrappers, trials)):
+            t0 = time.perf_counter()
+            res = tune.tuned_vs_default(
+                "vgg11_cifar10", strategy="fused", device=dev,
+                n_batches=TUNE_BATCHES, max_trials=TUNE_MAX_TRIALS,
+                timeout_s=TUNE_TIMEOUT_S)
+            search_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        k_switch = _k_switch(dev)
+        torch.cuda.empty_cache()
+    summary = {k: res[k] for k in ("searched_knobs", "trials", "quarantined",
+                                   "mode", "default_steps_per_sec",
+                                   "tuned_steps_per_sec", "overrides")}
+    summary["wall_s"] = search_s
+    print(json.dumps({"autotune_search": summary}), flush=True)
+    print("autotune trials: " + "; ".join(
+        f"{'L' if t['fidelity'] == 'long' else 'S'} "
+        + ",".join(f"{k}={v}" for k, v in t["assignment"].items())
+        + (f" {t['steps_per_s']:.1f}/s" if t["steps_per_s"] else
+           f" [{(t['reason'] or '')[:40]}]") for t in trials), flush=True)
+    missing = {"pallas_sgd", "pallas_bn"} - set(res["searched_knobs"])
+    if missing:
+        fail(f"phase 44: the search space lacks {sorted(missing)}: "
+             f"{res['searched_knobs']}")
+    bad = [t for t in trials if (t["reason"] or "").startswith("quarantin")]
+    if res["quarantined"] or bad:
+        fail(f"phase 44: quarantined trials: {bad}")
+    d, tuned = res["default_steps_per_sec"], res["tuned_steps_per_sec"]
+    if d is None or tuned is None or tuned < d:
+        fail(f"phase 44: tuned {tuned} < default {d} steps/s")
+    ran = [t for t in trials if t["steps_per_s"] is not None]
+    wrong = [t for t in ran if t["launches"] != t["want"]]
+    if wrong or not ran:
+        fail(f"phase 44: launch counts differ from the trials' steps: "
+             f"{wrong[:3]}")
+    on = {name: [t for t in ran if t["want"][name]] for name in wrappers}
+    off = {name: [t for t in ran if not t["want"][name]]
+           for name in wrappers}
+    if not all(on.values()) or not all(off.values()):
+        fail("phase 44: no trial ran with each kernel knob both on and "
+             f"off: {({n: (len(on[n]), len(off[n])) for n in wrappers})}")
+    launches = {
+        "trials_on": {n: len(v) for n, v in on.items()},
+        "trials_off": {n: len(v) for n, v in off.items()},
+        "launched": {n: sum(t["launches"][n] for t in ran)
+                     for n in wrappers},
+        "host_launched_steps_on": {
+            n: sum(t["host_launched_steps"] for t in v)
+            for n, v in on.items()},
+        "steps_on": {n: sum(t["steps"] for t in v) for n, v in on.items()},
+        "replays_on": {n: sum(t["replays"] for t in v)
+                       for n, v in on.items()}}
+    print(json.dumps({"autotune_launches": launches}), flush=True)
+    cache = os.path.join(CKPT_ROOT, "tune_cache")
+    try:
+        cli = _tune_cli(dev, cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    return {"search": {**summary, "fingerprint": res["fingerprint"]},
+            "trials": trials, "launches": launches, "k_switch": k_switch,
+            "cli": cli}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6431,6 +6695,11 @@ def main() -> None:
     lgraph = phase("43_ladder_multi_step", ladder_multi_step, dev,
                    args.seed)
     print(json.dumps({"ladder_multi_step": lgraph}), flush=True)
+    torch.cuda.empty_cache()
+    auto = phase("44_autotune", autotune_card, dev)
+    print(json.dumps({"autotune": {k: v for k, v in auto.items()
+                                   if k not in ("trials", "search")}}),
+          flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -6474,6 +6743,9 @@ def main() -> None:
                            **lgraph["variants"]}.items():
             out[f"ladder_graph_{part}_replayed"] = case[
                 "replayed_traced"][name]
+        # Phase 44: launched over the autotuner's trials with the knob
+        # on (eager, captured and warm-up steps; replays launch nothing).
+        out["autotune_trials"] = auto["launches"]["launched"][name]
         return out
 
     regs, spills = ptxas(INT8_KERNELS["mma"])
@@ -6692,6 +6964,7 @@ def main() -> None:
                        "host_side": hostside,
                        "lm_factored_zero1": fzero, "elastic_card": ecard,
                        "ladder_multi_step": lgraph,
+                       "autotune": auto,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "

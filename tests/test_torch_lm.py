@@ -417,7 +417,7 @@ def test_unported_schedule_and_sequence_parallel_raise():
 @pytest.mark.parametrize("name,value", [
     ("TPU_DDP_LM_TP", "2"),
     ("TPU_DDP_LM_PP", "2"), ("TPU_DDP_LM_SP_MODE", "ulysses"),
-    ("TPU_DDP_AUTOTUNE", "search"),
+    ("TPU_DDP_AUDIT", "warn"),
 ])
 def test_unported_cli_env_raises(monkeypatch, name, value):
     from tpu_ddp_torch.examples.lm_train import main

@@ -289,15 +289,16 @@ def test_port_imports_neither_jax_nor_tpu_ddp():
     files = sorted((REPO / "tpu_ddp_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
-    # The training recipe's and the loop's host-side modules are among
-    # those checked.
+    # The training recipe's, the loop's host-side and the autotuner's
+    # modules are among those checked.
     for mod in ("ops/optim.py", "ops/ema.py", "ops/loss.py",
                 "memory/policy.py", "data/text.py",
                 "examples/lm_text_train.py", "train/lm.py",
                 "train/engine.py", "train/pipeline.py", "data/prefetch.py",
                 "data/native.py", "utils/metrics.py", "utils/flops.py",
                 "utils/timing.py", "utils/collectives.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "tune/__init__.py", "tune/space.py",
+                "tune/search.py", "tune/cache.py", "tune/runner.py"):
         assert REPO / "tpu_ddp_torch" / mod in files, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

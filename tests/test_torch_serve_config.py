@@ -59,7 +59,7 @@ NON_DEFAULT = {"TPU_DDP_FLEET_HEALTH": "0", "TPU_DDP_FLEET_ROLES": "disagg",
                "TPU_DDP_PUBLISH_WIRE": "bf16",
                "TPU_DDP_DILOCO_OUTER_WIRE": "int8",
                "TPU_DDP_GRAD_COMPRESS": "int8", "TPU_DDP_REMAT": "blocks",
-               "TPU_DDP_ACT_DTYPE": "bf16", "TPU_DDP_AUTOTUNE": "cached",
+               "TPU_DDP_ACT_DTYPE": "bf16",
                "TPU_DDP_AUDIT": "warn", "TPU_DDP_ELASTIC_DIR": "/x"}
 
 

@@ -269,14 +269,20 @@ def test_trainer_defaults_to_the_card():
         Trainer(_port_model(), TrainConfig(pallas_bn=True))
 
 
-def test_unported_knobs_are_refused(monkeypatch):
+def test_unported_knobs_are_refused(monkeypatch, tmp_path, capsys):
     cfg = TrainConfig(pallas_bn=True)
-    for name, value in (("TPU_DDP_AUTOTUNE", "search"),
-                        ("TPU_DDP_AUDIT", "on")):
-        monkeypatch.setenv(name, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(_port_model(), cfg, device="cpu")
-        monkeypatch.delenv(name)
+    monkeypatch.setenv("TPU_DDP_AUDIT", "on")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(_port_model(), cfg, device="cpu")
+    monkeypatch.delenv("TPU_DDP_AUDIT")
+    # The autotuner is ported: a trainer whose config asks for cached
+    # tunings builds, on the defaults when the cache has no entry.
+    monkeypatch.setenv("TPU_DDP_TUNE_CACHE_DIR", str(tmp_path))
+    tuned = Trainer(_port_model(), TrainConfig(pallas_bn=True,
+                                               autotune="cached"),
+                    device="cpu")
+    assert tuned.config.autotune == "off" and tuned.config.pallas_bn
+    assert "[autotune] cached mode: no entry" in capsys.readouterr().out
     # Elastic membership is ported: a trainer builds under its knob.
     monkeypatch.setenv("TPU_DDP_ELASTIC_RESHARD", "1")
     Trainer(_port_model(), cfg, device="cpu")
@@ -292,8 +298,9 @@ def test_unported_knobs_are_refused(monkeypatch):
                           use_pallas_bn=pcfg.pallas_bn)
         assert built.name == model and built.num_classes == classes
     assert TrainConfig(elastic_reshard=True).elastic_reshard
+    assert TrainConfig(autotune="search").autotune == "search"
     with pytest.raises(TypeError):
-        TrainConfig(autotune="search")
+        TrainConfig(audit="warn")
 
 
 def test_dispatch_knobs_work(monkeypatch):

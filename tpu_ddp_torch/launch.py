@@ -43,6 +43,7 @@ CLI::
         [--grad-compress bf16|int8|int8-noef] [--overlap --bucket-mb 25]
     python -m tpu_ddp_torch.launch part3 --nproc 2 --device cpu \\
         --elastic-reshard [--max-restarts 1 --ckpt-dir D]
+    python -m tpu_ddp_torch.launch part3 --nproc 1 --autotune search
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -77,7 +78,6 @@ _UNPORTED_FLAGS = {
     "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
     "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
     "--pp-virtual": "item 10.7 (parallel/pipeline.py)",
-    "--autotune": "item 9.8 (tune/)",
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
     "--devices-per-proc": "item 9.9 (launch.py; one device per process)",
@@ -639,9 +639,8 @@ def _serving_env(p, args) -> dict:
     return env
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    _refuse_unported(argv)
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's flags; the part's own flags pass through."""
     p = argparse.ArgumentParser(
         prog="python -m tpu_ddp_torch.launch",
         description="spawn an N-process local cluster running one part")
@@ -710,7 +709,22 @@ def main(argv=None) -> int:
                         "a failed reshard still falls back to "
                         "--max-restarts checkpoint recovery. Sets "
                         "TPU_DDP_ELASTIC_RESHARD for every rank")
+    p.add_argument("--autotune", default=None,
+                   choices=("off", "cached", "search"),
+                   help="perf-knob autotuning (tune/): 'cached' applies "
+                        "a previously searched tuning for this workload "
+                        "fingerprint, 'search' runs measured trials and "
+                        "persists the winner (single-process only; "
+                        "multi-process ranks use the defaults). Sets "
+                        "TPU_DDP_AUTOTUNE for every rank")
     _serving_flags(p)
+    return p
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    _refuse_unported(argv)
+    p = build_parser()
     args, extra = p.parse_known_args(argv)
     env = _serving_env(p, args)
     if args.remat is not None:
@@ -732,6 +746,8 @@ def main(argv=None) -> int:
         env["TPU_DDP_DISPATCH_DEPTH"] = str(args.dispatch_depth)
     if args.elastic_reshard:
         env["TPU_DDP_ELASTIC_RESHARD"] = "1"
+    if args.autotune is not None:
+        env["TPU_DDP_AUTOTUNE"] = args.autotune
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,

@@ -26,7 +26,9 @@ flight), ``TPU_DDP_NATIVE_LOADER=1`` (the C++ loader, CIFAR-10 and
 ImageNet), ``TPU_DDP_SHARD_EVAL=1`` (the test set sharded over the
 group; CIFAR-10 at a world above one), ``TPU_DDP_METRICS_FILE`` (JSONL
 metrics, ``{rank}`` expands) and ``TPU_DDP_PROFILE_DIR`` (a
-``torch.profiler`` trace of the first epoch).
+``torch.profiler`` trace of the first epoch). ``TPU_DDP_AUTOTUNE``
+(``cached`` or ``search``; tune/) resolves the perf knobs before the
+model is built.
 
 ``--ckpt-dir D`` writes a checkpoint at every epoch's end (and every
 ``TPU_DDP_CKPT_EVERY`` steps); ``--resume`` restores the newest verified
@@ -171,6 +173,12 @@ def run_part(part: str, argv=None):
     # keeps each worker's batch, and the global batch follows the live
     # world.
     batch_size = cfg.per_node_batch_size(base_world)
+    # Autotuning (tune/): resolved BEFORE get_model so tuned model-level
+    # knobs (pallas_bn, compute_dtype) reach construction; batch_size
+    # above is safe, global_batch_size is never searched.
+    if cfg.autotune != "off":
+        from tpu_ddp_torch import tune
+        cfg = tune.resolve(cfg, strategy=strategy, device=ctx.device)
     # TPU_DDP_SHARD_EVAL=1: the test set sharded over the group, CIFAR-10
     # only (the ImageNet loader keeps the replicated contract), and only
     # at a world above one, as in the JAX CLI. TPU_DDP_NATIVE_LOADER is

@@ -185,6 +185,17 @@ class Trainer:
         refuse_unported_env()
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
+        # Autotuning fallback hook (tune/): parts/common.py resolves
+        # BEFORE get_model so model-level knobs apply; direct Trainer
+        # construction resolves here with model_built=True (model-level
+        # overrides are dropped with a log line). resolve() returns a
+        # config with autotune="off", so the trial runner's own Trainers
+        # cannot recurse. Before apply_policy, so a tuned remat reaches
+        # the model.
+        if getattr(self.config, "autotune", "off") != "off":
+            from tpu_ddp_torch import tune
+            self.config = tune.resolve(self.config, strategy=strategy,
+                                       device=self.device, model_built=True)
         self.model = apply_policy(model, remat=self.config.remat,
                                   act_dtype=self.config.act_dtype
                                   ).to(self.device)
@@ -230,10 +241,12 @@ class Trainer:
         self._async_writer = None
         self._copy_stream = None
         self._multi_step_cache: dict = {}
-        # K-step CUDA graphs: captures, replays and each capture's ms
-        # (the wrappers count their launches at capture only, so a
-        # replay's launches are the capture's).
-        self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
+        # K-step CUDA graphs: captures, replays, the undone eager warm-up
+        # steps before the captures and each capture's ms (the wrappers
+        # count their launches at warm-up and capture only, so a replay's
+        # launches are the capture's).
+        self.graph_stats = {"captures": 0, "replays": 0, "warmup_steps": 0,
+                            "capture_ms": []}
 
     def _bind_group(self) -> None:
         """Every part bound to the process group now up: the rank, dp and
@@ -1012,15 +1025,9 @@ class Trainer:
         heartbeat = heartbeat_from_env(
             self.rank if elastic is None else elastic.worker_id)
         chaos = chaos_env_active()
-        # K steps per dispatch, unless something needs per-step host
-        # control: in-loop cadences, device prefetch, chaos, the
-        # membership watch (JAX's gate, tpu_ddp/train/engine.py:1425-1435).
         on_harvest = self._harvester(window, heartbeat, injector, ckpt_dir,
                                      lambda: state)
-        if (cfg.steps_per_dispatch > 1 and not cfg.ckpt_every_iters
-                and not cfg.check_replicas_every
-                and not cfg.device_prefetch and not chaos
-                and elastic is None):
+        if self.epoch_k(chaos, elastic) > 1:
             return self._train_epoch_multi(state, batches, timer, window,
                                            start_iter, on_harvest)
         use_prefetch = (cfg.device_prefetch > 0
@@ -1130,6 +1137,20 @@ class Trainer:
             injector.after_step(harv_step, ckpt_dir)
 
         return on_harvest
+
+    def epoch_k(self, chaos: bool, elastic) -> int:
+        """The steps per dispatch :meth:`train_epoch` runs: the config's
+        K, unless something needs per-step host control (in-loop
+        cadences, device prefetch, chaos, the membership watch
+        ``elastic``; JAX's gate, tpu_ddp/train/engine.py:1425-1435), then
+        1."""
+        cfg = self.config
+        if (cfg.steps_per_dispatch > 1 and not cfg.ckpt_every_iters
+                and not cfg.check_replicas_every
+                and not cfg.device_prefetch and not chaos
+                and elastic is None):
+            return cfg.steps_per_dispatch
+        return 1
 
     def _train_epoch_multi(self, state, batches, timer, window, start_iter,
                            on_harvest):
@@ -1319,4 +1340,5 @@ class _StepGraph(capture.GraphGroup):
                          written_=trainer._graph_written(state),
                          warmup=warmup)
         trainer.graph_stats["captures"] += 1
+        trainer.graph_stats["warmup_steps"] += warmup
         trainer.graph_stats["capture_ms"].append(self.capture_ms)

@@ -2,10 +2,10 @@
 ``TrainConfig`` that the port's slices use (serving, the image trainer's
 models and datasets, the training ladder with its gradient wires and
 bucketed overlap, checkpoints, the step guard, elastic membership, the
-memory policy and the loop's host side: the dispatch window, K steps per
-dispatch and device prefetch), with the same names, defaults,
-``TPU_DDP_*`` env variables and validation, so a knob means the same
-thing in both packages.
+memory policy, the loop's host side: the dispatch window, K steps per
+dispatch and device prefetch, and the autotuner's mode), with the same
+names, defaults, ``TPU_DDP_*`` env variables and validation, so a knob
+means the same thing in both packages.
 
 A knob of the JAX package that the port does not carry yet is refused,
 never ignored: its field is absent (passing it is a ``TypeError``) and
@@ -34,8 +34,6 @@ _FALSE = ("0", "false", "no", "off")
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
-    "TPU_DDP_AUTOTUNE": (("off",), "item 9.8 (tune/)"),
-    "TPU_DDP_TUNE_SEMANTIC": (_FALSE, "item 9.8 (tune/)"),
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
     "TPU_DDP_PP_SCHEDULE": (("gpipe",), "item 10.7 (parallel/pipeline.py)"),
     "TPU_DDP_PP_MICROBATCHES": (("0",),
@@ -222,6 +220,16 @@ class TrainConfig:
     remat: str = "none"
     act_dtype: str = "compute"
 
+    # Autotuning (tune/): "off" (default), "cached" (apply a previously
+    # searched tuning for this workload fingerprint when the cache has
+    # one; the defaults otherwise, with a log line), or "search" (run
+    # measured trials over the knob space, persist the winner, apply
+    # it). Env: TPU_DDP_AUTOTUNE; launch flag --autotune. Explicit
+    # TPU_DDP_* pins on individual knobs always beat the tuner; the
+    # semantic knobs (act_dtype, compute_dtype) are searched only with
+    # TPU_DDP_TUNE_SEMANTIC=1 (tune/space.py).
+    autotune: str = "off"
+
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
     serve_slots: int = 8
@@ -316,6 +324,13 @@ class TrainConfig:
             raise ValueError(
                 f"act_dtype={self.act_dtype!r}: expected "
                 "compute|bf16|f32 (TPU_DDP_ACT_DTYPE)")
+        env_at = os.environ.get("TPU_DDP_AUTOTUNE")
+        if env_at:
+            self.autotune = env_at
+        if self.autotune not in ("off", "cached", "search"):
+            raise ValueError(
+                f"autotune={self.autotune!r}: expected off|cached|search "
+                "(TPU_DDP_AUTOTUNE)")
         env_gc = os.environ.get("TPU_DDP_GRAD_COMPRESS")
         if env_gc:
             self.grad_compress = env_gc
