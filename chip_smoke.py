@@ -423,6 +423,39 @@ Phases 35-37 run the image trainer's last model families:
    and again under ``cached``: the second run logs ``cache hit:
    trials=0`` with the first run's overrides, its config equals the
    tuned one, and both train their 16 iterations.
+45. the LM's dropout under capture: TransformerLM-large at full width
+   (batch 4 x seq 2048, bf16, flash, AdamW, the preset's block remat)
+   with dropout 0.1 at K = 2 through ``LMTrainer.build_multi_step``: one
+   replay against 2 eager steps from the same state, the losses,
+   parameters and AdamW state the same bits (each mask a counter hash
+   keyed by the step the replay reads from the optimizer's device
+   count); the count then moved on by K with the same params and
+   batches, a second replay of the same graph draws other masks (its
+   losses differ from the first's) and equals 2 eager steps at that
+   count. Flash launches exact for the eager steps and the capture; ms
+   per step eager and replayed; the mask hash alone against
+   ``torch.rand``;
+46. ``TransformerLM-moe-large`` as published (12 layers, d_model 2048,
+   16 heads, 16 experts of d_ff 4096, top-2, capacity factor 1.25, block
+   remat; 3,554,119,680 parameters) at batch 4 x seq 2048, bf16, flash,
+   Adafactor (AdamW's f32 state does not fit 80 GB; the batch is halved,
+   never the width, and the cut printed if Adafactor's does not either):
+   eager steps with ms/step, tokens/s, MFU by active FLOPs, peak GiB,
+   exact flash launches (the forward twice per layer) and the
+   ``format_route_stats`` line; one step's loss through the kernels
+   against the plain flash within phase 16's bound (the gradients, which
+   routing flips at near-ties move between experts, reported with the
+   share of routed assignments that moved); a K = 2 graph against 2
+   eager steps, bit for bit, the state's copies held in host memory;
+47. MoE-large serving, bf16 at ``decode_quant='none'``: phase 5's 8
+   requests (tokens/s, TTFT median and max), the dropped share of the
+   routed assignments in decode steps and in prefill chunks at capacity
+   factor 1.25 (the whole bank is routed, idle rows and chunk padding
+   included, as in the JAX engine), no Hopper kernel launched; one
+   greedy request at capacity factor E against the argmax stream of
+   whole-sequence forwards through the decode math (a divergence allowed
+   only at a top-2 gap within ``NEAR_TIE``); ``decode_quant='int8'`` and
+   the ``quant`` draft refused.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -432,7 +465,8 @@ kernels; the int8 kernel's launches on each path of phases 21-26, the
 flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
 phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
-on 42's elastic run and 44's trials), beside each main-path count; the
+on 42's elastic run and 44's trials; the flash kernels' on 45's and
+46's eager steps and captures), beside each main-path count; the
 int8 row also the 32-row prefill's bound; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
@@ -6540,6 +6574,535 @@ def autotune_card(dev) -> dict:
             "cli": cli}
 
 
+# ---- phases 45-47: dropout under capture, mixture of experts ---------
+
+MOE_PRESET = "TransformerLM-moe-large"
+MOE_WARMUP, MOE_STEPS, MOE_TRACED = 1, 3, 2
+MOE_GRAPH_K = 2
+
+
+def _host_copy(tensors) -> list:
+    """Copies of ``tensors`` in host memory (a full-size MoE state does
+    not fit twice more on the card)."""
+    return [t.detach().to("cpu", copy=True) for t in tensors]
+
+
+def _same_as_host(tensors, host) -> bool:
+    return all(torch.equal(t.detach().cpu(), h)
+               for t, h in zip(tensors, host))
+
+
+@torch.no_grad()
+def _put_host(tensors, host) -> None:
+    for t, h in zip(tensors, host):
+        t.copy_(h)
+
+
+def dropout_capture(dev, seed: int) -> dict:
+    """Phase 45: TransformerLM-large (full width, batch 4 x seq 2048,
+    bf16, flash, AdamW, the preset's block remat) with dropout 0.1 at
+    K = 2 through ``LMTrainer.build_multi_step``: one graph replay against
+    2 eager steps from the same state, the losses, parameters and AdamW
+    state the same bits; the step counter then moved on by K (the same
+    params, batches and graph): a second replay draws other masks, so
+    its losses differ, and they equal 2 eager steps at that count. Flash
+    launches exact for the eager steps and the capture; ms per step eager
+    and replayed; the mask hash alone against ``torch.rand``."""
+    from tpu_ddp_torch.models.transformer import keep_mask
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    model = _lm_large(dev, dropout_rate=RECIPE_DROPOUT)
+    tr = LMTrainer(model, device=dev, dropout_seed=seed)
+    state = tr.init_state(seed=seed)
+    rng = np.random.default_rng(seed + 45)
+    pairs = [tr.put_batch(*make_lm_batch(rng.integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))))
+        for _ in range(LM_GRAPH_K)]
+    xs = torch.stack([x for x, _ in pairs])
+    ys = torch.stack([y for _, y in pairs])
+    state, _ = tr.train_step(state, xs[0], ys[0])  # first calls
+    written = tr._written(state)
+    start = [t.detach().clone() for t in written]
+    count = state.opt_state["count"]
+
+    def put_back(advance: int = 0):
+        with torch.no_grad():
+            for t, c in zip(written, start):
+                t.copy_(c)
+            count.add_(advance)
+
+    def eager():
+        st, losses = state, []
+        for j in range(LM_GRAPH_K):
+            st, loss = tr.train_step(st, xs[j], ys[j])
+            losses.append(loss)
+        return torch.stack(losses)
+
+    L = model.num_layers  # block remat: each forward runs again
+    wrappers = _flash_wrappers()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    e_losses = eager()
+    eager_counts = _launches(wrappers)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = _flash_want(2 * L * LM_GRAPH_K, L * LM_GRAPH_K)
+    if eager_counts != want:
+        fail(f"phase 45: eager launches {eager_counts}, expected {want}")
+    e_after = [t.detach().clone() for t in written]
+    put_back()
+    _zero_launches(wrappers)
+    multi = tr.build_multi_step(LM_GRAPH_K)
+    _, g_losses = multi(state, xs, ys)
+    counted = _launches(wrappers)
+    want = _flash_want(2 * L * (1 + LM_GRAPH_K), L * (1 + LM_GRAPH_K))
+    if counted != want:
+        fail(f"phase 45: capture launches {counted}, expected {want}")
+    if not (torch.equal(g_losses, e_losses) and _same(written, e_after)):
+        fail(f"phase 45: the K={LM_GRAPH_K} replay with dropout differs "
+             f"from {LM_GRAPH_K} eager steps ({g_losses.tolist()} vs "
+             f"{e_losses.tolist()})")
+    # The same params and batches K steps later: other masks.
+    put_back(LM_GRAPH_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e2_losses = eager()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / LM_GRAPH_K
+    e2_after = [t.detach().clone() for t in written]
+    put_back(LM_GRAPH_K)
+    _, g2_losses = multi(state, xs, ys)
+    if not (torch.equal(g2_losses, e2_losses)
+            and _same(written, e2_after)):
+        fail(f"phase 45: the second replay differs from eager steps at "
+             f"its count ({g2_losses.tolist()} vs {e2_losses.tolist()})")
+    if bool((g2_losses == g_losses).any()):
+        fail(f"phase 45: the second replay drew the first replay's masks "
+             f"({g2_losses.tolist()} vs {g_losses.tolist()})")
+    del e_after, e2_after
+    put_back()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi(state, xs, ys)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / LM_GRAPH_K
+    put_back()
+    if tr.graph_stats["captures"] != 1:
+        fail(f"phase 45: {tr.graph_stats['captures']} captures, expected 1")
+    # The mask alone: the hash over a (4, 2048, 2048) activation against
+    # the generator draw it replaced (torch.rand, a library call).
+    shape = (LM_BATCH, LM_SEQ, model.d_model)
+    key = torch.tensor(seed, dtype=torch.int64, device=dev)
+    mask_ms = cuda_ms(lambda: keep_mask(key, shape, 0.9, dev), [()], 10)
+    rand_ms = cuda_ms(lambda: torch.rand(shape, device=dev) < 0.9, [()],
+                      10)
+    del start
+    return {"model": model.name, "dropout": RECIPE_DROPOUT,
+            "k": LM_GRAPH_K, "bitwise": True,
+            "losses": g_losses.tolist(),
+            "second_replay_losses": g2_losses.tolist(),
+            "eager_launches": eager_counts, "capture_launches": counted,
+            "capture_ms": tr.graph_stats["capture_ms"][-1],
+            "eager_ms_per_step": eager_ms, "replay_ms_per_step": replay_ms,
+            "eager_peak_mem_gib": peak,
+            "mask_ms": mask_ms, "torch_rand_mask_ms": rand_ms,
+            "masks_per_step": 4 * L + 1}
+
+
+def _moe_trainer(dev, seed: int, batch: int):
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.optim import Adafactor
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    model = make_transformer(MOE_PRESET, max_seq_len=LM_SEQ, use_flash=True)
+    tr = LMTrainer(model, device=dev, optimizer=Adafactor())
+    tokens = np.random.default_rng(seed + 46).integers(
+        0, model.vocab_size, size=(batch, LM_SEQ + 1))
+    return model, tr, tokens, tr.put_batch(*make_lm_batch(tokens))
+
+
+def _moe_steps(tr, state, x, y, n: int):
+    losses = []
+    for _ in range(n):
+        state, loss = tr.train_step(state, x, y)
+        losses.append(loss)
+    return state, losses
+
+
+def moe_large_train(dev, seed: int) -> dict:
+    """Phase 46: TransformerLM-moe-large as published (12 layers, d_model
+    2048, 16 experts of d_ff 4096, top-2, capacity factor 1.25, block
+    remat) at batch 4 x seq 2048, bf16, flash, Adafactor: eager steps
+    (ms/step, tokens/s, MFU by active FLOPs, peak GiB, exact flash
+    launches, the routing counters at init and after the timed steps);
+    one step's loss and gradients through the kernels against the plain
+    flash with the routing pinned to the kernels' choices (phase 16's
+    bounds); a
+    K = 2 graph against 2 eager steps, bit for bit. If Adafactor's peak
+    does not fit the card, the batch is halved (never the width) and the
+    cut printed."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.train.lm import format_route_stats
+    from tpu_ddp_torch.utils.flops import transformer_fwd_flops
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    batch, cuts = LM_BATCH, []
+    while True:
+        try:
+            t0 = time.perf_counter()
+            model, tr, tokens, (x, y) = _moe_trainer(dev, seed, batch)
+            state = tr.init_state(seed=seed)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            init_stats = tr.route_stats(state, tokens[:, :-1])
+            state, warm = _moe_steps(tr, state, x, y, MOE_WARMUP)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch == 1:
+                raise
+            cuts.append({"batch": batch, "reason": str(e)[:300]})
+            print(f"phase 46: batch {batch} does not fit ({e}); "
+                  f"cutting to {batch // 2}", flush=True)
+            tr = state = x = y = None
+            torch.cuda.empty_cache()
+            batch //= 2
+    params = sum(p.numel() for p in tree_leaves(state.params))
+    L = model.num_layers
+    wrappers = _flash_wrappers()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, timed = _moe_steps(tr, state, x, y, MOE_STEPS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_STEPS
+    counts = _launches(wrappers)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = _flash_want(2 * L * MOE_STEPS, L * MOE_STEPS)
+    if counts != want:
+        fail(f"phase 46 launch counts {counts}, expected {want}")
+    losses = [float(v) for v in warm + timed]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 46 losses not finite: {losses}")
+    fwd_flops = transformer_fwd_flops(model, batch, LM_SEQ)
+    # Where the step's time goes: a profiler window of MOE_TRACED steps.
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = _moe_steps(tr, state, x, y, MOE_TRACED)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = _device_us(prof)
+    busy_ms = sum(dev_us.values()) / 1e3
+
+    def kind_ms(pattern):
+        return sum(v for n, v in dev_us.items()
+                   if re.search(pattern, n)) / 1e3 / MOE_TRACED
+
+    window = {"steps": MOE_TRACED, "wall_ms": wall_ms,
+              "device_ms_per_step": busy_ms / MOE_TRACED,
+              "device_idle_share": 1 - busy_ms / wall_ms,
+              "untraced_idle_share": 1 - busy_ms / MOE_TRACED
+              / (step_s * 1e3),
+              "gemm_ms_per_step": kind_ms(r"gemm|sm90_xmma|cutlass|nvjet"),
+              "flash_ms_per_step": _flash_window(prof, MOE_TRACED)[
+                  "by_wrapper"],
+              "index_ms_per_step": kind_ms(r"index|gather|scatter"),
+              "top_kernels_ms": [[k[:90], v / 1e3 / MOE_TRACED] for k, v in
+                                 sorted(dev_us.items(),
+                                        key=lambda kv: -kv[1])[:12]]}
+    stats = tr.route_stats(state, tokens[:, :-1])
+    route_line = format_route_stats(stats)
+
+    def mean_dropped(stats):
+        return float(np.mean([float(s["dropped_frac"]) for s in stats]))
+
+    # Kernels against the plain flash on one step's loss and gradients
+    # (phase 16's bounds). The attention output's bf16 noise flips the
+    # router's choice where two experts' probabilities nearly tie, and a
+    # flipped token moves its whole contribution between experts, so the
+    # plain run routes with the kernels' choices (each call's experts and
+    # slots, its gates and aux from its own logits); the share of choices
+    # that its own logits would have moved is reported.
+    leaves = tree_leaves(state.params)
+    with _route_record() as rec:
+        lk, gk = tr._loss_and_grads(leaves, state.params, x, y)
+    with _route_pinned(rec) as moved_log, mock.patch.multiple(
+            fa, flash_fwd=fa.flash_fwd_plain,
+            flash_bwd_kv=fa.flash_bwd_kv_plain,
+            flash_bwd_q=fa.flash_bwd_q_plain):
+        lp, gp = tr._loss_and_grads(leaves, state.params, x, y)
+    if rec:
+        fail(f"phase 46: the plain run routed {len(rec)} calls fewer "
+             "than the kernels' run")
+    lk, lp = float(lk), float(lp)
+    names = [n for n, _ in _keyed(state.params)]
+    frob = sorted(((float((a.float() - b.float()).norm()
+                          / b.float().norm().clamp_min(1e-30)), n)
+                   for n, a, b in zip(names, gk, gp)), reverse=True)
+    del gk, gp
+    # The forward's L routing calls (the recompute repeats them).
+    moved = moved_log[:L]
+    loss_k = abs(lk - lp) / abs(lp)
+    if not (math.isfinite(lk) and loss_k <= LM_STEP_TOL["loss"]):
+        fail(f"phase 46 step loss: kernels {lk} vs plain {lp} (tol "
+             f"{LM_STEP_TOL['loss']} rel)")
+    if not frob[0][0] <= LM_STEP_TOL["grad"]:
+        fail(f"phase 46 step grads: kernels vs plain, worst leaf "
+             f"{frob[0][1]}'s relative Frobenius error {frob[0][0]} > "
+             f"{LM_STEP_TOL['grad']}")
+
+    # K = 2 as one CUDA graph against 2 eager steps from the same state.
+    written = tr._written(state)
+    start = _host_copy(written)
+    t0 = time.perf_counter()
+    state, e_losses = _moe_steps(tr, state, x, y, MOE_GRAPH_K)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / MOE_GRAPH_K
+    e_losses = torch.stack(e_losses)
+    e_after = _host_copy(written)
+    _put_host(written, start)
+    torch.cuda.empty_cache()
+    _zero_launches(wrappers)
+    multi = tr.build_multi_step(MOE_GRAPH_K)
+    xs, ys = torch.stack([x] * MOE_GRAPH_K), torch.stack([y] * MOE_GRAPH_K)
+    state, g_losses = multi(state, xs, ys)
+    graph_counts = _launches(wrappers)
+    want = _flash_want(2 * L * (1 + MOE_GRAPH_K), L * (1 + MOE_GRAPH_K))
+    if graph_counts != want:
+        fail(f"phase 46 capture launches {graph_counts}, expected {want}")
+    if not (torch.equal(g_losses, e_losses)
+            and _same_as_host(written, e_after)):
+        fail(f"phase 46: the K={MOE_GRAPH_K} replay differs from "
+             f"{MOE_GRAPH_K} eager steps ({g_losses.tolist()} vs "
+             f"{e_losses.tolist()})")
+    del start, e_after
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi(state, xs, ys)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / MOE_GRAPH_K
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out = {"model": model.name, "params": params, "batch": batch,
+           "batch_cuts": cuts, "seq": LM_SEQ, "optimizer": "Adafactor()",
+           "experts": model.moe_experts, "top_k": model.moe_top_k,
+           "capacity_factor": model.moe_capacity_factor,
+           "setup_s": setup_s, "warmup_steps": MOE_WARMUP,
+           "timed_steps": MOE_STEPS, "losses": losses,
+           "launches": counts, "ms_per_step": step_s * 1e3,
+           "tokens_per_s": batch * LM_SEQ / step_s,
+           "fwd_flops_active": fwd_flops,
+           "mfu": 3 * fwd_flops / step_s / BF16_FLOP_PER_S,
+           "peak_mem_gib": peak, "traced_window": window,
+           "route_stats_init": format_route_stats(init_stats).strip(),
+           "dropped_share_mean_init": mean_dropped(init_stats),
+           "route_stats": route_line.strip(),
+           "route_stats_after_steps": MOE_WARMUP + MOE_STEPS + MOE_TRACED,
+           "dropped_share_mean": mean_dropped(stats),
+           "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_k,
+           "tol": LM_STEP_TOL,
+           "grad_worst_leaves_frob": [[n, v] for v, n in frob[:4]],
+           "grad_median_leaf_frob": frob[len(frob) // 2][0],
+           "routing_pinned": True,
+           "plain_choices_moved_by_layer": moved,
+           "graph": {"k": MOE_GRAPH_K, "bitwise": True,
+                     "losses": g_losses.tolist(),
+                     "capture_launches": graph_counts,
+                     "capture_ms": tr.graph_stats["capture_ms"][-1],
+                     "eager_ms_per_step": eager_ms,
+                     "replay_ms_per_step": replay_ms,
+                     "peak_mem_gib": graph_peak}}
+    del tr, state, multi
+    torch.cuda.empty_cache()
+    return out
+
+
+def _keyed(params) -> list:
+    """(name, leaf) in ``tree_leaves`` order: dict keys and block
+    indices joined by dots."""
+    if isinstance(params, dict):
+        return [(f"{k}.{n}" if n else k, t) for k, v in params.items()
+                for n, t in _keyed(v)]
+    if isinstance(params, (tuple, list)):
+        return [(f"{i}.{n}" if n else str(i), t)
+                for i, v in enumerate(params) for n, t in _keyed(v)]
+    return [("", params)]
+
+
+@contextlib.contextmanager
+def _route_record():
+    """Within the block, each routing call's (experts, slots), in call
+    order."""
+    from tpu_ddp_torch.parallel import moe
+    real, log = moe.topk_route, []
+
+    def spy(logits, num_experts, capacity, top_k=1):
+        out = real(logits, num_experts, capacity, top_k=top_k)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        log.append((moe.choose_experts(probs, top_k), out[0]))
+        return out
+
+    with mock.patch.object(moe, "topk_route", spy):
+        yield log
+
+
+@contextlib.contextmanager
+def _route_pinned(log):
+    """Within the block, each routing call takes the next recorded
+    (experts, slots) of ``log`` (consumed), its gates and aux from its
+    own logits (``parallel/moe.py:route_gates``); yields the share of
+    choices each call's own logits would have moved."""
+    from tpu_ddp_torch.parallel import moe
+    moved = []
+
+    def pinned(logits, num_experts, capacity, top_k=1):
+        experts, slots = log.pop(0)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        moved.append(float((moe.choose_experts(probs, top_k) != experts)
+                           .float().mean()))
+        return (slots, *moe.route_gates(probs, experts, num_experts))
+
+    with mock.patch.object(moe, "topk_route", pinned):
+        yield moved
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Within the block, every routed call's (tokens, dropped share) from
+    the MoE layer's own counters (parallel/moe.py:routing_stats)."""
+    from tpu_ddp_torch.models.transformer import TransformerLM
+    real, calls = TransformerLM.moe_apply, []
+
+    def spy(self, blk, y, stats=None):
+        mine = []
+        out = real(self, blk, y, stats=mine)
+        calls.append((y.shape[0] * y.shape[1],
+                      float(mine[0]["dropped_frac"])))
+        return out
+
+    with mock.patch.object(TransformerLM, "moe_apply", spy):
+        yield calls
+
+
+def _dropped_share(calls) -> float | None:
+    n = sum(t for t, _ in calls)
+    return sum(t * d for t, d in calls) / n if n else None
+
+
+def moe_large_serve(dev, seed: int) -> dict:
+    """Phase 47: TransformerLM-moe-large served bf16 at
+    ``decode_quant='none'`` (phase 5's 8 requests: 64-512 prompt tokens,
+    32 new, half greedy): tokens/s, TTFT median and max, the dropped
+    share of the routed assignments in decode steps and in prefill
+    chunks at capacity factor 1.25; no Hopper kernel launched. Then one
+    greedy request at capacity factor E (every token admitted) against
+    the argmax stream of whole-sequence forwards through the decode math;
+    ``decode_quant='int8'`` and the ``quant`` draft raise."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.quant import decode_forward_logits
+    from tpu_ddp_torch.serve.engine import ServeEngine
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    model = make_transformer(MOE_PRESET)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    eng = ServeEngine(model, params, decode_quant="none", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng.submit(np.random.default_rng(seed).integers(
+        0, model.vocab_size, size=40), 2)
+    eng.run()
+    torch.cuda.synchronize()
+    wrappers = _flash_wrappers()
+    _zero_launches(wrappers)
+    _zero_int8()
+    reqs = _serve_requests(model, seed)
+    c0 = dict(eng.metrics.counters)
+    with _routing_log() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, n, temperature=t, seed=s)
+                   for p, n, t, s in reqs]
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {**_launches(wrappers), "int8_matmul": _int8_launches()}
+    if any(_total(v) for v in launched.values()):
+        fail(f"phase 47: MoE serving at decode_quant='none' launched a "
+             f"Hopper kernel: {launched}")
+    for h in handles:
+        if not h.done or h.quarantined or h.cancelled or len(h.tokens) != 32:
+            fail(f"phase 47: request {h.rid} did not finish cleanly")
+        if not all(math.isfinite(lp) for lp in h.logprobs):
+            fail(f"phase 47: request {h.rid} has non-finite logprobs")
+    if not eng.accounting_ok() \
+            or eng.pool.free_count != eng.pool.total_usable:
+        fail("phase 47: KV pool accounting broken after the run")
+    c = eng.metrics.counters
+    ttft = sorted(h.ttft_s * 1e3 for h in handles)
+    tokens = sum(len(h.tokens) for h in handles)
+    decode = [(t, d) for t, d in calls if t <= eng.num_slots]
+    prefill = [(t, d) for t, d in calls if t > eng.num_slots]
+    for kw in (dict(decode_quant="int8"),
+               dict(spec_k=2, spec_draft="quant")):
+        try:
+            ServeEngine(model, params, device=dev, **kw)
+        except ValueError as e:
+            if "decode_quant" not in str(e):
+                raise
+        else:
+            fail(f"phase 47: ServeEngine({kw}) served a MoE model")
+    del eng
+    torch.cuda.empty_cache()
+
+    # Capacity factor E admits every token: the cached greedy stream is
+    # the argmax stream of whole-sequence forwards.
+    model_e = dataclasses.replace(model,
+                                  moe_capacity_factor=float(
+                                      model.moe_experts))
+    eng = ServeEngine(model_e, params, decode_quant="none", device=dev)
+    prompt = np.random.default_rng(seed + 47).integers(
+        0, model.vocab_size, size=64)
+    n_new = 8
+    h = eng.submit(prompt, n_new)
+    eng.run()
+    seq, ref, gaps = list(prompt), [], []
+    with torch.no_grad():
+        for _ in range(n_new):
+            logits = decode_forward_logits(model_e, params, torch.as_tensor(
+                seq, device=dev)[None])[0, -1]
+            top = torch.topk(logits.double(), 2).values
+            gaps.append(float(top[0] - top[1]))
+            ref.append(int(logits.argmax()))
+            seq.append(ref[-1])
+    first = next((i for i in range(n_new) if h.tokens[i] != ref[i]), None)
+    if first is not None and not gaps[first] <= NEAR_TIE:
+        fail(f"phase 47: the cf=E stream {h.tokens} parts from the "
+             f"whole-sequence argmax stream {ref} at {first}, top-2 gap "
+             f"{gaps[first]} > {NEAR_TIE}")
+    del eng
+    out = {"model": model.name,
+           "params": sum(p.numel() for p in tree_leaves(params)),
+           "setup_s": setup_s, "requests": len(handles),
+           "new_tokens": tokens, "engine_steps": steps, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+           "decode_steps": c["serve_decode_steps"]
+           - c0.get("serve_decode_steps", 0),
+           "prefill_chunks": c["serve_prefill_chunks"]
+           - c0.get("serve_prefill_chunks", 0),
+           "decode_dropped_share": _dropped_share(decode),
+           "prefill_dropped_share": _dropped_share(prefill),
+           "hopper_launches": launched,
+           "capacity_e_stream": {"tokens": list(h.tokens), "argmax": ref,
+                                 "first_diff": first,
+                                 "min_top2_gap": min(gaps)},
+           "int8_refused": True,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6700,6 +7263,15 @@ def main() -> None:
     print(json.dumps({"autotune": {k: v for k, v in auto.items()
                                    if k not in ("trials", "search")}}),
           flush=True)
+    torch.cuda.empty_cache()
+    dcap = phase("45_dropout_capture", dropout_capture, dev, args.seed)
+    print(json.dumps({"dropout_capture": dcap}), flush=True)
+    torch.cuda.empty_cache()
+    moe = phase("46_moe_large_train", moe_large_train, dev, args.seed)
+    print(json.dumps({"moe_large_train": moe}), flush=True)
+    moe_serve = phase("47_moe_large_serve", moe_large_serve, dev,
+                      args.seed)
+    print(json.dumps({"moe_large_serve": moe_serve}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -6935,7 +7507,15 @@ def main() -> None:
             # Phase 41: LM-large with Adafactor, replicated and under
             # FactoredZeRO1 (remat "dots": the forward twice per layer).
             **{f"lm_adafactor_{k}": v["launches"][name]
-               for k, v in fzero["runs"].items()}}
+               for k, v in fzero["runs"].items()},
+            # Phase 45: LM-large with dropout (block remat), 2 eager
+            # steps and a K = 2 capture (its warm-up step and the 2
+            # captured steps); phase 46: MoE-large's timed eager steps
+            # and its K = 2 capture.
+            "lm_dropout_eager": dcap["eager_launches"][name],
+            "lm_dropout_capture": dcap["capture_launches"][name],
+            "moe_large_eager": moe["launches"][name],
+            "moe_large_capture": moe["graph"]["capture_launches"][name]}
         # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
         # beside SDPA's flash backend; main_path_ms: none traced.
         for preset, res in vit["flash_kernels"].items():
@@ -6964,7 +7544,9 @@ def main() -> None:
                        "host_side": hostside,
                        "lm_factored_zero1": fzero, "elastic_card": ecard,
                        "ladder_multi_step": lgraph,
-                       "autotune": auto,
+                       "autotune": auto, "dropout_capture": dcap,
+                       "moe_large_train": moe,
+                       "moe_large_serve": moe_serve,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -7055,6 +7637,24 @@ def main() -> None:
           f"{recipe['peak_mem_gib']:.2f} GiB); elastic: VGG-11 part 3 "
           f"resharded at world 1 in {ecard['reshard_s']:.3f} s",
           flush=True)
+    print(f"dropout under capture: LM-large K={dcap['k']} replay bit for "
+          f"bit with eager, {dcap['eager_ms_per_step']:.1f} ms/step eager, "
+          f"{dcap['replay_ms_per_step']:.1f} replayed; mask hash "
+          f"{dcap['mask_ms']:.3f} ms vs torch.rand "
+          f"{dcap['torch_rand_mask_ms']:.3f} ms [{card}]", flush=True)
+    print(f"moe train: {moe['model']} batch {moe['batch']} x seq "
+          f"{moe['seq']}, Adafactor, {moe['ms_per_step']:.1f} ms/step, "
+          f"{moe['tokens_per_s']:.0f} tokens/s, MFU (active) "
+          f"{100 * moe['mfu']:.1f}%, peak {moe['peak_mem_gib']:.2f} GiB;"
+          f"{' ' + moe['route_stats'] if moe['route_stats'] else ''}; "
+          f"K={MOE_GRAPH_K} graph bit for bit, "
+          f"{moe['graph']['replay_ms_per_step']:.1f} ms/step replayed "
+          f"[{card}]", flush=True)
+    print(f"moe serve: {moe_serve['tokens_per_s']:.1f} tokens/s, TTFT "
+          f"median {moe_serve['ttft_ms_median']:.1f} ms, max "
+          f"{moe_serve['ttft_ms_max']:.1f} ms; dropped share decode "
+          f"{moe_serve['decode_dropped_share']}, prefill "
+          f"{moe_serve['prefill_dropped_share']} [{card}]", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

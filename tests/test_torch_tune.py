@@ -847,7 +847,9 @@ def _audit(knob, clean):
                   or launch.LaunchResult())
     argv = [knob.flag] if isinstance(probe, bool) else [
         knob.flag, knob.encode(probe)]
-    assert launch.main(["part1", "--nproc", "1", *argv]) == 0
+    # The MoE knobs configure the LM, which the launcher runs as "lm".
+    target = launch.LM if knob.name in tspace._NOT_IN_TRIALS else "part1"
+    assert launch.main([target, "--nproc", "1", *argv]) == 0
     assert seen[0][knob.env] == knob.encode(probe), (knob.name, seen)
 
 

@@ -16,9 +16,16 @@ defaults: ``TPU_DDP_LM_STEPS`` (5), ``TPU_DDP_LM_PRESET``
 ``TPU_DDP_LM_CLIP`` (the global-norm clip, 0 = off), ``TPU_DDP_LM_FSDP``
 (``1``: ``param_sharding='fsdp'``) and ``TPU_DDP_LM_OPT_SHARD``
 (``replicated``, ``zero1`` or ``zero2``; ``TPU_DDP_LM_ZERO1=1`` is the
-older spelling of ``zero1``). The knobs of axes the port does not carry
-yet (tensor and pipeline parallelism, the sequence-parallel mode) raise
-when set to anything but their default.
+older spelling of ``zero1``). ``TPU_DDP_LM_PRESET`` takes the MoE presets
+too (``TransformerLM-moe-tiny``, ``-moe-small``, ``-moe-large``, at ep =
+1 as in the JAX CLI), and ``TPU_DDP_MOE_EXPERTS``, ``_TOP_K`` and
+``_CAPACITY`` (utils/config.py) override the preset's ``moe_experts``,
+``moe_top_k`` and ``moe_capacity_factor`` where set, so
+``TPU_DDP_MOE_EXPERTS=4`` routes the MLPs of a dense preset; a MoE run
+ends with the routing counters of the last batch
+(``LMTrainer.route_stats``, one slot per layer). The knobs of
+axes the port does not carry yet (tensor and pipeline parallelism, the
+sequence-parallel mode) raise when set to anything but their default.
 """
 
 from __future__ import annotations
@@ -45,6 +52,37 @@ def refuse_unported_lm_env() -> None:
             f"(ROADMAP Queue 1 {item}); unset it to run the port")
 
 
+# TPU_DDP_MOE_* -> (TrainConfig field, TransformerLM field).
+_MOE_ENV = {
+    "TPU_DDP_MOE_EXPERTS": ("moe_experts", "moe_experts"),
+    "TPU_DDP_MOE_TOP_K": ("moe_top_k", "moe_top_k"),
+    "TPU_DDP_MOE_CAPACITY": ("moe_capacity", "moe_capacity_factor"),
+}
+
+
+def moe_overrides(preset: str) -> dict:
+    """The TransformerLM fields that the set ``TPU_DDP_MOE_*`` variables
+    give ``preset`` (parsed and validated by ``TrainConfig``). A top-k or
+    capacity for a model left with no routed layer raises: nothing would
+    read it."""
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.utils.config import TrainConfig
+    cfg = TrainConfig()
+    over = {field: getattr(cfg, attr)
+            for env, (attr, field) in _MOE_ENV.items()
+            if os.environ.get(env, "") != ""}
+    experts = over.get("moe_experts",
+                       make_transformer(preset).moe_experts)
+    unread = [env for env, (_, field) in _MOE_ENV.items()
+              if field in over and field != "moe_experts"]
+    if not experts and unread:
+        raise ValueError(
+            f"{' and '.join(unread)} set for {preset} with no experts: a "
+            "dense model has no routed layer to read them; set "
+            "TPU_DDP_MOE_EXPERTS or take a MoE preset")
+    return over
+
+
 def main(argv=None) -> int:
     from tpu_ddp_torch.parts.common import parse_arguments
     args = parse_arguments(argv, require_num_nodes=True)
@@ -65,7 +103,8 @@ def main(argv=None) -> int:
                                                   init_distributed_setup,
                                                   shutdown,
                                                   test_distributed_setup)
-    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    from tpu_ddp_torch.train.lm import (LMTrainer, format_route_stats,
+                                       make_lm_batch)
     from tpu_ddp_torch.utils.config import refuse_unported_env
 
     refuse_unported_env()
@@ -103,7 +142,8 @@ def main(argv=None) -> int:
     seq_len = 32
 
     model = make_transformer(preset, max_seq_len=seq_len,
-                             compute_dtype=torch.float32)
+                             compute_dtype=torch.float32,
+                             **moe_overrides(preset))
     trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
                         optimizer=optimizer, clip_grad_norm=clip,
                         param_sharding="fsdp" if fsdp else "replicated",
@@ -112,7 +152,10 @@ def main(argv=None) -> int:
     print(f"[lm_train] rank={rank} world={world} dp={trainer.dp} "
           f"sp=1 tp=1 pp=1 fsdp={fsdp} "
           f"opt_shard={opt_shard} opt={opt_name} accum={accum} clip={clip} "
-          f"preset={preset}")
+          f"preset={preset}" + (
+              f" moe={model.moe_experts}x top{model.moe_top_k} "
+              f"cf={model.moe_capacity_factor}" if model.moe_experts
+              else ""))
 
     # Deterministic synthetic tokens, identical on every process; each
     # process feeds its contiguous shard of the global batch.
@@ -127,6 +170,9 @@ def main(argv=None) -> int:
         # This process's shard loss: every node prints its own running
         # loss, as in the reference.
         print(f"[lm_train] step {step + 1}/{steps} loss {float(loss):.4f}")
+    if model.moe_experts:
+        route = format_route_stats(trainer.route_stats(state, local[:, :-1]))
+        print(f"[lm_train] route{route}")
     shutdown(ctx)
     return 0
 

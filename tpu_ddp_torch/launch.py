@@ -4,8 +4,9 @@ handling the reference lacks.
 
 The reference is started by hand on every node with the same command
 (reference README.md:8-19). This module spawns ``nproc`` rank processes
-of ``python -m tpu_ddp_torch.parts partN`` with ``--rank i`` and a shared
-``127.0.0.1`` coordinator, and watches them:
+of ``python -m tpu_ddp_torch.parts partN`` (or, for the target ``lm``,
+of the LM CLI ``python -m tpu_ddp_torch.examples.lm_train``) with
+``--rank i`` and a shared ``127.0.0.1`` coordinator, and watches them:
 
 - the first rank to fail decides the attempt's exit code, and the others
   are killed (they would block in the next collective);
@@ -44,6 +45,12 @@ CLI::
     python -m tpu_ddp_torch.launch part3 --nproc 2 --device cpu \\
         --elastic-reshard [--max-restarts 1 --ckpt-dir D]
     python -m tpu_ddp_torch.launch part3 --nproc 1 --autotune search
+    TPU_DDP_LM_PRESET=TransformerLM-tiny python -m tpu_ddp_torch.launch \
+        lm --nproc 2 --device cpu --moe-experts 4 --moe-top-k 2
+
+The ``--moe-*`` flags configure the LM's routed MLP, so they go with
+``lm`` only (the image parts have no routed layer), and ``lm`` refuses
+every flag that the LM CLI does not read.
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -71,6 +78,12 @@ from tpu_ddp_torch.resilience.watchdog import (HEARTBEAT_ENV,
 
 REPO = Path(__file__).resolve().parent.parent
 PARTS = ("part1", "part2a", "part2b", "part3", "part4", "part5")
+# The LM CLI's target (examples/lm_train.py), beside the image parts.
+LM = "lm"
+# The launcher flags (argparse dests) the LM CLI reads: the cluster's
+# shape and the MoE knobs, which only the LM reads.
+_MOE_DESTS = ("moe_experts", "moe_top_k", "moe_capacity")
+_LM_DESTS = ("part", "nproc", "device", "port") + _MOE_DESTS
 
 # Flags of the JAX launcher that the port does not carry yet -> the ROADMAP
 # Queue 1 item that ports what they switch on.
@@ -89,8 +102,6 @@ _UNPORTED_FLAGS = {
         "--publish-wire", "--publish-max-staleness", "--diloco-h",
         "--diloco-outer-lr", "--diloco-outer-momentum",
         "--diloco-outer-wire")},
-    **{flag: "item 10.8 (parallel/moe.py)" for flag in (
-        "--moe-experts", "--moe-top-k", "--moe-capacity")},
 }
 
 
@@ -180,8 +191,9 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
     every rank still running is killed (exit -9)."""
     if nproc < 1:
         raise ValueError("nproc must be >= 1")
-    if part not in PARTS:
-        raise ValueError(f"unknown part {part!r}; available: {PARTS}")
+    if part not in PARTS + (LM,):
+        raise ValueError(f"unknown part {part!r}; available: "
+                         f"{PARTS + (LM,)}")
     port = port or find_free_port()
     monitor = None
     if heartbeat_timeout is not None:
@@ -220,7 +232,9 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
         child_env["PYTHONPATH"] = os.pathsep.join(
             [str(REPO)] + [x for x in child_env.get("PYTHONPATH", "")
                            .split(os.pathsep) if x])
-        cmd = [sys.executable, "-m", "tpu_ddp_torch.parts", part,
+        target = (["tpu_ddp_torch.examples.lm_train"] if part == LM
+                  else ["tpu_ddp_torch.parts", part])
+        cmd = [sys.executable, "-m", *target,
                "--num-nodes", str(nproc), "--rank", str(rank),
                "--master-ip", "127.0.0.1", "--master-port", str(port)]
         dev = _rank_device(device, rank, nproc)
@@ -644,7 +658,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tpu_ddp_torch.launch",
         description="spawn an N-process local cluster running one part")
-    p.add_argument("part", help=f"one of {', '.join(PARTS)}")
+    p.add_argument("part", help=f"one of {', '.join(PARTS + (LM,))} "
+                                "(lm: examples/lm_train.py)")
     p.add_argument("--nproc", type=int, required=True,
                    help="number of rank processes (the --num-nodes value)")
     p.add_argument("--device", default=None,
@@ -717,8 +732,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "persists the winner (single-process only; "
                         "multi-process ranks use the defaults). Sets "
                         "TPU_DDP_AUTOTUNE for every rank")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="lm only: experts per MoE MLP layer (0 = dense; "
+                        "parallel/moe.py), over the preset's. Sets "
+                        "TPU_DDP_MOE_EXPERTS for every rank")
+    p.add_argument("--moe-top-k", type=int, default=None,
+                   help="lm only: routed experts per token (1 = Switch, "
+                        "2 = GShard). Sets TPU_DDP_MOE_TOP_K for every "
+                        "rank")
+    p.add_argument("--moe-capacity", type=float, default=None,
+                   help="lm only: expert capacity factor: slots per "
+                        "expert = "
+                        "ceil(T * capacity * top_k / E); higher = "
+                        "fewer dropped tokens, more padded compute. "
+                        "Sets TPU_DDP_MOE_CAPACITY for every rank")
     _serving_flags(p)
     return p
+
+
+def _check_target(p: argparse.ArgumentParser, args) -> None:
+    """Refuse a flag that the launched program would not read: ``--moe-*``
+    with an image part, an image part's flag with ``lm``."""
+    if args.part == LM:
+        unread = sorted(f"--{d.replace('_', '-')}"
+                        for d, v in vars(args).items()
+                        if d not in _LM_DESTS and v != p.get_default(d))
+        if unread:
+            p.error(f"{', '.join(unread)}: the LM CLI "
+                    "(examples/lm_train.py) does not read them")
+        return
+    moe = [f"--{d.replace('_', '-')}" for d in _MOE_DESTS
+           if getattr(args, d) is not None]
+    if moe:
+        p.error(f"{', '.join(moe)}: {args.part} trains an image model, "
+                "which has no routed layer; the MoE knobs configure the "
+                f"LM: launch {LM} (examples/lm_train.py)")
 
 
 def main(argv=None) -> int:
@@ -726,6 +774,7 @@ def main(argv=None) -> int:
     _refuse_unported(argv)
     p = build_parser()
     args, extra = p.parse_known_args(argv)
+    _check_target(p, args)
     env = _serving_env(p, args)
     if args.remat is not None:
         env["TPU_DDP_REMAT"] = args.remat
@@ -748,6 +797,20 @@ def main(argv=None) -> int:
         env["TPU_DDP_ELASTIC_RESHARD"] = "1"
     if args.autotune is not None:
         env["TPU_DDP_AUTOTUNE"] = args.autotune
+    if args.moe_experts is not None:
+        if args.moe_experts < 0:
+            p.error(f"--moe-experts must be >= 0, got "
+                    f"{args.moe_experts}")
+        env["TPU_DDP_MOE_EXPERTS"] = str(args.moe_experts)
+    if args.moe_top_k is not None:
+        if args.moe_top_k < 1:
+            p.error(f"--moe-top-k must be >= 1, got {args.moe_top_k}")
+        env["TPU_DDP_MOE_TOP_K"] = str(args.moe_top_k)
+    if args.moe_capacity is not None:
+        if not args.moe_capacity > 0:
+            p.error(f"--moe-capacity must be > 0, got "
+                    f"{args.moe_capacity}")
+        env["TPU_DDP_MOE_CAPACITY"] = str(args.moe_capacity)
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,

@@ -31,22 +31,29 @@ _M32 = 0xFFFFFFFF
 
 
 def check_decodable(model) -> None:
-    """Refuse model configs the decode path cannot serve: it runs dense
-    single-device models (no sequence/tensor/expert sharding, no MoE)."""
+    """Refuse model configs the decode path cannot serve: it runs
+    single-device models (no sequence/tensor/expert sharding). A sharded
+    config holds parameters in training layouts; checkpoints are
+    canonical, so :func:`dense_params_from_checkpoint` into the unsharded
+    model is the way to serve one."""
     for attr in ("sp_axis", "tp_axis", "ep_axis"):
         if getattr(model, attr, None) is not None:
             raise ValueError(f"decode runs dense single-device models; "
                              f"{attr}={getattr(model, attr)!r} is set")
-    if getattr(model, "moe_experts", 0):
-        raise ValueError("decode serves dense models only; MoE is not "
-                         "ported yet")
 
 
 def mlp(model, blk, y):
-    """Dense block MLP on an activation bank ``y`` (B, L, dm): two qdot
+    """Block MLP on an activation bank ``y`` (B, L, dm). Dense: two qdot
     matmuls around the tanh-approximate GELU (``jax.nn.gelu``'s
-    default) in f32."""
+    default) in f32. MoE: the routed layer (parallel/moe.py) with every
+    expert local and capacity from the live bank size T = B * L (the slot
+    bank of a decode step, the chunk of a prefill), as JAX's decode: at a
+    capacity that admits every token each token's output is independent
+    of its neighbours, and at a tight one an assignment can drop here and
+    not in the whole-sequence forward."""
     cd = model.compute_dtype
+    if model.moe_experts:
+        return model.moe_apply(blk, y)[0].to(cd)
     y = qdot(y, blk["w1"], cd)
     y = F.gelu(y.to(torch.float32), approximate="tanh").to(cd)
     return qdot(y, blk["w2"], cd).to(cd)

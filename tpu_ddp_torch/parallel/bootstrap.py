@@ -16,6 +16,9 @@ unless the environment says otherwise) and drops it with
 :func:`elastic_teardown`, which aborts the communicators
 (``_abort_process_group``) instead of entering a teardown a dead peer
 could block.
+
+:func:`mesh_groups` splits the world into the dp and ep sub-groups of
+expert parallelism (the JAX mesh's rank layout).
 """
 
 from __future__ import annotations
@@ -103,6 +106,31 @@ def test_distributed_setup(ctx: DistributedContext) -> dict:
     print(f"World size: {info['world_size']}")
     print(f"Rank: {info['rank']} | devices: {info['num_devices']}")
     return info
+
+
+def mesh_groups(dp: int, ep: int):
+    """This process's (dp group, ep group) of a world of ``dp * ep``
+    processes laid out as the JAX ``make_mesh(dp, sp, mp, pp, ep)``
+    reshape, ep fastest: rank ``d * ep + e``. The dp group holds the ranks
+    of one ``e`` (the replicas of an expert shard), the ep group those of
+    one ``d`` (the processes that exchange tokens). Every process makes
+    every group, in one order, as ``new_group`` requires."""
+    if dp * ep != dist.get_world_size():
+        raise ValueError(f"dp={dp} x ep={ep} != world size "
+                         f"{dist.get_world_size()}")
+    rank = dist.get_rank()
+    dp_group = ep_group = None
+    for e in range(ep):
+        ranks = [d * ep + e for d in range(dp)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            dp_group = group
+    for d in range(dp):
+        ranks = [d * ep + e for e in range(ep)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            ep_group = group
+    return dp_group, ep_group
 
 
 def shutdown(ctx: DistributedContext) -> None:

@@ -46,8 +46,9 @@ a world of one (NCCL then moves nothing but runs the same calls).
 
 The model-parallel partition of the JAX layout (``param_specs``,
 ``_leaf_partition``: tp/ep/pp-sharded leaves laid out per cell, and
-``FactoredZeRO1``'s per-cell factoring) comes with tensor, expert and
-pipeline parallelism (ROADMAP Queue 1 items 10.6-10.8).
+``FactoredZeRO1``'s per-cell factoring) comes with tensor and pipeline
+parallelism and ZeRO over an expert-parallel partition (ROADMAP Queue 1
+items 10.6, 10.7 and 10.8b).
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ class _FlatLayout:
                 "a model-parallel partition of the flat layout "
                 "(param_specs: tp/ep/pp-sharded leaves laid out per cell) "
                 "is not ported to tpu_ddp_torch yet (ROADMAP Queue 1 items "
-                "10.6-10.8)")
+                "10.6, 10.7 and 10.8b)")
         n, r = _group_info(group)
         self.group = (group if group is not None and dist.is_initialized()
                       else None)

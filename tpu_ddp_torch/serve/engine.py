@@ -355,6 +355,16 @@ class ServeEngine:
             raise ValueError(
                 f"decode_quant={self.decode_quant!r}: expected 'none'"
                 " or 'int8' (TPU_DDP_DECODE_QUANT)")
+        if model.moe_experts and (self.decode_quant == "int8"
+                                  or kind == "quant"):
+            # The routed layer contracts stacked expert weights in batched
+            # matmuls (parallel/moe.py), not qdot: int8 leaves would not
+            # run there. The JAX engine's refusal, word for word.
+            raise ValueError(
+                "decode_quant='int8' (and the 'quant' draft family) "
+                "do not support MoE models yet: the routed expert "
+                "einsums bypass ops/quant.qdot; serve MoE with "
+                "decode_quant='none'")
         self._refresh_quant()
         self.spec_proposed = 0
         self.spec_accepted = 0

@@ -19,7 +19,26 @@ Dropout (``model.dropout_rate > 0``) draws each step's masks from keys
 derived from ``dropout_seed``, the step, the process's rank and, under
 accumulation, the microbatch (models/transformer.py:fold_in), so a
 resumed run continues the same key sequence and ranks draw different
-masks.
+masks. The step is read from a device tensor (the optimizer's count, or
+the state's ``step_t`` for an optimizer without one), so a captured step
+draws the masks of the step it replays.
+
+Mixture of experts (tpu_ddp/train/lm.py:404-448,571-590,676-692): the
+loss adds ``moe_aux_coef`` times the model's load-balance loss, and
+``ep > 1`` runs expert parallelism over a world of dp x ep processes,
+rank ``d * ep + e`` (the JAX ``make_mesh`` order, ep fastest), each with
+its E / ep experts and its own rows of the batch (the JAX batch spec
+``P(("dp", "ep"))``). The expert leaves' gradients are summed over the
+dp group and divided by the world (their ep peers' tokens reached them
+through the MoE layer's all_to_all); every other leaf is averaged over
+the world. The global-norm clip sums the expert leaves' squares over the
+ep group, so every process clips by the one norm of the whole model.
+Parameters, optimizer state and checkpoints gather the expert
+leaves over ep into the JAX layout (Adafactor's reduced slots of an
+expert leaf stacked on a leading ep axis, as the JAX ``CellAdafactor``
+lays them out). At ep > 1 the optimizer runs replicated (Adafactor bare
+on each process's slices, which is the per-cell update); ZeRO and FSDP
+over an ep-sharded partition raise (ROADMAP Queue 1 item 10.8b).
 
 Sharded layouts (tpu_ddp/train/lm.py:406-500), AdamW or SGD:
 ``opt_sharding='zero1'`` keeps the optimizer state as 1/dp flat shards
@@ -41,9 +60,7 @@ K steps per dispatch (tpu_ddp/train/lm.py:338-391):
 :meth:`LMTrainer.build_multi_step` runs K steps per call, bit for bit
 K :meth:`LMTrainer.train_step` calls: on the CPU a loop, on the card one
 replay of a CUDA graph (train/capture.py) per (K, batch shapes, state
-tensors), in every layout, with ``grad_accum`` and the clip. Dropout is
-not captured yet (ROADMAP item 9.5c): each step seeds its masks from a
-host key, so a replayed step would draw one step's masks forever.
+tensors), in every layout, with ``grad_accum``, the clip and dropout.
 
 The JAX trainer's other axes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item: sequence and tensor
@@ -59,12 +76,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_ddp_torch.convert import opt_slot_shapes, shape_leaves
+from tpu_ddp_torch.convert import (_leaves_like, opt_slot_shapes,
+                                   shape_leaves)
 from tpu_ddp_torch.models.transformer import fold_in
 from tpu_ddp_torch.ops.loss import (chunked_vocab_cross_entropy,
                                     softmax_cross_entropy)
 from tpu_ddp_torch.ops.optim import (SGD, Adafactor, AdamW,
-                                     clip_by_global_norm)
+                                     clip_by_global_norm, clip_scale_from_sq,
+                                     clip_tree, global_sq_norm)
 from tpu_ddp_torch.parallel.sync import sync_all_reduce
 from tpu_ddp_torch.train import capture
 from tpu_ddp_torch.utils.device import resolve_device
@@ -76,12 +95,28 @@ class LMTrainState:
     params: Any
     opt_state: Any
     step: int = 0
+    # The step on the device (int64, 0-d), kept only where dropout needs
+    # it and the optimizer has no count to read it from.
+    step_t: Any = None
 
 
 def make_lm_batch(tokens: np.ndarray):
     """(B, L+1) token ids -> (inputs, targets), each (B, L)."""
     tokens = np.asarray(tokens)
     return tokens[:, :-1], tokens[:, 1:]
+
+
+def format_route_stats(stats) -> str:
+    """One metrics-line fragment from :meth:`LMTrainer.route_stats`,
+    ``" moe dropped=2.1%/0.0% imbalance=1.31/1.05"``, one slot per routed
+    layer; the empty string for a dense model (JAX
+    ``format_route_stats``)."""
+    if not stats:
+        return ""
+    drop = "/".join(f"{float(s['dropped_frac']) * 100:.1f}%"
+                    for s in stats)
+    imb = "/".join(f"{float(s['imbalance']):.2f}" for s in stats)
+    return f" moe dropped={drop} imbalance={imb}"
 
 
 def _skeleton(shapes):
@@ -94,6 +129,16 @@ def _skeleton(shapes):
     return None
 
 
+def _leaf_names(node, name: str = "") -> list:
+    """The dict key of each leaf of a ``param_shapes()`` tree, in leaf
+    order."""
+    if isinstance(node, dict):
+        return [n for k, v in node.items() for n in _leaf_names(v, k)]
+    if isinstance(node, tuple) and node and isinstance(node[0], dict):
+        return [n for b in node for n in _leaf_names(b, name)]
+    return [name]
+
+
 def _has_count(optimizer) -> bool:
     """Whether the optimizer's state carries a step count (SGD only with
     a scheduled lr)."""
@@ -104,15 +149,17 @@ def _has_count(optimizer) -> bool:
 class LMTrainer:
     """A TransformerLM + its optimizer (AdamW by default) on one device,
     data parallel over the process group when ``torch.distributed`` is
-    initialised with more than one process. ``device=None`` means the
-    card. At tp = 1 Adafactor runs bare, as in the JAX trainer."""
+    initialised with more than one process, and expert parallel over
+    groups of ``ep`` of them. ``device=None`` means the card. At tp = 1
+    Adafactor runs bare, as in the JAX trainer."""
 
     def __init__(self, model, device=None, optimizer=None,
                  grad_accum: int = 1, vocab_chunk: int = 0,
                  param_sharding: str = "replicated",
                  opt_sharding: str = "replicated", sp_mode: str = "ring",
                  clip_grad_norm: float | None = None,
-                 dropout_seed: int = 0):
+                 dropout_seed: int = 0, ep: int = 1,
+                 moe_aux_coef: float = 0.01):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if sp_mode not in ("ring", "ulysses"):
@@ -140,21 +187,49 @@ class LMTrainer:
                 optimizer, (AdamW, Adafactor, SGD)):
             raise TypeError(f"optimizer {type(optimizer).__name__}: the LM "
                             "trainer takes AdamW, Adafactor or SGD")
-        self.model = model
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if ep < 1 or world % ep:
+            raise ValueError(f"ep={ep} must be >= 1 and divide the world "
+                             f"size {world}")
         self.device = resolve_device(device)
         self.optimizer = optimizer or AdamW()
         self.grad_accum = grad_accum
         self.vocab_chunk = vocab_chunk
         self.clip_grad_norm = clip_grad_norm
         self.dropout_seed = dropout_seed
-        # The JAX trainer's dp axis: the process group.
-        self.dp = dist.get_world_size() if dist.is_initialized() else 1
+        self.moe_aux_coef = moe_aux_coef
+        # The JAX trainer's dp and ep axes: the world is dp x ep, rank
+        # d * ep + e.
+        self.ep = ep
+        self.dp = world // ep
         self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.ep_index = self.rank % ep
+        # The model with every partition axis stripped: the JAX package's
+        # canonical tree (checkpoints, conversion, route_stats).
+        self.canonical_model = dataclasses.replace(
+            model, ep_axis=None, ep_size=1, ep_group=None)
+        self._dp_group = self._ep_group = None
+        if ep > 1:
+            if param_sharding != "replicated" or opt_sharding != "replicated":
+                raise NotImplementedError(
+                    f"param_sharding={param_sharding!r}, opt_sharding="
+                    f"{opt_sharding!r} at ep={ep}: ZeRO and FSDP over an "
+                    "ep-sharded partition are not ported to tpu_ddp_torch "
+                    "yet (ROADMAP Queue 1 item 10.8b); use the replicated "
+                    "optimizer")
+            from tpu_ddp_torch.parallel.bootstrap import mesh_groups
+            self._dp_group, self._ep_group = mesh_groups(self.dp, ep)
+            model = model.with_expert_parallel("ep", ep, self._ep_group)
+        self.model = model
         self.is_fsdp = param_sharding == "fsdp"
         self.opt_zero1 = opt_sharding in ("zero1", "zero2")
         self.opt_zero2 = opt_sharding == "zero2"
         self._shapes = model.param_shapes()
         self._skeleton = _skeleton(self._shapes)
+        # Leaf indices of the stacked expert weights (sharded over ep).
+        self._expert_leaves = {
+            i for i, path in enumerate(_leaf_names(self._shapes))
+            if model.moe_experts and path in ("w1", "w2")}
         factored = isinstance(self.optimizer, Adafactor)
         if factored and self.opt_zero2:
             raise ValueError(
@@ -198,7 +273,8 @@ class LMTrainer:
         AdamW state. Leaves are made differentiable in place."""
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.model.init(gen)
+            params = self.canonical_model.init(gen)
+        params = self._local_params(params)
         leaves = tree_leaves(params)
         for p in leaves:
             if p.device != self.device:
@@ -211,9 +287,39 @@ class LMTrainer:
                 # At rest FSDP holds only this rank's shard of each leaf.
                 params = self.layout.local_shards(leaves)[0]
                 params.requires_grad_(True)
-            return LMTrainState(params=params, opt_state=opt_state)
-        return LMTrainState(params=params,
-                            opt_state=self.optimizer.init(leaves))
+            return self._with_step_t(LMTrainState(params=params,
+                                                  opt_state=opt_state))
+        return self._with_step_t(LMTrainState(
+            params=params, opt_state=self.optimizer.init(leaves)))
+
+    def _with_step_t(self, state: LMTrainState) -> LMTrainState:
+        """``state`` with a device step tensor where dropout needs one and
+        the optimizer keeps no count."""
+        if (self.model.dropout_rate > 0.0 and state.step_t is None
+                and "count" not in state.opt_state):
+            state.step_t = torch.tensor(state.step, dtype=torch.int64,
+                                        device=self.device)
+        return state
+
+    def _local_params(self, params):
+        """A canonical parameter tree cut to this process's experts (the
+        tree itself at ep = 1)."""
+        if self.ep == 1:
+            return params
+        e_loc = self.model.moe_experts // self.ep
+        lo = self.ep_index * e_loc
+        out = [p[lo:lo + e_loc].detach().clone()
+               if i in self._expert_leaves else p
+               for i, p in enumerate(tree_leaves(params))]
+        return tree_unflatten(self._skeleton, out)
+
+    def _gather_ep(self, t, stack: bool):
+        """Every ep peer's ``t`` (same shape on each), concatenated on
+        dim 0 (``stack``: stacked on a new leading axis)."""
+        parts = [torch.empty_like(t) for _ in range(self.ep)]
+        dist.all_gather(parts, t.detach().contiguous(),
+                        group=self._ep_group)
+        return torch.stack(parts) if stack else torch.cat(parts)
 
     def put_batch(self, inputs, targets):
         """(B, L) host token ids -> int64 tensors on the device. B must
@@ -228,32 +334,54 @@ class LMTrainer:
                              f"divisible by grad_accum={self.grad_accum}")
         return inputs.to(self.device), targets.to(self.device)
 
-    def step_key(self, step: int):
+    def step_key(self, step):
         """Step ``step``'s dropout key on this process (None when the
         model has no dropout): ``dropout_seed`` folded with the step and
         the rank, as the JAX trainer folds its key with the step and each
-        data axis's index."""
+        data axis's index. ``step``: an int (gives an int) or a device
+        tensor (gives an int64 tensor of the same value)."""
         if self.model.dropout_rate <= 0.0:
             return None
         return fold_in(fold_in(self.dropout_seed, step), self.rank)
 
+    def _device_step(self, state: LMTrainState):
+        """The step as a 0-d device tensor: the optimizer's count where it
+        keeps one (it equals the state's step), else ``state.step_t``."""
+        opt = state.opt_state
+        if isinstance(opt, dict) and "count" in opt:
+            return opt["count"]
+        if state.step_t is None:
+            raise ValueError("a state with dropout and no optimizer count "
+                             "needs its step_t (LMTrainer.init_state or "
+                             "state_from_host makes it)")
+        return state.step_t
+
+    def _written(self, state: LMTrainState) -> list:
+        """The tensors a step writes in place (train/capture.py)."""
+        return capture.written(
+            state, extra=() if state.step_t is None else (state.step_t,))
+
     def _loss_and_grads(self, leaves, params, inputs, targets, rng=None):
         """(loss, grads w.r.t. ``leaves``); under FSDP ``params`` is the
-        shard buffer, all-gathered here for this microbatch."""
+        shard buffer, all-gathered here for this microbatch. A MoE model
+        adds ``moe_aux_coef`` times its load-balance loss to the gradient's
+        objective; the loss returned is the token mean alone."""
         if self.is_fsdp:
             params = tree_unflatten(
                 self._skeleton, self.layout.gather_params(params))
         if self.vocab_chunk:
-            hidden, _ = self.model.trunk_with_aux(params, inputs, rng=rng)
+            hidden, aux = self.model.trunk_with_aux(params, inputs, rng=rng)
             nll = chunked_vocab_cross_entropy(
                 hidden.reshape(-1, hidden.shape[-1]), params["head"],
                 targets.reshape(-1), self.vocab_chunk)
         else:
-            logits, _ = self.model.apply_with_aux(params, inputs, rng=rng)
+            logits, aux = self.model.apply_with_aux(params, inputs, rng=rng)
             nll = softmax_cross_entropy(
                 logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
         loss = nll.mean()
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        objective = (loss + self.moe_aux_coef * aux
+                     if self.model.moe_experts else loss)
+        return loss.detach(), torch.autograd.grad(objective, leaves)
 
     def train_step(self, state: LMTrainState, inputs, targets):
         """One step on the local batch; returns (state, local mean loss
@@ -262,7 +390,8 @@ class LMTrainer:
         params = state.params
         leaves = [params] if self.is_fsdp else tree_leaves(params)
         A = self.grad_accum
-        rng = self.step_key(state.step)
+        rng = (self.step_key(self._device_step(state))
+               if self.model.dropout_rate > 0.0 else None)
         # ZeRO-2: each microbatch's gradients reduce-scattered at once,
         # the f32 slices accumulated (1/dp of the accumulation buffer).
         scatter = self.layout.scatter_grads if self.opt_zero2 else None
@@ -288,8 +417,10 @@ class LMTrainer:
             torch._foreach_mul_(grads, inv)
             loss = loss * inv
         self._update(state, leaves, grads)
-        return (LMTrainState(params, state.opt_state, state.step + 1),
-                loss)
+        if state.step_t is not None:
+            state.step_t.add_(1)
+        return (LMTrainState(params, state.opt_state, state.step + 1,
+                             state.step_t), loss)
 
     # ---- K steps per dispatch (tpu_ddp/train/lm.py:338-391) ------------
 
@@ -301,9 +432,9 @@ class LMTrainer:
         card the K steps are one ``torch.cuda.CUDAGraph``, captured per
         (K, batch shapes, state tensors) over static staging buffers and
         replayed once per call (a state made anew is captured again); on
-        the CPU a loop. A model with dropout raises
-        ``NotImplementedError`` on the card (ROADMAP item 9.5c); nothing
-        runs eager steps under K > 1. Memoised per K."""
+        the CPU a loop. Dropout reads its step from the device, so a
+        replay draws K fresh sets of masks, those of K eager steps.
+        Memoised per K."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if k in self._multi_step_cache:
@@ -317,21 +448,13 @@ class LMTrainer:
                     losses.append(loss)
                 return state, torch.stack(losses)
         else:
-            if self.model.dropout_rate > 0.0:
-                raise NotImplementedError(
-                    f"build_multi_step({k}) on the card captures K steps "
-                    "as a CUDA graph; dropout is not captured yet (each "
-                    "step seeds its masks' generator from the host key "
-                    "fold_in(fold_in(dropout_seed, step), rank), so a "
-                    "replay would draw one step's masks forever): ROADMAP "
-                    "Queue 1 item 9.5c")
             def make(st, xs, ys):
                 if self._graph_stream is None:
                     self._graph_stream = torch.cuda.Stream(self.device)
                 grp = capture.GraphGroup(
                     self.train_step, st, xs, ys, device=self.device,
                     stream=self._graph_stream,
-                    written_=capture.written(st))
+                    written_=self._written(st))
                 self.graph_stats["captures"] += 1
                 self.graph_stats["capture_ms"].append(grp.capture_ms)
                 return grp
@@ -339,11 +462,11 @@ class LMTrainer:
             graphs = capture.GraphCache(make)
 
             def run(state, inputs_k, targets_k):
-                losses = graphs.run(state, capture.written(state),
+                losses = graphs.run(state, self._written(state),
                                     inputs_k, targets_k)
                 self.graph_stats["replays"] += 1
                 return (LMTrainState(state.params, state.opt_state,
-                                     state.step + k), losses)
+                                     state.step + k, state.step_t), losses)
         self._multi_step_cache[k] = run
         return run
 
@@ -355,7 +478,6 @@ class LMTrainer:
             # The gather's backward summed the shard over dp.
             g_sh = z.views(grads[0].div_(float(z.axis_size)))
             if self.clip_grad_norm is not None:
-                from tpu_ddp_torch.ops.optim import clip_scale_from_sq
                 torch._foreach_mul_(g_sh, clip_scale_from_sq(
                     z.sq_norm(g_sh), self.clip_grad_norm))
             z.apply(z.views(state.params.detach()), g_sh, state.opt_state)
@@ -369,30 +491,97 @@ class LMTrainer:
                 for p, t in zip(leaves, new):
                     p.copy_(t)
             return
-        if self.dp > 1:
-            sync_all_reduce(grads)
-        if self.clip_grad_norm is not None:
-            clip_by_global_norm(grads, self.clip_grad_norm)
+        if self.ep > 1:
+            self._sync_ep(grads)
+            if self.clip_grad_norm is not None:
+                self._clip_ep(grads)
+        else:
+            if self.dp > 1:
+                sync_all_reduce(grads)
+            if self.clip_grad_norm is not None:
+                clip_by_global_norm(grads, self.clip_grad_norm)
         self.optimizer.apply(leaves, grads, state.opt_state)
 
+    def _clip_ep(self, grads) -> None:
+        """The global-norm clip at ep > 1 (JAX ``_clip_by_global_norm``),
+        in place: an expert leaf's squared sum is summed over the ep group
+        (each peer holds other experts), a replicated leaf's counted once,
+        so every process applies the same scale."""
+        experts = [g for i, g in enumerate(grads) if i in self._expert_leaves]
+        sq_e = global_sq_norm(experts)
+        dist.all_reduce(sq_e, group=self._ep_group)
+        sq = global_sq_norm([g for i, g in enumerate(grads)
+                             if i not in self._expert_leaves]) + sq_e
+        clip_tree(grads, clip_scale_from_sq(sq, self.clip_grad_norm))
+
+    def _sync_ep(self, grads) -> None:
+        """The dp x ep gradient sync (JAX ``_sync_grads``), in place: an
+        expert leaf is summed over the dp group and divided by the world
+        (its gradient already holds its ep peers' tokens); every other
+        leaf is averaged over the world."""
+        world = float(self.dp * self.ep)
+        for i, g in enumerate(grads):
+            if i in self._expert_leaves:
+                if self.dp > 1:
+                    dist.all_reduce(g, group=self._dp_group)
+            else:
+                dist.all_reduce(g)
+            g.div_(world)
+
     def _full_params(self, state: LMTrainState):
-        """The parameter tree (FSDP: gathered, a collective)."""
+        """The canonical parameter tree (FSDP: gathered; expert leaves
+        gathered over ep; a collective)."""
         if self.is_fsdp:
             return tree_unflatten(self._skeleton, self.layout.gather(
                 state.params.detach()))
+        if self.ep > 1:
+            return tree_unflatten(self._skeleton, [
+                self._gather_ep(p, stack=False)
+                if i in self._expert_leaves else p
+                for i, p in enumerate(tree_leaves(state.params))])
         return state.params
 
     def _full_opt(self, state: LMTrainState) -> dict:
-        """The optimizer state with full leaves in parameter order (the
-        sharded layouts gathered, a collective)."""
-        if self.layout is None:
+        """The optimizer state with canonical leaves in parameter order
+        (the sharded layouts gathered, a collective). At ep > 1 a slot of
+        an expert leaf shaped like the leaf is concatenated over ep, a
+        reduced one (Adafactor's) stacked on a leading ep axis, and a
+        ``(1,)`` placeholder stays one."""
+        if self.layout is not None:
+            return self.layout.full_opt(state.opt_state)
+        if self.ep == 1:
             return state.opt_state
-        return self.layout.full_opt(state.opt_state)
+        params = tree_leaves(state.params)
+        out = {}
+        for k, v in state.opt_state.items():
+            if k == "count":
+                out[k] = v
+                continue
+            out[k] = [self._gather_ep(t, stack=t.shape != params[i].shape)
+                      if i in self._expert_leaves and tuple(t.shape) != (1,)
+                      else t for i, t in enumerate(v)]
+        return out
 
     def params_to_host(self, state: LMTrainState):
         """The parameters as the JAX package's tree of numpy arrays."""
         from tpu_ddp_torch.convert import params_to_jax
         return params_to_jax(self._full_params(state))
+
+    def route_stats(self, state: LMTrainState, tokens) -> list:
+        """Routing-health counters on the current weights, one dict per
+        MoE layer (``dropped_frac``, ``expert_load`` (E,), ``imbalance``,
+        numpy), [] for a dense model: one deterministic trunk pass of the
+        canonical model on the canonical parameters, the same numbers
+        from every layout and ep (JAX ``LMTrainer.route_stats``). A
+        collective under a sharded layout or ep > 1."""
+        if not self.model.moe_experts:
+            return []
+        params = self._full_params(state)
+        tokens = torch.as_tensor(np.asarray(tokens, np.int64),
+                                 device=self.device)
+        stats = self.canonical_model.route_stats(params, tokens)
+        return [{k: v.cpu().numpy() for k, v in layer.items()}
+                for layer in stats]
 
     # ---- checkpoint / resume (tpu_ddp/train/lm.py:218-300) -------------
 
@@ -403,16 +592,20 @@ class LMTrainer:
         tp 1 (all ``None``)."""
         from tpu_ddp_torch.parallel.redistribute import P, ShardingPlan
 
+        moe = bool(self.model.moe_experts)
+
         def spec(name, node, repl=False):
             if isinstance(node, dict):
                 return {k: spec(k, v, repl) for k, v in node.items()}
             if isinstance(node, tuple) and node and isinstance(node[0],
                                                                dict):
                 return tuple(spec(name, b, repl) for b in node)
+            if moe and name in ("w1", "w2") and not repl:
+                return P("ep" if self.ep > 1 else None, None, None)
             blk = name in ("wqkv", "wq", "wkv", "wo", "w1", "w2")
             return P(*[None] * len(node)) if blk and not repl else P()
 
-        shapes = self.model.param_shapes()
+        shapes = self.canonical_model.param_shapes()
         params = spec("", shapes)
         # Bare Adafactor's state is replicated, reduced shapes and all;
         # the other slots mirror their parameter's spec. ZeRO's flat
@@ -437,7 +630,7 @@ class LMTrainer:
         return ShardingPlan(
             strategy=strategy,
             mesh_axes=(("dp", self.dp), ("sp", 1), ("mp", 1), ("pp", 1),
-                       ("ep", 1)),
+                       ("ep", self.ep)),
             param_specs=params, opt_specs=opt,
             batch_spec=P(("dp", "ep"), "sp"))
 
@@ -490,7 +683,7 @@ class LMTrainer:
             restore_newest_verified
         from tpu_ddp_torch.utils import checkpoint as ckpt
         warn_if_incompatible(directory, self.sharding_plan())
-        layout = self.model.param_shapes()
+        layout = self.canonical_model.param_shapes()
 
         def tree(node, leaf):
             if isinstance(node, dict):
@@ -502,8 +695,7 @@ class LMTrainer:
 
         params = tree(layout, ckpt.shape_leaf)
         opt = {}
-        for k, shapes in opt_slot_shapes(self.optimizer,
-                                         shape_leaves(layout)).items():
+        for k, shapes in self._canonical_slot_shapes().items():
             it = iter(shapes)
             opt[k] = tree(layout, lambda _: ckpt.shape_leaf(next(it)))
         if _has_count(self.optimizer):
@@ -521,9 +713,13 @@ class LMTrainer:
         tree onto this trainer's device, sharded for its layout and dp
         whatever the saving world's."""
         from tpu_ddp_torch.convert import opt_state_from_jax, params_from_jax
-        params = params_from_jax(self.model, host["params"], self.device)
-        opt_state = opt_state_from_jax(self.model, self.optimizer,
-                                       host["opt_state"], self.device)
+        params = self._local_params(params_from_jax(
+            self.canonical_model, host["params"], self.device))
+        if self.ep > 1:
+            opt_state = self._local_opt_from_host(host["opt_state"])
+        else:
+            opt_state = opt_state_from_jax(self.model, self.optimizer,
+                                           host["opt_state"], self.device)
         if self.layout is not None:
             # Re-shard the canonical leaves for this trainer's dp.
             opt_state = self.layout.local_opt(opt_state)
@@ -531,5 +727,52 @@ class LMTrainer:
                 params = self.layout.local_shards(tree_leaves(params))[0]
         for p in ([params] if self.is_fsdp else tree_leaves(params)):
             p.requires_grad_(True)
-        return LMTrainState(params=params, step=int(host["step"]),
-                            opt_state=opt_state)
+        return self._with_step_t(LMTrainState(
+            params=params, step=int(host["step"]), opt_state=opt_state))
+
+    def _canonical_slot_shapes(self) -> dict:
+        """Each optimizer slot's canonical leaf shapes (the checkpoint's):
+        at ep > 1 an expert leaf's slot shaped like the leaf has E rows, a
+        reduced one a leading ep axis."""
+        local = shape_leaves(self._shapes)
+        out = opt_slot_shapes(self.optimizer, local)
+        if self.ep == 1:
+            return out
+        E = self.model.moe_experts
+        for k, shapes in out.items():
+            out[k] = [((E,) + tuple(s)[1:] if tuple(s) == tuple(local[i])
+                       else (self.ep,) + tuple(s))
+                      if i in self._expert_leaves and tuple(s) != (1,)
+                      else s for i, s in enumerate(shapes)]
+        return out
+
+    def _local_opt_from_host(self, opt_host: dict) -> dict:
+        """A canonical optimizer state (ep > 1) as this process's slices:
+        checked against :meth:`_canonical_slot_shapes`, expert rows or
+        the ep entry cut out, placed on the device."""
+        layout = self.canonical_model.param_shapes()
+        e_loc = self.model.moe_experts // self.ep
+        lo = self.ep_index * e_loc
+        local = shape_leaves(self._shapes)
+        local_slots = opt_slot_shapes(self.optimizer, local)
+        out = {}
+        for k, want in self._canonical_slot_shapes().items():
+            got = _leaves_like(f"opt_state/{k}", layout, opt_host[k])
+            leaves = []
+            for i, (g, w) in enumerate(zip(got, want)):
+                g = np.asarray(g, np.float32)
+                if tuple(g.shape) != tuple(w):
+                    raise ValueError(f"opt_state/{k}/{i}: expected shape "
+                                     f"{tuple(w)}, got {tuple(g.shape)}")
+                s = tuple(local_slots[k][i])
+                if i in self._expert_leaves and s != (1,):
+                    g = (g[lo:lo + e_loc] if s == tuple(local[i])
+                         else g[self.ep_index])
+                leaves.append(torch.as_tensor(np.array(g)).to(
+                    device=self.device, dtype=self.model.param_dtype))
+            out[k] = leaves
+        if "count" in opt_host:
+            out["count"] = torch.tensor(int(np.asarray(opt_host["count"])),
+                                        dtype=torch.int32,
+                                        device=self.device)
+        return out

@@ -241,18 +241,38 @@ KNOBS: tuple[Knob, ...] = (
              "axis of extent >= 2; the port serves on one card, so "
              "TrainConfig refuses anything but 'off' (ROADMAP Queue 1 "
              "item 10.5) and the launcher refuses --cp-prefill"),
+    # Mixture-of-experts knobs (parallel/moe.py): all three change what
+    # the model computes (an architecture, a routing distribution), so
+    # all are semantic. The LM CLI reads them (examples/lm_train.py); the
+    # tuner's trials train the image ladder, so it never searches them
+    # (_NOT_IN_TRIALS).
+    Knob("moe_experts", "moe_experts", "TPU_DDP_MOE_EXPERTS",
+         values=(0, 4, 8), flag="--moe-experts", semantic=True,
+         doc="experts per MoE MLP layer (0 = dense): parameters grow "
+             "about linearly in E at per-token FLOPs that track top_k; "
+             "an ep > 1 world must divide E"),
+    Knob("moe_top_k", "moe_top_k", "TPU_DDP_MOE_TOP_K",
+         values=(1, 2), flag="--moe-top-k", semantic=True,
+         doc="routed experts per token: 1 = Switch routing (raw-prob "
+             "gate), 2 = GShard (renormalised gates, shared capacity "
+             "queues); topk_route rejects top_k > experts"),
+    Knob("moe_capacity", "moe_capacity", "TPU_DDP_MOE_CAPACITY",
+         values=(1.0, 1.25, 2.0), flag="--moe-capacity", semantic=True,
+         doc="expert capacity factor: slots per expert = "
+             "ceil(T * capacity * top_k / E). Higher drops fewer "
+             "assignments (route_stats' dropped_frac) at more padded "
+             "expert compute; changes which tokens the experts see, "
+             "so semantic"),
 )
 
 # The JAX package's knobs that the port does not carry yet -> the
 # ROADMAP Queue 1 item that ports them (their env variables are refused
 # by utils/config.py:_UNPORTED_ENV).
 _PIPELINE = "item 10.7 (parallel/pipeline.py)"
-_MOE = "item 10.8 (parallel/moe.py)"
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_KNOBS = {
     "pp_schedule": _PIPELINE, "pp_microbatches": _PIPELINE,
     "pp_virtual": _PIPELINE,
-    "moe_experts": _MOE, "moe_top_k": _MOE, "moe_capacity": _MOE,
     **{name: _FLEET for name in (
         "fleet_roles", "router_policy", "kv_wire", "fleet_health",
         "fleet_probe_backoff_ms", "fleet_step_deadline_ms",
@@ -283,6 +303,12 @@ def space_version() -> str:
         json.dumps(payload, sort_keys=True).encode()).hexdigest()[:12]
 
 
+# Knobs that no trial reads: the trials build the image ladder's trainer
+# (runner.py, models.get_model), which has no routed layer, while the MoE
+# knobs configure the LM. They keep their constraint rules (violations).
+_NOT_IN_TRIALS = frozenset({"moe_experts", "moe_top_k", "moe_capacity"})
+
+
 @dataclasses.dataclass(frozen=True)
 class Workload:
     """The static context constraints are evaluated against."""
@@ -300,7 +326,8 @@ class Workload:
     # and the pipeline rules stay inert.
     pp: int = 1
     model_layers: int = 0
-    # Expert-parallel extent: 1 in the port (item 10.8).
+    # Expert-parallel extent: 1 until a launcher runs ep > 1 (LMTrainer
+    # takes ep; the tuned ladder has no ep axis).
     ep: int = 1
 
 
@@ -606,8 +633,9 @@ def searchable_knobs(cfg, ctx: Workload,
     ``(knob, candidate_values)`` with the config's CURRENT value always
     first (the search must be able to keep it). Knobs are dropped when
     the constraint model leaves fewer than two candidates (e.g. the
-    kernel knobs off the card) or when ``only`` (the parsed
-    ``TPU_DDP_TUNE_KNOBS`` filter) excludes them. The space is
+    kernel knobs off the card), when ``only`` (the parsed
+    ``TPU_DDP_TUNE_KNOBS`` filter) excludes them, or when no trial reads
+    them (the MoE knobs). The space is
     ``objective``-scoped: the training search ("step_time", the
     default) never sees the serving knobs. Per-value feasibility is
     checked with the other knobs at their config values; the search
@@ -625,6 +653,8 @@ def searchable_knobs(cfg, ctx: Workload,
         if only is not None and knob.name not in only:
             continue
         if knob.semantic and not include_semantic:
+            continue
+        if knob.name in _NOT_IN_TRIALS:
             continue
         if os.environ.get(knob.env):
             # An explicit TPU_DDP_* pin is the user overriding this

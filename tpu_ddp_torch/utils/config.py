@@ -3,7 +3,8 @@
 models and datasets, the training ladder with its gradient wires and
 bucketed overlap, checkpoints, the step guard, elastic membership, the
 memory policy, the loop's host side: the dispatch window, K steps per
-dispatch and device prefetch, and the autotuner's mode), with the same
+dispatch and device prefetch, the autotuner's mode, the MoE knobs), with
+the same
 names, defaults, ``TPU_DDP_*`` env variables and validation, so a knob
 means the same thing in both packages.
 
@@ -39,9 +40,6 @@ _UNPORTED_ENV = {
     "TPU_DDP_PP_MICROBATCHES": (("0",),
                                 "item 10.7 (parallel/pipeline.py)"),
     "TPU_DDP_PP_VIRTUAL": (("1",), "item 10.7 (parallel/pipeline.py)"),
-    "TPU_DDP_MOE_EXPERTS": (("0",), "item 10.8 (parallel/moe.py)"),
-    "TPU_DDP_MOE_TOP_K": (("1",), "item 10.8 (parallel/moe.py)"),
-    "TPU_DDP_MOE_CAPACITY": (("1.25",), "item 10.8 (parallel/moe.py)"),
     "TPU_DDP_FLEET_ROLES": (("single",), _FLEET),
     "TPU_DDP_ROUTER_POLICY": (("least-loaded",), _FLEET),
     "TPU_DDP_KV_WIRE": (("none",), _FLEET),
@@ -230,6 +228,19 @@ class TrainConfig:
     # TPU_DDP_TUNE_SEMANTIC=1 (tune/space.py).
     autotune: str = "off"
 
+    # Mixture of experts (parallel/moe.py), read by the LM CLI
+    # (examples/lm_train.py), which sets them over its preset's where
+    # their env is set. Experts per MoE MLP layer (0 = dense).
+    # Env: TPU_DDP_MOE_EXPERTS.
+    moe_experts: int = 0
+    # Routed experts per token: 1 = Switch, 2 = GShard. The model layer
+    # checks top_k <= experts where the expert count is known.
+    # Env: TPU_DDP_MOE_TOP_K.
+    moe_top_k: int = 1
+    # Expert capacity factor: slots per expert =
+    # ceil(T * capacity * top_k / E). Env: TPU_DDP_MOE_CAPACITY.
+    moe_capacity: float = 1.25
+
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
     serve_slots: int = 8
@@ -331,6 +342,26 @@ class TrainConfig:
             raise ValueError(
                 f"autotune={self.autotune!r}: expected off|cached|search "
                 "(TPU_DDP_AUTOTUNE)")
+        self.moe_experts = _env_num(
+            "TPU_DDP_MOE_EXPERTS", int, self.moe_experts)
+        if self.moe_experts < 0:
+            raise ValueError(
+                f"moe_experts must be >= 0 (0 = dense), got "
+                f"{self.moe_experts} (TPU_DDP_MOE_EXPERTS)")
+        self.moe_top_k = _env_num(
+            "TPU_DDP_MOE_TOP_K", int, self.moe_top_k)
+        if self.moe_top_k < 1:
+            raise ValueError(
+                f"moe_top_k must be >= 1, got {self.moe_top_k} "
+                "(TPU_DDP_MOE_TOP_K)")
+        # top_k <= experts needs both knobs: checked in the model layer
+        # (topk_route) and in tune/space.py violations.
+        self.moe_capacity = _env_num(
+            "TPU_DDP_MOE_CAPACITY", float, self.moe_capacity)
+        if not self.moe_capacity > 0:  # also rejects NaN
+            raise ValueError(
+                f"moe_capacity must be > 0, got {self.moe_capacity} "
+                "(TPU_DDP_MOE_CAPACITY)")
         env_gc = os.environ.get("TPU_DDP_GRAD_COMPRESS")
         if env_gc:
             self.grad_compress = env_gc
