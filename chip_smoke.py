@@ -50,8 +50,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    reductions: every output NaN exactly where the plain version's is and
    within the bounds above elsewhere.
    The two reductions run their one-pass route (``stats_route``) and,
-   forced, their two-stage route (the previous design), both held to the
-   same bounds; at each VGG-11 shape two one-pass launches, and a third
+   forced, their two-stage route (the previous design), and dx its
+   one-wave route (``dx_route``) and, forced, the row-blocks kernel (the
+   previous design), all held to the same bounds; at each VGG-11 shape
+   two one-pass launches, and a third
    after a launch at another shape (the arrival counters' reset), must
    give the same bits. Each kernel is timed beside its bound, its plain
    version and one library call for the same pass, SyncBatchNorm's CUDA
@@ -65,7 +67,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    and forward+backward. The op computes its own statistics, so an
    element at the ReLU's edge may take the other side: dx is held away
    from the edge, dbias and dscale with those elements' terms taken out
-   (both counted);
+   (both counted). Kernel 9's two designs and ``batch_norm_backward_elemt``
+   are timed in turns, five rounds of one trace each on the same cycled
+   copies: the median and spread per VGG-11 step;
 8. the fused SGD kernel against its plain version on a few odd leaves
    and on VGG-11's 34 leaves over 3 steps: params and momentum bit for
    bit equal; timed beside its bound, the plain version and
@@ -155,34 +159,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    together;
 18. fault tolerance on VGG-11 at batch 256, both kernels, through
    ``run_part("part1")`` and the ``Trainer`` it drives, cuDNN in
-   deterministic mode (no autotuning) for steps 1-4 only: (1) 40
-   iterations straight, against 20 with ``TPU_DDP_CKPT_EVERY=20`` and 20
-   more resumed with ``--resume`` in a fresh ``Trainer``: the step-40
-   checkpoints' sha256 digests equal leaf for leaf; (2) ``nan-grad@25``:
-   exactly step 25 skipped, its loss NaN (as on the CPU), params and
-   momentum digests equal before and after it, the loss finite again at
-   step 26; (3) ``nan-grad@p1.0`` with
+   deterministic mode (no autotuning) for steps 1-4 only, on 5,120
+   synthetic images: (1) 20 iterations straight, against 10 with
+   ``TPU_DDP_CKPT_EVERY=10`` and 10 more resumed with ``--resume`` in a
+   fresh ``Trainer``: the step-20 checkpoints' sha256 digests equal leaf
+   for leaf; (2) ``nan-grad@13``: exactly step 13 skipped, its loss NaN
+   (as on the CPU), params and momentum digests equal before and after
+   it, the loss finite again at step 14; (3) ``nan-grad@p1.0`` with
    ``TPU_DDP_GUARD_MAX_BAD=3``: ``TrainingDivergedError`` at step 3, the
    state unchanged; (4) ``corrupt-ckpt@20``: the newest checkpoint
    quarantined to ``step_00000020.corrupt`` and step 10 restored by the
-   next ``--resume``; (5) the iteration time (1-39) with the guard on
-   (the default) and with ``TPU_DDP_GUARD=0``, in turns (on, off, off,
-   on), and the save and verified-restore times of the 74 MB state;
+   next ``--resume``; (5) the iteration time (1-39) of one trainer's
+   epochs with the guard on (the default) and off, and the save and
+   verified-restore times of the 74 MB state;
 19. the restarting launcher on the card: ``python -m tpu_ddp_torch.launch
    part1 --nproc 1 --max-restarts 1 --ckpt-dir D`` with a chaos
-   ``hard-exit@30``, a sentinel directory, 40 iterations, checkpoints
-   every 20 and ``TPU_DDP_CUDNN_DETERMINISTIC=1``: exactly one restart,
-   the second attempt resumes at step 20, the run exits 0 and prints
-   ``Test set:``, every logged loss is finite, and the step-40 checkpoint
-   equals phase 18's straight run digest for digest;
+   ``hard-exit@15``, a sentinel directory, 20 iterations on 5,120
+   images, checkpoints every 10 and ``TPU_DDP_CUDNN_DETERMINISTIC=1``:
+   exactly one restart, the second attempt resumes at step 10, the run
+   exits 0 and prints ``Test set:``, every logged loss is finite, and the
+   step-20 checkpoint equals phase 18's straight run digest for digest;
 20. the LM trainer's checkpoint at full width: TransformerLM-large
    (735,154,176 params) with its AdamW state after phase 15's steps is
    saved (8.8 GB: f32 params, mu and nu; free disk checked first, at
    least twice that) and, after the first trainer is freed, restored
    into a fresh ``LMTrainer``: the next step's loss bit-identical to the
-   original trainer's next step on the same batch (the second step's
-   equality reported); save and restore seconds and GB/s; the checkpoint
-   and a host copy of its params stay for phase 25.
+   original trainer's next step on the same batch; save and restore
+   seconds and GB/s; the checkpoint and a host copy of its params stay
+   for phase 25.
 
 Phases 21-26 serve TransformerLM-large at full width and depth (seed
 weights, ``decode_quant="int8"`` unless a phase says otherwise) through
@@ -313,21 +317,35 @@ Phases 35-37 run the image trainer's last model families:
    launches the same bits, NaN kept at the stem's shape; each kernel
    timed beside its bound, its plain version and SyncBatchNorm's
    primitive, and the op's casts (bf16 -> f32 x and g, f32 -> bf16 y and
-   dx), summed per step over the 33 sites;
+   dx), summed per step over the 33 sites. Then the backward pair on the
+   bf16 rows as they are (the op's backward on bf16 activations): dbias,
+   dscale and dx bit for bit the f32 route on the upcast rows plus the
+   cast (NaN compared by position), the same bits on two launches and
+   after a launch at another shape, the bit gate catching both planted
+   faults, NaN kept at the stem's shape; each kernel timed beside its
+   bound in bf16 bytes (6 per element for dx, 4 for the reduction) and
+   SyncBatchNorm's primitive on the same bf16 rows, and the op's
+   backward on the bf16 rows and with the f32 route forced;
 36. ResNet-50 (``resnet50_imagenet``: 25,557,032 params, batch 256,
    224x224, 1000 classes, bf16) through ``run_part("part1")`` with both
    kernels on the synthetic ImageNet stand-in (2048 train images, 8
    steps; 512 val, 2 batches): finite losses, the ``Test set:`` line, and
    the launch counts exact from 0 (``bn_stats``/``bn_norm_relu`` 330 on
-   the one-pass route, ``bn_bwd_stats``/``bn_bwd_dx`` 264, SGD 24: three
-   launches per step over 161 leaves); the SGD kernel over those 161
+   the one-pass route, ``bn_bwd_stats``/``bn_bwd_dx`` 264 on their bf16
+   routes and none on f32, SGD 24: three launches per step over 161
+   leaves); the SGD kernel over those 161
    leaves bit for bit with its plain version, every launch of a skipped
    step writing nothing; then a ``Trainer`` on one staged batch: ms per
    step over 10 steps after 2, images/s, MFU (3 x forward FLOPs / step
    time / 989e12), peak memory and a 5-step profiler window (idle share,
    top kernels, the ported kernels' and the copy kernels' ms per step);
-   one step through the kernels against the plain versions with phase
-   11's bounds; one step under ``remat="blocks"``: 65 launches of each
+   ms per step with the op's backward on the f32 route forced and on the
+   bf16 rows again, in turns; one step through the kernels against the
+   plain versions with phase 11's bounds; one step on each backward
+   route from the same state, cuDNN deterministic, and the bf16 one
+   again: the loss, every gradient and every parameter the same bits,
+   33 launches of each backward kernel on the route's dtype and none on
+   the other; one step under ``remat="blocks"``: 65 launches of each
    forward BN kernel (the stem outside every block), 33 of each backward
    one, the loss within 1e-5 relative of ``"none"``;
 37. ViT: ``vit_cifar10`` through ``run_part("part1")`` with the SGD
@@ -400,7 +418,7 @@ Phases 35-37 run the image trainer's last model families:
    written in place); part 1 under ``remat="conv_stages"`` with the
    recompute's 128 forward BN launches; a poisoned batch inside a part-3
    group skipped alone; ms per iteration through ``train_epoch`` at
-   K = 1 and 4 for parts 3, 4 and 5 with the capture's ms and a traced
+   K = 1 and 4 for part 3 with the capture's ms and a traced 12-step
    window's idle share; then LM-large (AdamW, flash, block remat, no
    dropout) at K = 2 through ``LMTrainer.build_multi_step``, replicated
    and zero1: the bits of 2 eager steps, the flash launches exact at
@@ -514,11 +532,14 @@ BN_NAN_SHAPES = [(4096, 512), (999, 96), (300, 3)]
 BN_BITS_OTHER = (999, 96)
 # Odd SGD leaves beside VGG-11's: one element, ragged chunks, odd sizes.
 SGD_EDGE_SHAPES = [(1,), (7, 13), (4099,), (100001,)]
-# Bytes each BN kernel moves per element (f32 rows in and out) and its
-# flops per element: stats reads x; norm reads x, writes y; bwd_stats
-# reads x, g; bwd_dx reads x, g, writes dx.
-BN_BYTES_PER_ELEM = {"bn_stats": 4, "bn_norm_relu": 8, "bn_bwd_stats": 8,
-                     "bn_bwd_dx": 12}
+# Bytes each BN kernel moves per element, by the rows' dtype (f32 rows
+# for every kernel, bf16 rows for the backward pair), and its flops per
+# element: stats reads x; norm reads x, writes y; bwd_stats reads x, g;
+# bwd_dx reads x, g, writes dx.
+BN_BYTES_PER_ELEM = {
+    torch.float32: {"bn_stats": 4, "bn_norm_relu": 8, "bn_bwd_stats": 8,
+                    "bn_bwd_dx": 12},
+    torch.bfloat16: {"bn_bwd_stats": 4, "bn_bwd_dx": 6}}
 BN_FLOPS_PER_ELEM = {"bn_stats": 3, "bn_norm_relu": 4, "bn_bwd_stats": 8,
                      "bn_bwd_dx": 10}
 # Per-channel vectors each BN kernel reads and writes (f32).
@@ -663,6 +684,31 @@ def timed(fn, args_list, reps: int) -> dict:
     dv = device_ms(fn, args_list, reps)
     return {"device_ms": dv, "event_ms": ev,
             "ms": dv if dv is not None else ev}
+
+
+def graph_ms(fn, args_list, calls: int, replays: int = 3) -> float:
+    """Device ms per call of ``fn`` without the host or the profiler:
+    ``calls`` calls cycling through ``args_list``, captured as one CUDA
+    graph after an eager pass over ``args_list``, replayed once untimed
+    and then ``replays`` times between two CUDA events. The replay runs
+    the captured kernels back to back, as a step's stream does."""
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (replays * calls)
 
 
 # Edge shapes (M, K, N, dtype) beside LARGE_SHAPES: one row, M in {5,
@@ -1007,13 +1053,22 @@ def _bn_inputs(r, c, gen, dev):
     return x, g, s, b
 
 
-def _two_stage_errors(tb, x, g, s, b):
-    """The two reductions' errors with the two-stage route forced (the
-    previous design), against the same bounds as the one-pass route."""
-    with _force(tb, "stats_route", "two_stage"):
+@contextlib.contextmanager
+def _previous_designs(tb):
+    """The BN kernels' previous designs forced: the two-stage reductions
+    and the row-blocks dx kernel (f32 rows only)."""
+    with _force(tb, "stats_route", "two_stage"), \
+            _force(tb, "dx_route", "row_blocks"):
+        yield
+
+
+def _previous_errors(tb, x, g, s, b):
+    """The errors of the two reductions and of dx with the previous
+    designs forced, against the same bounds as the main routes."""
+    with _previous_designs(tb):
         errs, _ = _bn_kernel_errors(tb, x, g, s, b)
     return {k: v for k, v in errs.items()
-            if k.startswith(("bn_stats", "bn_bwd_stats"))}
+            if k.startswith(("bn_stats", "bn_bwd_stats", "bn_bwd_dx"))}
 
 
 def _stats_bits(tb, x, g, s, b, other) -> bool:
@@ -1085,6 +1140,57 @@ def _bn_nan_errors(tb, x, g, s, b) -> dict:
     return out
 
 
+# Kernel 9's same-run comparison at VGG: rounds of the one-wave kernel,
+# the row-blocks kernel and batch_norm_backward_elemt in turns.
+DX_ROUNDS = 5
+
+
+def _dx_rounds(tb, turns, calls: int) -> dict:
+    """Kernel 9's two designs and ``batch_norm_backward_elemt`` timed in
+    turns over VGG-11's conv outputs. ``turns`` holds, per shape, (units,
+    the kernel's argument tuples, the library call's), each list cycling
+    through copies of the rows. Each of the three is captured as one CUDA
+    graph of ``calls`` x units calls at every shape; each of DX_ROUNDS
+    rounds replays the three, in an order that rotates from round to
+    round, each between CUDA events (as :func:`graph_ms`). ms per VGG-11
+    step of each, by round, with the median and spread."""
+    def run(name, per_unit):
+        fn = (torch.batch_norm_backward_elemt if name == "library"
+              else tb.bn_bwd_dx)
+        with (_force(tb, "dx_route", "row_blocks") if name == "row_blocks"
+              else contextlib.nullcontext()):
+            for units, dx_args, lib_args in turns:
+                a = lib_args if name == "library" else dx_args
+                for i in range(units * per_unit):
+                    fn(*a[i % len(a)])
+
+    names = ("one_wave", "row_blocks", "library")
+    graphs = {}
+    for name in names:
+        run(name, 1)
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            run(name, calls)
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    per_round = {n: [] for n in names}
+    for rnd in range(DX_ROUNDS):
+        for name in names[rnd % 3:] + names[:rnd % 3]:
+            e0.record()
+            for _ in range(3):
+                graphs[name].replay()
+            e1.record()
+            torch.cuda.synchronize()
+            per_round[name].append(e0.elapsed_time(e1) / (3 * calls))
+    return {n: {"median_ms": sorted(v)[DX_ROUNDS // 2], "min_ms": min(v),
+                "max_ms": max(v), "per_round_ms": v,
+                "timing": "cuda-graph events"}
+            for n, v in per_round.items()}
+
+
 def _fail_on(errs, where):
     for what, (err, tol) in errs.items():
         if not (math.isfinite(err) and err <= tol):
@@ -1095,7 +1201,9 @@ def _fail_on(errs, where):
 def check_bn(dev, gen) -> dict:
     """Phase 7: the four BN+ReLU kernels at VGG-11's eight conv outputs,
     and at a few small shapes that take the kernels' other paths (C not a
-    multiple of 4, rows not a multiple of a block)."""
+    multiple of 4, rows not a multiple of a block), each on its main route
+    and its previous design; kernel 9's two designs and the library call
+    timed in turns (:func:`_dx_rounds`)."""
     import torch.nn.functional as F
 
     from tpu_ddp_torch.ops import bn_relu as tb
@@ -1105,7 +1213,7 @@ def check_bn(dev, gen) -> dict:
         x, g, s, b = _bn_inputs(r, c, gen, dev)
         errs, _ = _bn_kernel_errors(tb, x, g, s, b)
         _fail_on(errs, f"R={r} C={c}")
-        was = _two_stage_errors(tb, x, g, s, b)
+        was = _previous_errors(tb, x, g, s, b)
         _fail_on(was, f"R={r} C={c} (two_stage)")
         edge[f"{r}x{c}"] = {k: v[0] for k, v in errs.items()}
         edge[f"{r}x{c}"]["two_stage"] = {k: v[0] for k, v in was.items()}
@@ -1122,7 +1230,8 @@ def check_bn(dev, gen) -> dict:
                 x[r // 3, ::3] = float("nan")
                 g[r // 2, 1::3] = float("nan")
             for route in ("one_pass", "two_stage"):
-                with _force(tb, "stats_route", route):
+                with (_previous_designs(tb) if route == "two_stage"
+                      else contextlib.nullcontext()):
                     res = _bn_nan_errors(tb, x, g, s, b)
                 nan_cases[f"{r}x{c}/{kind}/{route}"] = {
                     k: {"plain_nans": v[0], "err": v[1]}
@@ -1131,7 +1240,7 @@ def check_bn(dev, gen) -> dict:
                "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
                "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
                "bn_bwd_dx": (tb.bn_bwd_dx, tb.bn_bwd_dx_ref)}
-    shapes = []
+    shapes, dx_turns = [], []
     for (r, c), units in BN_SHAPES:
         n_el = r * c
         side = int(math.isqrt(r // 256))
@@ -1144,7 +1253,7 @@ def check_bn(dev, gen) -> dict:
         b = 0.1 * torch.randn(c, generator=gen, device=dev)
         x, g = xs[0], gs[0]
         errs, (mean, inv, y, db, ds, dx) = _bn_kernel_errors(tb, x, g, s, b)
-        was = _two_stage_errors(tb, x, g, s, b)
+        was = _previous_errors(tb, x, g, s, b)
         _fail_on(was, f"R={r} C={c} (two_stage)")
         if not _stats_bits(tb, x, g, s, b, other):
             fail(f"two launches of the one-pass reductions differ at R={r} "
@@ -1219,15 +1328,15 @@ def check_bn(dev, gen) -> dict:
             k_t = timed(kern, args[name], reps)
             p_t = timed(plain, args[name], max(4, reps // 4))
             bound, by = _bound(
-                BN_BYTES_PER_ELEM[name] * n_el
+                BN_BYTES_PER_ELEM[torch.float32][name] * n_el
                 + 4 * BN_CHAN_VECTORS[name] * c,
                 BN_FLOPS_PER_ELEM[name] * n_el)
             row[name] = {"ms": k_t["ms"], "event_ms": k_t["event_ms"],
                          "plain_ms": p_t["ms"], "bound_ms": bound,
                          "bound_by": by,
                          "timing": _timing_label(k_t, p_t)}
-            if name in ("bn_stats", "bn_bwd_stats"):
-                with _force(tb, "stats_route", "two_stage"):
+            if name in ("bn_stats", "bn_bwd_stats", "bn_bwd_dx"):
+                with _previous_designs(tb):
                     row[name]["was_ms"] = timed(kern, args[name], reps)["ms"]
         # Library calls for the same passes: SyncBatchNorm's CUDA
         # primitives (batch_norm_stats: mean and invstd; var_mean beside
@@ -1252,6 +1361,9 @@ def check_bn(dev, gen) -> dict:
         }
         for name, (fn, largs) in libs.items():
             row[name]["library_ms"] = timed(fn, largs, reps)["ms"]
+        dx_turns.append((units, args["bn_bwd_dx"], [
+            (gm, xi, mean, inv, s, db, sum_dy_xmu, count)
+            for xi, gm in zip(xs, gms)]))
 
         def var_mean(t):
             return torch.var_mean(t, dim=0, correction=0)
@@ -1327,10 +1439,9 @@ def check_bn(dev, gen) -> dict:
     out = {"shapes": shapes, "edge_shapes": edge, "nan_cases": nan_cases,
            "kernels": {}}
     for name in kernels:
-        bound_bytes = sum(row["units"] * (BN_BYTES_PER_ELEM[name] * row["r"]
-                                          * row["c"] + 4 * row["c"]
-                                          * BN_CHAN_VECTORS[name])
-                          for row in shapes)
+        bound_bytes = sum(row["units"] * (BN_BYTES_PER_ELEM[torch.float32][
+            name] * row["r"] * row["c"] + 4 * row["c"]
+            * BN_CHAN_VECTORS[name]) for row in shapes)
         bound_flops = sum(row["units"] * BN_FLOPS_PER_ELEM[name] * row["r"]
                           * row["c"] for row in shapes)
         bound, by = _bound(bound_bytes, bound_flops)
@@ -1339,7 +1450,7 @@ def check_bn(dev, gen) -> dict:
             "ms": per_step(name, "ms"), "plain_ms": per_step(name,
                                                              "plain_ms"),
             **({"was_ms": per_step(name, "was_ms")}
-               if name in ("bn_stats", "bn_bwd_stats") else {}),
+               if name != "bn_norm_relu" else {}),
             "event_ms": per_step(name, "event_ms"),
             "bound_ms": bound, "bound_by": by,
             "library_ms": per_step(name, "library_ms"),
@@ -1351,6 +1462,7 @@ def check_bn(dev, gen) -> dict:
                                        for row in shapes}))}
     for key in ("library_var_mean_ms", "read_all_ms"):
         out["kernels"]["bn_stats"][key] = per_step("bn_stats", key)
+    out["kernels"]["bn_bwd_dx"]["vgg_rounds"] = _dx_rounds(tb, dx_turns, 10)
     out["op_per_step"] = {k: per_step("op", k) for k in
                           ("fwd_ms", "fwd_bwd_ms", "library_fwd_ms",
                            "library_fwd_bwd_ms")}
@@ -1482,13 +1594,26 @@ TRAIN_ITERS = 40
 SYNTH_SIZE = 10240
 # Each VGG kernel wrapper's kernels by name in a trace (no name is a
 # substring of another wrapper's): for the two reductions, the one-pass
-# kernel and the two-stage pair.
+# kernel and the two-stage pair; for dx, the one-wave kernel and the
+# row-blocks one.
 VGG_KERNELS = {"bn_stats": ("bn_stats_onepass_kernel", "bn_stats_kernel",
                             "bn_stats_finish"),
                "bn_norm_relu": ("bn_norm_relu_kernel",),
                "bn_bwd_stats": ("bn_bwd_stats_onepass_kernel",
                                 "bn_bwd_stats_kernel", "bn_bwd_finish"),
-               "bn_bwd_dx": ("bn_bwd_dx_kernel",), "sgd": ("sgd_kernel",)}
+               "bn_bwd_dx": ("bn_bwd_dx_wave_kernel", "bn_bwd_dx_kernel"),
+               "sgd": ("sgd_kernel",)}
+
+
+def _bn_bwd_want(calls: int, bf16: bool = False) -> dict:
+    """The backward pair's exact counts: ``calls`` launches of each on its
+    main route, over bf16 rows (ResNet-50) or f32 rows (VGG), none on
+    the other dtype or on a previous design."""
+    sfx = "_bf16" if bf16 else ""
+    stats = {"one_pass": 0, "one_pass_bf16": 0, "two_stage": 0}
+    dx = {"one_wave": 0, "one_wave_bf16": 0, "row_blocks": 0}
+    stats["one_pass" + sfx] = dx["one_wave" + sfx] = calls
+    return {"bn_bwd_stats": stats, "bn_bwd_dx": dx}
 
 
 def train_part1(dev) -> dict:
@@ -1523,9 +1648,7 @@ def train_part1(dev) -> dict:
         fail("part1 printed no timer line")
     steps = TRAIN_ITERS
     eval_batches = math.ceil(int(test.group(3)) / 256)
-    want = {"sgd": steps,
-            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
-            "bn_bwd_dx": 8 * steps,
+    want = {"sgd": steps, **_bn_bwd_want(8 * steps),
             "bn_stats": {"one_pass": 8 * (steps + eval_batches),
                          "two_stage": 0},
             "bn_norm_relu": 8 * (steps + eval_batches)}
@@ -2479,6 +2602,15 @@ VGG_ENV = dict(TPU_DDP_PALLAS_SGD="1", TPU_DDP_PALLAS_BN="1",
                TPU_DDP_GUARD_MAX_BAD=None, TPU_DDP_CUDNN_DETERMINISTIC=None)
 
 
+# The drills of phases 18-19: VGG-11 steps per run (a checkpoint every
+# half), the synthetic images that feed them, the step phase 18 poisons
+# and the one phase 19's worker dies at.
+DRILL_ITERS = 20
+DRILL_SYNTH = DRILL_ITERS * 256
+DRILL_NAN_AT = 13
+DRILL_EXIT_AT = 15
+
+
 def _part1(dev, argv, **env) -> str:
     """``run_part("part1")`` on the card under VGG_ENV and ``env``; fails
     unless it returns 0 and prints a finite ``Test set:`` line."""
@@ -2525,30 +2657,35 @@ def vgg_resilience(dev) -> dict:
     from tpu_ddp_torch.utils.config import TrainConfig
     root = os.path.join(CKPT_ROOT, "vgg")
     res = {}
+    n, half, at = DRILL_ITERS, DRILL_ITERS // 2, DRILL_NAN_AT
+    drill = {"TPU_DDP_SYNTH_SIZE": str(DRILL_SYNTH)}
     with _deterministic_cudnn(), _env(**VGG_ENV):
-        # 1. 40 iterations straight, against 20 and 20 more resumed.
+        # 1. DRILL_ITERS iterations straight, against half and half more
+        # resumed.
         a, b = os.path.join(root, "straight"), os.path.join(root, "resumed")
-        out = _part1(dev, ["--ckpt-dir", a], TPU_DDP_MAX_ITERS=40,
-                     TPU_DDP_CKPT_EVERY=20)
-        res["deterministic_iter_ms"] = _timer_ms(out)
-        _part1(dev, ["--ckpt-dir", b], TPU_DDP_MAX_ITERS=20,
-               TPU_DDP_CKPT_EVERY=20)
-        out = _part1(dev, ["--ckpt-dir", b, "--resume"], TPU_DDP_MAX_ITERS=40,
-                     TPU_DDP_CKPT_EVERY=20)
-        if f"resumed from {b} at step 20 (epoch 0, iter 20)" not in out:
-            fail("phase 18: the resumed run did not pick up at step 20")
-        want = _step_digests(a, 40)
-        got = _step_digests(b, 40)
-        if got != want or ckpt.all_steps(a) != [20, 40]:
+        _part1(dev, ["--ckpt-dir", a], TPU_DDP_MAX_ITERS=n,
+               TPU_DDP_CKPT_EVERY=half, **drill)
+        _part1(dev, ["--ckpt-dir", b], TPU_DDP_MAX_ITERS=half,
+               TPU_DDP_CKPT_EVERY=half, **drill)
+        out = _part1(dev, ["--ckpt-dir", b, "--resume"], TPU_DDP_MAX_ITERS=n,
+                     TPU_DDP_CKPT_EVERY=half, **drill)
+        if f"resumed from {b} at step {half} (epoch 0, iter {half})" \
+                not in out:
+            fail(f"phase 18: the resumed run did not pick up at step {half}")
+        want = _step_digests(a, n)
+        got = _step_digests(b, n)
+        if got != want or ckpt.all_steps(a) != [half, n]:
             bad = sorted(k for k in want if got.get(k) != want[k])
             fail(f"phase 18: resumed VGG-11 differs from the straight run "
-                 f"at step 40 on {len(bad)} leaves: {bad[:4]}")
-        res["resume"] = {"leaves": len(want), "bitwise_equal": True}
+                 f"at step {n} on {len(bad)} leaves: {bad[:4]}")
+        res["resume"] = {"leaves": len(want), "bitwise_equal": True,
+                         "steps": n}
 
-        # 2. nan-grad@25: one step skipped, the state unchanged by it.
+        # 2. nan-grad at step DRILL_NAN_AT: one step skipped, the state
+        # unchanged by it.
         cfg = TrainConfig.preset("vgg11_cifar10")
         train, _ = create_data_loaders(batch_size=256,
-                                       synthetic_size=SYNTH_SIZE,
+                                       synthetic_size=(at + 1) * 256,
                                        seed=cfg.seed)
         cfg.pallas_sgd = cfg.pallas_bn = True
         model = get_model(cfg.model, use_pallas_bn=True,
@@ -2556,39 +2693,40 @@ def vgg_resilience(dev) -> dict:
         tr = Trainer(model, cfg, device=dev)
         state = tr.init_state()
         lines = []
-        with _env(TPU_DDP_CHAOS_FAULTS="nan-grad@25"):
+        with _env(TPU_DDP_CHAOS_FAULTS=f"nan-grad@{at}"):
             losses = []
-            for start, stop in ((0, 24), (24, 25), (25, 26)):
+            for start, stop in ((0, at - 1), (at - 1, at), (at, at + 1)):
                 tr.config.max_iters = stop
-                if stop == 25:
+                if stop == at:
                     before = _state_digests(tr, state)
                 state, stats = tr.train_epoch(state, train, start_iter=start,
                                               log=lines.append)
                 losses.append(stats["last_loss"])
-                if stop == 25:
+                if stop == at:
                     after = _state_digests(tr, state)
         skipped = [e["step"] for e in tr.metrics.events
                    if e["event"] == "step_skipped"]
-        if skipped != [25] or tr.guard.total_skipped != 1 \
-                or state.step != 26:
-            fail(f"phase 18: nan-grad@25 skipped steps {skipped}, "
+        if skipped != [at] or tr.guard.total_skipped != 1 \
+                or state.step != at + 1:
+            fail(f"phase 18: nan-grad@{at} skipped steps {skipped}, "
                  f"state at step {state.step}")
         if before != after:
-            fail("phase 18: the skipped step 25 changed params or momentum")
+            fail(f"phase 18: the skipped step {at} changed params or "
+                 f"momentum")
         if not math.isfinite(losses[2]):
-            fail(f"phase 18: the loss at step 26 is {losses[2]} (expected "
-                 f"finite again after the skipped step)")
+            fail(f"phase 18: the loss at step {at + 1} is {losses[2]} "
+                 f"(expected finite again after the skipped step)")
         # The poisoned step's loss is NaN, as on the CPU and in the JAX
         # package: the BN kernels keep a NaN variance and their ReLU keeps
         # a NaN (phase 7's NaN shapes hold them to the plain versions).
         if not math.isnan(losses[1]):
-            fail(f"phase 18: the poisoned step 25 read a loss of "
+            fail(f"phase 18: the poisoned step {at} read a loss of "
                  f"{losses[1]!r}, not NaN: a kernel on the forward path "
                  f"maps NaN to a finite value")
         res["nan_grad"] = {"skipped_steps": skipped,
                            "state_unchanged": True,
-                           "loss_step_25": str(losses[1]),
-                           "loss_step_26": losses[2]}
+                           "loss_poisoned_step": str(losses[1]),
+                           "loss_next_step": losses[2]}
 
         # 3. nan-grad on every step: TrainingDivergedError at the third.
         with _env(TPU_DDP_CHAOS_FAULTS="nan-grad@p1.0",
@@ -2616,9 +2754,9 @@ def vgg_resilience(dev) -> dict:
         c = os.path.join(root, "corrupt")
         _part1(dev, ["--ckpt-dir", c], TPU_DDP_MAX_ITERS=20,
                TPU_DDP_CKPT_EVERY=10,
-               TPU_DDP_CHAOS_FAULTS="corrupt-ckpt@20")
+               TPU_DDP_CHAOS_FAULTS="corrupt-ckpt@20", **drill)
         out = _part1(dev, ["--ckpt-dir", c, "--resume"], TPU_DDP_MAX_ITERS=20,
-                     TPU_DDP_CKPT_EVERY=10)
+                     TPU_DDP_CKPT_EVERY=10, **drill)
         if "[ckpt] step 20 failed verification" not in out \
                 or f"resumed from {c} at step 10" not in out \
                 or not os.path.isdir(os.path.join(c, "step_00000020"
@@ -2628,15 +2766,11 @@ def vgg_resilience(dev) -> dict:
         res["corrupt_ckpt"] = {"quarantined": "step_00000020.corrupt",
                                "restored_step": 10}
 
-    # 5. VGG-11 iteration time, guard on (the default) and off, in turns.
-    times = {"on": [], "off": []}
-    for guard in ("on", "off", "off", "on", "on", "off"):
-        out = _part1(dev, [], TPU_DDP_MAX_ITERS=40,
-                     TPU_DDP_GUARD=None if guard == "on" else "0")
-        times[guard].append(_timer_ms(out))
-    res["iter_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
-    res["iter_ms_runs"] = times
+    # 5. VGG-11 iteration time, guard on (the default) and off: one
+    # trainer's epochs in turns (the timer over iterations 1-39).
     res["guard_costs"] = _guard_costs(dev)
+    res["iter_ms"] = {k: sum(v) / len(v) for k, v in
+                      res["guard_costs"]["epoch_iter_ms"].items()}
 
     # Save and verified restore of the 74 MB VGG-11 state, alone.
     cfg = TrainConfig.preset("vgg11_cifar10")
@@ -2646,7 +2780,7 @@ def vgg_resilience(dev) -> dict:
     state = tr.init_state()
     d = os.path.join(root, "timing")
     save_s, restore_s = [], []
-    for rep in range(3):
+    for rep in range(2):
         state.step = rep + 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2658,7 +2792,7 @@ def vgg_resilience(dev) -> dict:
         restore_s.append(time.perf_counter() - t0)
         if back.step != rep + 1:
             fail("phase 18: the timed restore read the wrong step")
-    nbytes = os.path.getsize(os.path.join(d, "step_00000003",
+    nbytes = os.path.getsize(os.path.join(d, "step_00000002",
                                           "arrays.npz"))
     res["ckpt_io"] = {"bytes": nbytes, "save_s": min(save_s),
                       "restore_s": min(restore_s),
@@ -2689,12 +2823,12 @@ def _guard_costs(dev) -> dict:
                       compute_dtype=getattr(torch, cfg.compute_dtype))
     tr = Trainer(model, cfg, device=dev)
     state = tr.init_state()
-    train, _ = create_data_loaders(batch_size=256, synthetic_size=2560)
+    train, _ = create_data_loaders(batch_size=256, synthetic_size=1024)
     batches = [(x.to(dev), y.to(dev))
                for x, y in itertools.islice(iter(train), 4)]
     guard = tr.guard
     step_ms = {"on": [], "off": []}
-    for mode in ("on", "off", "off", "on"):
+    for mode in ("on", "off"):
         tr.guard = guard if mode == "on" else None
         for i in range(20):
             x, y = batches[i % 4]
@@ -2710,7 +2844,7 @@ def _guard_costs(dev) -> dict:
     tr.config.max_iters = TRAIN_ITERS
     train40, _ = create_data_loaders(batch_size=256,
                                      synthetic_size=SYNTH_SIZE)
-    for mode in ("on", "off", "off", "on"):
+    for mode in ("on", "off"):
         tr.guard = guard if mode == "on" else None
         state, stats = tr.train_epoch(state, train40, log=lambda _: None)
         epoch_ms[mode].append(stats["avg_iter_s"] * 1e3)
@@ -2748,16 +2882,18 @@ LAUNCH_TIMEOUT_S = 600
 def launcher_drill(dev, straight: dict) -> dict:
     """Phase 19: ``python -m tpu_ddp_torch.launch part1 --nproc 1
     --max-restarts 1 --ckpt-dir D`` on the card, a chaos hard-exit at step
-    30, 40 iterations, cuDNN deterministic: one restart, the resume at
-    step 20, a finished run, and the step-40 checkpoint equal to phase
-    18's straight run."""
+    DRILL_EXIT_AT of DRILL_ITERS iterations, cuDNN deterministic: one
+    restart, the resume at the half-way checkpoint, a finished run, and
+    the last step's checkpoint equal to phase 18's straight run."""
+    n, half = DRILL_ITERS, DRILL_ITERS // 2
     d = os.path.join(CKPT_ROOT, "launch")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("TPU_DDP_")}
     env.update({k: v for k, v in VGG_ENV.items() if v is not None})
     env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
-    env.update(TPU_DDP_MAX_ITERS="40", TPU_DDP_CKPT_EVERY="20",
-               TPU_DDP_CHAOS_FAULTS="hard-exit@30",
+    env.update(TPU_DDP_MAX_ITERS=str(n), TPU_DDP_CKPT_EVERY=str(half),
+               TPU_DDP_SYNTH_SIZE=str(DRILL_SYNTH),
+               TPU_DDP_CHAOS_FAULTS=f"hard-exit@{DRILL_EXIT_AT}",
                TPU_DDP_CHAOS_SENTINEL=os.path.join(CKPT_ROOT, "sentinel"),
                TPU_DDP_CUDNN_DETERMINISTIC="1")
     t0 = time.perf_counter()
@@ -2782,22 +2918,22 @@ def launcher_drill(dev, straight: dict) -> dict:
         "one restart": out.count("[launch] attempt failed (rc=13); "
                                  "restart 1") == 1
         and "restart 2" not in out,
-        "fault at step 30": "injecting hard-exit at step 30" in out,
-        "resume at step 20": f"resumed from {d} at step 20 (epoch 0, "
-                             "iter 20)" in out,
+        "fault": f"injecting hard-exit at step {DRILL_EXIT_AT}" in out,
+        "resume half-way": f"resumed from {d} at step {half} (epoch 0, "
+                           f"iter {half})" in out,
         "finished": "Test set: average loss" in out
         and "[launch] recovered after 1 restart(s)" in out,
-        "finite losses": [i for i, _ in losses] == [20, 40]
+        "finite losses": [i for i, _ in losses] == [n]
         and all(math.isfinite(v) for _, v in losses),
     }
     if not all(checks.values()):
         fail(f"phase 19: {[k for k, v in checks.items() if not v]} "
              f"failed; rc {proc.returncode}; output tail:\n{out[-3000:]}\n"
              f"{err[-2000:]}")
-    got = _step_digests(d, 40)
+    got = _step_digests(d, n)
     if got != straight:
         bad = sorted(k for k in straight if got.get(k) != straight[k])
-        fail(f"phase 19: the restarted run's step-40 state differs from "
+        fail(f"phase 19: the restarted run's step-{n} state differs from "
              f"phase 18's straight run on {len(bad)} leaves: {bad[:4]}")
     return {"restarts": 1, "losses": losses, "wall_s": wall,
             "bitwise_equal_to_straight_run": True}
@@ -2807,7 +2943,7 @@ def lm_checkpoint(dev, run: dict) -> dict:
     """Phase 20: TransformerLM-large with its AdamW state after phase 15's
     steps saved (f32 params, mu and nu), restored into a fresh
     ``LMTrainer`` after the first is freed, and the next step's loss
-    compared bit for bit."""
+    compared bit for bit (one step each side)."""
     import gc
     import shutil
 
@@ -2832,10 +2968,9 @@ def lm_checkpoint(dev, run: dict) -> dict:
     saved = {"dir": d, "step": step, "params": _to_device_tree(
         {k: v for k, v in state.params.items()}, "cpu")}
     state, l1 = tr.train_step(state, x, y)
-    state, l2 = tr.train_step(state, x, y)
-    want = (l1.clone(), l2.clone())
+    want = l1.clone()
     torch.cuda.synchronize()
-    del tr, state, l1, l2
+    del tr, state, l1
     gc.collect()
     torch.cuda.empty_cache()
     _, tr2, _ = _large_trainer(dev)
@@ -2847,19 +2982,15 @@ def lm_checkpoint(dev, run: dict) -> dict:
     if state2.step != step:
         fail(f"phase 20: restored step {state2.step}, saved {step}")
     state2, m1 = tr2.train_step(state2, x, y)
-    state2, m2 = tr2.train_step(state2, x, y)
     torch.cuda.synchronize()
-    if not _same_bits(m1.float().reshape(1), want[0].float().reshape(1)):
+    if not _same_bits(m1.float().reshape(1), want.float().reshape(1)):
         fail(f"phase 20: the restored trainer's next loss {float(m1)!r} "
-             f"differs from the original's {float(want[0])!r}")
+             f"differs from the original's {float(want)!r}")
     out = {"params": n, "bytes": nbytes, "step": step,
            "save_s": save_s, "restore_s": restore_s,
            "save_gb_per_s": nbytes / save_s / 1e9,
            "restore_gb_per_s": nbytes / restore_s / 1e9,
            "next_loss": float(m1), "next_loss_bitwise_equal": True,
-           "second_loss": float(m2),
-           "second_loss_bitwise_equal": _same_bits(
-               m2.float().reshape(1), want[1].float().reshape(1)),
            "disk_free_gb": free / 1e9}
     del tr2, state2
     gc.collect()
@@ -3672,9 +3803,7 @@ def vgg_policy(dev) -> dict:
         steps, evals = TRAIN_ITERS, math.ceil(seen / 256)
         # Each step's backward runs every unit's forward kernels again.
         fwd = 8 * (2 * steps + evals)
-        want = {"sgd": steps,
-                "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
-                "bn_bwd_dx": 8 * steps,
+        want = {"sgd": steps, **_bn_bwd_want(8 * steps),
                 "bn_stats": {"one_pass": fwd, "two_stage": 0},
                 "bn_norm_relu": fwd}
         if counts != want:
@@ -3841,9 +3970,7 @@ def _ladder_run(dev, part: str) -> dict:
              f"lines:\n{out[-2000:]}")
     steps = TRAIN_ITERS
     eval_batches = math.ceil(int(test.group(3)) / 256)
-    want = {"sgd": steps,
-            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
-            "bn_bwd_dx": 8 * steps,
+    want = {"sgd": steps, **_bn_bwd_want(8 * steps),
             "bn_stats": {"one_pass": 8 * (steps + eval_batches),
                          "two_stage": 0},
             "bn_norm_relu": 8 * (steps + eval_batches)}
@@ -4376,6 +4503,133 @@ def _bf16_rows(r, c, gen, dev, scale=1.0, shift=0.0):
             + shift).to(torch.bfloat16)
 
 
+def _bits_equal(a, b) -> bool:
+    """The same dtype and bits, NaN compared by position only: the card's
+    bf16 NaN (0x7fff) and torch's cast of a NaN differ in payload."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    if a.dtype != b.dtype or not torch.equal(an, bn):
+        return False
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(view)[~an], b.view(view)[~bn])
+
+
+def _bf16_backward(tb, x16, g16, mean, inv, s, b) -> tuple:
+    """The backward pair on bf16 rows as they are: (dbias, dscale, dx)."""
+    db, ds = tb.bn_bwd_stats(x16, g16, mean, inv, s, b)
+    return db, ds, tb.bn_bwd_dx(x16, g16, mean, inv, s, b, db, ds)
+
+
+def _f32_then_cast(tb, x16, g16, mean, inv, s, b) -> tuple:
+    """The backward pair's f32 route on the upcast rows, dx cast to bf16:
+    what the op did with bf16 rows before."""
+    x, g = x16.float(), g16.float()
+    db, ds = tb.bn_bwd_stats(x, g, mean, inv, s, b)
+    dx = tb.bn_bwd_dx(x, g, mean, inv, s, b, db, ds)
+    return db, ds, dx.to(torch.bfloat16)
+
+
+BWD_OUTPUTS = ("dbias", "dscale", "dx")
+
+
+def _bf16_route_checks(tb, xs16, gs16, s, b, mean, inv, other) -> dict:
+    """Phase 35's gates on the backward pair's bf16 route at one shape:
+    bit for bit the f32 route on the upcast rows plus the cast; the same
+    bits on a second launch and on a third after a launch on ``other``
+    (bf16 rows of another shape: other counters and partials); the bit
+    gate catching two planted faults, read as the gate reads the route
+    (the stale outputs of another draw of x and g; the last row block of
+    each kernel's grid dropped: the sums without its rows, dx unwritten
+    there)."""
+    x16, g16 = xs16[0], gs16[0]
+    r, c = x16.shape
+    want = _f32_then_cast(tb, x16, g16, mean, inv, s, b)
+    first = _bf16_backward(tb, x16, g16, mean, inv, s, b)
+    again = _bf16_backward(tb, x16, g16, mean, inv, s, b)
+    _bf16_backward(tb, *other)
+    third = _bf16_backward(tb, x16, g16, mean, inv, s, b)
+    torch.cuda.synchronize()
+    for name, w, f, a, t in zip(BWD_OUTPUTS, want, first, again, third):
+        if not _bits_equal(f, w):
+            fail(f"phase 35: {name} on bf16 rows differs from the f32 route "
+                 f"plus the cast at R={r} C={c}")
+        if not (_bits_equal(a, f) and _bits_equal(t, f)):
+            fail(f"phase 35: two launches on bf16 rows differ in {name} at "
+                 f"R={r} C={c} (or after a launch at "
+                 f"{tuple(other[0].shape)})")
+    idx = x16.device.index or 0
+    sms = tb._num_sms(idx)
+    splan = tb.stats_plan("bn_bwd_stats", r, c, 4, sms, tb._blocks_per_sm(
+        "bn_bwd_stats", 4, idx, True))
+    dplan = tb.dx_plan(r, c, 8, sms, tb._blocks_per_sm("bn_bwd_dx", 8, idx,
+                                                       True))
+    skeep = splan.rows(r, splan.blocks - 1).start
+    dkeep = dplan.rows(r, dplan.blocks - 1).start
+    dropped_dx = want[2].clone()
+    dropped_dx[dkeep:] = 0
+    faults = {"stale": _bf16_backward(tb, xs16[1], gs16[1], mean, inv, s,
+                                      b),
+              "dropped_block": (*tb.bn_bwd_stats_ref(
+                  x16[:skeep], g16[:skeep], mean, inv, s, b), dropped_dx)}
+    readings = {}
+    for kind, outs in faults.items():
+        readings[kind] = {}
+        for name, w, f in zip(BWD_OUTPUTS, want, outs):
+            if _bits_equal(f, w):
+                fail(f"phase 35: the bf16 route's bit gate misses the "
+                     f"planted {kind} fault in {name} at R={r} C={c}")
+            readings[kind][name] = float((f.float() - w.float()).abs().max())
+    return {"bits_equal_f32_route_plus_cast": True, "same_bits": True,
+            "planted_fault": readings,
+            "dropped_rows": {"bn_bwd_stats": r - skeep,
+                             "bn_bwd_dx": r - dkeep},
+            "plan": {"bn_bwd_stats": dataclasses.asdict(splan),
+                     "bn_bwd_dx": dataclasses.asdict(dplan)}}
+
+
+def _bf16_times(tb, xs16, gs16, s, b, mean, inv, db, ds, reps) -> dict:
+    """The backward pair on bf16 rows, cycling through ``xs16``, ``gs16``,
+    each timed as a CUDA graph of ``reps`` calls (:func:`graph_ms`): each
+    kernel beside its bound in bf16 bytes and SyncBatchNorm's primitive
+    on the same bf16 rows with f32 statistics (its error text where it
+    refuses them); the op's backward with the rows handed over as they
+    are and with the f32 route forced (copies and casts)."""
+    r, c = xs16[0].shape
+    n_el = r * c
+    gm16 = [torch.where(tb.bn_norm_relu_ref(xi.float(), mean, inv, s, b) > 0,
+                        gi, 0.0) for xi, gi in zip(xs16, gs16)]
+    count = torch.tensor([r], dtype=torch.int32, device=xs16[0].device)
+    sum_dy_xmu = ds / inv
+    kern = {"bn_bwd_stats": (tb.bn_bwd_stats, [(xi, gi, mean, inv, s, b)
+                                               for xi, gi in zip(xs16, gs16)]),
+            "bn_bwd_dx": (tb.bn_bwd_dx, [(xi, gi, mean, inv, s, b, db, ds)
+                                         for xi, gi in zip(xs16, gs16)])}
+    libs = {"bn_bwd_stats": lambda t, gm: torch.batch_norm_backward_reduce(
+                gm, t, mean, inv, s, False, True, True),
+            "bn_bwd_dx": lambda t, gm: torch.batch_norm_backward_elemt(
+                gm, t, mean, inv, s, db, sum_dy_xmu, count)}
+    out = {}
+    for name, (fn, args) in kern.items():
+        bound, by = _bound(BN_BYTES_PER_ELEM[torch.bfloat16][name] * n_el
+                           + 4 * BN_CHAN_VECTORS[name] * c,
+                           BN_FLOPS_PER_ELEM[name] * n_el)
+        ms = graph_ms(fn, args, reps)
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                     "under_bound": ms < bound, "library_ms": None,
+                     "library_error": None, "timing": "cuda-graph events"}
+        try:
+            out[name]["library_ms"] = graph_ms(libs[name],
+                                               list(zip(xs16, gm16)), reps)
+        except RuntimeError as e:
+            out[name]["library_error"] = str(e)[:300]
+    op_args = [(xi, gi, mean, inv, s, b) for xi, gi in zip(xs16, gs16)]
+    new = graph_ms(tb.bn_relu_backward, op_args, reps)
+    with _force(tb, "bwd_rows", "f32"):
+        old = graph_ms(tb.bn_relu_backward, op_args, reps)
+    out["op_backward"] = {"ms": new, "f32_route_ms": old,
+                          "timing": "cuda-graph events"}
+    return out
+
+
 def check_bn_resnet(dev, gen) -> dict:
     """Phase 35: the four BN+ReLU kernels at ResNet-50's eight shapes, on
     the bf16 inputs the model gives them cast to f32 rows as the op casts
@@ -4384,17 +4638,29 @@ def check_bn_resnet(dev, gen) -> dict:
     two planted faults (stale one-pass sums; the grid's last row block
     dropped), two launches the same bits, NaN kept at the stem's shape;
     timed beside the bound, the plain versions, SyncBatchNorm's
-    primitives and the op's casts."""
+    primitives and the op's casts. Then the backward pair on the bf16
+    rows as they are (the op's main path on bf16 activations): bit for
+    bit the f32 route plus the cast, the same bits twice, both planted
+    faults
+    caught, NaN kept by position at the stem's shape; timed beside the
+    bound in bf16 bytes, SyncBatchNorm's primitives on the bf16 rows, and
+    the op's backward on both routes."""
     from tpu_ddp_torch.ops import bn_relu as tb
     kernels = {"bn_stats": (tb.bn_stats, tb.bn_stats_ref),
                "bn_norm_relu": (tb.bn_norm_relu, tb.bn_norm_relu_ref),
                "bn_bwd_stats": (tb.bn_bwd_stats, tb.bn_bwd_stats_ref),
                "bn_bwd_dx": (tb.bn_bwd_dx, tb.bn_bwd_dx_ref)}
     other = _bn_inputs(*BN_BITS_OTHER, gen, dev)
+    mean_o, inv_o = tb.bn_stats_ref(other[0])
+    other16 = (other[0].to(torch.bfloat16), other[1].to(torch.bfloat16),
+               mean_o, inv_o, *other[2:])
     idx = dev.index or 0
     shapes = []
     for (r, c), sites in RESNET_BN_SHAPES:
         n_el = r * c
+        # bf16 copies to cycle through: more than twice L2 at 6 bytes per
+        # element (x, g and dx); the f32 checks take the first two.
+        copies = max(2, math.ceil(2 * L2_BYTES / (6 * n_el)))
         xs16 = [_bf16_rows(r, c, gen, dev, 2.0, 0.3) for _ in range(2)]
         gs16 = [_bf16_rows(r, c, gen, dev) for _ in range(2)]
         xs, gs = [t.float() for t in xs16], [t.float() for t in gs16]
@@ -4448,7 +4714,7 @@ def check_bn_resnet(dev, gen) -> dict:
                 gm, t, mean, inv, s, db, sum_dy_xmu, count),
                 list(zip(xs, gms)))}
         for name, (kern, plain_fn) in kernels.items():
-            bound, by = _bound(BN_BYTES_PER_ELEM[name] * n_el
+            bound, by = _bound(BN_BYTES_PER_ELEM[torch.float32][name] * n_el
                                + 4 * BN_CHAN_VECTORS[name] * c,
                                BN_FLOPS_PER_ELEM[name] * n_el)
             k_t = _timed_over_bound(kern, args[name], reps, bound)
@@ -4470,37 +4736,91 @@ def check_bn_resnet(dev, gen) -> dict:
                            reps)["ms"],
             "down_ms": timed(lambda t: t.to(torch.bfloat16),
                              [(t,) for t in xs], reps)["ms"]}
-        del xs, gs, xs16, gs16, gms, args, libs, plain
+        del xs, gs, gms, args, libs, plain
+        # The backward pair on the bf16 rows as they are.
+        row["bf16"] = _bf16_route_checks(tb, xs16, gs16, s, b, mean, inv,
+                                         other16)
+        xs16 += [_bf16_rows(r, c, gen, dev, 2.0, 0.3)
+                 for _ in range(copies - 2)]
+        gs16 += [_bf16_rows(r, c, gen, dev) for _ in range(copies - 2)]
+        row["bf16"]["copies"] = copies
+        row["bf16"].update(_bf16_times(tb, xs16, gs16, s, b, mean, inv, db,
+                                       ds, 10 * copies))
+        del xs16, gs16
         shapes.append(row)
         print(json.dumps({"resnet_bn_shape": row}), flush=True)
     # NaN at the stem's shape, on the main (one-pass) route.
     (r, c), _ = RESNET_BN_SHAPES[0]
     nan_cases = {}
     for kind in ("rows", "elements"):
-        x = _bf16_rows(r, c, gen, dev, 2.0, 0.3).float()
-        g = _bf16_rows(r, c, gen, dev).float()
+        x16 = _bf16_rows(r, c, gen, dev, 2.0, 0.3)
+        g16 = _bf16_rows(r, c, gen, dev)
         s = 0.5 + torch.rand(c, generator=gen, device=dev)
         b = 0.1 * torch.randn(c, generator=gen, device=dev)
         if kind == "rows":
-            x[[1, r // 2]] = float("nan")
+            x16[[1, r // 2]] = float("nan")
         else:
-            x[r // 3, ::3] = float("nan")
-            g[r // 2, 1::3] = float("nan")
+            x16[r // 3, ::3] = float("nan")
+            g16[r // 2, 1::3] = float("nan")
+        x, g = x16.float(), g16.float()
         res = _bn_nan_errors(tb, x, g, s, b)
-        nan_cases[f"{r}x{c}/{kind}"] = {
+        case = nan_cases[f"{r}x{c}/{kind}"] = {
             k: {"plain_nans": v[0], "err": v[1]} for k, v in res.items()}
-        del x, g
+        # The bf16 route on the same rows: NaN where the f32 route plus
+        # the cast has NaN, the same bits elsewhere.
+        mean, inv = tb.bn_stats_ref(x)
+        want = _f32_then_cast(tb, x16, g16, mean, inv, s, b)
+        got = _bf16_backward(tb, x16, g16, mean, inv, s, b)
+        torch.cuda.synchronize()
+        for name, w, k in zip(BWD_OUTPUTS, want, got):
+            if not _bits_equal(k, w):
+                fail(f"phase 35: {name} on bf16 rows holding NaN ({kind}) "
+                     f"differs from the f32 route plus the cast")
+        case["bf16_route"] = {n: int(torch.isnan(k).sum())
+                              for n, k in zip(BWD_OUTPUTS, got)}
+        if case["bf16_route"]["dx"] == 0:
+            fail(f"phase 35: NaN inputs ({kind}) gave the bf16 dx no NaN")
+        del x, g, x16, g16
     torch.cuda.empty_cache()
 
     def per_step(fn):
         return sum(row["sites"] * fn(row) for row in shapes)
 
     out = {"shapes": shapes, "nan_cases": nan_cases, "kernels": {},
+           "kernels_bf16": {},
+           # The op's five casts per step on the f32 route (x up in the
+           # forward; x and g up, y and dx down), and the backward's three
+           # that the bf16 route does not make.
            "casts_ms_per_step": per_step(
-               lambda w: 3 * w["casts"]["up_ms"] + 2 * w["casts"]["down_ms"])}
+               lambda w: 3 * w["casts"]["up_ms"] + 2 * w["casts"]["down_ms"]),
+           "backward_casts_ms_per_step": per_step(
+               lambda w: 2 * w["casts"]["up_ms"] + w["casts"]["down_ms"]),
+           "op_backward_ms_per_step": {
+               "bf16_rows": per_step(lambda w: w["bf16"]["op_backward"]["ms"]),
+               "f32_route": per_step(
+                   lambda w: w["bf16"]["op_backward"]["f32_route_ms"])}}
+    for name in ("bn_bwd_stats", "bn_bwd_dx"):
+        libs = [w["bf16"][name]["library_ms"] for w in shapes]
+        bound, by = _bound(
+            per_step(lambda w: BN_BYTES_PER_ELEM[torch.bfloat16][name]
+                     * w["r"] * w["c"] + 4 * BN_CHAN_VECTORS[name] * w["c"]),
+            per_step(lambda w: BN_FLOPS_PER_ELEM[name] * w["r"] * w["c"]))
+        out["kernels_bf16"][name] = {
+            "ms": per_step(lambda w: w["bf16"][name]["ms"]),
+            "library_ms": (None if None in libs else
+                           per_step(lambda w: w["bf16"][name]["library_ms"])),
+            "library_errors": sorted({w["bf16"][name]["library_error"]
+                                      for w in shapes} - {None}),
+            "under_bound": [f"{w['r']}x{w['c']}" for w in shapes
+                            if w["bf16"][name]["under_bound"]],
+            "bound_ms": bound, "bound_by": by,
+            "max_abs_err": 0.0,  # bit for bit the f32 route plus the cast
+            "timing": ",".join(sorted({w["bf16"][name]["timing"]
+                                       for w in shapes}))}
     for name in kernels:
-        bound_bytes = per_step(lambda w: BN_BYTES_PER_ELEM[name] * w["r"]
-                               * w["c"] + 4 * BN_CHAN_VECTORS[name] * w["c"])
+        bound_bytes = per_step(lambda w: BN_BYTES_PER_ELEM[torch.float32][name]
+                               * w["r"] * w["c"]
+                               + 4 * BN_CHAN_VECTORS[name] * w["c"])
         bound_flops = per_step(lambda w: BN_FLOPS_PER_ELEM[name] * w["r"]
                                * w["c"])
         bound, by = _bound(bound_bytes, bound_flops)
@@ -4622,6 +4942,51 @@ def _restore(state, p0, m0) -> None:
             b.copy_(a)
 
 
+def _bwd_route_bits(tr, state, batch, p0, m0, wrappers) -> dict:
+    """One ResNet-50 step from (p0, m0) with the op's backward on the bf16
+    rows, one with the f32 route forced, and the bf16 one again (the
+    control: the step itself repeats bit for bit), cuDNN deterministic:
+    the loss, every gradient and every parameter the same bits; the bf16
+    steps' backward kernels all on their bf16 routes (33 launches of
+    each), the forced step's all on f32."""
+    from tpu_ddp_torch.ops import bn_relu as tb
+    runs = {}
+    with _deterministic_cudnn():
+        for label in ("bf16", "f32", "bf16_again"):
+            _restore(state, p0, m0)
+            _zero_launches(wrappers)
+            with (_force(tb, "bwd_rows", "f32") if label == "f32"
+                  else contextlib.nullcontext()):
+                state, loss = tr.train_step(state, *batch)
+            torch.cuda.synchronize()
+            counts = _launches(wrappers)
+            want = _bn_bwd_want(RESNET_BN_SITES, bf16=label != "f32")
+            if {k: counts[k] for k in want} != want:
+                fail(f"phase 36 {label} route step: backward launches "
+                     f"{counts}, expected {want}")
+            runs[label] = (loss.float().reshape(1),
+                           [p.grad.detach().clone() for p in state.params],
+                           [p.detach().clone() for p in state.params],
+                           {k: counts[k] for k in want})
+
+    def differ(a, b):
+        return sum(not _same_bits(x, y) for x, y in
+                   zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]))
+
+    control = differ(runs["bf16"], runs["bf16_again"])
+    if control:
+        fail(f"phase 36: two bf16-route steps from the same state differ "
+             f"in {control} tensors (the step does not repeat)")
+    n = differ(runs["bf16"], runs["f32"])
+    if n:
+        fail(f"phase 36: the bf16-route step and the f32-route step differ "
+             f"in {n} of {1 + 2 * len(p0)} tensors (loss, gradients, "
+             f"parameters)")
+    return {"bitwise_equal": True, "tensors": 1 + 2 * len(p0),
+            "loss": float(runs["bf16"][0]),
+            "launches": {k: v[3] for k, v in runs.items()}}
+
+
 def resnet50_train(dev, gen) -> dict:
     """Phase 36: ResNet-50 (resnet50_imagenet as published: 25,557,032
     params, batch 256, 224x224, 1000 classes, bf16) through
@@ -4666,9 +5031,7 @@ def resnet50_train(dev, gen) -> dict:
              f"8 and 2), losses {losses}")
     fwd = RESNET_BN_SITES * (steps + evals)
     want = {"sgd": RESNET_SGD_LAUNCHES * steps,
-            "bn_bwd_stats": {"one_pass": RESNET_BN_SITES * steps,
-                             "two_stage": 0},
-            "bn_bwd_dx": RESNET_BN_SITES * steps,
+            **_bn_bwd_want(RESNET_BN_SITES * steps, bf16=True),
             "bn_stats": {"one_pass": fwd, "two_stage": 0},
             "bn_norm_relu": fwd}
     if counts != want:
@@ -4698,6 +5061,12 @@ def resnet50_train(dev, gen) -> dict:
     window["copy_share_of_device_time"] = (
         window["copy_sources"]["total_ms_per_step"]
         / window["device_ms_per_step"])
+    # The step with the op's backward on the f32 route forced (f32 copies
+    # of x and g, dx cast back: the previous route), then on the bf16
+    # rows again, in turns after the steps above.
+    with _force(tb, "bwd_rows", "f32"):
+        state, ms_f32, _, _ = _timed_steps(tr, state, [batch], dev)
+    state, ms_again, _, _ = _timed_steps(tr, state, [batch], dev)
 
     # One step through the kernels against the same step through the
     # plain versions (phase 11's bounds), then one under remat="blocks".
@@ -4727,6 +5096,7 @@ def resnet50_train(dev, gen) -> dict:
     if not diff <= 5e-2 * update:
         fail(f"phase 36 step params: kernels vs plain max|d|={diff} > "
              f"5e-2 x largest update {update}")
+    routes = _bwd_route_bits(tr, state, batch, p0, m0, wrappers)
     _restore(state, p0, m0)
     tr.model.remat = "blocks"
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4738,8 +5108,7 @@ def resnet50_train(dev, gen) -> dict:
     tr.model.remat = "none"
     fwd_b = RESNET_BN_SITES + (RESNET_BN_SITES - 1)  # the stem: no region
     want_b = {"sgd": RESNET_SGD_LAUNCHES,
-              "bn_bwd_stats": {"one_pass": RESNET_BN_SITES, "two_stage": 0},
-              "bn_bwd_dx": RESNET_BN_SITES,
+              **_bn_bwd_want(RESNET_BN_SITES, bf16=True),
               "bn_stats": {"one_pass": fwd_b, "two_stage": 0},
               "bn_norm_relu": fwd_b}
     if blocks_counts != want_b:
@@ -4755,6 +5124,8 @@ def resnet50_train(dev, gen) -> dict:
             "images_per_s": 256 / (ms / 1e3), "fwd_flops": fwd_flops,
             "mfu": 3 * fwd_flops / (ms / 1e3) / BF16_FLOP_PER_S,
             "peak_mem_gib": peak, "traced_window": window,
+            "ms_per_step_f32_route": ms_f32, "ms_per_step_again": ms_again,
+            "bwd_routes": routes,
             "step_check": {"loss_kernels": lk, "loss_plain": lp,
                            "max_param_diff": diff, "largest_update": update,
                            "tol": 5e-2 * update},
@@ -5100,9 +5471,7 @@ def _vgg_wrappers():
 def _vgg_want(steps: int, forward_only: int = 0) -> dict:
     """VGG-11's exact counts: 8 BN sites, one SGD launch per step."""
     fwd = 8 * (steps + forward_only)
-    return {"sgd": steps,
-            "bn_bwd_stats": {"one_pass": 8 * steps, "two_stage": 0},
-            "bn_bwd_dx": 8 * steps,
+    return {"sgd": steps, **_bn_bwd_want(8 * steps),
             "bn_stats": {"one_pass": fwd, "two_stage": 0},
             "bn_norm_relu": fwd}
 
@@ -5933,7 +6302,8 @@ def elastic_card(dev) -> dict:
 
 LADDER_K, LADDER_GROUPS = 4, 2   # two K-step groups against 8 eager steps
 LADDER_PARTS = ("part2a", "part2b", "part3", "part4", "part5")
-LADDER_TIMED = ("part3", "part4", "part5")
+LADDER_TIMED = ("part3",)
+LADDER_TRACED = 12  # iterations of each traced epoch in the rung timing
 LM_GRAPH_K = 2
 
 
@@ -6266,7 +6636,7 @@ def ladder_multi_step(dev, seed: int) -> dict:
     fault (a stale staging buffer, a carry rebound instead of written in
     place); part 1 under remat=conv_stages with the recompute's
     launches; a poisoned batch inside a part-3 group; ms per iteration
-    at K = 1 and 4 for parts 3, 4 and 5 through ``train_epoch``, with the
+    at K = 1 and 4 for part 3 through ``train_epoch``, with the
     capture's ms and the traced idle share; then LM-large at K = 2
     through ``LMTrainer.build_multi_step``, replicated and zero1."""
     from tpu_ddp_torch.data.loader import create_data_loaders
@@ -6280,7 +6650,8 @@ def ladder_multi_step(dev, seed: int) -> dict:
                 batch_size=256, synthetic_size=GRAPH_TIMED * 256)
         host = list(train)
         batches = [(x.to(dev), y.to(dev)) for x, y in host[:8]]
-        traced_batches = [host[i % len(host)] for i in range(24)]
+        traced_batches = [host[i % len(host)]
+                          for i in range(LADDER_TRACED)]
         for part in LADDER_PARTS:
             tr = _rung_trainer(dev, part)
             case = _rung_case(tr, batches, part)
@@ -7427,6 +7798,18 @@ def main() -> None:
                 two_stage_launches=train["launches"][name]["two_stage"],
                 kernel_route="one_pass", was_ms=k["was_ms"],
                 registers=regs, spill_bytes=spills)
+        if name == "bn_bwd_dx":
+            # Launches on the one-wave route (the row-blocks kernel's
+            # beside it); "was": the row-blocks kernel forced, alone, this
+            # run; vgg_rounds: the two and batch_norm_backward_elemt in
+            # turns, ms per step over phase 7's rounds.
+            regs, spills = ptxas("bn_bwd_dx_wave_kernel")
+            row.update(
+                launches=train["launches"][name]["one_wave"],
+                row_blocks_launches=train["launches"][name]["row_blocks"],
+                kernel_route="one_wave", was_ms=k["was_ms"],
+                vgg_rounds=k["vgg_rounds"], registers=regs,
+                spill_bytes=spills)
         if name == "bn_stats":
             row.update(library_var_mean_ms=k["library_var_mean_ms"],
                        read_all_ms=k["read_all_ms"])
@@ -7444,12 +7827,18 @@ def main() -> None:
             # Phase 42: part 3 through a membership epoch (40 steps).
             "part3_elastic": ecard["launches"][name]}
         # Phase 35: one ResNet-50 step's 33 calls at batch 256, alone, on
-        # the model's bf16 inputs cast to f32 rows; main_path_ms: phase
-        # 36's traced steps.
-        row["resnet50"] = {
-            **rbn["kernels"][name],
-            "main_path_ms": resnet["traced_window"][
-                "ported_kernels_ms_per_step"][name]}
+        # the model's bf16 inputs cast to f32 rows (the forward pair's
+        # route) and, for the backward pair, on the bf16 rows as they are
+        # (its main path); main_path_ms: phase 36's traced steps.
+        main_ms = resnet["traced_window"]["ported_kernels_ms_per_step"][
+            name]
+        if name in rbn["kernels_bf16"]:
+            row["resnet50"] = {**rbn["kernels_bf16"][name],
+                               "main_path_ms": main_ms}
+            row["resnet50_f32_rows"] = rbn["kernels"][name]
+        else:
+            row["resnet50"] = {**rbn["kernels"][name],
+                               "main_path_ms": main_ms}
         kernels.append(row)
     replaces = {"flash_fwd": ("fwd", 193), "flash_bwd_kv": ("bwd_kv", 334),
                 "flash_bwd_q": ("bwd_q", 357)}
@@ -7609,7 +7998,12 @@ def main() -> None:
           f"{resnet['images_per_s']:.0f} images/s, MFU "
           f"{100 * resnet['mfu']:.1f}%, peak {resnet['peak_mem_gib']:.2f} "
           f"GiB; BN kernels {sum(rbn['kernels'][k]['ms'] for k in rbn['kernels']):.2f}"
-          f" ms/step alone, casts {rbn['casts_ms_per_step']:.2f} ms; vit: "
+          f" ms/step alone, casts {rbn['casts_ms_per_step']:.2f} ms; the "
+          f"op's backward {rbn['op_backward_ms_per_step']['bf16_rows']:.2f}"
+          f" ms/step on bf16 rows, "
+          f"{rbn['op_backward_ms_per_step']['f32_route']:.2f} on the f32 "
+          f"route (step {resnet['ms_per_step_f32_route']:.1f} ms with it "
+          f"forced); vit: "
           + ", ".join(f"{v['model']} {v['ms_per_step']:.1f} ms/step MFU "
                       f"{100 * v['mfu']:.1f}%"
                       for v in (vit["vit_tiny"], vit["vit_s16"])),

@@ -110,8 +110,13 @@ def test_cpu_route_is_the_plain_version_and_counts_nothing():
 
 
 @pytest.mark.parametrize("bad", ["noncontig", "dtype", "chan_shape",
-                                 "rows_shape", "rank"])
+                                 "rows_shape", "rank", "mixed_stats",
+                                 "mixed_dx", "f16_stats", "f16_dx",
+                                 "bf16_forward", "bf16_chans"])
 def test_wrappers_reject_bad_layouts(bad):
+    """Every wrapper's contract, on the CPU route as on the card's: the
+    forward pair takes f32 rows; the backward pair f32 or bf16 rows, x
+    and g of one dtype; the channel vectors f32."""
     x = torch.randn(32, 8)
     c = torch.ones(8)
     g = torch.randn(32, 8)
@@ -123,11 +128,21 @@ def test_wrappers_reject_bad_layouts(bad):
         c = torch.ones(9)
     elif bad == "rows_shape":
         g = torch.randn(31, 8)
-    else:
+    elif bad == "rank":
         x = x.reshape(4, 8, 8)
+    elif bad.startswith("mixed"):
+        x = x.bfloat16()
+    elif bad.startswith("f16"):
+        x, g = x.half(), g.half()
+    elif bad == "bf16_forward":
+        x = x.bfloat16()
+    else:
+        x, g, c = x.bfloat16(), g.bfloat16(), c.bfloat16()
     with pytest.raises((TypeError, ValueError)):
-        if bad == "rows_shape":
+        if bad in ("rows_shape", "mixed_stats", "f16_stats", "bf16_chans"):
             tb.bn_bwd_stats(x, g, c, c, c, c)
+        elif bad in ("mixed_dx", "f16_dx"):
+            tb.bn_bwd_dx(x, g, c, c, c, c, c, c)
         else:
             tb.bn_norm_relu(x, c, c, c, c)
 

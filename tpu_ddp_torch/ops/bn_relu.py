@@ -24,13 +24,25 @@ designs, picked by :func:`stats_route` before the launch: ``"one_pass"``
 (one launch whose last block to arrive combines the blocks' partials in
 a fixed order, sized by :func:`stats_plan`: the main path) and
 ``"two_stage"`` (a partials kernel and a second, per-channel combine
-launch: the previous design, kept for the same-run comparison). Their
-``launches`` are dicts keyed by route. The one-pass kernels count their
-arrivals in a zeroed workspace that :func:`_workspace` allocates once per
-(device, stream) and that every launch leaves zeroed.
-The kernels take only C-contiguous f32 (R, C) rows: the VGG model keeps
-its activations ``channels_last``, so the conv output's NHWC view is
-already that, with no copy.
+launch: the previous design, kept for the same-run comparison). The
+input gradient likewise, picked by :func:`dx_route`: ``"one_wave"`` (one
+full wave of blocks, two rows' loads in flight per thread, x and g read
+evict-first, sized by :func:`dx_plan`: the main path) and
+``"row_blocks"`` (the previous design, f32 only). Their ``launches`` are
+dicts keyed by route, with ``"_bf16"`` appended on bf16 rows. The
+one-pass kernels count their arrivals in a zeroed workspace that
+:func:`_workspace` allocates once per (device, stream) and that every
+launch leaves zeroed.
+
+The kernels take C-contiguous (R, C) rows and f32 channel vectors: the
+models keep their activations ``channels_last``, so a conv output's NHWC
+view is already that, with no copy. The forward pair takes f32 rows; the
+backward pair f32 or bf16 rows (x and g of one dtype), upcast exactly in
+registers, and ``bn_bwd_dx`` returns dx in the rows' dtype. On bf16 rows
+every output is therefore the f32 route's on the upcast rows, dx then
+rounded to bf16, bit for bit; the plain versions take the same operands
+the same way. The op hands its backward's bf16 x and g to the kernels as
+they are (:func:`bwd_rows`): no f32 copies, no cast of dx.
 """
 
 from __future__ import annotations
@@ -51,6 +63,8 @@ _THREADS = 256        # kThreads in the source
 _BLOCKS_PER_SM = 4    # row blocks per SM the grid aims for
 _ROWS_PER_LANE = 8    # rows a thread walks at least before more blocks
 STATS_ROUTES = ("one_pass", "two_stage")
+# The dtypes of the rows the backward pair takes (the forward pair: f32).
+BWD_ROW_DTYPES = (torch.float32, torch.bfloat16)
 # The one-pass kernels: channel groups per block, most blocks in a
 # cluster, column counters in a workspace (kOnePassGroups, kMaxCluster,
 # kCounters in the source); the blocks per SM their grid aims for (at
@@ -64,6 +78,14 @@ _MAX_CLUSTER = 8
 _COUNTERS = 1024
 _ONE_PASS_BLOCKS_PER_SM = 2
 _MIN_ROWS_PER_LANE = {"bn_stats": 8, "bn_bwd_stats": 4}
+# The one-wave dx kernel: the rows each lane walks at least before the
+# grid takes more blocks (four steps of kDxUnroll's two rows in flight).
+# On an H100 a full wave of shorter blocks was no faster at any ResNet-50
+# shape, and slower at VGG-11's small ones.
+_DX_MIN_ROWS_PER_LANE = 8
+# The kernels whose grid is sized by their occupancy, as the source's
+# tdt_bn_blocks_per_sm numbers them.
+_OCCUPANCY_OF = {"bn_stats": 0, "bn_bwd_stats": 1, "bn_bwd_dx": 2}
 
 
 # ---- plain versions (the CPU route and the kernels' yardstick) -----------
@@ -87,15 +109,20 @@ def _masked_grad(x2d, g2d, mean, inv, scale, bias):
 
 
 def bn_bwd_stats_ref(x2d, g2d, mean, inv, scale, bias):
-    """(dbias, dscale) per channel."""
-    x_hat, gy = _masked_grad(x2d, g2d, mean, inv, scale, bias)
+    """(dbias, dscale) per channel, f32, of f32 or bf16 rows (upcast
+    exactly; f32 rows are not copied)."""
+    x_hat, gy = _masked_grad(x2d.float(), g2d.float(), mean, inv, scale,
+                             bias)
     return gy.sum(0), (gy * x_hat).sum(0)
 
 
 def bn_bwd_dx_ref(x2d, g2d, mean, inv, scale, bias, dbias, dscale):
+    """dx in f32 from the upcast rows, returned in the rows' dtype."""
     r = x2d.shape[0]
-    x_hat, gy = _masked_grad(x2d, g2d, mean, inv, scale, bias)
-    return (scale * inv * (1.0 / r)) * (r * gy - dbias - x_hat * dscale)
+    x_hat, gy = _masked_grad(x2d.float(), g2d.float(), mean, inv, scale,
+                             bias)
+    dx = (scale * inv * (1.0 / r)) * (r * gy - dbias - x_hat * dscale)
+    return dx.to(x2d.dtype)
 
 
 def batch_norm_relu_ref(x, scale, bias, eps=BN_EPS):
@@ -122,11 +149,11 @@ _ARGTYPES = {
     # x, R, C, vec, blocks, cluster, ps, pq, counters, eps, mean, inv,
     # stream
     "tdt_bn_stats_onepass": "piiiiipppfppp",
-    # x, g, mean, inv, scale, bias, R, C, vec, blocks, cluster, pdb, pds,
-    # counters, dbias, dscale, stream
-    "tdt_bn_bwd_stats_onepass": "ppppppiiiiipppppp",
-    # bwd, vec, &blocks_per_sm
-    "tdt_bn_onepass_blocks_per_sm": "iiP",
+    # x, g, mean, inv, scale, bias, R, C, vec, bf16, blocks, cluster, pdb,
+    # pds, counters, dbias, dscale, stream
+    "tdt_bn_bwd_stats_onepass": "ppppppiiiiiipppppp",
+    # which, vec, bf16, &blocks_per_sm
+    "tdt_bn_blocks_per_sm": "iiiP",
     # x, mean, inv, scale, bias, y, R, C, vec, blocks, stream
     "tdt_bn_norm_relu": "ppppppiiiip",
     # x, g, mean, inv, scale, bias, R, C, vec, blocks, pdb, pds, dbias,
@@ -135,6 +162,9 @@ _ARGTYPES = {
     # x, g, mean, inv, scale, bias, dbias, dscale, dx, R, C, vec, blocks,
     # count, inv_count, stream
     "tdt_bn_bwd_dx": "pppppppppiiiiffp",
+    # x, g, mean, inv, scale, bias, dbias, dscale, dx, R, C, vec, bf16,
+    # blocks, count, inv_count, stream
+    "tdt_bn_bwd_dx_wave": "pppppppppiiiiiffp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "P": ctypes.POINTER(ctypes.c_int)}
@@ -148,10 +178,13 @@ def _fn(name: str):
     return fn
 
 
-def _route(name, rows, chans):
+def _route(name, rows, chans, row_dtypes=(torch.float32,), bf16_vec=4):
     """Check the operands and pick the route: ``None`` for the CPU (plain
     version), else ``(R, C, vec, blocks)`` for the kernel. ``rows`` are
-    (R, C) tensors, ``chans`` (C,) tensors."""
+    (R, C) tensors of one dtype from ``row_dtypes``, ``chans`` (C,) f32
+    tensors. ``vec``: channels per thread, 4 on f32 rows and
+    ``bf16_vec`` on bf16 rows where C and the pointers allow it, else 1;
+    ``blocks``: the grid of the row-blocks and two-stage kernels."""
     x = rows[0]
     if x.dim() != 2:
         raise ValueError(f"{name}: rows must be 2-D (R, C), got "
@@ -170,9 +203,15 @@ def _route(name, rows, chans):
         raise ValueError(f"{name}: operands on different devices")
     # The kernel's contract, held on both routes so that the CPU tests
     # check what the card will be given.
-    for t in every:
+    if any(t.dtype != x.dtype for t in rows) or x.dtype not in row_dtypes:
+        raise TypeError(f"{name}: the kernel takes rows of one dtype of "
+                        f"{[str(d) for d in row_dtypes]}, got "
+                        f"{[str(t.dtype) for t in rows]}")
+    for t in chans:
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes f32, got {t.dtype}")
+            raise TypeError(f"{name}: the kernel takes f32 channel "
+                            f"vectors, got {t.dtype}")
+    for t in every:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes C-contiguous "
                              "tensors (keep the activations "
@@ -186,12 +225,26 @@ def _route(name, rows, chans):
     if r * c >= 2 ** 31:
         raise ValueError(f"{name}: {r} x {c} elements exceed the kernel's "
                          "32-bit row index")
-    vec = 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                  for t in every) else 1
+    want = 4 if x.dtype == torch.float32 else bf16_vec
+    aligned = (all(t.data_ptr() % (want * x.element_size()) == 0
+                   for t in rows)
+               and all(t.data_ptr() % 16 == 0 for t in chans))
+    vec = want if c % want == 0 and aligned else 1
     lanes = _THREADS // min(c // vec, _THREADS)
     blocks = max(1, min(math.ceil(r / (lanes * _ROWS_PER_LANE)),
                         _BLOCKS_PER_SM * _num_sms(x.device.index)))
     return r, c, vec, blocks
+
+
+def _key(route: str, rows) -> str:
+    """The ``launches`` key of a launch on ``route`` over ``rows``."""
+    return route + "_bf16" if rows.dtype == torch.bfloat16 else route
+
+
+def _f32_only(name, route, rows):
+    if rows.dtype != torch.float32:
+        raise TypeError(f"{name}: the {route!r} design takes f32 rows, got "
+                        f"{rows.dtype}")
 
 
 def stats_route(r: int, c: int) -> str:
@@ -251,6 +304,43 @@ def stats_plan(name: str, r: int, c: int, vec: int, sms: int,
                      columns=columns, lanes=lanes, width=per_block * vec)
 
 
+def dx_route(r: int, c: int) -> str:
+    """The design a CUDA call of :func:`bn_bwd_dx` launches on (R, C) rows:
+    always ``"one_wave"``. The ``"row_blocks"`` kernel (f32 rows only)
+    runs only where a caller forces this function's answer, to time the
+    previous design beside the new one in the same run."""
+    return "one_wave"
+
+
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """A one-wave dx launch: ``blocks`` row blocks in each of ``columns``
+    column blocks, ``lanes`` threads per channel group."""
+    blocks: int
+    columns: int
+    lanes: int
+
+    def rows(self, r: int, b: int) -> range:
+        """The rows block ``b`` writes (``block_rows`` in the source)."""
+        return range(b * r // self.blocks, (b + 1) * r // self.blocks)
+
+
+def dx_plan(r: int, c: int, vec: int, sms: int, per_sm: int) -> DxPlan:
+    """The one-wave dx grid on (R, C) rows at ``vec`` channels per thread,
+    on a card of ``sms`` SMs that hold ``per_sm`` of its blocks each: the
+    column blocks times the row blocks fill every SM once, unless the
+    rows are too few for each lane to walk ``_DX_MIN_ROWS_PER_LANE``."""
+    if c % vec:
+        raise ValueError(f"bn_bwd_dx: C={c} is not a multiple of vec={vec}")
+    groups = c // vec
+    per_block = min(groups, _THREADS)
+    lanes = _THREADS // per_block
+    columns = math.ceil(groups / per_block)
+    blocks = max(1, min(sms * per_sm // columns,
+                        r // (lanes * _DX_MIN_ROWS_PER_LANE)))
+    return DxPlan(blocks=blocks, columns=columns, lanes=lanes)
+
+
 _WORKSPACES: dict = {}
 
 
@@ -267,13 +357,15 @@ def _workspace(device, stream: int) -> torch.Tensor:
 
 
 @functools.cache
-def _blocks_per_sm(name: str, vec: int, device_index: int) -> int:
-    """Resident blocks per SM of ``name``'s one-pass kernel at ``vec``,
-    from the CUDA occupancy calculator."""
+def _blocks_per_sm(name: str, vec: int, device_index: int,
+                   bf16: bool = False) -> int:
+    """Resident blocks per SM of ``name``'s one-pass (or one-wave) kernel
+    at ``vec``, on bf16 rows if ``bf16``, from the CUDA occupancy
+    calculator."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _fn("tdt_bn_onepass_blocks_per_sm")(
-            int(name == "bn_bwd_stats"), vec, ctypes.byref(out))
+        err = _fn("tdt_bn_blocks_per_sm")(
+            _OCCUPANCY_OF[name], vec, int(bf16), ctypes.byref(out))
     if err or out.value < 1:
         raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
                            f"{err}, {out.value} blocks per SM)")
@@ -285,7 +377,8 @@ def _one_pass(name, x2d, vec):
     r, c = x2d.shape
     idx = x2d.device.index
     plan = stats_plan(name, r, c, vec, _num_sms(idx),
-                      _blocks_per_sm(name, vec, idx))
+                      _blocks_per_sm(name, vec, idx,
+                                     x2d.dtype == torch.bfloat16))
     part = torch.empty((2, plan.partials, c), dtype=torch.float32,
                        device=x2d.device)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
@@ -343,9 +436,12 @@ def bn_norm_relu(x2d, mean, inv, scale, bias):
 
 
 def bn_bwd_stats(x2d, g2d, mean, inv, scale, bias):
-    """Per-channel (dbias, dscale) with the ReLU mask; kernel 8. Each CUDA
-    launch adds one to ``bn_bwd_stats.launches[route]``."""
-    route = _route("bn_bwd_stats", (x2d, g2d), (mean, inv, scale, bias))
+    """Per-channel (dbias, dscale), f32, with the ReLU mask, of f32 or bf16
+    rows; kernel 8. Each CUDA launch adds one to
+    ``bn_bwd_stats.launches[key]``, the route :func:`stats_route` picked
+    (``"_bf16"`` appended on bf16 rows)."""
+    route = _route("bn_bwd_stats", (x2d, g2d), (mean, inv, scale, bias),
+                   BWD_ROW_DTYPES)
     if route is None:
         return bn_bwd_stats_ref(x2d, g2d, mean, inv, scale, bias)
     r, c, vec, blocks = route
@@ -356,55 +452,99 @@ def bn_bwd_stats(x2d, g2d, mean, inv, scale, bias):
             scale.data_ptr(), bias.data_ptr(), r, c, vec)
     if which == "one_pass":
         plan, part, ws = _one_pass("bn_bwd_stats", x2d, vec)
-        _launch("tdt_bn_bwd_stats_onepass", x2d, *ptrs, plan.blocks,
-                plan.cluster, part[0].data_ptr(), part[1].data_ptr(),
-                ws.data_ptr(), dbias.data_ptr(), dscale.data_ptr())
+        _launch("tdt_bn_bwd_stats_onepass", x2d, *ptrs,
+                int(x2d.dtype == torch.bfloat16), plan.blocks, plan.cluster,
+                part[0].data_ptr(), part[1].data_ptr(), ws.data_ptr(),
+                dbias.data_ptr(), dscale.data_ptr())
     else:
+        _f32_only("bn_bwd_stats", which, x2d)
         part = torch.empty((2, blocks, c), dtype=torch.float32,
                            device=x2d.device)
         _launch("tdt_bn_bwd_stats", x2d, *ptrs, blocks, part[0].data_ptr(),
                 part[1].data_ptr(), dbias.data_ptr(), dscale.data_ptr())
-    bn_bwd_stats.launches[which] += 1
+    bn_bwd_stats.launches[_key(which, x2d)] += 1
     return dbias, dscale
 
 
 def bn_bwd_dx(x2d, g2d, mean, inv, scale, bias, dbias, dscale):
-    """The input gradient; kernel 9."""
+    """The input gradient of f32 or bf16 rows, in the rows' dtype; kernel
+    9. Each CUDA launch adds one to ``bn_bwd_dx.launches[key]``, the route
+    :func:`dx_route` picked (``"_bf16"`` appended on bf16 rows)."""
     route = _route("bn_bwd_dx", (x2d, g2d),
-                   (mean, inv, scale, bias, dbias, dscale))
+                   (mean, inv, scale, bias, dbias, dscale), BWD_ROW_DTYPES,
+                   bf16_vec=8)
     if route is None:
         return bn_bwd_dx_ref(x2d, g2d, mean, inv, scale, bias, dbias,
                              dscale)
     r, c, vec, blocks = route
+    which = dx_route(r, c)
     dx = torch.empty_like(x2d)
-    _launch("tdt_bn_bwd_dx", x2d, x2d.data_ptr(), g2d.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), dbias.data_ptr(), dscale.data_ptr(),
-            dx.data_ptr(), r, c, vec, blocks, float(r), 1.0 / r)
-    bn_bwd_dx.launches += 1
+    ptrs = (x2d.data_ptr(), g2d.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), dbias.data_ptr(),
+            dscale.data_ptr(), dx.data_ptr(), r, c, vec)
+    if which == "one_wave":
+        bf16 = x2d.dtype == torch.bfloat16
+        idx = x2d.device.index
+        plan = dx_plan(r, c, vec, _num_sms(idx),
+                       _blocks_per_sm("bn_bwd_dx", vec, idx, bf16))
+        _launch("tdt_bn_bwd_dx_wave", x2d, *ptrs, int(bf16), plan.blocks,
+                float(r), 1.0 / r)
+    else:
+        _f32_only("bn_bwd_dx", which, x2d)
+        _launch("tdt_bn_bwd_dx", x2d, *ptrs, blocks, float(r), 1.0 / r)
+    bn_bwd_dx.launches[_key(which, x2d)] += 1
     return dx
 
 
 bn_stats.launches = dict.fromkeys(STATS_ROUTES, 0)
-bn_bwd_stats.launches = dict.fromkeys(STATS_ROUTES, 0)
+bn_bwd_stats.launches = dict.fromkeys(("one_pass", "one_pass_bf16",
+                                       "two_stage"), 0)
 bn_norm_relu.launches = 0
-bn_bwd_dx.launches = 0
+bn_bwd_dx.launches = dict.fromkeys(("one_wave", "one_wave_bf16",
+                                    "row_blocks"), 0)
 
 
 # ---- the differentiable op ------------------------------------------------
 
-def _rows_of(x, what):
+def _rows_of(x, what, upcast=True):
     if not x.is_contiguous():
         raise ValueError(f"batch_norm_relu: {what} must be C-contiguous "
                          f"over its last axis, got strides {x.stride()} "
                          f"for shape {tuple(x.shape)}")
-    return x.view(-1, x.shape[-1]).float()
+    rows = x.view(-1, x.shape[-1])
+    return rows.float() if upcast else rows
+
+
+def bwd_rows(x_dtype, g_dtype) -> str:
+    """The rows the op's backward hands its kernels: ``"bf16"`` when the
+    saved x and its gradient are both bf16 (as they are, no copies; dx
+    comes back bf16), else ``"f32"`` (f32 rows, any other dtype upcast,
+    dx cast back to x's dtype). For bf16 x and g, ``"f32"`` is the
+    previous route, run only where a caller forces this function's answer
+    to time it beside the new one in the same run: the same bits."""
+    return "bf16" if x_dtype == g_dtype == torch.bfloat16 else "f32"
+
+
+def bn_relu_backward(x, g, mean, inv, scale, bias):
+    """The op's backward: (dx in ``x``'s shape and dtype, dscale, dbias
+    f32) from the saved ``x``, its statistics and the output's gradient
+    ``g``, both C-contiguous over their last axis."""
+    upcast = bwd_rows(x.dtype, g.dtype) == "f32"
+    x2d = _rows_of(x, "x", upcast)
+    # Autograd hands back the gradient in the layout its consumer made:
+    # in the models a channels_last conv or pool, so the NHWC rows are
+    # contiguous. Any other layout raises.
+    g2d = _rows_of(g, "the gradient", upcast)
+    s32, b32 = scale.float(), bias.float()
+    dbias, dscale = bn_bwd_stats(x2d, g2d, mean, inv, s32, b32)
+    dx = bn_bwd_dx(x2d, g2d, mean, inv, s32, b32, dbias, dscale)
+    return dx.view(x.shape).to(x.dtype), dscale, dbias
 
 
 class _BatchNormReLU(torch.autograd.Function):
     """Forward: bn_stats + bn_norm_relu. Backward: bn_bwd_stats +
-    bn_bwd_dx. Saves ``(x, mean, inv, scale, bias)``, as the JAX op's
-    ``_bn_relu_fwd`` does."""
+    bn_bwd_dx (:func:`bn_relu_backward`). Saves ``(x, mean, inv, scale,
+    bias)``, as the JAX op's ``_bn_relu_fwd`` does."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
@@ -418,21 +558,14 @@ class _BatchNormReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, mean, inv, scale, bias = ctx.saved_tensors
-        x2d = _rows_of(x, "x")
-        # Autograd hands back the gradient in the layout its consumer
-        # made: in the VGG model a channels_last conv or pool, so the
-        # NHWC rows are contiguous. Any other layout raises.
-        g2d = _rows_of(g, "the gradient")
-        s32, b32 = scale.float(), bias.float()
-        dbias, dscale = bn_bwd_stats(x2d, g2d, mean, inv, s32, b32)
-        dx = bn_bwd_dx(x2d, g2d, mean, inv, s32, b32, dbias, dscale)
-        return (dx.view(x.shape).to(x.dtype), dscale.to(scale.dtype),
-                dbias.to(bias.dtype), None)
+        dx, dscale, dbias = bn_relu_backward(x, g, mean, inv, scale, bias)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None
 
 
 def batch_norm_relu(x, scale, bias, eps=BN_EPS):
     """``relu(batch_norm(x))`` over (..., C) with current-batch statistics;
     differentiable w.r.t. ``x``, ``scale`` and ``bias``. Computes in f32
-    whatever the input dtype and returns ``x.dtype``. ``x`` must be
-    contiguous (its last axis the channels)."""
+    whatever the input dtype and returns ``x.dtype``; on a bf16 ``x`` and
+    gradient the backward's kernels read and write bf16 rows. ``x`` must
+    be contiguous (its last axis the channels)."""
     return _BatchNormReLU.apply(x, scale, bias, float(eps))

@@ -11,16 +11,23 @@
 //                                                 - x_hat * sum(gy * x_hat))
 //
 // What bounds it on this card: bytes. Each element is read once or twice
-// and written at most once, with a handful of flops: 32 bytes per element
-// over the four kernels (forward 4 + 8, backward 8 + 12), far below the
-// ~295 flop per byte where the arithmetic would become the limit. The
-// design streams rows with coalesced 16-byte loads and keeps everything
-// per channel in registers:
+// and written at most once, with a handful of flops: on f32 rows 32 bytes
+// per element over the four kernels (forward 4 + 8, backward 8 + 12), far
+// below the ~295 flop per byte where the arithmetic would become the
+// limit. The backward pair also takes bf16 rows (ResNet-50's conv output
+// and its gradient), 4 + 6 bytes per element, so the op need not make f32
+// copies of x and g or cast dx back. The design streams rows with
+// coalesced loads and keeps everything per channel in registers:
 //
-//   - A thread owns VEC (4, or 1 when C % 4 != 0) consecutive channels and
-//     strides over the rows of its block; the threads of a block that own
-//     the same channels are its "lanes". C is the contiguous axis, so a
-//     warp reads whole row segments (for C = 64, two 256-byte rows).
+//   - A thread owns VEC consecutive channels (4 f32 or bf16, 8 bf16 in the
+//     dx kernel: 16 or 8 bytes a load; 1 when C or the pointers do not
+//     allow it) and strides over the rows of its block; the threads of a
+//     block that own the same channels are its "lanes". C is the
+//     contiguous axis, so a warp reads whole row segments (for C = 64 in
+//     f32, two 256-byte rows). bf16 elements are upcast in registers
+//     (exact) and every sum and product is f32, so a bf16 launch computes
+//     the f32 launch's values on the upcast rows, bit for bit; dx is
+//     rounded to bf16 (nearest even) as it is stored.
 //   - The TPU kernel carries its per-channel sums across sequential grid
 //     steps. Blocks on this card run in parallel and in no order, so the
 //     two reductions (bn_stats, bn_bwd_stats) combine across blocks inside
@@ -43,10 +50,24 @@
 //     block arrives last, so a launch gives the same bits every time; no
 //     float atomics. The counters live in a small zeroed workspace that
 //     the wrapper allocates once per (device, stream) and that each
-//     launch leaves zeroed.
-//   - The previous design, a partials kernel and a second launch whose
-//     threads each walk every block's partial of one channel in order
-//     ("two_stage"), stays beside it for the same-run comparison.
+//     launch leaves zeroed. A bf16 launch of bn_bwd_stats keeps 4
+//     channels a thread, so the wrapper's plan, and the summation order,
+//     are the f32 launch's.
+//   - The input gradient (bn_bwd_dx_wave_kernel) runs one full wave of
+//     blocks (SMs x resident blocks, from the occupancy calculator; fewer
+//     where each lane would walk under eight rows), each over a
+//     contiguous range of rows, each thread with two rows' loads in
+//     flight. x and g are read for the last time in the backward, so
+//     they are loaded evict-first (ld.global.cs); dx is stored normally
+//     and stays in L2 for the conv backward that reads it next. On bf16
+//     rows the kernel moves 6 bytes per element where the f32 route moved
+//     12, and the op's three casts around the pair (x and g up, dx down)
+//     18 more.
+//   - The previous designs stay beside them for the same-run comparison:
+//     a partials kernel and a second launch whose threads each walk every
+//     block's partial of one channel in order ("two_stage"), and the
+//     f32 dx kernel over at most four row blocks per SM, one row in
+//     flight per thread ("row_blocks").
 //   - The elementwise passes load their per-channel vectors once per
 //     thread. Every kernel uses the _rn intrinsics, so nvcc does not
 //     contract a multiply and an add into one fused operation: an element
@@ -61,11 +82,14 @@
 //     the TPU kernel's jnp.where as it stands: a NaN y masks its g to 0,
 //     and a NaN x_hat still reaches dscale and dx through the product.
 //
-// The wrapper (ops/bn_relu.py) passes only C-contiguous f32 tensors,
-// chooses VEC from C and the pointers' alignment, and sizes the grids
-// from the SM count (and, for the one-pass kernels, their occupancy).
+// The wrapper (ops/bn_relu.py) passes only C-contiguous tensors: f32 rows
+// to every kernel, bf16 rows to the backward pair, f32 channel vectors.
+// It chooses VEC from C and the pointers' alignment, and sizes the grids
+// from the SM count (and, for the one-pass and wave kernels, their
+// occupancy).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -145,6 +169,122 @@ struct Vec<4> {
   }
   static __device__ __forceinline__ void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// The channel vectors of a thread that owns 8 bf16 channels.
+template <>
+struct Vec<8> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    Vec<4>::load(p, v);
+    Vec<4>::load(p + 4, v + 4);
+  }
+};
+
+// VEC row elements of type T as f32 in registers: load (read-only path),
+// load_last (evict-first: the last read of these bytes in the backward)
+// and store (f32, or bf16 rounded to nearest even). bf16 -> f32 is exact:
+// the 16 bits are the top half of the f32.
+template <typename T, int VEC>
+struct Rows;
+
+template <>
+struct Rows<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    Vec<1>::load(p, v);
+  }
+  static __device__ __forceinline__ void load_last(const float* p,
+                                                   float* v) {
+    v[0] = __ldcs(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    Vec<1>::store(p, v);
+  }
+};
+
+template <>
+struct Rows<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    Vec<4>::load(p, v);
+  }
+  static __device__ __forceinline__ void load_last(const float* p,
+                                                   float* v) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    Vec<4>::store(p, v);
+  }
+};
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Two f32 as the 32-bit word of two bf16, the first at the lower address.
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  return bf16_bits(a) | (bf16_bits(b) << 16);
+}
+
+template <>
+struct Rows<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* v) {
+    v[0] = bf16_lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void load_last(const __nv_bfloat16* p,
+                                                   float* v) {
+    v[0] = bf16_lo(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    *reinterpret_cast<unsigned short*>(p) =
+        static_cast<unsigned short>(bf16_bits(v[0]));
+  }
+};
+
+// 4 bf16 channels, 8 bytes: bn_bwd_stats keeps the f32 launch's plan.
+template <>
+struct Rows<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* v) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_lo(t.x);
+    v[1] = bf16_hi(t.x);
+    v[2] = bf16_lo(t.y);
+    v[3] = bf16_hi(t.y);
+  }
+};
+
+// 8 bf16 channels, 16 bytes: the dx kernel's loads and stores.
+template <>
+struct Rows<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load_last(const __nv_bfloat16* p,
+                                                   float* v) {
+    const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = bf16_lo(w[j]);
+      v[2 * j + 1] = bf16_hi(w[j]);
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                   bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
   }
 };
 
@@ -620,11 +760,12 @@ __device__ __forceinline__ void bwd_terms(const float* xv, const float* gv,
 }
 
 // bn_bwd_stats in one launch: per-channel sum(gy) and sum(gy * x_hat),
-// gy = g where the forward output was positive, else 0.
-template <int VEC>
+// gy = g where the forward output was positive, else 0; x and g f32 or
+// bf16 rows (T).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-bn_bwd_stats_onepass_kernel(const float* __restrict__ x,
-                            const float* __restrict__ g,
+bn_bwd_stats_onepass_kernel(const T* __restrict__ x,
+                            const T* __restrict__ g,
                             const float* __restrict__ mean,
                             const float* __restrict__ inv,
                             const float* __restrict__ scale,
@@ -665,8 +806,8 @@ bn_bwd_stats_onepass_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const size_t i = static_cast<size_t>(r + u * step) * C + off;
-        Vec<VEC>::load(x + i, xv[u]);
-        Vec<VEC>::load(g + i, gv[u]);
+        Rows<T, VEC>::load(x + i, xv[u]);
+        Rows<T, VEC>::load(g + i, gv[u]);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -678,8 +819,8 @@ bn_bwd_stats_onepass_kernel(const float* __restrict__ x,
       if (r + u * step < rows.y) {
         const size_t i = static_cast<size_t>(r + u * step) * C + off;
         float xv[VEC], gv[VEC];
-        Vec<VEC>::load(x + i, xv);
-        Vec<VEC>::load(g + i, gv);
+        Rows<T, VEC>::load(x + i, xv);
+        Rows<T, VEC>::load(g + i, gv);
         bwd_terms<VEC>(xv, gv, m, iv, sc, b, db[u], ds[u]);
       }
     }
@@ -694,6 +835,89 @@ bn_bwd_stats_onepass_kernel(const float* __restrict__ x,
     if (c < C) {
       dbias[c] = ra[t];
       dscale[c] = rb[t];
+    }
+  }
+}
+
+// ---- the input gradient in one wave ---------------------------------------
+
+// Rows each thread of the dx kernel keeps in flight per step.
+constexpr int kDxUnroll = 2;
+
+// One row of x and g into dx (in xv), rounded op by op as the plain
+// version: dx = ((scale * inv) * (1/R)) * ((R * gy - dbias) - x_hat *
+// dscale), k = (scale * inv) * (1/R) per channel.
+template <int VEC>
+__device__ __forceinline__ void dx_terms(float* xv, const float* gv,
+                                         const float* m, const float* iv,
+                                         const float* sc, const float* b,
+                                         const float* db, const float* ds,
+                                         const float* k, float count) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float xh = __fmul_rn(__fsub_rn(xv[j], m[j]), iv[j]);
+    const float yv = __fadd_rn(__fmul_rn(xh, sc[j]), b[j]);
+    const float gy = yv > 0.f ? gv[j] : 0.f;
+    float t = __fsub_rn(__fmul_rn(count, gy), db[j]);
+    t = __fsub_rn(t, __fmul_rn(xh, ds[j]));
+    xv[j] = __fmul_rn(k[j], t);
+  }
+}
+
+// dx of f32 or bf16 rows (T), dx in T. Grid (blocks, column blocks): one
+// full wave, each block over rows [b * R / n, (b + 1) * R / n), each
+// thread two rows' loads (x and g, evict-first) in flight per step.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_dx_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dbias,
+                      const float* __restrict__ dscale, T* __restrict__ dx,
+                      int R, int C, float count, float inv_count) {
+  constexpr int U = kDxUnroll;
+  const Layout l = layout<VEC>(C);
+  if (!l.active) return;
+  const size_t off = static_cast<size_t>(l.cg) * VEC;
+  float m[VEC], iv[VEC], sc[VEC], b[VEC], db[VEC], ds[VEC], k[VEC];
+  Vec<VEC>::load(mean + off, m);
+  Vec<VEC>::load(inv + off, iv);
+  Vec<VEC>::load(scale + off, sc);
+  Vec<VEC>::load(bias + off, b);
+  Vec<VEC>::load(dbias + off, db);
+  Vec<VEC>::load(dscale + off, ds);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) k[j] = __fmul_rn(__fmul_rn(sc[j], iv[j]),
+                                                 inv_count);
+  const int2 rows = block_rows(R);
+  const int step = l.lanes;
+  int r = rows.x + l.lane;
+  for (; r + (U - 1) * step < rows.y; r += U * step) {
+    float xv[U][VEC], gv[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t i = static_cast<size_t>(r + u * step) * C + off;
+      Rows<T, VEC>::load_last(x + i, xv[u]);
+      Rows<T, VEC>::load_last(g + i, gv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      dx_terms<VEC>(xv[u], gv[u], m, iv, sc, b, db, ds, k, count);
+      Rows<T, VEC>::store(dx + static_cast<size_t>(r + u * step) * C + off,
+                          xv[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u + 1 < U; ++u) {  // the last rows, fewer than U
+    if (r + u * step < rows.y) {
+      const size_t i = static_cast<size_t>(r + u * step) * C + off;
+      float xv[VEC], gv[VEC];
+      Rows<T, VEC>::load_last(x + i, xv);
+      Rows<T, VEC>::load_last(g + i, gv);
+      dx_terms<VEC>(xv, gv, m, iv, sc, b, db, ds, k, count);
+      Rows<T, VEC>::store(dx + i, xv);
     }
   }
 }
@@ -742,11 +966,13 @@ dim3 finish_grid(int C) { return dim3((C + kThreads - 1) / kThreads); }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. Every tensor is f32 and
-// C-contiguous: x and g are (R, C), the channel vectors (C,), the
-// partials (blocks, C). vec is 4 (C % 4 == 0 and every pointer 16-byte
-// aligned) or 1. Each returns the CUDA error code of its launches.
-// tdt_bn_stats and tdt_bn_bwd_stats are the two-stage reductions.
+// Plain C entry points, loaded with ctypes. Every tensor is C-contiguous:
+// x and g are (R, C) rows, f32 unless an entry point takes a bf16 flag;
+// the channel vectors (C,) and the partials (blocks, C) are f32. For f32
+// rows vec is 4 (C % 4 == 0 and every pointer 16-byte aligned) or 1. Each
+// returns the CUDA error code of its launches. tdt_bn_stats and
+// tdt_bn_bwd_stats are the two-stage reductions, tdt_bn_bwd_dx the
+// row-blocks dx kernel: the previous designs.
 
 extern "C" int tdt_bn_stats(const void* x, int R, int C, int vec,
                             int blocks, void* ps, void* pq, float eps,
@@ -857,8 +1083,9 @@ extern "C" int tdt_bn_bwd_dx(const void* x, const void* g, const void* mean,
 // cluster (1 to 8) come from the wrapper's plan; the partials hold
 // blocks / cluster rows of C floats each; counters is the zeroed
 // workspace of the stream (at least one per column block), which the
-// launch leaves zeroed. Returns cudaErrorInvalidValue for a plan the
-// kernels do not take.
+// launch leaves zeroed. bn_bwd_stats takes bf16 rows when bf16 is 1 (vec
+// 4: 8-byte aligned rows, 16-byte aligned channel vectors; or 1). Returns
+// cudaErrorInvalidValue for a plan the kernels do not take.
 extern "C" int tdt_bn_stats_onepass(const void* x, int R, int C, int vec,
                                     int blocks, int cluster, void* ps,
                                     void* pq, void* counters, float eps,
@@ -882,16 +1109,14 @@ extern "C" int tdt_bn_stats_onepass(const void* x, int R, int C, int vec,
                           st, xp, R, C, psp, pqp, cp, count, eps, mp, ip);
 }
 
-extern "C" int tdt_bn_bwd_stats_onepass(
-    const void* x, const void* g, const void* mean, const void* inv,
-    const void* scale, const void* bias, int R, int C, int vec, int blocks,
-    int cluster, void* pdb, void* pds, void* counters, void* dbias,
-    void* dscale, void* stream) {
-  const int cols = onepass_columns(R, C, vec, blocks, cluster);
-  if (cols < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  const float* gp = static_cast<const float*>(g);
+template <typename T>
+int bwd_stats_onepass(const void* x, const void* g, const void* mean,
+                      const void* inv, const void* scale, const void* bias,
+                      int R, int C, int vec, int blocks, int cols,
+                      int cluster, void* pdb, void* pds, void* counters,
+                      void* dbias, void* dscale, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(g);
   const float* mp = static_cast<const float*>(mean);
   const float* ip = static_cast<const float*>(inv);
   const float* sp = static_cast<const float*>(scale);
@@ -902,30 +1127,120 @@ extern "C" int tdt_bn_bwd_stats_onepass(
   float* dbp = static_cast<float*>(dbias);
   float* dsp = static_cast<float*>(dscale);
   if (vec == 4) {
-    return launch_clustered(bn_bwd_stats_onepass_kernel<4>, blocks, cols,
+    return launch_clustered(bn_bwd_stats_onepass_kernel<T, 4>, blocks, cols,
                             cluster, st, xp, gp, mp, ip, sp, bp, R, C, pdbp,
                             pdsp, cp, dbp, dsp);
   }
-  return launch_clustered(bn_bwd_stats_onepass_kernel<1>, blocks, cols,
+  return launch_clustered(bn_bwd_stats_onepass_kernel<T, 1>, blocks, cols,
                           cluster, st, xp, gp, mp, ip, sp, bp, R, C, pdbp,
                           pdsp, cp, dbp, dsp);
 }
 
-// Resident blocks per SM of a one-pass kernel (bwd 0: bn_stats, 1:
-// bn_bwd_stats) at vec, into *out: the wrapper sizes the grid to fill
-// every SM once at this occupancy.
-extern "C" int tdt_bn_onepass_blocks_per_sm(int bwd, int vec, int* out) {
-  cudaError_t err;
-  if (bwd) {
-    err = vec == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         out, bn_bwd_stats_onepass_kernel<4>, kThreads, 0)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         out, bn_bwd_stats_onepass_kernel<1>, kThreads, 0);
-  } else {
-    err = vec == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         out, bn_stats_onepass_kernel<4>, kThreads, 0)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         out, bn_stats_onepass_kernel<1>, kThreads, 0);
+extern "C" int tdt_bn_bwd_stats_onepass(
+    const void* x, const void* g, const void* mean, const void* inv,
+    const void* scale, const void* bias, int R, int C, int vec, int bf16,
+    int blocks, int cluster, void* pdb, void* pds, void* counters,
+    void* dbias, void* dscale, void* stream) {
+  const int cols = onepass_columns(R, C, vec, blocks, cluster);
+  if (cols < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    return bwd_stats_onepass<__nv_bfloat16>(
+        x, g, mean, inv, scale, bias, R, C, vec, blocks, cols, cluster, pdb,
+        pds, counters, dbias, dscale, st);
   }
-  return static_cast<int>(err);
+  return bwd_stats_onepass<float>(x, g, mean, inv, scale, bias, R, C, vec,
+                                  blocks, cols, cluster, pdb, pds, counters,
+                                  dbias, dscale, st);
+}
+
+template <typename T, int VEC>
+int dx_wave(const void* x, const void* g, const void* mean, const void* inv,
+            const void* scale, const void* bias, const void* dbias,
+            const void* dscale, void* dx, int R, int C, int blocks,
+            float count, float inv_count, cudaStream_t st) {
+  bn_bwd_dx_wave_kernel<T, VEC><<<grid_for(blocks, C, VEC), kThreads, 0,
+                                  st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(inv),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(dbias), static_cast<const float*>(dscale),
+      static_cast<T*>(dx), R, C, count, inv_count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The input gradient in one wave: blocks row blocks (1 to R, from the
+// wrapper's plan) in each column block. f32 rows take vec 4 or 1, bf16
+// rows (bf16 1) vec 8 (C % 8 == 0, every pointer 16-byte aligned) or 1;
+// dx has the rows' type. Returns cudaErrorInvalidValue otherwise.
+extern "C" int tdt_bn_bwd_dx_wave(const void* x, const void* g,
+                                  const void* mean, const void* inv,
+                                  const void* scale, const void* bias,
+                                  const void* dbias, const void* dscale,
+                                  void* dx, int R, int C, int vec, int bf16,
+                                  int blocks, float count, float inv_count,
+                                  void* stream) {
+  if (blocks < 1 || blocks > R || C % vec != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && vec == 8) {
+    return dx_wave<__nv_bfloat16, 8>(x, g, mean, inv, scale, bias, dbias,
+                                     dscale, dx, R, C, blocks, count,
+                                     inv_count, st);
+  }
+  if (bf16 && vec == 1) {
+    return dx_wave<__nv_bfloat16, 1>(x, g, mean, inv, scale, bias, dbias,
+                                     dscale, dx, R, C, blocks, count,
+                                     inv_count, st);
+  }
+  if (!bf16 && vec == 4) {
+    return dx_wave<float, 4>(x, g, mean, inv, scale, bias, dbias, dscale,
+                             dx, R, C, blocks, count, inv_count, st);
+  }
+  if (!bf16 && vec == 1) {
+    return dx_wave<float, 1>(x, g, mean, inv, scale, bias, dbias, dscale,
+                             dx, R, C, blocks, count, inv_count, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, kThreads, 0));
+}
+
+// Resident blocks per SM of a kernel the wrapper sizes a wave of (which
+// 0: bn_stats one-pass, 1: bn_bwd_stats one-pass, 2: the dx wave kernel)
+// at vec, on bf16 rows when bf16 is 1, into *out. Returns
+// cudaErrorInvalidValue for an instantiation that does not exist.
+extern "C" int tdt_bn_blocks_per_sm(int which, int vec, int bf16,
+                                    int* out) {
+  if (which == 0 && !bf16) {
+    return vec == 4 ? occupancy(bn_stats_onepass_kernel<4>, out)
+                    : occupancy(bn_stats_onepass_kernel<1>, out);
+  }
+  if (which == 1) {
+    if (bf16) {
+      return vec == 4
+                 ? occupancy(bn_bwd_stats_onepass_kernel<__nv_bfloat16, 4>,
+                             out)
+                 : occupancy(bn_bwd_stats_onepass_kernel<__nv_bfloat16, 1>,
+                             out);
+    }
+    return vec == 4 ? occupancy(bn_bwd_stats_onepass_kernel<float, 4>, out)
+                    : occupancy(bn_bwd_stats_onepass_kernel<float, 1>, out);
+  }
+  if (which == 2) {
+    if (bf16) {
+      return vec == 8 ? occupancy(bn_bwd_dx_wave_kernel<__nv_bfloat16, 8>,
+                                  out)
+                      : occupancy(bn_bwd_dx_wave_kernel<__nv_bfloat16, 1>,
+                                  out);
+    }
+    return vec == 4 ? occupancy(bn_bwd_dx_wave_kernel<float, 4>, out)
+                    : occupancy(bn_bwd_dx_wave_kernel<float, 1>, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
