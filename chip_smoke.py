@@ -474,6 +474,26 @@ Phases 35-37 run the image trainer's last model families:
    whole-sequence forwards through the decode math (a divergence allowed
    only at a top-2 gap within ``NEAR_TIE``); ``decode_quant='int8'`` and
    the ``quant`` draft refused.
+48. sequence parallelism at LM-large's attention call (B = 4, L = 2048,
+   H = 16, D = 128, bf16, causal), each rank's math of an sp group
+   composed in one process with the tensors the group's collectives
+   would deliver (NCCL takes one rank per card, so the collectives do
+   not run here): the ring at sp = 2 and 4 (``ring_local`` of rank r fed
+   the chunk of rank (r - s) % sp at step s) against the flash kernels
+   over the whole sequence, the output and the q, k, v gradients
+   (autograd through the block updates) within phase 13's bf16 row
+   bound; seeded from a 1024-position cache with its last 256 masked and
+   ``q_offset`` 768, against the flash forward over cache ++ chunk; ms
+   per rank-step of the block update and rank 0's forward + backward
+   peak memory, beside the flash forward's ms per layer. Ulysses at
+   sp = 2: each rank's local flash call on its 8 heads over the whole
+   sequence (contiguous, as the all-to-all delivers them), the flash
+   launches counted from 0 (2 per kernel, all wgmma), the output and
+   gradients against the same heads of the 16-head call (bit-equal or
+   not, and the largest difference). The int8 kernel at M = 16 (the
+   32-row cp-prefill chunk over sp = 2) on LM-large's projections, on
+   the mma route, against its plain version as phase 3, timed beside its
+   bound and ``torch.matmul``.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -484,8 +504,9 @@ flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
 phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
 on 42's elastic run and 44's trials; the flash kernels' on 45's and
-46's eager steps and captures), beside each main-path count; the
-int8 row also the 32-row prefill's bound; the BN, SGD and flash rows
+46's eager steps and captures and on 48's Ulysses ranks), beside each
+main-path count; the int8 row also the 32-row prefill's bound and 48's
+16-row cp-prefill pass; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -7474,6 +7495,240 @@ def moe_large_serve(dev, seed: int) -> dict:
     return out
 
 
+# Sequence parallelism (phase 48) at TransformerLM-large's attention call:
+# the sp extents the ring is composed at, the cache-seed case (a cache of
+# SP_CACHE positions, its last SP_CACHE_TAIL masked, before the chunk at
+# offset SP_CACHE - SP_CACHE_TAIL), and the cp-prefill rows of the int8
+# check (the 32-row chunk over sp = 2).
+SP_RING = (2, 4)
+SP_ULYSSES = 2
+SP_CACHE, SP_CACHE_TAIL = 1024, 256
+SP_INT8_M = 16
+
+
+def _ring_composed(q, k, v, sp, **cache):
+    """Every rank's ring on one card: rank r's ``ring_local`` fed, at step
+    s, the chunk of rank (r - s) % sp, the chunk the rotation delivers;
+    the ranks' outputs concatenated in sequence order."""
+    from tpu_ddp_torch.parallel.ring_attention import ring_local
+    lc = q.shape[1] // sp
+
+    def chunk(t, i):
+        return t[:, i * lc:(i + 1) * lc]
+
+    return torch.cat([ring_local(
+        chunk(q, r), ((chunk(k, (r - s) % sp), chunk(v, (r - s) % sp))
+                      for s in range(sp)), r, sp, causal=True, **cache)
+        for r in range(sp)], dim=1)
+
+
+# The ring against the flash kernels, bf16: o row by row within phase
+# 13's bound; the gradients by their relative Frobenius error. The flash
+# backward rounds p and ds to bf16 (2**-8 relative), the ring keeps them
+# in f32, and a gradient row whose exact value nearly cancels (the first
+# query's dq, where p = 1 and o = v) is that rounding on one side and
+# about 0 on the other, so rows are not comparable there.
+SP_GRAD_FROB_TOL = 1e-2
+
+
+def _sp_readings(got, want, what, tol, where, rows=False) -> dict:
+    """Readings of each (name, tensor) pair of ``got`` against ``want``;
+    fails when o's worst row passes ``tol`` or a gradient's Frobenius
+    error passes ``SP_GRAD_FROB_TOL`` (``rows``: every tensor by its
+    worst row against ``tol``)."""
+    reads = {w: _readings(a, b) for w, a, b in zip(what, got, want)}
+    _fail_on({w: (r["row"], tol) if rows or w == "o"
+              else (r["frob"], SP_GRAD_FROB_TOL)
+              for w, r in reads.items()}, where)
+    return reads
+
+
+def sequence_parallel(dev, gen) -> dict:
+    """Phase 48: each rank's sequence-parallel math at LM-large's widths,
+    B = 4, L = 2048, H = 16, D = 128, bf16, causal, one process composing
+    the ranks of an sp group with the tensors the group's collectives
+    would deliver (NCCL takes one rank per card). The ring at sp = 2 and
+    4 against the flash kernels over the whole sequence (output and q,
+    k, v gradients, autograd through the block updates), and seeded from
+    a cache with ``q_offset`` > 0 and a masked tail against the flash
+    forward over cache ++ chunk; ms per rank-step of the block update and
+    peak memory of rank 0's forward and backward. Ulysses at sp = 2:
+    each rank's flash call on its 8 heads over the whole sequence, its
+    launches counted from 0 (all wgmma), its output and gradients against
+    the same heads of the 16-head call. The int8 kernel at cp prefill's
+    M = 16 rows on LM-large's projections against its plain version,
+    timed beside its bound and ``torch.matmul``."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    from tpu_ddp_torch.ops import quant_matmul as qm
+    from tpu_ddp_torch.ops.quant import dequantize, quantize_weight
+    from tpu_ddp_torch.parallel.ring_attention import (block_attn,
+                                                       init_state,
+                                                       ring_local)
+    from tpu_ddp_torch.parallel.ulysses import ulysses_local
+    b, L, h, _, d = FLASH_MAIN
+    tol = FLASH_TOL[torch.bfloat16]
+    q, k, v = (torch.randn(b, L, h, d, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn(b, L, h, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    o_ref = fa.flash_attention(q, k, v, True)
+    g_ref = torch.autograd.grad((o_ref.float() * do.float()).sum(),
+                                (q, k, v))
+    o_ref = o_ref.detach()
+    what = ("o", "dq", "dk", "dv")
+    out = {"shape": [b, L, h, d], "ring": {}}
+    for sp in SP_RING:
+        o = _ring_composed(q, k, v, sp)
+        g = torch.autograd.grad((o.float() * do.float()).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        reads = _sp_readings((o.detach(), *g), (o_ref, *g_ref), what,
+                             tol["o"], f"the ring at sp={sp}")
+        del o, g
+        out["ring"][f"sp{sp}"] = {"readings": reads}
+    # Cache seed: the chunk's queries at SP_CACHE - SP_CACHE_TAIL.., the
+    # cache's keys at 0..SP_CACHE-1, its tail masked; the reference is the
+    # flash forward over the valid cache ++ chunk (its first rows, the
+    # cache's own queries, dropped).
+    S, off = SP_CACHE, SP_CACHE - SP_CACHE_TAIL
+    ck, cv = (torch.randn(b, S, h, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    valid = torch.arange(S, device=dev) < off
+    with torch.no_grad():
+        qq = torch.cat([torch.zeros_like(ck[:, :off]), q], dim=1)
+        want = fa.flash_attention(qq, torch.cat([ck[:, :off], k], dim=1),
+                                  torch.cat([cv[:, :off], v], dim=1),
+                                  True)[:, off:]
+        for sp in SP_RING:
+            o = _ring_composed(q, k, v, sp, q_offset=off, cache_k=ck,
+                               cache_v=cv, cache_valid=valid)
+            torch.cuda.synchronize()
+            r = _readings(o, want)
+            _fail_on({"o": (r["row"], tol["o"])},
+                     f"the cache-seeded ring at sp={sp}")
+            out["ring"][f"sp{sp}"]["cache_readings"] = r
+        del qq, want, o
+    out["cache"] = {"positions": S, "masked_tail": SP_CACHE_TAIL,
+                    "q_offset": off}
+    # One rank-step of the block update, alone, and rank 0's whole ring
+    # (forward and backward) for its peak memory.
+    scale = 1.0 / math.sqrt(d)
+    for sp in SP_RING:
+        lc = L // sp
+        qc, kc, vc = (t.detach()[:, :lc] for t in (q, k, v))
+        pos = torch.arange(lc, device=dev)
+        state = init_state(qc)
+        ms = cuda_ms(lambda: block_attn(qc, kc, vc, *state, pos, pos, True,
+                                        scale), [()], 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        q0 = q.detach()[:, :lc].clone().requires_grad_()
+        kv = []
+        for i in range(sp):
+            cut = slice(i * lc, (i + 1) * lc)
+            kv.append((k.detach()[:, cut].clone().requires_grad_(),
+                       v.detach()[:, cut].clone().requires_grad_()))
+        o0 = ring_local(q0, (kv[-s % sp] for s in range(sp)), 0, sp,
+                        causal=True)
+        torch.autograd.grad((o0.float() * do[:, :lc].float()).sum(),
+                            [q0] + [t for p in kv for t in p])
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        del q0, kv, o0, state
+        out["ring"][f"sp{sp}"].update(
+            block_update_ms_per_rank_step=ms,
+            layer_fwd_ms_per_rank=sp * ms,
+            rank0_fwd_bwd_peak_gib_above_inputs=peak)
+    out["flash_fwd_ms_per_layer"] = cuda_ms(
+        lambda: fa.flash_fwd(q.detach(), k.detach(), v.detach(), True),
+        [()], 10)
+    # Ulysses: rank r holds heads 8r..8r+7 over the whole sequence, as the
+    # all-to-all delivers them (contiguous).
+    wrappers = _flash_wrappers()
+    hs = h // SP_ULYSSES
+    per_rank = []
+    for r in range(SP_ULYSSES):
+        heads = slice(r * hs, (r + 1) * hs)
+        per_rank.append([t.detach()[:, :, heads].contiguous()
+                         .requires_grad_() for t in (q, k, v)]
+                        + [do[:, :, heads].contiguous()])
+    torch.cuda.synchronize()
+    _zero_launches(wrappers)
+    uly = []
+    for ql, kl, vl, dol in per_rank:
+        o = ulysses_local(ql, kl, vl, causal=True, flash=True)
+        uly.append((o.detach(), *torch.autograd.grad(
+            (o.float() * dol.float()).sum(), (ql, kl, vl))))
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    want_l = _flash_want(SP_ULYSSES, SP_ULYSSES)
+    if launches != want_l:
+        fail(f"Ulysses' local flash launches {launches}, expected {want_l}")
+    same, worst = True, 0.0
+    for r, got in enumerate(uly):
+        heads = slice(r * hs, (r + 1) * hs)
+        for a, ref in zip(got, (o_ref, *g_ref)):
+            ref = ref[:, :, heads]
+            same = same and torch.equal(a, ref)
+            worst = max(worst, float((a.float() - ref.float()).abs().max()))
+        _sp_readings(got, [t[:, :, heads] for t in (o_ref, *g_ref)], what,
+                     tol["grad"], f"Ulysses rank {r}", rows=True)
+    out["ulysses"] = {"sp": SP_ULYSSES, "heads_per_rank": hs,
+                      "launches": launches, "bitwise_equal_16_head": same,
+                      "max_abs_diff_16_head": worst}
+    del uly, per_rank, o_ref, g_ref, q, k, v
+    torch.cuda.empty_cache()
+    # int8 at the cp-prefill rows.
+    rows = []
+    for name, ((kk, n), per_pass) in LARGE_SHAPES.items():
+        copies = max(2, math.ceil(2 * L2_BYTES / (kk * n)))
+        x = torch.randn(SP_INT8_M, kk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        qws = [quantize_weight(0.02 * torch.randn(kk, n, generator=gen,
+                                                  device=dev))
+               for _ in range(copies)]
+        ref = qm.int8_matmul_ref(x, qws[0].q, qws[0].s)
+        route = qm.int8_route(x, qws[0].q)
+        if route != "mma":
+            fail(f"int8 at M={SP_INT8_M} K={kk} N={n} takes the {route} "
+                 "route, not mma")
+        _, err = _int8_err(qm.int8_matmul, x, qws[0].q, qws[0].s, ref)
+        itol = 1e-4 * float(ref.abs().max())
+        if not (math.isfinite(err) and err <= itol):
+            fail(f"int8_matmul disagrees with its plain version at M="
+                 f"{SP_INT8_M} K={kk} N={n}: max|d|={err} vs tol {itol}")
+        args = [(x, qw.q, qw.s) for qw in qws]
+        kern = timed(qm.int8_matmul, args, 20 * copies)
+        plain = timed(qm.int8_matmul_ref, args, 4 * copies)
+        wbf = [(x, dequantize(qw).to(torch.bfloat16)) for qw in qws]
+        lib = timed(torch.matmul, wbf, 20 * copies)
+        del wbf, qws
+        nbytes = SP_INT8_M * kk * 2 + kk * n + n * 4 + SP_INT8_M * n * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * SP_INT8_M * kk * n / BF16_FLOP_PER_S * 1e3
+        rows.append({"proj": name, "k": kk, "n": n, "per_pass": per_pass,
+                     "route": route, "max_abs_err": err, "tol": itol,
+                     "ms": kern["ms"], "plain_ms": plain["ms"],
+                     "library_ms": lib["ms"],
+                     "timing": _timing_label(kern, plain, lib),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"})
+
+    def per_pass(key):
+        return sum(r[key] * r["per_pass"] for r in rows)
+
+    bound = per_pass("bound_ms")
+    out["int8_cp_prefill"] = {
+        "m": SP_INT8_M, "shapes": rows, "ms": per_pass("ms"),
+        "plain_ms": per_pass("plain_ms"),
+        "library_ms": per_pass("library_ms"), "bound_ms": bound,
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7643,6 +7898,9 @@ def main() -> None:
     moe_serve = phase("47_moe_large_serve", moe_large_serve, dev,
                       args.seed)
     print(json.dumps({"moe_large_serve": moe_serve}), flush=True)
+    torch.cuda.empty_cache()
+    seqp = phase("48_sequence_parallel", sequence_parallel, dev, gen)
+    print(json.dumps({"sequence_parallel": seqp}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -7735,6 +7993,11 @@ def main() -> None:
             "from_checkpoint": ckpt_serve["from_checkpoint"][
                 "int8_launches"],
             "loadgen": load["int8_launches"]},
+        # Phase 48: one cp-prefill pass's launches at M = C/sp = 16 (the
+        # 32-row chunk over sp = 2), alone, beside its bound, its plain
+        # version and torch.matmul.
+        "cp_prefill_rows": {k: v for k, v in seqp["int8_cp_prefill"].items()
+                            if k != "shapes"},
     }, {
         "name": "sgd",
         "route": "cuda",
@@ -7904,7 +8167,10 @@ def main() -> None:
             "lm_dropout_eager": dcap["eager_launches"][name],
             "lm_dropout_capture": dcap["capture_launches"][name],
             "moe_large_eager": moe["launches"][name],
-            "moe_large_capture": moe["graph"]["capture_launches"][name]}
+            "moe_large_capture": moe["graph"]["capture_launches"][name],
+            # Phase 48: Ulysses at sp = 2, both ranks' local calls (8 heads
+            # over the whole sequence), counted from 0.
+            "ulysses_sp2_local": seqp["ulysses"]["launches"][name]}
         # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
         # beside SDPA's flash backend; main_path_ms: none traced.
         for preset, res in vit["flash_kernels"].items():
@@ -7936,6 +8202,7 @@ def main() -> None:
                        "autotune": auto, "dropout_capture": dcap,
                        "moe_large_train": moe,
                        "moe_large_serve": moe_serve,
+                       "sequence_parallel": seqp,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -8049,6 +8316,18 @@ def main() -> None:
           f"{moe_serve['ttft_ms_max']:.1f} ms; dropped share decode "
           f"{moe_serve['decode_dropped_share']}, prefill "
           f"{moe_serve['prefill_dropped_share']} [{card}]", flush=True)
+    rg = seqp["ring"]
+    print("sequence parallel (LM-large attention, one card): ring block "
+          "update " + ", ".join(
+              f"sp={k[2:]} {v['block_update_ms_per_rank_step']:.3f} ms per "
+              f"rank-step, peak {v['rank0_fwd_bwd_peak_gib_above_inputs']:.2f}"
+              f" GiB" for k, v in rg.items())
+          + f"; flash forward {seqp['flash_fwd_ms_per_layer']:.3f} ms per "
+          f"layer; Ulysses sp=2 local flash bit-equal to the 16-head call: "
+          f"{seqp['ulysses']['bitwise_equal_16_head']}; int8 at M=16 "
+          f"{seqp['int8_cp_prefill']['ms']:.3f} ms per pass vs torch.matmul "
+          f"{seqp['int8_cp_prefill']['library_ms']:.3f} [{card}]",
+          flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -313,8 +313,14 @@ def test_quarantine_scrubs_every_tier(model, params):
 
 
 def test_context_parallel_prefill_raises_naming_its_item(model, params):
-    with pytest.raises(NotImplementedError, match="item 10.5"):
-        long_context.cp_prefill_step()
-    with pytest.raises(NotImplementedError, match="item 10.5"):
+    """Context-parallel prefill is ported (tests/test_torch_cp_prefill.py)
+    and, as in the JAX engine, refuses a tiered pool: the sharded chunk
+    step scatters through the logical table. An unknown mode raises."""
+    with pytest.raises(ValueError, match="expected 'ring' or 'ulysses'"):
+        long_context.cp_prefill_step(
+            model, 8, params, None, None, None,
+            torch.zeros(1, 8, dtype=torch.long), 0, 8, None, None,
+            mode="zigzag")
+    with pytest.raises(ValueError, match="requires the single-tier pool"):
         ServeEngine(model, params, device="cpu", kv_tiers=2,
                     cp_prefill="ulysses", **GEOM)

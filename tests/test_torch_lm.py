@@ -419,12 +419,22 @@ def test_unported_model_fields_raise(kwargs, item):
 
 def test_unported_schedule_and_sequence_parallel_raise():
     """A schedule runs on the plain SGD path only, as in the JAX package
-    (the kernel takes a static lr); sequence parallelism is not ported."""
+    (the kernel takes a static lr). Sequence parallelism is ported
+    (tests/test_torch_ring_attention.py, tests/test_torch_ulysses.py);
+    ``attend`` refuses what the JAX dispatch refuses, with its words: an
+    sp axis without its extent, and an unknown scheme."""
+    from tpu_ddp.parallel.ring_attention import attend as jax_attend
     with pytest.raises(ValueError, match="static lr"):
         SGD(learning_rate=lambda step: 1e-3, use_pallas=True)
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="item 10.5"):
-        attend(q, q, q, axis_name="sp", axis_size=2)
+    jq = jnp.zeros((1, 8, 2, 16))
+    for kw in (dict(axis_name="sp"),
+               dict(axis_name="sp", axis_size=2, mode="zigzag")):
+        with pytest.raises(ValueError) as want:
+            jax_attend(jq, jq, jq, **kw)
+        with pytest.raises(ValueError) as got:
+            attend(q, q, q, **kw)
+        assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
 
 
 @pytest.mark.parametrize("name,value", [
@@ -435,6 +445,15 @@ def test_unported_schedule_and_sequence_parallel_raise():
 def test_unported_cli_env_raises(monkeypatch, name, value):
     from tpu_ddp_torch.examples.lm_train import main
     monkeypatch.setenv(name, value)
+    if name == "TPU_DDP_LM_SP_MODE":
+        # Ported: validated and passed on, inert at the CLI's sp = 1 as in
+        # the JAX CLI; a mode neither package knows raises.
+        monkeypatch.setenv("TPU_DDP_LM_STEPS", "1")
+        assert main(["--num-nodes", "1", "--device", "cpu"]) == 0
+        monkeypatch.setenv(name, "zigzag")
+        with pytest.raises(ValueError, match="unknown sequence-parallel"):
+            main(["--num-nodes", "1", "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         main(["--num-nodes", "1", "--device", "cpu"])
 

@@ -298,7 +298,9 @@ def test_port_imports_neither_jax_nor_tpu_ddp():
                 "data/native.py", "utils/metrics.py", "utils/flops.py",
                 "utils/timing.py", "utils/collectives.py",
                 "utils/profiling.py", "tune/__init__.py", "tune/space.py",
-                "tune/search.py", "tune/cache.py", "tune/runner.py"):
+                "tune/search.py", "tune/cache.py", "tune/runner.py",
+                "parallel/ring_attention.py", "parallel/ulysses.py",
+                "serve/long_context.py"):
         assert REPO / "tpu_ddp_torch" / mod in files, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -182,9 +182,17 @@ def test_junk_is_rejected_with_the_jax_message(clean_env, name, value):
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
 def test_cp_prefill_raises_naming_item_10_5(clean_env, mode):
+    """Context-parallel prefill is ported: the config takes each mode as
+    the JAX config does, and an engine given no sp group of >= 2 ranks
+    raises the JAX engine's error (tests/test_torch_cp_prefill.py runs
+    the sharded engine)."""
     clean_env.setenv("TPU_DDP_CP_PREFILL", mode)
-    with pytest.raises(NotImplementedError, match="item 10.5"):
-        TrainConfig()
+    assert TrainConfig().cp_prefill == JaxConfig().cp_prefill == mode
+    tm = make_transformer("TransformerLM-tiny", max_seq_len=32,
+                          compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="'sp' axis of extent >= 2"):
+        ServeEngine(tm, tm.init(torch.Generator().manual_seed(0)),
+                    device="cpu")
 
 
 def test_engine_refuses_mesh_and_sharded_checkpoints(clean_env, tmp_path):
@@ -193,7 +201,7 @@ def test_engine_refuses_mesh_and_sharded_checkpoints(clean_env, tmp_path):
     params = tm.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 2.6"):
         ServeEngine(tm, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10.5"):
+    with pytest.raises(ValueError, match="'sp' axis of extent >= 2"):
         ServeEngine(tm, params, cp_prefill="ring", device="cpu")
     for kw in (dict(shard_devices=["cpu"]), dict(param_budget_bytes=1)):
         with pytest.raises(NotImplementedError, match="item 2.6"):
@@ -235,8 +243,15 @@ def test_launcher_rejects_junk_serving_flags(argv):
 
 
 def test_launcher_still_refuses_cp_prefill():
-    with pytest.raises(NotImplementedError, match="item 10.5"):
-        launch._refuse_unported(["--cp-prefill", "ring"])
+    """Ported: the launcher takes --cp-prefill and sets
+    TPU_DDP_CP_PREFILL for every rank, as the JAX launcher does; a mode
+    outside its choices is an argparse error."""
+    launch._refuse_unported(["--cp-prefill", "ring"])
+    for mode in ("off", "ring", "ulysses"):
+        assert _parse(["--cp-prefill", mode]) == {
+            "TPU_DDP_CP_PREFILL": mode}
+    with pytest.raises(SystemExit):
+        _parse(["--cp-prefill", "dp"])
 
 
 def test_launcher_passes_the_serving_env_to_every_rank(monkeypatch):

@@ -825,12 +825,7 @@ def _audit(knob, clean):
         assert default in knob.values, (knob.name, default)
     probe = _probe(knob, default)
     clean.setenv(knob.env, knob.encode(probe))
-    if knob.name == "cp_prefill":
-        # Refused, never ignored: only "off" is ported (item 10.5).
-        with pytest.raises(NotImplementedError, match="item 10.5"):
-            TrainConfig()
-    else:
-        assert getattr(TrainConfig(), knob.field) == probe
+    assert getattr(TrainConfig(), knob.field) == probe
     if knob.values and (isinstance(knob.values[0], str) or (
             isinstance(knob.values[0], (int, float))
             and not isinstance(knob.values[0], bool))):

@@ -23,9 +23,11 @@ too (``TransformerLM-moe-tiny``, ``-moe-small``, ``-moe-large``, at ep =
 ``moe_top_k`` and ``moe_capacity_factor`` where set, so
 ``TPU_DDP_MOE_EXPERTS=4`` routes the MLPs of a dense preset; a MoE run
 ends with the routing counters of the last batch
-(``LMTrainer.route_stats``, one slot per layer). The knobs of
-axes the port does not carry yet (tensor and pipeline parallelism, the
-sequence-parallel mode) raise when set to anything but their default.
+(``LMTrainer.route_stats``, one slot per layer).
+``TPU_DDP_LM_SP_MODE`` (``ring`` or ``ulysses``) is validated and passed
+to the trainer; as in the JAX CLI, whose mesh has sp = 1, it is inert.
+The knobs of axes the port does not carry yet (tensor and pipeline
+parallelism) raise when set to anything but their default.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ import sys
 _UNPORTED_LM_ENV = {
     "TPU_DDP_LM_TP": ("1", "tensor parallelism", "item 10.6"),
     "TPU_DDP_LM_PP": ("1", "pipeline parallelism", "item 10.7"),
-    "TPU_DDP_LM_SP_MODE": ("ring", "Ulysses attention", "item 10.5"),
 }
 
 
@@ -120,6 +121,7 @@ def main(argv=None) -> int:
     steps = int(os.environ.get("TPU_DDP_LM_STEPS", "5"))
     preset = os.environ.get("TPU_DDP_LM_PRESET", "TransformerLM-tiny")
     accum = int(os.environ.get("TPU_DDP_LM_ACCUM", "1"))
+    sp_mode = os.environ.get("TPU_DDP_LM_SP_MODE", "ring")
     # TPU_DDP_LM_CLIP: global-norm gradient clip threshold (0 = off).
     clip = float(os.environ.get("TPU_DDP_LM_CLIP", "0")) or None
     opt_name = os.environ.get("TPU_DDP_LM_OPT", "adamw")
@@ -146,6 +148,7 @@ def main(argv=None) -> int:
                              **moe_overrides(preset))
     trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
                         optimizer=optimizer, clip_grad_norm=clip,
+                        sp_mode=sp_mode,
                         param_sharding="fsdp" if fsdp else "replicated",
                         opt_sharding=opt_shard)
     state = trainer.init_state(seed=0)

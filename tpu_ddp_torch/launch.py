@@ -94,7 +94,6 @@ _UNPORTED_FLAGS = {
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
     "--devices-per-proc": "item 9.9 (launch.py; one device per process)",
-    "--cp-prefill": "item 10.5 (context-parallel prefill)",
     **{flag: "item 11 (fleet, publish and DiLoCo)" for flag in (
         "--fleet-health", "--fleet-probe-backoff-ms",
         "--fleet-step-deadline-ms", "--fleet-retry-budget",
@@ -608,6 +607,12 @@ def _serving_flags(p) -> None:
                         "per-token-row int8 or a bf16 downcast "
                         "(lossless under a bf16 hot cache dtype). "
                         "Sets TPU_DDP_KV_COLD_DTYPE for every rank")
+    p.add_argument("--cp-prefill", default=None,
+                   choices=("off", "ring", "ulysses"),
+                   help="context-parallel chunked prefill "
+                        "(tpu_ddp_torch/serve/long_context.py): shard "
+                        "each prefill chunk over the serving sp group. "
+                        "Sets TPU_DDP_CP_PREFILL for every rank")
 
 
 def _serving_env(p, args) -> dict:
@@ -650,6 +655,8 @@ def _serving_env(p, args) -> dict:
         env["TPU_DDP_KV_TIERS"] = str(args.kv_tiers)
     if args.kv_cold_dtype is not None:
         env["TPU_DDP_KV_COLD_DTYPE"] = args.kv_cold_dtype
+    if args.cp_prefill is not None:
+        env["TPU_DDP_CP_PREFILL"] = args.cp_prefill
     return env
 
 

@@ -25,7 +25,12 @@ dm) and a ``router`` (dm, E)), and the forward returns the mean of the
 blocks' load-balance losses beside its output. Expert parallelism
 (:meth:`TransformerLM.with_expert_parallel`) holds ``E / ep`` experts per
 process and exchanges the slot queues over the ep process group.
-Sequence and tensor parallelism are not ported yet.
+
+Sequence parallelism (:meth:`TransformerLM.with_sequence_parallel`):
+each process of an sp group holds its L/sp chunk of the sequence, its
+positions global (the chunk offset ``s * L/sp``), and attention runs
+ring or Ulysses attention over the group (parallel/ring_attention.py,
+parallel/ulysses.py). Tensor parallelism is not ported yet.
 
 Dropout masks are a counter-based hash computed where the tensor lies:
 each mask's key is a pure function of the trainer's (dropout_seed, step,
@@ -45,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_ddp_torch.memory.policy import (cast_saved, effective_remat,
@@ -191,6 +197,15 @@ class TransformerLM:
     ep_size: int = 1
     ep_group: object = dataclasses.field(default=None, compare=False,
                                          repr=False)
+    # Sequence parallelism: the axis name and extent the sequence shards
+    # on, the scheme ("ring" K/V rotation or "ulysses" all-to-all head
+    # re-sharding) and the process group of the sp peers
+    # (with_sequence_parallel).
+    sp_axis: str | None = None
+    sp_size: int = 1
+    sp_mode: str = "ring"
+    sp_group: object = dataclasses.field(default=None, compare=False,
+                                         repr=False)
     # Attention through the flash kernels (ops/flash_attention.py) instead
     # of full_attention.
     use_flash: bool = False
@@ -314,11 +329,27 @@ class TransformerLM:
 
     # ---- training forward ---------------------------------------------
 
+    @property
+    def _sp(self) -> int:
+        return self.sp_size if self.sp_axis is not None else 1
+
     def check_seq_len(self, local_len: int) -> None:
-        """Validate the sequence length against ``max_seq_len``."""
-        if local_len > self.max_seq_len:
-            raise ValueError(f"sequence length {local_len} exceeds "
-                             f"max_seq_len={self.max_seq_len}")
+        """Validate the global sequence length (local x sp under sequence
+        parallelism) against ``max_seq_len``."""
+        sp = self._sp
+        if local_len * sp > self.max_seq_len:
+            raise ValueError(
+                f"global sequence length {local_len * sp} (local "
+                f"{local_len} x sp {sp}) exceeds "
+                f"max_seq_len={self.max_seq_len}")
+
+    def _positions(self, lc: int, device):
+        """Global positions of the local chunk (the chunk offset under
+        sp: this process's index in the sp group times ``lc``)."""
+        start = 0
+        if self._sp > 1:
+            start = dist.get_rank(self.sp_group) * lc
+        return start + torch.arange(lc, device=device)
 
     def apply(self, params, tokens, rng=None):
         """tokens: (B, L) integer ids -> logits (B, L, V) f32. ``rng``, a
@@ -348,7 +379,7 @@ class TransformerLM:
         cd = self.compute_dtype
         lc = tokens.shape[1]
         self.check_seq_len(lc)
-        pos = torch.arange(lc, device=tokens.device)
+        pos = self._positions(lc, tokens.device)
         x = F.embedding(tokens.long(), params["embed"]).to(cd)
         if rng is not None:
             x = dropout(x, self.dropout_rate, fold_in(rng, self.num_layers))
@@ -387,7 +418,9 @@ class TransformerLM:
         h, hd = self.num_heads, self.head_dim
         y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
         q, k, v = self.qkv_proj(blk, y, pos, dot=train_dot)
-        o = attend(q, k, v, causal=True, flash=self.use_flash)
+        o = attend(q, k, v, causal=True, axis_name=self.sp_axis,
+                   axis_size=self.sp_size, flash=self.use_flash,
+                   mode=self.sp_mode, group=self.sp_group)
         o = train_dot(o.reshape(b, lc, h * hd), blk["wo"], cd,
                       reshape=(h * hd, self.d_model)).to(cd)
         r1 = r2 = None
@@ -425,6 +458,24 @@ class TransformerLM:
         with torch.no_grad():
             self.trunk_with_aux(params, tokens, rng=None, stats=stats)
         return stats
+
+    def with_sequence_parallel(self, axis_name: str, axis_size: int,
+                               mode: str = "ring",
+                               group=None) -> "TransformerLM":
+        """This model with its sequence sharded ``axis_size`` ways over
+        the process group ``group`` (the sp peers), attending by ``mode``.
+        Ulysses needs ``num_heads % sp == 0`` (at tp 1, the port's only
+        tensor-parallel extent)."""
+        if mode not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sequence-parallel mode {mode!r}; "
+                             "expected 'ring' or 'ulysses'")
+        if mode == "ulysses" and self.num_heads % axis_size:
+            raise ValueError(
+                f"ulysses needs (num_heads/tp) % sp == 0 (got heads="
+                f"{self.num_heads}/1 per tp shard, sp={axis_size})")
+        return dataclasses.replace(self, sp_axis=axis_name,
+                                   sp_size=axis_size, sp_mode=mode,
+                                   sp_group=group)
 
     def with_expert_parallel(self, axis_name: str, axis_size: int,
                              group=None) -> "TransformerLM":

@@ -17,8 +17,8 @@ unless the environment says otherwise) and drops it with
 (``_abort_process_group``) instead of entering a teardown a dead peer
 could block.
 
-:func:`mesh_groups` splits the world into the dp and ep sub-groups of
-expert parallelism (the JAX mesh's rank layout).
+:func:`mesh_groups` splits the world into the dp, sp and ep sub-groups
+of sequence and expert parallelism (the JAX mesh's rank layout).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import dataclasses
 import os
 import re
 from datetime import timedelta
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -108,29 +109,62 @@ def test_distributed_setup(ctx: DistributedContext) -> dict:
     return info
 
 
-def mesh_groups(dp: int, ep: int):
-    """This process's (dp group, ep group) of a world of ``dp * ep``
-    processes laid out as the JAX ``make_mesh(dp, sp, mp, pp, ep)``
-    reshape, ep fastest: rank ``d * ep + e``. The dp group holds the ranks
-    of one ``e`` (the replicas of an expert shard), the ep group those of
-    one ``d`` (the processes that exchange tokens). Every process makes
-    every group, in one order, as ``new_group`` requires."""
-    if dp * ep != dist.get_world_size():
-        raise ValueError(f"dp={dp} x ep={ep} != world size "
+class MeshGroups(NamedTuple):
+    """This process's sub-groups of a dp x sp x ep world: the dp group
+    (the ranks of one (s, e)), the sp group (one (d, e); None at sp 1),
+    the ep group (one (d, s)) and the dp x sp group (one e: the replicas
+    of an expert shard; the dp group itself at sp 1)."""
+
+    dp: Any
+    sp: Any
+    ep: Any
+    dp_sp: Any
+
+
+def mesh_rank(d: int, s: int, e: int, sp: int = 1, ep: int = 1) -> int:
+    """The rank of mesh coordinate (d, s, e): the JAX ``make_mesh(dp, sp,
+    mp, pp, ep)`` reshape at mp = pp = 1, ep fastest,
+    ``(d * sp + s) * ep + e``."""
+    return (d * sp + s) * ep + e
+
+
+def mesh_coords(rank: int, sp: int = 1, ep: int = 1) -> tuple:
+    """The (d, s, e) coordinate of ``rank``: :func:`mesh_rank`'s
+    inverse."""
+    return rank // (sp * ep), (rank // ep) % sp, rank % ep
+
+
+def mesh_groups(dp: int, ep: int, sp: int = 1) -> MeshGroups:
+    """This process's :class:`MeshGroups` of a world of ``dp * sp * ep``
+    processes laid out as :func:`mesh_rank`. Every process makes every
+    group, in one order, as ``new_group`` requires: the dp groups, the ep
+    groups, then (at sp > 1) the sp groups and the dp x sp groups. At
+    sp 1 only the first two are made, the groups and ranks of a dp x ep
+    world."""
+    if dp * sp * ep != dist.get_world_size():
+        raise ValueError(f"dp={dp} x sp={sp} x ep={ep} != world size "
                          f"{dist.get_world_size()}")
     rank = dist.get_rank()
-    dp_group = ep_group = None
-    for e in range(ep):
-        ranks = [d * ep + e for d in range(dp)]
-        group = dist.new_group(ranks)
-        if rank in ranks:
-            dp_group = group
-    for d in range(dp):
-        ranks = [d * ep + e for e in range(ep)]
-        group = dist.new_group(ranks)
-        if rank in ranks:
-            ep_group = group
-    return dp_group, ep_group
+    mine = {}
+
+    def make(kind, sets):
+        for ranks in sets:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[kind] = group
+
+    cells = [(s, e) for s in range(sp) for e in range(ep)]
+    make("dp", [[mesh_rank(d, s, e, sp, ep) for d in range(dp)]
+                for s, e in cells])
+    make("ep", [[mesh_rank(d, s, e, sp, ep) for e in range(ep)]
+                for d in range(dp) for s in range(sp)])
+    if sp == 1:
+        return MeshGroups(mine["dp"], None, mine["ep"], mine["dp"])
+    make("sp", [[mesh_rank(d, s, e, sp, ep) for s in range(sp)]
+                for d in range(dp) for e in range(ep)])
+    make("dp_sp", [[mesh_rank(d, s, e, sp, ep) for d in range(dp)
+                    for s in range(sp)] for e in range(ep)])
+    return MeshGroups(mine["dp"], mine["sp"], mine["ep"], mine["dp_sp"])
 
 
 def shutdown(ctx: DistributedContext) -> None:

@@ -171,15 +171,20 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
+        return _all_to_all(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    """``all_to_all_single`` of ``x`` laid out contiguously (a cotangent
+    may arrive with permuted strides, which ``empty_like`` would keep)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 def _wide_bmm(a, b):

@@ -250,8 +250,11 @@ class ServeEngine:
     ``kv_tiers > 1`` it is the logical pool the scheduler admits against,
     while ``hbm_blocks`` bounds the hot pages and ``cold_blocks`` the cold
     ones. ``device=None`` means ``"cuda"``; the CPU must be asked for with
-    ``device="cpu"``. ``mesh`` (tensor-parallel serving) and
-    ``cp_prefill != "off"`` raise naming their ROADMAP items.
+    ``device="cpu"``. ``mesh`` (tensor-parallel serving) raises naming
+    its ROADMAP item. ``cp_prefill`` ("ring" or "ulysses") shards each
+    prefill chunk over ``sp_group``, a process group of >= 2 ranks (the
+    JAX engine's sp mesh axis; serve/long_context.py): the engine then
+    runs on every rank of the group, in lockstep, with the same requests.
     """
 
     def __init__(self, model, params, *, num_slots: int | None = None,
@@ -272,12 +275,12 @@ class ServeEngine:
                  hbm_blocks: int | None = None,
                  cold_blocks: int | None = None,
                  cp_prefill: str | None = None,
+                 sp_group=None,
                  mesh=None,
                  metrics: MetricsLogger | None = None,
                  config=None, device=None):
         check_decodable(model)
         from tpu_ddp_torch.utils.config import (TrainConfig,
-                                                refuse_cp_prefill,
                                                 refuse_unported_env)
         refuse_unported_env()
         if mesh is not None:
@@ -314,7 +317,24 @@ class ServeEngine:
             raise ValueError(
                 f"cp_prefill={self.cp_prefill!r}: expected 'off', "
                 "'ring' or 'ulysses' (TPU_DDP_CP_PREFILL)")
-        refuse_cp_prefill(self.cp_prefill)
+        self.sp_group = sp_group
+        if self.cp_prefill != "off":
+            if self.kv_tiers > 1:
+                raise ValueError(
+                    "cp_prefill requires the single-tier pool "
+                    "(TPU_DDP_KV_TIERS=1): the sharded chunk step "
+                    "scatters through the logical table directly")
+            import torch.distributed as dist
+            sp = (dist.get_world_size(sp_group)
+                  if sp_group is not None and dist.is_initialized() else 1)
+            if sp < 2:
+                raise ValueError(
+                    "cp_prefill needs a mesh with an 'sp' axis of "
+                    "extent >= 2 (TPU_DDP_CP_PREFILL)")
+            if self.prefill_chunk % sp:
+                raise ValueError(
+                    f"prefill_chunk={self.prefill_chunk} must divide "
+                    f"evenly over sp={sp} ranks (TPU_DDP_CP_PREFILL)")
         self.pool = PagedKVPool(model, num_blocks, self.block_size,
                                 cache_dtype, device=self.device,
                                 tiers=self.kv_tiers,
@@ -700,6 +720,12 @@ class ServeEngine:
                 self.model, self.pool, self._decode_params,
                 self._tensor(ht), self._tensor(ct), *args)
             k, v = self.pool.k, self.pool.v
+        elif self.cp_prefill != "off":
+            from tpu_ddp_torch.serve.long_context import cp_prefill_step
+            k, v, tok, lp = cp_prefill_step(
+                self.model, self.block_size, self._decode_params,
+                self.pool.k, self.pool.v, self._tensor(self._table_for(s)),
+                *args, mode=self.cp_prefill, group=self.sp_group)
         else:
             k, v, tok, lp = prefill_chunk(
                 self.model, self.block_size, self._decode_params,

@@ -62,9 +62,26 @@ K :meth:`LMTrainer.train_step` calls: on the CPU a loop, on the card one
 replay of a CUDA graph (train/capture.py) per (K, batch shapes, state
 tensors), in every layout, with ``grad_accum``, the clip and dropout.
 
-The JAX trainer's other axes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item: sequence and tensor
-parallelism.
+Sequence parallelism (tpu_ddp/train/lm.py:398-451, 571-620, 687-690):
+``sp > 1`` makes the world dp x sp x ep, rank ``(d * sp + s) * ep + e``
+(the JAX ``make_mesh`` order, parallel/bootstrap.py:mesh_rank). Each
+process takes its dp(x ep) rows and its L/sp columns (``put_batch``;
+the next-token shift happens on the host, so no halo is exchanged), the
+model's attention runs ring or Ulysses attention (``sp_mode``) over the
+sp group, and positions are global. The loss each process
+differentiates is its local token mean; every gradient is averaged over
+(dp, sp) (the expert leaves summed over their dp x sp group and divided
+by the world), which is the gradient of the global token mean, since
+every shard holds the same number of tokens. ZeRO-1, ZeRO-2 and FSDP
+scatter and gather over the dp group only, and the sp half of the mean
+is its own all-reduce over the sp group (JAX's ``skip_axes=(dp,)``
+algebra). The global-norm clip counts each leaf once: after the sync
+the sp peers hold the same gradients. Each (dp, sp, ep) shard draws its
+own dropout masks: the key folds in the global rank, which is the
+shard's index.
+
+Tensor parallelism is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -149,9 +166,10 @@ def _has_count(optimizer) -> bool:
 class LMTrainer:
     """A TransformerLM + its optimizer (AdamW by default) on one device,
     data parallel over the process group when ``torch.distributed`` is
-    initialised with more than one process, and expert parallel over
-    groups of ``ep`` of them. ``device=None`` means the card. At tp = 1
-    Adafactor runs bare, as in the JAX trainer."""
+    initialised with more than one process, sequence parallel over groups
+    of ``sp`` of them and expert parallel over groups of ``ep``.
+    ``device=None`` means the card. At tp = 1 Adafactor runs bare, as in
+    the JAX trainer."""
 
     def __init__(self, model, device=None, optimizer=None,
                  grad_accum: int = 1, vocab_chunk: int = 0,
@@ -159,7 +177,7 @@ class LMTrainer:
                  opt_sharding: str = "replicated", sp_mode: str = "ring",
                  clip_grad_norm: float | None = None,
                  dropout_seed: int = 0, ep: int = 1,
-                 moe_aux_coef: float = 0.01):
+                 moe_aux_coef: float = 0.01, sp: int = 1):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if sp_mode not in ("ring", "ulysses"):
@@ -191,6 +209,9 @@ class LMTrainer:
         if ep < 1 or world % ep:
             raise ValueError(f"ep={ep} must be >= 1 and divide the world "
                              f"size {world}")
+        if sp < 1 or world % (sp * ep):
+            raise ValueError(f"sp={sp} must be >= 1 and sp x ep = "
+                             f"{sp * ep} divide the world size {world}")
         self.device = resolve_device(device)
         self.optimizer = optimizer or AdamW()
         self.grad_accum = grad_accum
@@ -198,27 +219,38 @@ class LMTrainer:
         self.clip_grad_norm = clip_grad_norm
         self.dropout_seed = dropout_seed
         self.moe_aux_coef = moe_aux_coef
-        # The JAX trainer's dp and ep axes: the world is dp x ep, rank
-        # d * ep + e.
-        self.ep = ep
-        self.dp = world // ep
+        # The JAX trainer's dp, sp and ep axes: the world is dp x sp x
+        # ep, rank (d * sp + s) * ep + e.
+        self.ep, self.sp = ep, sp
+        self.dp = world // (sp * ep)
         self.rank = dist.get_rank() if dist.is_initialized() else 0
         self.ep_index = self.rank % ep
+        self.sp_index = (self.rank // ep) % sp
         # The model with every partition axis stripped: the JAX package's
         # canonical tree (checkpoints, conversion, route_stats).
         self.canonical_model = dataclasses.replace(
-            model, ep_axis=None, ep_size=1, ep_group=None)
-        self._dp_group = self._ep_group = None
-        if ep > 1:
-            if param_sharding != "replicated" or opt_sharding != "replicated":
-                raise NotImplementedError(
-                    f"param_sharding={param_sharding!r}, opt_sharding="
-                    f"{opt_sharding!r} at ep={ep}: ZeRO and FSDP over an "
-                    "ep-sharded partition are not ported to tpu_ddp_torch "
-                    "yet (ROADMAP Queue 1 item 10.8b); use the replicated "
-                    "optimizer")
+            model, ep_axis=None, ep_size=1, ep_group=None, sp_axis=None,
+            sp_size=1, sp_group=None)
+        self._dp_group = self._ep_group = self._sp_group = None
+        self._dp_sp_group = None
+        if ep > 1 and (param_sharding != "replicated"
+                       or opt_sharding != "replicated"):
+            raise NotImplementedError(
+                f"param_sharding={param_sharding!r}, opt_sharding="
+                f"{opt_sharding!r} at ep={ep}: ZeRO and FSDP over an "
+                "ep-sharded partition are not ported to tpu_ddp_torch "
+                "yet (ROADMAP Queue 1 item 10.8b); use the replicated "
+                "optimizer")
+        if ep > 1 or sp > 1:
             from tpu_ddp_torch.parallel.bootstrap import mesh_groups
-            self._dp_group, self._ep_group = mesh_groups(self.dp, ep)
+            (self._dp_group, self._sp_group, self._ep_group,
+             self._dp_sp_group) = mesh_groups(self.dp, ep, sp)
+        if sp > 1:
+            # "ring" rotates K/V over sp; "ulysses" re-shards heads and
+            # sequence with two all-to-alls.
+            model = model.with_sequence_parallel("sp", sp, mode=sp_mode,
+                                                 group=self._sp_group)
+        if ep > 1:
             model = model.with_expert_parallel("ep", ep, self._ep_group)
         self.model = model
         self.is_fsdp = param_sharding == "fsdp"
@@ -248,7 +280,9 @@ class LMTrainer:
                 "cannot host Adafactor's factored state; use AdamW/SGD "
                 "under fsdp, or opt_sharding='zero1' with Adafactor "
                 "(per-cell FactoredZeRO1)")
-        group = dist.group.WORLD if dist.is_initialized() else None
+        # The sharded layouts scatter and gather over dp only.
+        group = (self._dp_group if sp > 1
+                 else dist.group.WORLD if dist.is_initialized() else None)
         self._group = group
         self._multi_step_cache: dict = {}
         self._graph_stream = None
@@ -322,8 +356,10 @@ class LMTrainer:
         return torch.stack(parts) if stack else torch.cat(parts)
 
     def put_batch(self, inputs, targets):
-        """(B, L) host token ids -> int64 tensors on the device. B must
-        split into ``grad_accum`` equal microbatches."""
+        """(B, L) host token ids, this process's rows (its dp x ep shard)
+        over the whole sequence -> int64 tensors on the device, cut to
+        this process's L/sp columns at sp > 1. B must split into
+        ``grad_accum`` equal microbatches, L into sp chunks."""
         inputs = torch.as_tensor(np.ascontiguousarray(inputs, np.int64))
         targets = torch.as_tensor(np.ascontiguousarray(targets, np.int64))
         if inputs.shape != targets.shape or inputs.dim() != 2:
@@ -332,14 +368,23 @@ class LMTrainer:
         if inputs.shape[0] % self.grad_accum:
             raise ValueError(f"per-process batch {inputs.shape[0]} not "
                              f"divisible by grad_accum={self.grad_accum}")
+        L = inputs.shape[1]
+        if L % self.sp:
+            raise ValueError(f"seq len {L} not divisible by sp={self.sp}")
+        if self.sp > 1:
+            lc = L // self.sp
+            cut = slice(self.sp_index * lc, (self.sp_index + 1) * lc)
+            inputs = inputs[:, cut].contiguous()
+            targets = targets[:, cut].contiguous()
         return inputs.to(self.device), targets.to(self.device)
 
     def step_key(self, step):
         """Step ``step``'s dropout key on this process (None when the
         model has no dropout): ``dropout_seed`` folded with the step and
-        the rank, as the JAX trainer folds its key with the step and each
-        data axis's index. ``step``: an int (gives an int) or a device
-        tensor (gives an int64 tensor of the same value)."""
+        the rank, which is the (dp, sp, ep) shard's index, as the JAX
+        trainer folds its key with the step and each data axis's index.
+        ``step``: an int (gives an int) or a device tensor (gives an
+        int64 tensor of the same value)."""
         if self.model.dropout_rate <= 0.0:
             return None
         return fold_in(fold_in(self.dropout_seed, step), self.rank)
@@ -475,7 +520,9 @@ class LMTrainer:
         place."""
         z = self.layout
         if self.is_fsdp:
-            # The gather's backward summed the shard over dp.
+            # The gather's backward summed the shard over dp; the sp half
+            # of the mean is an all-reduce of its own.
+            self._sync_sp(grads)
             g_sh = z.views(grads[0].div_(float(z.axis_size)))
             if self.clip_grad_norm is not None:
                 torch._foreach_mul_(g_sh, clip_scale_from_sq(
@@ -483,6 +530,9 @@ class LMTrainer:
             z.apply(z.views(state.params.detach()), g_sh, state.opt_state)
             return
         if self.opt_zero1:
+            # The reduce-scatter over dp is the dp half of the sync (under
+            # ZeRO-2 it already ran, and these are the f32 slices).
+            self._sync_sp(grads)
             kw = dict(clip_norm=self.clip_grad_norm)
             new = (z.apply_scattered(leaves, grads, state.opt_state, **kw)
                    if self.opt_zero2
@@ -496,7 +546,7 @@ class LMTrainer:
             if self.clip_grad_norm is not None:
                 self._clip_ep(grads)
         else:
-            if self.dp > 1:
+            if self.dp * self.sp > 1:
                 sync_all_reduce(grads)
             if self.clip_grad_norm is not None:
                 clip_by_global_norm(grads, self.clip_grad_norm)
@@ -514,16 +564,24 @@ class LMTrainer:
                              if i not in self._expert_leaves]) + sq_e
         clip_tree(grads, clip_scale_from_sq(sq, self.clip_grad_norm))
 
+    def _sync_sp(self, grads) -> None:
+        """The mean over the sp group, in place (nothing at sp 1)."""
+        if self.sp == 1:
+            return
+        for g in grads:
+            dist.all_reduce(g, group=self._sp_group)
+            g.div_(float(self.sp))
+
     def _sync_ep(self, grads) -> None:
-        """The dp x ep gradient sync (JAX ``_sync_grads``), in place: an
-        expert leaf is summed over the dp group and divided by the world
-        (its gradient already holds its ep peers' tokens); every other
-        leaf is averaged over the world."""
-        world = float(self.dp * self.ep)
+        """The dp x sp x ep gradient sync (JAX ``_sync_grads``), in
+        place: an expert leaf is summed over its dp x sp group and divided
+        by the world (its gradient already holds its ep peers' tokens);
+        every other leaf is averaged over the world."""
+        world = float(self.dp * self.sp * self.ep)
         for i, g in enumerate(grads):
             if i in self._expert_leaves:
-                if self.dp > 1:
-                    dist.all_reduce(g, group=self._dp_group)
+                if self.dp * self.sp > 1:
+                    dist.all_reduce(g, group=self._dp_sp_group)
             else:
                 dist.all_reduce(g)
             g.div_(world)
@@ -629,8 +687,8 @@ class LMTrainer:
             opt["count"] = P()
         return ShardingPlan(
             strategy=strategy,
-            mesh_axes=(("dp", self.dp), ("sp", 1), ("mp", 1), ("pp", 1),
-                       ("ep", self.ep)),
+            mesh_axes=(("dp", self.dp), ("sp", self.sp), ("mp", 1),
+                       ("pp", 1), ("ep", self.ep)),
             param_specs=params, opt_specs=opt,
             batch_spec=P(("dp", "ep"), "sp"))
 

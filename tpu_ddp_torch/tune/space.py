@@ -235,12 +235,13 @@ KNOBS: tuple[Knob, ...] = (
              "a lossless downcast under a bf16 hot pool; inert at "
              "kv_tiers=1"),
     Knob("cp_prefill", "cp_prefill", "TPU_DDP_CP_PREFILL",
-         values=("off", "ring", "ulysses"),
+         values=("off", "ring", "ulysses"), flag="--cp-prefill",
          objective="goodput",
-         doc="context-parallel chunked prefill: needs a mesh with an sp "
-             "axis of extent >= 2; the port serves on one card, so "
-             "TrainConfig refuses anything but 'off' (ROADMAP Queue 1 "
-             "item 10.5) and the launcher refuses --cp-prefill"),
+         doc="context-parallel chunked prefill (serve/long_context.py): "
+             "shard each prefill chunk's query rows over the sp mesh "
+             "axis and run ring or Ulysses attention against the paged "
+             "cache, cutting TTFT on long prompts. Requires an sp>=2 "
+             "mesh and the single-tier pool (engine rejects tiers>1)"),
     # Mixture-of-experts knobs (parallel/moe.py): all three change what
     # the model computes (an architecture, a routing distribution), so
     # all are semantic. The LM CLI reads them (examples/lm_train.py); the

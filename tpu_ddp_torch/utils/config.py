@@ -98,17 +98,6 @@ def refuse_unported_env() -> None:
             f"Queue 1 {item}); unset it to run the port")
 
 
-def refuse_cp_prefill(mode: str) -> None:
-    """Context-parallel prefill shards a chunk over a mesh's sp axis
-    (sp >= 2); the port serves on one card, so anything but "off"
-    raises naming the item that ports it."""
-    if mode != "off":
-        raise NotImplementedError(
-            f"cp_prefill={mode!r}: context-parallel prefill needs a mesh "
-            "with an sp axis of extent >= 2 and is not ported to "
-            "tpu_ddp_torch yet (ROADMAP Queue 1 item 10.5)")
-
-
 @dataclasses.dataclass
 class TrainConfig:
     """One run's configuration (defaults = the reference's)."""
@@ -284,9 +273,9 @@ class TrainConfig:
     # Cold-page codec for kv_tiers >= 2: "int8" or "bf16". Env:
     # TPU_DDP_KV_COLD_DTYPE.
     kv_cold_dtype: str = "int8"
-    # Context-parallel chunked prefill: only "off" is ported (the sharded
-    # chunk needs a mesh with sp >= 2, ROADMAP Queue 1 item 10.5). Env:
-    # TPU_DDP_CP_PREFILL.
+    # Context-parallel chunked prefill: "off", "ring" or "ulysses" (the
+    # engine shards each chunk over an sp group of >= 2 processes,
+    # serve/long_context.py). Env: TPU_DDP_CP_PREFILL.
     cp_prefill: str = "off"
 
     def __post_init__(self):
@@ -525,7 +514,6 @@ class TrainConfig:
             raise ValueError(
                 f"cp_prefill={self.cp_prefill!r}: expected "
                 "off|ring|ulysses (TPU_DDP_CP_PREFILL)")
-        refuse_cp_prefill(self.cp_prefill)
 
     def per_node_batch_size(self, world_size: int) -> int:
         # int(256 / world_size), as in reference part2/part2b/main.py:177.
