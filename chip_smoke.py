@@ -494,6 +494,30 @@ Phases 35-37 run the image trainer's last model families:
    32-row cp-prefill chunk over sp = 2) on LM-large's projections, on
    the mma route, against its plain version as phase 3, timed beside its
    bound and ``torch.matmul``.
+49. tensor parallelism at TransformerLM-large's widths (d_model 2048, 16
+   heads of 128, d_ff 8192, bf16, batch 4 x 2048), each rank's
+   arithmetic of a tp group composed in one process, the all-reduces
+   written as explicit sums of the ranks' f32 partials (NCCL takes one
+   rank per card, so Megatron's ``f`` and ``g`` do not run here): (a) at
+   tp = 2 and 4 one block forward and backward, each rank on its cell
+   (8 or 4 heads, d_ff / tp), against the dense block, kernels on both
+   sides: the flash launches counted from 0 (tp per kernel, all wgmma),
+   the output within phase 13's bf16 row bound, each rank's gradients of
+   its sharded leaves against the dense gradients' slices and the
+   replicated leaves' and the input's gradients (the sum of the ranks'
+   contributions) by Frobenius error; one rank's block ms and peak
+   against the dense block's. (b) at tp = 2 every rank's int8 slices of
+   LM-large's dense quantization, bit for bit the slices (16-byte
+   aligned, each on the mma route), and one decode pass at M = 8 of both
+   ranks composed, its 98 int8 launches (49 per rank) counted from 0,
+   all mma; each rank's column-parallel outputs against the dense
+   kernel's columns and the row-parallel partial sums against the dense
+   kernel's output on the same inputs (1e-4 x max|dense|), the logits
+   against the dense int8 pass; one rank's 49 calls timed beside the
+   dense pass's, its byte bound and ``torch.matmul``. (c) the dropout
+   masks at LM-large's residual shape from the four keys of a dp = 2 x
+   tp = 2 world (``LMTrainer.step_key``): equal on the two tp ranks of a
+   data shard, different across shards.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -504,9 +528,11 @@ flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
 phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
 on 42's elastic run and 44's trials; the flash kernels' on 45's and
-46's eager steps and captures and on 48's Ulysses ranks), beside each
-main-path count; the int8 row also the 32-row prefill's bound and 48's
-16-row cp-prefill pass; the BN, SGD and flash rows
+46's eager steps and captures, on 48's Ulysses ranks and on 49's tp
+ranks; the int8 kernel's on 49's tp decode pass), beside each main-path
+count; the int8 row also the 32-row prefill's bound, 48's 16-row
+cp-prefill pass and 49's rank pass at tp = 2; the flash rows 49's block
+times per rank; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -7729,6 +7755,351 @@ def sequence_parallel(dev, gen) -> dict:
     return out
 
 
+# Tensor parallelism (phase 49) at TransformerLM-large's widths: the tp
+# extents of the composed block, the decode pass's tp and rows (slots),
+# the dropout rate of the masks compared, and the int8 bound of a
+# composed output against the dense kernel's on the same input.
+TP_PRESET = "TransformerLM-large"
+TP_BLOCK = (2, 4)
+TP_DECODE = 2
+TP_DECODE_M = 8
+TP_DROPOUT = 0.1
+TP_INT8_TOL = 1e-4
+
+
+def _tp_cells(tm, blk, tp: int) -> list:
+    """Each rank's cell of one block's sharded leaves (the ``mp`` specs),
+    as leaves of its own that autograd differentiates."""
+    from tpu_ddp_torch.convert import cell_of
+    specs = tm.param_specs()["blocks"][0]
+    return [{k: cell_of(blk[k].detach(), specs[k], {"mp": r}, {"mp": tp})
+             .clone().requires_grad_()
+             for k in ("wqkv", "wo", "w1", "w2")} for r in range(tp)]
+
+
+def _tp_block(tm, blk, cells, x, pos):
+    """Every tp rank's block on one card: the LayerNorms once (their
+    output feeds every rank, so autograd sums the ranks' gradients into
+    it, as ``f``'s all-reduce does), each rank's attention and MLP
+    branches on its cell, and the ranks' f32 partials added where ``g``
+    all-reduces them."""
+    from tpu_ddp_torch.models.transformer import layer_norm
+    cd = tm.compute_dtype
+    y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
+    x = x + sum(tm.attn_partial(c, y, pos) for c in cells).to(cd)
+    y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
+    return x + sum(tm.mlp_partial(c, y) for c in cells).to(cd)
+
+
+def _tp_decode(model, tms, trees, tokens, check=None):
+    """One decode pass at position 0 of every rank of a tp group on one
+    card (the decode math of models/decode.py on each rank's int8 slices,
+    the ranks' f32 partials of ``wo`` and ``w2`` added where ``g``
+    all-reduces them): the logits of each rank (its head is replicated).
+    ``check((layer, name), x, outs)``: called with each projection's
+    input (the ranks' inputs, for the row-parallel ones) and the ranks'
+    outputs."""
+    import torch.nn.functional as F
+
+    from tpu_ddp_torch.models.decode import attend_cached
+    from tpu_ddp_torch.models.transformer import layer_norm
+    from tpu_ddp_torch.ops.quant import qdot
+    cd = model.compute_dtype
+    b = tokens.shape[0]
+    pos = torch.zeros(1, dtype=torch.int64, device=tokens.device)
+    x = trees[0]["embed"][tokens].to(cd)
+    for li in range(model.num_layers):
+        blks = [t["blocks"][li] for t in trees]
+        y = layer_norm(x, blks[0]["ln1"]["scale"], blks[0]["ln1"]["bias"])
+        os_, parts = [], []
+        for tm, blk in zip(tms, blks):
+            q, k, v = tm.qkv_proj(blk, y, pos)
+            os_.append(attend_cached(tm, q, k, v, pos).reshape(b, 1, -1))
+            parts.append(qdot(os_[-1], blk["wo"], cd))
+        x = x + sum(parts).to(cd)
+        y2 = layer_norm(x, blks[0]["ln2"]["scale"], blks[0]["ln2"]["bias"])
+        h = [F.gelu(qdot(y2, blk["w1"], cd), approximate="tanh").to(cd)
+             for blk in blks]
+        mlp = [qdot(hh, blk["w2"], cd) for hh, blk in zip(h, blks)]
+        if check is not None:
+            # The check's own calls (not on the counted pass).
+            check((li, "wqkv"), y, [qdot(y, blk["wqkv"], cd)
+                                    for blk in blks])
+            check((li, "wo"), os_, parts)
+            check((li, "w1"), y2, [qdot(y2, blk["w1"], cd)
+                                   for blk in blks])
+            check((li, "w2"), h, mlp)
+        x = x + sum(mlp).to(cd)
+    return [tm.head_apply(t, x)[:, 0] for tm, t in zip(tms, trees)]
+
+
+def _tp_flash_calls(shape, gen, dev) -> dict:
+    """Each flash kernel's one call at a rank's shape, alone (the route it
+    takes, ms, its bound), on fresh inputs: not counted on the path."""
+    from tpu_ddp_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(shape, True, torch.bfloat16, gen, dev)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    calls = {"fwd": lambda: fa.flash_fwd(q, k, v, True),
+             "bwd_kv": lambda: fa.flash_bwd_kv(q, k, v, do, lse, delta,
+                                               True),
+             "bwd_q": lambda: fa.flash_bwd_q(q, k, v, do, lse, delta, True)}
+    out = {"shape": list(shape), "fwd_route": fa.fwd_route(q, k, v),
+           "bwd_route": fa.bwd_route(q, k, v, do)}
+    for name, (flops, nbytes) in _flash_work(shape, True, 2).items():
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": timed(calls[name], [()], 20)["ms"],
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+    return out
+
+
+def tensor_parallel(dev, gen) -> dict:
+    """Phase 49: each rank's tensor-parallel arithmetic at LM-large's
+    widths, one process composing the ranks (the module docstring's (a),
+    (b) and (c))."""
+    import types
+
+    from tpu_ddp_torch.convert import cell_of
+    from tpu_ddp_torch.models.transformer import (fold_in, keep_mask,
+                                                  make_transformer)
+    from tpu_ddp_torch.ops import quant_matmul as qm
+    from tpu_ddp_torch.ops.quant import (dequantize, qdot, quantize_params,
+                                         quantize_weight)
+    from tpu_ddp_torch.parallel.tensor_parallel import (serve_param_specs,
+                                                        with_serve_tp)
+    from tpu_ddp_torch.train.lm import LMTrainer, data_shard_index
+    b, L, h, _, d = FLASH_MAIN
+    tol = FLASH_TOL[torch.bfloat16]
+    out = {"block": {}, "shape": [b, L, h * d]}
+    # (a) one block, dense and composed over tp ranks.
+    model = make_transformer(TP_PRESET, num_layers=1, use_flash=True)
+    blk = model.init(torch.Generator(device=dev).manual_seed(7))[
+        "blocks"][0]
+    leaves = {"ln1.scale": blk["ln1"]["scale"], "ln1.bias": blk["ln1"]["bias"],
+              "ln2.scale": blk["ln2"]["scale"], "ln2.bias": blk["ln2"]["bias"]}
+    for t in list(leaves.values()) + [blk[k] for k in ("wqkv", "wo", "w1",
+                                                       "w2")]:
+        t.requires_grad_(True)
+    x = torch.randn(b, L, h * d, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(b, L, h * d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(L, device=dev)
+    sharded = ("wqkv", "wo", "w1", "w2")
+
+    def dense_step():
+        y = model.block_apply_aux(blk, x, pos)[0]
+        return y, torch.autograd.grad(
+            (y.float() * dy.float()).sum(),
+            [x, *leaves.values(), *(blk[k] for k in sharded)])
+
+    def peak_of(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+
+    y_ref, g_ref = dense_step()
+    y_ref = y_ref.detach()
+    torch.cuda.synchronize()
+    dense_ms = cuda_ms(dense_step, [()], 5)
+    dense_peak = peak_of(dense_step)
+    wrappers = _flash_wrappers()
+    for tp in TP_BLOCK:
+        tm = model.with_tensor_parallel("mp", tp)
+        cells = _tp_cells(tm, blk, tp)
+        torch.cuda.synchronize()
+        _zero_launches(wrappers)
+        y = _tp_block(tm, blk, cells, x, pos)
+        g = torch.autograd.grad(
+            (y.float() * dy.float()).sum(),
+            [x, *leaves.values(), *(c[k] for c in cells for k in sharded)])
+        torch.cuda.synchronize()
+        launches = _launches(wrappers)
+        want = _flash_want(tp, tp)
+        if launches != want:
+            fail(f"phase 49: tp={tp} block flash launches {launches}, "
+                 f"expected {want}")
+        reads = {"out": _readings(y.detach(), y_ref)}
+        _fail_on({"out": (reads["out"]["row"], tol["o"])},
+                 f"the tp={tp} block (phase 49)")
+        errs = {}
+        for name, a, ref in zip(["x", *leaves], g, g_ref):
+            reads[f"d{name}"] = _readings(a, ref)
+            errs[f"d{name}"] = (reads[f"d{name}"]["frob"], SP_GRAD_FROB_TOL)
+        specs = tm.param_specs()["blocks"][0]
+        it = iter(g[1 + len(leaves):])
+        for r in range(tp):
+            for k, ref in zip(sharded, g_ref[1 + len(leaves):]):
+                a = next(it)
+                want_g = cell_of(ref, specs[k], {"mp": r}, {"mp": tp})
+                rd = _readings(a, want_g)
+                reads[f"rank{r}.d{k}"] = rd
+                errs[f"rank{r}.d{k}"] = (rd["frob"], SP_GRAD_FROB_TOL)
+        _fail_on(errs, f"the tp={tp} block's gradients (phase 49)")
+        del y, g
+
+        def rank0_step(tm=tm, c0=cells[0]):
+            yy = _tp_block(tm, blk, [c0], x, pos)
+            return torch.autograd.grad((yy.float() * dy.float()).sum(),
+                                       [x, *leaves.values(), *c0.values()])
+
+        out["block"][f"tp{tp}"] = {
+            "heads_per_rank": h // tp, "launches": launches,
+            "readings": reads,
+            "rank_fwd_bwd_ms": cuda_ms(rank0_step, [()], 5),
+            "rank_peak_gib": peak_of(rank0_step),
+            "flash": _tp_flash_calls((b, L, h // tp, h // tp, d), gen,
+                                     dev)}
+        del cells
+    out["block"]["dense"] = {"fwd_bwd_ms": dense_ms,
+                             "peak_gib": dense_peak}
+    del y_ref, g_ref, x, dy, blk, leaves
+    torch.cuda.empty_cache()
+    # (b) int8 decode at tp = 2.
+    model = make_transformer(TP_PRESET)
+    params = model.init(torch.Generator(device=dev).manual_seed(8))
+    dense_q = quantize_params(model, params)
+    trees = [quantize_params(model, params, tp=TP_DECODE, rank=r)
+             for r in range(TP_DECODE)]
+    del params
+    torch.cuda.empty_cache()
+    bspec = serve_param_specs(model)["blocks"][0]
+    xm = torch.zeros(TP_DECODE_M, max(model.d_model, model.d_ff),
+                     dtype=torch.bfloat16, device=dev)
+    shapes = model.param_shapes()["blocks"][0]
+    for r, tree in enumerate(trees):
+        for li, (blk_r, blk_d) in enumerate(zip(tree["blocks"],
+                                                dense_q["blocks"])):
+            for k in ("wqkv", "wo", "w1", "w2"):
+                rq, dq = blk_r[k], blk_d[k]
+                nk = 2 if k == "wo" else 1
+                wq = cell_of(dq.q.view(shapes[k]), bspec[k], {"mp": r},
+                             {"mp": TP_DECODE}).reshape(rq.q.shape)
+                ws = cell_of(dq.s.view(shapes[k][nk:]), bspec[k][nk:],
+                             {"mp": r}, {"mp": TP_DECODE}).reshape(-1)
+                if not (torch.equal(rq.q, wq) and torch.equal(rq.s, ws)):
+                    fail(f"phase 49: rank {r}'s int8 {k} of layer {li} is "
+                         "not the slice of the dense quantization")
+                route = qm.int8_route(xm[:, :rq.q.shape[0]].contiguous(),
+                                      rq.q)
+                if rq.q.data_ptr() % 16 or rq.s.data_ptr() % 16 \
+                        or route != "mma":
+                    fail(f"phase 49: rank {r}'s int8 {k} of layer {li}: "
+                         f"pointer {rq.q.data_ptr() % 16}, route {route}")
+    tms = [with_serve_tp(model, None, TP_DECODE)] * TP_DECODE
+    tokens = torch.randint(0, model.vocab_size, (TP_DECODE_M, 1),
+                           generator=gen, device=dev)
+    int8 = {"int8_matmul": qm.int8_matmul}
+    with torch.no_grad():
+        ref = _tp_decode(model, [model], [dense_q], tokens)[0]
+        torch.cuda.synchronize()
+        _zero_launches(int8)
+        logits = _tp_decode(model, tms, trees, tokens)
+        torch.cuda.synchronize()
+        launches = _launches(int8)["int8_matmul"]
+        want = {"mma": 49 * TP_DECODE, "simt": 0}
+        if launches != want:
+            fail(f"phase 49: the tp={TP_DECODE} decode pass launched "
+                 f"{launches}, expected {want}")
+        worst = {}
+
+        def check(site, inp, outs):
+            li, k = site
+            dq = dense_q["blocks"][li][k]
+            if k in ("wqkv", "w1"):
+                dense = qdot(inp, dq, model.compute_dtype)
+                n = dense.shape[-1] // TP_DECODE
+                if k == "wqkv":
+                    dense = dense.view(*dense.shape[:-1], 3, h, d)
+                    got = torch.cat([o.view(*o.shape[:-1], 3, h // TP_DECODE,
+                                            d) for o in outs], dim=-2)
+                else:
+                    got = torch.cat(outs, dim=-1)
+                    if got.shape[-1] != n * TP_DECODE:
+                        fail(f"phase 49: w1 columns {got.shape[-1]}")
+            else:
+                dense = qdot(torch.cat(inp, dim=-1), dq,
+                             model.compute_dtype)
+                got = sum(outs)
+            err = float((got - dense).abs().max())
+            bound = TP_INT8_TOL * float(dense.abs().max())
+            worst[k] = max(worst.get(k, 0.0), err / bound)
+            if not (math.isfinite(err) and err <= bound):
+                fail(f"phase 49: rank outputs of {k} (layer {li}) against "
+                     f"the dense kernel: max|d|={err} vs tol {bound}")
+
+        _tp_decode(model, tms, trees, tokens, check=check)
+        torch.cuda.synchronize()
+    for lg in logits[1:]:
+        if not torch.equal(lg, logits[0]):
+            fail("phase 49: the ranks' replicated heads differ")
+    lrd = _readings(logits[0][:, None], ref[:, None])
+    agree = float((logits[0].argmax(-1) == ref.argmax(-1)).float().mean())
+    # One rank's 49 calls at M = 8, alone (phase 3's way: distinct weight
+    # copies past the L2), against the dense pass's, bound and matmul.
+    rank_shapes = {k: ((kk // TP_DECODE if k in ("wo", "w2") else kk,
+                        n // TP_DECODE if k in ("wqkv", "w1") else n), per)
+                   for k, ((kk, n), per) in LARGE_SHAPES.items()}
+    passes = {}
+    for label, table in (("rank", rank_shapes), ("dense", LARGE_SHAPES)):
+        ms = plain = lib = nbytes = flops = 0.0
+        for (kk, n), per in table.values():
+            copies = max(2, math.ceil(2 * L2_BYTES / (kk * n)))
+            xx = torch.randn(TP_DECODE_M, kk, generator=gen,
+                             device=dev).to(torch.bfloat16)
+            qws = [quantize_weight(0.02 * torch.randn(
+                kk, n, generator=gen, device=dev)) for _ in range(copies)]
+            args = [(xx, qw.q, qw.s) for qw in qws]
+            ms += per * timed(qm.int8_matmul, args, 20 * copies)["ms"]
+            plain += per * timed(qm.int8_matmul_ref, args, 2 * copies)["ms"]
+            wbf = [(xx, dequantize(qw).to(torch.bfloat16)) for qw in qws]
+            lib += per * timed(torch.matmul, wbf, 20 * copies)["ms"]
+            del wbf, qws
+            nbytes += per * (TP_DECODE_M * kk * 2 + kk * n + n * 4
+                             + TP_DECODE_M * n * 4)
+            flops += per * 2 * TP_DECODE_M * kk * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        passes[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations"}
+    out["int8_decode"] = {
+        "tp": TP_DECODE, "m": TP_DECODE_M, "launches": launches,
+        "worst_over_tol": worst, "logits_readings": lrd,
+        "argmax_agreement": agree, "passes": passes}
+    del trees, dense_q
+    torch.cuda.empty_cache()
+    # (c) dropout keys of a dp = 2 x tp = 2 world at LM-large's residual
+    # shape (block 0, the attention branch's site).
+    shape = (b, L, h * d)
+    masks, keys = [], []
+    for rank in range(4):
+        stand_in = types.SimpleNamespace(
+            model=types.SimpleNamespace(dropout_rate=TP_DROPOUT),
+            dropout_seed=11, data_index=data_shard_index(rank, tp=2))
+        key = fold_in(fold_in(LMTrainer.step_key(stand_in, 5), 0), 0)
+        keys.append(key)
+        masks.append(keep_mask(key, shape, 1.0 - TP_DROPOUT, dev))
+    same = [torch.equal(masks[0], masks[1]), torch.equal(masks[2],
+                                                         masks[3])]
+    differ = not torch.equal(masks[0], masks[2])
+    if not (all(same) and differ):
+        fail(f"phase 49: dropout masks equal across tp peers {same}, "
+             f"different across data shards {differ}")
+    out["dropout"] = {"shape": list(shape), "keys": keys,
+                      "equal_across_tp": same,
+                      "differ_across_data_shards": differ,
+                      "keep_share": float(masks[0].float().mean())}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7901,6 +8272,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     seqp = phase("48_sequence_parallel", sequence_parallel, dev, gen)
     print(json.dumps({"sequence_parallel": seqp}), flush=True)
+    torch.cuda.empty_cache()
+    tpar = phase("49_tensor_parallel", tensor_parallel, dev, gen)
+    print(json.dumps({"tensor_parallel": tpar}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -7998,6 +8372,13 @@ def main() -> None:
         # version and torch.matmul.
         "cp_prefill_rows": {k: v for k, v in seqp["int8_cp_prefill"].items()
                             if k != "shapes"},
+        # Phase 49: both ranks' decode pass at tp = 2 (49 launches each,
+        # counted from 0), and one rank's 49 calls at M = 8 alone beside
+        # the dense pass's, its byte bound, its plain version and
+        # torch.matmul.
+        "tp2_decode_launches": tpar["int8_decode"]["launches"],
+        "tp2_rank_pass": tpar["int8_decode"]["passes"]["rank"],
+        "tp2_dense_pass": tpar["int8_decode"]["passes"]["dense"],
     }, {
         "name": "sgd",
         "route": "cuda",
@@ -8170,7 +8551,16 @@ def main() -> None:
             "moe_large_capture": moe["graph"]["capture_launches"][name],
             # Phase 48: Ulysses at sp = 2, both ranks' local calls (8 heads
             # over the whole sequence), counted from 0.
-            "ulysses_sp2_local": seqp["ulysses"]["launches"][name]}
+            "ulysses_sp2_local": seqp["ulysses"]["launches"][name],
+            # Phase 49: one block forward and backward of every rank at
+            # tp = 2 and 4 (8 and 4 heads), counted from 0.
+            **{f"{k}_block": v["launches"][name]
+               for k, v in tpar["block"].items() if k != "dense"}}
+        # Phase 49: one call at a rank's shape at tp = 2 and 4 (8 and 4
+        # heads), alone, beside its bound at that shape.
+        row["tp_rank_call"] = {
+            k: {"heads": v["heads_per_rank"], **v["flash"][key]}
+            for k, v in tpar["block"].items() if k != "dense"}
         # Phase 37: one ViT step's calls at batch 256, non-causal, alone,
         # beside SDPA's flash backend; main_path_ms: none traced.
         for preset, res in vit["flash_kernels"].items():
@@ -8203,6 +8593,7 @@ def main() -> None:
                        "moe_large_train": moe,
                        "moe_large_serve": moe_serve,
                        "sequence_parallel": seqp,
+                       "tensor_parallel": tpar,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -8328,6 +8719,14 @@ def main() -> None:
           f"{seqp['int8_cp_prefill']['ms']:.3f} ms per pass vs torch.matmul "
           f"{seqp['int8_cp_prefill']['library_ms']:.3f} [{card}]",
           flush=True)
+    blk = tpar["block"]
+    rp = tpar["int8_decode"]["passes"]
+    print("tensor parallel (LM-large, one card): block fwd+bwd "
+          + ", ".join(f"{k} {v.get('rank_fwd_bwd_ms', v.get('fwd_bwd_ms')):.2f}"
+                      f" ms" for k, v in blk.items())
+          + f"; int8 decode pass at tp={TP_DECODE} one rank "
+          f"{rp['rank']['ms']:.3f} ms (bound {rp['rank']['bound_ms']:.3f}) "
+          f"vs dense {rp['dense']['ms']:.3f} ms [{card}]", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -377,5 +377,24 @@ def test_flat_layouts_refuse_adafactor():
             cls(Adafactor(), [(4, 4)])
     with pytest.raises(ValueError, match="factored optimizers"):
         FactoredZeRO1(object(), [(4, 4)])
-    with pytest.raises(NotImplementedError, match="item 10.6"):
-        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[None])
+    # The per-cell layout builds (each cell factors its own slice, JAX's
+    # global layout: leading cell axes); a pipeline axis still raises.
+    from jax.sharding import PartitionSpec as JP
+
+    from tpu_ddp_torch.parallel.redistribute import P
+    sizes = {"dp": 2, "mp": 2, "pp": 2}
+    shapes, specs = [(16, 12), (12,)], [P("mp", None), P()]
+    opt = Adafactor(min_dim_size_to_factor=4)
+    lay = FactoredZeRO1(opt, shapes, param_specs=specs,
+                        mesh_axis_sizes=sizes, axis_size=2)
+    jlay = JaxFactoredZeRO1(
+        JaxAdafactor(min_dim_size_to_factor=4), DATA_AXIS, 2,
+        template=[jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes],
+        param_specs=[JP(*s) for s in specs], mesh_axis_sizes=sizes)
+    want = jlay.canonical_opt_template(None)
+    got = lay.canonical_opt_template()
+    for k in ("vr", "vc", "v", "mu"):
+        assert [tuple(x.shape) for x in want[k]] == got[k], k
+    with pytest.raises(NotImplementedError, match="item 10.7"):
+        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[P("pp", None)],
+                      mesh_axis_sizes=sizes)

@@ -454,6 +454,15 @@ def test_unported_cli_env_raises(monkeypatch, name, value):
         with pytest.raises(ValueError, match="unknown sequence-parallel"):
             main(["--num-nodes", "1", "--device", "cpu"])
         return
+    if name == "TPU_DDP_LM_TP":
+        # Ported: read as the JAX CLI reads it; a world of one cannot
+        # hold tp = 2 (make_mesh's words), tp = 1 runs.
+        with pytest.raises(ValueError, match=r"sp\*mp\*pp\*ep=2"):
+            main(["--num-nodes", "1", "--device", "cpu"])
+        monkeypatch.setenv(name, "1")
+        monkeypatch.setenv("TPU_DDP_LM_STEPS", "1")
+        assert main(["--num-nodes", "1", "--device", "cpu"]) == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         main(["--num-nodes", "1", "--device", "cpu"])
 

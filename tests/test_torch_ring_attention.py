@@ -162,7 +162,7 @@ def test_rank_layout_matches_jax_make_mesh(dp, sp, ep):
         d, s, _, _, e = idx
         rank = mesh.devices[idx].id
         assert bootstrap.mesh_rank(d, s, e, sp, ep) == rank
-        assert bootstrap.mesh_coords(rank, sp, ep) == (d, s, e)
+        assert bootstrap.mesh_coords(rank, sp, ep) == (d, s, e, 0)
 
 
 # ---- the model and the trainer --------------------------------------------

@@ -15,6 +15,7 @@ import re
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -196,17 +197,34 @@ def test_cp_prefill_raises_naming_item_10_5(clean_env, mode):
 
 
 def test_engine_refuses_mesh_and_sharded_checkpoints(clean_env, tmp_path):
+    """A device mesh (``mesh=``, ``shard_devices=``) raises, naming the
+    port's per-process form, ``tp_group``; a parameter budget serves
+    (alone here, with no process group: tests/test_torch_serve_tp.py
+    routes it over a tp group)."""
+    from tpu_ddp_torch.convert import params_to_jax
+    from tpu_ddp_torch.utils import checkpoint as ckpt
     tm = make_transformer("TransformerLM-tiny", max_seq_len=32,
                           compute_dtype=torch.float32)
     params = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 2.6"):
+    with pytest.raises(NotImplementedError, match="pass tp_group"):
         ServeEngine(tm, params, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="'sp' axis of extent >= 2"):
         ServeEngine(tm, params, cp_prefill="ring", device="cpu")
-    for kw in (dict(shard_devices=["cpu"]), dict(param_budget_bytes=1)):
-        with pytest.raises(NotImplementedError, match="item 2.6"):
-            ServeEngine.from_checkpoint(tm, str(tmp_path), device="cpu",
-                                        **kw)
+    with pytest.raises(NotImplementedError, match="pass tp_group"):
+        ServeEngine.from_checkpoint(tm, str(tmp_path), device="cpu",
+                                    shard_devices=["cpu"])
+    ckpt.save_checkpoint(str(tmp_path), {"params": params_to_jax(params),
+                                         "step": np.int64(0)}, step=0)
+    want = ServeEngine(tm, params, device="cpu", num_slots=2)
+    for budget in (1, 10 ** 12):
+        eng = ServeEngine.from_checkpoint(tm, str(tmp_path), device="cpu",
+                                          param_budget_bytes=budget,
+                                          num_slots=2)
+        assert eng.tp == 1
+        got = [eng.submit([1, 2, 3], 4), want.submit([1, 2, 3], 4)]
+        eng.run()
+        want.run()
+        assert got[0].tokens == got[1].tokens
 
 
 def _parse(argv):

@@ -123,19 +123,51 @@ def test_without_a_group_the_layout_is_the_identity():
 
 
 def test_unported_wrappers_raise_naming_their_items():
-    """The model-parallel partition raises naming its items; Adafactor
-    on the flat layouts is a permanent refusal pointing to the
-    row-sharded FactoredZeRO1, which takes the partition's item too."""
+    """Adafactor on the flat layouts is a permanent refusal pointing to
+    the row-sharded FactoredZeRO1. The model-parallel partition builds
+    now, and its global layout is the JAX wrapper's, cell by cell; a
+    pipeline-axis spec still raises naming its item (10.7), and so do
+    JAX's refusals (a dim over two axes, a leaf over dp itself)."""
+    from jax.sharding import PartitionSpec as JP
+
+    from tpu_ddp.parallel.zero import ZeRO3 as JaxZeRO3
     from tpu_ddp_torch.ops.optim import SGD, Adafactor
+    from tpu_ddp_torch.parallel.redistribute import P
     from tpu_ddp_torch.parallel.zero import FactoredZeRO1
-    for cls in (ZeRO1, ZeRO3):
+    sizes = {"dp": 3, "sp": 1, "mp": 2, "pp": 2, "ep": 2}
+    shapes = [(4, 6), (6,), (2, 5, 4)]
+    specs = [P("mp", None), P(), P("ep", None, "mp")]
+    rng = np.random.default_rng(0)
+    leaves = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    template = [jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes]
+    for cls, jcls in ((ZeRO1, JaxZeRO1), (ZeRO3, JaxZeRO3)):
         with pytest.raises(ValueError, match="FactoredZeRO1"):
             cls(Adafactor(), [(4, 4)])
-        with pytest.raises(NotImplementedError,
-                           match="items 10.6, 10.7 and 10.8b"):
-            cls(SGD(), [(4, 4)], param_specs=[("mp", None)])
-    with pytest.raises(NotImplementedError, match="item 10.6"):
-        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[("mp", None)])
+        assert cls(SGD(), shapes, param_specs=specs,
+                   mesh_axis_sizes=sizes).shapes == [(2, 6), (6,), (1, 5, 2)]
+        lay = _FlatLayout(shapes, axis_size=3, rank=1, param_specs=specs,
+                          mesh_axis_sizes=sizes)
+        assert lay.shapes == [(2, 6), (6,), (1, 5, 2)]
+        jlay = jcls(JaxSGD(learning_rate=0.1), DATA_AXIS, 3,
+                    template=template,
+                    param_specs=[JP(*s) for s in specs],
+                    mesh_axis_sizes=sizes)
+        flats = lay.shard_params(leaves)
+        for got, want in zip(flats, jlay.shard_params(leaves)):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        for got, want in zip(lay.unshard_host(flats), leaves):
+            np.testing.assert_array_equal(got, want)
+        with pytest.raises(NotImplementedError, match="item 10.7"):
+            cls(SGD(), [(4, 4)], param_specs=[P("pp", None)],
+                mesh_axis_sizes=sizes)
+        for spec, words in ((P(("mp", "ep"), None), "one mesh axis"),
+                            (P("dp", None), "own axis")):
+            with pytest.raises(NotImplementedError, match=words):
+                cls(SGD(), [(4, 4)], param_specs=[spec],
+                    mesh_axis_sizes=sizes)
+    with pytest.raises(NotImplementedError, match="item 10.7"):
+        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[P("pp", None)],
+                      mesh_axis_sizes=sizes)
 
 
 def _assert_state(got, want, rtol=RTOL, atol=ATOL, prefixes=("params",

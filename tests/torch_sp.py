@@ -283,7 +283,7 @@ def rank_losses(recs, name: str, dp: int, sp: int, ep: int = 1):
     steps = len(recs[0][f"{name}/losses"])
     out = np.zeros((steps, dp * ep, sp))
     for r, rec in enumerate(recs):
-        d, s, e = mesh_coords(r, sp, ep)
+        d, s, e, _ = mesh_coords(r, sp, ep)
         out[:, d * ep + e, s] = rec[f"{name}/losses"]
     return out
 

@@ -22,6 +22,15 @@ Adafactor's ``vr``/``vc``/``v``/``mu`` with their reduced shapes and
 ``(1,)`` placeholders, SGD's ``momentum``), each slot a tree shaped like
 the params and ``count`` an int32, in the JAX package's layout. This module
 is the one place a layout changes between the two packages.
+
+Model-parallel cells (tensor and expert parallelism): a leaf whose
+``PartitionSpec`` names a mesh axis of extent R along a dim holds the
+i-th of R equal pieces of that dim on the process at index i of the
+axis. :func:`cell_of` cuts one leaf, :func:`params_to_cell` a whole
+canonical tree (the JAX package's parameters as numpy, or the port's
+tensors) to one process's cell by ``param_specs``, and
+:func:`params_from_cells` puts the cells of every process back into the
+canonical tree.
 """
 
 from __future__ import annotations
@@ -298,3 +307,74 @@ def shape_leaves(node) -> list:
     if isinstance(node, tuple) and node and isinstance(node[0], dict):
         return [s for v in node for s in shape_leaves(v)]
     return [node]
+
+
+def _spec_parts(spec, sizes: dict) -> list:
+    """``(dim, axis, extent)`` of every dim of ``spec`` sharded over an
+    axis of extent > 1 in ``sizes``, major (lowest dim) first."""
+    out = []
+    for d, ax in enumerate(tuple(spec)):
+        if ax is not None and int(sizes.get(ax, 1)) > 1:
+            out.append((d, ax, int(sizes[ax])))
+    return out
+
+
+def cell_of(x, spec, index: dict, sizes: dict):
+    """The cell of leaf ``x`` (numpy or torch, canonical shape) at the
+    mesh ``index`` (axis -> position) of a mesh of ``sizes`` (axis ->
+    extent): a view, each sharded dim cut to its ``index``-th piece."""
+    for d, ax, r in _spec_parts(spec, sizes):
+        n = x.shape[d] // r
+        cut = (slice(None),) * d + (slice(index[ax] * n,
+                                          (index[ax] + 1) * n),)
+        x = x[cut]
+    return x
+
+
+def map_specs(fn, specs, *trees):
+    """``fn(spec, *leaves)`` over a ``param_specs()`` tree and trees
+    shaped like it (dicts, tuples of block dicts)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k], *(t[k] for t in trees))
+                for k in specs}
+    if isinstance(specs, tuple) and specs and isinstance(specs[0], dict):
+        return tuple(map_specs(fn, s, *(t[i] for t in trees))
+                     for i, s in enumerate(specs))
+    return fn(specs, *trees)
+
+
+def params_to_cell(tree, specs, index: dict, sizes: dict):
+    """One process's cell of a canonical tree: every leaf cut by
+    :func:`cell_of` (views; copy them to own them)."""
+    return map_specs(lambda s, x: cell_of(x, s, index, sizes), specs, tree)
+
+
+def params_from_cells(cells, specs, sizes: dict):
+    """The canonical tree from the cells of every process of the mesh:
+    ``cells(index)`` gives the (numpy) tree at mesh ``index`` (axis ->
+    position, every axis of ``sizes`` set). A leaf replicated over an
+    axis is read at position 0 of it."""
+    axes = list(sizes)
+
+    def leaf(path, spec):
+        parts = _spec_parts(spec, sizes)
+
+        def build(k, index):
+            if k == len(parts):
+                node = cells({a: index.get(a, 0) for a in axes})
+                for key in path:
+                    node = node[key]
+                return np.asarray(node)
+            d, ax, r = parts[k]
+            return np.concatenate([build(k + 1, {**index, ax: i})
+                                   for i in range(r)], axis=d)
+        return build(0, {})
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, tuple) and node and isinstance(node[0], dict):
+            return tuple(walk(b, path + (i,)) for i, b in enumerate(node))
+        return leaf(path, node)
+
+    return walk(specs, ())

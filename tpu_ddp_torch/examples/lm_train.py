@@ -26,8 +26,11 @@ ends with the routing counters of the last batch
 (``LMTrainer.route_stats``, one slot per layer).
 ``TPU_DDP_LM_SP_MODE`` (``ring`` or ``ulysses``) is validated and passed
 to the trainer; as in the JAX CLI, whose mesh has sp = 1, it is inert.
-The knobs of axes the port does not carry yet (tensor and pipeline
-parallelism) raise when set to anything but their default.
+``TPU_DDP_LM_TP`` (1) is the Megatron tensor-parallel extent: the world
+is dp x tp, rank ``d * tp + t``, and the batch splits over the
+``world // tp`` dp groups, the tp peers of one group feeding the same
+rows, as in the JAX CLI. ``TPU_DDP_LM_PP`` (pipeline parallelism, not
+ported yet) raises when set to anything but 1.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ import sys
 # name -> (the value that means "off", what it would switch on, ROADMAP
 # Queue 1 item).
 _UNPORTED_LM_ENV = {
-    "TPU_DDP_LM_TP": ("1", "tensor parallelism", "item 10.6"),
     "TPU_DDP_LM_PP": ("1", "pipeline parallelism", "item 10.7"),
 }
 
@@ -137,10 +139,21 @@ def main(argv=None) -> int:
         "TPU_DDP_LM_OPT_SHARD",
         "zero1" if os.environ.get("TPU_DDP_LM_ZERO1", "0") == "1"
         else "replicated")
+    tp = int(os.environ.get("TPU_DDP_LM_TP", "1"))
+    if tp < 1:
+        raise ValueError(f"TPU_DDP_LM_TP={tp}: must be >= 1")
+    if world % tp:
+        # make_mesh(mp=tp)'s refusal in the JAX CLI.
+        raise ValueError(f"{world} devices not divisible by "
+                         f"sp*mp*pp*ep={tp}")
     global_batch = int(os.environ.get("TPU_DDP_GLOBAL_BATCH", "8"))
-    if global_batch % world:
+    # The batch splits over the dp process groups (world // tp), not
+    # over every process: the tp peers of a group feed the same rows.
+    dp_groups = max(world // tp, 1)
+    if global_batch % dp_groups:
         raise ValueError(f"TPU_DDP_GLOBAL_BATCH={global_batch} not "
-                         f"divisible by the world size {world}")
+                         f"divisible by dp process groups {dp_groups} "
+                         f"(world {world} / tp {tp})")
     seq_len = 32
 
     model = make_transformer(preset, max_seq_len=seq_len,
@@ -148,25 +161,27 @@ def main(argv=None) -> int:
                              **moe_overrides(preset))
     trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
                         optimizer=optimizer, clip_grad_norm=clip,
-                        sp_mode=sp_mode,
+                        sp_mode=sp_mode, tp=tp,
                         param_sharding="fsdp" if fsdp else "replicated",
                         opt_sharding=opt_shard)
     state = trainer.init_state(seed=0)
     print(f"[lm_train] rank={rank} world={world} dp={trainer.dp} "
-          f"sp=1 tp=1 pp=1 fsdp={fsdp} "
+          f"sp=1 tp={trainer.tp} pp=1 fsdp={fsdp} "
           f"opt_shard={opt_shard} opt={opt_name} accum={accum} clip={clip} "
           f"preset={preset}" + (
               f" moe={model.moe_experts}x top{model.moe_top_k} "
               f"cf={model.moe_capacity_factor}" if model.moe_experts
               else ""))
 
-    # Deterministic synthetic tokens, identical on every process; each
-    # process feeds its contiguous shard of the global batch.
+    # Deterministic synthetic tokens, identical on every process; each dp
+    # group feeds its contiguous shard of the global batch (rank // tp is
+    # the dp slot of the dp-major mesh; the rank itself at tp 1).
     rng = np.random.default_rng(1234)
     tokens = rng.integers(0, model.vocab_size,
                           size=(global_batch, seq_len + 1))
-    per = global_batch // world
-    local = tokens[rank * per:(rank + 1) * per]
+    per = global_batch // dp_groups
+    slot = rank // tp
+    local = tokens[slot * per:(slot + 1) * per]
     x, y = trainer.put_batch(*make_lm_batch(local))
     for step in range(steps):
         state, loss = trainer.train_step(state, x, y)

@@ -16,6 +16,12 @@ and keyed only by ``(seed, position)`` — with Gumbel-max over a
 counter-based integer hash of ``(seed, position, vocab index)``. The same
 request therefore samples the same tokens on CPU and GPU, whatever its
 batch neighbours, but not the tokens JAX samples.
+
+Tensor-parallel serving runs the same math on one rank's slices: the
+model :func:`tpu_ddp_torch.parallel.tensor_parallel.with_serve_tp` gives
+holds ``H / tp`` heads and ``KV / tp`` cache heads per rank, and the
+f32 partial sums of ``wo`` and ``w2`` are all-reduced over its tp group
+before they are rounded to the compute dtype (JAX's GSPMD ``psum``).
 """
 
 from __future__ import annotations
@@ -31,11 +37,12 @@ _M32 = 0xFFFFFFFF
 
 
 def check_decodable(model) -> None:
-    """Refuse model configs the decode path cannot serve: it runs
-    single-device models (no sequence/tensor/expert sharding). A sharded
+    """Refuse model configs the decode path cannot serve: it runs dense
+    models (no sequence/tensor/expert sharding configured). A sharded
     config holds parameters in training layouts; checkpoints are
     canonical, so :func:`dense_params_from_checkpoint` into the unsharded
-    model is the way to serve one."""
+    model is the way to serve one, sharded by the serving side itself
+    (``ServeEngine(tp_group=...)``, ``generate(tp_group=...)``)."""
     for attr in ("sp_axis", "tp_axis", "ep_axis"):
         if getattr(model, attr, None) is not None:
             raise ValueError(f"decode runs dense single-device models; "
@@ -56,7 +63,7 @@ def mlp(model, blk, y):
         return model.moe_apply(blk, y)[0].to(cd)
     y = qdot(y, blk["w1"], cd)
     y = F.gelu(y.to(torch.float32), approximate="tanh").to(cd)
-    return qdot(y, blk["w2"], cd).to(cd)
+    return model._tp_out(qdot(y, blk["w2"], cd)).to(cd)
 
 
 def attend_cached(model, q, ck, cv, q_pos):
@@ -96,8 +103,8 @@ def block_finish(model, blk, x, o):
     LN2 + MLP + residual. (B, L, dm) -> (B, L, dm)."""
     cd = model.compute_dtype
     b, L = x.shape[0], x.shape[1]
-    o = qdot(o.reshape(b, L, -1), blk["wo"], cd,
-             reshape=(-1, model.d_model)).to(cd)
+    o = model._tp_out(qdot(o.reshape(b, L, -1), blk["wo"], cd,
+                           reshape=(-1, model.d_model))).to(cd)
     x = x + o
     y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
     return x + mlp(model, blk, y)
@@ -122,8 +129,9 @@ def forward_cached(model, params, tokens, caches, start: int):
 
 
 def init_cache(model, batch: int, max_len: int, device):
-    """Per-block (K, V) buffers of (B, max_len, KV, hd) zeros each."""
-    shape = (batch, max_len, model.kv_heads, model.head_dim)
+    """Per-block (K, V) buffers of (B, max_len, KV, hd) zeros each (KV /
+    tp heads under tensor-parallel serving)."""
+    shape = (batch, max_len, model.kv_heads // model._tp, model.head_dim)
     return tuple((torch.zeros(shape, dtype=model.compute_dtype,
                               device=device),
                   torch.zeros(shape, dtype=model.compute_dtype,

@@ -4,7 +4,9 @@ inside the port.
 
 The cache math is tpu_ddp_torch/models/decode.py, shared with the engine,
 so both run the same projection/attention/MLP code; this module owns the
-token loop. Sampling is :func:`decode.sample_token`, keyed by (``seed``,
+token loop. With a ``tp_group`` every rank of the group runs the loop on
+its slices of the parameters (parallel/tensor_parallel.py
+``shard_decode_params``), in lockstep. Sampling is :func:`decode.sample_token`, keyed by (``seed``,
 the position the sampled token occupies) — the rule the engine uses, so a
 request sampled here and served by the engine gets the same tokens.
 """
@@ -23,13 +25,17 @@ from tpu_ddp_torch.models.decode import (
 
 @torch.no_grad()
 def generate(model, params, prompt, max_new_tokens: int,
-             temperature: float = 0.0, seed: int = 0):
+             temperature: float = 0.0, seed: int = 0, tp_group=None):
     """Sample ``max_new_tokens`` continuations of ``prompt`` (B, P) on
     the device the parameters live on. ``temperature == 0`` is greedy
     argmax; otherwise stateless sampling at that temperature keyed by
     ``seed``. Returns the (B, max_new_tokens) generated tokens (int64).
-    The prompt plus generation must fit ``model.max_seq_len``."""
+    The prompt plus generation must fit ``model.max_seq_len``. Under a
+    ``tp_group`` of more than one rank ``params`` are this rank's
+    tensor-parallel slices of the dense model's."""
     check_decodable(model)
+    from tpu_ddp_torch.parallel.tensor_parallel import with_serve_tp
+    model = with_serve_tp(model, tp_group)
     dev = params["embed"].device
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
     if prompt.dim() != 2 or prompt.shape[1] < 1:

@@ -30,7 +30,17 @@ Sequence parallelism (:meth:`TransformerLM.with_sequence_parallel`):
 each process of an sp group holds its L/sp chunk of the sequence, its
 positions global (the chunk offset ``s * L/sp``), and attention runs
 ring or Ulysses attention over the group (parallel/ring_attention.py,
-parallel/ulysses.py). Tensor parallelism is not ported yet.
+parallel/ulysses.py).
+
+Tensor parallelism (:meth:`TransformerLM.with_tensor_parallel`): each
+process of a tp group holds its ``H / tp`` attention heads (``KV / tp``
+under GQA) and its ``d_ff / tp`` slice of the MLP (of every expert's,
+under MoE), the layout :meth:`TransformerLM.param_specs` gives. Megatron's
+``f`` (parallel/tensor_parallel.py ``tp_input``) follows each LayerNorm
+and ``g`` (``tp_output``) all-reduces the f32 partial sums of ``wo`` and
+``w2`` before they are rounded to the compute dtype, as JAX's ``psum``
+of the f32 dot. The residual stream, the LayerNorms, the embedding and
+the head stay replicated.
 
 Dropout masks are a counter-based hash computed where the tensor lies:
 each mask's key is a pure function of the trainer's (dropout_seed, step,
@@ -56,7 +66,9 @@ import torch.nn.functional as F
 from tpu_ddp_torch.memory.policy import (cast_saved, effective_remat,
                                          validate_act_dtype, validate_remat,
                                          wrap_stage)
+from tpu_ddp_torch.parallel.redistribute import P
 from tpu_ddp_torch.parallel.ring_attention import attend
+from tpu_ddp_torch.parallel.tensor_parallel import tp_input, tp_output
 
 
 _MASK64 = (1 << 64) - 1
@@ -206,6 +218,13 @@ class TransformerLM:
     sp_mode: str = "ring"
     sp_group: object = dataclasses.field(default=None, compare=False,
                                          repr=False)
+    # Tensor parallelism: the axis name and extent the heads and d_ff
+    # shard on, and the process group of the tp peers
+    # (with_tensor_parallel; None: no all-reduce, one rank's partials).
+    tp_axis: str | None = None
+    tp_size: int = 1
+    tp_group: object = dataclasses.field(default=None, compare=False,
+                                         repr=False)
     # Attention through the flash kernels (ops/flash_attention.py) instead
     # of full_attention.
     use_flash: bool = False
@@ -236,6 +255,10 @@ class TransformerLM:
     def _ep(self) -> int:
         return self.ep_size if self.ep_axis is not None else 1
 
+    @property
+    def _tp(self) -> int:
+        return self.tp_size if self.tp_axis is not None else 1
+
     def __post_init__(self):
         validate_remat(self.remat)
         validate_act_dtype(self.act_dtype)
@@ -252,14 +275,16 @@ class TransformerLM:
 
     def param_shapes(self) -> dict:
         """The parameter tree's shapes: :meth:`init`'s layout, which is
-        the JAX package's."""
-        dm, dff, v = self.d_model, self.d_ff, self.vocab_size
-        h, hd = self.num_heads, self.head_dim
+        the JAX package's, cut to this process's experts (E / ep), heads
+        (H / tp, KV / tp) and d_ff slice (d_ff / tp)."""
+        tp = self._tp
+        dm, dff, v = self.d_model, self.d_ff // tp, self.vocab_size
+        h, hd = self.num_heads // tp, self.head_dim
         ln = {"scale": (dm,), "bias": (dm,)}
         blk = {"ln1": dict(ln), "wo": (h, hd, dm), "ln2": dict(ln)}
         if self.is_gqa:
             blk["wq"] = (dm, h, hd)
-            blk["wkv"] = (dm, 2, self.kv_heads, hd)
+            blk["wkv"] = (dm, 2, self.kv_heads // tp, hd)
         else:
             blk["wqkv"] = (dm, 3, h, hd)
         if self.moe_experts:
@@ -272,6 +297,31 @@ class TransformerLM:
             blk["w1"] = (dm, dff)
             blk["w2"] = (dff, dm)
         return {"embed": (v, dm), "ln_f": dict(ln), "head": (dm, v),
+                "blocks": tuple(dict(blk) for _ in range(self.num_layers))}
+
+    def param_specs(self) -> dict:
+        """The mesh axis each leaf dim shards over, a tree of
+        ``PartitionSpec`` mirroring :meth:`param_shapes` (JAX
+        ``param_specs``): heads and the MLP hidden axis over ``tp_axis``,
+        stacked experts over ``ep_axis`` (``(ep, None, tp)``), the rest
+        replicated; an axis of extent 1 is ``None``."""
+        tp = self.tp_axis if self._tp > 1 else None
+        ep = self.ep_axis if self._ep > 1 else None
+        ln = {"scale": P(), "bias": P()}
+        blk = {"ln1": dict(ln), "wo": P(tp, None, None), "ln2": dict(ln)}
+        if self.is_gqa:
+            blk["wq"] = P(None, tp, None)
+            blk["wkv"] = P(None, None, tp, None)
+        else:
+            blk["wqkv"] = P(None, None, tp, None)
+        if self.moe_experts:
+            blk["router"] = P()
+            blk["w1"] = P(ep, None, tp)
+            blk["w2"] = P(ep, tp, None)
+        else:
+            blk["w1"] = P(None, tp)
+            blk["w2"] = P(tp, None)
+        return {"embed": P(), "ln_f": dict(ln), "head": P(),
                 "blocks": tuple(dict(blk) for _ in range(self.num_layers))}
 
     def init(self, generator: torch.Generator) -> dict:
@@ -298,15 +348,16 @@ class TransformerLM:
         return build("", self.param_shapes())
 
     def qkv_proj(self, blk, y, pos, dot=None):
-        """Projected + RoPE'd q (B, L, H, hd) and k/v (B, L, KV, hd) from
-        normalized input ``y``: one fused "wqkv" matmul for MHA, separate
-        "wq"/"wkv" for GQA, each through ``dot`` (``qdot`` by default;
-        training passes :func:`train_dot`)."""
+        """Projected + RoPE'd q (B, L, H/tp, hd) and k/v (B, L, KV/tp, hd)
+        from normalized input ``y`` (``f`` already applied under tp):
+        one fused "wqkv" matmul for MHA, separate "wq"/"wkv" for GQA,
+        each through ``dot`` (``qdot`` by default; training passes
+        :func:`train_dot`). Column-parallel: local heads only."""
         from tpu_ddp_torch.ops.quant import qdot
         qdot = dot or qdot
         cd = self.compute_dtype
         b, lc, hd = y.shape[0], y.shape[1], self.head_dim
-        h = self.num_heads
+        h = self.num_heads // self._tp
         if not self.is_gqa:
             qkv = qdot(y, blk["wqkv"], cd, reshape=(self.d_model, -1))
             qkv = qkv.to(cd).reshape(b, lc, 3, h, hd)
@@ -315,7 +366,8 @@ class TransformerLM:
             q = qdot(y, blk["wq"], cd, reshape=(self.d_model, -1))
             q = q.to(cd).reshape(b, lc, h, hd)
             kvp = qdot(y, blk["wkv"], cd, reshape=(self.d_model, -1))
-            kvp = kvp.to(cd).reshape(b, lc, 2, self.kv_heads, hd)
+            kvp = kvp.to(cd).reshape(b, lc, 2, self.kv_heads // self._tp,
+                                     hd)
             k, v = kvp[:, :, 0], kvp[:, :, 1]
         return rope(q, pos), rope(k, pos), v
 
@@ -412,29 +464,56 @@ class TransformerLM:
         residual -> LN2 -> the MLP (+ dropout) + residual. The MLP is w1
         (f32 out) -> GELU (tanh, f32) -> w2 for a dense model (aux 0.0),
         the routed layer of parallel/moe.py for a MoE model. The two
-        branch masks derive from ``rng`` (sites 0 and 1)."""
+        branch masks derive from ``rng`` (sites 0 and 1). Under tp each
+        branch runs on this process's heads or d_ff slice between ``f``
+        and ``g``."""
         cd = self.compute_dtype
-        b, lc = x.shape[0], x.shape[1]
-        h, hd = self.num_heads, self.head_dim
-        y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
-        q, k, v = self.qkv_proj(blk, y, pos, dot=train_dot)
-        o = attend(q, k, v, causal=True, axis_name=self.sp_axis,
-                   axis_size=self.sp_size, flash=self.use_flash,
-                   mode=self.sp_mode, group=self.sp_group)
-        o = train_dot(o.reshape(b, lc, h * hd), blk["wo"], cd,
-                      reshape=(h * hd, self.d_model)).to(cd)
         r1 = r2 = None
         if rng is not None:
             r1, r2 = fold_in(rng, 0), fold_in(rng, 1)
+        y = layer_norm(x, blk["ln1"]["scale"], blk["ln1"]["bias"])
+        o = self._tp_out(self.attn_partial(blk, self._tp_in(y), pos)).to(cd)
         x = x + dropout(o, self.dropout_rate, r1)
         y = layer_norm(x, blk["ln2"]["scale"], blk["ln2"]["bias"])
         if self.moe_experts:
             y, aux = self.moe_apply(blk, y, stats=stats)
             return x + dropout(y, self.dropout_rate, r2), aux
+        y = self._tp_out(self.mlp_partial(blk, self._tp_in(y))).to(cd)
+        return x + dropout(y, self.dropout_rate, r2), 0.0
+
+    def _tp_in(self, x):
+        """Megatron ``f`` over ``tp_group`` (the identity at tp 1)."""
+        return tp_input(x, self.tp_group) if self._tp > 1 else x
+
+    def _tp_out(self, x):
+        """Megatron ``g`` over ``tp_group`` (the identity at tp 1)."""
+        return tp_output(x, self.tp_group) if self._tp > 1 else x
+
+    def attn_partial(self, blk, y, pos):
+        """The attention branch of one block on LayerNorm'd ``y``, up to
+        and including the row-parallel ``wo`` product: this process's
+        partial sum in f32 under tp, the branch output in the compute
+        dtype at tp 1."""
+        cd = self.compute_dtype
+        b, lc = y.shape[0], y.shape[1]
+        hw = self.num_heads // self._tp * self.head_dim
+        q, k, v = self.qkv_proj(blk, y, pos, dot=train_dot)
+        o = attend(q, k, v, causal=True, axis_name=self.sp_axis,
+                   axis_size=self.sp_size, flash=self.use_flash,
+                   mode=self.sp_mode, group=self.sp_group)
+        return train_dot(o.reshape(b, lc, hw), blk["wo"], cd,
+                         reshape=(hw, self.d_model),
+                         out_dtype=torch.float32 if self._tp > 1 else None)
+
+    def mlp_partial(self, blk, y):
+        """The dense MLP on LayerNorm'd ``y``: w1 (f32 out) -> GELU (tanh,
+        f32) -> w2, the row-parallel product a partial sum in f32 under
+        tp, rounded to the compute dtype at tp 1."""
+        cd = self.compute_dtype
         y = train_dot(y, blk["w1"], cd, out_dtype=torch.float32)
         y = F.gelu(y, approximate="tanh").to(cd)
-        y = train_dot(y, blk["w2"], cd).to(cd)
-        return x + dropout(y, self.dropout_rate, r2), 0.0
+        return train_dot(y, blk["w2"], cd,
+                         out_dtype=torch.float32 if self._tp > 1 else None)
 
     def moe_apply(self, blk, y, stats=None):
         """The routed MLP on a (B, L, dm) bank: ((B, L, dm), aux), over
@@ -444,7 +523,8 @@ class TransformerLM:
                        num_experts=self.moe_experts,
                        capacity_factor=self.moe_capacity_factor,
                        top_k=self.moe_top_k, ep_size=self._ep,
-                       ep_group=self.ep_group, stats=stats)
+                       ep_group=self.ep_group, tp_size=self._tp,
+                       tp_group=self.tp_group, stats=stats)
 
     def route_stats(self, params, tokens):
         """One deterministic trunk pass (no dropout, no remat) collecting
@@ -464,18 +544,42 @@ class TransformerLM:
                                group=None) -> "TransformerLM":
         """This model with its sequence sharded ``axis_size`` ways over
         the process group ``group`` (the sp peers), attending by ``mode``.
-        Ulysses needs ``num_heads % sp == 0`` (at tp 1, the port's only
-        tensor-parallel extent)."""
+        Ulysses needs ``(num_heads / tp) % sp == 0``."""
         if mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown sequence-parallel mode {mode!r}; "
                              "expected 'ring' or 'ulysses'")
-        if mode == "ulysses" and self.num_heads % axis_size:
+        if mode == "ulysses" and (self.num_heads // self._tp) % axis_size:
             raise ValueError(
                 f"ulysses needs (num_heads/tp) % sp == 0 (got heads="
-                f"{self.num_heads}/1 per tp shard, sp={axis_size})")
+                f"{self.num_heads}/{self._tp} per tp shard, "
+                f"sp={axis_size})")
         return dataclasses.replace(self, sp_axis=axis_name,
                                    sp_size=axis_size, sp_mode=mode,
                                    sp_group=group)
+
+    def with_tensor_parallel(self, axis_name: str, axis_size: int,
+                             group=None) -> "TransformerLM":
+        """This model with its heads and d_ff sharded ``axis_size`` ways
+        over the process group ``group`` (the tp peers; None: this
+        process's partial sums, no all-reduce). JAX's checks, and the
+        per-tp Ulysses head check of an sp applied before."""
+        if self.num_heads % axis_size:
+            raise ValueError(f"num_heads={self.num_heads} not divisible by "
+                             f"tp={axis_size}")
+        if self.kv_heads % axis_size:
+            raise ValueError(f"num_kv_heads={self.kv_heads} not divisible "
+                             f"by tp={axis_size}")
+        if self.d_ff % axis_size:
+            raise ValueError(f"d_ff={self.d_ff} not divisible by "
+                             f"tp={axis_size}")
+        if (self.sp_mode == "ulysses" and self.sp_size > 1
+                and (self.num_heads // axis_size) % self.sp_size):
+            raise ValueError(
+                f"ulysses needs (num_heads/tp) % sp == 0 (got heads="
+                f"{self.num_heads}/{axis_size} per tp shard, "
+                f"sp={self.sp_size})")
+        return dataclasses.replace(self, tp_axis=axis_name,
+                                   tp_size=axis_size, tp_group=group)
 
     def with_expert_parallel(self, axis_name: str, axis_size: int,
                              group=None) -> "TransformerLM":

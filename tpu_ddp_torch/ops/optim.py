@@ -216,8 +216,8 @@ class Adafactor:
     computes on the CPU), so the row-sharded ZeRO-1 of
     parallel/zero.py (``FactoredZeRO1``), which sums its row blocks
     across the group before it divides, gives these bits at a group of
-    one on any device. The per-cell wrapper of tensor parallelism
-    (``CellAdafactor``) comes with ROADMAP Queue 1 item 10.6.
+    one on any device. Under tensor or expert parallelism it runs on
+    each process's cells (parallel/zero.py ``CellAdafactor``).
     """
 
     learning_rate: Any = None       # None -> relative step size schedule

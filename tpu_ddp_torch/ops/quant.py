@@ -18,6 +18,17 @@ the compute dtype, products accumulated and returned in f32, as JAX's
 ``preferred_element_type=float32``). A :class:`QuantizedWeight` goes to
 ops/quant_matmul.py ``int8_matmul``: the Hopper kernel on a CUDA tensor,
 its plain version on a CPU tensor.
+
+Tensor-parallel serving (``quantize_params(tp=..., rank=...)``): JAX
+quantizes the tree as placed, and GSPMD takes each column's absmax over
+the whole contraction axis. For the column-parallel projections (qkv,
+``w1``) a column's absmax is its slice's; for the row-parallel ``wo``
+and ``w2`` the contraction axis is the sharded one, and a per-shard
+absmax would give other scales. So every weight is quantized dense and
+then cut to the rank's Megatron slice (parallel/tensor_parallel.py
+``serve_param_specs``): ``q`` and ``s`` each a contiguous tensor of its
+own (16-byte aligned, as the int8 kernel's ``mma`` route wants), bit for
+bit the dense quantization's slice.
 """
 
 from __future__ import annotations
@@ -86,27 +97,69 @@ def qdot(y, w, cd, reshape=None):
     return torch.matmul(y.to(cd).to(torch.float32), w.to(torch.float32))
 
 
-def quantize_params(model, params):
+def quantize_params(model, params, tp: int = 1, rank: int = 0,
+                    device=None):
     """Quantize every decode-path projection of a dense transformer
     parameter dict: per-block wqkv/wq/wkv, wo, w1/w2, plus the LM head.
     Embedding and LayerNorm leaves pass through. Returns a NEW dict of
-    the same structure with :class:`QuantizedWeight` matmul leaves."""
+    the same structure with :class:`QuantizedWeight` matmul leaves. At
+    ``tp > 1`` every leaf is rank ``rank``'s tensor-parallel slice of
+    the dense tree's (each weight quantized whole first), a tensor of
+    its own on ``device`` (default: where the leaf lies)."""
     dm = model.d_model
+    sliced, bspec = params, None
+    if tp > 1:
+        from tpu_ddp_torch.parallel.tensor_parallel import (
+            serve_param_specs, shard_decode_params)
+        bspec = serve_param_specs(model)["blocks"][0]
+        sliced = shard_decode_params(model, params, tp, rank, device)
 
-    def one_block(blk):
-        out = dict(blk)
+    def quant(name, w, reshape=None):
+        qw = quantize_weight(w, reshape=reshape)
+        if tp == 1:
+            return qw
+        spec = bspec[name] if name != "head" else ()
+        return _rank_slice(qw, spec, tp, rank, device, shape=w.shape)
+
+    def one_block(blk, sl):
+        out = dict(sl)
         for name in ("wqkv", "wq", "wkv"):
             if name in blk:
-                out[name] = quantize_weight(blk[name], reshape=(dm, -1))
-        out["wo"] = quantize_weight(blk["wo"], reshape=(-1, dm))
-        out["w1"] = quantize_weight(blk["w1"])
-        out["w2"] = quantize_weight(blk["w2"])
+                out[name] = quant(name, blk[name], reshape=(dm, -1))
+        out["wo"] = quant("wo", blk["wo"], reshape=(-1, dm))
+        out["w1"] = quant("w1", blk["w1"])
+        out["w2"] = quant("w2", blk["w2"])
         return out
 
-    out = dict(params)
-    out["blocks"] = tuple(one_block(blk) for blk in params["blocks"])
-    out["head"] = quantize_weight(params["head"])
+    out = dict(sliced)
+    out["blocks"] = tuple(one_block(blk, sl) for blk, sl
+                          in zip(params["blocks"], sliced["blocks"]))
+    out["head"] = quant("head", params["head"])
     return out
+
+
+def _rank_slice(x: QuantizedWeight, spec, tp: int, rank: int, device,
+                shape) -> QuantizedWeight:
+    """Rank ``rank``'s slice by ``spec`` of the quantized weight ``x`` of
+    a weight of ``shape``, tensors of its own: ``q`` viewed as the weight
+    (its leading dims the contraction rows of the 2-D layout), ``s`` as
+    the weight's column dims."""
+    from tpu_ddp_torch.convert import cell_of
+    idx, sizes = {"mp": rank}, {"mp": tp}
+
+    def own(t):
+        return t.to(device if device is not None else t.device,
+                    copy=True).contiguous()
+
+    k, n = 0, 1
+    while n < x.q.shape[0]:
+        n *= shape[k]
+        k += 1
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    q = cell_of(x.q.view(shape), spec, idx, sizes)
+    s = cell_of(x.s.view(shape[k:]), spec[k:], idx, sizes)
+    return QuantizedWeight(q=own(q.reshape(-1, s.numel())),
+                           s=own(s.reshape(-1)))
 
 
 @torch.no_grad()

@@ -17,8 +17,9 @@ unless the environment says otherwise) and drops it with
 (``_abort_process_group``) instead of entering a teardown a dead peer
 could block.
 
-:func:`mesh_groups` splits the world into the dp, sp and ep sub-groups
-of sequence and expert parallelism (the JAX mesh's rank layout).
+:func:`mesh_groups` splits the world into the dp, sp, tp and ep
+sub-groups of sequence, tensor and expert parallelism (the JAX mesh's
+rank layout, pp = 1).
 """
 
 from __future__ import annotations
@@ -110,42 +111,51 @@ def test_distributed_setup(ctx: DistributedContext) -> dict:
 
 
 class MeshGroups(NamedTuple):
-    """This process's sub-groups of a dp x sp x ep world: the dp group
-    (the ranks of one (s, e)), the sp group (one (d, e); None at sp 1),
-    the ep group (one (d, s)) and the dp x sp group (one e: the replicas
-    of an expert shard; the dp group itself at sp 1)."""
+    """This process's sub-groups of a dp x sp x tp x ep world: the dp
+    group (the ranks of one (s, t, e)), the sp group (one (d, t, e); None
+    at sp 1), the ep group (one (d, s, t)), the dp x sp group (one
+    (t, e): the replicas of an expert shard; the dp group itself at sp
+    1), the tp group (one (d, s, e); None at tp 1) and the data group
+    (one t: the dp x sp x ep ranks that hold the same tensor-parallel
+    slices, over which a gradient is averaged; the world at tp 1)."""
 
     dp: Any
     sp: Any
     ep: Any
     dp_sp: Any
+    tp: Any = None
+    data: Any = None
 
 
-def mesh_rank(d: int, s: int, e: int, sp: int = 1, ep: int = 1) -> int:
-    """The rank of mesh coordinate (d, s, e): the JAX ``make_mesh(dp, sp,
-    mp, pp, ep)`` reshape at mp = pp = 1, ep fastest,
-    ``(d * sp + s) * ep + e``."""
-    return (d * sp + s) * ep + e
+def mesh_rank(d: int, s: int, e: int, sp: int = 1, ep: int = 1,
+              t: int = 0, tp: int = 1) -> int:
+    """The rank of mesh coordinate (d, s, t, e): the JAX ``make_mesh(dp,
+    sp, mp, pp, ep)`` reshape at pp = 1, ep fastest,
+    ``((d * sp + s) * tp + t) * ep + e`` (at tp 1, ``(d * sp + s) * ep +
+    e``)."""
+    return ((d * sp + s) * tp + t) * ep + e
 
 
-def mesh_coords(rank: int, sp: int = 1, ep: int = 1) -> tuple:
-    """The (d, s, e) coordinate of ``rank``: :func:`mesh_rank`'s
+def mesh_coords(rank: int, sp: int = 1, ep: int = 1, tp: int = 1) -> tuple:
+    """The (d, s, e, t) coordinate of ``rank``: :func:`mesh_rank`'s
     inverse."""
-    return rank // (sp * ep), (rank // ep) % sp, rank % ep
+    return (rank // (sp * tp * ep), (rank // (tp * ep)) % sp, rank % ep,
+            (rank // ep) % tp)
 
 
-def mesh_groups(dp: int, ep: int, sp: int = 1) -> MeshGroups:
-    """This process's :class:`MeshGroups` of a world of ``dp * sp * ep``
-    processes laid out as :func:`mesh_rank`. Every process makes every
-    group, in one order, as ``new_group`` requires: the dp groups, the ep
-    groups, then (at sp > 1) the sp groups and the dp x sp groups. At
-    sp 1 only the first two are made, the groups and ranks of a dp x ep
-    world."""
-    if dp * sp * ep != dist.get_world_size():
-        raise ValueError(f"dp={dp} x sp={sp} x ep={ep} != world size "
-                         f"{dist.get_world_size()}")
+def mesh_groups(dp: int, ep: int, sp: int = 1, tp: int = 1) -> MeshGroups:
+    """This process's :class:`MeshGroups` of a world of ``dp * sp * tp *
+    ep`` processes laid out as :func:`mesh_rank`. Every process makes
+    every group, in one order, as ``new_group`` requires: the dp groups,
+    the ep groups, then (at sp > 1) the sp groups and the dp x sp groups,
+    then (at tp > 1) the tp groups and the data groups. At tp 1 no tp or
+    data group is made (the data group is the world), and at sp 1 and
+    tp 1 only the first two, the groups and ranks of a dp x ep world."""
+    if dp * sp * tp * ep != dist.get_world_size():
+        raise ValueError(f"dp={dp} x sp={sp} x tp={tp} x ep={ep} != world "
+                         f"size {dist.get_world_size()}")
     rank = dist.get_rank()
-    mine = {}
+    mine = {"sp": None, "tp": None, "data": dist.group.WORLD}
 
     def make(kind, sets):
         for ranks in sets:
@@ -153,18 +163,27 @@ def mesh_groups(dp: int, ep: int, sp: int = 1) -> MeshGroups:
             if rank in ranks:
                 mine[kind] = group
 
-    cells = [(s, e) for s in range(sp) for e in range(ep)]
-    make("dp", [[mesh_rank(d, s, e, sp, ep) for d in range(dp)]
-                for s, e in cells])
-    make("ep", [[mesh_rank(d, s, e, sp, ep) for e in range(ep)]
-                for d in range(dp) for s in range(sp)])
-    if sp == 1:
-        return MeshGroups(mine["dp"], None, mine["ep"], mine["dp"])
-    make("sp", [[mesh_rank(d, s, e, sp, ep) for s in range(sp)]
-                for d in range(dp) for e in range(ep)])
-    make("dp_sp", [[mesh_rank(d, s, e, sp, ep) for d in range(dp)
-                    for s in range(sp)] for e in range(ep)])
-    return MeshGroups(mine["dp"], mine["sp"], mine["ep"], mine["dp_sp"])
+    def at(d, s, t, e):
+        return mesh_rank(d, s, e, sp, ep, t, tp)
+
+    D, S, T, E = range(dp), range(sp), range(tp), range(ep)
+    make("dp", [[at(d, s, t, e) for d in D]
+                for s in S for t in T for e in E])
+    make("ep", [[at(d, s, t, e) for e in E]
+                for d in D for s in S for t in T])
+    mine["dp_sp"] = mine["dp"]
+    if sp > 1:
+        make("sp", [[at(d, s, t, e) for s in S]
+                    for d in D for t in T for e in E])
+        make("dp_sp", [[at(d, s, t, e) for d in D for s in S]
+                       for t in T for e in E])
+    if tp > 1:
+        make("tp", [[at(d, s, t, e) for t in T]
+                    for d in D for s in S for e in E])
+        make("data", [sorted(at(d, s, t, e) for d in D for s in S
+                             for e in E) for t in T])
+    return MeshGroups(mine["dp"], mine["sp"], mine["ep"], mine["dp_sp"],
+                      mine["tp"], mine["data"])
 
 
 def shutdown(ctx: DistributedContext) -> None:

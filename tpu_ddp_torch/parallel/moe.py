@@ -26,6 +26,12 @@ this process's ``E / ep`` experts; the (E, C, dm) slot queues go through
 one ``all_to_all`` over the ep group before the experts and the reverse
 one after them, both differentiable (the backward of an equal-split
 all_to_all is the same exchange of the cotangents).
+
+Tensor parallelism (``tp_size > 1``): each expert's ``w1``/``w2`` hold
+this process's ``d_ff / tp`` slice; Megatron's ``f`` precedes the first
+expert matmul and ``g`` all-reduces the second's f32 partial sums over
+the tp group before the compute-dtype rounding (JAX ``moe_mlp``'s
+``tp_in``/``tp_out`` hooks).
 """
 
 from __future__ import annotations
@@ -217,11 +223,13 @@ class _WideBmm(torch.autograd.Function):
 
 def moe_mlp(y, router_w, w1, w2, *, num_experts: int,
             capacity_factor: float = 1.25, top_k: int = 1,
-            ep_size: int = 1, ep_group=None, stats=None):
+            ep_size: int = 1, ep_group=None, tp_size: int = 1,
+            tp_group=None, stats=None):
     """Top-k routed MoE MLP: (B, L, dm) -> ((B, L, dm), aux).
 
-    ``w1`` (E_local, dm, dff) and ``w2`` (E_local, dff, dm) are the
-    stacked weights of this process's experts (all E at ``ep_size`` 1).
+    ``w1`` (E_local, dm, dff_local) and ``w2`` (E_local, dff_local, dm)
+    are the stacked weights of this process's experts (all E at
+    ``ep_size`` 1), d_ff cut ``tp_size`` ways over ``tp_group``.
     The router matmul gives f32 logits; the experts run two batched
     matmuls around the tanh GELU in f32 (the first with an f32 result,
     the second rounded to the compute dtype, as JAX casts it); combine
@@ -253,9 +261,16 @@ def moe_mlp(y, router_w, w1, w2, *, num_experts: int,
         recv = _AllToAll.apply(expert_in, ep_group)
         expert_in = recv.reshape(ep_size, e_loc, C, dm).transpose(
             0, 1).reshape(e_loc, ep_size * C, dm)
+    if tp_size > 1:
+        from tpu_ddp_torch.parallel.tensor_parallel import (tp_input,
+                                                            tp_output)
+        expert_in = tp_input(expert_in, tp_group)
     h = _wide_bmm(expert_in, w1.to(cd))
     h = F.gelu(h, approximate="tanh").to(cd)
-    out = torch.bmm(h, w2.to(cd))
+    if tp_size > 1:
+        out = tp_output(_wide_bmm(h, w2.to(cd)), tp_group).to(cd)
+    else:
+        out = torch.bmm(h, w2.to(cd))
     if ep_size > 1:
         out = out.reshape(e_loc, ep_size, C, dm).transpose(0, 1)
         out = _AllToAll.apply(out.contiguous(), ep_group).reshape(E, C, dm)

@@ -44,11 +44,23 @@ a world of one (NCCL then moves nothing but runs the same calls).
   sums carry the cross-row statistics; an all-gather reassembles the
   rows. Leaves too small to factor take ZeRO-1's flat chunks.
 
-The model-parallel partition of the JAX layout (``param_specs``,
-``_leaf_partition``: tp/ep/pp-sharded leaves laid out per cell, and
-``FactoredZeRO1``'s per-cell factoring) comes with tensor and pipeline
-parallelism and ZeRO over an expert-parallel partition (ROADMAP Queue 1
-items 10.6, 10.7 and 10.8b).
+The model-parallel partition (``param_specs`` + ``mesh_axis_sizes``,
+JAX ``_leaf_partition``): a leaf sharded over the tensor- or
+expert-parallel axes (``mp``, ``ep``) is laid out PER CELL. ``shapes``
+are then the canonical (global) shapes; the device side runs on this
+process's cell of each leaf (:attr:`_FlatLayout.shapes` are the local
+shapes) and dp-shards it within the cell, so the sharded update is the
+same for replicated and partitioned leaves. The host converters keep the
+JAX wrapper's global layout, ``P((mp..., dp))``: the cells of a leaf in
+row-major order over its partition's axes, each flat and padded to
+``chunk * N``. The global-norm clip sums a partitioned leaf's squares
+over dp and over its partition's axes (``axis_groups``), a replicated
+leaf's over dp alone. :class:`FactoredZeRO1` factors each cell's own
+slice (the :class:`CellAdafactor` semantic) with its rows dp-sharded
+within the cell; its reduced state keeps a leading axis per partition
+axis. A pipeline axis (``pp``, ROADMAP Queue 1 item 10.7) raises, and so
+do the JAX wrapper's refusals: one mesh axis per sharded dim, no leaf
+sharded over dp itself.
 """
 
 from __future__ import annotations
@@ -64,6 +76,105 @@ def _chunk(size: int, n: int) -> int:
     return -(-size // n)
 
 
+class LeafPart:
+    """The model-parallel partition of one leaf (JAX ``_LeafPart``):
+    ``parts``, ``(mesh_axis, leaf_dim, extent)`` per sharded dim in dim
+    order (major to minor), and the local (cell) geometry."""
+
+    def __init__(self, parts: tuple, local_shape: tuple):
+        self.parts = tuple(parts)
+        self.local_shape = tuple(local_shape)
+        self.local_size = math.prod(self.local_shape)
+        self.counts = tuple(r for _, _, r in self.parts)
+        self.count = math.prod(self.counts)
+
+    @property
+    def axes(self) -> tuple:
+        """Mesh axis names, major to minor."""
+        return tuple(a for a, _, _ in self.parts)
+
+    def cell(self, index: dict) -> int:
+        """The row-major cell number of mesh ``index`` (axis ->
+        position)."""
+        c = 0
+        for a, _, r in self.parts:
+            c = c * r + int(index.get(a, 0))
+        return c
+
+
+def leaf_partition(spec, shape, mesh_axis_sizes: dict, dp_axis: str = "dp"):
+    """The :class:`LeafPart` of a leaf of canonical ``shape`` from its
+    ``PartitionSpec``, or None when it is replicated (or every sharding
+    axis has extent 1). JAX's refusals: a dim split over several axes,
+    a leaf sharded over ``dp_axis`` itself; and the pipeline axis names
+    its ROADMAP item."""
+    parts = []
+    shape = tuple(int(d) for d in shape)
+    for d, entry in enumerate(tuple(spec) if spec is not None else ()):
+        if entry is None:
+            continue
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        if dp_axis in axes:
+            raise NotImplementedError(
+                f"ZeRO cannot wrap a leaf already sharded over its "
+                f"own axis {dp_axis!r} (spec {spec})")
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"ZeRO supports one mesh axis per sharded leaf dim "
+                f"(got spec {spec})")
+        ax = axes[0]
+        r = int(mesh_axis_sizes[ax])
+        if r == 1:
+            continue
+        if ax == "pp":
+            raise NotImplementedError(
+                f"a leaf sharded over the pipeline axis (spec {spec}): "
+                "pipeline-stacked layouts are not ported to tpu_ddp_torch "
+                "yet (ROADMAP Queue 1 item 10.7)")
+        if shape[d] % r:
+            raise ValueError(f"leaf dim {d} of shape {shape} not "
+                             f"divisible by {ax}={r}")
+        parts.append((ax, d, r))
+    if not parts:
+        return None
+    local = list(shape)
+    for _, d, r in parts:
+        local[d] //= r
+    return LeafPart(tuple(parts), tuple(local))
+
+
+def part_cells(arr, part: LeafPart) -> list:
+    """One canonical host leaf cut into its cells, row-major over the
+    partition's axes (JAX ``_part_cells``)."""
+    cells = [np.asarray(arr)]
+    for _, dim, count in part.parts:
+        cells = [piece for c in cells
+                 for piece in np.split(c, count, axis=dim)]
+    return cells
+
+
+def part_assemble(cells: list, part: LeafPart):
+    """The inverse of :func:`part_cells`."""
+    for _, dim, count in reversed(part.parts):
+        cells = [np.concatenate(cells[i:i + count], axis=dim)
+                 for i in range(0, len(cells), count)]
+    return cells[0]
+
+
+def partitions(shapes, param_specs, mesh_axis_sizes, dp_axis: str = "dp"):
+    """Each leaf's :class:`LeafPart` (or None); all None without
+    ``param_specs``."""
+    if param_specs is None:
+        return [None] * len(shapes)
+    if mesh_axis_sizes is None:
+        raise ValueError("param_specs needs mesh_axis_sizes")
+    if len(param_specs) != len(shapes):
+        raise ValueError(f"{len(param_specs)} specs for {len(shapes)} "
+                         "leaves")
+    return [leaf_partition(sp, sh, mesh_axis_sizes, dp_axis)
+            for sp, sh in zip(param_specs, shapes)]
+
+
 def _group_info(group):
     """(N, rank) of ``group``; (1, 0) without a process group."""
     if group is None or not dist.is_initialized():
@@ -77,17 +188,21 @@ class _FlatLayout:
     ``shapes`` are the leaves' canonical shapes, in the order every rank
     agrees on. ``group`` is the process group (``dist.group.WORLD``), or
     None: one rank, no collectives. ``axis_size`` overrides N (host-side
-    conversions only, e.g. for another dp size). ``param_specs`` (the JAX
-    layout's model-parallel partition) raises, naming its items."""
+    conversions only, e.g. for another dp size). ``param_specs`` (one
+    ``PartitionSpec`` per leaf) with ``mesh_axis_sizes`` lays the leaves
+    out per model-parallel cell; ``axis_groups`` maps each partition axis
+    to the process group of its peers, for the clip's sums."""
 
     def __init__(self, shapes, group=None, axis_size: int | None = None,
-                 rank: int | None = None, param_specs=None):
-        if param_specs is not None:
-            raise NotImplementedError(
-                "a model-parallel partition of the flat layout "
-                "(param_specs: tp/ep/pp-sharded leaves laid out per cell) "
-                "is not ported to tpu_ddp_torch yet (ROADMAP Queue 1 items "
-                "10.6, 10.7 and 10.8b)")
+                 rank: int | None = None, param_specs=None,
+                 mesh_axis_sizes: dict | None = None,
+                 axis_groups: dict | None = None):
+        self.global_shapes = [tuple(int(d) for d in s) for s in shapes]
+        self.parts = partitions(self.global_shapes, param_specs,
+                                mesh_axis_sizes)
+        self.axis_groups = dict(axis_groups or {})
+        shapes = [pt.local_shape if pt is not None else s
+                  for s, pt in zip(self.global_shapes, self.parts)]
         n, r = _group_info(group)
         self.group = (group if group is not None and dist.is_initialized()
                       else None)
@@ -112,24 +227,41 @@ class _FlatLayout:
     def shard_params(self, leaves) -> list:
         """Canonical leaves -> each one flat and zero-padded to
         ``chunk * N`` (the global flat layout; rank r's shard is its r-th
-        chunk)."""
-        return [np.pad(np.asarray(p).reshape(-1),
-                       (0, c * self.axis_size - s))
-                for p, s, c in zip(leaves, self.sizes, self.chunks)]
+        chunk); a partitioned leaf's cells one after the other, each so
+        padded."""
+        out = []
+        for p, s, c, pt in zip(leaves, self.sizes, self.chunks,
+                               self.parts):
+            cells = [p] if pt is None else part_cells(p, pt)
+            out.append(np.concatenate(
+                [np.pad(np.asarray(x).reshape(-1),
+                        (0, c * self.axis_size - s)) for x in cells]))
+        return out
 
     def unshard_host(self, flats) -> list:
         """Global flat padded arrays -> canonical leaves (the inverse of
         :meth:`shard_params`)."""
-        return [np.asarray(x)[:s].reshape(shape)
-                for x, s, shape in zip(flats, self.sizes, self.shapes)]
+        out = []
+        for x, s, shape, pt in zip(flats, self.sizes, self.shapes,
+                                   self.parts):
+            rows = np.asarray(x).reshape(1 if pt is None else pt.count, -1)
+            cells = [r[:s].reshape(shape) for r in rows]
+            out.append(cells[0] if pt is None else part_assemble(cells, pt))
+        return out
 
-    def local_host(self, flats, rank: int | None = None) -> np.ndarray:
+    def local_host(self, flats, rank: int | None = None,
+                   index: dict | None = None) -> np.ndarray:
         """Rank ``rank``'s ``(total_chunk,)`` buffer of global flat
-        arrays (default: this rank)."""
+        arrays (default: this rank), in the cell of mesh ``index`` (axis
+        -> position) for partitioned leaves."""
         r = self.rank if rank is None else rank
-        return np.concatenate(
-            [np.asarray(x)[r * c:(r + 1) * c]
-             for x, c in zip(flats, self.chunks)]).astype(np.float32)
+        out = []
+        for x, c, pt in zip(flats, self.chunks, self.parts):
+            x = np.asarray(x)
+            if pt is not None:
+                x = x.reshape(pt.count, -1)[pt.cell(index or {})]
+            out.append(x[r * c:(r + 1) * c])
+        return np.concatenate(out).astype(np.float32)
 
     def canonicalize_opt_host(self, flats) -> list:
         """Global flat optimizer-state leaves -> canonical (checkpoint
@@ -236,10 +368,24 @@ class _FlatLayout:
 
     def sq_norm(self, slices):
         """The global f32 sum of squares of dp-scattered slices: each
-        rank's squared sum, one scalar ``all_reduce``."""
-        sq = torch.stack([g.float().square().sum() for g in slices]).sum()
-        if self.group is not None:
-            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self.group)
+        rank's squared sum, one scalar ``all_reduce`` over dp; the sum of
+        the leaves of one partition also over its axes' groups (distinct
+        cells hold distinct elements; replicated leaves, equal on every
+        cell, count once)."""
+        buckets: dict = {}
+        for g, pt in zip(slices, self.parts):
+            buckets.setdefault(pt.axes if pt is not None else (),
+                               []).append(g.float().square().sum())
+        sq = None
+        for axes, sums in buckets.items():
+            s = torch.stack(sums).sum()
+            if self.group is not None:
+                dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.group)
+            for ax in axes:
+                if self.axis_groups.get(ax) is not None:
+                    dist.all_reduce(s, op=dist.ReduceOp.SUM,
+                                    group=self.axis_groups[ax])
+            sq = s if sq is None else sq + s
         return sq
 
 
@@ -273,8 +419,11 @@ class ZeRO1(_FlatLayout):
     shard views; ``apply``/``apply_scattered`` take and return canonical
     full leaves."""
 
-    def __init__(self, inner, shapes, group=None, param_specs=None):
-        super().__init__(shapes, group, param_specs=param_specs)
+    def __init__(self, inner, shapes, group=None, param_specs=None,
+                 mesh_axis_sizes=None, axis_groups=None):
+        super().__init__(shapes, group, param_specs=param_specs,
+                         mesh_axis_sizes=mesh_axis_sizes,
+                         axis_groups=axis_groups)
         _refuse_factored(inner)
         self.inner = inner
 
@@ -329,15 +478,20 @@ class ZeRO3(_FlatLayout):
     """FSDP: parameters at rest are this rank's ``(total_chunk,)`` shard
     buffer (views per leaf); the inner optimizer updates the shards."""
 
-    def __init__(self, inner, shapes, group=None, param_specs=None):
-        super().__init__(shapes, group, param_specs=param_specs)
+    def __init__(self, inner, shapes, group=None, param_specs=None,
+                 mesh_axis_sizes=None, axis_groups=None):
+        super().__init__(shapes, group, param_specs=param_specs,
+                         mesh_axis_sizes=mesh_axis_sizes,
+                         axis_groups=axis_groups)
         _refuse_factored(inner)
         self.inner = inner
 
-    def shard_host(self, leaves, device):
+    def shard_host(self, leaves, device, index: dict | None = None):
         """Canonical host leaves -> this rank's shard buffer on
-        ``device``, ready to differentiate."""
-        buf = torch.from_numpy(self.local_host(self.shard_params(leaves)))
+        ``device`` (in the cell of mesh ``index``), ready to
+        differentiate."""
+        buf = torch.from_numpy(self.local_host(self.shard_params(leaves),
+                                               index=index))
         return buf.to(device).requires_grad_(True)
 
     def init(self, device):
@@ -374,22 +528,21 @@ class FactoredZeRO1(_FlatLayout):
     where a leaf does not use the slot, as in the JAX layout. At a group
     of one every sum is the replicated Adafactor's, so the step is its
     bits. ``axis_size`` and ``rank`` override the group's (host-side
-    conversions only). ``param_specs`` (the per-cell form of tensor
-    parallelism) raises, naming its item."""
+    conversions only). With ``param_specs`` each cell factors its own
+    slice: the geometry is the cell's, and the global layout gives every
+    slot of a partitioned leaf a leading axis per partition axis
+    (``vr``: ``P((mp..., None..., dp))``), as the JAX wrapper's."""
 
     def __init__(self, inner, shapes, group=None, param_specs=None,
                  dtype=torch.float32, axis_size: int | None = None,
-                 rank: int | None = None):
+                 rank: int | None = None, mesh_axis_sizes=None):
         from tpu_ddp_torch.ops.optim import Adafactor
-        if param_specs is not None:
-            raise NotImplementedError(
-                "FactoredZeRO1 over model-parallel leaves (param_specs: "
-                "per-cell factoring, the CellAdafactor semantic) is not "
-                "ported to tpu_ddp_torch yet (ROADMAP Queue 1 item 10.6)")
         if not isinstance(inner, Adafactor):
             raise ValueError("FactoredZeRO1 wraps factored optimizers "
                              "(Adafactor); use ZeRO1 for elementwise ones")
-        super().__init__(shapes, group, axis_size=axis_size, rank=rank)
+        super().__init__(shapes, group, axis_size=axis_size, rank=rank,
+                         param_specs=param_specs,
+                         mesh_axis_sizes=mesh_axis_sizes)
         self.inner = inner
         self.dtype = dtype
         n_ax = self.axis_size
@@ -582,43 +735,58 @@ class FactoredZeRO1(_FlatLayout):
         from tpu_ddp_torch.parallel.redistribute import P
         dp, b1 = "dp", self.inner.b1 is not None
         out = {k: [] for k in ("vr", "vc", "v", "mu")}
-        for geom in self.geoms:
+        for geom, pt in zip(self.geoms, self.parts):
+            axes = pt.axes if pt is not None else ()
             if geom is None:
                 out["vr"].append(P())
                 out["vc"].append(P())
-                out["v"].append(P(dp))
-                out["mu"].append(P(dp) if b1 else P())
+                out["v"].append(P(*axes, dp))
+                out["mu"].append(P(*axes, dp) if b1 else P())
                 continue
             lead = [None] * len(geom[0])
-            out["vr"].append(P(*lead, dp))
-            out["vc"].append(P())
+            out["vr"].append(P(*axes, *lead, dp))
+            out["vc"].append(P(*axes))
             out["v"].append(P())
-            out["mu"].append(P(*lead, dp, None) if b1 else P())
+            out["mu"].append(P(*axes, *lead, dp, None) if b1 else P())
         return out
 
     # ---- host side (numpy; the JAX wrapper's global layout) -------------
 
+    def _cells(self, i: int) -> tuple:
+        """Leaf ``i``'s leading cell-axis extents (empty unpartitioned)."""
+        pt = self.parts[i]
+        return pt.counts if pt is not None else ()
+
     def canonical_opt_template(self) -> dict:
         """Each slot's canonical (checkpoint) leaf shapes: the replicated
-        Adafactor's."""
+        Adafactor's for an unpartitioned leaf, its cell's behind the
+        leading cell axes for a partitioned one (JAX
+        ``canonical_opt_template``)."""
         from tpu_ddp_torch.convert import opt_slot_shapes
-        return opt_slot_shapes(self.inner, self.shapes)
+        out = opt_slot_shapes(self.inner, self.shapes)
+        for k, shapes in out.items():
+            out[k] = [tuple(sh) if tuple(sh) == (1,)
+                      else self._cells(i) + tuple(sh)
+                      for i, sh in enumerate(shapes)]
+        return out
 
     def canonicalize_opt_host(self, state) -> dict:
         """Global-layout host state (the JAX wrapper's: ``vr`` rows and
         ``mu`` rows padded to ``n_loc * N``, flat leaves padded to
-        ``chunk * N``) -> canonical shapes."""
+        ``chunk * N``, behind the leading cell axes of a partitioned
+        leaf) -> canonical shapes."""
         out = {k: [] for k in ("vr", "vc", "v", "mu")}
         for i, geom in enumerate(self.geoms):
-            shape, s = self.shapes[i], self.sizes[i]
+            shape = self._cells(i) + self.shapes[i]
+            s = self.sizes[i]
             vr, vc, v = (np.asarray(state[k][i]) for k in ("vr", "vc", "v"))
             mu = np.asarray(state["mu"][i])
             out["vc"].append(vc)
             if geom is None:
                 out["vr"].append(vr)
-                out["v"].append(v[:s].reshape(shape))
+                out["v"].append(v[..., :s].reshape(shape))
                 if self.inner.b1 is not None:
-                    mu = mu[:s].reshape(shape)
+                    mu = mu[..., :s].reshape(shape)
             else:
                 n = geom[1]
                 out["vr"].append(vr[..., :n])
@@ -635,24 +803,27 @@ class FactoredZeRO1(_FlatLayout):
         n_ax = self.axis_size
         out = {k: [] for k in ("vr", "vc", "v", "mu")}
         for i, geom in enumerate(self.geoms):
-            c, s = self.chunks[i], self.sizes[i]
+            c, s, cells = self.chunks[i], self.sizes[i], self._cells(i)
+            lc = len(cells)
             vr, vc, v = (np.asarray(state[k][i]) for k in ("vr", "vc", "v"))
             mu = np.asarray(state["mu"][i])
             out["vc"].append(vc)
             if geom is None:
                 out["vr"].append(vr)
-                out["v"].append(np.pad(v.reshape(-1), (0, c * n_ax - s)))
+                flat = [(0, 0)] * lc + [(0, c * n_ax - s)]
+                out["v"].append(np.pad(v.reshape(cells + (-1,)), flat))
                 if self.inner.b1 is not None:
-                    mu = np.pad(mu.reshape(-1), (0, c * n_ax - s))
+                    mu = np.pad(mu.reshape(cells + (-1,)), flat)
             else:
                 lead, n, m, n_loc = geom
                 pad = n_loc * n_ax - n
-                out["vr"].append(np.pad(vr, [(0, 0)] * len(lead)
+                out["vr"].append(np.pad(vr, [(0, 0)] * (lc + len(lead))
                                         + [(0, pad)]))
                 out["v"].append(v)
                 if self.inner.b1 is not None:
-                    mu = np.pad(mu.reshape(lead + (n, m)),
-                                [(0, 0)] * len(lead) + [(0, pad), (0, 0)])
+                    mu = np.pad(mu.reshape(cells + lead + (n, m)),
+                                [(0, 0)] * (lc + len(lead))
+                                + [(0, pad), (0, 0)])
             out["mu"].append(mu)
         out["count"] = state["count"]
         return out
@@ -737,4 +908,50 @@ class FactoredZeRO1(_FlatLayout):
         for t in tensors:
             out.append(flat[o:o + t.numel()].view(t.shape))
             o += t.numel()
+        return out
+
+
+class CellAdafactor:
+    """Adafactor over tensor- or expert-parallel leaves, PER CELL (JAX
+    ``CellAdafactor``): each process's leaves are its cells, and the bare
+    optimizer's update on them is the per-cell update (row and column
+    moments of the cell's own slice, the update-RMS clip and relative
+    step per cell), with no collective. This is not the dense run's
+    factored state sliced: a cell's row means are means over its slice.
+
+    The trainer runs the bare optimizer on the cells; this class holds
+    the global layout of their state, the JAX wrapper's: reduced slots
+    (``vr``, ``vc``) of a partitioned leaf gain a leading axis per
+    partition axis (spec ``P(ax1, ...)``), slots shaped like the
+    parameter keep its spec (the cells concatenate), ``(1,)``
+    placeholders and replicated leaves keep the bare layout. ``shapes``
+    are the canonical leaf shapes, one spec per leaf."""
+
+    def __init__(self, inner, shapes, param_specs, mesh_axis_sizes: dict):
+        from tpu_ddp_torch.ops.optim import Adafactor
+        if not isinstance(inner, Adafactor):
+            raise ValueError(
+                "CellAdafactor wraps Adafactor (per-cell factored "
+                "state); elementwise optimizers already shard state in "
+                "their parameter's own spec")
+        self.inner = inner
+        self.specs = list(param_specs)
+        # No dp axis here: every spec axis is a cell axis.
+        self.parts = partitions(shapes, self.specs, mesh_axis_sizes,
+                                dp_axis="")
+        self.shapes = [pt.local_shape if pt is not None else tuple(s)
+                       for s, pt in zip(shapes, self.parts)]
+
+    def state_specs(self) -> dict:
+        """Each slot's per-leaf specs (JAX ``CellAdafactor.state_specs``),
+        ``count`` aside."""
+        from tpu_ddp_torch.parallel.redistribute import P
+        out = {k: [] for k in ("vr", "vc", "v", "mu")}
+        for shape, pt, spec in zip(self.shapes, self.parts, self.specs):
+            factored = self.inner.plan(shape) is not None
+            vr = P(*pt.axes) if (factored and pt is not None) else P()
+            out["vr"].append(vr)
+            out["vc"].append(vr)
+            out["v"].append(P() if factored else spec)
+            out["mu"].append(spec if self.inner.b1 is not None else P())
         return out

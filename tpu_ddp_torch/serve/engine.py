@@ -1,7 +1,8 @@
 """The serving engine: request lifecycle over the paged KV pool and the
-continuous-batching scheduler — the port of tpu_ddp/serve/engine.py on one
-device (tensor-parallel serving is ROADMAP Queue 1 item 2.6; the serving
-chaos hooks and the weight subscriber are items 2.7 and 11).
+continuous-batching scheduler — the port of tpu_ddp/serve/engine.py, on
+one device or tensor parallel over a process group of one card each (the
+serving chaos hooks and the weight subscriber are ROADMAP Queue 1 items
+2.7 and 11).
 
 Each engine step runs, in PyTorch eager mode:
 
@@ -39,6 +40,17 @@ With ``kv_tiers > 1`` the pool keeps only part of the context hot
 (serve/long_context.py). ``prefix_cache`` shares prompt blocks between
 requests (fleet/prefix.py); ``tenant_classes``, ``queue_limit`` and
 ``shed_ms`` run weighted fair admission and shedding.
+
+Tensor-parallel serving (``tp_group``): every rank of the group runs the
+engine in lockstep with the same requests, each holding its Megatron
+slices of the dense parameters (parallel/tensor_parallel.py), its KV /
+tp heads of the pool, and under ``decode_quant="int8"`` its slices of the
+dense tree's quantization; each block all-reduces the f32 partial sums
+of ``wo`` and ``w2``. Logits, hence tokens, are the same on every rank.
+JAX places the tree on an ``mp`` mesh and keeps the pool replicated;
+here one process holds one card, so the group replaces the mesh and each
+pool holds only its rank's heads. Speculative decoding, KV tiers and cp
+prefill under a tp group are ROADMAP Queue 1 item 2.6b and raise.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpu_ddp_torch.convert import shape_leaves
 from tpu_ddp_torch.models.decode import (
     attend_cached,
     block_finish,
@@ -250,9 +263,11 @@ class ServeEngine:
     ``kv_tiers > 1`` it is the logical pool the scheduler admits against,
     while ``hbm_blocks`` bounds the hot pages and ``cold_blocks`` the cold
     ones. ``device=None`` means ``"cuda"``; the CPU must be asked for with
-    ``device="cpu"``. ``mesh`` (tensor-parallel serving) raises naming
-    its ROADMAP item. ``cp_prefill`` ("ring" or "ulysses") shards each
-    prefill chunk over ``sp_group``, a process group of >= 2 ranks (the
+    ``device="cpu"``. ``tp_group``, a process group of more than one
+    rank, serves tensor parallel (``params`` dense: each rank keeps its
+    slices); ``mesh`` raises, naming that per-process form.
+    ``cp_prefill`` ("ring" or "ulysses") shards each prefill chunk over
+    ``sp_group``, a process group of >= 2 ranks (the
     JAX engine's sp mesh axis; serve/long_context.py): the engine then
     runs on every rank of the group, in lockstep, with the same requests.
     """
@@ -276,6 +291,7 @@ class ServeEngine:
                  cold_blocks: int | None = None,
                  cp_prefill: str | None = None,
                  sp_group=None,
+                 tp_group=None,
                  mesh=None,
                  metrics: MetricsLogger | None = None,
                  config=None, device=None):
@@ -284,14 +300,20 @@ class ServeEngine:
                                                 refuse_unported_env)
         refuse_unported_env()
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: tensor-parallel serving is not ported to "
-                "tpu_ddp_torch yet (ROADMAP Queue 1 item 2.6)")
+            raise NotImplementedError(_MESH_REFUSAL.format(arg="mesh"))
+        from tpu_ddp_torch.parallel.tensor_parallel import with_serve_tp
         self.device = resolve_device(device)
         if config is None:
             config = TrainConfig()
-        self.model = model
-        self.params = _to_device(params, self.device)
+        self.tp_group = tp_group
+        self.dense_model = model
+        # The model the decode math runs: this rank's heads and d_ff
+        # slice under a tp group of more than one rank.
+        model = self.model = with_serve_tp(model, tp_group)
+        self.tp = model._tp
+        self.tp_rank = (torch.distributed.get_rank(tp_group)
+                        if self.tp > 1 else 0)
+        self.params = self._fp_params(params)
         self.num_slots = int(num_slots if num_slots is not None
                              else config.serve_slots)
         self.block_size = int(block_size if block_size is not None
@@ -317,6 +339,17 @@ class ServeEngine:
             raise ValueError(
                 f"cp_prefill={self.cp_prefill!r}: expected 'off', "
                 "'ring' or 'ulysses' (TPU_DDP_CP_PREFILL)")
+        if self.tp > 1:
+            spec_k = int(spec_k if spec_k is not None else config.spec_k)
+            for what, on in (("spec_k > 0", spec_k > 0),
+                             ("kv_tiers > 1", self.kv_tiers > 1),
+                             ("cp_prefill", self.cp_prefill != "off")):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} with tp_group: speculative decoding, KV "
+                        "tiers and cp prefill under tensor-parallel "
+                        "serving are not ported to tpu_ddp_torch yet "
+                        "(ROADMAP Queue 1 item 2.6b)")
         self.sp_group = sp_group
         if self.cp_prefill != "off":
             if self.kv_tiers > 1:
@@ -385,7 +418,7 @@ class ServeEngine:
                 "do not support MoE models yet: the routed expert "
                 "einsums bypass ops/quant.qdot; serve MoE with "
                 "decode_quant='none'")
-        self._refresh_quant()
+        self._refresh_quant(params)
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_rejected = 0
@@ -402,19 +435,32 @@ class ServeEngine:
         self._step_n = 0
         self.param_version = 0
 
-    def _refresh_quant(self) -> None:
+    def _fp_params(self, params):
+        """The fp master this rank serves from dense ``params``: the
+        dict on the device, or its tensor-parallel slices."""
+        if self.tp == 1:
+            return _to_device(params, self.device)
+        from tpu_ddp_torch.parallel.tensor_parallel import \
+            shard_decode_params
+        return shard_decode_params(self.dense_model, params, self.tp,
+                                   self.tp_rank, device=self.device)
+
+    def _refresh_quant(self, dense) -> None:
         """(Re)derive the decode-path parameter dicts from the fp master
         ``self.params`` — at construction and after every
         :meth:`swap_params`. ``self._decode_params`` feeds every target
         pass: the fp dict under ``decode_quant == "none"``, the
         per-channel int8 dict (ops/quant.py quantize_params) under
-        ``"int8"``. ``self._draft_params`` is the fused draft's: the
-        decode dict for a "self-<j>" early exit, the int8 dict for a
+        ``"int8"``, under a tp group this rank's slices of the ``dense``
+        tree's quantization. ``self._draft_params`` is the fused draft's:
+        the decode dict for a "self-<j>" early exit, the int8 dict for a
         "quant" draft."""
         qp = None
         if self.decode_quant == "int8" or self._spec_kind == "quant":
             from tpu_ddp_torch.ops.quant import quantize_params
-            qp = quantize_params(self.model, self.params)
+            qp = (quantize_params(self.model, self.params) if self.tp == 1
+                  else quantize_params(self.dense_model, dense, self.tp,
+                                       self.tp_rank, device=self.device))
         self._decode_params = (qp if self.decode_quant == "int8"
                                else self.params)
         self._draft_params = (qp if self._spec_kind == "quant"
@@ -424,20 +470,37 @@ class ServeEngine:
     def from_checkpoint(cls, model, directory: str,
                         step: int | None = None, *,
                         param_budget_bytes: int | None = None,
-                        shard_devices=None, device=None, **kwargs):
+                        shard_devices=None, tp_group=None, device=None,
+                        **kwargs):
         """Load a training checkpoint (either package's, any strategy:
-        the artifact is canonical) into a fresh engine on one device —
-        the train-to-serve round trip. Sharding the params over several
-        devices (``shard_devices``, or a ``param_budget_bytes`` they
-        exceed) is tensor-parallel serving, ROADMAP Queue 1 item 2.6."""
-        if shard_devices is not None or param_budget_bytes is not None:
+        the artifact is canonical) into a fresh engine — the
+        train-to-serve round trip. When the dense params exceed
+        ``param_budget_bytes`` (one card's budget), or ``tp_group`` is
+        given without a budget, the engine serves tensor parallel over
+        ``tp_group`` (default: the world), each rank reading the dense
+        tree to the host and keeping its slices; below the budget it
+        serves alone on one device (JAX ``from_checkpoint``).
+        ``shard_devices`` raises, naming ``tp_group``: one process holds
+        one card."""
+        import torch.distributed as dist
+        if shard_devices is not None:
             raise NotImplementedError(
-                "shard_devices / param_budget_bytes: tensor-parallel "
-                "serving is not ported to tpu_ddp_torch yet (ROADMAP "
-                "Queue 1 item 2.6)")
-        params = dense_params_from_checkpoint(model, directory, step,
-                                              device=device)
-        return cls(model, params, device=device, **kwargs)
+                _MESH_REFUSAL.format(arg="shard_devices"))
+        sharded = tp_group is not None
+        if param_budget_bytes is not None:
+            nbytes = sum(math.prod(s) for s in shape_leaves(
+                model.param_shapes())) * torch.finfo(
+                    model.param_dtype).bits // 8
+            sharded = nbytes > param_budget_bytes
+            if sharded and tp_group is None and dist.is_initialized():
+                tp_group = dist.group.WORLD
+        if not sharded:
+            tp_group = None
+        params = dense_params_from_checkpoint(
+            model, directory, step,
+            device="cpu" if tp_group is not None else device)
+        return cls(model, params, device=device, tp_group=tp_group,
+                   **kwargs)
 
     # ---- request lifecycle ---------------------------------------------
 
@@ -599,9 +662,9 @@ class ServeEngine:
     def swap_params(self, params, version: int) -> None:
         """Flip the served weights to ``params`` at ``version`` between
         steps; under int8 the decode dict is re-quantized from them."""
-        self.params = _to_device(params, self.device)
+        self.params = self._fp_params(params)
         self.param_version = int(version)
-        self._refresh_quant()
+        self._refresh_quant(params)
 
     # ---- queries -------------------------------------------------------
 
@@ -1029,6 +1092,12 @@ class ServeEngine:
             self.sched.retire(idx)
             self.metrics.inc("serve_retired")
             self._tc(tenant_of(req))["completed"] += 1
+
+
+_MESH_REFUSAL = (
+    "{arg}: the port serves tensor parallel one process per card; pass "
+    "tp_group, the process group of the tp ranks (each process holding "
+    "its own card), instead of a device mesh")
 
 
 def _to_device(tree, device):

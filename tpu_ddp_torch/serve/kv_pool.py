@@ -94,7 +94,9 @@ class PagedKVPool:
         self.tiers = tiers
         self.cold_dtype_name = cold_dtype
         self.dtype = resolve_act_dtype(cache_dtype, model.compute_dtype)
-        page = (block_size, model.kv_heads, model.head_dim)
+        # Under tensor-parallel serving each rank's pool holds its KV / tp
+        # heads (JAX keeps the pool replicated under GSPMD).
+        page = (block_size, model.kv_heads // model._tp, model.head_dim)
         self.hbm_blocks = (num_blocks if tiers == 1
                            else int(hbm_blocks if hbm_blocks is not None
                                     else num_blocks))

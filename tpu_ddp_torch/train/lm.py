@@ -16,12 +16,15 @@ mean loss, as each JAX shard does. Next-token shift happens on the host
 packages. Like the JAX LM trainer it has no step guard.
 
 Dropout (``model.dropout_rate > 0``) draws each step's masks from keys
-derived from ``dropout_seed``, the step, the process's rank and, under
-accumulation, the microbatch (models/transformer.py:fold_in), so a
-resumed run continues the same key sequence and ranks draw different
-masks. The step is read from a device tensor (the optimizer's count, or
-the state's ``step_t`` for an optimizer without one), so a captured step
-draws the masks of the step it replays.
+derived from ``dropout_seed``, the step, the process's data-shard index
+(its (dp, sp, ep) coordinate: the rank at tp 1) and, under accumulation,
+the microbatch (models/transformer.py:fold_in), so a resumed run
+continues the same key sequence, data shards draw different masks and
+the tp peers of one shard, whose residual stream is replicated, draw the
+same (JAX folds only the data axes, tpu_ddp/train/lm.py:605-613). The
+step is read from a device tensor (the optimizer's count, or the state's
+``step_t`` for an optimizer without one), so a captured step draws the
+masks of the step it replays.
 
 Mixture of experts (tpu_ddp/train/lm.py:404-448,571-590,676-692): the
 loss adds ``moe_aux_coef`` times the model's load-balance loss, and
@@ -36,9 +39,8 @@ ep group, so every process clips by the one norm of the whole model.
 Parameters, optimizer state and checkpoints gather the expert
 leaves over ep into the JAX layout (Adafactor's reduced slots of an
 expert leaf stacked on a leading ep axis, as the JAX ``CellAdafactor``
-lays them out). At ep > 1 the optimizer runs replicated (Adafactor bare
-on each process's slices, which is the per-cell update); ZeRO and FSDP
-over an ep-sharded partition raise (ROADMAP Queue 1 item 10.8b).
+lays them out). ZeRO and FSDP over the ep partition lay each expert
+leaf out per cell and dp-shard it within the cell (parallel/zero.py).
 
 Sharded layouts (tpu_ddp/train/lm.py:406-500), AdamW or SGD:
 ``opt_sharding='zero1'`` keeps the optimizer state as 1/dp flat shards
@@ -77,11 +79,25 @@ scatter and gather over the dp group only, and the sp half of the mean
 is its own all-reduce over the sp group (JAX's ``skip_axes=(dp,)``
 algebra). The global-norm clip counts each leaf once: after the sync
 the sp peers hold the same gradients. Each (dp, sp, ep) shard draws its
-own dropout masks: the key folds in the global rank, which is the
-shard's index.
+own dropout masks: the key folds in the shard's index.
 
-Tensor parallelism is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+Tensor parallelism (tpu_ddp/train/lm.py:403-560, 571-590): ``tp > 1``
+makes the world dp x sp x tp x ep, rank ``((d * sp + s) * tp + t) * ep +
+e``; the model is wrapped ``with_tensor_parallel`` after sp, each
+process holding its heads and d_ff slice (``param_specs``). The tp
+peers of one data shard feed the same rows. A gradient is averaged over
+the data axes a leaf is not sharded over (the data group, ranks of one
+t), an ep-sharded leaf's divided by ep, as JAX's ``_sync_grads``; the
+replicated leaves' gradients are already equal across tp (Megatron's
+``f``). The global-norm clip counts a tp- or ep-sharded leaf's squares
+once per cell and a replicated leaf's once. ZeRO-1/2 and FSDP lay the
+partitioned leaves out per cell, dp-sharded within it; Adafactor runs
+per cell (``CellAdafactor``, or ``FactoredZeRO1`` with the cells' own
+row geometry under zero1). Checkpoints stay canonical: parameters and
+elementwise state gathered over tp and ep, Adafactor's per-cell state in
+the JAX wrapper's global layout (stacked cells), so a checkpoint moves
+between the packages at the same layout. A pipeline axis raises (ROADMAP
+Queue 1 item 10.7).
 """
 
 from __future__ import annotations
@@ -93,7 +109,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_ddp_torch.convert import (_leaves_like, opt_slot_shapes,
+from tpu_ddp_torch.convert import (_leaves_like, cell_of, opt_slot_shapes,
                                    shape_leaves)
 from tpu_ddp_torch.models.transformer import fold_in
 from tpu_ddp_torch.ops.loss import (chunked_vocab_cross_entropy,
@@ -146,14 +162,15 @@ def _skeleton(shapes):
     return None
 
 
-def _leaf_names(node, name: str = "") -> list:
-    """The dict key of each leaf of a ``param_shapes()`` tree, in leaf
-    order."""
-    if isinstance(node, dict):
-        return [n for k, v in node.items() for n in _leaf_names(v, k)]
-    if isinstance(node, tuple) and node and isinstance(node[0], dict):
-        return [n for b in node for n in _leaf_names(b, name)]
-    return [name]
+def data_shard_index(rank: int, sp: int = 1, ep: int = 1,
+                     tp: int = 1) -> int:
+    """The (dp, sp, ep) data shard ``rank`` trains on in a dp x sp x tp x
+    ep world: its mesh coordinate with the tp axis taken out, ``(d * sp +
+    s) * ep + e`` (the rank itself at tp 1). The tp peers of a shard
+    share it, so they share its batch rows and dropout keys."""
+    from tpu_ddp_torch.parallel.bootstrap import mesh_coords
+    d, s, e, _ = mesh_coords(rank, sp, ep, tp)
+    return (d * sp + s) * ep + e
 
 
 def _has_count(optimizer) -> bool:
@@ -167,9 +184,9 @@ class LMTrainer:
     """A TransformerLM + its optimizer (AdamW by default) on one device,
     data parallel over the process group when ``torch.distributed`` is
     initialised with more than one process, sequence parallel over groups
-    of ``sp`` of them and expert parallel over groups of ``ep``.
-    ``device=None`` means the card. At tp = 1 Adafactor runs bare, as in
-    the JAX trainer."""
+    of ``sp`` of them, tensor parallel over groups of ``tp`` and expert
+    parallel over groups of ``ep``. ``device=None`` means the card. At
+    tp = ep = 1 Adafactor runs bare, as in the JAX trainer."""
 
     def __init__(self, model, device=None, optimizer=None,
                  grad_accum: int = 1, vocab_chunk: int = 0,
@@ -177,7 +194,7 @@ class LMTrainer:
                  opt_sharding: str = "replicated", sp_mode: str = "ring",
                  clip_grad_norm: float | None = None,
                  dropout_seed: int = 0, ep: int = 1,
-                 moe_aux_coef: float = 0.01, sp: int = 1):
+                 moe_aux_coef: float = 0.01, sp: int = 1, tp: int = 1):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if sp_mode not in ("ring", "ulysses"):
@@ -212,6 +229,10 @@ class LMTrainer:
         if sp < 1 or world % (sp * ep):
             raise ValueError(f"sp={sp} must be >= 1 and sp x ep = "
                              f"{sp * ep} divide the world size {world}")
+        if tp < 1 or world % (sp * tp * ep):
+            raise ValueError(f"tp={tp} must be >= 1 and sp x tp x ep = "
+                             f"{sp * tp * ep} divide the world size "
+                             f"{world}")
         self.device = resolve_device(device)
         self.optimizer = optimizer or AdamW()
         self.grad_accum = grad_accum
@@ -219,37 +240,36 @@ class LMTrainer:
         self.clip_grad_norm = clip_grad_norm
         self.dropout_seed = dropout_seed
         self.moe_aux_coef = moe_aux_coef
-        # The JAX trainer's dp, sp and ep axes: the world is dp x sp x
-        # ep, rank (d * sp + s) * ep + e.
-        self.ep, self.sp = ep, sp
-        self.dp = world // (sp * ep)
+        # The JAX trainer's dp, sp, mp and ep axes: the world is dp x sp x
+        # tp x ep, rank ((d * sp + s) * tp + t) * ep + e.
+        from tpu_ddp_torch.parallel.bootstrap import mesh_coords
+        self.ep, self.sp, self.tp = ep, sp, tp
+        self.dp = world // (sp * tp * ep)
         self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.ep_index = self.rank % ep
-        self.sp_index = (self.rank // ep) % sp
+        _, self.sp_index, self.ep_index, self.tp_index = mesh_coords(
+            self.rank, sp, ep, tp)
+        self.data_index = data_shard_index(self.rank, sp, ep, tp)
         # The model with every partition axis stripped: the JAX package's
         # canonical tree (checkpoints, conversion, route_stats).
         self.canonical_model = dataclasses.replace(
             model, ep_axis=None, ep_size=1, ep_group=None, sp_axis=None,
-            sp_size=1, sp_group=None)
+            sp_size=1, sp_group=None, tp_axis=None, tp_size=1,
+            tp_group=None)
         self._dp_group = self._ep_group = self._sp_group = None
-        self._dp_sp_group = None
-        if ep > 1 and (param_sharding != "replicated"
-                       or opt_sharding != "replicated"):
-            raise NotImplementedError(
-                f"param_sharding={param_sharding!r}, opt_sharding="
-                f"{opt_sharding!r} at ep={ep}: ZeRO and FSDP over an "
-                "ep-sharded partition are not ported to tpu_ddp_torch "
-                "yet (ROADMAP Queue 1 item 10.8b); use the replicated "
-                "optimizer")
-        if ep > 1 or sp > 1:
+        self._dp_sp_group = self._tp_group = None
+        self._data_group = dist.group.WORLD if dist.is_initialized() else None
+        if ep > 1 or sp > 1 or tp > 1:
             from tpu_ddp_torch.parallel.bootstrap import mesh_groups
             (self._dp_group, self._sp_group, self._ep_group,
-             self._dp_sp_group) = mesh_groups(self.dp, ep, sp)
+             self._dp_sp_group, self._tp_group,
+             self._data_group) = mesh_groups(self.dp, ep, sp, tp)
         if sp > 1:
             # "ring" rotates K/V over sp; "ulysses" re-shards heads and
             # sequence with two all-to-alls.
             model = model.with_sequence_parallel("sp", sp, mode=sp_mode,
                                                  group=self._sp_group)
+        if tp > 1:
+            model = model.with_tensor_parallel("mp", tp, self._tp_group)
         if ep > 1:
             model = model.with_expert_parallel("ep", ep, self._ep_group)
         self.model = model
@@ -258,10 +278,19 @@ class LMTrainer:
         self.opt_zero2 = opt_sharding == "zero2"
         self._shapes = model.param_shapes()
         self._skeleton = _skeleton(self._shapes)
+        # Each leaf's spec and model-parallel cell partition (None:
+        # replicated over mp and ep), and where this process sits.
+        from tpu_ddp_torch.parallel.zero import partitions
+        self._sizes = {"dp": self.dp, "sp": sp, "mp": tp, "pp": 1, "ep": ep}
+        self._index = {"mp": self.tp_index, "ep": self.ep_index}
+        self._axis_groups = {"mp": self._tp_group, "ep": self._ep_group}
+        self._specs = shape_leaves(model.param_specs())
+        canon = shape_leaves(self.canonical_model.param_shapes())
+        self._local = [tuple(s) for s in shape_leaves(self._shapes)]
+        self._parts = partitions(canon, self._specs, self._sizes)
         # Leaf indices of the stacked expert weights (sharded over ep).
-        self._expert_leaves = {
-            i for i, path in enumerate(_leaf_names(self._shapes))
-            if model.moe_experts and path in ("w1", "w2")}
+        self._expert_leaves = {i for i, pt in enumerate(self._parts)
+                               if pt is not None and "ep" in pt.axes}
         factored = isinstance(self.optimizer, Adafactor)
         if factored and self.opt_zero2:
             raise ValueError(
@@ -281,25 +310,33 @@ class LMTrainer:
                 "under fsdp, or opt_sharding='zero1' with Adafactor "
                 "(per-cell FactoredZeRO1)")
         # The sharded layouts scatter and gather over dp only.
-        group = (self._dp_group if sp > 1
+        group = (self._dp_group if sp * tp * ep > 1
                  else dist.group.WORLD if dist.is_initialized() else None)
         self._group = group
         self._multi_step_cache: dict = {}
         self._graph_stream = None
         # K-step CUDA graphs: captures, replays, each capture's ms.
         self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
-        self.layout = None
+        self.layout = self._cell = None
+        part = dict(param_specs=self._specs, mesh_axis_sizes=self._sizes)
         if self.opt_zero1:
             from tpu_ddp_torch.parallel.zero import FactoredZeRO1, ZeRO1
             self.layout = (
-                FactoredZeRO1(self.optimizer, shape_leaves(self._shapes),
-                              group, dtype=model.param_dtype)
+                FactoredZeRO1(self.optimizer, canon, group,
+                              dtype=model.param_dtype, **part)
                 if factored else
-                ZeRO1(self.optimizer, shape_leaves(self._shapes), group))
+                ZeRO1(self.optimizer, canon, group,
+                      axis_groups=self._axis_groups, **part))
         elif self.is_fsdp:
             from tpu_ddp_torch.parallel.zero import ZeRO3
-            self.layout = ZeRO3(self.optimizer,
-                                shape_leaves(self._shapes), group)
+            self.layout = ZeRO3(self.optimizer, canon, group,
+                                axis_groups=self._axis_groups, **part)
+        elif factored and any(pt is not None for pt in self._parts):
+            # The per-cell layout of the replicated Adafactor's state (the
+            # update itself is the bare optimizer's on the cells).
+            from tpu_ddp_torch.parallel.zero import CellAdafactor
+            self._cell = CellAdafactor(self.optimizer, canon, self._specs,
+                                       self._sizes)
 
     def init_state(self, seed: int = 0, params=None) -> LMTrainState:
         """Parameters from ``seed`` (a ``torch.Generator`` on the device),
@@ -336,30 +373,46 @@ class LMTrainer:
         return state
 
     def _local_params(self, params):
-        """A canonical parameter tree cut to this process's experts (the
-        tree itself at ep = 1)."""
-        if self.ep == 1:
+        """A canonical parameter tree cut to this process's cell: its
+        experts, heads and d_ff slice (the tree itself at tp = ep = 1)."""
+        if all(pt is None for pt in self._parts):
             return params
-        e_loc = self.model.moe_experts // self.ep
-        lo = self.ep_index * e_loc
-        out = [p[lo:lo + e_loc].detach().clone()
-               if i in self._expert_leaves else p
-               for i, p in enumerate(tree_leaves(params))]
+        out = [cell_of(p, spec, self._index, self._sizes).detach().clone()
+               if pt is not None else p
+               for p, spec, pt in zip(tree_leaves(params), self._specs,
+                                      self._parts)]
         return tree_unflatten(self._skeleton, out)
 
-    def _gather_ep(self, t, stack: bool):
-        """Every ep peer's ``t`` (same shape on each), concatenated on
-        dim 0 (``stack``: stacked on a new leading axis)."""
-        parts = [torch.empty_like(t) for _ in range(self.ep)]
-        dist.all_gather(parts, t.detach().contiguous(),
-                        group=self._ep_group)
-        return torch.stack(parts) if stack else torch.cat(parts)
+    def _gather_cells(self, t, i: int, stack: bool):
+        """Leaf ``i``'s ``t`` (one cell's, the same shape on every
+        process) from every cell: concatenated along the sharded dims, or
+        (``stack``) on leading cell axes, major first (a collective over
+        each partition axis's group)."""
+        for ax, dim, r in reversed(self._parts[i].parts):
+            got = [torch.empty_like(t) for _ in range(r)]
+            dist.all_gather(got, t.detach().contiguous(),
+                            group=self._axis_groups[ax])
+            t = torch.stack(got) if stack else torch.cat(got, dim)
+        return t
+
+    def _slot_join(self, i: int, shape):
+        """How an optimizer slot of leaf ``i`` with local ``shape`` joins
+        its cells in the checkpoint: True (stacked: reduced slots, and
+        every slot under ``FactoredZeRO1``, whose JAX layout keeps its
+        cells apart), False (concatenated like the parameter), None
+        (kept: unpartitioned, or a ``(1,)`` placeholder)."""
+        from tpu_ddp_torch.parallel.zero import FactoredZeRO1
+        if self._parts[i] is None or tuple(shape) == (1,):
+            return None
+        return (isinstance(self.layout, FactoredZeRO1)
+                or tuple(shape) != self._local[i])
 
     def put_batch(self, inputs, targets):
-        """(B, L) host token ids, this process's rows (its dp x ep shard)
-        over the whole sequence -> int64 tensors on the device, cut to
-        this process's L/sp columns at sp > 1. B must split into
-        ``grad_accum`` equal microbatches, L into sp chunks."""
+        """(B, L) host token ids, this process's rows (its dp x ep shard,
+        the same rows on every tp peer) over the whole sequence -> int64
+        tensors on the device, cut to this process's L/sp columns at sp >
+        1. B must split into ``grad_accum`` equal microbatches, L into sp
+        chunks."""
         inputs = torch.as_tensor(np.ascontiguousarray(inputs, np.int64))
         targets = torch.as_tensor(np.ascontiguousarray(targets, np.int64))
         if inputs.shape != targets.shape or inputs.dim() != 2:
@@ -381,13 +434,13 @@ class LMTrainer:
     def step_key(self, step):
         """Step ``step``'s dropout key on this process (None when the
         model has no dropout): ``dropout_seed`` folded with the step and
-        the rank, which is the (dp, sp, ep) shard's index, as the JAX
-        trainer folds its key with the step and each data axis's index.
-        ``step``: an int (gives an int) or a device tensor (gives an
-        int64 tensor of the same value)."""
+        the (dp, sp, ep) shard's index (the rank at tp 1), as the JAX
+        trainer folds its key with the step and each data axis's index
+        and leaves it equal across tp. ``step``: an int (gives an int) or
+        a device tensor (gives an int64 tensor of the same value)."""
         if self.model.dropout_rate <= 0.0:
             return None
-        return fold_in(fold_in(self.dropout_seed, step), self.rank)
+        return fold_in(fold_in(self.dropout_seed, step), self.data_index)
 
     def _device_step(self, state: LMTrainState):
         """The step as a 0-d device tensor: the optimizer's count where it
@@ -520,9 +573,12 @@ class LMTrainer:
         place."""
         z = self.layout
         if self.is_fsdp:
-            # The gather's backward summed the shard over dp; the sp half
-            # of the mean is an all-reduce of its own.
-            self._sync_sp(grads)
+            # The gather's backward summed the shard over dp; the sp and
+            # ep halves of the mean are all-reduces of their own.
+            if self._expert_leaves:
+                self._sync_rest(z.views(grads[0]))
+            else:
+                self._sync_rest(grads, experts=False)
             g_sh = z.views(grads[0].div_(float(z.axis_size)))
             if self.clip_grad_norm is not None:
                 torch._foreach_mul_(g_sh, clip_scale_from_sq(
@@ -532,7 +588,7 @@ class LMTrainer:
         if self.opt_zero1:
             # The reduce-scatter over dp is the dp half of the sync (under
             # ZeRO-2 it already ran, and these are the f32 slices).
-            self._sync_sp(grads)
+            self._sync_rest(grads)
             kw = dict(clip_norm=self.clip_grad_norm)
             new = (z.apply_scattered(leaves, grads, state.opt_state, **kw)
                    if self.opt_zero2
@@ -541,10 +597,10 @@ class LMTrainer:
                 for p, t in zip(leaves, new):
                     p.copy_(t)
             return
-        if self.ep > 1:
-            self._sync_ep(grads)
+        if self.ep > 1 or self.tp > 1:
+            self._sync_data(grads)
             if self.clip_grad_norm is not None:
-                self._clip_ep(grads)
+                self._clip_cells(grads)
         else:
             if self.dp * self.sp > 1:
                 sync_all_reduce(grads)
@@ -552,72 +608,84 @@ class LMTrainer:
                 clip_by_global_norm(grads, self.clip_grad_norm)
         self.optimizer.apply(leaves, grads, state.opt_state)
 
-    def _clip_ep(self, grads) -> None:
-        """The global-norm clip at ep > 1 (JAX ``_clip_by_global_norm``),
-        in place: an expert leaf's squared sum is summed over the ep group
-        (each peer holds other experts), a replicated leaf's counted once,
-        so every process applies the same scale."""
-        experts = [g for i, g in enumerate(grads) if i in self._expert_leaves]
-        sq_e = global_sq_norm(experts)
-        dist.all_reduce(sq_e, group=self._ep_group)
-        sq = global_sq_norm([g for i, g in enumerate(grads)
-                             if i not in self._expert_leaves]) + sq_e
+    def _clip_cells(self, grads) -> None:
+        """The global-norm clip over tp and ep cells (JAX
+        ``_clip_by_global_norm``), in place: a partitioned leaf's squared
+        sum is summed over its partition axes' groups (each cell holds
+        other elements), a replicated leaf's counted once, so every
+        process applies the same scale."""
+        buckets: dict = {}
+        for g, pt in zip(grads, self._parts):
+            buckets.setdefault(pt.axes if pt is not None else (),
+                               []).append(g)
+        sq = None
+        for axes, gs in buckets.items():
+            s = global_sq_norm(gs)
+            for ax in axes:
+                dist.all_reduce(s, group=self._axis_groups[ax])
+            sq = s if sq is None else sq + s
         clip_tree(grads, clip_scale_from_sq(sq, self.clip_grad_norm))
 
-    def _sync_sp(self, grads) -> None:
-        """The mean over the sp group, in place (nothing at sp 1)."""
-        if self.sp == 1:
-            return
-        for g in grads:
-            dist.all_reduce(g, group=self._sp_group)
-            g.div_(float(self.sp))
+    def _sync_rest(self, grads, experts: bool = True) -> None:
+        """The mean over the data axes other than dp (JAX ``_sync_grads``
+        with ``skip_axes=(dp,)``), in place: over sp, then over ep for a
+        leaf not sharded over ep, an ep-sharded leaf divided by ep (its
+        gradient already holds its peers' tokens). ``experts=False``:
+        ``grads`` are not the leaves (FSDP's one buffer at ep 1)."""
+        for i, g in enumerate(grads):
+            if self.sp > 1:
+                dist.all_reduce(g, group=self._sp_group)
+                g.div_(float(self.sp))
+            if self.ep > 1:
+                if not (experts and i in self._expert_leaves):
+                    dist.all_reduce(g, group=self._ep_group)
+                g.div_(float(self.ep))
 
-    def _sync_ep(self, grads) -> None:
+    def _sync_data(self, grads) -> None:
         """The dp x sp x ep gradient sync (JAX ``_sync_grads``), in
         place: an expert leaf is summed over its dp x sp group and divided
-        by the world (its gradient already holds its ep peers' tokens);
-        every other leaf is averaged over the world."""
+        by dp x sp x ep (its gradient already holds its ep peers' tokens);
+        every other leaf is averaged over the data group (the ranks of
+        one tp coordinate)."""
         world = float(self.dp * self.sp * self.ep)
         for i, g in enumerate(grads):
             if i in self._expert_leaves:
                 if self.dp * self.sp > 1:
                     dist.all_reduce(g, group=self._dp_sp_group)
-            else:
-                dist.all_reduce(g)
+            elif world > 1:
+                dist.all_reduce(g, group=self._data_group)
             g.div_(world)
 
     def _full_params(self, state: LMTrainState):
-        """The canonical parameter tree (FSDP: gathered; expert leaves
-        gathered over ep; a collective)."""
-        if self.is_fsdp:
-            return tree_unflatten(self._skeleton, self.layout.gather(
-                state.params.detach()))
-        if self.ep > 1:
+        """The canonical parameter tree (FSDP: gathered; tp and ep cells
+        gathered; a collective)."""
+        leaves = (self.layout.gather(state.params.detach()) if self.is_fsdp
+                  else tree_leaves(state.params))
+        if self.is_fsdp or any(pt is not None for pt in self._parts):
             return tree_unflatten(self._skeleton, [
-                self._gather_ep(p, stack=False)
-                if i in self._expert_leaves else p
-                for i, p in enumerate(tree_leaves(state.params))])
+                self._gather_cells(p, i, stack=False)
+                if pt is not None else p
+                for i, (p, pt) in enumerate(zip(leaves, self._parts))])
         return state.params
 
     def _full_opt(self, state: LMTrainState) -> dict:
         """The optimizer state with canonical leaves in parameter order
-        (the sharded layouts gathered, a collective). At ep > 1 a slot of
-        an expert leaf shaped like the leaf is concatenated over ep, a
-        reduced one (Adafactor's) stacked on a leading ep axis, and a
-        ``(1,)`` placeholder stays one."""
-        if self.layout is not None:
-            return self.layout.full_opt(state.opt_state)
-        if self.ep == 1:
-            return state.opt_state
-        params = tree_leaves(state.params)
+        (the sharded layouts gathered, a collective). A slot of a tp- or
+        ep-sharded leaf joins its cells as :meth:`_slot_join` says."""
+        opt = (self.layout.full_opt(state.opt_state)
+               if self.layout is not None else state.opt_state)
+        if all(pt is None for pt in self._parts):
+            return opt
         out = {}
-        for k, v in state.opt_state.items():
+        for k, v in opt.items():
             if k == "count":
                 out[k] = v
                 continue
-            out[k] = [self._gather_ep(t, stack=t.shape != params[i].shape)
-                      if i in self._expert_leaves and tuple(t.shape) != (1,)
-                      else t for i, t in enumerate(v)]
+            out[k] = []
+            for i, t in enumerate(v):
+                join = self._slot_join(i, t.shape)
+                out[k].append(t if join is None
+                              else self._gather_cells(t, i, stack=join))
         return out
 
     def params_to_host(self, state: LMTrainState):
@@ -645,49 +713,42 @@ class LMTrainer:
 
     def sharding_plan(self):
         """This trainer's layout as the JAX ``LMTrainer``'s
-        ``ShardingPlan``: everything replicated over ``dp``, the block
-        matrices spelled as the JAX model's tensor-parallel specs at
-        tp 1 (all ``None``)."""
+        ``ShardingPlan``: the model's ``param_specs`` (heads and d_ff
+        over ``mp``, experts over ``ep``, the rest replicated)."""
         from tpu_ddp_torch.parallel.redistribute import P, ShardingPlan
 
-        moe = bool(self.model.moe_experts)
-
-        def spec(name, node, repl=False):
-            if isinstance(node, dict):
-                return {k: spec(k, v, repl) for k, v in node.items()}
-            if isinstance(node, tuple) and node and isinstance(node[0],
-                                                               dict):
-                return tuple(spec(name, b, repl) for b in node)
-            if moe and name in ("w1", "w2") and not repl:
-                return P("ep" if self.ep > 1 else None, None, None)
-            blk = name in ("wqkv", "wq", "wkv", "wo", "w1", "w2")
-            return P(*[None] * len(node)) if blk and not repl else P()
-
-        shapes = self.canonical_model.param_shapes()
-        params = spec("", shapes)
-        # Bare Adafactor's state is replicated, reduced shapes and all;
-        # the other slots mirror their parameter's spec. ZeRO's flat
-        # state is dp-sharded (the JAX wrapper's prefix spec), FSDP's
-        # params and state too, leaf by leaf.
-        slot = spec("", shapes, repl=isinstance(self.optimizer, Adafactor))
+        params = self.model.param_specs()
+        # Bare Adafactor's state is replicated, reduced shapes and all
+        # (per cell under tp or ep: CellAdafactor's specs); the other
+        # slots mirror their parameter's spec. ZeRO's flat state is
+        # dp-sharded (the JAX wrapper's prefix spec, P((mp..., dp)) per
+        # partitioned leaf), FSDP's params and state too, leaf by leaf.
+        factored = isinstance(self.optimizer, Adafactor)
+        slot = (tree_unflatten(self._skeleton, [P()] * len(self._specs))
+                if factored else params)
+        flat = tree_unflatten(self._skeleton, [
+            P((*pt.axes, "dp")) if pt is not None else P("dp")
+            for pt in self._parts])
+        parted = any(pt is not None for pt in self._parts)
         strategy = "lmtrainer"
         if self.is_fsdp:
-            params = slot = tree_unflatten(
-                self._skeleton, [P("dp")] * len(shape_leaves(shapes)))
+            params = slot = flat
             strategy += "+fsdp"
         elif self.opt_zero1:
-            slot = P("dp")
+            slot = flat if parted else P("dp")
             strategy += "+zero2" if self.opt_zero2 else "+zero1"
         opt = {k: slot for k in opt_slot_shapes(self.optimizer, [])}
-        if hasattr(self.layout, "state_specs"):
-            # FactoredZeRO1: vr (and mu) sharded by rows, leaf by leaf.
+        cell = self._cell if self._cell is not None else self.layout
+        if hasattr(cell, "state_specs"):
+            # FactoredZeRO1: vr (and mu) sharded by rows, leaf by leaf;
+            # CellAdafactor: reduced slots over the cell axes.
             opt = {k: tree_unflatten(self._skeleton, v)
-                   for k, v in self.layout.state_specs().items()}
+                   for k, v in cell.state_specs().items()}
         if _has_count(self.optimizer):
             opt["count"] = P()
         return ShardingPlan(
             strategy=strategy,
-            mesh_axes=(("dp", self.dp), ("sp", self.sp), ("mp", 1),
+            mesh_axes=(("dp", self.dp), ("sp", self.sp), ("mp", self.tp),
                        ("pp", 1), ("ep", self.ep)),
             param_specs=params, opt_specs=opt,
             batch_spec=P(("dp", "ep"), "sp"))
@@ -773,7 +834,7 @@ class LMTrainer:
         from tpu_ddp_torch.convert import opt_state_from_jax, params_from_jax
         params = self._local_params(params_from_jax(
             self.canonical_model, host["params"], self.device))
-        if self.ep > 1:
+        if any(pt is not None for pt in self._parts):
             opt_state = self._local_opt_from_host(host["opt_state"])
         else:
             opt_state = opt_state_from_jax(self.model, self.optimizer,
@@ -790,29 +851,26 @@ class LMTrainer:
 
     def _canonical_slot_shapes(self) -> dict:
         """Each optimizer slot's canonical leaf shapes (the checkpoint's):
-        at ep > 1 an expert leaf's slot shaped like the leaf has E rows, a
-        reduced one a leading ep axis."""
-        local = shape_leaves(self._shapes)
-        out = opt_slot_shapes(self.optimizer, local)
-        if self.ep == 1:
-            return out
-        E = self.model.moe_experts
+        a slot of a tp- or ep-sharded leaf joined over its cells as
+        :meth:`_slot_join` says (the whole leaf's shape, or the cell
+        counts ahead of the cell's)."""
+        out = opt_slot_shapes(self.optimizer, self._local)
+        canon = shape_leaves(self.canonical_model.param_shapes())
         for k, shapes in out.items():
-            out[k] = [((E,) + tuple(s)[1:] if tuple(s) == tuple(local[i])
-                       else (self.ep,) + tuple(s))
-                      if i in self._expert_leaves and tuple(s) != (1,)
-                      else s for i, s in enumerate(shapes)]
+            joins = [self._slot_join(i, s) for i, s in enumerate(shapes)]
+            out[k] = [s if j is None else
+                      self._parts[i].counts + tuple(s) if j else
+                      tuple(canon[i])
+                      for i, (s, j) in enumerate(zip(shapes, joins))]
         return out
 
     def _local_opt_from_host(self, opt_host: dict) -> dict:
-        """A canonical optimizer state (ep > 1) as this process's slices:
-        checked against :meth:`_canonical_slot_shapes`, expert rows or
-        the ep entry cut out, placed on the device."""
+        """A canonical optimizer state (tp or ep > 1) as this process's
+        cell: checked against :meth:`_canonical_slot_shapes`, each
+        partitioned slot cut to this cell (its piece, or its entry of the
+        leading cell axes), placed on the device."""
         layout = self.canonical_model.param_shapes()
-        e_loc = self.model.moe_experts // self.ep
-        lo = self.ep_index * e_loc
-        local = shape_leaves(self._shapes)
-        local_slots = opt_slot_shapes(self.optimizer, local)
+        local_slots = opt_slot_shapes(self.optimizer, self._local)
         out = {}
         for k, want in self._canonical_slot_shapes().items():
             got = _leaves_like(f"opt_state/{k}", layout, opt_host[k])
@@ -822,10 +880,13 @@ class LMTrainer:
                 if tuple(g.shape) != tuple(w):
                     raise ValueError(f"opt_state/{k}/{i}: expected shape "
                                      f"{tuple(w)}, got {tuple(g.shape)}")
-                s = tuple(local_slots[k][i])
-                if i in self._expert_leaves and s != (1,):
-                    g = (g[lo:lo + e_loc] if s == tuple(local[i])
-                         else g[self.ep_index])
+                join = self._slot_join(i, local_slots[k][i])
+                if join:
+                    for ax in self._parts[i].axes:
+                        g = g[self._index[ax]]
+                elif join is not None:
+                    g = cell_of(g, self._specs[i], self._index,
+                                self._sizes)
                 leaves.append(torch.as_tensor(np.array(g)).to(
                     device=self.device, dtype=self.model.param_dtype))
             out[k] = leaves
