@@ -518,6 +518,24 @@ Phases 35-37 run the image trainer's last model families:
    masks at LM-large's residual shape from the four keys of a dp = 2 x
    tp = 2 world (``LMTrainer.step_key``): equal on the two tp ranks of a
    data shard, different across shards.
+50. pipeline parallelism: ``PipelineLMTrainer`` with every stage in this
+   process (``stages="in_process"``, in-process edges) at
+   TransformerLM-large's width and depth (bf16, flash, remat ``blocks``,
+   AdamW, batch 4 x 2048), from the same seed parameters as one dense
+   ``LMTrainer`` step: pp = 2, M = 4 under gpipe, 1f1b, interleaved (V =
+   2) and zerobubble, and pp = 4, M = 4 under 1f1b. Each run's gradients
+   (``step_grads``: the warm-up step's, before its update) against the
+   dense step's: the loss within 2e-3 relative, each leaf within 1e-2 by
+   relative Frobenius error, the pp = 2 schedules within 1e-3 of gpipe's;
+   a planted fault (an edge that delivers two microbatches swapped) must
+   trip the 1e-2 bound. The flash launches of that call, counted from 0, must be the
+   schedule's count (per layer and microbatch: gpipe 2 forwards and 1 of
+   each backward, 1f1b and interleaved 3 and 1, zerobubble 5 and 2), all
+   wgmma. Per run: ms per step (the median of 3 after the warm-up), the
+   peak memory of the gradient pass and of the steps above what was live
+   before them, and the dense step at ``grad_accum`` = M beside them. The
+   1f1b step's K = 2 call (one CUDA graph) must give the two eager steps'
+   bits, and one replay of it is timed.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -528,11 +546,11 @@ flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
 phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
 on 42's elastic run and 44's trials; the flash kernels' on 45's and
-46's eager steps and captures, on 48's Ulysses ranks and on 49's tp
-ranks; the int8 kernel's on 49's tp decode pass), beside each main-path
-count; the int8 row also the 32-row prefill's bound, 48's 16-row
-cp-prefill pass and 49's rank pass at tp = 2; the flash rows 49's block
-times per rank; the BN, SGD and flash rows
+46's eager steps and captures, on 48's Ulysses ranks, on 49's tp ranks
+and on 50's pipeline schedules; the int8 kernel's on 49's tp decode
+pass), beside each main-path count; the int8 row also the 32-row
+prefill's bound, 48's 16-row cp-prefill pass and 49's rank pass at tp =
+2; the flash rows 49's block times per rank; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
 last the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -8100,6 +8118,234 @@ def tensor_parallel(dev, gen) -> dict:
     return out
 
 
+# Pipeline parallelism (phase 50) at TransformerLM-large's width and depth,
+# every stage in this process.
+PP_MICRO, PP_TIMED = 4, 3
+# (name, schedule, pp, pp_virtual); every run at M = PP_MICRO.
+PP_RUNS = (("gpipe", "gpipe", 2, 1), ("1f1b", "1f1b", 2, 1),
+           ("interleaved", "interleaved", 2, 2),
+           ("zerobubble", "zerobubble", 2, 1), ("1f1b_pp4", "1f1b", 4, 1))
+# Flash launches per layer and microbatch under remat "blocks": (forward,
+# each backward sweep). gpipe keeps the graph (the forward and its
+# recompute); 1f1b and interleaved forward without a graph and recompute
+# the stage for the backward (whose checkpoints recompute again);
+# zerobubble recomputes once for B-input and once for B-weight.
+PP_FLASH = {"gpipe": (2, 1), "1f1b": (3, 1), "interleaved": (3, 1),
+            "zerobubble": (5, 2)}
+PP_GRAD_TOL, PP_LOSS_TOL, PP_SCHED_TOL = 1e-2, 2e-3, 1e-3
+
+
+def _rel_frob(got, want) -> float:
+    """|got - want| / |want| (Frobenius), in f32."""
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def _pp_steps(tr, state, x, y, first=None, keep_after: int = 0) -> dict:
+    """Phase 50's timing: 1 + PP_TIMED eager steps; ms per step is the
+    median of the last PP_TIMED, the peak the GiB above what was live
+    before them. ``first``: (state, loss) after the warm-up step where the
+    caller ran it (the step whose gradients it checked). ``keep_after`` >
+    0: also the losses of the first ``keep_after`` steps and a copy of the
+    parameters after them."""
+    from tpu_ddp_torch.utils.tree import tree_leaves
+    out = {"losses": []}
+    ms = []
+    for i in range(1 + PP_TIMED):
+        if i == 1:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        if i == 0 and first is not None:
+            state, loss = first
+        else:
+            t0 = time.perf_counter()
+            state, loss = tr.train_step(state, x, y)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        if i + 1 == keep_after:
+            with torch.no_grad():
+                out["params"] = [p.detach().clone()
+                                 for p in tree_leaves(state.params)]
+    if not all(math.isfinite(v) for v in out["losses"]):
+        fail(f"phase 50: losses {out['losses']}")
+    out["ms_per_step"] = float(np.median(ms))
+    out["step_peak_gib_above"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 30
+    return out
+
+
+def _grads_peak(fn):
+    """(fn(), GiB of peak memory above what was live before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def pipeline_parallel(dev, seed: int) -> dict:
+    """Phase 50: the pipeline's four schedules at LM-large, every stage in
+    this process, against one dense step; see the module docstring."""
+    from tpu_ddp_torch.convert import stacked_from_dense
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.parallel.pipeline import InProcessEdge
+    from tpu_ddp_torch.train.lm import (LMTrainer, PipelineLMTrainer,
+                                       make_lm_batch)
+    from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
+
+    class SwappedEdge(InProcessEdge):
+        """The planted fault: the first two messages delivered
+        swapped."""
+
+        def recv(self):
+            if self.messages >= 2 and not getattr(self, "done", False):
+                self.done = True
+                self._q.rotate(-1)
+            return super().recv()
+
+    t_phase = time.perf_counter()
+    model = make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                             use_flash=True, remat="blocks")
+    L = model.num_layers
+    tokens = np.random.default_rng(seed).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    wrappers = _flash_wrappers()
+    dense = LMTrainer(model, device=dev)
+    state = dense.init_state(seed=seed)
+    with torch.no_grad():
+        init = [p.detach().clone() for p in tree_leaves(state.params)]
+    x, y = dense.put_batch(*make_lm_batch(tokens))
+    _zero_launches(wrappers)
+    (d_loss_t, leaves, d_grads), d_peak = _grads_peak(
+        lambda: dense.step_grads(state, x, y))
+    if _launches(wrappers) != _flash_want(2 * L, L):
+        fail(f"phase 50: dense flash launches {_launches(wrappers)}, "
+             f"expected {_flash_want(2 * L, L)}")
+    d_loss = float(d_loss_t)
+    d_stacked = tree_leaves(stacked_from_dense(
+        tree_unflatten(state.params, list(d_grads))))
+    # The checked pass is the warm-up step's: its update, then the timed
+    # steps.
+    state = dense.apply_grads(state, leaves, list(d_grads))
+    del d_grads
+    timed = _pp_steps(dense, state, x, y, first=(state, d_loss_t))
+    out = {"model": model.name, "batch": LM_BATCH, "seq": LM_SEQ,
+           "micro": PP_MICRO,
+           "dense": {"loss": d_loss, "ms_per_step": timed["ms_per_step"],
+                     "grads_peak_gib_above": d_peak,
+                     "step_peak_gib_above": timed["step_peak_gib_above"]}}
+    # The same dense step in PP_MICRO microbatches (grad_accum): the
+    # microbatching's own cost, without a schedule.
+    accum = LMTrainer(model, device=dev, grad_accum=PP_MICRO)
+    timed = _pp_steps(accum, state, x, y)
+    out["dense_accum"] = {"grad_accum": PP_MICRO,
+                          "ms_per_step": timed["ms_per_step"],
+                          "step_peak_gib_above": timed[
+                              "step_peak_gib_above"]}
+    del state, accum
+    out["seconds"] = {"dense": time.perf_counter() - t_phase}
+
+    def fresh():
+        return tree_unflatten(dense._skeleton, [t.clone() for t in init])
+
+    def grads_of(tr, st):
+        _zero_launches(wrappers)
+        (loss, lv, g), peak = _grads_peak(lambda: tr.step_grads(st, x, y))
+        return loss, lv, g, _launches(wrappers), peak
+
+    ref = None
+    for name, schedule, pp, virtual in PP_RUNS:
+        t_run = time.perf_counter()
+        tr = PipelineLMTrainer(model, device=dev, num_micro=PP_MICRO,
+                               schedule=schedule, pp=pp, pp_virtual=virtual,
+                               stages="in_process")
+        st = tr.init_state(params=fresh())
+        loss_t, lv, g, counts, peak = grads_of(tr, st)
+        loss = float(loss_t)
+        fwd, bwd = PP_FLASH[schedule]
+        want = _flash_want(fwd * L * PP_MICRO, bwd * L * PP_MICRO)
+        if counts != want:
+            fail(f"phase 50: {name} flash launches {counts}, expected "
+                 f"{want}")
+        # The dense gradients in this trainer's row order.
+        want_g = tree_leaves(tr._permuted(
+            tree_unflatten(st.params, d_stacked), inverse=False))
+        errs = [_rel_frob(a, b) for a, b in zip(g, want_g)]
+        loss_err = abs(loss - d_loss) / abs(d_loss)
+        if not (max(errs) <= PP_GRAD_TOL and loss_err <= PP_LOSS_TOL):
+            fail(f"phase 50: {name} against the dense step: loss error "
+                 f"{loss_err} (tol {PP_LOSS_TOL}), worst leaf "
+                 f"{max(errs)} (tol {PP_GRAD_TOL})")
+        run = {"schedule": schedule, "pp": pp, "pp_virtual": virtual,
+               "loss": loss, "loss_rel_err": loss_err,
+               "grad_rel_frob_max": max(errs), "launches": counts,
+               "grads_peak_gib_above": peak}
+        if pp == 2:
+            # The pp = 2 schedules against gpipe's, in the dense row order.
+            canon = tree_leaves(tr.canonical_params(tree_unflatten(
+                st.params, g)))
+            if ref is None:
+                ref = (loss, canon)
+            else:
+                s_err = max(_rel_frob(a, b) for a, b in zip(canon, ref[1]))
+                s_loss = abs(loss - ref[0]) / abs(ref[0])
+                run.update(vs_gpipe_grad=s_err, vs_gpipe_loss=s_loss)
+                if not (s_err <= PP_SCHED_TOL and s_loss <= PP_SCHED_TOL):
+                    fail(f"phase 50: {name} against gpipe: loss {s_loss}, "
+                         f"worst leaf {s_err} (tol {PP_SCHED_TOL})")
+            del canon
+        graph_check = name == "1f1b"
+        if graph_check:
+            # The planted fault must trip the bound.
+            tr.edge_factory = SwappedEdge
+            _, _, g_bad, _, _ = grads_of(tr, st)
+            tr.edge_factory = None
+            planted = max(_rel_frob(a, b) for a, b in zip(g_bad, d_stacked))
+            if not planted > PP_GRAD_TOL:
+                fail(f"phase 50: a swapped edge moved no leaf past "
+                     f"{PP_GRAD_TOL} (worst {planted})")
+            run["planted_swap_grad_rel_frob"] = planted
+            del g_bad
+        # The checked pass is the warm-up step's.
+        st = tr.apply_grads(st, lv, g)
+        del g, lv
+        timed = _pp_steps(tr, st, x, y, first=(st, loss_t),
+                          keep_after=2 if graph_check else 0)
+        run.update(ms_per_step=timed["ms_per_step"],
+                   step_peak_gib_above=timed["step_peak_gib_above"])
+        del st
+        if graph_check:
+            # The K = 2 call from the same start: one CUDA graph, the
+            # first two eager steps' bits; then its replays timed.
+            st = tr.init_state(params=fresh())
+            _zero_launches(wrappers)
+            call = tr.build_multi_step(2)
+            st, losses = call(st, [x, x], [y, y])
+            run["capture_launches"] = _launches(wrappers)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(st.params), timed["params"]))
+            if not same or [float(v) for v in losses] != \
+                    timed["losses"][:2]:
+                fail(f"phase 50: the K=2 graph {losses.tolist()} differs "
+                     f"from the eager steps {timed['losses'][:2]}")
+            run["k2_graph_bitwise"] = True
+            t0 = time.perf_counter()
+            st, losses = call(st, [x, x], [y, y])
+            torch.cuda.synchronize()
+            run["k2_replay_ms_per_step"] = (
+                (time.perf_counter() - t0) * 1e3 / 2)
+            del st, timed
+        run["seconds"] = time.perf_counter() - t_run
+        out[name] = run
+        del tr
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8275,6 +8521,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     tpar = phase("49_tensor_parallel", tensor_parallel, dev, gen)
     print(json.dumps({"tensor_parallel": tpar}), flush=True)
+    torch.cuda.empty_cache()
+    ppar = phase("50_pipeline_parallel", pipeline_parallel, dev, args.seed)
+    print(json.dumps({"pipeline_parallel": ppar}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -8555,7 +8804,11 @@ def main() -> None:
             # Phase 49: one block forward and backward of every rank at
             # tp = 2 and 4 (8 and 4 heads), counted from 0.
             **{f"{k}_block": v["launches"][name]
-               for k, v in tpar["block"].items() if k != "dense"}}
+               for k, v in tpar["block"].items() if k != "dense"},
+            # Phase 50: one step_grads call of each pipeline schedule at
+            # LM-large (M = 4, in-process stages), counted from 0.
+            **{f"pipeline_{k}": ppar[k]["launches"][name]
+               for k, *_ in PP_RUNS}}
         # Phase 49: one call at a rank's shape at tp = 2 and 4 (8 and 4
         # heads), alone, beside its bound at that shape.
         row["tp_rank_call"] = {
@@ -8594,6 +8847,7 @@ def main() -> None:
                        "moe_large_serve": moe_serve,
                        "sequence_parallel": seqp,
                        "tensor_parallel": tpar,
+                       "pipeline_parallel": ppar,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -8727,6 +8981,14 @@ def main() -> None:
           + f"; int8 decode pass at tp={TP_DECODE} one rank "
           f"{rp['rank']['ms']:.3f} ms (bound {rp['rank']['bound_ms']:.3f}) "
           f"vs dense {rp['dense']['ms']:.3f} ms [{card}]", flush=True)
+    print("pipeline (LM-large, in-process stages, M=4): dense "
+          f"{ppar['dense']['ms_per_step']:.1f} ms (grad_accum 4: "
+          f"{ppar['dense_accum']['ms_per_step']:.1f}); " + ", ".join(
+              f"{k} {ppar[k]['ms_per_step']:.1f} ms "
+              f"{ppar[k]['grads_peak_gib_above']:.2f} GiB"
+              for k, *_ in PP_RUNS)
+          + f"; 1f1b K=2 replay {ppar['1f1b']['k2_replay_ms_per_step']:.1f}"
+          f" ms/step [{card}]", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -378,7 +378,7 @@ def test_flat_layouts_refuse_adafactor():
     with pytest.raises(ValueError, match="factored optimizers"):
         FactoredZeRO1(object(), [(4, 4)])
     # The per-cell layout builds (each cell factors its own slice, JAX's
-    # global layout: leading cell axes); a pipeline axis still raises.
+    # global layout: leading cell axes), over a pipeline axis too.
     from jax.sharding import PartitionSpec as JP
 
     from tpu_ddp_torch.parallel.redistribute import P
@@ -395,6 +395,14 @@ def test_flat_layouts_refuse_adafactor():
     got = lay.canonical_opt_template()
     for k in ("vr", "vc", "v", "mu"):
         assert [tuple(x.shape) for x in want[k]] == got[k], k
-    with pytest.raises(NotImplementedError, match="item 10.7"):
-        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[P("pp", None)],
-                      mesh_axis_sizes=sizes)
+    shapes, specs = [(16, 12), (4, 12)], [P("pp", None), P("pp", None)]
+    lay = FactoredZeRO1(opt, shapes, param_specs=specs,
+                        mesh_axis_sizes=sizes, axis_size=2)
+    jlay = JaxFactoredZeRO1(
+        JaxAdafactor(min_dim_size_to_factor=4), DATA_AXIS, 2,
+        template=[jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes],
+        param_specs=[JP(*s) for s in specs], mesh_axis_sizes=sizes)
+    want = jlay.canonical_opt_template(None)
+    got = lay.canonical_opt_template()
+    for k in ("vr", "vc", "v", "mu"):
+        assert [tuple(x.shape) for x in want[k]] == got[k], k

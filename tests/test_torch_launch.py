@@ -117,7 +117,7 @@ def test_sliding_restart_window(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--pp-schedule", "item 10.7"), ("--audit", "item 12"),
+    ("--fleet-health", "item 11"), ("--audit", "item 12"),
     ("--platform", "item 9.9")])
 def test_unported_flags_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -454,9 +454,9 @@ def test_unported_cli_env_raises(monkeypatch, name, value):
         with pytest.raises(ValueError, match="unknown sequence-parallel"):
             main(["--num-nodes", "1", "--device", "cpu"])
         return
-    if name == "TPU_DDP_LM_TP":
+    if name in ("TPU_DDP_LM_TP", "TPU_DDP_LM_PP"):
         # Ported: read as the JAX CLI reads it; a world of one cannot
-        # hold tp = 2 (make_mesh's words), tp = 1 runs.
+        # hold tp = 2 or pp = 2 (make_mesh's words), 1 runs.
         with pytest.raises(ValueError, match=r"sp\*mp\*pp\*ep=2"):
             main(["--num-nodes", "1", "--device", "cpu"])
         monkeypatch.setenv(name, "1")

@@ -300,7 +300,7 @@ def test_port_imports_neither_jax_nor_tpu_ddp():
                 "utils/profiling.py", "tune/__init__.py", "tune/space.py",
                 "tune/search.py", "tune/cache.py", "tune/runner.py",
                 "parallel/ring_attention.py", "parallel/ulysses.py",
-                "serve/long_context.py"):
+                "serve/long_context.py", "parallel/pipeline.py"):
         assert REPO / "tpu_ddp_torch" / mod in files, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -151,6 +151,25 @@ def test_violations_match_jax(platform, dp, processes):
     assert (kernel_fired > 0) == (platform == "cpu")
 
 
+@pytest.mark.parametrize("pp,layers", [(2, 0), (2, 4), (4, 6), (4, 12)])
+def test_pipeline_violations_match_jax(pp, layers):
+    """In a pipeline context (pp > 1, with and without the model's layer
+    count) every combination of the three pipeline knobs gets the JAX
+    package's reasons."""
+    pipe = [k for k in KNOBS if k.field.startswith("pp_")]
+    assert len(pipe) == 3
+    common = dict(platform="cpu", dp=2, processes=2 * pp, pp=pp,
+                  model_layers=layers)
+    tctx, jctx = Workload(**common), jspace.Workload(**common)
+    fired = 0
+    for values in itertools.product(*(k.values for k in pipe)):
+        a = {k.field: v for k, v in zip(pipe, values)}
+        got = violations(a, tctx)
+        assert got == jspace.violations(a, jctx), (a, common)
+        fired += bool(got)
+    assert 0 < fired < 4 * 4 * 3
+
+
 # ------------------------------------------------- (b) run_search parity
 
 def _knobs_of(space_mod, spec):
@@ -382,7 +401,7 @@ def test_cache_schema_bump_is_a_soft_miss(cache_dir):
 def test_cache_unknown_override_keys_are_quarantined(cache_dir):
     fp = _fp()
     # A JAX knob the port does not carry is as unknown as a retired one.
-    for key in ("retired_knob", "pp_schedule"):
+    for key in ("retired_knob", "fleet_roles"):
         path = tcache.store(fp, {key: 3})
         with pytest.warns(UserWarning, match="outside the knob registry"):
             assert tcache.load(fp) is None

@@ -126,8 +126,8 @@ def test_unported_wrappers_raise_naming_their_items():
     """Adafactor on the flat layouts is a permanent refusal pointing to
     the row-sharded FactoredZeRO1. The model-parallel partition builds
     now, and its global layout is the JAX wrapper's, cell by cell; a
-    pipeline-axis spec still raises naming its item (10.7), and so do
-    JAX's refusals (a dim over two axes, a leaf over dp itself)."""
+    pipeline-axis spec partitions per stage cell as JAX's does, and
+    JAX's refusals hold (a dim over two axes, a leaf over dp itself)."""
     from jax.sharding import PartitionSpec as JP
 
     from tpu_ddp.parallel.zero import ZeRO3 as JaxZeRO3
@@ -157,17 +157,24 @@ def test_unported_wrappers_raise_naming_their_items():
             np.testing.assert_array_equal(got, np.asarray(want))
         for got, want in zip(lay.unshard_host(flats), leaves):
             np.testing.assert_array_equal(got, want)
-        with pytest.raises(NotImplementedError, match="item 10.7"):
-            cls(SGD(), [(4, 4)], param_specs=[P("pp", None)],
-                mesh_axis_sizes=sizes)
+        pp_lay = _FlatLayout([(4, 4)], axis_size=3, rank=1,
+                             param_specs=[P("pp", None)],
+                             mesh_axis_sizes=sizes)
+        assert pp_lay.shapes == [(2, 4)]
+        pp_jlay = jcls(JaxSGD(learning_rate=0.1), DATA_AXIS, 3,
+                       template=[jax.ShapeDtypeStruct((4, 4),
+                                                      jnp.float32)],
+                       param_specs=[JP("pp", None)], mesh_axis_sizes=sizes)
+        np.testing.assert_array_equal(
+            pp_lay.shard_params([leaves[0][:, :4]])[0],
+            np.asarray(pp_jlay.shard_params([leaves[0][:, :4]])[0]))
         for spec, words in ((P(("mp", "ep"), None), "one mesh axis"),
                             (P("dp", None), "own axis")):
             with pytest.raises(NotImplementedError, match=words):
                 cls(SGD(), [(4, 4)], param_specs=[spec],
                     mesh_axis_sizes=sizes)
-    with pytest.raises(NotImplementedError, match="item 10.7"):
-        FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[P("pp", None)],
-                      mesh_axis_sizes=sizes)
+    assert FactoredZeRO1(Adafactor(), [(4, 4)], param_specs=[P("pp", None)],
+                         mesh_axis_sizes=sizes).shapes == [(2, 4)]
 
 
 def _assert_state(got, want, rtol=RTOL, atol=ATOL, prefixes=("params",

@@ -23,7 +23,14 @@ Adafactor's ``vr``/``vc``/``v``/``mu`` with their reduced shapes and
 the params and ``count`` an int32, in the JAX package's layout. This module
 is the one place a layout changes between the two packages.
 
-Model-parallel cells (tensor and expert parallelism): a leaf whose
+Pipeline parallelism keeps the JAX pipeline trainer's tree: the block
+leaves STACKED on a leading layer axis in the dense layer order
+(parallel/pipeline.py: ``stack_block_params`` and back, the interleaved
+row order by ``permute_stacked_blocks``); the converters take its shapes
+(``shapes=stacked_shapes(model)``) and the cell helpers below its specs
+(``pipeline_param_specs``: the ``pp`` axis on the leading dim).
+
+Model-parallel cells (tensor, expert and pipeline parallelism): a leaf whose
 ``PartitionSpec`` names a mesh axis of extent R along a dim holds the
 i-th of R equal pieces of that dim on the process at index i of the
 axis. :func:`cell_of` cuts one leaf, :func:`params_to_cell` a whole
@@ -42,10 +49,12 @@ from tpu_ddp_torch.utils.device import resolve_device
 from tpu_ddp_torch.utils.tree import tree_unflatten
 
 
-def params_from_jax(model, tree, device=None) -> dict:
+def params_from_jax(model, tree, device=None, shapes=None) -> dict:
     """Map a JAX parameter tree, given as nested dicts/tuples of numpy
     arrays (``jax.tree.map(np.asarray, params)``), to the port's
-    parameter dict on ``device`` (``None`` means ``"cuda"``)."""
+    parameter dict on ``device`` (``None`` means ``"cuda"``). ``shapes``:
+    the layout to check against (``model.param_shapes()`` by default; a
+    pipeline's stacked tree, parallel/pipeline.py:stacked_shapes)."""
     dev = resolve_device(device)
 
     def conv(path, want, got):
@@ -72,7 +81,8 @@ def params_from_jax(model, tree, device=None) -> dict:
         return torch.as_tensor(np.array(arr, np.float32)).to(
             device=dev, dtype=model.param_dtype)
 
-    return conv("params", model.param_shapes(), tree)
+    return conv("params", shapes if shapes is not None
+                else model.param_shapes(), tree)
 
 
 def params_to_jax(params):
@@ -84,6 +94,26 @@ def params_to_jax(params):
     if isinstance(params, (tuple, list)):
         return tuple(params_to_jax(v) for v in params)
     return params.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def stacked_from_dense(params, perm=None) -> dict:
+    """A dense parameter tree (per-layer blocks; torch or numpy leaves)
+    as the pipeline's stacked tree, its rows re-ordered by ``perm``
+    (parallel/pipeline.py:interleave_permutation) when given."""
+    from tpu_ddp_torch.parallel.pipeline import (permute_stacked_blocks,
+                                                 stack_block_params)
+    out = stack_block_params(params)
+    return out if perm is None else permute_stacked_blocks(out, perm)
+
+
+def dense_from_stacked(params, num_layers: int, perm=None) -> dict:
+    """The inverse of :func:`stacked_from_dense`: the rows back in the
+    dense order, then one block dict per layer."""
+    from tpu_ddp_torch.parallel.pipeline import (permute_stacked_blocks,
+                                                 unstack_block_params)
+    if perm is not None:
+        params = permute_stacked_blocks(params, np.argsort(perm))
+    return unstack_block_params(params, num_layers)
 
 
 def _checked(path, arr, want):
@@ -260,14 +290,16 @@ def opt_state_to_jax(params, opt_state) -> dict:
     return out
 
 
-def opt_state_from_jax(model, optimizer, opt_state, device=None) -> dict:
-    """The inverse of :func:`opt_state_to_jax` for ``model``'s params:
-    every slot leaf checked against the optimizer's layout
+def opt_state_from_jax(model, optimizer, opt_state, device=None,
+                       shapes=None) -> dict:
+    """The inverse of :func:`opt_state_to_jax` for ``model``'s params
+    (laid out as ``shapes``, ``model.param_shapes()`` by default): every
+    slot leaf checked against the optimizer's layout
     (:func:`opt_slot_shapes`) and placed on ``device`` (``None`` means
     ``"cuda"``). The count comes back as the optimizers keep it: a 0-d
     int32 device tensor."""
     dev = resolve_device(device)
-    layout = model.param_shapes()
+    layout = shapes if shapes is not None else model.param_shapes()
     out = {}
     for k, want in opt_slot_shapes(optimizer,
                                    shape_leaves(layout)).items():

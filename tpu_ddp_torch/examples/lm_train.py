@@ -29,30 +29,21 @@ to the trainer; as in the JAX CLI, whose mesh has sp = 1, it is inert.
 ``TPU_DDP_LM_TP`` (1) is the Megatron tensor-parallel extent: the world
 is dp x tp, rank ``d * tp + t``, and the batch splits over the
 ``world // tp`` dp groups, the tp peers of one group feeding the same
-rows, as in the JAX CLI. ``TPU_DDP_LM_PP`` (pipeline parallelism, not
-ported yet) raises when set to anything but 1.
+rows, as in the JAX CLI. ``TPU_DDP_LM_PP`` (1) > 1 selects the pipeline
+rung (``PipelineLMTrainer``, one stage per process over a pp group; the
+world dp x tp x pp, rank ``(d * tp + t) * pp + p``) with the schedule
+knobs ``TPU_DDP_PP_SCHEDULE`` (gpipe), ``TPU_DDP_PP_MICROBATCHES`` (0 =
+one per stage) and ``TPU_DDP_PP_VIRTUAL`` (1), as the JAX CLI reads them
+(``TrainConfig``; ``launch lm --pp-*`` sets them). Each process feeds the
+rows of its data shard (``data_index``), so its tp and pp peers feed the
+same rows; ``TPU_DDP_LM_ACCUM`` has no effect there (the microbatches
+are the accumulation), as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-
-# name -> (the value that means "off", what it would switch on, ROADMAP
-# Queue 1 item).
-_UNPORTED_LM_ENV = {
-    "TPU_DDP_LM_PP": ("1", "pipeline parallelism", "item 10.7"),
-}
-
-
-def refuse_unported_lm_env() -> None:
-    for name, (off, what, item) in _UNPORTED_LM_ENV.items():
-        raw = os.environ.get(name)
-        if raw is None or raw.strip() in ("", off):
-            continue
-        raise NotImplementedError(
-            f"{name}={raw!r}: {what} is not ported to tpu_ddp_torch yet "
-            f"(ROADMAP Queue 1 {item}); unset it to run the port")
 
 
 # TPU_DDP_MOE_* -> (TrainConfig field, TransformerLM field).
@@ -89,7 +80,6 @@ def moe_overrides(preset: str) -> dict:
 def main(argv=None) -> int:
     from tpu_ddp_torch.parts.common import parse_arguments
     args = parse_arguments(argv, require_num_nodes=True)
-    refuse_unported_lm_env()
     if args.ckpt_dir:
         # The JAX CLI has no checkpoints either; LMTrainer.save_checkpoint
         # and restore_checkpoint are the API.
@@ -106,9 +96,9 @@ def main(argv=None) -> int:
                                                   init_distributed_setup,
                                                   shutdown,
                                                   test_distributed_setup)
-    from tpu_ddp_torch.train.lm import (LMTrainer, format_route_stats,
-                                       make_lm_batch)
-    from tpu_ddp_torch.utils.config import refuse_unported_env
+    from tpu_ddp_torch.train.lm import (LMTrainer, PipelineLMTrainer,
+                                       format_route_stats, make_lm_batch)
+    from tpu_ddp_torch.utils.config import TrainConfig, refuse_unported_env
 
     refuse_unported_env()
     world = args.num_nodes or 1
@@ -142,45 +132,63 @@ def main(argv=None) -> int:
     tp = int(os.environ.get("TPU_DDP_LM_TP", "1"))
     if tp < 1:
         raise ValueError(f"TPU_DDP_LM_TP={tp}: must be >= 1")
-    if world % tp:
-        # make_mesh(mp=tp)'s refusal in the JAX CLI.
+    # TPU_DDP_LM_PP > 1 selects the pipeline rung; the schedule knobs
+    # ride in through TrainConfig's env parsing (launch lm --pp-*).
+    pp = int(os.environ.get("TPU_DDP_LM_PP", "1"))
+    if pp < 1:
+        raise ValueError(f"TPU_DDP_LM_PP={pp}: must be >= 1")
+    knobs = TrainConfig()
+    if world % (tp * pp):
+        # make_mesh(mp=tp, pp=pp)'s refusal in the JAX CLI.
         raise ValueError(f"{world} devices not divisible by "
-                         f"sp*mp*pp*ep={tp}")
+                         f"sp*mp*pp*ep={tp * pp}")
     global_batch = int(os.environ.get("TPU_DDP_GLOBAL_BATCH", "8"))
-    # The batch splits over the dp process groups (world // tp), not
-    # over every process: the tp peers of a group feed the same rows.
-    dp_groups = max(world // tp, 1)
+    # The batch splits over the data shards (world // (tp * pp)), not
+    # over every process: the tp and pp peers of a shard feed the same
+    # rows.
+    dp_groups = max(world // (tp * pp), 1)
     if global_batch % dp_groups:
         raise ValueError(f"TPU_DDP_GLOBAL_BATCH={global_batch} not "
                          f"divisible by dp process groups {dp_groups} "
-                         f"(world {world} / tp {tp})")
+                         f"(world {world} / tp {tp} / pp {pp})")
     seq_len = 32
 
     model = make_transformer(preset, max_seq_len=seq_len,
                              compute_dtype=torch.float32,
                              **moe_overrides(preset))
-    trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
-                        optimizer=optimizer, clip_grad_norm=clip,
-                        sp_mode=sp_mode, tp=tp,
-                        param_sharding="fsdp" if fsdp else "replicated",
-                        opt_sharding=opt_shard)
+    layouts = dict(param_sharding="fsdp" if fsdp else "replicated",
+                   opt_sharding=opt_shard)
+    if pp > 1:
+        trainer = PipelineLMTrainer(
+            model, device=ctx.device, num_micro=knobs.pp_microbatches or None,
+            schedule=knobs.pp_schedule, pp_virtual=knobs.pp_virtual,
+            optimizer=optimizer, clip_grad_norm=clip, sp_mode=sp_mode,
+            tp=tp, pp=pp, **layouts)
+    else:
+        trainer = LMTrainer(model, device=ctx.device, grad_accum=accum,
+                            optimizer=optimizer, clip_grad_norm=clip,
+                            sp_mode=sp_mode, tp=tp, **layouts)
     state = trainer.init_state(seed=0)
     print(f"[lm_train] rank={rank} world={world} dp={trainer.dp} "
-          f"sp=1 tp={trainer.tp} pp=1 fsdp={fsdp} "
+          f"sp=1 tp={trainer.tp} pp={pp} fsdp={fsdp} "
           f"opt_shard={opt_shard} opt={opt_name} accum={accum} clip={clip} "
           f"preset={preset}" + (
               f" moe={model.moe_experts}x top{model.moe_top_k} "
               f"cf={model.moe_capacity_factor}" if model.moe_experts
-              else ""))
+              else "") + (
+              f" schedule={knobs.pp_schedule} micro={trainer.num_micro} "
+              f"virtual={knobs.pp_virtual}" if pp > 1 else ""))
 
-    # Deterministic synthetic tokens, identical on every process; each dp
-    # group feeds its contiguous shard of the global batch (rank // tp is
-    # the dp slot of the dp-major mesh; the rank itself at tp 1).
+    # Deterministic synthetic tokens, identical on every process; each
+    # data shard feeds its contiguous rows of the global batch (the
+    # process's data_index: its mesh coordinate with tp and pp taken
+    # out, rank // tp at pp 1; the JAX CLI's one process takes rank //
+    # tp).
     rng = np.random.default_rng(1234)
     tokens = rng.integers(0, model.vocab_size,
                           size=(global_batch, seq_len + 1))
     per = global_batch // dp_groups
-    slot = rank // tp
+    slot = trainer.data_index
     local = tokens[slot * per:(slot + 1) * per]
     x, y = trainer.put_batch(*make_lm_batch(local))
     for step in range(steps):

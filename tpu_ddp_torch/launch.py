@@ -47,10 +47,13 @@ CLI::
     python -m tpu_ddp_torch.launch part3 --nproc 1 --autotune search
     TPU_DDP_LM_PRESET=TransformerLM-tiny python -m tpu_ddp_torch.launch \
         lm --nproc 2 --device cpu --moe-experts 4 --moe-top-k 2
+    TPU_DDP_LM_PP=2 python -m tpu_ddp_torch.launch lm --nproc 2 \
+        --device cpu --pp-schedule 1f1b --pp-microbatches 4
 
-The ``--moe-*`` flags configure the LM's routed MLP, so they go with
-``lm`` only (the image parts have no routed layer), and ``lm`` refuses
-every flag that the LM CLI does not read.
+The ``--moe-*`` flags configure the LM's routed MLP and the ``--pp-*``
+flags its pipeline rung, so they go with ``lm`` only (the image parts
+have neither), and ``lm`` refuses every flag that the LM CLI does not
+read.
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -81,16 +84,14 @@ PARTS = ("part1", "part2a", "part2b", "part3", "part4", "part5")
 # The LM CLI's target (examples/lm_train.py), beside the image parts.
 LM = "lm"
 # The launcher flags (argparse dests) the LM CLI reads: the cluster's
-# shape and the MoE knobs, which only the LM reads.
+# shape and the MoE and pipeline knobs, which only the LM reads.
 _MOE_DESTS = ("moe_experts", "moe_top_k", "moe_capacity")
-_LM_DESTS = ("part", "nproc", "device", "port") + _MOE_DESTS
+_PP_DESTS = ("pp_schedule", "pp_microbatches", "pp_virtual")
+_LM_DESTS = ("part", "nproc", "device", "port") + _MOE_DESTS + _PP_DESTS
 
 # Flags of the JAX launcher that the port does not carry yet -> the ROADMAP
 # Queue 1 item that ports what they switch on.
 _UNPORTED_FLAGS = {
-    "--pp-schedule": "item 10.7 (parallel/pipeline.py)",
-    "--pp-microbatches": "item 10.7 (parallel/pipeline.py)",
-    "--pp-virtual": "item 10.7 (parallel/pipeline.py)",
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
     "--devices-per-proc": "item 9.9 (launch.py; one device per process)",
@@ -753,6 +754,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "ceil(T * capacity * top_k / E); higher = "
                         "fewer dropped tokens, more padded compute. "
                         "Sets TPU_DDP_MOE_CAPACITY for every rank")
+    p.add_argument("--pp-schedule", default=None,
+                   choices=("gpipe", "1f1b", "interleaved", "zerobubble"),
+                   help="lm only: pipeline tick schedule for the pp rung "
+                        "(parallel/pipeline.py): gpipe (all forwards, then "
+                        "all backwards), 1f1b (O(pp) activation "
+                        "residency), interleaved (virtual stages, "
+                        "bubble / pp_virtual) or zerobubble (B-weight "
+                        "fills the cooldown). Sets TPU_DDP_PP_SCHEDULE "
+                        "for every rank")
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="lm only: microbatches per pipeline step (0 = "
+                        "auto, one per stage). Sets "
+                        "TPU_DDP_PP_MICROBATCHES for every rank")
+    p.add_argument("--pp-virtual", type=int, default=None,
+                   help="lm only: virtual stage chunks per physical stage "
+                        "(interleaved schedule only; needs num_layers "
+                        "divisible by pp*pp_virtual). Sets "
+                        "TPU_DDP_PP_VIRTUAL for every rank")
     _serving_flags(p)
     return p
 
@@ -774,6 +793,12 @@ def _check_target(p: argparse.ArgumentParser, args) -> None:
         p.error(f"{', '.join(moe)}: {args.part} trains an image model, "
                 "which has no routed layer; the MoE knobs configure the "
                 f"LM: launch {LM} (examples/lm_train.py)")
+    pipe = [f"--{d.replace('_', '-')}" for d in _PP_DESTS
+            if getattr(args, d) is not None]
+    if pipe:
+        p.error(f"{', '.join(pipe)}: {args.part} has no pipeline rung; "
+                f"the pipeline knobs configure the LM: launch {LM} "
+                "(examples/lm_train.py, TPU_DDP_LM_PP > 1)")
 
 
 def main(argv=None) -> int:
@@ -818,6 +843,17 @@ def main(argv=None) -> int:
             p.error(f"--moe-capacity must be > 0, got "
                     f"{args.moe_capacity}")
         env["TPU_DDP_MOE_CAPACITY"] = str(args.moe_capacity)
+    if args.pp_schedule is not None:
+        env["TPU_DDP_PP_SCHEDULE"] = args.pp_schedule
+    if args.pp_microbatches is not None:
+        if args.pp_microbatches < 0:
+            p.error(f"--pp-microbatches must be >= 0 (0 = auto), "
+                    f"got {args.pp_microbatches}")
+        env["TPU_DDP_PP_MICROBATCHES"] = str(args.pp_microbatches)
+    if args.pp_virtual is not None:
+        if args.pp_virtual < 1:
+            p.error(f"--pp-virtual must be >= 1, got {args.pp_virtual}")
+        env["TPU_DDP_PP_VIRTUAL"] = str(args.pp_virtual)
     env = env or None
     try:
         res = launch_elastic(args.part, args.nproc,

@@ -428,13 +428,40 @@ class TransformerLM:
         ``fold_in(rng, num_layers)``. ``stats``: a list that collects each
         MoE block's routing counters (parallel/moe.py:routing_stats); it
         runs the blocks without remat."""
-        cd = self.compute_dtype
         lc = tokens.shape[1]
         self.check_seq_len(lc)
         pos = self._positions(lc, tokens.device)
-        x = F.embedding(tokens.long(), params["embed"]).to(cd)
+        x = self.embed(params, tokens, rng)
+        run = self.layer_runner(stats)
+        aux = 0.0
+        for i, blk in enumerate(params["blocks"]):
+            x, a = run(blk, x, pos, fold_in(rng, i) if rng is not None
+                       else None)
+            aux = aux + a
+        x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+        if self.moe_experts:
+            aux = aux / max(self.num_layers, 1)
+        return x, aux
+
+    def embed(self, params, tokens, rng=None):
+        """The embedding of (B, L) ids in the compute dtype, with its
+        dropout (key ``fold_in(rng, num_layers)``) when ``rng`` is
+        given: the first step of :meth:`trunk_with_aux`, and what a
+        pipeline's first stage feeds its layers."""
+        x = F.embedding(tokens.long(), params["embed"]).to(
+            self.compute_dtype)
         if rng is not None:
             x = dropout(x, self.dropout_rate, fold_in(rng, self.num_layers))
+        return x
+
+    def layer_runner(self, stats=None):
+        """``run(blk, x, pos, rng) -> (x, aux)``: one block as
+        :meth:`trunk_with_aux` runs it, the residual stream saved in
+        ``act_dtype`` and, under a remat policy, the block one checkpoint
+        region (memory/policy.py:wrap_stage). ``rng`` is the block's key
+        (``fold_in`` of the trunk's key and the layer's index in the
+        dense model). ``stats`` runs without remat (route_stats)."""
+        cd = self.compute_dtype
         remat = effective_remat(self.remat, "attn")
         if stats is not None or (remat == "none"
                                  and self.act_dtype == "compute"):
@@ -442,15 +469,17 @@ class TransformerLM:
                 return self.block_apply_aux(blk, x, pos, r, stats=stats)
         else:
             blk_fn = wrap_stage(self._block_entry, remat)
-        aux = 0.0
-        for i, blk in enumerate(params["blocks"]):
-            r = fold_in(rng, i) if rng is not None else None
-            x, a = blk_fn(blk, cast_saved(x, self.act_dtype, cd), pos, r)
-            aux = aux + a
+
+        def run(blk, x, pos, r):
+            return blk_fn(blk, cast_saved(x, self.act_dtype, cd), pos, r)
+        return run
+
+    def train_head(self, params, x):
+        """Final LayerNorm and the vocabulary projection of the training
+        forward (f32 logits from compute-dtype operands, the product
+        :meth:`apply_with_aux` runs): (B, L, dm) -> (B, L, V) f32."""
         x = layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
-        if self.moe_experts:
-            aux = aux / max(self.num_layers, 1)
-        return x, aux
+        return self.project(params, x, dot=_train_dot_f32)
 
     def _block_entry(self, blk, x, pos, rng=None):
         """:meth:`block_apply_aux` with the residual stream re-entering

@@ -67,10 +67,13 @@ class SGD:
         return state
 
     @torch.no_grad()
-    def apply(self, params, grads, state: dict, skip=None) -> dict:
+    def apply(self, params, grads, state: dict, skip=None,
+              decay_mask=None) -> dict:
         """One update of ``params`` and ``state["momentum"]``, in place;
         returns ``state``. ``skip``: the step guard's 0-d device flag
-        (nonzero leaves both as they were, the count too; ops/sgd.py)."""
+        (nonzero leaves both as they were, the count too; ops/sgd.py).
+        ``decay_mask`` is taken as AdamW's and Adafactor's and ignored:
+        SGD decays every leaf uniformly (JAX ``SGD.decay_mask``)."""
         lr = self.learning_rate
         if callable(lr):
             count = state["count"] + 1
@@ -306,12 +309,14 @@ class Adafactor:
         return beta2t, None, _device_lr(self.learning_rate, c)
 
     @torch.no_grad()
-    def apply(self, params, grads, state: dict) -> dict:
+    def apply(self, params, grads, state: dict, decay_mask=None) -> dict:
         """One update of every leaf and its slots, in place; returns
-        ``state`` with the count advanced in place."""
+        ``state`` with the count advanced in place. ``decay_mask``
+        overrides the rank rule (a pipeline's stacked leaves)."""
         count = state["count"] + 1
         beta2t, rho, lr = self.schedule_terms(count)
-        decay = self.decay_mask(params)
+        decay = (self.decay_mask(params) if decay_mask is None
+                 else decay_mask)
         for i, (p, g) in enumerate(zip(params, grads)):
             self._leaf_update(p, g, state, i, decay[i], beta2t, rho, lr)
         state["count"].copy_(count)

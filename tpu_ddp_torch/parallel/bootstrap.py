@@ -17,9 +17,9 @@ unless the environment says otherwise) and drops it with
 (``_abort_process_group``) instead of entering a teardown a dead peer
 could block.
 
-:func:`mesh_groups` splits the world into the dp, sp, tp and ep
-sub-groups of sequence, tensor and expert parallelism (the JAX mesh's
-rank layout, pp = 1).
+:func:`mesh_groups` splits the world into the dp, sp, tp, pp and ep
+sub-groups of sequence, tensor, pipeline and expert parallelism (the JAX
+mesh's rank layout).
 """
 
 from __future__ import annotations
@@ -111,13 +111,15 @@ def test_distributed_setup(ctx: DistributedContext) -> dict:
 
 
 class MeshGroups(NamedTuple):
-    """This process's sub-groups of a dp x sp x tp x ep world: the dp
-    group (the ranks of one (s, t, e)), the sp group (one (d, t, e); None
-    at sp 1), the ep group (one (d, s, t)), the dp x sp group (one
-    (t, e): the replicas of an expert shard; the dp group itself at sp
-    1), the tp group (one (d, s, e); None at tp 1) and the data group
-    (one t: the dp x sp x ep ranks that hold the same tensor-parallel
-    slices, over which a gradient is averaged; the world at tp 1)."""
+    """This process's sub-groups of a dp x sp x tp x pp x ep world: the
+    dp group (the ranks of one (s, t, p, e)), the sp group (one (d, t, p,
+    e); None at sp 1), the ep group (one (d, s, t, p)), the dp x sp group
+    (one (t, p, e): the replicas of an expert shard; the dp group itself
+    at sp 1), the tp group (one (d, s, p, e); None at tp 1), the data
+    group (one (t, p): the dp x sp x ep ranks that hold the same tensor-
+    parallel slices of the same stage, over which a gradient is averaged;
+    the world at tp = pp = 1) and the pp group (one (d, s, t, e): the
+    stages of one pipeline; None at pp 1)."""
 
     dp: Any
     sp: Any
@@ -125,37 +127,49 @@ class MeshGroups(NamedTuple):
     dp_sp: Any
     tp: Any = None
     data: Any = None
+    pp: Any = None
 
 
 def mesh_rank(d: int, s: int, e: int, sp: int = 1, ep: int = 1,
-              t: int = 0, tp: int = 1) -> int:
-    """The rank of mesh coordinate (d, s, t, e): the JAX ``make_mesh(dp,
-    sp, mp, pp, ep)`` reshape at pp = 1, ep fastest,
-    ``((d * sp + s) * tp + t) * ep + e`` (at tp 1, ``(d * sp + s) * ep +
-    e``)."""
-    return ((d * sp + s) * tp + t) * ep + e
+              t: int = 0, tp: int = 1, p: int = 0, pp: int = 1) -> int:
+    """The rank of mesh coordinate (d, s, t, p, e): the JAX
+    ``make_mesh(dp, sp, mp, pp, ep)`` reshape, ep fastest,
+    ``(((d * sp + s) * tp + t) * pp + p) * ep + e`` (at pp 1,
+    ``((d * sp + s) * tp + t) * ep + e``)."""
+    return (((d * sp + s) * tp + t) * pp + p) * ep + e
 
 
-def mesh_coords(rank: int, sp: int = 1, ep: int = 1, tp: int = 1) -> tuple:
-    """The (d, s, e, t) coordinate of ``rank``: :func:`mesh_rank`'s
-    inverse."""
-    return (rank // (sp * tp * ep), (rank // (tp * ep)) % sp, rank % ep,
-            (rank // ep) % tp)
+def mesh_coords(rank: int, sp: int = 1, ep: int = 1, tp: int = 1,
+                pp: int = 1) -> tuple:
+    """The (d, s, e, t) coordinate of ``rank`` (:func:`mesh_rank`'s
+    inverse but for the stage, which :func:`mesh_stage` gives)."""
+    return (rank // (sp * tp * pp * ep), (rank // (tp * pp * ep)) % sp,
+            rank % ep, (rank // (pp * ep)) % tp)
 
 
-def mesh_groups(dp: int, ep: int, sp: int = 1, tp: int = 1) -> MeshGroups:
+def mesh_stage(rank: int, ep: int = 1, pp: int = 1) -> int:
+    """The pipeline stage p of ``rank`` in a mesh laid out as
+    :func:`mesh_rank` (0 at pp 1)."""
+    return (rank // ep) % pp
+
+
+def mesh_groups(dp: int, ep: int, sp: int = 1, tp: int = 1,
+                pp: int = 1) -> MeshGroups:
     """This process's :class:`MeshGroups` of a world of ``dp * sp * tp *
-    ep`` processes laid out as :func:`mesh_rank`. Every process makes
-    every group, in one order, as ``new_group`` requires: the dp groups,
-    the ep groups, then (at sp > 1) the sp groups and the dp x sp groups,
-    then (at tp > 1) the tp groups and the data groups. At tp 1 no tp or
-    data group is made (the data group is the world), and at sp 1 and
-    tp 1 only the first two, the groups and ranks of a dp x ep world."""
-    if dp * sp * tp * ep != dist.get_world_size():
-        raise ValueError(f"dp={dp} x sp={sp} x tp={tp} x ep={ep} != world "
-                         f"size {dist.get_world_size()}")
+    pp * ep`` processes laid out as :func:`mesh_rank`. Every process
+    makes every group, in one order, as ``new_group`` requires: the dp
+    groups, the ep groups, then (at sp > 1) the sp groups and the dp x sp
+    groups, then (at tp > 1) the tp groups, (at tp > 1 or pp > 1) the
+    data groups and (at pp > 1) the pp groups. Every data-side group is
+    made per (t, p), so that no mean crosses stages. At tp = pp = 1 no tp,
+    data or pp group is made (the data group is the world), and at sp = tp
+    = pp = 1 only the first two, the groups and ranks of a dp x ep
+    world."""
+    if dp * sp * tp * pp * ep != dist.get_world_size():
+        raise ValueError(f"dp={dp} x sp={sp} x tp={tp} x pp={pp} x ep={ep}"
+                         f" != world size {dist.get_world_size()}")
     rank = dist.get_rank()
-    mine = {"sp": None, "tp": None, "data": dist.group.WORLD}
+    mine = {"sp": None, "tp": None, "pp": None, "data": dist.group.WORLD}
 
     def make(kind, sets):
         for ranks in sets:
@@ -163,27 +177,31 @@ def mesh_groups(dp: int, ep: int, sp: int = 1, tp: int = 1) -> MeshGroups:
             if rank in ranks:
                 mine[kind] = group
 
-    def at(d, s, t, e):
-        return mesh_rank(d, s, e, sp, ep, t, tp)
+    def at(d, s, t, p, e):
+        return mesh_rank(d, s, e, sp, ep, t, tp, p, pp)
 
-    D, S, T, E = range(dp), range(sp), range(tp), range(ep)
-    make("dp", [[at(d, s, t, e) for d in D]
-                for s in S for t in T for e in E])
-    make("ep", [[at(d, s, t, e) for e in E]
-                for d in D for s in S for t in T])
+    D, S, T, Q, E = range(dp), range(sp), range(tp), range(pp), range(ep)
+    make("dp", [[at(d, s, t, p, e) for d in D]
+                for s in S for t in T for p in Q for e in E])
+    make("ep", [[at(d, s, t, p, e) for e in E]
+                for d in D for s in S for t in T for p in Q])
     mine["dp_sp"] = mine["dp"]
     if sp > 1:
-        make("sp", [[at(d, s, t, e) for s in S]
-                    for d in D for t in T for e in E])
-        make("dp_sp", [[at(d, s, t, e) for d in D for s in S]
-                       for t in T for e in E])
+        make("sp", [[at(d, s, t, p, e) for s in S]
+                    for d in D for t in T for p in Q for e in E])
+        make("dp_sp", [[at(d, s, t, p, e) for d in D for s in S]
+                       for t in T for p in Q for e in E])
     if tp > 1:
-        make("tp", [[at(d, s, t, e) for t in T]
-                    for d in D for s in S for e in E])
-        make("data", [sorted(at(d, s, t, e) for d in D for s in S
-                             for e in E) for t in T])
+        make("tp", [[at(d, s, t, p, e) for t in T]
+                    for d in D for s in S for p in Q for e in E])
+    if tp > 1 or pp > 1:
+        make("data", [sorted(at(d, s, t, p, e) for d in D for s in S
+                             for e in E) for t in T for p in Q])
+    if pp > 1:
+        make("pp", [[at(d, s, t, p, e) for p in Q]
+                    for d in D for s in S for t in T for e in E])
     return MeshGroups(mine["dp"], mine["sp"], mine["ep"], mine["dp_sp"],
-                      mine["tp"], mine["data"])
+                      mine["tp"], mine["data"], mine["pp"])
 
 
 def shutdown(ctx: DistributedContext) -> None:

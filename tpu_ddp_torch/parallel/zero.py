@@ -58,9 +58,11 @@ over dp and over its partition's axes (``axis_groups``), a replicated
 leaf's over dp alone. :class:`FactoredZeRO1` factors each cell's own
 slice (the :class:`CellAdafactor` semantic) with its rows dp-sharded
 within the cell; its reduced state keeps a leading axis per partition
-axis. A pipeline axis (``pp``, ROADMAP Queue 1 item 10.7) raises, and so
-do the JAX wrapper's refusals: one mesh axis per sharded dim, no leaf
-sharded over dp itself.
+axis. The pipeline axis (``pp``) partitions the stacked block leaves
+like the others: each stage cell's rows, dp-sharded within the cell,
+``P((pp[, mp/ep], dp))`` (parallel/pipeline.py). The JAX wrapper's
+refusals hold: one mesh axis per sharded dim, no leaf sharded over dp
+itself.
 """
 
 from __future__ import annotations
@@ -126,11 +128,6 @@ def leaf_partition(spec, shape, mesh_axis_sizes: dict, dp_axis: str = "dp"):
         r = int(mesh_axis_sizes[ax])
         if r == 1:
             continue
-        if ax == "pp":
-            raise NotImplementedError(
-                f"a leaf sharded over the pipeline axis (spec {spec}): "
-                "pipeline-stacked layouts are not ported to tpu_ddp_torch "
-                "yet (ROADMAP Queue 1 item 10.7)")
         if shape[d] % r:
             raise ValueError(f"leaf dim {d} of shape {shape} not "
                              f"divisible by {ax}={r}")
@@ -216,10 +213,15 @@ class _FlatLayout:
         self.offsets = np.concatenate([[0], np.cumsum(self.chunks)]
                                       ).astype(int).tolist()
         self.total_chunk = self.offsets[-1]
+        # The decay policy when the leaves' own ranks are not it (a
+        # pipeline's stacked leaves: the ranks of one layer's leaves).
+        self.decay = None
 
     def decay_mask(self) -> list:
         """The decay policy on the ORIGINAL ranks (the slices are all
-        rank 1)."""
+        rank 1), or :attr:`decay` where set."""
+        if self.decay is not None:
+            return list(self.decay)
         return [len(s) >= 2 for s in self.shapes]
 
     # ---- host side (numpy, canonical layout) ----------------------------

@@ -96,8 +96,14 @@ per cell (``CellAdafactor``, or ``FactoredZeRO1`` with the cells' own
 row geometry under zero1). Checkpoints stay canonical: parameters and
 elementwise state gathered over tp and ep, Adafactor's per-cell state in
 the JAX wrapper's global layout (stacked cells), so a checkpoint moves
-between the packages at the same layout. A pipeline axis raises (ROADMAP
-Queue 1 item 10.7).
+between the packages at the same layout.
+
+Pipeline parallelism (tpu_ddp/train/lm.py:808-1360):
+:class:`PipelineLMTrainer` holds the block leaves stacked and cut into
+``pp`` stages (parallel/pipeline.py) and runs one of four schedules over
+``num_micro`` microbatches, its stages one per process over a pp group
+(the world dp x sp x tp x pp x ep, rank ``(((d * sp + s) * tp + t) * pp
++ p) * ep + e``) or all in this process (``stages="in_process"``).
 """
 
 from __future__ import annotations
@@ -131,6 +137,9 @@ class LMTrainState:
     # The step on the device (int64, 0-d), kept only where dropout needs
     # it and the optimizer has no count to read it from.
     step_t: Any = None
+    # The row order of a pipeline's stacked blocks (PipelineLMTrainer's
+    # stage_layout; None: the dense order).
+    stage_layout: Any = None
 
 
 def make_lm_batch(tokens: np.ndarray):
@@ -163,13 +172,14 @@ def _skeleton(shapes):
 
 
 def data_shard_index(rank: int, sp: int = 1, ep: int = 1,
-                     tp: int = 1) -> int:
+                     tp: int = 1, pp: int = 1) -> int:
     """The (dp, sp, ep) data shard ``rank`` trains on in a dp x sp x tp x
-    ep world: its mesh coordinate with the tp axis taken out, ``(d * sp +
-    s) * ep + e`` (the rank itself at tp 1). The tp peers of a shard
-    share it, so they share its batch rows and dropout keys."""
+    pp x ep world: its mesh coordinate with the tp and pp axes taken out,
+    ``(d * sp + s) * ep + e`` (the rank itself at tp = pp = 1). The tp
+    and pp peers of a shard share it, so they share its batch rows and
+    dropout keys."""
     from tpu_ddp_torch.parallel.bootstrap import mesh_coords
-    d, s, e, _ = mesh_coords(rank, sp, ep, tp)
+    d, s, e, _ = mesh_coords(rank, sp, ep, tp, pp)
     return (d * sp + s) * ep + e
 
 
@@ -187,6 +197,12 @@ class LMTrainer:
     of ``sp`` of them, tensor parallel over groups of ``tp`` and expert
     parallel over groups of ``ep``. ``device=None`` means the card. At
     tp = ep = 1 Adafactor runs bare, as in the JAX trainer."""
+
+    # The pipeline's extent, the stages laid over the process group and
+    # the stacked rows' order (PipelineLMTrainer).
+    pp = _pp_procs = 1
+    _stage_layout = None
+    _plan_name = "lmtrainer"
 
     def __init__(self, model, device=None, optimizer=None,
                  grad_accum: int = 1, vocab_chunk: int = 0,
@@ -233,6 +249,11 @@ class LMTrainer:
             raise ValueError(f"tp={tp} must be >= 1 and sp x tp x ep = "
                              f"{sp * tp * ep} divide the world size "
                              f"{world}")
+        pp = self._pp_procs
+        if world % (sp * tp * pp * ep):
+            raise ValueError(f"pp={pp} must be >= 1 and sp x tp x pp x ep "
+                             f"= {sp * tp * pp * ep} divide the world size"
+                             f" {world}")
         self.device = resolve_device(device)
         self.optimizer = optimizer or AdamW()
         self.grad_accum = grad_accum
@@ -240,15 +261,17 @@ class LMTrainer:
         self.clip_grad_norm = clip_grad_norm
         self.dropout_seed = dropout_seed
         self.moe_aux_coef = moe_aux_coef
-        # The JAX trainer's dp, sp, mp and ep axes: the world is dp x sp x
-        # tp x ep, rank ((d * sp + s) * tp + t) * ep + e.
-        from tpu_ddp_torch.parallel.bootstrap import mesh_coords
+        # The JAX trainer's dp, sp, mp, pp and ep axes: the world is dp x
+        # sp x tp x pp x ep, rank (((d * sp + s) * tp + t) * pp + p) * ep
+        # + e (pp is 1 but for a pipeline's stages over the group).
+        from tpu_ddp_torch.parallel.bootstrap import mesh_coords, mesh_stage
         self.ep, self.sp, self.tp = ep, sp, tp
-        self.dp = world // (sp * tp * ep)
+        self.dp = world // (sp * tp * pp * ep)
         self.rank = dist.get_rank() if dist.is_initialized() else 0
         _, self.sp_index, self.ep_index, self.tp_index = mesh_coords(
-            self.rank, sp, ep, tp)
-        self.data_index = data_shard_index(self.rank, sp, ep, tp)
+            self.rank, sp, ep, tp, pp)
+        self.pp_index = mesh_stage(self.rank, ep, pp)
+        self.data_index = data_shard_index(self.rank, sp, ep, tp, pp)
         # The model with every partition axis stripped: the JAX package's
         # canonical tree (checkpoints, conversion, route_stats).
         self.canonical_model = dataclasses.replace(
@@ -256,13 +279,13 @@ class LMTrainer:
             sp_size=1, sp_group=None, tp_axis=None, tp_size=1,
             tp_group=None)
         self._dp_group = self._ep_group = self._sp_group = None
-        self._dp_sp_group = self._tp_group = None
+        self._dp_sp_group = self._tp_group = self._pp_group = None
         self._data_group = dist.group.WORLD if dist.is_initialized() else None
-        if ep > 1 or sp > 1 or tp > 1:
+        if ep > 1 or sp > 1 or tp > 1 or pp > 1:
             from tpu_ddp_torch.parallel.bootstrap import mesh_groups
             (self._dp_group, self._sp_group, self._ep_group,
-             self._dp_sp_group, self._tp_group,
-             self._data_group) = mesh_groups(self.dp, ep, sp, tp)
+             self._dp_sp_group, self._tp_group, self._data_group,
+             self._pp_group) = mesh_groups(self.dp, ep, sp, tp, pp)
         if sp > 1:
             # "ring" rotates K/V over sp; "ulysses" re-shards heads and
             # sequence with two all-to-alls.
@@ -276,16 +299,18 @@ class LMTrainer:
         self.is_fsdp = param_sharding == "fsdp"
         self.opt_zero1 = opt_sharding in ("zero1", "zero2")
         self.opt_zero2 = opt_sharding == "zero2"
-        self._shapes = model.param_shapes()
+        self._shapes, self._canon_tree, self._spec_tree = self._trees(model)
         self._skeleton = _skeleton(self._shapes)
         # Each leaf's spec and model-parallel cell partition (None:
-        # replicated over mp and ep), and where this process sits.
+        # replicated over mp, pp and ep), and where this process sits.
         from tpu_ddp_torch.parallel.zero import partitions
-        self._sizes = {"dp": self.dp, "sp": sp, "mp": tp, "pp": 1, "ep": ep}
-        self._index = {"mp": self.tp_index, "ep": self.ep_index}
-        self._axis_groups = {"mp": self._tp_group, "ep": self._ep_group}
-        self._specs = shape_leaves(model.param_specs())
-        canon = shape_leaves(self.canonical_model.param_shapes())
+        self._sizes = {"dp": self.dp, "sp": sp, "mp": tp, "pp": pp, "ep": ep}
+        self._index = {"mp": self.tp_index, "ep": self.ep_index,
+                       "pp": self.pp_index}
+        self._axis_groups = {"mp": self._tp_group, "ep": self._ep_group,
+                             "pp": self._pp_group}
+        self._specs = shape_leaves(self._spec_tree)
+        canon = shape_leaves(self._canon_tree)
         self._local = [tuple(s) for s in shape_leaves(self._shapes)]
         self._parts = partitions(canon, self._specs, self._sizes)
         # Leaf indices of the stacked expert weights (sharded over ep).
@@ -310,7 +335,7 @@ class LMTrainer:
                 "under fsdp, or opt_sharding='zero1' with Adafactor "
                 "(per-cell FactoredZeRO1)")
         # The sharded layouts scatter and gather over dp only.
-        group = (self._dp_group if sp * tp * ep > 1
+        group = (self._dp_group if sp * tp * pp * ep > 1
                  else dist.group.WORLD if dist.is_initialized() else None)
         self._group = group
         self._multi_step_cache: dict = {}
@@ -337,6 +362,22 @@ class LMTrainer:
             from tpu_ddp_torch.parallel.zero import CellAdafactor
             self._cell = CellAdafactor(self.optimizer, canon, self._specs,
                                        self._sizes)
+        # The decay policy where the leaves' ranks are not it (None: the
+        # optimizer's rank rule).
+        self._decay = self._decay_mask()
+        if self.layout is not None and self._decay is not None:
+            self.layout.decay = self._decay
+
+    def _trees(self, model) -> tuple:
+        """(this process's shape tree, the canonical shape tree, the spec
+        tree) of the parameters the trainer holds."""
+        return (model.param_shapes(), self.canonical_model.param_shapes(),
+                model.param_specs())
+
+    def _decay_mask(self):
+        """The weight-decay mask of the held leaves, or None for the
+        optimizer's own rule on their ranks."""
+        return None
 
     def init_state(self, seed: int = 0, params=None) -> LMTrainState:
         """Parameters from ``seed`` (a ``torch.Generator`` on the device),
@@ -485,6 +526,13 @@ class LMTrainer:
         """One step on the local batch; returns (state, local mean loss
         as a 0-d f32 tensor). Parameters and optimizer state update in
         place."""
+        loss, leaves, grads = self.step_grads(state, inputs, targets)
+        return self.apply_grads(state, leaves, grads), loss
+
+    def step_grads(self, state: LMTrainState, inputs, targets):
+        """(local mean loss, the leaves a step updates, their gradients)
+        on the local batch, before the sync, the clip and the optimizer
+        (ZeRO-2: the f32 slices already reduce-scattered over dp)."""
         params = state.params
         leaves = [params] if self.is_fsdp else tree_leaves(params)
         A = self.grad_accum
@@ -514,11 +562,7 @@ class LMTrainer:
             inv = 1.0 / float(A)
             torch._foreach_mul_(grads, inv)
             loss = loss * inv
-        self._update(state, leaves, grads)
-        if state.step_t is not None:
-            state.step_t.add_(1)
-        return (LMTrainState(params, state.opt_state, state.step + 1,
-                             state.step_t), loss)
+        return loss, leaves, grads
 
     # ---- K steps per dispatch (tpu_ddp/train/lm.py:338-391) ------------
 
@@ -563,14 +607,15 @@ class LMTrainer:
                 losses = graphs.run(state, self._written(state),
                                     inputs_k, targets_k)
                 self.graph_stats["replays"] += 1
-                return (LMTrainState(state.params, state.opt_state,
-                                     state.step + k, state.step_t), losses)
+                return dataclasses.replace(state, step=state.step + k), losses
         self._multi_step_cache[k] = run
         return run
 
-    def _update(self, state, leaves, grads) -> None:
-        """The sync, the clip and the optimizer for this layout, in
-        place."""
+    def apply_grads(self, state: LMTrainState, leaves,
+                    grads) -> LMTrainState:
+        """The rest of a step after :meth:`step_grads`: the sync, the clip
+        and the optimizer for this layout, in place; returns the next
+        state."""
         z = self.layout
         if self.is_fsdp:
             # The gather's backward summed the shard over dp; the sp and
@@ -584,8 +629,7 @@ class LMTrainer:
                 torch._foreach_mul_(g_sh, clip_scale_from_sq(
                     z.sq_norm(g_sh), self.clip_grad_norm))
             z.apply(z.views(state.params.detach()), g_sh, state.opt_state)
-            return
-        if self.opt_zero1:
+        elif self.opt_zero1:
             # The reduce-scatter over dp is the dp half of the sync (under
             # ZeRO-2 it already ran, and these are the f32 slices).
             self._sync_rest(grads)
@@ -596,17 +640,21 @@ class LMTrainer:
             with torch.no_grad():
                 for p, t in zip(leaves, new):
                     p.copy_(t)
-            return
-        if self.ep > 1 or self.tp > 1:
-            self._sync_data(grads)
-            if self.clip_grad_norm is not None:
-                self._clip_cells(grads)
         else:
-            if self.dp * self.sp > 1:
-                sync_all_reduce(grads)
-            if self.clip_grad_norm is not None:
-                clip_by_global_norm(grads, self.clip_grad_norm)
-        self.optimizer.apply(leaves, grads, state.opt_state)
+            if self.ep > 1 or self.tp > 1 or self._pp_procs > 1:
+                self._sync_data(grads)
+                if self.clip_grad_norm is not None:
+                    self._clip_cells(grads)
+            else:
+                if self.dp * self.sp > 1:
+                    sync_all_reduce(grads)
+                if self.clip_grad_norm is not None:
+                    clip_by_global_norm(grads, self.clip_grad_norm)
+            self.optimizer.apply(leaves, grads, state.opt_state,
+                                 decay_mask=self._decay)
+        if state.step_t is not None:
+            state.step_t.add_(1)
+        return dataclasses.replace(state, step=state.step + 1)
 
     def _clip_cells(self, grads) -> None:
         """The global-norm clip over tp and ep cells (JAX
@@ -717,7 +765,7 @@ class LMTrainer:
         over ``mp``, experts over ``ep``, the rest replicated)."""
         from tpu_ddp_torch.parallel.redistribute import P, ShardingPlan
 
-        params = self.model.param_specs()
+        params = self._spec_tree
         # Bare Adafactor's state is replicated, reduced shapes and all
         # (per cell under tp or ep: CellAdafactor's specs); the other
         # slots mirror their parameter's spec. ZeRO's flat state is
@@ -730,7 +778,7 @@ class LMTrainer:
             P((*pt.axes, "dp")) if pt is not None else P("dp")
             for pt in self._parts])
         parted = any(pt is not None for pt in self._parts)
-        strategy = "lmtrainer"
+        strategy = self._plan_name
         if self.is_fsdp:
             params = slot = flat
             strategy += "+fsdp"
@@ -749,9 +797,10 @@ class LMTrainer:
         return ShardingPlan(
             strategy=strategy,
             mesh_axes=(("dp", self.dp), ("sp", self.sp), ("mp", self.tp),
-                       ("pp", 1), ("ep", self.ep)),
+                       ("pp", self.pp), ("ep", self.ep)),
             param_specs=params, opt_specs=opt,
-            batch_spec=P(("dp", "ep"), "sp"))
+            batch_spec=P(("dp", "ep"), "sp"),
+            stage_layout=self._stage_layout)
 
     def state_to_host(self, state: LMTrainState) -> dict:
         """``state`` as the JAX package's canonical host tree:
@@ -802,7 +851,7 @@ class LMTrainer:
             restore_newest_verified
         from tpu_ddp_torch.utils import checkpoint as ckpt
         warn_if_incompatible(directory, self.sharding_plan())
-        layout = self.canonical_model.param_shapes()
+        layout = self._canon_tree
 
         def tree(node, leaf):
             if isinstance(node, dict):
@@ -833,12 +882,14 @@ class LMTrainer:
         whatever the saving world's."""
         from tpu_ddp_torch.convert import opt_state_from_jax, params_from_jax
         params = self._local_params(params_from_jax(
-            self.canonical_model, host["params"], self.device))
+            self.canonical_model, host["params"], self.device,
+            shapes=self._canon_tree))
         if any(pt is not None for pt in self._parts):
             opt_state = self._local_opt_from_host(host["opt_state"])
         else:
             opt_state = opt_state_from_jax(self.model, self.optimizer,
-                                           host["opt_state"], self.device)
+                                           host["opt_state"], self.device,
+                                           shapes=self._shapes)
         if self.layout is not None:
             # Re-shard the canonical leaves for this trainer's dp.
             opt_state = self.layout.local_opt(opt_state)
@@ -855,7 +906,7 @@ class LMTrainer:
         :meth:`_slot_join` says (the whole leaf's shape, or the cell
         counts ahead of the cell's)."""
         out = opt_slot_shapes(self.optimizer, self._local)
-        canon = shape_leaves(self.canonical_model.param_shapes())
+        canon = shape_leaves(self._canon_tree)
         for k, shapes in out.items():
             joins = [self._slot_join(i, s) for i, s in enumerate(shapes)]
             out[k] = [s if j is None else
@@ -869,7 +920,7 @@ class LMTrainer:
         cell: checked against :meth:`_canonical_slot_shapes`, each
         partitioned slot cut to this cell (its piece, or its entry of the
         leading cell axes), placed on the device."""
-        layout = self.canonical_model.param_shapes()
+        layout = self._canon_tree
         local_slots = opt_slot_shapes(self.optimizer, self._local)
         out = {}
         for k, want in self._canonical_slot_shapes().items():
@@ -895,3 +946,358 @@ class LMTrainer:
                                         dtype=torch.int32,
                                         device=self.device)
         return out
+
+
+class PipelineLMTrainer(LMTrainer):
+    """The pipeline-parallel LM trainer (JAX ``PipelineLMTrainer``): the
+    block leaves STACKED on a leading layer axis and cut into ``pp``
+    stages, each process's batch split into ``num_micro`` (default pp)
+    microbatches that stream through the stages under ``schedule``
+    (``gpipe``, ``1f1b``, ``interleaved`` with ``pp_virtual`` chunks per
+    stage, or ``zerobubble``; parallel/pipeline.py). ``num_micro`` is the
+    accumulation: every microbatch's gradient sums into one step.
+
+    ``stages="group"`` (the default) runs one stage per process: the world
+    is dp x sp x tp x pp x ep processes, and a stage's peers over dp, sp,
+    tp and ep hold the same stage, so the collectives inside a stage and
+    the data-side means never cross stages (``mesh_groups``).
+    ``stages="in_process"`` runs all pp stages in this process on its one
+    device over in-process edges (as the JAX trainer runs all stages of a
+    program on one process's devices); it composes with dp over the
+    processes. Each process feeds the rows of its data shard
+    (``data_index``), so pp and tp peers feed the same rows.
+
+    After the schedule the replicated leaves' gradients (embed on stage 0,
+    ln_f and head on the last stage, zeros elsewhere) are SUMMED over the
+    pp group; then the dense trainer's sync, clip and optimizer run on this
+    process's leaves (stacked leaves partitioned per stage cell), with the
+    weight-decay mask of the original per-layer ranks. ZeRO-1 and FSDP lay
+    each stage cell out dp-sharded (``P((pp[, mp/ep], dp))``); ZeRO-2
+    (1f1b only) reduce-scatters each tick's block gradients over dp and
+    the replicated leaves once at the end; FSDP gathers the stage's leaves
+    once at step start and reduce-scatters their gradients at the end.
+    Checkpoints hold the JAX pipeline trainer's tree: stacked, the dense
+    layer order, ``stage_layout`` in the sharding plan under interleaving.
+    A live state carries its row order (``LMTrainState.stage_layout``): a
+    trainer of another order refuses it (move it through the host,
+    ``state_to_host``/``state_from_host``). The MoE load-balance loss is
+    dropped, as the JAX pipeline drops it. ``edge_factory``: the
+    in-process edge class (a test or a planted fault replaces it)."""
+
+    _plan_name = "pipelinelmtrainer"
+    _IN_PROCESS_TODO = (
+        "stages='in_process' runs every stage in one process; its "
+        "composition with sp, tp, ep and Adafactor's per-stage cells is "
+        "ROADMAP Queue 1 item 10.7c (use stages='group', one process per "
+        "stage)")
+
+    def __init__(self, model, device=None, num_micro: int | None = None,
+                 optimizer=None, dropout_seed: int = 0,
+                 schedule: str = "gpipe", opt_sharding: str = "replicated",
+                 param_sharding: str = "replicated",
+                 clip_grad_norm: float | None = None, sp_mode: str = "ring",
+                 pp_virtual: int = 1, pp: int = 1, sp: int = 1, tp: int = 1,
+                 ep: int = 1, stages: str = "group"):
+        from tpu_ddp_torch.parallel.pipeline import (check_table,
+                                                     interleave_permutation,
+                                                     tick_table)
+        if clip_grad_norm is not None and clip_grad_norm <= 0:
+            raise ValueError(f"clip_grad_norm must be > 0, got "
+                             f"{clip_grad_norm}")
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sequence-parallel mode {sp_mode!r};"
+                             " expected 'ring' or 'ulysses'")
+        if stages not in ("group", "in_process"):
+            raise ValueError(f"unknown stages {stages!r}; choose 'group' "
+                             "or 'in_process'")
+        if pp < 1:
+            raise ValueError(f"pp must be >= 1, got {pp}")
+        if model.num_layers % pp:
+            raise ValueError(f"num_layers={model.num_layers} not "
+                             f"divisible by pp={pp}")
+        num_micro = num_micro if num_micro is not None else pp
+        if num_micro < 1:
+            raise ValueError(f"num_micro must be >= 1, got {num_micro}")
+        if schedule not in ("gpipe", "1f1b", "interleaved", "zerobubble"):
+            raise ValueError(f"unknown schedule {schedule!r}; choose "
+                             "'gpipe', '1f1b', 'interleaved' or "
+                             "'zerobubble'")
+        if pp_virtual < 1:
+            raise ValueError(f"pp_virtual must be >= 1, got {pp_virtual}")
+        if pp_virtual > 1 and schedule != "interleaved":
+            raise ValueError(
+                f"pp_virtual={pp_virtual} only applies to "
+                "schedule='interleaved' (zero-bubble extends plain 1F1B;"
+                " gpipe/1f1b run one chunk per stage)")
+        self._layer_perm = self._stage_layout = None
+        if schedule == "interleaved":
+            if model.num_layers % (pp * pp_virtual):
+                raise ValueError(
+                    f"interleaved schedule needs num_layers divisible "
+                    f"by pp*pp_virtual: {model.num_layers} % "
+                    f"{pp * pp_virtual} != 0")
+            if num_micro % pp:
+                raise ValueError(
+                    f"interleaved schedule needs num_micro divisible "
+                    f"by pp: {num_micro} % {pp} != 0")
+            if pp_virtual > 1:
+                self._layer_perm = interleave_permutation(
+                    model.num_layers, pp, pp_virtual)
+                self._stage_layout = {
+                    "kind": "interleaved", "pp": pp,
+                    "pp_virtual": pp_virtual,
+                    "num_layers": model.num_layers}
+        if pp_virtual > 1 and (opt_sharding != "replicated"
+                               or param_sharding != "replicated"):
+            raise ValueError(
+                "pp_virtual > 1 re-orders the stacked layer rows "
+                "(interleave_permutation); the sharded-optimizer "
+                "layouts (zero1/zero2/fsdp) slice those rows flat and "
+                "are not permutation-aware — use replicated opt/param "
+                "sharding with virtual stages")
+        if opt_sharding not in ("replicated", "zero1", "zero2"):
+            raise ValueError(f"unknown opt_sharding {opt_sharding!r}; "
+                             "choose 'replicated', 'zero1' or 'zero2'")
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"unknown param_sharding {param_sharding!r}"
+                             "; choose 'replicated' or 'fsdp'")
+        if param_sharding == "fsdp" and opt_sharding != "replicated":
+            raise ValueError(
+                f"opt_sharding={opt_sharding!r} is redundant under "
+                "param_sharding='fsdp' (ZeRO-3 already shards the "
+                "optimizer state over dp)")
+        if opt_sharding == "zero2" and schedule != "1f1b":
+            raise ValueError(
+                "opt_sharding='zero2' under the pipeline requires "
+                "schedule='1f1b': GPipe differentiates the whole tick "
+                "scan at once, so there is no per-microbatch gradient "
+                "accumulator to scatter — ZeRO-2's memory saving only "
+                "exists where the accumulation buffer does")
+        factored = isinstance(optimizer, Adafactor)
+        if pp_virtual > 1 and factored:
+            raise ValueError(
+                "pp_virtual > 1 does not compose with Adafactor: the "
+                "per-cell factored state has no params-shaped host form "
+                "to carry through the interleave permutation at "
+                "checkpoint time; use AdamW/SGD with virtual stages")
+        if factored and opt_sharding == "zero2":
+            raise ValueError(
+                "opt_sharding='zero2' (dp-scattered flat gradient "
+                "slices) does not compose with Adafactor's row-sharded "
+                "factored state; use 'zero1' or an elementwise optimizer")
+        self.in_process = stages == "in_process"
+        if self.in_process and pp > 1 and (sp > 1 or tp > 1 or ep > 1):
+            raise NotImplementedError(self._IN_PROCESS_TODO)
+        self.pp, self.num_micro = pp, num_micro
+        self.schedule, self.pp_virtual = schedule, pp_virtual
+        self._pp_procs = 1 if self.in_process else pp
+        self.edge_factory = None
+        super().__init__(model, device=device, optimizer=optimizer,
+                         param_sharding=param_sharding,
+                         opt_sharding=opt_sharding, sp_mode=sp_mode,
+                         clip_grad_norm=clip_grad_norm,
+                         dropout_seed=dropout_seed, ep=ep, sp=sp, tp=tp)
+        if self.in_process and pp > 1 and factored:
+            raise NotImplementedError(self._IN_PROCESS_TODO)
+        self._table = tick_table(schedule, pp, num_micro, pp_virtual)
+        check_table(self._table, pp, pp_virtual)
+        self._stages = (list(range(pp)) if self._pp_procs == 1
+                        else [self.pp_index])
+        self._row0 = (0 if self._pp_procs == 1
+                      else self.pp_index * model.num_layers // pp)
+
+    # ---- layout ---------------------------------------------------------
+
+    def _trees(self, model) -> tuple:
+        from tpu_ddp_torch.parallel.pipeline import (pipeline_param_specs,
+                                                     stacked_shapes)
+        held = model.num_layers // self._pp_procs
+        return (stacked_shapes(model, held),
+                stacked_shapes(self.canonical_model),
+                pipeline_param_specs(model))
+
+    def _decay_mask(self):
+        """The optimizer's decay policy on the ORIGINAL per-layer ranks
+        (JAX ``_decay_mask``): stacking raised every block leaf's rank by
+        one, which would otherwise decay the (layers, dm) LayerNorm
+        scales and biases that the dense trainer exempts."""
+        from tpu_ddp_torch.parallel.pipeline import map_tree
+        layer = dict(self._shapes)
+        layer["blocks"] = map_tree(lambda s: s[1:], layer["blocks"])
+        return [len(s) >= 2 for s in shape_leaves(layer)]
+
+    def init_state(self, seed: int = 0, params=None) -> LMTrainState:
+        """Same seed -> the dense model's parameters (JAX ``init_state``),
+        stacked, in the interleaved row order under virtual stages, cut to
+        this process's stage; ``params`` may be given dense or stacked
+        (the dense order)."""
+        from tpu_ddp_torch.convert import stacked_from_dense
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.canonical_model.init(gen)
+        if isinstance(params["blocks"], tuple):
+            params = stacked_from_dense(params)
+        params = self._permuted(params, inverse=False)
+        state = super().init_state(params=params)
+        state.stage_layout = self._stage_layout
+        return state
+
+    def _permuted(self, tree, inverse: bool):
+        """A stacked tree (params or a params-shaped slot) from the dense
+        row order into this trainer's (``inverse``: back)."""
+        if self._layer_perm is None:
+            return tree
+        from tpu_ddp_torch.parallel.pipeline import permute_stacked_blocks
+        perm = (np.argsort(self._layer_perm) if inverse
+                else self._layer_perm)
+        return permute_stacked_blocks(tree, perm)
+
+    def canonical_params(self, params):
+        """Stacked params in the DENSE layer order (JAX
+        ``canonical_params``): the identity but under virtual stages."""
+        return self._permuted(params, inverse=True)
+
+    def put_batch(self, inputs, targets):
+        """This process's rows (its data shard's, the same on its pp and
+        tp peers) over the whole sequence -> device tensors, cut to its
+        L/sp columns; the JAX refusals (the global batch over dp x ep x
+        num_micro, L over sp)."""
+        b = np.shape(inputs)[0]
+        gb = b * self.dp * self.ep
+        if gb % (self.dp * self.ep * self.num_micro):
+            raise ValueError(
+                f"global batch {gb} not divisible by dp*ep*num_micro="
+                f"{self.dp * self.ep * self.num_micro}")
+        return super().put_batch(inputs, targets)
+
+    # ---- the step -------------------------------------------------------
+
+    def _check_layout(self, state: LMTrainState) -> None:
+        if state.stage_layout != self._stage_layout:
+            raise ValueError(
+                f"state laid out {state.stage_layout!r}, trainer "
+                f"{self._stage_layout!r}: a live state keeps its stacked "
+                "row order; move it through state_to_host/state_from_host "
+                "(parallel/redistribute.py:redistribute_state)")
+
+    def _links(self, inputs):
+        from tpu_ddp_torch.parallel.pipeline import (GroupHops,
+                                                     InProcessEdge,
+                                                     InProcessLinks)
+        if self._pp_procs == 1:
+            return InProcessLinks(self.pp, self.edge_factory or InProcessEdge)
+        mb = inputs.shape[0] // self.num_micro
+        return GroupHops(self._pp_group, self.pp_index, self._table, self.pp,
+                         self.pp_virtual,
+                         (mb, inputs.shape[1], self.model.d_model),
+                         self.model.compute_dtype, self.device)
+
+    def _loss_norm(self, inputs) -> float:
+        """The gradient scale of a shard's NLL sum (JAX ``_loss_norm``):
+        one over its token count, so that the mean over the data shards
+        (the same count each) is the gradient of the global token
+        mean."""
+        return 1.0 / float(inputs.numel())
+
+    def _sync_grads(self, grads) -> None:
+        """The pp half of the sync (JAX ``_sync_grads``), in place: a
+        replicated leaf's gradient (real on one stage, zeros elsewhere)
+        SUMMED over the pp group; the stacked leaves stay stage-local. The
+        sp, ep and dp means follow in :meth:`apply_grads`."""
+        if self._pp_procs == 1:
+            return
+        for g, pt in zip(grads, self._parts):
+            if pt is None or "pp" not in pt.axes:
+                dist.all_reduce(g, group=self._pp_group)
+
+    def step_grads(self, state: LMTrainState, inputs, targets):
+        """(local mean loss, this process's leaves, their gradients): the
+        schedule's gradients with the pp sum done, before the sp, ep and dp
+        sync (FSDP: the shard buffer and its gradient summed over dp;
+        ZeRO-2: the leaves and their dp-mean slices)."""
+        from tpu_ddp_torch.parallel.pipeline import pipeline_grads
+        self._check_layout(state)
+        z = self.layout
+        if self.is_fsdp:
+            full = [t.detach().requires_grad_(True)
+                    for t in z.gather(state.params.detach())]
+            tree = tree_unflatten(self._skeleton, full)
+        else:
+            tree = state.params
+        rng = (self.step_key(self._device_step(state))
+               if self.model.dropout_rate > 0.0 else None)
+        scatter, acc = None, None
+        if self.opt_zero2:
+            # Each tick's block gradients reduce-scattered over dp at once
+            # beside zeros for the replicated leaves, the slices summed.
+            acc, _ = z.shard_zeros(self.device)
+            zeros = {k: tree_unflatten(v, [
+                torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                for x in tree_leaves(v)])
+                for k, v in tree.items() if k != "blocks"}
+
+            def scatter(g_blocks):
+                acc.add_(z.scatter_grads(tree_leaves(
+                    dict(zeros, blocks=g_blocks)))[0])
+        loss_sum, g = pipeline_grads(
+            self.model, tree, inputs, targets, schedule=self.schedule,
+            pp_size=self.pp, num_micro=self.num_micro, stages=self._stages,
+            links=self._links(inputs), pp_virtual=self.pp_virtual,
+            row0=self._row0, perm=self._layer_perm, rng=rng,
+            scale=self._loss_norm(inputs), scatter_blocks=scatter)
+        grads = tree_leaves(g)
+        self._sync_grads(grads)
+        loss = loss_sum / float(inputs.numel())
+        if self._pp_procs > 1:
+            dist.all_reduce(loss, group=self._pp_group)
+        if self.is_fsdp:
+            return loss, [state.params], [z.reduce_scatter_sum(z.rows(grads))]
+        leaves = tree_leaves(state.params)
+        if self.opt_zero2:
+            acc.add_(z.scatter_grads(grads)[0])
+            return loss, leaves, z.views(acc)
+        return loss, leaves, grads
+
+    # ---- host trees and checkpoints --------------------------------------
+
+    def state_to_host(self, state: LMTrainState) -> dict:
+        """The JAX pipeline trainer's canonical host tree: stacked, the
+        dense layer order (params and each params-shaped slot)."""
+        self._check_layout(state)
+        host = super().state_to_host(state)
+        host["params"] = self._permuted(host["params"], inverse=True)
+        host["opt_state"] = {
+            k: v if k == "count" else self._permuted(v, inverse=True)
+            for k, v in host["opt_state"].items()}
+        return host
+
+    def state_from_host(self, host: dict) -> LMTrainState:
+        """The canonical host tree (dense order; from any schedule or
+        layout) onto this trainer's rows, stage and layout."""
+        host = dict(host)
+        host["params"] = self._permuted(host["params"], inverse=False)
+        host["opt_state"] = {
+            k: v if k == "count" else self._permuted(v, inverse=False)
+            for k, v in host["opt_state"].items()}
+        state = super().state_from_host(host)
+        state.stage_layout = self._stage_layout
+        return state
+
+    def params_to_host(self, state: LMTrainState):
+        """The stacked parameters as numpy, the dense layer order."""
+        self._check_layout(state)
+        return self._permuted(super().params_to_host(state), inverse=True)
+
+    def route_stats(self, state: LMTrainState, tokens) -> list:
+        """Routing counters on the dense model's pass over the gathered,
+        unstacked parameters (the JAX trainers' numbers)."""
+        if not self.model.moe_experts:
+            return []
+        from tpu_ddp_torch.convert import dense_from_stacked
+        params = dense_from_stacked(self._full_params(state),
+                                    self.model.num_layers, self._layer_perm)
+        tokens = torch.as_tensor(np.asarray(tokens, np.int64),
+                                 device=self.device)
+        stats = self.canonical_model.route_stats(params, tokens)
+        return [{k: v.cpu().numpy() for k, v in layer.items()}
+                for layer in stats]

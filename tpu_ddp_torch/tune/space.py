@@ -242,6 +242,26 @@ KNOBS: tuple[Knob, ...] = (
              "axis and run ring or Ulysses attention against the paged "
              "cache, cutting TTFT on long prompts. Requires an sp>=2 "
              "mesh and the single-tier pool (engine rejects tiers>1)"),
+    # Pipeline knobs (parallel/pipeline.py): the LM CLI's pipeline rung
+    # reads them (examples/lm_train.py at TPU_DDP_LM_PP > 1); the tuner's
+    # trials train the image ladder, which has no pipeline, so it never
+    # searches them (_NOT_IN_TRIALS).
+    Knob("pp_schedule", "pp_schedule", "TPU_DDP_PP_SCHEDULE",
+         values=("gpipe", "1f1b", "interleaved", "zerobubble"),
+         flag="--pp-schedule",
+         doc="pipeline tick schedule (parallel/pipeline.py): all four "
+             "compute the same step (held to the dense model), so the "
+             "choice is pure schedule"),
+    Knob("pp_microbatches", "pp_microbatches", "TPU_DDP_PP_MICROBATCHES",
+         values=(0, 4, 8, 16), flag="--pp-microbatches",
+         doc="microbatches per pipeline step (0 = auto, one per "
+             "stage); more microbatches shrink the bubble fraction "
+             "but shrink each microbatch's arithmetic intensity"),
+    Knob("pp_virtual", "pp_virtual", "TPU_DDP_PP_VIRTUAL",
+         values=(1, 2, 4), flag="--pp-virtual",
+         doc="virtual stage chunks per physical stage (interleaved "
+             "schedule): bubble shrinks V x for V x more in-flight "
+             "chunk activations and V x the edge traffic"),
     # Mixture-of-experts knobs (parallel/moe.py): all three change what
     # the model computes (an architecture, a routing distribution), so
     # all are semantic. The LM CLI reads them (examples/lm_train.py); the
@@ -269,11 +289,8 @@ KNOBS: tuple[Knob, ...] = (
 # The JAX package's knobs that the port does not carry yet -> the
 # ROADMAP Queue 1 item that ports them (their env variables are refused
 # by utils/config.py:_UNPORTED_ENV).
-_PIPELINE = "item 10.7 (parallel/pipeline.py)"
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_KNOBS = {
-    "pp_schedule": _PIPELINE, "pp_microbatches": _PIPELINE,
-    "pp_virtual": _PIPELINE,
     **{name: _FLEET for name in (
         "fleet_roles", "router_policy", "kv_wire", "fleet_health",
         "fleet_probe_backoff_ms", "fleet_step_deadline_ms",
@@ -305,9 +322,12 @@ def space_version() -> str:
 
 
 # Knobs that no trial reads: the trials build the image ladder's trainer
-# (runner.py, models.get_model), which has no routed layer, while the MoE
-# knobs configure the LM. They keep their constraint rules (violations).
-_NOT_IN_TRIALS = frozenset({"moe_experts", "moe_top_k", "moe_capacity"})
+# (runner.py, models.get_model), which has no routed layer and no
+# pipeline, while the MoE and pipeline knobs configure the LM. They keep
+# their constraint rules (violations).
+_NOT_IN_TRIALS = frozenset({"moe_experts", "moe_top_k", "moe_capacity",
+                            "pp_schedule", "pp_microbatches",
+                            "pp_virtual"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,8 +343,9 @@ class Workload:
     # degrade/duplicate rules are family-shaped (memory/policy.py).
     model_family: str = ""
     # Pipeline context: stages and the model's layer count (0 =
-    # unknown). The port has no pipeline rung (item 10.7), so pp is 1
-    # and the pipeline rules stay inert.
+    # unknown). workload_for leaves pp at 1: the tuner's trials train
+    # the image ladder, which runs no pipeline, and the LM CLI, which
+    # does (TPU_DDP_LM_PP), is not tuned.
     pp: int = 1
     model_layers: int = 0
     # Expert-parallel extent: 1 until a launcher runs ep > 1 (LMTrainer

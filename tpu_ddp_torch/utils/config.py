@@ -36,10 +36,6 @@ _FALSE = ("0", "false", "no", "off")
 _FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_ENV = {
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
-    "TPU_DDP_PP_SCHEDULE": (("gpipe",), "item 10.7 (parallel/pipeline.py)"),
-    "TPU_DDP_PP_MICROBATCHES": (("0",),
-                                "item 10.7 (parallel/pipeline.py)"),
-    "TPU_DDP_PP_VIRTUAL": (("1",), "item 10.7 (parallel/pipeline.py)"),
     "TPU_DDP_FLEET_ROLES": (("single",), _FLEET),
     "TPU_DDP_ROUTER_POLICY": (("least-loaded",), _FLEET),
     "TPU_DDP_KV_WIRE": (("none",), _FLEET),
@@ -230,6 +226,18 @@ class TrainConfig:
     # ceil(T * capacity * top_k / E). Env: TPU_DDP_MOE_CAPACITY.
     moe_capacity: float = 1.25
 
+    # Pipeline schedule knobs (parallel/pipeline.py), read by the LM CLI's
+    # pipeline rung (examples/lm_train.py at TPU_DDP_LM_PP > 1).
+    # pp_schedule: "gpipe", "1f1b", "interleaved" (pp_virtual chunks per
+    # stage) or "zerobubble"; pp_microbatches 0 = auto (= pp); pp_virtual
+    # > 1 needs the interleaved schedule and num_layers % (pp *
+    # pp_virtual) == 0, which PipelineLMTrainer checks where the model is
+    # known (tune/space.py mirrors them as violations). Env:
+    # TPU_DDP_PP_SCHEDULE / TPU_DDP_PP_MICROBATCHES / TPU_DDP_PP_VIRTUAL.
+    pp_schedule: str = "gpipe"
+    pp_microbatches: int = 0
+    pp_virtual: int = 1
+
     # Continuous-batching decode slots — the live-batch width of the
     # whole-bank decode step. Env: TPU_DDP_SERVE_SLOTS.
     serve_slots: int = 8
@@ -331,6 +339,26 @@ class TrainConfig:
             raise ValueError(
                 f"autotune={self.autotune!r}: expected off|cached|search "
                 "(TPU_DDP_AUTOTUNE)")
+        env_ps = os.environ.get("TPU_DDP_PP_SCHEDULE")
+        if env_ps:
+            self.pp_schedule = env_ps
+        if self.pp_schedule not in ("gpipe", "1f1b", "interleaved",
+                                    "zerobubble"):
+            raise ValueError(
+                f"pp_schedule={self.pp_schedule!r}: expected "
+                "gpipe|1f1b|interleaved|zerobubble (TPU_DDP_PP_SCHEDULE)")
+        self.pp_microbatches = _env_num(
+            "TPU_DDP_PP_MICROBATCHES", int, self.pp_microbatches)
+        if self.pp_microbatches < 0:
+            raise ValueError(
+                f"pp_microbatches must be >= 0 (0 = auto), got "
+                f"{self.pp_microbatches} (TPU_DDP_PP_MICROBATCHES)")
+        self.pp_virtual = _env_num(
+            "TPU_DDP_PP_VIRTUAL", int, self.pp_virtual)
+        if self.pp_virtual < 1:
+            raise ValueError(
+                f"pp_virtual must be >= 1, got {self.pp_virtual} "
+                "(TPU_DDP_PP_VIRTUAL)")
         self.moe_experts = _env_num(
             "TPU_DDP_MOE_EXPERTS", int, self.moe_experts)
         if self.moe_experts < 0:
