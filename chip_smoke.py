@@ -536,6 +536,28 @@ Phases 35-37 run the image trainer's last model families:
    before them, and the dense step at ``grad_accum`` = M beside them. The
    1f1b step's K = 2 call (one CUDA graph) must give the two eager steps'
    bits, and one replay of it is timed.
+51. the MPMD pipeline (``parallel/mpmd.py``): ``MPMDPipeline`` with every
+   stage in this process at TransformerLM-large's width and depth (bf16,
+   flash, batch 4 x 2048, M = 4, parameters from one seed) against one
+   dense ``LMTrainer`` step's gradients: pp = 2 and pp = 4 with f32
+   (``none``) edges, the loss within 2e-3 relative and each leaf within
+   1e-2 by relative Frobenius error (phase 50's bounds), an edge that
+   delivers two microbatches swapped must trip the 1e-2 bound, and the
+   flash launches of each ``step_grads`` call, counted from 0, exactly
+   M x (2 x (L - L/pp) + L/pp) forwards and M x L of each sweep (pp = 2:
+   72 / 48 / 48, pp = 4: 84 / 48 / 48), all wgmma. Cross-slice wires
+   (``SliceTopology.even(2, 2)``): ``bf16`` edges must give the f32
+   edges' bits at ratio 2.0 (every payload holds bf16 values), ``int8``
+   a ratio of 3.5 or more and each leaf within 0.1 of the f32 edges'
+   (recorded). Each wire through a socket pair to and from the card
+   decodes as in process. The two-process drill, ``python -m
+   tpu_ddp_torch.launch mpmd --nproc 2 --device cuda:0`` with int8
+   edges and 3 steps (both ranks on this card over one TCP socket,
+   started first and run beside the checks): exit 0 and ``RESULT ...
+   OK``, each rank's edge and stage-scheduler stats kept. Readings: ms
+   per train step at pp = 2 (AdamW, the median of 3 after a warm-up)
+   beside phase 50's 1f1b and dense ``grad_accum`` = 4 steps, edge
+   bytes per step dense and on the wire, the peak of the gradient pass.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -546,8 +568,9 @@ flash kernels' on phases 27-28's and 33's and the BN and SGD kernels' on
 phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
 on 42's elastic run and 44's trials; the flash kernels' on 45's and
-46's eager steps and captures, on 48's Ulysses ranks, on 49's tp ranks
-and on 50's pipeline schedules; the int8 kernel's on 49's tp decode
+46's eager steps and captures, on 48's Ulysses ranks, on 49's tp ranks,
+on 50's pipeline schedules and 51's MPMD stages; the int8 kernel's on
+49's tp decode
 pass), beside each main-path count; the int8 row also the 32-row
 prefill's bound, 48's 16-row cp-prefill pass and 49's rank pass at tp =
 2; the flash rows 49's block times per rank; the BN, SGD and flash rows
@@ -3948,28 +3971,41 @@ def vgg_policy(dev) -> dict:
                                 "tol": 5e-2 * update}}
 
 
-def _example(module: str, argv, env: dict) -> tuple[str, float]:
-    """Run ``python -m module argv`` on the card in a session of its own
-    (stopped with its children past EXAMPLE_TIMEOUT_S); fails unless it
-    exits 0. Returns its output and wall seconds."""
+def _start_example(module: str, argv, env: dict) -> tuple:
+    """Start ``python -m module argv`` on the card in a session of its
+    own; returns ``(process, start time)`` for :func:`_finish_example`."""
     run_env = {k: v for k, v in os.environ.items()
                if not k.startswith("TPU_DDP_")}
     run_env.update(env, PYTHONPATH=os.path.dirname(os.path.abspath(
         __file__)))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", module, *argv],
+    return subprocess.Popen([sys.executable, "-m", module, *argv],
                             env=run_env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+                            start_new_session=True), time.perf_counter()
+
+
+def _finish_example(started, phase: str,
+                    timeout: float = EXAMPLE_TIMEOUT_S) -> tuple[str, float]:
+    """Wait for a :func:`_start_example` process (stopped with its
+    children past ``timeout`` seconds from its start); fails unless it
+    exits 0. Returns its output and wall seconds."""
+    proc, t0 = started
     try:
-        out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        out, _ = proc.communicate(
+            timeout=max(timeout - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         proc.communicate()
-        fail(f"phase 30: {module} ran past {EXAMPLE_TIMEOUT_S} s")
+        fail(f"{phase}: {proc.args[2]} ran past {timeout} s")
     if proc.returncode != 0:
-        fail(f"phase 30: {module} exited {proc.returncode}:\n{out[-3000:]}")
+        fail(f"{phase}: {proc.args[2]} exited {proc.returncode}:\n"
+             f"{out[-3000:]}")
     return out, time.perf_counter() - t0
+
+
+def _example(module: str, argv, env: dict) -> tuple[str, float]:
+    """Run ``python -m module argv`` on the card to its end (phase 30)."""
+    return _finish_example(_start_example(module, argv, env), "phase 30")
 
 
 def examples_on_card(dev) -> dict:
@@ -8346,6 +8382,223 @@ def pipeline_parallel(dev, seed: int) -> dict:
     return out
 
 
+# The MPMD pipeline (phase 51) at TransformerLM-large's width and depth,
+# every stage in this process, then the two-process drill on one card.
+MPMD_MICRO, MPMD_TIMED, MPMD_INT8_TOL = 4, 3, 0.1
+MPMD_DRILL_TIMEOUT_S = 150
+
+
+def _mpmd_flash_want(layers: int, pp: int, micro: int) -> dict:
+    """One ``step_grads`` call's flash launches: the stages before the
+    last forward twice per layer and microbatch (without a graph, then
+    the backward's recompute), the last stage once (its fused pass), and
+    every layer sweeps once per microbatch."""
+    last = layers // pp
+    return _flash_want(micro * (2 * (layers - last) + last), micro * layers)
+
+
+def _rank_lines(out: str, key: str) -> dict:
+    """Each rank's ``[mpmd] rank=R <key> {...}`` line, as text by rank."""
+    return {m.group(1): m.group(2) for m in re.finditer(
+        rf"\[mpmd\] rank=(\d) {key} (.*)", out)}
+
+
+def mpmd_pipeline(dev, seed: int, ppar: dict) -> dict:
+    """Phase 51: the MPMD pipeline at LM-large against one dense step, the
+    cross-slice wires, the two-process drill; see the module docstring.
+    ``ppar``: phase 50's results (its 1f1b and grad_accum timings)."""
+    t_phase = time.perf_counter()
+    # (c) the two-process drill, both ranks on this card over a socket:
+    # started first, it reaches the card while the checks below run, and
+    # ends before the timed steps.
+    drill = _start_example(
+        "tpu_ddp_torch.launch", ["mpmd", "--nproc", "2", "--device",
+                                 str(dev)],
+        {"TPU_DDP_MPMD_COMPRESS": "int8", "TPU_DDP_MPMD_STEPS": "3"})
+    try:
+        return _mpmd_checks(dev, seed, ppar, drill, t_phase)
+    finally:
+        if drill[0].poll() is None:
+            os.killpg(drill[0].pid, 9)
+            drill[0].communicate()
+
+
+def _mpmd_checks(dev, seed: int, ppar: dict, drill, t_phase) -> dict:
+    """Phase 51's checks and readings beside the running ``drill``."""
+    from tpu_ddp_torch.convert import stacked_from_dense
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.optim import AdamW, SGD
+    from tpu_ddp_torch.parallel import mpmd
+    from tpu_ddp_torch.parallel.compress import EdgeCodec
+    from tpu_ddp_torch.train.lm import LMTrainer, make_lm_batch
+    from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
+
+    class SwappedEdge(mpmd.InProcessEdge):
+        """The planted fault: the first two messages delivered swapped."""
+
+        def recv(self):
+            if self.messages >= 2 and not getattr(self, "done", False):
+                self.done = True
+                self._q.rotate(-1)
+            return super().recv()
+
+    model = make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                             use_flash=True)
+    L = model.num_layers
+    tokens = np.random.default_rng(seed).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    wrappers = _flash_wrappers()
+    dense = LMTrainer(model, device=dev, optimizer=SGD(learning_rate=0.1))
+    state = dense.init_state(seed=seed)
+    x, y = dense.put_batch(*make_lm_batch(tokens))
+    d_loss, _, d_grads = dense.step_grads(state, x, y)
+    d_loss = float(d_loss)
+    want = tree_leaves(stacked_from_dense(tree_unflatten(
+        state.params, list(d_grads))))
+    with torch.no_grad():
+        params = stacked_from_dense(
+            tree_unflatten(state.params, [p.detach() for p in tree_leaves(
+                state.params)]))
+    del state, d_grads, dense
+    torch.cuda.empty_cache()
+    out = {"model": model.name, "batch": LM_BATCH, "seq": LM_SEQ,
+           "micro": MPMD_MICRO, "dense_loss": d_loss,
+           "seconds": {"dense": time.perf_counter() - t_phase}}
+
+    def grads_of(pipe):
+        """One counted, peak-measured step_grads call."""
+        _zero_launches(wrappers)
+        (loss, g), peak = _grads_peak(lambda: pipe.step_grads(params, x, y))
+        st = pipe.edge_stats()
+        edges = st["down"] + st["up"]
+        return float(loss), tree_leaves(g), {
+            "launches": _launches(wrappers), "grads_peak_gib_above": peak,
+            "edge_dense_bytes_per_step": sum(e["dense_bytes"] for e in edges),
+            "edge_wire_bytes_per_step": sum(e["wire_bytes"] for e in edges),
+            "ratio_min": min(e["ratio"] for e in edges),
+            "specs": sorted({e["spec"] for e in edges})}
+
+    def against_dense(loss, g):
+        errs = [_rel_frob(a, b) for a, b in zip(g, want)]
+        loss_err = abs(loss - d_loss) / abs(d_loss)
+        return {"loss": loss, "loss_rel_err": loss_err,
+                "grad_rel_frob_max": max(errs),
+                "ok": max(errs) <= PP_GRAD_TOL and loss_err <= PP_LOSS_TOL}
+
+    # (a) f32 edges at pp = 2 and 4 against the dense step, flash counted.
+    ref = None
+    for pp in (2, 4):
+        t_run = time.perf_counter()
+        pipe = mpmd.MPMDPipeline(model, pp, LM_SEQ, num_micro=MPMD_MICRO,
+                                 compress="none", device=dev)
+        loss, g, run = grads_of(pipe)
+        run.update(against_dense(loss, g))
+        want_flash = _mpmd_flash_want(L, pp, MPMD_MICRO)
+        if run["launches"] != want_flash:
+            fail(f"phase 51: pp={pp} flash launches {run['launches']}, "
+                 f"expected {want_flash}")
+        if not run.pop("ok"):
+            fail(f"phase 51: pp={pp} against the dense step: loss error "
+                 f"{run['loss_rel_err']} (tol {PP_LOSS_TOL}), worst leaf "
+                 f"{run['grad_rel_frob_max']} (tol {PP_GRAD_TOL})")
+        if pp == 2:
+            ref = (loss, g)
+            # The planted fault must trip the bound.
+            pipe.down[0] = SwappedEdge(EdgeCodec("none"), device=dev)
+            bad = against_dense(*grads_of(pipe)[:2])
+            if bad["ok"]:
+                fail(f"phase 51: a swapped edge moved no leaf past "
+                     f"{PP_GRAD_TOL} (worst {bad['grad_rel_frob_max']})")
+            run["planted_swap_grad_rel_frob"] = bad["grad_rel_frob_max"]
+        run["seconds"] = time.perf_counter() - t_run
+        out[f"pp{pp}"] = run
+        del pipe
+    # (b) cross-slice wires at pp = 2: bf16 the f32 edges' bits, int8
+    # within MPMD_INT8_TOL of them.
+    t_run = time.perf_counter()
+    for spec in ("bf16", "int8"):
+        pipe = mpmd.MPMDPipeline(model, 2, LM_SEQ, num_micro=MPMD_MICRO,
+                                 topology=mpmd.SliceTopology.even(2, 2),
+                                 compress=spec, device=dev)
+        loss, g, run = grads_of(pipe)
+        errs = [_rel_frob(a, b) for a, b in zip(g, ref[1])]
+        run.update(loss=loss, vs_f32_edges_grad_rel_frob_max=max(errs),
+                   vs_f32_edges_grad_rel_frob=errs)
+        if spec == "bf16":
+            same = loss == ref[0] and all(
+                torch.equal(a, b) for a, b in zip(g, ref[1]))
+            run["bitwise_equal_f32_edges"] = same
+            if not (same and run["ratio_min"] == 2.0):
+                fail(f"phase 51: bf16 edges bit-equal to f32 edges {same} "
+                     f"(worst leaf {max(errs)}), ratio {run['ratio_min']}")
+        elif not (run["ratio_min"] >= 3.5 and max(errs) <= MPMD_INT8_TOL):
+            fail(f"phase 51: int8 edges ratio {run['ratio_min']}, worst "
+                 f"leaf {max(errs)} from the f32 edges (tol "
+                 f"{MPMD_INT8_TOL})")
+        out[f"cross_{spec}"] = run
+        del pipe, g
+    out["seconds"]["cross"] = time.perf_counter() - t_run
+    # Each wire through a socket pair from and to the card, against the
+    # same wire decoded in process; then the drill's end.
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    socket_wires = {}
+    for spec in ("none", "bf16", "int8", "sparse"):
+        a, b = socket.socketpair()
+        try:
+            tx = mpmd.SocketEdge(a, EdgeCodec(spec, seed=1))
+            twin = EdgeCodec(spec, seed=1)
+            rx = mpmd.SocketEdge(b, device=dev)
+            payload = torch.randn(4, 1024, generator=gen, device=dev)
+            payload[:, :512] = 0.0
+            same = True
+            for k in range(2):
+                tx.send((k + 1) * payload)
+                got = rx.recv()
+                same = same and got.device == dev and torch.equal(
+                    got, EdgeCodec.decode(twin.encode((k + 1) * payload)[0],
+                                          dev))
+        finally:
+            a.close()
+            b.close()
+        if not same:
+            fail(f"phase 51: a {spec} wire through a socket differs from "
+                 "the same wire decoded in process")
+        socket_wires[spec] = tx.stats()["ratio"]
+    out["socket_wires_ratio"] = socket_wires
+    drill, wall = _finish_example(drill, "phase 51", MPMD_DRILL_TIMEOUT_S)
+    result = re.search(r"\[mpmd\] RESULT (.*) OK$", drill, re.M)
+    edges, sched = _rank_lines(drill, "edge"), _rank_lines(drill, "sched")
+    if result is None or sorted(edges) != ["0", "1"] or \
+            sorted(sched) != ["0", "1"]:
+        fail(f"phase 51: the drill printed no RESULT ... OK or no stats:\n"
+             f"{drill[-3000:]}")
+    out["drill"] = {"result": result.group(1), "edge_stats": edges,
+                    "stage_stats": sched, "wall_s": wall}
+    # (d) ms per train step at pp = 2 (f32 edges, AdamW as phase 50).
+    t_run = time.perf_counter()
+    pipe = mpmd.MPMDPipeline(model, 2, LM_SEQ, num_micro=MPMD_MICRO,
+                             compress="none", device=dev, optimizer=AdamW())
+    opt = pipe.init_state(params)
+    ms = []
+    for i in range(1 + MPMD_TIMED):
+        t0 = time.perf_counter()
+        _, opt, loss, skipped = pipe.train_step(params, opt, x, y)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if skipped or not math.isfinite(loss):
+            fail(f"phase 51: train step {i} loss {loss}")
+    out["pp2"]["ms_per_step"] = float(np.median(ms))
+    out["phase50_1f1b_ms_per_step"] = ppar["1f1b"]["ms_per_step"]
+    out["phase50_dense_accum_ms_per_step"] = ppar["dense_accum"][
+        "ms_per_step"]
+    del pipe, opt, params
+    torch.cuda.empty_cache()
+    out["seconds"]["timed"] = time.perf_counter() - t_run
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8524,6 +8777,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     ppar = phase("50_pipeline_parallel", pipeline_parallel, dev, args.seed)
     print(json.dumps({"pipeline_parallel": ppar}), flush=True)
+    torch.cuda.empty_cache()
+    mpar = phase("51_mpmd_pipeline", mpmd_pipeline, dev, args.seed, ppar)
+    print(json.dumps({"mpmd_pipeline": mpar}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -8808,7 +9064,11 @@ def main() -> None:
             # Phase 50: one step_grads call of each pipeline schedule at
             # LM-large (M = 4, in-process stages), counted from 0.
             **{f"pipeline_{k}": ppar[k]["launches"][name]
-               for k, *_ in PP_RUNS}}
+               for k, *_ in PP_RUNS},
+            # Phase 51: one MPMD step_grads call at pp = 2 and 4 (M = 4,
+            # every stage in this process, f32 edges), counted from 0.
+            **{f"mpmd_{k}": mpar[k]["launches"][name]
+               for k in ("pp2", "pp4")}}
         # Phase 49: one call at a rank's shape at tp = 2 and 4 (8 and 4
         # heads), alone, beside its bound at that shape.
         row["tp_rank_call"] = {
@@ -8848,6 +9108,7 @@ def main() -> None:
                        "sequence_parallel": seqp,
                        "tensor_parallel": tpar,
                        "pipeline_parallel": ppar,
+                       "mpmd_pipeline": mpar,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -8989,6 +9250,15 @@ def main() -> None:
               for k, *_ in PP_RUNS)
           + f"; 1f1b K=2 replay {ppar['1f1b']['k2_replay_ms_per_step']:.1f}"
           f" ms/step [{card}]", flush=True)
+    mp2 = mpar["pp2"]
+    print(f"mpmd (LM-large, in-process stages, M=4): pp=2 "
+          f"{mp2['ms_per_step']:.1f} ms/step (phase 50 1f1b "
+          f"{mpar['phase50_1f1b_ms_per_step']:.1f}), gradient peak "
+          f"{mp2['grads_peak_gib_above']:.2f} GiB, edge bytes per step "
+          f"{mp2['edge_dense_bytes_per_step']} f32, bf16 "
+          f"{mpar['cross_bf16']['edge_wire_bytes_per_step']}, int8 "
+          f"{mpar['cross_int8']['edge_wire_bytes_per_step']}; drill "
+          f"{mpar['drill']['result']} OK [{card}]", flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ handling the reference lacks.
 The reference is started by hand on every node with the same command
 (reference README.md:8-19). This module spawns ``nproc`` rank processes
 of ``python -m tpu_ddp_torch.parts partN`` (or, for the target ``lm``,
-of the LM CLI ``python -m tpu_ddp_torch.examples.lm_train``) with
+of the LM CLI ``python -m tpu_ddp_torch.examples.lm_train``, for ``mpmd``
+of the MPMD drill ``python -m tpu_ddp_torch.examples.mpmd_train``) with
 ``--rank i`` and a shared ``127.0.0.1`` coordinator, and watches them:
 
 - the first rank to fail decides the attempt's exit code, and the others
@@ -49,11 +50,17 @@ CLI::
         lm --nproc 2 --device cpu --moe-experts 4 --moe-top-k 2
     TPU_DDP_LM_PP=2 python -m tpu_ddp_torch.launch lm --nproc 2 \
         --device cpu --pp-schedule 1f1b --pp-microbatches 4
+    TPU_DDP_MPMD_COMPRESS=int8 python -m tpu_ddp_torch.launch mpmd \
+        --nproc 2 --device cuda:0
 
 The ``--moe-*`` flags configure the LM's routed MLP and the ``--pp-*``
 flags its pipeline rung, so they go with ``lm`` only (the image parts
 have neither), and ``lm`` refuses every flag that the LM CLI does not
-read.
+read; ``mpmd`` (examples/mpmd_train.py, JAX's ``launch.py
+examples/mpmd_train.py --nproc 2``) reads only the cluster's shape and
+refuses every other flag. Its two processes talk over one TCP socket and
+no process group, so both may share one card: ``--device cuda:0`` gives
+both ranks ``cuda:0``.
 
 ``--device`` replaces the JAX launcher's ``--platform``: the card by
 default (rank i takes ``cuda:i`` when there are several), ``cpu`` runs
@@ -88,6 +95,11 @@ LM = "lm"
 _MOE_DESTS = ("moe_experts", "moe_top_k", "moe_capacity")
 _PP_DESTS = ("pp_schedule", "pp_microbatches", "pp_virtual")
 _LM_DESTS = ("part", "nproc", "device", "port") + _MOE_DESTS + _PP_DESTS
+# The MPMD drill's target (examples/mpmd_train.py) and what it reads.
+MPMD = "mpmd"
+_MPMD_DESTS = ("part", "nproc", "device", "port")
+_CLI_TARGETS = {LM: "tpu_ddp_torch.examples.lm_train",
+                MPMD: "tpu_ddp_torch.examples.mpmd_train"}
 
 # Flags of the JAX launcher that the port does not carry yet -> the ROADMAP
 # Queue 1 item that ports what they switch on.
@@ -191,9 +203,9 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
     every rank still running is killed (exit -9)."""
     if nproc < 1:
         raise ValueError("nproc must be >= 1")
-    if part not in PARTS + (LM,):
+    if part not in PARTS + tuple(_CLI_TARGETS):
         raise ValueError(f"unknown part {part!r}; available: "
-                         f"{PARTS + (LM,)}")
+                         f"{PARTS + tuple(_CLI_TARGETS)}")
     port = port or find_free_port()
     monitor = None
     if heartbeat_timeout is not None:
@@ -232,7 +244,7 @@ def launch(part: str, nproc: int, extra_args: list | None = None,
         child_env["PYTHONPATH"] = os.pathsep.join(
             [str(REPO)] + [x for x in child_env.get("PYTHONPATH", "")
                            .split(os.pathsep) if x])
-        target = (["tpu_ddp_torch.examples.lm_train"] if part == LM
+        target = ([_CLI_TARGETS[part]] if part in _CLI_TARGETS
                   else ["tpu_ddp_torch.parts", part])
         cmd = [sys.executable, "-m", *target,
                "--num-nodes", str(nproc), "--rank", str(rank),
@@ -666,8 +678,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tpu_ddp_torch.launch",
         description="spawn an N-process local cluster running one part")
-    p.add_argument("part", help=f"one of {', '.join(PARTS + (LM,))} "
-                                "(lm: examples/lm_train.py)")
+    p.add_argument("part", help=f"one of "
+                                f"{', '.join(PARTS + tuple(_CLI_TARGETS))} "
+                                "(lm: examples/lm_train.py, mpmd: "
+                                "examples/mpmd_train.py)")
     p.add_argument("--nproc", type=int, required=True,
                    help="number of rank processes (the --num-nodes value)")
     p.add_argument("--device", default=None,
@@ -778,14 +792,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_target(p: argparse.ArgumentParser, args) -> None:
     """Refuse a flag that the launched program would not read: ``--moe-*``
-    with an image part, an image part's flag with ``lm``."""
-    if args.part == LM:
+    with an image part, an image part's flag with ``lm``, any flag but
+    the cluster's shape with ``mpmd``."""
+    if args.part in _CLI_TARGETS:
+        reads, cli = ((_LM_DESTS, "the LM CLI (examples/lm_train.py)")
+                      if args.part == LM else
+                      (_MPMD_DESTS, "the MPMD drill (examples/mpmd_train.py)"))
         unread = sorted(f"--{d.replace('_', '-')}"
                         for d, v in vars(args).items()
-                        if d not in _LM_DESTS and v != p.get_default(d))
+                        if d not in reads and v != p.get_default(d))
         if unread:
-            p.error(f"{', '.join(unread)}: the LM CLI "
-                    "(examples/lm_train.py) does not read them")
+            p.error(f"{', '.join(unread)}: {cli} does not read them")
         return
     moe = [f"--{d.replace('_', '-')}" for d in _MOE_DESTS
            if getattr(args, d) is not None]

@@ -89,6 +89,12 @@ class SGD:
              skip=skip)
         return state
 
+    @staticmethod
+    def decay_mask(params):
+        """None: SGD decays every leaf uniformly (torch semantics; JAX
+        ``SGD.decay_mask``)."""
+        return None
+
 
 def new_count(params) -> torch.Tensor:
     """A fresh step count: a 0-d int32 zero on the parameters' device."""

@@ -41,6 +41,18 @@ zeros, error feedback against drift), not bit for bit. In a checkpoint
 the carry is the JAX package's: ``seed`` a uint32 and each residual leaf
 ``(dp, *shape)``.
 
+The point-to-point edge codec of the MPMD pipeline (:class:`EdgeCodec`,
+``EDGE_SPECS``; parallel/mpmd.py) ships one activation or cotangent per
+tick in the same formats, plus ``sparse`` (lossless zero-chunk elision
+on the host, a packed bitmap of the nonzero ``block_size`` chunks and
+only those chunks at f32: the payload's size depends on the data, which
+a collective's cannot). An edge's int8 error feedback is sender state:
+each tick's quantization error joins the next payload on the same edge.
+Its wires are dicts of arrays in the JAX package's layout (the bf16
+payload the bf16 bits viewed as ``uint16``, int8 ``q`` and per-block
+``scale``), so a pickled wire from either package decodes in the other;
+the int8 noise is the counter hash above, keyed by the edge's counter.
+
 The cold-page codec of the tiered KV pool (``page_quantize``,
 ``page_dequantize``) is the same per-block symmetric int8 with
 deterministic round-half-to-even (``torch.round``, as ``jnp.round``): a
@@ -55,10 +67,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["SPECS", "REPLICATED_KINDS", "GradCompressor", "get_compressor",
-           "page_quantize", "page_dequantize"]
+__all__ = ["SPECS", "EDGE_SPECS", "REPLICATED_KINDS", "GradCompressor",
+           "EdgeCodec", "get_compressor", "page_quantize", "page_dequantize"]
 
 SPECS = ("none", "bf16", "int8", "int8-noef")
+# Point-to-point wires only (EdgeCodec): "sparse" sizes its payload from
+# the data, which the collectives' static shapes cannot carry.
+EDGE_SPECS = SPECS + ("sparse",)
 # Replicated rungs the compressor wraps; ZeRO and FSDP use scatter_mean.
 REPLICATED_KINDS = ("gather_scatter", "all_reduce", "fused")
 
@@ -390,6 +405,142 @@ class GradCompressor:
         if not self.is_int8:
             return outs, None
         return outs, self._new_comp(comp, errs, shapes)
+
+
+class EdgeCodec:
+    """Wire codec of ONE directed MPMD edge (JAX ``EdgeCodec``).
+
+    Stateful on the sender (the int8 rounding counter and the optional
+    error-feedback residual); :meth:`decode` is stateless. ``encode``
+    returns ``(wire, nbytes)``: ``wire`` a dict of the tensors (numpy
+    arrays for ``sparse``) that travel, ``nbytes`` their payload bytes
+    (f32 would be ``4 * x.numel()``)."""
+
+    def __init__(self, spec: str = "none", block_size: int = 256,
+                 seed: int = 0):
+        if spec not in EDGE_SPECS:
+            raise ValueError(
+                f"unknown edge codec spec {spec!r}; available: "
+                f"{list(EDGE_SPECS)}")
+        self.spec = spec
+        self.is_int8 = spec.startswith("int8")
+        self.error_feedback = spec == "int8"
+        # The quantizer (and block_size's validation) of the collectives.
+        self._k = GradCompressor("int8" if self.is_int8 else "none",
+                                 block_size=block_size)
+        self.block_size = self._k.block_size
+        self._seed = int(seed) & _M32
+        self._residual = None   # sized to the edge's payload at first use
+        self.bytes_sent = 0     # cumulative wire bytes
+        self.bytes_dense = 0    # what f32 would have cost
+
+    def describe(self) -> dict:
+        return {"spec": self.spec,
+                "block_size": self.block_size if self.is_int8 else None,
+                "error_feedback": self.error_feedback}
+
+    @property
+    def ratio(self) -> float:
+        """Dense over wire bytes so far (1.0 before any traffic)."""
+        return (self.bytes_dense / self.bytes_sent
+                if self.bytes_sent else 1.0)
+
+    def reset(self) -> None:
+        """Drop the carried state: a new edge peer must not inherit a
+        residual accumulated against the old one."""
+        self._residual = None
+        self.bytes_sent = 0
+        self.bytes_dense = 0
+
+    # ---- sender ----------------------------------------------------------
+
+    @torch.no_grad()
+    def encode(self, x) -> tuple[dict, int]:
+        x = torch.as_tensor(x).detach().to(torch.float32)
+        self.bytes_dense += 4 * x.numel()
+        if self.spec == "none":
+            wire, nbytes = {"kind": "none", "payload": x}, 4 * x.numel()
+        elif self.spec == "bf16":
+            wire = {"kind": "bf16",
+                    "payload": x.to(torch.bfloat16).view(torch.uint16)}
+            nbytes = 2 * x.numel()
+        elif self.spec == "sparse":
+            wire, nbytes = self._encode_sparse(x)
+        else:
+            wire, nbytes = self._encode_int8(x)
+        self.bytes_sent += nbytes
+        return wire, nbytes
+
+    def _encode_sparse(self, x) -> tuple[dict, int]:
+        """Lossless zero-chunk elision on the host: the flat f32 payload
+        cut into ``block_size`` chunks, a packed bitmap of the chunks
+        holding a nonzero, and only those chunks."""
+        b = self.block_size
+        flat = x.cpu().numpy().reshape(-1)
+        n = max(1, -(-flat.size // b))
+        padded = np.zeros((n * b,), np.float32)
+        padded[:flat.size] = flat
+        rows = padded.reshape(n, b)
+        nz = np.any(rows != 0.0, axis=1)
+        mask = np.packbits(nz)
+        wire = {"kind": "sparse", "payload": rows[nz], "mask": mask,
+                "chunks": n, "chunk": b, "shape": tuple(x.shape)}
+        return wire, 4 * int(nz.sum()) * b + int(mask.size)
+
+    def _encode_int8(self, x) -> tuple[dict, int]:
+        flat = x.reshape(-1)
+        if self.error_feedback:
+            if (self._residual is None
+                    or self._residual.shape != flat.shape
+                    or self._residual.device != flat.device):
+                self._residual = torch.zeros_like(flat)
+            flat = flat + self._residual
+        n = flat.numel()
+        padded = torch.nn.functional.pad(flat, (0, self._k._qchunk(n) - n))
+        seed = torch.tensor(self._seed, dtype=torch.int64, device=x.device)
+        self._seed = (self._seed + 1) & _M32
+        q, scale = self._k.quant(padded, self._k.uniform(
+            padded.shape, self._k.key(seed, 0, 0)))
+        if self.error_feedback:
+            self._residual = flat - self._k.dequant(q, scale)[:n]
+        wire = {"kind": "int8", "q": q, "scale": scale,
+                "shape": tuple(x.shape)}
+        return wire, q.numel() + 4 * scale.numel()
+
+    # ---- receiver (stateless) --------------------------------------------
+
+    @staticmethod
+    @torch.no_grad()
+    def decode(wire: dict, device=None):
+        """The f32 payload of ``wire`` (tensors or numpy arrays, this
+        package's or the JAX package's), on ``device`` (where the wire's
+        tensors are when None; the CPU for ``sparse``)."""
+        def t(v):
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v))  # a writable copy
+            return v if device is None else v.to(device)
+
+        kind = wire["kind"]
+        if kind == "none":
+            return t(wire["payload"]).to(torch.float32)
+        if kind == "bf16":
+            return t(wire["payload"]).view(torch.bfloat16).to(torch.float32)
+        shape = tuple(wire["shape"])
+        size = int(np.prod(shape)) if shape else 1
+        if kind == "int8":
+            q, scale = t(wire["q"]), t(wire["scale"])
+            k = GradCompressor("int8", block_size=q.numel() // scale.numel())
+            return k.dequant(q, scale)[:size].reshape(shape)
+        if kind == "sparse":
+            n, b = int(wire["chunks"]), int(wire["chunk"])
+            nz = np.unpackbits(np.asarray(wire["mask"]),
+                               count=n).astype(bool)
+            rows = np.zeros((n, b), np.float32)
+            if nz.any():
+                rows[nz] = np.asarray(wire["payload"],
+                                      np.float32).reshape(-1, b)
+            return t(rows.reshape(-1)[:size].reshape(shape))
+        raise ValueError(f"unknown edge wire kind {kind!r}")
 
 
 def page_quantize(x, cold_dtype):

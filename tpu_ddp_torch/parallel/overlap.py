@@ -281,7 +281,7 @@ class ShardedUpdate:
     padded tail stays zero (zero parameter, gradient and momentum)."""
 
     def __init__(self, inner, plan: BucketPlan, group=None):
-        if hasattr(inner, "decay_mask"):
+        if inner.decay_mask([]) is not None:
             raise NotImplementedError(
                 "the sharded update supports uniformly-decaying "
                 "optimizers only (SGD): a per-leaf decay mask cannot "

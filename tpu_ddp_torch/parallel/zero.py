@@ -406,13 +406,10 @@ def _refuse_factored(inner) -> None:
 
 def _inner_apply(inner, params, grads, state, decay_mask, skip):
     """The inner optimizer's in-place update, with the decay mask of the
-    original leaves (AdamW) and the guard's flag (SGD)."""
-    kw = {}
-    if skip is not None:
-        kw["skip"] = skip
-    if hasattr(inner, "decay_mask"):
-        kw["decay_mask"] = decay_mask
-    return inner.apply(params, grads, state, **kw)
+    original leaves (AdamW; SGD decays every leaf) and the guard's flag
+    (SGD)."""
+    kw = {} if skip is None else {"skip": skip}
+    return inner.apply(params, grads, state, decay_mask=decay_mask, **kw)
 
 
 class ZeRO1(_FlatLayout):

@@ -34,6 +34,10 @@ stream waited for it before the event was recorded: device prefetch's
 copy stream (the step waits on the copy's event, data/prefetch.py) and
 the bucketed overlap's collectives (the update waits on their work
 handles, parallel/overlap.py) both do.
+
+:class:`StageScheduler` is one such window per pipeline stage for the
+MPMD pipeline (parallel/mpmd.py), with each stage's ticks classified
+into the 1F1B phases.
 """
 
 from __future__ import annotations
@@ -181,6 +185,80 @@ class DispatchPipeline:
         # epoch loop; the handles behind it stay queued and die with the
         # loop: no harvested-results consumer saw their steps.
         on_ready(value)
+
+
+class StageScheduler:
+    """Per-stage dispatch windows and tick accounting for the MPMD
+    pipeline (JAX ``StageScheduler``): :class:`DispatchPipeline` with one
+    window per stage, so a fast early stage cannot run arbitrarily far
+    ahead of a slow late one.
+
+    The MPMD host loop calls :meth:`tick` once per (stage, tick) with
+    that tick's validity bits, classified into the 1F1B phases:
+    ``warmup`` (forward only, the fill ramp), ``steady`` (both),
+    ``cooldown`` (backward only, the drain ramp) and ``idle`` (neither:
+    this stage's share of the bubble). A handle given with the tick (a
+    CUDA event on the card) bounds that stage's in-flight work through
+    its window. :meth:`step_done` is the per-step barrier: every window
+    drains, then the heartbeat hook fires (the epoch loop's
+    ``touch_heartbeat`` cadence, so the watchdog works on this rung)."""
+
+    PHASES = ("warmup", "steady", "cooldown", "idle")
+
+    def __init__(self, pp_size: int, depth: int = 2,
+                 heartbeat: Callable[[int], None] | None = None):
+        if pp_size < 1:
+            raise ValueError(f"pp_size must be >= 1, got {pp_size}")
+        self.pp_size = pp_size
+        self.windows = [DispatchPipeline(depth) for _ in range(pp_size)]
+        self.heartbeat = heartbeat
+        self.phase_counts = [dict.fromkeys(self.PHASES, 0)
+                             for _ in range(pp_size)]
+        self.ticks = [0] * pp_size
+        self.steps = 0
+
+    @staticmethod
+    def classify(fwd: bool, bwd: bool) -> str:
+        if fwd and bwd:
+            return "steady"
+        if fwd:
+            return "warmup"
+        if bwd:
+            return "cooldown"
+        return "idle"
+
+    def tick(self, stage: int, fwd: bool, bwd: bool, handle=None) -> str:
+        phase = self.classify(fwd, bwd)
+        self.phase_counts[stage][phase] += 1
+        self.ticks[stage] += 1
+        if handle is not None:
+            self.windows[stage].submit(handle, lambda _v: None)
+        return phase
+
+    def step_done(self, step: int) -> None:
+        for w in self.windows:
+            w.drain()
+        self.steps += 1
+        if self.heartbeat is not None:
+            self.heartbeat(step)
+
+    def bubble_fraction(self, stage: int) -> float:
+        """This stage's idle share of its ticks so far."""
+        t = self.ticks[stage]
+        return self.phase_counts[stage]["idle"] / t if t else 0.0
+
+    def stats(self) -> dict:
+        return {
+            "pp_size": self.pp_size,
+            "steps": self.steps,
+            "stages": [
+                {"ticks": self.ticks[s],
+                 **self.phase_counts[s],
+                 "bubble_fraction": round(self.bubble_fraction(s), 4),
+                 "window": self.windows[s].stats()}
+                for s in range(self.pp_size)
+            ],
+        }
 
 
 def depth_sweep(trainer, state, host_batches, depths,
