@@ -558,6 +558,31 @@ Phases 35-37 run the image trainer's last model families:
    per train step at pp = 2 (AdamW, the median of 3 after a warm-up)
    beside phase 50's 1f1b and dense ``grad_accum`` = 4 steps, edge
    bytes per step dense and on the wire, the peak of the gradient pass.
+52. the mesh compositions: (a) ``PipelineLMTrainer(stages="in_process")``
+   with ``Adafactor()`` at TransformerLM-large's width and depth (bf16,
+   flash, batch 4 x 2048, pp = 2 under 1f1b, M = 4, remat ``blocks``):
+   the flash launches of one ``step_grads`` call, counted from 0,
+   exactly 144 / 48 / 48, all wgmma; the loss within 1e-6 relative and
+   each leaf within 1e-2 by relative Frobenius error of one dense
+   ``LMTrainer`` step on the same parameters and batch; the trainer's
+   update bit for bit the bare Adafactor applied in plain PyTorch stage
+   cell by stage cell (each stacked leaf's ``num_layers / pp`` rows) to
+   the trainer's own gradients, and the same Adafactor over each whole
+   stacked leaf (the planted fault) must differ on at least one leaf;
+   ms per train step (the median of 3) beside phase 50's 1f1b AdamW
+   step and the peaks. (b) tensor-parallel serving at tp = 2: two
+   processes on this card over a gloo group (gloo's collectives take
+   CUDA tensors through the host; NCCL takes one rank per card), each
+   serving LM-large int8 on its slices (``ServeEngine(tp_group=...)``):
+   4 of phase 5's requests (16 new tokens) at k = 0, ``chain`` and
+   ``self-2`` at k = 4, and 2 of phase 24's 1536-token prompts through
+   the single tier, ``kv_tiers=2`` bf16 and ``kv_tiers=3`` int8 (the
+   int8 rows' scales all-reduced over the group). Phases 21's and 24's
+   gates on each rank (chain the k = 0 stream bit for bit, self-2 parting
+   only at a near-tie, bf16 tiers the single tier bit for bit, the int8
+   tiers demoting, promoting and spilling), each run's int8 launches
+   equal to its pass counters (49 per pass per rank, all mma), and both
+   ranks the same tokens. (b) starts first and runs beside (a).
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -569,9 +594,9 @@ phases 29's, 31's and 36's (SGD's on 37's too) and 38-39's (the flash
 kernels' on 39's ViT-tiny group and 41's runs, the BN and SGD kernels'
 on 42's elastic run and 44's trials; the flash kernels' on 45's and
 46's eager steps and captures, on 48's Ulysses ranks, on 49's tp ranks,
-on 50's pipeline schedules and 51's MPMD stages; the int8 kernel's on
-49's tp decode
-pass), beside each main-path count; the int8 row also the 32-row
+on 50's pipeline schedules, 51's MPMD stages and 52's in-process
+Adafactor pipeline; the int8 kernel's on 49's tp decode pass and on
+rank 0's tp = 2 engine runs of 52), beside each main-path count; the int8 row also the 32-row
 prefill's bound, 48's 16-row cp-prefill pass and 49's rank pass at tp =
 2; the flash rows 49's block times per rank; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
@@ -8599,6 +8624,271 @@ def _mpmd_checks(dev, seed: int, ppar: dict, drill, t_phase) -> dict:
     return out
 
 
+# Phase 52: (a) the in-process pipeline with Adafactor at LM-large's width
+# and depth; (b) a tp = 2 serving drill, two processes on this card over
+# a gloo group (gloo's all_reduce takes CUDA tensors; NCCL takes one rank
+# per card).
+PA_LOSS_TOL = 1e-6
+# 52b is cut to fit: every pass of a tp rank waits on 24 gloo round trips
+# through the host, and the two processes share the card (about 140 ms
+# per pass). 2 of phase 5's requests and 2 of phase 24's workload cut to
+# 512-token prompts, 8 new tokens each, 64-token prefill chunks; the hot
+# tier holds one chunk's 4 pages (a prefill evicts a decode frontier,
+# which comes back promoted) and the cold tier 41, under two contexts
+# (pages spill to the host).
+TP_SERVE, TP_SERVE_REQUESTS, TP_SERVE_NEW, TP_PREFILL_CHUNK = 2, 2, 8, 64
+TP_TIER_REQUESTS, TP_TIER_PROMPT = 2, 512
+TP_TIER_HBM_BLOCKS, TP_TIER_COLD_BLOCKS = 5, 42
+TP_SERVE_TIMEOUT_S = 150
+
+
+def _adafactor_cells(before, grads, held, decay, per_cell: bool) -> list:
+    """The bare Adafactor's first step in plain PyTorch on copies of
+    ``before`` with ``grads``: each leaf's stage cells (its ``held`` row
+    blocks) one by one, or (``per_cell=False``) the whole stacked leaf as
+    one cell. Returns the updated leaves."""
+    from tpu_ddp_torch.ops.optim import Adafactor
+    out = []
+    for p0, g0, h, dk in zip(before, grads, held, decay):
+        h = h if per_cell else 1
+        cells = [c.clone() for c in p0.chunk(h)]
+        opt = Adafactor()
+        opt.apply(cells, list(g0.chunk(h)), opt.init(cells),
+                  decay_mask=[dk] * h)
+        out.append(torch.cat(cells) if h > 1 else cells[0])
+    return out
+
+
+def pipeline_adafactor(dev, seed: int, ppar: dict) -> dict:
+    """Phase 52a: ``PipelineLMTrainer(stages="in_process")`` with
+    Adafactor at LM-large (pp = 2, 1f1b, M = 4, remat ``blocks``); see
+    the module docstring. ``ppar``: phase 50's results."""
+    from tpu_ddp_torch.convert import stacked_from_dense
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.ops.optim import Adafactor
+    from tpu_ddp_torch.train.lm import (LMTrainer, PipelineLMTrainer,
+                                       make_lm_batch)
+    from tpu_ddp_torch.utils.tree import tree_leaves, tree_unflatten
+    t0 = time.perf_counter()
+    model = make_transformer("TransformerLM-large", max_seq_len=LM_SEQ,
+                             use_flash=True, remat="blocks")
+    L = model.num_layers
+    tokens = np.random.default_rng(seed).integers(
+        0, model.vocab_size, size=(LM_BATCH, LM_SEQ + 1))
+    wrappers = _flash_wrappers()
+    dense = LMTrainer(model, device=dev, optimizer=Adafactor())
+    state = dense.init_state(seed=seed)
+    with torch.no_grad():
+        init = tree_unflatten(dense._skeleton, [
+            p.detach().clone() for p in tree_leaves(state.params)])
+    x, y = dense.put_batch(*make_lm_batch(tokens))
+    d_loss, _, d_grads = dense.step_grads(state, x, y)
+    d_loss = float(d_loss)
+    d_stacked = tree_leaves(stacked_from_dense(
+        tree_unflatten(state.params, list(d_grads))))
+    del state, d_grads, dense
+    tr = PipelineLMTrainer(model, device=dev, num_micro=PP_MICRO,
+                           schedule="1f1b", pp=2, stages="in_process",
+                           optimizer=Adafactor())
+    st = tr.init_state(params=init)
+    del init
+    _zero_launches(wrappers)
+    (loss_t, lv, g), g_peak = _grads_peak(lambda: tr.step_grads(st, x, y))
+    counts = _launches(wrappers)
+    want = _flash_want(3 * L * PP_MICRO, L * PP_MICRO)
+    if counts != want:
+        fail(f"phase 52a: flash launches {counts}, expected {want}")
+    errs = [_rel_frob(a, b) for a, b in zip(g, d_stacked)]
+    loss_err = abs(float(loss_t) - d_loss) / abs(d_loss)
+    del d_stacked
+    if not (max(errs) <= PP_GRAD_TOL and loss_err <= PA_LOSS_TOL):
+        fail(f"phase 52a: against the dense step: loss error {loss_err} "
+             f"(tol {PA_LOSS_TOL}), worst leaf {max(errs)} (tol "
+             f"{PP_GRAD_TOL})")
+    # The update: the trainer's against the bare Adafactor applied stage
+    # cell by stage cell to the same gradients, bit for bit; the whole
+    # stacked leaf as one cell (the planted fault) must differ.
+    with torch.no_grad():
+        before = [p.detach().clone() for p in lv]
+        grads = [t.detach().clone() for t in g]
+    st = tr.apply_grads(st, lv, g)
+    del g
+    after = tree_leaves(st.params)
+    held = list(tr._held)
+    if sorted(set(held)) != [1, 2]:
+        fail(f"phase 52a: held stage cells per leaf {held}, expected 2 "
+             "for the stacked leaves and 1 for the rest")
+    plain = _adafactor_cells(before, grads, held, tr._decay, True)
+    differ = [i for i, (a, b) in enumerate(zip(after, plain))
+              if not torch.equal(a, b)]
+    if differ:
+        fail(f"phase 52a: {len(differ)} leaves differ from the per-cell "
+             "plain Adafactor's bits")
+    del plain
+    whole = _adafactor_cells(before, grads, held, tr._decay, False)
+    with torch.no_grad():
+        planted = {str(tuple(a.shape)): _rel_frob(a - b, a - c)
+                   for a, b, c in zip(after, whole, before)
+                   if not torch.equal(a, b)}
+    if not planted:
+        fail("phase 52a: Adafactor over whole stacked leaves gave the "
+             "per-cell update's bits; the check cannot see it")
+    del whole, before, grads
+    timed = _pp_steps(tr, st, x, y, first=(st, loss_t))
+    del st, tr
+    return {"model": model.name, "pp": 2, "schedule": "1f1b",
+            "micro": PP_MICRO, "loss": float(loss_t),
+            "loss_rel_err": loss_err, "grad_rel_frob_max": max(errs),
+            "launches": counts, "update_bitwise_per_cell": True,
+            # The leaves (by shape) the whole-leaf update moves off the
+            # per-cell one's bits, each by |after - whole| / |update|.
+            "planted_whole_leaf": planted,
+            "ms_per_step": timed["ms_per_step"],
+            "phase50_1f1b_adamw_ms_per_step": ppar["1f1b"]["ms_per_step"],
+            "grads_peak_gib_above": g_peak,
+            "step_peak_gib_above": timed["step_peak_gib_above"],
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_serve_rank(rank: int, port: int, seed: int,
+                  device: str = "cuda:0") -> None:
+    """Phase 52b's rank ``rank`` (run in a process of its own): LM-large
+    int8 served over a gloo tp group of TP_SERVE processes on this card,
+    phase 21's and 24's runs and gates at tp = 2; prints one ``[tp_serve]
+    rank=R {...}`` line with its streams and readings."""
+    import torch.distributed as dist
+    from tpu_ddp_torch.models.transformer import make_transformer
+    from tpu_ddp_torch.serve.loadgen import make_long_prompt_workload
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=TP_SERVE)
+    model = make_transformer("TransformerLM-large")
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    reqs = [(p, TP_SERVE_NEW, t, s) for p, _, t, s in
+            _serve_requests(model, seed, n=TP_SERVE_REQUESTS)]
+    long = [(np.asarray(sp.prompt), sp.max_new_tokens, sp.temperature,
+             sp.seed) for sp in make_long_prompt_workload(
+                 TP_TIER_REQUESTS, model.vocab_size, seed=seed,
+                 prompt_len=TP_TIER_PROMPT,
+                 max_new=(TP_SERVE_NEW, TP_SERVE_NEW + 1))]
+    runs, out = {}, {}
+    for label, kw, work in (
+            ("k0", {}, reqs),
+            ("chain", dict(spec_k=SPEC_K, spec_draft="chain"), reqs),
+            ("self2", dict(spec_k=SPEC_K, spec_draft="self-2"), reqs),
+            ("tiers1", {}, long),
+            ("tiers2_bf16", dict(kv_tiers=2, kv_cold_dtype="bf16",
+                                 hbm_blocks=TP_TIER_HBM_BLOCKS), long),
+            ("tiers3_int8", dict(kv_tiers=3, kv_cold_dtype="int8",
+                                 hbm_blocks=TP_TIER_HBM_BLOCKS,
+                                 cold_blocks=TP_TIER_COLD_BLOCKS), long)):
+        eng = _serve_engine(model, params, dev, tp_group=dist.group.WORLD,
+                            prefill_chunk=TP_PREFILL_CHUNK, **kw)
+        if eng.tp != TP_SERVE:
+            fail(f"phase 52b rank {rank}: the engine serves at tp "
+                 f"{eng.tp}")
+        run = _drive(eng, work, f"phase 52b rank {rank} {label}", _refs_ok)
+        run["spec"] = eng.spec_stats()
+        run["moves"] = dict(eng.pool.moves)
+        run["pool_heads"] = int(eng.pool.k.shape[3])
+        runs[label] = run
+        out[label] = _summary(run)
+        out[label]["tokens"] = [list(h.tokens) for h in run["handles"]]
+        del eng
+    h = {k: r["handles"] for k, r in runs.items()}
+    chain = _compare_streams(h["k0"], h["chain"])
+    if not chain["bitwise"]:
+        fail(f"phase 52b rank {rank}: the chain stream differs from k=0: "
+             f"{chain}")
+    self2 = _compare_streams(h["k0"], h["self2"])
+    if not self2["bitwise"]:
+        self2 = _compare_streams(h["k0"], h["self2"], model,
+                                 _quantized(model, params))
+    _hold_near_tie(self2, f"phase 52b rank {rank} self-2")
+    bf = _compare_streams(h["tiers1"], h["tiers2_bf16"])
+    if not bf["bitwise"]:
+        fail(f"phase 52b rank {rank}: kv_tiers=2 with bf16 cold pages "
+             f"differs from the single tier: {bf}")
+    m3 = runs["tiers3_int8"]["moves"]
+    if not all(m3[k] > 0 for k in ("demote", "promote", "spill")):
+        fail(f"phase 52b rank {rank}: kv_tiers=3 moved {m3}; every kind "
+             "must be > 0")
+    out.update(chain_vs_k0=chain, self2_vs_k0=self2, bf16_vs_tiers1=bf)
+    print(f"[tp_serve] rank={rank} {json.dumps(out)}", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_serve_start(seed: int) -> tuple:
+    """Start phase 52b's ranks; returns (processes, start time)."""
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPU_DDP_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.tp_serve_rank({r}, {port}, {seed})"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(TP_SERVE)]
+    return procs, time.perf_counter()
+
+
+def _tp_serve_finish(started) -> dict:
+    """Wait for phase 52b's ranks (stopped past TP_SERVE_TIMEOUT_S);
+    each must exit 0 with its result line, and the ranks emit the same
+    tokens."""
+    procs, t0 = started
+    outs = []
+    try:
+        for p in procs:
+            try:
+                o, _ = p.communicate(timeout=max(
+                    TP_SERVE_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 52b: a rank ran past {TP_SERVE_TIMEOUT_S} s")
+            outs.append(o)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.communicate()
+    res = {}
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        m = re.search(rf"\[tp_serve\] rank={r} (.*)", o)
+        if p.returncode != 0 or m is None:
+            fail(f"phase 52b: rank {r} exited {p.returncode}:\n{o[-3000:]}")
+        res[r] = json.loads(m.group(1))
+    for label, run in res[0].items():
+        if "tokens" in run and run["tokens"] != res[1][label]["tokens"]:
+            fail(f"phase 52b: the ranks' {label} tokens differ")
+    wall = time.perf_counter() - t0
+    for run in res[0].values():
+        if isinstance(run, dict):
+            run.pop("tokens", None)
+    return {"rank0": res[0], "ranks_equal": True, "wall_s": wall,
+            "backend": "gloo", "device": "cuda:0 (both ranks)"}
+
+
+def pipeline_adafactor_tp_serve(dev, seed: int, ppar: dict) -> dict:
+    """Phase 52: the tp = 2 drill (b) started first, run beside the
+    in-process Adafactor pipeline (a)."""
+    t0 = time.perf_counter()
+    started = _tp_serve_start(seed)
+    try:
+        pa = pipeline_adafactor(dev, seed, ppar)
+        tps = _tp_serve_finish(started)
+    finally:
+        for p in started[0]:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.communicate()
+    return {"pipeline_adafactor": pa, "tp_serve": tps,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8780,6 +9070,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     mpar = phase("51_mpmd_pipeline", mpmd_pipeline, dev, args.seed, ppar)
     print(json.dumps({"mpmd_pipeline": mpar}), flush=True)
+    torch.cuda.empty_cache()
+    pats = phase("52_pipeline_adafactor_tp_serve",
+                 pipeline_adafactor_tp_serve, dev, args.seed, ppar)
+    print(json.dumps({"pipeline_adafactor_tp_serve": pats}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -8882,6 +9176,13 @@ def main() -> None:
         # the dense pass's, its byte bound, its plain version and
         # torch.matmul.
         "tp2_decode_launches": tpar["int8_decode"]["launches"],
+        # Phase 52b: rank 0's launches in each tp = 2 engine run (a
+        # process of its own over the gloo group; both ranks held to the
+        # engine's pass counters), counted from 0 just before each run.
+        "tp2_serve_rank0": {
+            k: v["int8_launches"]
+            for k, v in pats["tp_serve"]["rank0"].items()
+            if isinstance(v, dict) and "int8_launches" in v},
         "tp2_rank_pass": tpar["int8_decode"]["passes"]["rank"],
         "tp2_dense_pass": tpar["int8_decode"]["passes"]["dense"],
     }, {
@@ -9068,7 +9369,11 @@ def main() -> None:
             # Phase 51: one MPMD step_grads call at pp = 2 and 4 (M = 4,
             # every stage in this process, f32 edges), counted from 0.
             **{f"mpmd_{k}": mpar[k]["launches"][name]
-               for k in ("pp2", "pp4")}}
+               for k in ("pp2", "pp4")},
+            # Phase 52a: one step_grads call of the in-process 1f1b
+            # pipeline with Adafactor (pp = 2, M = 4), counted from 0.
+            "pipeline_in_process_adafactor": pats["pipeline_adafactor"][
+                "launches"][name]}
         # Phase 49: one call at a rank's shape at tp = 2 and 4 (8 and 4
         # heads), alone, beside its bound at that shape.
         row["tp_rank_call"] = {
@@ -9109,6 +9414,7 @@ def main() -> None:
                        "tensor_parallel": tpar,
                        "pipeline_parallel": ppar,
                        "mpmd_pipeline": mpar,
+                       "pipeline_adafactor_tp_serve": pats,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "
@@ -9259,6 +9565,17 @@ def main() -> None:
           f"{mpar['cross_bf16']['edge_wire_bytes_per_step']}, int8 "
           f"{mpar['cross_int8']['edge_wire_bytes_per_step']}; drill "
           f"{mpar['drill']['result']} OK [{card}]", flush=True)
+    pa, tps = pats["pipeline_adafactor"], pats["tp_serve"]["rank0"]
+    print(f"pipeline + Adafactor (LM-large, in-process stages, pp=2 1f1b, "
+          f"M=4): {pa['ms_per_step']:.1f} ms/step (phase 50 1f1b AdamW "
+          f"{pa['phase50_1f1b_adamw_ms_per_step']:.1f}), gradient peak "
+          f"{pa['grads_peak_gib_above']:.2f} GiB, step peak "
+          f"{pa['step_peak_gib_above']:.2f} GiB; tp=2 serving over gloo "
+          "(two processes, one card): " + ", ".join(
+              f"{k} {tps[k]['tokens_per_s']:.1f} tokens/s"
+              for k in ("k0", "chain", "self2", "tiers3_int8"))
+          + f", int8 moves {tps['tiers3_int8']['moves']} [{card}]",
+          flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,12 @@ scatter) and FSDP at dp x pp against the port's replicated run of the same
 mesh, ``FactoredZeRO1`` per stage cell, a MoE model at ep x pp and the
 global-norm clip at dp x pp (replicated and ZeRO-1) against JAX's
 ``PipelineLMTrainer`` (whose MoE pipeline drops the load-balance loss, as
-the port's does), and checkpoints both ways with interleaved rows.
+the port's does), and checkpoints both ways with interleaved rows. The
+in-process stages also compose with the other axes over the world: tp 2,
+sp 2 (ring) and ep 2 (MoE) at dp 2, replicated Adafactor and Adafactor
+under ZeRO-1 at dp 4 (per stage cell), tp 2 under ZeRO-1, each against
+JAX's ``PipelineLMTrainer`` on the mesh whose pp axis is devices, and
+the tp 2 run's checkpoint both ways through JAX's tree.
 After the steps every stage's replicated leaves (embed, ln_f, head) must be
 equal bit for bit. JAX runs its trainers on the virtual devices while the
 ranks run. Beside them ``examples/lm_train`` runs at ``TPU_DDP_LM_PP=2``
@@ -50,6 +55,7 @@ LAYOUT_TOL = dict(rtol=1e-5, atol=1e-6)
 MOE = dict(preset="TransformerLM-moe-tiny",
            model=dict(moe_capacity_factor=8.0))
 ADA = dict(optimizer="adafactor")
+IN_PROCESS = dict(stages="in_process")
 # Binds: the first step's global gradient norm is about 2.8.
 CLIP = 0.5
 
@@ -73,6 +79,33 @@ RUNS = {
     "interleaved_save": dict(pp=2, schedule="interleaved", pp_virtual=2,
                              num_micro=2, save=True),
     "restore_jax": dict(pp=2, schedule="1f1b", num_micro=2, restore=True),
+    # Every stage in one process, composed with the other axes over the
+    # world of 4.
+    "ip_tp2": dict(pp=2, tp=2, schedule="1f1b", num_micro=2, save=True,
+                   **IN_PROCESS),
+    "ip_tp2_zero1": dict(pp=2, tp=2, schedule="1f1b", num_micro=2,
+                         opt_sharding="zero1", **IN_PROCESS),
+    "ip_sp2": dict(pp=2, sp=2, schedule="1f1b", num_micro=2, **IN_PROCESS),
+    "ip_ep2_moe": dict(pp=2, ep=2, schedule="1f1b", num_micro=1,
+                       **IN_PROCESS, **MOE),
+    "ip_ada": dict(pp=2, schedule="1f1b", num_micro=1, **IN_PROCESS, **ADA),
+    "ip_ada_zero1": dict(pp=2, schedule="1f1b", num_micro=1,
+                         opt_sharding="zero1", **IN_PROCESS, **ADA),
+    "ip_tp2_restore": dict(pp=2, tp=2, schedule="1f1b", num_micro=2,
+                           restore=True, **IN_PROCESS),
+}
+# The in-process runs -> (the JAX pipeline they are held to, the
+# tolerances of the parameters and of the losses). The tp 2 ZeRO-1 run
+# is held to the replicated JAX step of its mesh: SGD's update is
+# elementwise, so the layout does not change it. The sp run is one
+# notch wider, as tests/test_pipeline.py's sp cells are.
+IP_JAX = {
+    "ip_tp2": ("ip_tp2", STEP_TOL, LOSS_ATOL),
+    "ip_tp2_zero1": ("ip_tp2", STEP_TOL, LOSS_ATOL),
+    "ip_sp2": ("ip_sp2", dict(rtol=5e-4, atol=5e-5), 3e-4),
+    "ip_ep2_moe": ("ip_ep2_moe", STEP_TOL, LOSS_ATOL),
+    "ip_ada": ("ip_ada", STEP_TOL, LOSS_ATOL),
+    "ip_ada_zero1": ("ip_ada_zero1", STEP_TOL, LOSS_ATOL),
 }
 
 WORKER = r"""
@@ -125,7 +158,7 @@ for name, c in spec["runs"].items():
         out[f"{name}/rep/ln_f"] = state.params["ln_f"]["scale"].detach(
             ).numpy()
     if save:
-        tr.save_checkpoint(spec["out"] + "_ckpt", state)
+        tr.save_checkpoint(spec["out"] + f"_{name}_ckpt", state)
     host = tr.state_to_host(state)
     if rank == 0:
         for k, v in keyed_leaves(host):
@@ -165,14 +198,14 @@ def _flat(tree, prefix):
 
 
 def _jax_pipe(dp, pp, ep=1, preset="TransformerLM-tiny", model=None,
-              optimizer=None, **kw):
-    """JAX's PipelineLMTrainer on dp x pp x ep virtual devices and its
-    state from the port's seed-7 parameters (stacked, rows permuted under
-    interleaving)."""
+              optimizer=None, sp=1, mp=1, **kw):
+    """JAX's PipelineLMTrainer on dp x sp x mp x pp x ep virtual devices
+    and its state from the port's seed-7 parameters (stacked, rows
+    permuted under interleaving)."""
     model = model or {}
     tr = JaxPipe(_jax_model(preset, **model),
-                 make_mesh(jax.devices()[:dp * pp * ep], dp=dp, sp=1, mp=1,
-                           pp=pp, ep=ep),
+                 make_mesh(jax.devices()[:dp * sp * mp * pp * ep], dp=dp,
+                           sp=sp, mp=mp, pp=pp, ep=ep),
                  optimizer=optimizer or _jsgd(), **kw)
     params = jpipe.stack_block_params(jax.tree.map(
         jnp.asarray, _seed7(preset, **model)))
@@ -248,7 +281,20 @@ def world4(tmp_path_factory):
                    preset=MOE["preset"], model=MOE["model"])),
                "clip": _jax_steps(*_jax_pipe(
                    2, 2, num_micro=2, schedule="1f1b",
-                   clip_grad_norm=CLIP))}
+                   clip_grad_norm=CLIP)),
+               "ip_tp2": _jax_steps(*_jax_pipe(
+                   2, 2, mp=2, num_micro=2, schedule="1f1b")),
+               "ip_sp2": _jax_steps(*_jax_pipe(
+                   2, 2, sp=2, num_micro=2, schedule="1f1b")),
+               "ip_ep2_moe": _jax_steps(*_jax_pipe(
+                   2, 2, ep=2, num_micro=1, schedule="1f1b",
+                   preset=MOE["preset"], model=MOE["model"])),
+               "ip_ada": _jax_steps(*_jax_pipe(
+                   4, 2, num_micro=1, schedule="1f1b",
+                   optimizer=JaxAdafactor(min_dim_size_to_factor=8))),
+               "ip_ada_zero1": _jax_steps(*_jax_pipe(
+                   4, 2, num_micro=1, schedule="1f1b", opt_sharding="zero1",
+                   optimizer=JaxAdafactor(min_dim_size_to_factor=8)))}
     recs = collect(handle)
     return recs, jax_out, tmp
 
@@ -297,6 +343,24 @@ def test_matches_jax_pipeline(world4, name):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], **STEP_TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(IP_JAX))
+def test_in_process_stages_compose_as_jax_pipeline(world4, name):
+    """Every stage in one process with tp, sp (ring) or ep over the
+    other processes, replicated Adafactor per stage cell at dp 4,
+    Adafactor under ZeRO-1 (each stage cell's rows dp-sharded within it)
+    and tp 2 under ZeRO-1: JAX's PipelineLMTrainer on the mesh with the
+    pp axis as devices."""
+    recs, jax_out, _ = world4
+    ref, tol, loss_atol = IP_JAX[name]
+    want_losses, want = jax_out[ref]
+    np.testing.assert_allclose(_port_losses(recs, name), want_losses,
+                               rtol=0, atol=loss_atol)
+    got = _params(recs[0], name)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **tol, err_msg=k)
 
 
 @pytest.mark.parametrize("name", ["clip", "clip_zero1"])
@@ -349,16 +413,36 @@ def test_checkpoints_move_between_the_packages(world4):
            if k.startswith("interleaved_save/")}
     for kw in (dict(schedule="interleaved", pp_virtual=2), {}):
         jt, _ = _jax_pipe(2, 2, num_micro=2, **kw)
-        state = jt.restore_checkpoint(str(tmp / "pp_ckpt"))
+        state = jt.restore_checkpoint(str(tmp / "pp_interleaved_save_ckpt"))
         assert state.step == 2
         want = _flat(jt.params_to_host(state), "params.")
         for k, v in want.items():
             np.testing.assert_array_equal(got[f"interleaved_save/{k}"], v)
-    restored = _params(recs[0], "restore_jax")
     seed = _flat(jpipe.stack_block_params(_seed7()), "params.")
-    assert set(restored) == set(seed)
-    for k, v in seed.items():
-        np.testing.assert_array_equal(restored[k], v, err_msg=k)
+    for name in ("restore_jax", "ip_tp2_restore"):
+        restored = _params(recs[0], name)
+        assert set(restored) == set(seed)
+        for k, v in seed.items():
+            np.testing.assert_array_equal(restored[k], v, err_msg=k)
+
+
+def test_in_process_tp_checkpoint_moves_between_the_packages(world4):
+    """The in-process tp 2 run's checkpoint (every stage and both tp
+    cells gathered into JAX's stacked tree) restores in JAX's trainer
+    on its dp x mp x pp mesh bit for bit, momentum included; the port's
+    in-process tp 2 trainer restored JAX's checkpoint above."""
+    recs, _, tmp = world4
+    got = {k[len("ip_tp2/"):]: v for k, v in recs[0].items()
+           if k.startswith("ip_tp2/params.")
+           or k.startswith("ip_tp2/opt_state.")}
+    jt, _ = _jax_pipe(2, 2, mp=2, num_micro=2, schedule="1f1b")
+    state = jt.restore_checkpoint(str(tmp / "pp_ip_tp2_ckpt"))
+    assert state.step == 2
+    want = _flat(jt.params_to_host(state), "params.")
+    want.update(_flat(jax.device_get(state.opt_state), "opt_state."))
+    assert set(want) <= set(got)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 @pytest.fixture(scope="module")

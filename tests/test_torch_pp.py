@@ -8,10 +8,13 @@ The model is JAX's pipeline test model (tests/test_pipeline.py:18-21:
 TransformerLM-tiny at 4 layers, max_seq_len 32) and the tolerances are
 its (tests/test_pipeline.py:94-101): the loss within 1e-4, the parameters
 after one SGD step within rtol 3e-4, atol 3e-5. The JAX steps (about 6 s
-of compile each) run once per module.
+of compile each) run once per module. Adafactor with the stages in one
+process runs per stage cell, held to JAX's ``CellAdafactor`` on a dp 1
+x pp 2 mesh at the same tolerances.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +36,8 @@ from tpu_ddp_torch.models.transformer import make_transformer
 from tpu_ddp_torch.ops.optim import SGD, Adafactor, AdamW
 from tpu_ddp_torch.parallel import bootstrap
 from tpu_ddp_torch.parallel import pipeline as pipe
-from tpu_ddp_torch.train.lm import LMTrainer, PipelineLMTrainer, make_lm_batch
+from tpu_ddp_torch.train.lm import (LMTrainer, PipelineLMTrainer,
+                                   data_shard_index, make_lm_batch)
 from tpu_ddp_torch.utils.tree import keyed_leaves, tree_leaves, tree_unflatten
 
 LOSS_ATOL = 1e-4
@@ -148,6 +152,27 @@ def test_rank_layout_matches_jax_make_mesh(dp, sp, tp, pp, ep):
         assert bootstrap.mesh_rank(d, s, e, sp, ep, t, tp, p, pp) == rank
         assert bootstrap.mesh_coords(rank, sp, ep, tp, pp) == (d, s, e, t)
         assert bootstrap.mesh_stage(rank, ep, pp) == p
+
+
+@pytest.mark.parametrize("dp,sp,tp,ep", [
+    (4, 1, 1, 1), (2, 1, 2, 1), (2, 2, 1, 1), (2, 1, 1, 2)])
+def test_in_process_rank_layout_is_jax_make_mesh_without_pp(dp, sp, tp,
+                                                            ep):
+    """In-process stages: the world is dp x sp x tp x ep, a process's
+    rank JAX's make_mesh(dp, sp, mp, pp, ep) order with p dropped; its
+    coordinates and data shard are those of every JAX device of its
+    pipeline, and the ranks sort as those devices do."""
+    mesh = make_mesh(jax.devices()[:dp * sp * tp * 2 * ep], dp=dp, sp=sp,
+                     mp=tp, pp=2, ep=ep)
+    order = []
+    for (d, s, t, p, e), dev in np.ndenumerate(mesh.devices):
+        rank = bootstrap.mesh_rank(d, s, e, sp, ep, t, tp)
+        assert bootstrap.mesh_coords(rank, sp, ep, tp) == (d, s, e, t)
+        assert bootstrap.mesh_stage(rank, ep) == 0
+        assert data_shard_index(rank, sp, ep, tp) == (d * sp + s) * ep + e
+        if p == 0:
+            order.append((dev.id, rank))
+    assert [r for _, r in sorted(order)] == list(range(dp * sp * tp * ep))
 
 
 @pytest.mark.parametrize("dp,sp,tp,pp,ep", [
@@ -413,8 +438,6 @@ def test_put_batch_refusal_keeps_jax_text():
 
 
 def test_in_process_refuses_what_it_does_not_compose_with():
-    with pytest.raises(NotImplementedError, match="item 10.7c"):
-        _port("1f1b", 2, 2, optimizer=Adafactor())
     with pytest.raises(ValueError, match="unknown stages"):
         PipelineLMTrainer(_model(), device="cpu", pp=2, stages="threads")
 
@@ -494,3 +517,68 @@ def test_sharding_plan_is_jax_pipelines():
     assert got.stage_layout == want.stage_layout
     assert dataclasses.replace(tr.init_state(seed=7)).stage_layout == \
         want.stage_layout
+
+
+def test_in_process_adafactor_per_stage_cell_matches_jax():
+    """Adafactor with every stage in one process runs per stage cell
+    (each cell's row and column moments, update-RMS clip and relative
+    step), as JAX's CellAdafactor over ``P("pp", ...)`` on a dp 1 x pp 2
+    mesh: losses, parameters and the optimizer state in JAX's layout
+    (reduced slots stacked on a leading pp axis) after two steps; the
+    state moves both ways through JAX's tree and the sharding plan names
+    JAX's slot specs. The whole stacked leaf updated as one cell is
+    another step."""
+    opt = dict(min_dim_size_to_factor=8)
+    mesh = make_mesh(jax.devices()[:2], dp=1, sp=1, mp=1, pp=2)
+    jt = JaxPipe(_jax_model(), mesh, num_micro=2, schedule="1f1b",
+                 optimizer=JaxAdafactor(**opt))
+    params = jpipe.stack_block_params(jax.tree.map(jnp.asarray,
+                                                   _dense_params()))
+    js = jt._place_state(params, jt.optimizer.init(params))
+    x, y = jt.put_batch(*make_lm_batch(_tokens()))
+    want_losses = []
+    for _ in range(2):
+        js, loss = jt.train_step(js, x, y)
+        want_losses.append(float(np.mean(np.asarray(loss))))
+    want = dict(keyed_leaves(jax.device_get(
+        {"params": js.params, "opt_state": js.opt_state})))
+
+    tr = _port("1f1b", 2, 2, optimizer=Adafactor(**opt))
+    state = tr.init_state(seed=7)
+    px, py = tr.put_batch(*make_lm_batch(_tokens()))
+    losses = []
+    for _ in range(2):
+        state, loss = tr.train_step(state, px, py)
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses, want_losses, rtol=0, atol=LOSS_ATOL)
+    host = tr.state_to_host(state)
+    got = dict(keyed_leaves({"params": host["params"],
+                             "opt_state": host["opt_state"]}))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.shape(got[k]) == np.shape(v), k
+        np.testing.assert_allclose(got[k], v, **STEP_TOL, err_msg=k)
+    assert got["opt_state.vr.blocks.w1"].shape[0] == 2
+    # Back through the host tree: the next step is the live state's.
+    moved = tr.state_from_host(host)
+    a, _ = tr.train_step(state, px, py)
+    b, _ = tr.train_step(moved, px, py)
+    for u, v in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(u, v)
+    plan = json.loads(tr.sharding_plan().to_json())
+    jplan = json.loads(jt.sharding_plan().to_json())
+    assert plan["opt_specs"] == jplan["opt_specs"]
+    # The planted fault: the bare optimizer on whole stacked leaves.
+    whole = _port("1f1b", 2, 2, optimizer=Adafactor(**opt))
+    whole._held = [1] * len(whole._held)
+    whole._unit_leaf = list(range(len(whole._held)))
+    whole._unit_local = list(whole._local)
+    ws = whole.init_state(seed=7)
+    for _ in range(2):
+        ws, _ = whole.train_step(ws, px, py)
+    wp = dict(keyed_leaves(whole.params_to_host(ws)))
+    worst = max(float(np.max(np.abs(wp[k[len("params."):]] - v)
+                             / (STEP_TOL["atol"]
+                                + STEP_TOL["rtol"] * np.abs(v))))
+                for k, v in want.items() if k.startswith("params."))
+    assert worst > 1.0, worst

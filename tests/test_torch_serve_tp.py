@@ -6,11 +6,21 @@ on ``shard_decode_params``, TransformerLM-tiny, f32.
 The port serves over one gloo world of 2 ranks (tests/torch_tp.py, 150 s
 limit), each holding its Megatron slices of the dense parameters and
 its KV / 2 heads of the pool; JAX serves the same requests on a 2-device
-``mp`` mesh of the virtual devices while the ranks run. Greedy tokens
-must be equal and logprobs within 1e-4 (tests/test_torch_serve.py's
-bound, whose key-3 weights have no near-tie on these requests); each
-rank's int8 ``q`` and ``s`` equal the slices of JAX's quantization of
-the dense tree bit for bit.
+``mp`` mesh of the virtual devices while the ranks run: plain, int8,
+speculative (k = 2, each draft family) and tiered (two tiers with bf16
+and int8 cold pages, three tiers). Greedy tokens must be equal and
+logprobs within 1e-4 (tests/test_torch_serve.py's bound, whose key-3
+weights have no near-tie on these requests), and the speculative
+counters equal; each rank's int8 ``q`` and ``s`` equal the slices of
+JAX's quantization of the dense tree bit for bit, and each rank's int8
+cold pages and their per-row scales equal JAX's ``page_quantize`` of the
+full-head pages bit for bit (after a demotion, and after a spill and
+back).
+
+Context-parallel prefill under tp runs on a second world of 4 ranks (sp
+2 x tp 2, 120 s limit), ring and Ulysses, held to the JAX engine on
+``make_mesh(dp=1, sp=2, mp=2)`` with the parameters placed by
+``serve_param_specs`` (JAX takes that mesh).
 """
 
 import jax
@@ -19,9 +29,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_tp import SERVE_WORKER, collect, launch
+from jax.sharding import NamedSharding
+
+from torch_tp import CP_WORKER, SERVE_WORKER, collect, launch
 from tpu_ddp.models.transformer import make_transformer as jax_make
 from tpu_ddp.ops import quant as jq
+from tpu_ddp.parallel.compress import page_quantize as jax_page_quantize
+from tpu_ddp.parallel.mesh import make_mesh
+from tpu_ddp.parallel.tensor_parallel import \
+    serve_param_specs as jax_serve_specs
 from tpu_ddp.parallel.tensor_parallel import \
     shard_decode_params as jax_shard
 from tpu_ddp.serve import ServeEngine as JaxServeEngine
@@ -35,7 +51,20 @@ from tpu_ddp_torch.utils.tree import keyed_leaves
 GEOM = dict(num_slots=4, block_size=8, prefill_chunk=8)
 CASES = [(3, 6), (11, 6), (20, 4), (9, 12)]
 BUDGETS = [1, 10 ** 12]
-REFUSE = [dict(spec_k=2), dict(kv_tiers=2), dict(cp_prefill="ring")]
+# Engine settings served at tp 2 beside the JAX engine: the speculative
+# families at k = 2, and the tiered pool with 4 hot pages (every slot's
+# frontier hot, older pages demoted and read through the dequant). The
+# spill to the host and back is held below, on known pages: these short
+# requests keep every cold page of a live slot protected.
+RUNS = {
+    "chain": dict(spec_k=2, spec_draft="chain"),
+    "self1": dict(spec_k=2, spec_draft="self-1"),
+    "quant": dict(spec_k=2, spec_draft="quant"),
+    "tiers2_bf16": dict(kv_tiers=2, kv_cold_dtype="bf16", hbm_blocks=5),
+    "tiers2_int8": dict(kv_tiers=2, kv_cold_dtype="int8", hbm_blocks=5),
+    "tiers3_int8": dict(kv_tiers=3, kv_cold_dtype="int8", hbm_blocks=5,
+                        cold_blocks=4),
+}
 
 
 def _prompt(L, seed=0):
@@ -57,22 +86,35 @@ def served(tmp_path_factory):
     ckpt.save_checkpoint(str(tmp / "ckpt"), {
         "params": params_to_jax(params), "step": np.int64(0)}, step=0)
     cases = [(_prompt(L, i).tolist(), n) for i, (L, n) in enumerate(CASES)]
+    np.savez(tmp / "pages.npz", k=_pages(11), v=_pages(12))
     handle = launch(SERVE_WORKER, 2, {
         "params": str(tmp / "params.npz"), "quants": ["none", "int8"],
         "geom": GEOM, "cases": cases, "budgets": BUDGETS,
-        "ckpt": str(tmp / "ckpt"), "refuse": REFUSE,
-        "out": str(tmp / "serve")})
+        "ckpt": str(tmp / "ckpt"), "runs": RUNS,
+        "pages": str(tmp / "pages.npz"), "out": str(tmp / "serve")})
     sharded, mesh = jax_shard(jm, jparams, jax.devices()[:2])
     want = {}
-    for quant in ("none", "int8"):
-        eng = JaxServeEngine(jm, sharded, mesh=mesh, decode_quant=quant,
-                             **GEOM)
+    for name, kw in [(q, dict(decode_quant=q)) for q in ("none", "int8")] \
+            + list(RUNS.items()):
+        eng = JaxServeEngine(jm, sharded, mesh=mesh, **GEOM, **kw)
         reqs = [eng.submit(np.asarray(p), n) for p, n in cases]
         eng.run()
-        want[quant] = [(list(map(int, r.tokens)), list(r.logprobs))
-                       for r in reqs]
+        st = eng.spec_stats()
+        want[name] = [(list(map(int, r.tokens)), list(r.logprobs))
+                      for r in reqs]
+        want[f"{name}/spec"] = [st[k] for k in ("proposed", "accepted",
+                                                "rejected")]
     dense_q = jq.quantize_params(jm, jparams)
-    return collect(handle), want, model, params, dense_q
+    return collect(handle), want, model, params, dense_q, tmp
+
+
+def _pages(seed):
+    """Full-head KV pages (layers, 2 blocks, block_size, KV, hd) whose
+    heads differ in scale row by row, numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    shape = (2, 2, GEOM["block_size"], 4, 32)
+    return (rng.standard_normal(shape) * rng.uniform(
+        1e-2, 10, size=shape[:-1] + (1,))).astype(np.float32)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
@@ -143,11 +185,93 @@ def test_param_budget_routes_to_tensor_parallel(served):
                 == served[1]["none"][0][0])
 
 
-def test_spec_tiers_and_cp_prefill_refused_under_tp(served):
-    for rec in served[0]:
-        for kw in REFUSE:
-            msg = str(rec["refuse/" + ",".join(kw)])
-            assert "item 2.6b" in msg and "tp_group" in msg
+@pytest.mark.parametrize("name", list(RUNS))
+def test_tp2_spec_and_tiers_match_jax_engine(served, name):
+    """Each draft family and each tiered pool at tp 2: the JAX engine's
+    greedy stream and speculative counters on every rank; the tiered
+    pools really demote."""
+    recs, want = served[0], served[1]
+    for i, (toks, lps) in enumerate(want[name]):
+        for rec in recs:
+            assert rec[f"{name}/{i}/tokens"].tolist() == toks, (name, i)
+            np.testing.assert_allclose(rec[f"{name}/{i}/logprobs"], lps,
+                                       atol=1e-4, rtol=0)
+    for rec in recs:
+        assert rec[f"{name}/spec"].tolist() == want[f"{name}/spec"]
+        moves = dict(zip(("promote", "demote", "spill", "unspill"),
+                         rec[f"{name}/moves"].tolist()))
+        if name.startswith("tiers"):
+            assert moves["demote"] > 0, moves
+    # Every stream is the plain stream (k = 0, one tier): speculation and
+    # these cold pages change no greedy token here.
+    assert [t for t, _ in want[name]] == [t for t, _ in want["none"]]
+
+
+def test_cold_tier_scales_equal_jax_bit_for_bit(served):
+    """Each rank's int8 cold pages of known full-head pages, after a
+    demotion and after a spill to the host and back, are JAX's
+    ``page_quantize`` of the full-head pages cut to the rank's heads,
+    scales (one per token row, over every head) bit for bit. A rank
+    that took the row max over its own heads only would not be."""
+    recs, tmp = served[0], served[5]
+    pages = np.load(tmp / "pages.npz")
+    want = {}
+    for kv in ("k", "v"):
+        q, s = jax_page_quantize(jnp.asarray(pages[kv]), jnp.int8)
+        want[kv] = (np.asarray(q), np.asarray(s))
+    for r, rec in enumerate(recs):
+        assert rec["cold/spilled"].all()
+        heads = slice(2 * r, 2 * r + 2)
+        for when in ("demoted", "unspilled"):
+            for kv in ("k", "v"):
+                q, s = want[kv]
+                np.testing.assert_array_equal(
+                    rec[f"cold/{when}/cold_{kv}"], q[..., heads, :])
+                np.testing.assert_array_equal(
+                    rec[f"cold/{when}/cold_s{kv}"], s)
+        assert not np.array_equal(rec["cold/local_sk"], want["k"][1])
+
+
+@pytest.fixture(scope="module")
+def cp_served(served):
+    """The sp 2 x tp 2 world's cp-prefill streams and the JAX engine's
+    on make_mesh(dp=1, sp=2, mp=2)."""
+    tmp = served[5]
+    cases = [(_prompt(L, i).tolist(), n) for i, (L, n) in enumerate(CASES)]
+    handle = launch(CP_WORKER, 4, {
+        "params": str(tmp / "params.npz"), "geom": GEOM, "cases": cases,
+        "out": str(tmp / "cp")})
+    jm = jax_make("TransformerLM-tiny", max_seq_len=64,
+                  compute_dtype=jnp.float32)
+    jparams = jm.init(jax.random.key(3))
+    mesh = make_mesh(jax.devices()[:4], dp=1, sp=2, mp=2)
+    placed = jax.tree.map(
+        lambda s, x: jax.device_put(x, NamedSharding(mesh, s)),
+        jax_serve_specs(jm), jparams,
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    want = {}
+    for mode in ("ring", "ulysses"):
+        eng = JaxServeEngine(jm, placed, mesh=mesh, cp_prefill=mode, **GEOM)
+        reqs = [eng.submit(np.asarray(p), n) for p, n in cases]
+        eng.run()
+        want[mode] = [(list(map(int, r.tokens)), list(r.logprobs))
+                      for r in reqs]
+    return collect(handle, timeout=120), want
+
+
+@pytest.mark.parametrize("mode", ["ring", "ulysses"])
+def test_cp_prefill_under_tp_matches_jax_engine(cp_served, mode):
+    """Context-parallel prefill over sp 2 with every rank in a tp 2
+    group: each rank projects its C/2 rows on its 2 heads; the streams
+    are the JAX engine's on the sp x mp mesh, on every rank."""
+    recs, want = cp_served
+    for i, (toks, lps) in enumerate(want[mode]):
+        for rec in recs:
+            assert rec[f"{mode}/{i}/tokens"].tolist() == toks, (mode, i)
+            np.testing.assert_allclose(rec[f"{mode}/{i}/logprobs"], lps,
+                                       atol=1e-4, rtol=0)
+    for rec in recs:
+        assert rec[f"{mode}/pool"].tolist()[3:] == [2, 32]
 
 
 def test_shard_decode_params_refuses_as_jax():

@@ -298,7 +298,10 @@ def rank_losses(recs, name: str, dp: int, sp: int = 1, ep: int = 1):
 
 # Serving: the engine over the world as one tp group (dense params from
 # seed 3, each rank keeping its slices) on spec["cases"] greedy
-# requests; ``generate`` over the group; from_checkpoint under budgets.
+# requests, under each decode quant and each of spec["runs"] (the
+# speculative families, KV tiers); the int8 cold tier's scales of
+# known pages; ``generate`` over the group; from_checkpoint under
+# budgets.
 SERVE_WORKER = _HEAD + r"""
 from tpu_ddp_torch.models.generate import generate
 from tpu_ddp_torch.models.transformer import make_transformer
@@ -335,12 +338,48 @@ p0, n0 = spec["cases"][0]
 mine = shard_decode_params(model, params, world, rank)
 out["generate"] = generate(model, mine, torch.as_tensor(p0)[None], n0,
                            tp_group=grp).numpy()
-for kw in spec["refuse"]:
-    try:
-        ServeEngine(model, params, device="cpu", tp_group=grp,
-                    **dict(spec["geom"], **kw))
-    except NotImplementedError as e:
-        out["refuse/" + ",".join(kw)] = np.array(str(e))
+for name, kw in spec["runs"].items():
+    eng = ServeEngine(model, params, device="cpu", tp_group=grp,
+                      **dict(spec["geom"], **kw))
+    reqs = [eng.submit(np.asarray(p), n) for p, n in spec["cases"]]
+    eng.run()
+    for i, r in enumerate(reqs):
+        out[f"{name}/{i}/tokens"] = np.array(r.tokens)
+        out[f"{name}/{i}/logprobs"] = np.array(r.logprobs)
+    st = eng.spec_stats()
+    out[f"{name}/spec"] = np.array([st[k] for k in ("proposed", "accepted",
+                                                    "rejected")])
+    out[f"{name}/moves"] = np.array([eng.pool.moves[k] for k in (
+        "promote", "demote", "spill", "unspill")])
+    assert eng.accounting_ok() and eng.pool.tier_accounting_ok()
+# The int8 cold tier's scales: full-head pages (spec["pages"]) cut to
+# this rank's heads, written hot, demoted, spilled and brought back.
+from tpu_ddp_torch.parallel.compress import page_quantize
+from tpu_ddp_torch.parallel.tensor_parallel import with_serve_tp
+from tpu_ddp_torch.serve.kv_pool import PagedKVPool
+pages = np.load(spec["pages"])
+kv = pages["k"].shape[-2] // world
+heads = slice(rank * kv, (rank + 1) * kv)
+pool = PagedKVPool(with_serve_tp(model, grp), 8, pages["k"].shape[2],
+                   device="cpu", tiers=3, cold_dtype="int8", hbm_blocks=3,
+                   cold_blocks=3)
+blocks = [pool.alloc() for _ in range(6)]
+pool.ensure_hot(blocks[:2])
+hs = [pool.hot_slot(b) for b in blocks[:2]]
+pool.k[:, hs] = torch.from_numpy(pages["k"][..., heads, :])
+pool.v[:, hs] = torch.from_numpy(pages["v"][..., heads, :])
+pool.ensure_hot(blocks[2:4])
+for when in ("demoted", "unspilled"):
+    if when == "unspilled":
+        pool.ensure_hot(blocks[4:6])
+        out["cold/spilled"] = np.array([pool.tier_of(b) == "spill"
+                                        for b in blocks[:2]])
+        pool.ensure_device(blocks[:2])
+    cs = [pool._cold_slot[b] for b in blocks[:2]]
+    for name in ("cold_k", "cold_v", "cold_sk", "cold_sv"):
+        out[f"cold/{when}/{name}"] = getattr(pool, name)[:, cs].numpy()
+out["cold/local_sk"] = page_quantize(
+    torch.from_numpy(pages["k"][..., heads, :]), torch.int8)[1].numpy()
 for budget in spec["budgets"]:
     eng = ServeEngine.from_checkpoint(model, spec["ckpt"], device="cpu",
                                       param_budget_bytes=budget,
@@ -349,4 +388,32 @@ for budget in spec["budgets"]:
     eng.run()
     out[f"budget/{budget}/tp"] = np.array(eng.tp)
     out[f"budget/{budget}/tokens"] = np.array(r.tokens)
+""" + _TAIL
+
+# Context-parallel prefill under tp: a world of sp 2 x tp 2 (rank s * 2
+# + t, JAX's make_mesh(dp=1, sp=2, mp=2) order), each rank serving
+# spec["cases"] with its heads and d_ff slice, the prefill chunks
+# sharded over its sp group.
+CP_WORKER = _HEAD + r"""
+from tpu_ddp_torch.models.transformer import make_transformer
+from tpu_ddp_torch.parallel.bootstrap import mesh_groups
+from tpu_ddp_torch.serve.engine import ServeEngine
+from tpu_ddp_torch.utils.tree import keyed_leaves, keyed_unflatten
+
+model = make_transformer("TransformerLM-tiny", max_seq_len=64,
+                         compute_dtype=torch.float32)
+d = np.load(spec["params"])
+skel = model.init(torch.Generator().manual_seed(0))
+params = keyed_unflatten(skel, [torch.from_numpy(d[k]) for k, _ in
+                                keyed_leaves(skel, "params")])
+groups = mesh_groups(1, 1, 2, 2)
+for mode in ("ring", "ulysses"):
+    eng = ServeEngine(model, params, device="cpu", tp_group=groups.tp,
+                      sp_group=groups.sp, cp_prefill=mode, **spec["geom"])
+    out[f"{mode}/pool"] = np.array(eng.pool.k.shape)
+    reqs = [eng.submit(np.asarray(p), n) for p, n in spec["cases"]]
+    eng.run()
+    for i, r in enumerate(reqs):
+        out[f"{mode}/{i}/tokens"] = np.array(r.tokens)
+        out[f"{mode}/{i}/logprobs"] = np.array(r.logprobs)
 """ + _TAIL

@@ -164,7 +164,10 @@ def mesh_groups(dp: int, ep: int, sp: int = 1, tp: int = 1,
     made per (t, p), so that no mean crosses stages. At tp = pp = 1 no tp,
     data or pp group is made (the data group is the world), and at sp = tp
     = pp = 1 only the first two, the groups and ranks of a dp x ep
-    world."""
+    world. A pipeline whose stages all run in each process
+    (``PipelineLMTrainer(stages="in_process")``) passes pp = 1: its
+    world is dp x sp x tp x ep in the same order with p dropped, and no
+    pp group is made."""
     if dp * sp * tp * pp * ep != dist.get_world_size():
         raise ValueError(f"dp={dp} x sp={sp} x tp={tp} x pp={pp} x ep={ep}"
                          f" != world size {dist.get_world_size()}")

@@ -543,13 +543,15 @@ class EdgeCodec:
         raise ValueError(f"unknown edge wire kind {kind!r}")
 
 
-def page_quantize(x, cold_dtype):
+def page_quantize(x, cold_dtype, amax=None):
     """Quantize KV pages ``x`` (..., bs, KV, hd) for cold storage.
 
     Returns ``(q, scale)`` with ``scale`` f32 shaped like ``x`` minus the
     two trailing (KV, hd) axes. ``cold_dtype`` ``torch.int8`` -> per-row
     symmetric int8; ``torch.bfloat16`` -> a plain downcast with unit
-    scales (lossless when the hot dtype is already bf16)."""
+    scales (lossless when the hot dtype is already bf16). ``amax``: each
+    row's max |x| where ``x`` holds only some of the row's heads (a tp
+    rank's; the max over every head), default ``x``'s own."""
     if cold_dtype == torch.bfloat16:
         return (x.to(torch.bfloat16),
                 torch.ones(x.shape[:-2], dtype=torch.float32,
@@ -558,10 +560,17 @@ def page_quantize(x, cold_dtype):
         raise ValueError(f"cold dtype {cold_dtype}: expected torch.int8 "
                          "or torch.bfloat16")
     xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=(-2, -1))
+    if amax is None:
+        amax = page_row_amax(xf)
     scale = torch.clamp_min(amax / 127.0, 1e-30)
     q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def page_row_amax(x):
+    """Each token row's max |x| over its (KV, hd) axes, f32: what
+    :func:`page_quantize` scales a row by."""
+    return x.to(torch.float32).abs().amax(dim=(-2, -1))
 
 
 def page_dequantize(q, scale, out_dtype):

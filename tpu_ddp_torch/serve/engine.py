@@ -49,8 +49,15 @@ dense tree's quantization; each block all-reduces the f32 partial sums
 of ``wo`` and ``w2``. Logits, hence tokens, are the same on every rank.
 JAX places the tree on an ``mp`` mesh and keeps the pool replicated;
 here one process holds one card, so the group replaces the mesh and each
-pool holds only its rank's heads. Speculative decoding, KV tiers and cp
-prefill under a tp group are ROADMAP Queue 1 item 2.6b and raise.
+pool holds only its rank's heads. Everything else runs on the rank's
+slices as it runs on the dense tree: the speculative draft and verify
+passes (the int8 draft on the rank's slices of the dense tree's
+quantization), the accept rule on the replicated logits (every rank
+accepts the same prefix), the tiered pool (each tier holds the rank's
+heads; an int8 cold row's scale is the max over every head, all-reduced
+over the group, serve/kv_pool.py) and cp prefill over an ``sp_group``
+whose every rank is also in a tp group (a world of sp x tp processes,
+each projecting its C/sp rows on its heads).
 """
 
 from __future__ import annotations
@@ -339,17 +346,6 @@ class ServeEngine:
             raise ValueError(
                 f"cp_prefill={self.cp_prefill!r}: expected 'off', "
                 "'ring' or 'ulysses' (TPU_DDP_CP_PREFILL)")
-        if self.tp > 1:
-            spec_k = int(spec_k if spec_k is not None else config.spec_k)
-            for what, on in (("spec_k > 0", spec_k > 0),
-                             ("kv_tiers > 1", self.kv_tiers > 1),
-                             ("cp_prefill", self.cp_prefill != "off")):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} with tp_group: speculative decoding, KV "
-                        "tiers and cp prefill under tensor-parallel "
-                        "serving are not ported to tpu_ddp_torch yet "
-                        "(ROADMAP Queue 1 item 2.6b)")
         self.sp_group = sp_group
         if self.cp_prefill != "off":
             if self.kv_tiers > 1:

@@ -34,7 +34,11 @@ change — but a block's pages live in one of three places:
 - **cold** (``tiers >= 2``): a slot of ``cold_k``/``cold_v`` on the
   device, quantized by the cold-page codec (parallel/compress.py) with
   f32 per-row scales ``cold_sk``/``cold_sv``. The tiered steps
-  (serve/long_context.py) read cold pages through the dequant.
+  (serve/long_context.py) read cold pages through the dequant. Under
+  tensor-parallel serving a rank holds its KV / tp heads of every page,
+  and an int8 row's scale is the max over all heads (the row max
+  all-reduced over the tp group), so each rank's scales are those of
+  the JAX engine's replicated pool.
 - **spill** (``tiers == 3``): host memory holding the already-quantized
   page; ``ensure_device`` brings it back to cold on demand.
 
@@ -60,7 +64,8 @@ import numpy as np
 import torch
 
 from tpu_ddp_torch.memory.policy import resolve_act_dtype
-from tpu_ddp_torch.parallel.compress import page_dequantize, page_quantize
+from tpu_ddp_torch.parallel.compress import (page_dequantize,
+                                             page_quantize, page_row_amax)
 
 COLD_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
 
@@ -449,9 +454,8 @@ class PagedKVPool:
         new_cold = [self._cold_free.pop() for _ in blocks]
         hs = self._index([self._hot_slot[b] for b in blocks])
         cs = self._index(new_cold)
-        cdt = COLD_DTYPES[self.cold_dtype_name]
-        qk, sk = page_quantize(self.k[:, hs], cdt)
-        qv, sv = page_quantize(self.v[:, hs], cdt)
+        qk, sk = self._quantize(self.k[:, hs])
+        qv, sv = self._quantize(self.v[:, hs])
         self.cold_k[:, cs] = qk
         self.cold_v[:, cs] = qv
         self.cold_sk[:, cs] = sk
@@ -464,6 +468,20 @@ class PagedKVPool:
             self._cold_slot[b] = slot
             self._cold_lru.append(b)
         self.moves["demote"] += len(blocks)
+
+    def _quantize(self, pages):
+        """The cold-page codec on hot ``pages``. Under tensor-parallel
+        serving an int8 row's scale is over every head of the row, as
+        the replicated pool of the JAX engine scales it: this rank's
+        row max all-reduced (MAX) over the tp group first."""
+        cdt = COLD_DTYPES[self.cold_dtype_name]
+        if cdt != torch.int8 or self.model._tp == 1:
+            return page_quantize(pages, cdt)
+        import torch.distributed as dist
+        amax = page_row_amax(pages)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                        group=self.model.tp_group)
+        return page_quantize(pages, cdt, amax)
 
     def _grab_cold(self, n: int, protect) -> None:
         """Guarantee >= n free cold slots, spilling LRU cold pages to the

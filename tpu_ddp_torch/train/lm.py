@@ -103,7 +103,10 @@ Pipeline parallelism (tpu_ddp/train/lm.py:808-1360):
 ``pp`` stages (parallel/pipeline.py) and runs one of four schedules over
 ``num_micro`` microbatches, its stages one per process over a pp group
 (the world dp x sp x tp x pp x ep, rank ``(((d * sp + s) * tp + t) * pp
-+ p) * ep + e``) or all in this process (``stages="in_process"``).
++ p) * ep + e``) or all in this process (``stages="in_process"``: the
+world dp x sp x tp x ep, the same order with p dropped, each process
+holding every stage cell of its (tp, ep) cell and updating each on its
+own).
 """
 
 from __future__ import annotations
@@ -316,6 +319,21 @@ class LMTrainer:
         # Leaf indices of the stacked expert weights (sharded over ep).
         self._expert_leaves = {i for i, pt in enumerate(self._parts)
                                if pt is not None and "ep" in pt.axes}
+        # The optimizer's units: each cell of a leaf that this process
+        # holds whole (a pipeline's in-process stages) is its own unit, a
+        # view of its rows; any other leaf is one unit.
+        self._held = self._held_cells()
+        self._unit_leaf = [i for i, h in enumerate(self._held)
+                           for _ in range(h)]
+        self._expert_units = {u for u, i in enumerate(self._unit_leaf)
+                              if i in self._expert_leaves}
+        self._unit_local = [(s[0] // h,) + s[1:] if h > 1 else s
+                            for s, h in zip(self._local, self._held)]
+        canon_u = self._units_of([(s[0] // h,) + tuple(s[1:]) if h > 1
+                                  else tuple(s)
+                                  for s, h in zip(canon, self._held)],
+                                 copy=True)
+        specs_u = self._units_of(self._specs, copy=True)
         factored = isinstance(self.optimizer, Adafactor)
         if factored and self.opt_zero2:
             raise ValueError(
@@ -342,31 +360,56 @@ class LMTrainer:
         self._graph_stream = None
         # K-step CUDA graphs: captures, replays, each capture's ms.
         self.graph_stats = {"captures": 0, "replays": 0, "capture_ms": []}
-        self.layout = self._cell = None
-        part = dict(param_specs=self._specs, mesh_axis_sizes=self._sizes)
+        self.layout = None
+        # The sharded layouts run over the units: a held cell is laid out
+        # on its own, dp-sharded within it (P((pp[, mp/ep], dp))).
+        part = dict(param_specs=specs_u, mesh_axis_sizes=self._sizes)
         if self.opt_zero1:
             from tpu_ddp_torch.parallel.zero import FactoredZeRO1, ZeRO1
             self.layout = (
-                FactoredZeRO1(self.optimizer, canon, group,
+                FactoredZeRO1(self.optimizer, canon_u, group,
                               dtype=model.param_dtype, **part)
                 if factored else
-                ZeRO1(self.optimizer, canon, group,
+                ZeRO1(self.optimizer, canon_u, group,
                       axis_groups=self._axis_groups, **part))
         elif self.is_fsdp:
             from tpu_ddp_torch.parallel.zero import ZeRO3
-            self.layout = ZeRO3(self.optimizer, canon, group,
+            self.layout = ZeRO3(self.optimizer, canon_u, group,
                                 axis_groups=self._axis_groups, **part)
-        elif factored and any(pt is not None for pt in self._parts):
-            # The per-cell layout of the replicated Adafactor's state (the
-            # update itself is the bare optimizer's on the cells).
-            from tpu_ddp_torch.parallel.zero import CellAdafactor
-            self._cell = CellAdafactor(self.optimizer, canon, self._specs,
-                                       self._sizes)
         # The decay policy where the leaves' ranks are not it (None: the
         # optimizer's rank rule).
         self._decay = self._decay_mask()
         if self.layout is not None and self._decay is not None:
-            self.layout.decay = self._decay
+            self.layout.decay = self._units_of(self._decay, copy=True)
+
+    def _held_cells(self) -> list:
+        """How many cells of each leaf this process holds whole along an
+        axis it does not share out (1: the leaf's own cell, or the leaf):
+        every stage cell of a stacked leaf under in-process stages."""
+        return [1] * len(self._specs)
+
+    def _units_of(self, leaves, copy: bool = False) -> list:
+        """A per-leaf list as the optimizer's units: a held leaf's cells
+        as views of its leading rows (``copy``: the entry repeated, for
+        shapes, specs and masks), any other leaf as it is."""
+        if len(self._unit_leaf) == len(self._held):
+            return list(leaves)
+        out = []
+        for t, h in zip(leaves, self._held):
+            out.extend((t,) * h if copy else t.chunk(h) if h > 1 else (t,))
+        return out
+
+    def _cells_split(self) -> bool:
+        """Whether a leaf's state is not the bare optimizer's on the whole
+        leaf (a tp or ep cell, or held cells)."""
+        return (any(pt is not None for pt in self._parts)
+                or len(self._unit_leaf) > len(self._held))
+
+    def _per_leaf(self, units) -> list:
+        """The optimizer's units grouped back by leaf: one list per
+        leaf."""
+        it = iter(units)
+        return [[next(it) for _ in range(h)] for h in self._held]
 
     def _trees(self, model) -> tuple:
         """(this process's shape tree, the canonical shape tree, the spec
@@ -397,12 +440,13 @@ class LMTrainer:
             opt_state = self.layout.init(self.device)
             if self.is_fsdp:
                 # At rest FSDP holds only this rank's shard of each leaf.
-                params = self.layout.local_shards(leaves)[0]
+                params = self.layout.local_shards(self._units_of(leaves))[0]
                 params.requires_grad_(True)
             return self._with_step_t(LMTrainState(params=params,
                                                   opt_state=opt_state))
         return self._with_step_t(LMTrainState(
-            params=params, opt_state=self.optimizer.init(leaves)))
+            params=params,
+            opt_state=self.optimizer.init(self._units_of(leaves))))
 
     def _with_step_t(self, state: LMTrainState) -> LMTrainState:
         """``state`` with a device step tensor where dropout needs one and
@@ -437,16 +481,30 @@ class LMTrainer:
         return t
 
     def _slot_join(self, i: int, shape):
-        """How an optimizer slot of leaf ``i`` with local ``shape`` joins
-        its cells in the checkpoint: True (stacked: reduced slots, and
-        every slot under ``FactoredZeRO1``, whose JAX layout keeps its
-        cells apart), False (concatenated like the parameter), None
-        (kept: unpartitioned, or a ``(1,)`` placeholder)."""
+        """How an optimizer slot of leaf ``i`` with one unit's ``shape``
+        joins its cells (held ones and the tp or ep peers') in the
+        checkpoint: True (stacked: reduced slots, and every slot under
+        ``FactoredZeRO1``, whose JAX layout keeps its cells apart), False
+        (concatenated like the parameter), None (kept: one unpartitioned
+        unit, or a ``(1,)`` placeholder)."""
         from tpu_ddp_torch.parallel.zero import FactoredZeRO1
-        if self._parts[i] is None or tuple(shape) == (1,):
+        if tuple(shape) == (1,) or (self._parts[i] is None
+                                    and self._held[i] == 1):
             return None
         return (isinstance(self.layout, FactoredZeRO1)
-                or tuple(shape) != self._local[i])
+                or tuple(shape) != self._unit_local[i])
+
+    def _join_slot(self, i: int, pieces, join):
+        """Leaf ``i``'s units of one slot as the checkpoint's leaf: each
+        unit's tp or ep cells gathered, the held cells stacked on a
+        leading axis or concatenated on the rows (a collective)."""
+        if join is None:
+            return pieces[0]
+        if self._parts[i] is not None:
+            pieces = [self._gather_cells(t, i, stack=join) for t in pieces]
+        if len(pieces) == 1:
+            return pieces[0]
+        return torch.stack(pieces) if join else torch.cat(pieces)
 
     def put_batch(self, inputs, targets):
         """(B, L) host token ids, this process's rows (its dp x ep shard,
@@ -620,7 +678,7 @@ class LMTrainer:
         if self.is_fsdp:
             # The gather's backward summed the shard over dp; the sp and
             # ep halves of the mean are all-reduces of their own.
-            if self._expert_leaves:
+            if self._expert_units:
                 self._sync_rest(z.views(grads[0]))
             else:
                 self._sync_rest(grads, experts=False)
@@ -632,6 +690,9 @@ class LMTrainer:
         elif self.opt_zero1:
             # The reduce-scatter over dp is the dp half of the sync (under
             # ZeRO-2 it already ran, and these are the f32 slices).
+            leaves = self._units_of(leaves)
+            if not self.opt_zero2:
+                grads = self._units_of(grads)
             self._sync_rest(grads)
             kw = dict(clip_norm=self.clip_grad_norm)
             new = (z.apply_scattered(leaves, grads, state.opt_state, **kw)
@@ -650,8 +711,11 @@ class LMTrainer:
                     sync_all_reduce(grads)
                 if self.clip_grad_norm is not None:
                     clip_by_global_norm(grads, self.clip_grad_norm)
-            self.optimizer.apply(leaves, grads, state.opt_state,
-                                 decay_mask=self._decay)
+            decay = (None if self._decay is None
+                     else self._units_of(self._decay, copy=True))
+            self.optimizer.apply(self._units_of(leaves),
+                                 self._units_of(grads), state.opt_state,
+                                 decay_mask=decay)
         if state.step_t is not None:
             state.step_t.add_(1)
         return dataclasses.replace(state, step=state.step + 1)
@@ -679,13 +743,13 @@ class LMTrainer:
         with ``skip_axes=(dp,)``), in place: over sp, then over ep for a
         leaf not sharded over ep, an ep-sharded leaf divided by ep (its
         gradient already holds its peers' tokens). ``experts=False``:
-        ``grads`` are not the leaves (FSDP's one buffer at ep 1)."""
+        ``grads`` are not the units (FSDP's one buffer at ep 1)."""
         for i, g in enumerate(grads):
             if self.sp > 1:
                 dist.all_reduce(g, group=self._sp_group)
                 g.div_(float(self.sp))
             if self.ep > 1:
-                if not (experts and i in self._expert_leaves):
+                if not (experts and i in self._expert_units):
                     dist.all_reduce(g, group=self._ep_group)
                 g.div_(float(self.ep))
 
@@ -707,8 +771,9 @@ class LMTrainer:
     def _full_params(self, state: LMTrainState):
         """The canonical parameter tree (FSDP: gathered; tp and ep cells
         gathered; a collective)."""
-        leaves = (self.layout.gather(state.params.detach()) if self.is_fsdp
-                  else tree_leaves(state.params))
+        leaves = (self._units_joined(self.layout.gather(
+            state.params.detach())) if self.is_fsdp
+            else tree_leaves(state.params))
         if self.is_fsdp or any(pt is not None for pt in self._parts):
             return tree_unflatten(self._skeleton, [
                 self._gather_cells(p, i, stack=False)
@@ -722,19 +787,23 @@ class LMTrainer:
         ep-sharded leaf joins its cells as :meth:`_slot_join` says."""
         opt = (self.layout.full_opt(state.opt_state)
                if self.layout is not None else state.opt_state)
-        if all(pt is None for pt in self._parts):
+        if not self._cells_split():
             return opt
         out = {}
         for k, v in opt.items():
             if k == "count":
                 out[k] = v
                 continue
-            out[k] = []
-            for i, t in enumerate(v):
-                join = self._slot_join(i, t.shape)
-                out[k].append(t if join is None
-                              else self._gather_cells(t, i, stack=join))
+            out[k] = [self._join_slot(i, pieces,
+                                      self._slot_join(i, pieces[0].shape))
+                      for i, pieces in enumerate(self._per_leaf(v))]
         return out
+
+    def _units_joined(self, units) -> list:
+        """Parameter-shaped units back as the leaves (held cells
+        concatenated on the rows)."""
+        return [p[0] if len(p) == 1 else torch.cat(p)
+                for p in self._per_leaf(units)]
 
     def params_to_host(self, state: LMTrainState):
         """The parameters as the JAX package's tree of numpy arrays."""
@@ -771,13 +840,19 @@ class LMTrainer:
         # slots mirror their parameter's spec. ZeRO's flat state is
         # dp-sharded (the JAX wrapper's prefix spec, P((mp..., dp)) per
         # partitioned leaf), FSDP's params and state too, leaf by leaf.
+        from tpu_ddp_torch.parallel.zero import (CellAdafactor,
+                                                 FactoredZeRO1, partitions)
         factored = isinstance(self.optimizer, Adafactor)
         slot = (tree_unflatten(self._skeleton, [P()] * len(self._specs))
                 if factored else params)
+        # The mesh's own extents: held cells are cells of the mesh too.
+        sizes = dict(self._sizes, pp=self.pp)
+        canon = shape_leaves(self._canon_tree)
+        parts = partitions(canon, self._specs, sizes)
         flat = tree_unflatten(self._skeleton, [
             P((*pt.axes, "dp")) if pt is not None else P("dp")
-            for pt in self._parts])
-        parted = any(pt is not None for pt in self._parts)
+            for pt in parts])
+        parted = any(pt is not None for pt in parts)
         strategy = self._plan_name
         if self.is_fsdp:
             params = slot = flat
@@ -786,10 +861,17 @@ class LMTrainer:
             slot = flat if parted else P("dp")
             strategy += "+zero2" if self.opt_zero2 else "+zero1"
         opt = {k: slot for k in opt_slot_shapes(self.optimizer, [])}
-        cell = self._cell if self._cell is not None else self.layout
-        if hasattr(cell, "state_specs"):
-            # FactoredZeRO1: vr (and mu) sharded by rows, leaf by leaf;
-            # CellAdafactor: reduced slots over the cell axes.
+        cell = None
+        if factored and self.opt_zero1:
+            # vr (and mu) sharded by rows, leaf by leaf.
+            cell = FactoredZeRO1(self.optimizer, canon, None,
+                                 param_specs=self._specs,
+                                 mesh_axis_sizes=sizes, axis_size=self.dp,
+                                 rank=0)
+        elif factored and parted and not self.is_fsdp:
+            # Reduced slots over the cell axes.
+            cell = CellAdafactor(self.optimizer, canon, self._specs, sizes)
+        if cell is not None:
             opt = {k: tree_unflatten(self._skeleton, v)
                    for k, v in cell.state_specs().items()}
         if _has_count(self.optimizer):
@@ -884,7 +966,7 @@ class LMTrainer:
         params = self._local_params(params_from_jax(
             self.canonical_model, host["params"], self.device,
             shapes=self._canon_tree))
-        if any(pt is not None for pt in self._parts):
+        if self._cells_split():
             opt_state = self._local_opt_from_host(host["opt_state"])
         else:
             opt_state = opt_state_from_jax(self.model, self.optimizer,
@@ -894,7 +976,8 @@ class LMTrainer:
             # Re-shard the canonical leaves for this trainer's dp.
             opt_state = self.layout.local_opt(opt_state)
             if self.is_fsdp:
-                params = self.layout.local_shards(tree_leaves(params))[0]
+                params = self.layout.local_shards(
+                    self._units_of(tree_leaves(params)))[0]
         for p in ([params] if self.is_fsdp else tree_leaves(params)):
             p.requires_grad_(True)
         return self._with_step_t(LMTrainState(
@@ -902,26 +985,35 @@ class LMTrainer:
 
     def _canonical_slot_shapes(self) -> dict:
         """Each optimizer slot's canonical leaf shapes (the checkpoint's):
-        a slot of a tp- or ep-sharded leaf joined over its cells as
-        :meth:`_slot_join` says (the whole leaf's shape, or the cell
-        counts ahead of the cell's)."""
-        out = opt_slot_shapes(self.optimizer, self._local)
+        a slot of a tp- or ep-sharded leaf, or of a leaf with held cells,
+        joined over its cells as :meth:`_slot_join` says (the whole
+        leaf's shape, or the cell counts, held cells first, ahead of the
+        cell's)."""
+        out = opt_slot_shapes(self.optimizer, self._unit_local)
         canon = shape_leaves(self._canon_tree)
         for k, shapes in out.items():
             joins = [self._slot_join(i, s) for i, s in enumerate(shapes)]
             out[k] = [s if j is None else
-                      self._parts[i].counts + tuple(s) if j else
+                      self._lead_cells(i) + tuple(s) if j else
                       tuple(canon[i])
                       for i, (s, j) in enumerate(zip(shapes, joins))]
         return out
 
+    def _lead_cells(self, i: int) -> tuple:
+        """The leading cell axes of a stacked slot of leaf ``i``: its
+        held cells, then its tp or ep cells, major first."""
+        pt = self._parts[i]
+        return ((self._held[i],) if self._held[i] > 1 else ()) + (
+            pt.counts if pt is not None else ())
+
     def _local_opt_from_host(self, opt_host: dict) -> dict:
-        """A canonical optimizer state (tp or ep > 1) as this process's
-        cell: checked against :meth:`_canonical_slot_shapes`, each
+        """A canonical optimizer state (tp or ep > 1, or held cells) as
+        this process's units: checked against
+        :meth:`_canonical_slot_shapes`, each held cell taken apart, each
         partitioned slot cut to this cell (its piece, or its entry of the
         leading cell axes), placed on the device."""
         layout = self._canon_tree
-        local_slots = opt_slot_shapes(self.optimizer, self._local)
+        unit_slots = opt_slot_shapes(self.optimizer, self._unit_local)
         out = {}
         for k, want in self._canonical_slot_shapes().items():
             got = _leaves_like(f"opt_state/{k}", layout, opt_host[k])
@@ -931,15 +1023,19 @@ class LMTrainer:
                 if tuple(g.shape) != tuple(w):
                     raise ValueError(f"opt_state/{k}/{i}: expected shape "
                                      f"{tuple(w)}, got {tuple(g.shape)}")
-                join = self._slot_join(i, local_slots[k][i])
-                if join:
-                    for ax in self._parts[i].axes:
-                        g = g[self._index[ax]]
-                elif join is not None:
-                    g = cell_of(g, self._specs[i], self._index,
-                                self._sizes)
-                leaves.append(torch.as_tensor(np.array(g)).to(
-                    device=self.device, dtype=self.model.param_dtype))
+                join, h = self._slot_join(i, unit_slots[k][i]), self._held[i]
+                pieces = ([g] * h if join is None or h == 1
+                          else list(g) if join
+                          else np.split(g, h, axis=0))
+                for g in pieces:
+                    if join and self._parts[i] is not None:
+                        for ax in self._parts[i].axes:
+                            g = g[self._index[ax]]
+                    elif join is not None and self._parts[i] is not None:
+                        g = cell_of(g, self._specs[i], self._index,
+                                    self._sizes)
+                    leaves.append(torch.as_tensor(np.array(g)).to(
+                        device=self.device, dtype=self.model.param_dtype))
             out[k] = leaves
         if "count" in opt_host:
             out["count"] = torch.tensor(int(np.asarray(opt_host["count"])),
@@ -963,13 +1059,20 @@ class PipelineLMTrainer(LMTrainer):
     the data-side means never cross stages (``mesh_groups``).
     ``stages="in_process"`` runs all pp stages in this process on its one
     device over in-process edges (as the JAX trainer runs all stages of a
-    program on one process's devices); it composes with dp over the
-    processes. Each process feeds the rows of its data shard
-    (``data_index``), so pp and tp peers feed the same rows.
+    program on one process's devices); it composes with dp, sp, tp and
+    ep over the processes (a world of dp x sp x tp x ep, no pp group),
+    each stage running the sp-, tp- or ep-wrapped model, so its ring hop,
+    ``f``/``g`` or ``all_to_all`` runs inside the stage's call on every
+    peer in the same order. The process holds every stage cell of a
+    stacked leaf: each cell is its own unit of the optimizer (Adafactor's
+    moments, update-RMS clip and relative step per cell, as JAX's
+    ``CellAdafactor`` over ``P("pp", ...)``) and of the sharded layouts
+    (dp-sharded within the cell). Each process feeds the rows of its data
+    shard (``data_index``), so pp and tp peers feed the same rows.
 
     After the schedule the replicated leaves' gradients (embed on stage 0,
     ln_f and head on the last stage, zeros elsewhere) are SUMMED over the
-    pp group; then the dense trainer's sync, clip and optimizer run on this
+    pp group (in-process: the schedule already summed them); then the dense trainer's sync, clip and optimizer run on this
     process's leaves (stacked leaves partitioned per stage cell), with the
     weight-decay mask of the original per-layer ranks. ZeRO-1 and FSDP lay
     each stage cell out dp-sharded (``P((pp[, mp/ep], dp))``); ZeRO-2
@@ -985,11 +1088,6 @@ class PipelineLMTrainer(LMTrainer):
     in-process edge class (a test or a planted fault replaces it)."""
 
     _plan_name = "pipelinelmtrainer"
-    _IN_PROCESS_TODO = (
-        "stages='in_process' runs every stage in one process; its "
-        "composition with sp, tp, ep and Adafactor's per-stage cells is "
-        "ROADMAP Queue 1 item 10.7c (use stages='group', one process per "
-        "stage)")
 
     def __init__(self, model, device=None, num_micro: int | None = None,
                  optimizer=None, dropout_seed: int = 0,
@@ -1086,8 +1184,6 @@ class PipelineLMTrainer(LMTrainer):
                 "slices) does not compose with Adafactor's row-sharded "
                 "factored state; use 'zero1' or an elementwise optimizer")
         self.in_process = stages == "in_process"
-        if self.in_process and pp > 1 and (sp > 1 or tp > 1 or ep > 1):
-            raise NotImplementedError(self._IN_PROCESS_TODO)
         self.pp, self.num_micro = pp, num_micro
         self.schedule, self.pp_virtual = schedule, pp_virtual
         self._pp_procs = 1 if self.in_process else pp
@@ -1097,8 +1193,6 @@ class PipelineLMTrainer(LMTrainer):
                          opt_sharding=opt_sharding, sp_mode=sp_mode,
                          clip_grad_norm=clip_grad_norm,
                          dropout_seed=dropout_seed, ep=ep, sp=sp, tp=tp)
-        if self.in_process and pp > 1 and factored:
-            raise NotImplementedError(self._IN_PROCESS_TODO)
         self._table = tick_table(schedule, pp, num_micro, pp_virtual)
         check_table(self._table, pp, pp_virtual)
         self._stages = (list(range(pp)) if self._pp_procs == 1
@@ -1115,6 +1209,15 @@ class PipelineLMTrainer(LMTrainer):
         return (stacked_shapes(model, held),
                 stacked_shapes(self.canonical_model),
                 pipeline_param_specs(model))
+
+    def _held_cells(self) -> list:
+        """In-process stages: every stage cell of a stacked leaf (its
+        ``num_layers / pp`` rows), each laid out and updated on its own
+        as JAX's stage cells over ``P("pp", ...)`` are."""
+        if self._pp_procs == self.pp:
+            return super()._held_cells()
+        return [self.pp if tuple(spec)[:1] == ("pp",) else 1
+                for spec in self._specs]
 
     def _decay_mask(self):
         """The optimizer's decay policy on the ORIGINAL per-layer ranks
@@ -1219,8 +1322,8 @@ class PipelineLMTrainer(LMTrainer):
         self._check_layout(state)
         z = self.layout
         if self.is_fsdp:
-            full = [t.detach().requires_grad_(True)
-                    for t in z.gather(state.params.detach())]
+            full = [t.detach().requires_grad_(True) for t in
+                    self._units_joined(z.gather(state.params.detach()))]
             tree = tree_unflatten(self._skeleton, full)
         else:
             tree = state.params
@@ -1237,8 +1340,8 @@ class PipelineLMTrainer(LMTrainer):
                 for k, v in tree.items() if k != "blocks"}
 
             def scatter(g_blocks):
-                acc.add_(z.scatter_grads(tree_leaves(
-                    dict(zeros, blocks=g_blocks)))[0])
+                acc.add_(z.scatter_grads(self._units_of(tree_leaves(
+                    dict(zeros, blocks=g_blocks))))[0])
         loss_sum, g = pipeline_grads(
             self.model, tree, inputs, targets, schedule=self.schedule,
             pp_size=self.pp, num_micro=self.num_micro, stages=self._stages,
@@ -1251,10 +1354,11 @@ class PipelineLMTrainer(LMTrainer):
         if self._pp_procs > 1:
             dist.all_reduce(loss, group=self._pp_group)
         if self.is_fsdp:
-            return loss, [state.params], [z.reduce_scatter_sum(z.rows(grads))]
+            return loss, [state.params], [
+                z.reduce_scatter_sum(z.rows(self._units_of(grads)))]
         leaves = tree_leaves(state.params)
         if self.opt_zero2:
-            acc.add_(z.scatter_grads(grads)[0])
+            acc.add_(z.scatter_grads(self._units_of(grads))[0])
             return loss, leaves, z.views(acc)
         return loss, leaves, grads
 
