@@ -583,6 +583,42 @@ Phases 35-37 run the image trainer's last model families:
    tiers demoting, promoting and spilling), each run's int8 launches
    equal to its pass counters (49 per pass per rank, all mma), and both
    ranks the same tokens. (b) starts first and runs beside (a).
+53. the serving fleet (``tpu_ddp_torch/fleet/``) at TransformerLM-large's
+   width and depth, int8 decode on every role and replica, seeded
+   weights, phase 5's 8 requests cut to 16 new tokens, after one single
+   engine run of them (the reference): (a) ``DisaggEngine`` with
+   ``kv_wire`` ``none`` (bit for bit the single engine), ``bf16`` (bit
+   for bit ``none``: the cache is bf16), ``int8`` (every request
+   finishes with finite logprobs, the edge's ratio at least 3.5, the
+   logprobs within 0.1 of ``none``'s before a request's first parted
+   token and a greedy stream parting only at a top-2 gap within 0.1; a
+   planted landing that drops the int8 scales must break that bound) and an
+   ``edge-drop@2`` drill (the lost transfer re-prefilled on the decode
+   pool, the streams bit for bit ``none``'s); (b) a ``Router`` over two
+   int8 replicas on this card: ``least-loaded`` bit for bit the single
+   engine; ``replica-crash`` at replica 1 at a step where it is
+   mid-decode (one failover, at least one stream migrated with tokens,
+   completed + cancelled + shed == submitted, the streams bit for bit:
+   a migrated stream replays its streamed tokens through decode passes);
+   ``nonfinite-logits``
+   at replica 0 mid-decode (exactly one request quarantined, the others
+   bit for bit); and 8 requests behind one 256-token prefix after a
+   warm-up request, under ``prefix-affinity`` (affinity hits, fewer
+   prefill chunks) and ``least-loaded``; (c) an ``Autoscaler`` over a
+   Router of one replica (up to 3, its clock counting drive steps) with a
+   ``flash-crowd`` the drive loop consumes (the other 6 requests, 2 per
+   step): at least one scale-up, one scale-down and one stream migrated
+   on a drain, every stream bit for bit; (d) the time to recover one
+   greedy stream migrated after 256 streamed tokens, on one int8 engine:
+   its continuation replays them through decode passes (bit for bit the
+   undisturbed stream, the gate) or re-prefills them in chunks (JAX's
+   way; compared, not gated). Every run's int8
+   launches equal its engines' pass counters (prefill-role, degraded and
+   decode passes), all mma; after the fleets are deleted the card's
+   allocated memory is what it was before the phase, within 1 MiB.
+   Printed per run: tokens/s, TTFT median, edge bytes per prompt, the
+   Router's stats, the Autoscaler's events, (d)'s time to recover, the
+   phase's seconds.
 
 Checkpoints of phases 18-20 and 42 and phase 44's tuning cache go to
 ``_chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -596,7 +632,8 @@ on 42's elastic run and 44's trials; the flash kernels' on 45's and
 46's eager steps and captures, on 48's Ulysses ranks, on 49's tp ranks,
 on 50's pipeline schedules, 51's MPMD stages and 52's in-process
 Adafactor pipeline; the int8 kernel's on 49's tp decode pass and on
-rank 0's tp = 2 engine runs of 52), beside each main-path count; the int8 row also the 32-row
+rank 0's tp = 2 engine runs of 52 and on each fleet run of 53), beside
+each main-path count; the int8 row also the 32-row
 prefill's bound, 48's 16-row cp-prefill pass and 49's rank pass at tp =
 2; the flash rows 49's block times per rank; the BN, SGD and flash rows
 also carry their ResNet-50 and ViT times from phases 35-37), and
@@ -617,6 +654,8 @@ import socket
 import subprocess
 import sys
 import time
+import types
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -3160,13 +3199,16 @@ def _want_int8(eng, c0: dict) -> int:
     """The int8 launches the engine's pass counters since ``c0`` imply."""
     c = eng.metrics.counters
     d = {k: c.get(k, 0) - c0.get(k, 0) for k in
-         ("serve_prefill_chunks", "serve_target_passes",
-          "serve_draft_passes")}
+         ("serve_prefill_chunks", "fleet_degraded_chunks",
+          "serve_target_passes", "serve_draft_passes")}
     L = eng.model.num_layers
     target = 4 * L + 1 if eng.decode_quant == "int8" else 0
-    draft_int8 = eng._spec_kind == "quant" or eng.decode_quant == "int8"
-    draft = 4 * eng.draft_layers + 1 if draft_int8 else 0
-    return (target * (d["serve_prefill_chunks"] + d["serve_target_passes"])
+    # A DisaggEngine does not speculate: its draft counter stays 0.
+    draft_int8 = getattr(eng, "_spec_kind", None) == "quant" \
+        or eng.decode_quant == "int8"
+    draft = 4 * getattr(eng, "draft_layers", L) + 1 if draft_int8 else 0
+    return (target * (d["serve_prefill_chunks"] + d["fleet_degraded_chunks"]
+                      + d["serve_target_passes"])
             + draft * d["serve_draft_passes"])
 
 
@@ -8889,6 +8931,478 @@ def pipeline_adafactor_tp_serve(dev, seed: int, ppar: dict) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# Phase 53: the serving fleet at TransformerLM-large's width and depth
+# (int8 decode, seeded weights) on phase 5's 8 requests. Cut: 16 new
+# tokens per request (phase 5: 32). 53b's shared-prefix run puts 8
+# requests behind one 256-token prefix (phase 22's workload, 16 new
+# tokens); its affinity slack is wide enough that every request may follow
+# the cache (the default 256 tokens would send the second one away).
+FLEET_NEW = 16
+FLEET_MIN_RATIO = 3.5
+FLEET_PREFIX = 256
+FLEET_AFFINITY_SLACK = 1 << 20
+# 53c: the autoscaler's clock counts drive steps (one unit per step), so
+# its decisions depend on the requests, not on the host's speed. The
+# flash crowd lands at drive step FLEET_CROWD_AT and submits the other 6
+# requests, 2 per step; up at more than 512 outstanding tokens per
+# healthy replica, down under 160, each after 1 observation, at most one
+# action per 2 steps.
+FLEET_CROWD_AT = 4
+FLEET_SCALE = dict(min_replicas=1, max_replicas=3,
+                   up_tokens_per_replica=512.0,
+                   down_tokens_per_replica=160.0, hold_steps=1,
+                   cooldown_ms=2000.0)
+FLEET_MEM_TOL = 2 ** 20
+# 53a: the int8 edge's logprobs stay within this of ``none``'s before a
+# request's first parted token, and a greedy stream parts only where the
+# reference's top-2 gap is within it; a planted landing that drops the
+# int8 block scales must break the bound.
+FLEET_INT8_LP_TOL = 0.1
+# 53d: time to recover a migrated greedy stream that had streamed
+# FLEET_STREAMED tokens, replayed through decode passes (the port) or
+# re-prefilled in chunks (JAX), FLEET_RECOVER_NEW tokens after them.
+FLEET_STREAMED = 256
+FLEET_RECOVER_NEW = 8
+
+
+def _fleet_drive(target, engines, reqs, label: str, quarantined: int = 0,
+                 on_step=None) -> dict:
+    """Submit ``reqs`` (prompt, new, temperature, seed) to ``target`` (an
+    engine, a Router or an Autoscaler) and step it to idle;
+    ``on_step(step)``, called before each step, may submit more and
+    returns their handles. ``engines`` lists every engine of the fleet
+    (a factory may append to it during the run). The int8 launches are
+    held to the engines' pass counters since the start; exactly
+    ``quarantined`` requests may end quarantined, every other one cleanly
+    with finite logprobs."""
+    c0 = {id(e): dict(e.metrics.counters) for e in engines}
+    torch.cuda.synchronize()
+    _zero_int8()
+    t0 = time.perf_counter()
+    handles = [target.submit(p, n, temperature=t, seed=s)
+               for p, n, t, s in reqs]
+    steps = 0
+    while True:
+        if on_step is not None:
+            handles += on_step(steps)
+        if not target.step():
+            break
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _int8_launches()
+    want = sum(_want_int8(e, c0.get(id(e), {})) for e in engines)
+    if launches != {"mma": want, "simt": 0}:
+        fail(f"{label}: int8_matmul launched {launches} times by route; "
+             f"the engines' pass counters give {want}, all on mma")
+    if sum(h.quarantined for h in handles) != quarantined:
+        fail(f"{label}: {sum(h.quarantined for h in handles)} requests "
+             f"quarantined, expected {quarantined}")
+    for h in handles:
+        if not h.done or h.cancelled or h.shed:
+            fail(f"{label}: request {h.rid} did not finish cleanly")
+        if not h.quarantined and not all(math.isfinite(lp)
+                                         for lp in h.logprobs):
+            fail(f"{label}: request {h.rid} has non-finite logprobs")
+    counts = {}
+    for e in engines:
+        for k, v in e.metrics.counters.items():
+            counts[k] = counts.get(k, 0) + v - c0.get(id(e), {}).get(k, 0)
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = [h.ttft_s * 1e3 for h in handles if h.ttft_s is not None]
+    return {"handles": handles, "wall_s": wall, "steps": steps,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_median_ms": float(np.median(ttft)),
+            "prefill_chunks": counts.get("serve_prefill_chunks", 0),
+            "degraded_chunks": counts.get("fleet_degraded_chunks", 0),
+            "decode_passes": counts.get("serve_target_passes", 0),
+            "int8_launches": launches["mma"]}
+
+
+def _fleet_print(part: str, label: str, run: dict) -> dict:
+    s = _summary(run)
+    print(json.dumps({"fleet": {part: {label: s}}}), flush=True)
+    return s
+
+
+def _disagg_run(dev, model, params, reqs, label: str, chaos=None,
+                **kw) -> dict:
+    """One DisaggEngine run (int8 decode on both roles); ``chaos``, a
+    ``TPU_DDP_CHAOS_FAULTS`` value set while the engine is built."""
+    from tpu_ddp_torch.fleet import DisaggEngine
+    with _env(TPU_DDP_CHAOS_FAULTS=chaos):
+        eng = DisaggEngine(model, params, device=dev, decode_quant="int8",
+                           **kw)
+    run = _fleet_drive(eng, [eng], reqs, label)
+    if not eng.accounting_ok() \
+            or eng.pool.free_count != eng.pool.total_usable:
+        fail(f"{label}: KV pool accounting broken after the run")
+    st = eng.edge.stats()
+    run.update(edge=st, cache_dtype=str(eng.pool.dtype),
+               edge_bytes_per_prompt=st["bytes_sent"] / max(st["sent"], 1))
+    return run
+
+
+def _mid_decode(engine) -> bool:
+    """True when ``engine`` holds a decoding request that has streamed a
+    token and owes more."""
+    return any(engine.sched.slots[i].generated >= 1
+               for i in engine.sched.decode_slots())
+
+
+def _bitwise(ref, got, label: str, model, qp) -> dict:
+    """A run meant to give ``ref``'s streams bit for bit (a migrated
+    stream replays its streamed tokens through decode passes); fails
+    with the first divergence and the reference's top-2 gap there."""
+    cmp = _compare_streams(ref, got, model, qp)
+    if not cmp["bitwise"]:
+        fail(f"{label}: the streams are not bit for bit the single "
+             f"engine's: {cmp}")
+    return cmp
+
+
+def _int8_drift(ref, got, model, qp) -> dict:
+    """How far the int8 edge's streams ``got`` stray from ``ref``
+    (``none``'s): the largest logprob difference before each request's
+    first parted token (inf for a non-finite logprob), the largest top-2
+    gap of the reference where a greedy stream parts, and whether both
+    lie within FLEET_INT8_LP_TOL."""
+    cmp = _compare_streams(ref, got, model, qp)
+    drift = max((r["max_logprob_diff_before"] for r in cmp["diverged"]),
+                default=0.0)
+    if not all(math.isfinite(lp) for h in got for lp in h.logprobs) \
+            or not math.isfinite(drift):
+        drift = math.inf
+    gap = max((r["ref_top2_gap"] for r in cmp["diverged"]
+               if r["temperature"] == 0 and r["first_token_diff"] is not None),
+              default=0.0)
+    return {"max_logprob_diff_before": drift, "max_part_gap": gap,
+            "held": drift <= FLEET_INT8_LP_TOL and gap <= FLEET_INT8_LP_TOL,
+            "diverged": cmp["diverged"]}
+
+
+def _planted_scale_drop(dev, model, params, reqs) -> list:
+    """The int8 edge with a planted fault: the landing decodes every int8
+    payload with its block scales dropped. Returns the handles."""
+    from tpu_ddp_torch.fleet import DisaggEngine
+    from tpu_ddp_torch.parallel.compress import EdgeCodec
+    good = EdgeCodec.decode
+
+    def dropped(wire, device=None):
+        if wire["kind"] == "int8":
+            wire = dict(wire, scale=torch.ones_like(wire["scale"]))
+        return good(wire, device)
+
+    EdgeCodec.decode = staticmethod(dropped)
+    try:
+        eng = DisaggEngine(model, params, device=dev, decode_quant="int8",
+                           kv_wire="int8")
+        hs = [eng.submit(p, n, temperature=t, seed=s) for p, n, t, s in reqs]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # quarantines are expected
+            eng.run()
+    finally:
+        EdgeCodec.decode = staticmethod(good)
+    torch.cuda.synchronize()
+    return hs
+
+
+def _fleet_disagg(dev, model, params, reqs, ref, qp) -> dict:
+    """Phase 53a: DisaggEngine over the KV edge, against the single
+    engine's streams ``ref``."""
+    runs = {}
+    for wire in ("none", "bf16", "int8"):
+        runs[wire] = _disagg_run(dev, model, params, reqs,
+                                 f"phase 53a kv_wire={wire}", kv_wire=wire)
+    runs["edge_drop"] = _disagg_run(dev, model, params, reqs,
+                                    "phase 53a edge-drop",
+                                    chaos="edge-drop@2", kv_wire="none")
+    if runs["none"]["cache_dtype"] != "torch.bfloat16":
+        fail(f"phase 53a: the KV cache is {runs['none']['cache_dtype']}, "
+             "expected bf16 (serve_cache_dtype='compute' at LM-large)")
+    h = {k: r["handles"] for k, r in runs.items()}
+    gates = {"none_vs_single": _compare_streams(ref, h["none"]),
+             "bf16_vs_none": _compare_streams(h["none"], h["bf16"]),
+             "edge_drop_vs_none": _compare_streams(h["none"],
+                                                   h["edge_drop"])}
+    for name, cmp in gates.items():
+        if not cmp["bitwise"]:
+            fail(f"phase 53a: {name} not bit for bit: {cmp}")
+    if runs["int8"]["edge"]["ratio"] < FLEET_MIN_RATIO:
+        fail(f"phase 53a: the int8 edge's ratio "
+             f"{runs['int8']['edge']['ratio']} < {FLEET_MIN_RATIO}")
+    drop = runs["edge_drop"]
+    if drop["edge"]["dropped"] != 1 or drop["degraded_chunks"] < 1:
+        fail(f"phase 53a: edge-drop dropped {drop['edge']['dropped']} "
+             f"transfers and re-prefilled {drop['degraded_chunks']} chunks")
+    gates["int8_vs_none"] = _int8_drift(h["none"], h["int8"], model, qp)
+    gates["int8_planted_scale_drop"] = _int8_drift(
+        h["none"], _planted_scale_drop(dev, model, params, reqs), model, qp)
+    if not gates["int8_vs_none"]["held"]:
+        fail(f"phase 53a: the int8 edge strays from none beyond "
+             f"{FLEET_INT8_LP_TOL}: {gates['int8_vs_none']}")
+    if gates["int8_planted_scale_drop"]["held"]:
+        fail(f"phase 53a: the int8 gate passes a landing with its scales "
+             f"dropped: {gates['int8_planted_scale_drop']}")
+    out = {k: _fleet_print("disagg", k, r) for k, r in runs.items()}
+    out["gates"] = gates
+    return out
+
+
+def _router_run(label: str, engs, reqs, quarantined: int = 0, watch=None,
+                **kw) -> dict:
+    """One Router run over ``engs``; the accounting identity and the
+    pools' refcounts are checked after it."""
+    from tpu_ddp_torch.fleet import Router
+    router = Router(engs, **kw)
+    run = _fleet_drive(router, engs, reqs, f"phase 53b {label}",
+                       quarantined, watch)
+    if not router.accounting_ok():
+        fail(f"phase 53b {label}: KV pool accounting broken")
+    hs = run["handles"]
+    ended = sum(x.done and not x.cancelled and not x.shed for x in hs) \
+        + sum(x.cancelled for x in hs) + sum(x.shed for x in hs)
+    if ended != len(hs):
+        fail(f"phase 53b {label}: completed + cancelled + shed = {ended} "
+             f"!= {len(hs)} submitted")
+    run["stats"] = router.stats()
+    return run
+
+
+def _pair(model, params, dev, chaos=None, **kw) -> list:
+    """Two int8 replicas on the card, built under ``chaos``."""
+    with _env(TPU_DDP_CHAOS_FAULTS=chaos):
+        return [_serve_engine(model, params, dev, **kw) for _ in range(2)]
+
+
+def _fleet_router(dev, model, params, seed, reqs, ref, qp) -> dict:
+    """Phase 53b: a Router over two int8 replicas on the one card."""
+    from tpu_ddp_torch.fleet import Router
+    from tpu_ddp_torch.serve.loadgen import make_shared_prefix_workload
+    engs = _pair(model, params, dev)
+    seen = {0: [], 1: []}
+
+    def watch(step):
+        for r in (0, 1):
+            if _mid_decode(engs[r]):
+                seen[r].append(step + 1)  # the replica's next step
+        return []
+
+    rr = {"least_loaded": _router_run("least-loaded", engs, reqs,
+                                      watch=watch, policy="least-loaded")}
+    del engs
+    if not seen[1] or not seen[0]:
+        fail(f"phase 53b: a replica never decoded mid-run: {seen}")
+    crash_at = seen[1][len(seen[1]) // 3]
+    poison_at = seen[0][len(seen[0]) // 3]
+    rr["crash"] = _router_run(
+        "replica-crash", _pair(model, params, dev,
+                               chaos=f"replica-crash@{crash_at}:rank=1"),
+        reqs, policy="least-loaded", probe_backoff_ms=600_000.0)
+    rr["poison"] = _router_run(
+        "nonfinite-logits",
+        _pair(model, params, dev,
+              chaos=f"nonfinite-logits@{poison_at}:rank=0"),
+        reqs, quarantined=1, policy="least-loaded")
+    specs = make_shared_prefix_workload(
+        8, model.vocab_size, seed=seed, prefix_len=FLEET_PREFIX,
+        tail_len=(32, 257), max_new=(FLEET_NEW, FLEET_NEW + 1))
+    system = np.asarray(specs[0].prompt[:FLEET_PREFIX])
+    preqs = [(np.asarray(sp.prompt), sp.max_new_tokens, sp.temperature,
+              sp.seed) for sp in specs]
+    for policy in ("least-loaded", "prefix-affinity"):
+        pengs = _pair(model, params, dev, prefix_cache=True)
+        router = Router(pengs, policy=policy,
+                        affinity_slack=FLEET_AFFINITY_SLACK)
+        _fleet_drive(router, pengs, [(system, FLEET_NEW, 0.0, 77)],
+                     f"phase 53b {policy} warm-up")
+        run = _fleet_drive(router, pengs, preqs,
+                           f"phase 53b {policy} shared prefix")
+        if not router.accounting_ok():
+            fail(f"phase 53b {policy} shared prefix: accounting broken")
+        run["stats"] = router.stats()
+        rr[f"prefix_{policy.replace('-', '_')}"] = run
+        del pengs, router
+    ll, aff = rr["prefix_least_loaded"], rr["prefix_prefix_affinity"]
+    gates = {"least_loaded_vs_single": _compare_streams(
+        ref, rr["least_loaded"]["handles"])}
+    if not gates["least_loaded_vs_single"]["bitwise"]:
+        fail(f"phase 53b: least-loaded not bit for bit the single engine: "
+             f"{gates['least_loaded_vs_single']}")
+    st = rr["crash"]["stats"]
+    if st["failovers"] != 1 or st["migrated"] < 1:
+        fail(f"phase 53b replica-crash@{crash_at}: failovers "
+             f"{st['failovers']}, migrated {st['migrated']}")
+    gates["crash_vs_single"] = _bitwise(ref, rr["crash"]["handles"],
+                                        "phase 53b replica-crash", model,
+                                        qp)
+    hp = rr["poison"]["handles"]
+    gates["poison_others"] = _compare_streams(
+        [a for a, b in zip(ref, hp) if not b.quarantined],
+        [b for b in hp if not b.quarantined])
+    if not gates["poison_others"]["bitwise"]:
+        fail(f"phase 53b nonfinite-logits: the other streams differ: "
+             f"{gates['poison_others']}")
+    if aff["stats"]["affinity_hits"] < 1 \
+            or aff["prefill_chunks"] >= ll["prefill_chunks"]:
+        fail(f"phase 53b: prefix-affinity hits "
+             f"{aff['stats']['affinity_hits']}, prefill chunks "
+             f"{aff['prefill_chunks']} against least-loaded's "
+             f"{ll['prefill_chunks']}")
+    gates["affinity_vs_least_loaded"] = _compare_streams(ll["handles"],
+                                                         aff["handles"])
+    out = {k: _fleet_print("router", k, r) for k, r in rr.items()}
+    out.update(gates=gates, crash_at=crash_at, poison_at=poison_at)
+    return out
+
+
+def _fleet_autoscale(dev, model, params, reqs, ref, qp) -> dict:
+    """Phase 53c: an Autoscaler over a Router of int8 replicas, under a
+    flash crowd that the drive loop consumes."""
+    from tpu_ddp_torch.fleet import Autoscaler, Router, ServeFaultInjector
+    built = []
+
+    def factory():
+        built.append(_serve_engine(model, params, dev))
+        return built[-1]
+
+    tick = [0.0]
+    auto = Autoscaler(Router([factory()], policy="least-loaded"), factory,
+                      enabled=True, clock=lambda: tick[0], **FLEET_SCALE)
+    with _env(TPU_DDP_CHAOS_FAULTS=f"flash-crowd@{FLEET_CROWD_AT}"):
+        crowd = ServeFaultInjector.from_env()
+    burst = []
+
+    def surge(step):
+        tick[0] = float(step)
+        if crowd.flash_crowd_fires(step):
+            burst.extend(reqs[2:])
+        now, burst[:] = burst[:2], burst[2:]
+        return [auto.submit(p, n, temperature=t, seed=s)
+                for p, n, t, s in now]
+
+    run = _fleet_drive(auto, built, reqs[:2], "phase 53c autoscaler",
+                       on_step=surge)
+    st = auto.stats()
+    print(json.dumps({"fleet": {"autoscale_events": st["events"]}}),
+          flush=True)
+    if st["scale_ups"] < 1 or st["scale_downs"] < 1 \
+            or st["migrated_on_drain"] < 1:
+        fail(f"phase 53c: scale-ups {st['scale_ups']}, scale-downs "
+             f"{st['scale_downs']}, migrated on drain "
+             f"{st['migrated_on_drain']}: {st['events']}")
+    if not auto.accounting_ok():
+        fail("phase 53c: KV pool accounting broken")
+    gates = {"vs_single": _bitwise(ref, run["handles"], "phase 53c", model,
+                                   qp)}
+    return dict(_fleet_print("autoscale", "run", run), events=st["events"],
+                replica_steps=st["replica_seconds"],
+                engines_built=len(built), stats={
+                    k: st[k] for k in ("scale_ups", "scale_downs",
+                                       "migrated_on_drain", "n_replicas")},
+                router=st["router"], gates=gates)
+
+
+class _Continue:
+    """Submits each request to ``engine`` as a migrated continuation whose
+    last ``streamed`` prompt tokens another replica streamed: replayed
+    through decode passes (``replay``) or re-prefilled."""
+
+    def __init__(self, engine, streamed: int, replay: bool):
+        self.engine, self.streamed, self.replay = engine, streamed, replay
+
+    def submit(self, prompt, n, temperature, seed):
+        return self.engine.submit(prompt, n, temperature=temperature,
+                                  seed=seed,
+                                  replay=self.streamed if self.replay else 0)
+
+    def step(self):
+        return self.engine.step()
+
+
+def _fleet_recover(dev, model, params, reqs, qp) -> dict:
+    """Phase 53d: time to recover one greedy stream migrated after it had
+    streamed FLEET_STREAMED tokens, on one int8 engine: its continuation
+    replays them through decode passes (the port; bit for bit the
+    undisturbed stream) or re-prefills them in chunks (JAX's way)."""
+    prompt, _, _, seed = reqs[0]
+    eng = _serve_engine(model, params, dev)
+    runs = {"undisturbed": _fleet_drive(
+        eng, [eng], [(prompt, FLEET_STREAMED + FLEET_RECOVER_NEW, 0.0,
+                      seed)], "phase 53d undisturbed")}
+    del eng
+    want = runs["undisturbed"]["handles"][0]
+    cont = np.concatenate([prompt, want.tokens[:FLEET_STREAMED]])
+    tail = types.SimpleNamespace(
+        rid=want.rid, temperature=0.0, prompt=cont,
+        tokens=want.tokens[FLEET_STREAMED:],
+        logprobs=want.logprobs[FLEET_STREAMED:])
+    gates = {}
+    for mode in ("replay", "reprefill"):
+        eng = _serve_engine(model, params, dev)
+        run = _fleet_drive(_Continue(eng, FLEET_STREAMED, mode == "replay"),
+                           [eng], [(cont, FLEET_RECOVER_NEW, 0.0, seed)],
+                           f"phase 53d {mode}")
+        del eng
+        run["recover_ms"] = run["ttft_median_ms"]
+        runs[mode] = run
+        gates[mode] = _compare_streams([tail], run["handles"], model, qp)
+    if not gates["replay"]["bitwise"]:
+        fail(f"phase 53d: the replayed continuation is not bit for bit the "
+             f"undisturbed stream: {gates['replay']}")
+    out = {k: _fleet_print("recover", k, r) for k, r in runs.items()}
+    out.update(gates=gates, streamed=FLEET_STREAMED,
+               replay_over_reprefill=runs["replay"]["recover_ms"]
+               / runs["reprefill"]["recover_ms"])
+    return out
+
+
+def serve_fleet(dev, model, params, seed: int) -> dict:
+    """Phase 53: the serving fleet at LM-large (see the module
+    docstring). ``params``: LM-large's seeded fp tree on the card. The
+    device memory allocated when every fleet is gone must be what it was
+    before the phase."""
+    import gc
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    reqs = [(p, FLEET_NEW, t, s) for p, _, t, s
+            in _serve_requests(model, seed)]
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    eng = _serve_engine(model, params, dev)
+    single = _drive(eng, reqs, "phase 53 single engine", _refs_ok)
+    qp = eng._decode_params
+    ref = single["handles"]
+    del eng
+    single["ttft_median_ms"] = float(np.median(
+        [h.ttft_s * 1e3 for h in ref]))
+    out["single"] = _fleet_print("single", "engine", single)
+    out["seconds"]["single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["disagg"] = _fleet_disagg(dev, model, params, reqs, ref, qp)
+    out["seconds"]["disagg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["router"] = _fleet_router(dev, model, params, seed, reqs, ref, qp)
+    out["seconds"]["router"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["autoscale"] = _fleet_autoscale(dev, model, params, reqs, ref, qp)
+    out["seconds"]["autoscale"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["recover"] = _fleet_recover(dev, model, params, reqs, qp)
+    out["seconds"]["recover"] = time.perf_counter() - t0
+    del single, ref, qp
+    gc.collect()
+    torch.cuda.synchronize()
+    leak = torch.cuda.memory_allocated() - mem0
+    out["memory_after_minus_before_bytes"] = leak
+    if abs(leak) > FLEET_MEM_TOL:
+        fail(f"phase 53: {leak} bytes still allocated after the fleets "
+             f"were deleted (tolerance {FLEET_MEM_TOL})")
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    return out
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9074,6 +9588,14 @@ def main() -> None:
     pats = phase("52_pipeline_adafactor_tp_serve",
                  pipeline_adafactor_tp_serve, dev, args.seed, ppar)
     print(json.dumps({"pipeline_adafactor_tp_serve": pats}), flush=True)
+    torch.cuda.empty_cache()
+    from tpu_ddp_torch.models.transformer import make_transformer
+    fmodel = make_transformer("TransformerLM-large")
+    fparams = fmodel.init(torch.Generator(device=dev).manual_seed(args.seed))
+    fleet = phase("53_serve_fleet", serve_fleet, dev, fmodel, fparams,
+                  args.seed)
+    del fparams
+    print(json.dumps({"serve_fleet": fleet}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
 
     def per_pass(m, key):
@@ -9165,7 +9687,20 @@ def main() -> None:
                for k in ("tiers1", "tiers2_bf16", "tiers3_int8")},
             "from_checkpoint": ckpt_serve["from_checkpoint"][
                 "int8_launches"],
-            "loadgen": load["int8_launches"]},
+            "loadgen": load["int8_launches"],
+            # Phase 53: each fleet run, counted from 0 just before it (a
+            # disagg run's prefill-role, degraded and decode passes; a
+            # Router's or an Autoscaler's replicas together), each equal
+            # to the pass counters, all mma.
+            "fleet_single": fleet["single"]["int8_launches"],
+            **{f"fleet_disagg_{k}": fleet["disagg"][k]["int8_launches"]
+               for k in ("none", "bf16", "int8", "edge_drop")},
+            **{f"fleet_router_{k}": v["int8_launches"]
+               for k, v in fleet["router"].items()
+               if isinstance(v, dict) and "int8_launches" in v},
+            "fleet_autoscale": fleet["autoscale"]["int8_launches"],
+            **{f"fleet_recover_{k}": fleet["recover"][k]["int8_launches"]
+               for k in ("undisturbed", "replay", "reprefill")}},
         # Phase 48: one cp-prefill pass's launches at M = C/sp = 16 (the
         # 32-row chunk over sp = 2), alone, beside its bound, its plain
         # version and torch.matmul.
@@ -9415,6 +9950,7 @@ def main() -> None:
                        "pipeline_parallel": ppar,
                        "mpmd_pipeline": mpar,
                        "pipeline_adafactor_tp_serve": pats,
+                       "serve_fleet": fleet,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, fh, indent=1)
     print(f"serve: TTFT median {serve['ttft_ms_median']:.1f} ms, max "

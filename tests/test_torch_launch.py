@@ -116,10 +116,27 @@ def test_sliding_restart_window(monkeypatch):
         launch.launch_elastic("part1", 1, max_restarts=-1)
 
 
+# Flags this test refused until their item was ported; each keeps its
+# case, which now holds that the flag reaches every rank as its env var
+# (item 11a): flag -> (argument, env var).
+PORTED_FLAGS = {"--fleet-health": ("0", "TPU_DDP_FLEET_HEALTH")}
+
+
 @pytest.mark.parametrize("flag,item", [
     ("--fleet-health", "item 11"), ("--audit", "item 12"),
     ("--platform", "item 9.9")])
-def test_unported_flags_raise_naming_their_item(flag, item):
+def test_unported_flags_raise_naming_their_item(flag, item, monkeypatch):
+    if flag in PORTED_FLAGS:
+        arg, env = PORTED_FLAGS[flag]
+        seen = []
+        monkeypatch.setattr(launch, "launch_elastic",
+                            lambda part, nproc, **kw: seen.append(kw["env"])
+                            or launch.LaunchResult())
+        assert launch.main(["part1", "--nproc", "1", flag, arg]) == 0
+        assert seen == [{env: arg}]
+        with pytest.raises(NotImplementedError, match=item):
+            launch.main(["part1", "--nproc", "1", "--publish-every", "1"])
+        return
     with pytest.raises(NotImplementedError, match=item):
         launch.main(["part1", "--nproc", "1", flag])
 

@@ -290,6 +290,20 @@ def test_seeded_probabilistic_mode_fires_as_jax_does():
 @pytest.mark.parametrize("spec,item", [
     ("group-loss@1", "item 11"), ("replica-crash@1", "item 2.7")])
 def test_unported_kinds_raise_naming_their_item(spec, item, monkeypatch):
+    if item == "item 2.7":
+        # Ported in item 2.7: the trainer's injector takes the serving
+        # kind and ignores it; the serving injector fires it (its drills:
+        # tests/test_torch_fleet_resilience.py).
+        from tpu_ddp_torch.fleet.resilience import (ReplicaCrashError,
+                                                    ServeFaultInjector)
+        inj = chaos.FaultInjector(chaos.parse_faults(spec), rank=0)
+        assert inj.before_step(1) is False
+        monkeypatch.setenv("TPU_DDP_CHAOS_FAULTS", spec)
+        with pytest.raises(ReplicaCrashError):
+            ServeFaultInjector.from_env().replica_step(1)
+        with pytest.raises(NotImplementedError, match="11b"):
+            chaos.FaultInjector(chaos.parse_faults("push-stall@1"))
+        return
     with pytest.raises(NotImplementedError, match=item):
         chaos.FaultInjector(chaos.parse_faults(spec))
     monkeypatch.setenv("TPU_DDP_CHAOS_FAULTS", spec)

@@ -289,8 +289,8 @@ def test_port_imports_neither_jax_nor_tpu_ddp():
     files = sorted((REPO / "tpu_ddp_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
-    # The training recipe's, the loop's host-side and the autotuner's
-    # modules are among those checked.
+    # The training recipe's, the loop's host-side, the autotuner's and
+    # the serving fleet's modules are among those checked.
     for mod in ("ops/optim.py", "ops/ema.py", "ops/loss.py",
                 "memory/policy.py", "data/text.py",
                 "examples/lm_text_train.py", "train/lm.py",
@@ -300,7 +300,10 @@ def test_port_imports_neither_jax_nor_tpu_ddp():
                 "utils/profiling.py", "tune/__init__.py", "tune/space.py",
                 "tune/search.py", "tune/cache.py", "tune/runner.py",
                 "parallel/ring_attention.py", "parallel/ulysses.py",
-                "serve/long_context.py", "parallel/pipeline.py"):
+                "serve/long_context.py", "parallel/pipeline.py",
+                "fleet/__init__.py", "fleet/router.py", "fleet/disagg.py",
+                "fleet/autoscale.py", "fleet/resilience.py",
+                "fleet/prefix.py"):
         assert REPO / "tpu_ddp_torch" / mod in files, mod
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -56,7 +56,8 @@ PORT_READS = set(_knobs("tpu_ddp_torch/utils/config.py")) \
 # A value that is not the default for each refused knob.
 NON_DEFAULT = {"TPU_DDP_FLEET_HEALTH": "0", "TPU_DDP_FLEET_ROLES": "disagg",
                "TPU_DDP_ROUTER_POLICY": "prefix-affinity",
-               "TPU_DDP_KV_WIRE": "int8", "TPU_DDP_PP_SCHEDULE": "1f1b",
+               "TPU_DDP_KV_WIRE": "int8", "TPU_DDP_FLEET_AUTOSCALE": "1",
+               "TPU_DDP_PP_SCHEDULE": "1f1b",
                "TPU_DDP_PUBLISH_WIRE": "bf16",
                "TPU_DDP_DILOCO_OUTER_WIRE": "int8",
                "TPU_DDP_GRAD_COMPRESS": "int8", "TPU_DDP_REMAT": "blocks",
@@ -82,10 +83,22 @@ def test_every_jax_knob_is_read_or_refused():
 
 
 # Knobs this test refused until their item was ported; each keeps its
-# case, which now holds that the knob is read instead (item 10.8).
-PORTED_SINCE = {"TPU_DDP_MOE_EXPERTS": "moe_experts",
-                "TPU_DDP_MOE_TOP_K": "moe_top_k",
-                "TPU_DDP_MOE_CAPACITY": "moe_capacity"}
+# case, which now holds that the knob is read instead (items 10.8 and
+# 11a): env name -> (TrainConfig field, the value NON_DEFAULT gives).
+PORTED_SINCE = {"TPU_DDP_MOE_EXPERTS": ("moe_experts", 7),
+                "TPU_DDP_MOE_TOP_K": ("moe_top_k", 7),
+                "TPU_DDP_MOE_CAPACITY": ("moe_capacity", 7),
+                "TPU_DDP_ROUTER_POLICY": ("router_policy",
+                                          "prefix-affinity"),
+                "TPU_DDP_KV_WIRE": ("kv_wire", "int8"),
+                "TPU_DDP_FLEET_HEALTH": ("fleet_health", False),
+                "TPU_DDP_FLEET_HEALTH_BACKOFF_MS": ("fleet_probe_backoff_ms",
+                                                    7.0),
+                "TPU_DDP_FLEET_HEALTH_DEADLINE_MS": ("fleet_step_deadline_ms",
+                                                     7.0),
+                "TPU_DDP_FLEET_RETRY_BUDGET": ("fleet_retry_budget", 7),
+                "TPU_DDP_FLEET_AUTOSCALE": ("fleet_autoscale", True),
+                "TPU_DDP_SCALE_COOLDOWN_MS": ("scale_cooldown_ms", 7.0)}
 
 
 @pytest.mark.parametrize("name", sorted(set(tcfg._UNPORTED_ENV)
@@ -94,7 +107,8 @@ def test_unported_knob_raises_naming_its_item(clean_env, name):
     clean_env.setenv(name, NON_DEFAULT.get(name, "7"))
     if name in PORTED_SINCE:
         tcfg.refuse_unported_env()
-        assert getattr(TrainConfig(), PORTED_SINCE[name]) == 7
+        field, value = PORTED_SINCE[name]
+        assert getattr(TrainConfig(), field) == value
         return
     item = tcfg._UNPORTED_ENV[name][1]
     with pytest.raises(NotImplementedError, match=re.escape(item)):
@@ -110,7 +124,7 @@ def test_unported_knob_raises_naming_its_item(clean_env, name):
                                         | set(PORTED_SINCE)))
 def test_unported_knob_at_its_default_passes(clean_env, name):
     if name in PORTED_SINCE:
-        field = PORTED_SINCE[name]
+        field = PORTED_SINCE[name][0]
         default = getattr(TrainConfig(), field)
         clean_env.setenv(name, str(default))
         tcfg.refuse_unported_env()

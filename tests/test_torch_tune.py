@@ -859,7 +859,10 @@ def _audit(knob, clean):
     clean.setattr(launch, "launch_elastic",
                   lambda part, nproc, **kw: seen.append(kw["env"])
                   or launch.LaunchResult())
-    argv = [knob.flag] if isinstance(probe, bool) else [
+    # A boolean flag is a switch, or (the fleet's) takes "0"/"1".
+    switch = launch.build_parser()._option_string_actions[
+        knob.flag].nargs == 0
+    argv = [knob.flag] if isinstance(probe, bool) and switch else [
         knob.flag, knob.encode(probe)]
     # The MoE knobs configure the LM, which the launcher runs as "lm".
     target = launch.LM if knob.name in tspace._NOT_IN_TRIALS else "part1"

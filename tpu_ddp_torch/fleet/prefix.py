@@ -1,6 +1,7 @@
 """Hash-keyed prefix index: shared-prompt KV reuse over the paged pool —
-the port of ``PrefixIndex`` and ``PrefixHit`` from tpu_ddp/fleet/prefix.py
-(``PrefixDirectory``, the fleet router's map, is ROADMAP Queue 1 item 11).
+the port of ``PrefixIndex``, ``PrefixHit`` and ``PrefixDirectory`` (the
+fleet router's map of which replica may hold a prefix) from
+tpu_ddp/fleet/prefix.py.
 
 Requests that share a long system prompt pay one prefill: after a
 request's prefill completes, its full prompt blocks are registered under
@@ -206,3 +207,69 @@ class PrefixIndex:
             "inserted": self.inserted,
             "evicted": self.evicted,
         }
+
+
+class PrefixDirectory:
+    """Cross-replica prefix directory for affinity routing.
+
+    The Router records ``(tenant, first full block of the prompt) ->
+    replica index`` for every routed request and asks the directory before
+    probing replicas: only the replicas recorded for that key can hold the
+    prefix, so a pick probes those instead of the whole fleet. Entries are
+    advisory: the Router still checks each candidate with the replica's
+    own pure probe, and falls back to the full probe when every hint
+    misses. Replica removal calls :meth:`forget` and :meth:`reindex`."""
+
+    def __init__(self, block_size: int):
+        if block_size < 1:
+            raise ValueError(
+                f"block_size must be >= 1, got {block_size}")
+        self.block_size = block_size
+        # (tenant, first-block token tuple) -> set of replica indices
+        self._where: dict = {}
+        self.records = 0
+        self.narrowed = 0   # picks the directory narrowed
+        self.misses = 0     # picks with no recorded candidate
+
+    def _key(self, tenant: str, prompt):
+        if len(prompt) < self.block_size:
+            return None  # no full block: nothing cacheable to find
+        return (str(tenant),
+                tuple(int(t) for t in prompt[:self.block_size]))
+
+    def record(self, tenant: str, prompt, replica: int) -> None:
+        key = self._key(tenant, prompt)
+        if key is None:
+            return
+        self._where.setdefault(key, set()).add(replica)
+        self.records += 1
+
+    def candidates(self, tenant: str, prompt) -> list[int]:
+        """Replica indices that may hold this prompt's prefix, sorted;
+        empty when none can."""
+        key = self._key(tenant, prompt)
+        hits = self._where.get(key) if key is not None else None
+        if hits:
+            self.narrowed += 1
+            return sorted(hits)
+        self.misses += 1
+        return []
+
+    def forget(self, replica: int) -> None:
+        """Drop every record pointing at ``replica`` (its cache is gone)."""
+        for key in list(self._where):
+            s = self._where[key]
+            s.discard(replica)
+            if not s:
+                del self._where[key]
+
+    def reindex(self, removed: int) -> None:
+        """Shift indices above a removed replica down by one, as the
+        Router compacts its replica list."""
+        self._where = {
+            key: {i - 1 if i > removed else i for i in s}
+            for key, s in self._where.items()}
+
+    def stats(self) -> dict:
+        return {"keys": len(self._where), "records": self.records,
+                "narrowed": self.narrowed, "misses": self.misses}

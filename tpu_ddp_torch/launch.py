@@ -107,12 +107,10 @@ _UNPORTED_FLAGS = {
     "--audit": "item 12 (analysis/)",
     "--platform": "item 9.9 (launch.py; the port takes --device)",
     "--devices-per-proc": "item 9.9 (launch.py; one device per process)",
-    **{flag: "item 11 (fleet, publish and DiLoCo)" for flag in (
-        "--fleet-health", "--fleet-probe-backoff-ms",
-        "--fleet-step-deadline-ms", "--fleet-retry-budget",
-        "--fleet-autoscale", "--scale-cooldown-ms", "--publish-every",
-        "--publish-wire", "--publish-max-staleness", "--diloco-h",
-        "--diloco-outer-lr", "--diloco-outer-momentum",
+    **{flag: "item 11 (11b: weight publishing, publish/)" for flag in (
+        "--publish-every", "--publish-wire", "--publish-max-staleness")},
+    **{flag: "item 11 (11c: DiLoCo, train/outer.py)" for flag in (
+        "--diloco-h", "--diloco-outer-lr", "--diloco-outer-momentum",
         "--diloco-outer-wire")},
 }
 
@@ -576,6 +574,36 @@ def _refuse_unported(argv: list) -> None:
 
 def _serving_flags(p) -> None:
     """The serving knobs, each exported to every rank as its env var."""
+    p.add_argument("--fleet-health", default=None, choices=("0", "1"),
+                   help="replica health tracking and deterministic "
+                        "request migration in the serving Router "
+                        "(tpu_ddp_torch/fleet/router.py); '0' = "
+                        "fail-fast. Sets TPU_DDP_FLEET_HEALTH for every "
+                        "rank")
+    p.add_argument("--fleet-probe-backoff-ms", type=float, default=None,
+                   help="initial probe re-admission backoff of an "
+                        "unhealthy replica, doubling per consecutive "
+                        "failure (default 200). Sets "
+                        "TPU_DDP_FLEET_HEALTH_BACKOFF_MS for every rank")
+    p.add_argument("--fleet-step-deadline-ms", type=float, default=None,
+                   help="per-replica step deadline; a slower step counts "
+                        "as a failure (0 disables). Sets "
+                        "TPU_DDP_FLEET_HEALTH_DEADLINE_MS for every rank")
+    p.add_argument("--fleet-retry-budget", type=int, default=None,
+                   help="migrations allowed per request before the "
+                        "Router sheds it (default 3). Sets "
+                        "TPU_DDP_FLEET_RETRY_BUDGET for every rank")
+    p.add_argument("--fleet-autoscale", default=None, choices=("0", "1"),
+                   help="the autoscaling replica lifecycle "
+                        "(tpu_ddp_torch/fleet/autoscale.py): scale-up "
+                        "boots replicas from the engine factory, "
+                        "scale-down drains through continuation "
+                        "migration. Sets TPU_DDP_FLEET_AUTOSCALE for "
+                        "every rank")
+    p.add_argument("--scale-cooldown-ms", type=float, default=None,
+                   help="minimum ms between autoscaler actions (default "
+                        "1000). Sets TPU_DDP_SCALE_COOLDOWN_MS for every "
+                        "rank")
     p.add_argument("--serve-queue-limit", type=int, default=None,
                    help="bounded serving admission queue; submits "
                         "beyond this many waiting requests are shed "
@@ -632,6 +660,32 @@ def _serving_env(p, args) -> dict:
     """The env the serving flags set, validated as the JAX launcher
     validates them."""
     env = {}
+    if args.fleet_health is not None:
+        env["TPU_DDP_FLEET_HEALTH"] = args.fleet_health
+    if args.fleet_probe_backoff_ms is not None:
+        if args.fleet_probe_backoff_ms <= 0:
+            p.error(f"--fleet-probe-backoff-ms must be > 0, "
+                    f"got {args.fleet_probe_backoff_ms}")
+        env["TPU_DDP_FLEET_HEALTH_BACKOFF_MS"] = \
+            str(args.fleet_probe_backoff_ms)
+    if args.fleet_step_deadline_ms is not None:
+        if args.fleet_step_deadline_ms < 0:
+            p.error(f"--fleet-step-deadline-ms must be >= 0, "
+                    f"got {args.fleet_step_deadline_ms}")
+        env["TPU_DDP_FLEET_HEALTH_DEADLINE_MS"] = \
+            str(args.fleet_step_deadline_ms)
+    if args.fleet_retry_budget is not None:
+        if args.fleet_retry_budget < 0:
+            p.error(f"--fleet-retry-budget must be >= 0, "
+                    f"got {args.fleet_retry_budget}")
+        env["TPU_DDP_FLEET_RETRY_BUDGET"] = str(args.fleet_retry_budget)
+    if args.fleet_autoscale is not None:
+        env["TPU_DDP_FLEET_AUTOSCALE"] = args.fleet_autoscale
+    if args.scale_cooldown_ms is not None:
+        if args.scale_cooldown_ms <= 0:
+            p.error(f"--scale-cooldown-ms must be > 0, "
+                    f"got {args.scale_cooldown_ms}")
+        env["TPU_DDP_SCALE_COOLDOWN_MS"] = str(args.scale_cooldown_ms)
     if args.serve_queue_limit is not None:
         if args.serve_queue_limit < 0:
             p.error(f"--serve-queue-limit must be >= 0, "

@@ -367,8 +367,9 @@ def _blocks_per_sm(name: str, vec: int, device_index: int,
         err = _fn("tdt_bn_blocks_per_sm")(
             _OCCUPANCY_OF[name], vec, int(bf16), ctypes.byref(out))
     if err or out.value < 1:
-        raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
-                           f"{err}, {out.value} blocks per SM)")
+        raise cuda_build.KernelError(
+            f"{name}: occupancy query failed (CUDA error {err}, "
+            f"{out.value} blocks per SM)")
     return out.value
 
 
@@ -390,8 +391,8 @@ def _launch(name, x, *args):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _fn(name)(*args, stream)
     if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(rows {tuple(x.shape)})")
+        raise cuda_build.KernelError(f"{name} launch failed: CUDA error "
+                                     f"{err} (rows {tuple(x.shape)})")
 
 
 def bn_stats(x2d, eps=BN_EPS):

@@ -23,6 +23,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
+
+class KernelError(RuntimeError):
+    """A kernel of the port that did not build or did not launch. Never
+    caught: serving's failover re-raises it (fleet/resilience.py
+    ``device_fault``)."""
+
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg)
 # exist only for the "a" target.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,7 +48,7 @@ def find_nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH);"
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH);"
                        " the port's CUDA kernels are built from source at "
                        "first use")
 
@@ -73,8 +79,8 @@ def build(source: str) -> Path:
             capture_output=True, text=True, check=False)
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source} (exit "
-                               f"{proc.returncode}):\n{proc.stderr}")
+            raise KernelError(f"nvcc failed on {source} (exit "
+                              f"{proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a reader never sees a half file
     finally:
         if os.path.exists(tmp):

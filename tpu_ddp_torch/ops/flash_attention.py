@@ -228,8 +228,8 @@ def _cuda_checks(name, q, extra=()):
 def _launch(name, fn, args, shape):
     err = fn(*args)
     if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"(B, L, H, KV, D = {shape})")
+        raise cuda_build.KernelError(f"{name} launch failed: CUDA error "
+                                     f"{err} (B, L, H, KV, D = {shape})")
 
 
 def flash_fwd(q, k, v, causal: bool = False):

@@ -155,8 +155,9 @@ def int8_matmul(x, q, s):
                 partial.data_ptr() if partial is not None else None,
                 m, k, n, splits, kps, stream)
     if err:
-        raise RuntimeError(f"int8_matmul ({route}) launch failed: CUDA error "
-                           f"{err} (M={m}, K={k}, N={n}, splits={splits})")
+        raise cuda_build.KernelError(
+            f"int8_matmul ({route}) launch failed: CUDA error {err} "
+            f"(M={m}, K={k}, N={n}, splits={splits})")
     int8_matmul.launches[route] += 1
     return out.reshape(*lead, n)
 

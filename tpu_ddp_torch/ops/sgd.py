@@ -132,8 +132,9 @@ def fused_sgd_step(params, grads, bufs, *, lr: float, momentum: float,
             err = _lib()(*(c.ctypes.data for c in cols), len(group),
                          lr, momentum, weight_decay, vec, skip_ptr, stream)
             if err:
-                raise RuntimeError(f"fused_sgd_step launch failed: CUDA "
-                                   f"error {err} ({len(group)} leaves)")
+                raise cuda_build.KernelError(
+                    f"fused_sgd_step launch failed: CUDA error {err} "
+                    f"({len(group)} leaves)")
             fused_sgd_step.launches += 1
     return params, bufs
 

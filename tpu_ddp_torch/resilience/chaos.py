@@ -17,10 +17,15 @@ fault kind                recovery path it drills
 ``host-loss`` and ``host-join`` die like a preempted host: when the
 elastic protocol is armed they write their departure notice
 (resilience/elastic.py) first, then exit with 15 (gone for good) or 16
-(coming back), which tell the elastic launcher what to do. The JAX
-package's other kinds parse with the same grammar, but a
-:class:`FaultInjector` configured with one raises ``NotImplementedError``
-naming its ROADMAP item: ``group-loss`` (DiLoCo) and the serving kinds.
+(coming back), which tell the elastic launcher what to do. The serving
+kinds (``SERVE_FAULT_KINDS``) run through
+``tpu_ddp_torch.fleet.resilience.ServeFaultInjector``; the trainer's hooks
+ignore them, as the serving hooks ignore the training kinds, so one spec
+string can drill a whole train and serve stack. The JAX package's
+remaining kinds parse with the same grammar, but an injector configured
+with one raises ``NotImplementedError`` naming its ROADMAP item:
+``group-loss`` (DiLoCo, 11c), ``publisher-death`` and ``push-stall``
+(weight publishing, 11b).
 
 Faults are configured by env, so they reach launcher-spawned workers
 unchanged (the same variables as the JAX package):
@@ -58,16 +63,18 @@ FAULT_EXIT_CODE = 13
 
 FAULT_KINDS = ("hard-exit", "nan-grad", "stalled-step", "corrupt-ckpt",
                "slow-rank", "host-loss", "host-join", "group-loss")
-# The serving kinds of the JAX package (fleet/resilience.py), parsed with
-# the same grammar.
+# The serving kinds (fleet/resilience.py): ``rank`` is the replica index
+# (the Router stamps it), ``step`` the replica's engine-step counter
+# (``edge-drop`` counts edge deliveries, the publish kinds pushes);
+# ``flash-crowd`` and ``tenant-storm`` are consumed by the drive loop.
 SERVE_FAULT_KINDS = ("replica-crash", "slow-replica", "edge-drop",
                      "nonfinite-logits", "publisher-death", "push-stall",
                      "flash-crowd", "tenant-storm")
 # Kinds that parse but that no injector of the port executes yet.
 _UNPORTED_KINDS = {
-    "group-loss": "item 11 (DiLoCo, train/outer.py)",
-    **{k: "item 2.7 (serving chaos drills, fleet/resilience.py)"
-       for k in SERVE_FAULT_KINDS},
+    "group-loss": "item 11 (11c: DiLoCo, train/outer.py)",
+    **{k: "item 11 (11b: weight publishing, publish/)"
+       for k in ("publisher-death", "push-stall")},
 }
 
 CHAOS_ENV = "TPU_DDP_CHAOS_FAULTS"

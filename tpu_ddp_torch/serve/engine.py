@@ -1,8 +1,8 @@
 """The serving engine: request lifecycle over the paged KV pool and the
 continuous-batching scheduler — the port of tpu_ddp/serve/engine.py, on
-one device or tensor parallel over a process group of one card each (the
-serving chaos hooks and the weight subscriber are ROADMAP Queue 1 items
-2.7 and 11).
+one device or tensor parallel over a process group of one card each, with
+the serving chaos hooks of fleet/resilience.py (the weight subscriber is
+ROADMAP Queue 1 item 11b).
 
 Each engine step runs, in PyTorch eager mode:
 
@@ -40,6 +40,13 @@ With ``kv_tiers > 1`` the pool keeps only part of the context hot
 (serve/long_context.py). ``prefix_cache`` shares prompt blocks between
 requests (fleet/prefix.py); ``tenant_classes``, ``queue_limit`` and
 ``shed_ms`` run weighted fair admission and shedding.
+
+Chaos (``TPU_DDP_CHAOS_FAULTS`` holding a serving kind): ``step()`` asks
+the injector first, before any state changes, so a ``replica-crash``
+leaves an engine the Router can harvest with ``drain()``; every decode
+route (k = 0, chain and the fused drafts) asks it before the bank runs,
+and a ``nonfinite-logits`` fire NaNs one live request's last block, which
+is always private (lazily allocated, or the copy a prefix hit made).
 
 Tensor-parallel serving (``tp_group``): every rank of the group runs the
 engine in lockstep with the same requests, each holding its Megatron
@@ -86,6 +93,7 @@ from tpu_ddp_torch.serve.kv_pool import PagedKVPool
 from tpu_ddp_torch.serve.scheduler import (
     Scheduler,
     parse_tenant_classes,
+    prefill_len,
     tenant_of,
 )
 from tpu_ddp_torch.serve.speculative import (
@@ -127,6 +135,11 @@ class Request:
     cancelled: bool = False
     shed: bool = False          # dropped by admission control
     quarantined: bool = False   # non-finite logits: request isolated
+    migrations: int = 0         # times replayed on another replica
+    # The prompt's last ``replay`` tokens were streamed by another replica
+    # (a migrated continuation): they are fed through decode passes, not
+    # prefilled, so their K/V is the arithmetic that sampled them.
+    replay: int = 0
     submitted_at: float = 0.0
     first_token_at: float | None = None
     finished_at: float | None = None
@@ -258,7 +271,176 @@ def prefill_chunk(model, block_size: int, params, pool_k, pool_v, table,
     return pool_k, pool_v, tok[0], lp[0]
 
 
-class ServeEngine:
+class DecodeRole:
+    """What every owner of a decode bank shares: request checks, the
+    bank's inputs, the ``nonfinite-logits`` drill, and the harvest of a
+    pass (quarantine, the replay rule, emission, retirement, the tenant
+    ledger). :class:`ServeEngine` is one; so is the decode role of
+    fleet/disagg.py's ``DisaggEngine``.
+
+    The host class provides ``model``, ``sched`` and ``pool`` (the
+    decode scheduler and its pool), ``num_slots``, ``blocks_per_seq``,
+    ``device``, ``metrics``, ``param_version``, ``chaos``, ``_step_n``,
+    ``_rid`` and ``tenant_counts``."""
+
+    def _new_request(self, prompt, max_new_tokens: int, temperature: float,
+                     seed: int, eos_id, on_token, tenant: str,
+                     replay: int) -> Request:
+        """A checked :class:`Request` for ``submit`` (``replay``: the
+        prompt's last ``replay`` tokens were already streamed, a migrated
+        continuation's; they are fed through decode passes and not
+        emitted again)."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must hold >= 1 token")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = prompt.size + max_new_tokens
+        if total > self.model.max_seq_len:
+            raise ValueError(f"prompt + generation = {total} exceeds "
+                             f"max_seq_len={self.model.max_seq_len}")
+        if temperature < 0:
+            raise ValueError("temperature must be >= 0")
+        if prompt.min() < 0 or prompt.max() >= self.model.vocab_size:
+            raise ValueError(f"prompt tokens must lie in "
+                             f"[0, {self.model.vocab_size})")
+        if not tenant:
+            raise ValueError("tenant must be a non-empty string")
+        if not 0 <= replay < prompt.size:
+            raise ValueError(f"replay={replay} must leave >= 1 prompt "
+                             "token to prefill")
+        return Request(rid=next(self._rid), prompt=prompt,
+                       max_new_tokens=int(max_new_tokens),
+                       temperature=float(temperature), seed=int(seed),
+                       eos_id=eos_id, on_token=on_token, tenant=str(tenant),
+                       replay=int(replay), submitted_at=time.perf_counter())
+
+    def _tc(self, tenant: str) -> dict[str, int]:
+        return self.tenant_counts.setdefault(
+            tenant, {"submitted": 0, "completed": 0, "cancelled": 0,
+                     "shed": 0, "quarantined": 0})
+
+
+    def _table_for(self, slot) -> np.ndarray:
+        t = np.zeros(self.blocks_per_seq, np.int64)
+        t[:len(slot.blocks)] = slot.blocks
+        return t
+
+    def _tensor(self, a, dtype=torch.int64):
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def bank_inputs(self, dslots: list[int]):
+        """The decode step's inputs for the live slots ``dslots`` —
+        (tables, lengths, last_tokens, temps, seeds) on the device —
+        after growing each slot's table to cover its next write. Idle
+        rows keep zero tables, lengths and tokens."""
+        tables = np.zeros((self.num_slots, self.blocks_per_seq), np.int64)
+        for i in dslots:
+            self.sched.ensure_block(i)
+            tables[i] = self._table_for(self.sched.slots[i])
+        return (self._tensor(tables),) + self._slot_rows(dslots)
+
+    def _slot_rows(self, dslots):
+        """(lengths, last tokens, temps, seeds) of the bank on the
+        device; idle rows are zeros."""
+        S = self.num_slots
+        lengths = np.zeros(S, np.int64)
+        last = np.zeros(S, np.int64)
+        temps = np.zeros(S, np.float32)
+        seeds = np.zeros(S, np.int64)
+        for i in dslots:
+            s = self.sched.slots[i]
+            lengths[i] = s.length
+            last[i] = s.pending_token
+            temps[i] = s.request.temperature
+            seeds[i] = s.request.seed
+        return (self._tensor(lengths), self._tensor(last),
+                self._tensor(temps, torch.float32), self._tensor(seeds))
+
+    def _maybe_poison(self, dslots: list[int]) -> None:
+        """The ``nonfinite-logits`` drill: NaN the V pages of the first
+        live request's last block (never a block the prefix index shares).
+        The NaN reaches only that request's logits, through its own
+        pages, so the bank's ``bad`` flag must isolate exactly that slot.
+        A tiered pool poisons the block's hot copy."""
+        if self.chaos is None or not dslots \
+                or not self.chaos.poison_fires(self._step_n):
+            return
+        blk = self.sched.slots[dslots[0]].blocks[-1]
+        if self.pool.tiers > 1:
+            self.pool.ensure_hot([blk])
+            blk = self.pool.hot_slot(blk)
+        self.pool.v[:, blk] = float("nan")
+
+    def _harvest(self, dslots: list[int], toks, lps, bad) -> None:
+        """One decode pass's samples (host arrays over the bank): a row
+        with non-finite logits is quarantined, every other live row
+        advances one position and settles its sample."""
+        for i in dslots:
+            if bad[i]:
+                self._quarantine(i)
+                continue
+            self.sched.slots[i].length += 1
+            self._emit(i, int(toks[i]), float(lps[i]))
+
+    def _quarantine(self, idx: int) -> None:
+        """Non-finite logits on slot ``idx``: isolate the request, not
+        the bank. Its private pages are scrubbed before they return to
+        the free list (a NaN'd V page re-issued to another request would
+        leak through zero-weight attention), then the slot retires and
+        the request finishes quarantined."""
+        s = self.sched.slots[idx]
+        req = s.request
+        self.pool.scrub([b for b in s.blocks
+                         if self.pool.refcount(b) == 1])
+        self.sched.retire(idx)
+        req.quarantined = True
+        req.done = True
+        req.finished_at = time.perf_counter()
+        self.metrics.inc("serve_quarantined")
+        self._tc(tenant_of(req))["quarantined"] += 1
+        self._tc(tenant_of(req))["completed"] += 1
+        warnings.warn(
+            f"request {req.rid}: non-finite logits at engine step "
+            f"{self._step_n}; request quarantined, pages scrubbed",
+            stacklevel=3)
+
+    def _emit(self, idx: int, tok: int, logprob: float) -> None:
+        """Settle one sample of slot ``idx`` (:meth:`SlotState.take`: a
+        replayed token is fed on, not emitted), then stream it."""
+        s = self.sched.slots[idx]
+        if s.take(tok) is None:
+            return
+        s.generated += 1
+        if self._record(s.request, tok, logprob):
+            self.sched.retire(idx)
+
+    def _record(self, req: Request, tok: int, logprob: float) -> bool:
+        """Stream one emitted token of ``req``: stamp TTFT on its first,
+        call ``on_token``, finish it on ``max_new_tokens`` or EOS.
+        Returns whether it finished (the caller frees its slot)."""
+        req.tokens.append(tok)
+        req.logprobs.append(logprob)
+        req.token_versions.append(self.param_version)
+        now = time.perf_counter()
+        req.token_times.append(now)
+        if req.first_token_at is None:
+            req.first_token_at = now
+            self.metrics.observe("serve_ttft_ms",
+                                 (now - req.submitted_at) * 1e3)
+        if req.on_token is not None:
+            req.on_token(tok)
+        if len(req.tokens) >= req.max_new_tokens \
+                or (req.eos_id is not None and tok == req.eos_id):
+            req.done = True
+            req.finished_at = now
+            self.metrics.inc("serve_retired")
+            self._tc(tenant_of(req))["completed"] += 1
+            return True
+        return False
+
+
+class ServeEngine(DecodeRole):
     """Continuous-batching serving over one dense TransformerLM.
 
     Knob defaults come from ``TrainConfig`` (``TPU_DDP_SERVE_*``,
@@ -430,6 +612,11 @@ class ServeEngine:
             raise ValueError("shed_ms must be >= 0")
         self._step_n = 0
         self.param_version = 0
+        self.chaos = None
+        from tpu_ddp_torch.fleet.resilience import (ServeFaultInjector,
+                                                    serve_chaos_active)
+        if serve_chaos_active():
+            self.chaos = ServeFaultInjector.from_env()
 
     def _fp_params(self, params):
         """The fp master this rank serves from dense ``params``: the
@@ -504,28 +691,13 @@ class ServeEngine:
                temperature: float = 0.0, seed: int = 0,
                eos_id: int | None = None,
                on_token: Callable[[int], None] | None = None,
-               tenant: str = "default") -> Request:
-        prompt = np.asarray(prompt, np.int64).reshape(-1)
-        if prompt.size < 1:
-            raise ValueError("prompt must hold >= 1 token")
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
-        total = prompt.size + max_new_tokens
-        if total > self.model.max_seq_len:
-            raise ValueError(f"prompt + generation = {total} exceeds "
-                             f"max_seq_len={self.model.max_seq_len}")
-        if temperature < 0:
-            raise ValueError("temperature must be >= 0")
-        if prompt.min() < 0 or prompt.max() >= self.model.vocab_size:
-            raise ValueError(f"prompt tokens must lie in "
-                             f"[0, {self.model.vocab_size})")
-        if not tenant:
-            raise ValueError("tenant must be a non-empty string")
-        req = Request(rid=next(self._rid), prompt=prompt,
-                      max_new_tokens=int(max_new_tokens),
-                      temperature=float(temperature), seed=int(seed),
-                      eos_id=eos_id, on_token=on_token, tenant=str(tenant),
-                      submitted_at=time.perf_counter())
+               tenant: str = "default", replay: int = 0) -> Request:
+        """Queue a request. ``replay``: the prompt's last ``replay``
+        tokens were already streamed (a migrated continuation, the
+        Router's); they are replayed through decode passes and not
+        emitted again."""
+        req = self._new_request(prompt, max_new_tokens, temperature, seed,
+                                eos_id, on_token, tenant, replay)
         self.metrics.inc("serve_submitted")
         self._tc(req.tenant)["submitted"] += 1
         if self.queue_limit and len(self.sched.queue) >= self.queue_limit:
@@ -550,11 +722,6 @@ class ServeEngine:
                 return req
         self.sched.enqueue(req)
         return req
-
-    def _tc(self, tenant: str) -> dict[str, int]:
-        return self.tenant_counts.setdefault(
-            tenant, {"submitted": 0, "completed": 0, "cancelled": 0,
-                     "shed": 0, "quarantined": 0})
 
     def _weight(self, tenant: str) -> int:
         cls = self.tenants.get(tenant) if self.tenants else None
@@ -620,6 +787,9 @@ class ServeEngine:
         to ``spec_k + 1`` tokens per slot, so one chunk per step would
         let slots empty faster than they refill."""
         self._step_n += 1
+        if self.chaos is not None:
+            # May raise ReplicaCrashError, before any state changes.
+            self.chaos.replica_step(self._step_n)
         self._shed_expired()
         admitted = self.sched.admit()
         self.metrics.inc("serve_admitted", len(admitted))
@@ -634,10 +804,18 @@ class ServeEngine:
         if dslots:
             did = True
             self.metrics.inc("serve_decode_steps")
-            if self.spec_k > 0 and self._spec_kind == "chain":
-                self._run_chain_step(dslots)
-            elif self.spec_k > 0:
-                self._run_spec_step(dslots)
+            if self.spec_k > 0:
+                # A migrated continuation's streamed tokens are fed one
+                # per pass, as they were sampled: its rows take a k=0
+                # pass of their own, and the other rows speculate.
+                replaying = [i for i in dslots if self.sched.slots[i].replay]
+                if replaying:
+                    self._run_decode_step(replaying)
+                    dslots = [i for i in dslots if i not in replaying]
+                if dslots and self._spec_kind == "chain":
+                    self._run_chain_step(dslots)
+                elif dslots:
+                    self._run_spec_step(dslots)
             else:
                 self._run_decode_step(dslots)
         self.metrics.observe("serve_queue_depth", len(self.sched.queue))
@@ -678,9 +856,7 @@ class ServeEngine:
         for s in self.sched.slots:
             if s is not None:
                 t = tenant_of(s.request)
-                out[t] = out.get(t, 0) \
-                    + (len(s.request.prompt) - s.prefill_done) \
-                    + (s.request.max_new_tokens - s.generated)
+                out[t] = out.get(t, 0) + s.owed
         return out
 
     def prefix_cached_len(self, prompt, tenant: str = "default") -> int:
@@ -746,22 +922,15 @@ class ServeEngine:
 
     # ---- internals -----------------------------------------------------
 
-    def _table_for(self, slot) -> np.ndarray:
-        t = np.zeros(self.blocks_per_seq, np.int64)
-        t[:len(slot.blocks)] = slot.blocks
-        return t
-
-    def _tensor(self, a, dtype=torch.int64):
-        return torch.as_tensor(a, dtype=dtype).to(self.device)
-
     def _run_prefill_chunk(self, pi: int) -> None:
         s = self.sched.slots[pi]
         req = s.request
+        plen = prefill_len(req)
         start, C = s.prefill_done, self.prefill_chunk
         chunk = np.zeros((1, C), np.int64)
-        piece = req.prompt[start:start + C]
+        piece = req.prompt[start:min(start + C, plen)]
         chunk[0, :piece.size] = piece
-        args = (self._tensor(chunk), start, int(req.prompt.size),
+        args = (self._tensor(chunk), start, plen,
                 self._tensor([req.temperature], torch.float32),
                 self._tensor([req.seed]))
         if self.pool.tiers > 1:
@@ -769,7 +938,7 @@ class ServeEngine:
             # hot slots); earlier chunks' pages may be cold and are read
             # through the dequant.
             from tpu_ddp_torch.serve.long_context import tiered_prefill_chunk
-            lastpos = min(start + C, int(req.prompt.size)) - 1
+            lastpos = min(start + C, plen) - 1
             targets = s.blocks[start // self.block_size:
                                lastpos // self.block_size + 1]
             self.pool.ensure_device(s.blocks)
@@ -792,28 +961,17 @@ class ServeEngine:
                 *args)
         self.pool.commit(k, v)
         self.metrics.inc("serve_prefill_chunks")
-        s.prefill_done = min(start + C, int(req.prompt.size))
+        s.prefill_done = min(start + C, plen)
         s.length = s.prefill_done
-        if s.prefill_done >= req.prompt.size:
+        if s.prefill_done >= plen:
             # Register before emitting: _emit may retire the slot
             # (max_new_tokens == 1), and the index must take its holder
             # refs while the blocks are still live.
             if self.prefix is not None:
-                self.prefix.register(req.prompt, s.blocks,
+                self.prefix.register(req.prompt[:plen], s.blocks,
                                      ns=tenant_of(req))
             s.phase = "decode"
             self._emit(pi, int(tok), float(lp))  # the first token
-
-    def bank_inputs(self, dslots: list[int]):
-        """The decode step's inputs for the live slots ``dslots`` —
-        (tables, lengths, last_tokens, temps, seeds) on the device —
-        after growing each slot's table to cover its next write. Idle
-        rows keep zero tables, lengths and tokens."""
-        tables = np.zeros((self.num_slots, self.blocks_per_seq), np.int64)
-        for i in dslots:
-            self.sched.ensure_block(i)
-            tables[i] = self._table_for(self.sched.slots[i])
-        return (self._tensor(tables),) + self._slot_rows(dslots)
 
     def _tiered_tables(self, dslots, hot_set):
         """Residency before tables (tiers > 1): every live slot's blocks
@@ -835,26 +993,10 @@ class ServeEngine:
                                                  BPS)
         return self._tensor(ht), self._tensor(ct)
 
-    def _slot_rows(self, dslots):
-        """(lengths, last tokens, temps, seeds) of the bank on the
-        device; idle rows are zeros."""
-        S = self.num_slots
-        lengths = np.zeros(S, np.int64)
-        last = np.zeros(S, np.int64)
-        temps = np.zeros(S, np.float32)
-        seeds = np.zeros(S, np.int64)
-        for i in dslots:
-            s = self.sched.slots[i]
-            lengths[i] = s.length
-            last[i] = s.pending_token
-            temps[i] = s.request.temperature
-            seeds[i] = s.request.seed
-        return (self._tensor(lengths), self._tensor(last),
-                self._tensor(temps, torch.float32), self._tensor(seeds))
-
     def _run_decode_step(self, dslots: list[int]) -> None:
         if self.pool.tiers > 1:
             from tpu_ddp_torch.serve.long_context import tiered_decode_bank
+            self._maybe_poison(dslots)
             for i in dslots:
                 self.sched.ensure_block(i)
             bs = self.block_size
@@ -864,18 +1006,14 @@ class ServeEngine:
                 self.model, self.pool, self._decode_params, tables, cold,
                 *self._slot_rows(dslots))
         else:
+            inputs = self.bank_inputs(dslots)
+            self._maybe_poison(dslots)
             _, _, toks, lps, bad = decode_bank(
                 self.model, self.block_size, self._decode_params,
-                self.pool.k, self.pool.v, *self.bank_inputs(dslots))
+                self.pool.k, self.pool.v, *inputs)
         self.metrics.inc("serve_target_passes")
-        toks, lps, bad = toks.cpu().numpy(), lps.cpu().numpy(), \
-            bad.cpu().numpy()
-        for i in dslots:
-            if bad[i]:
-                self._quarantine(i)
-                continue
-            self.sched.slots[i].length += 1
-            self._emit(i, int(toks[i]), float(lps[i]))
+        self._harvest(dslots, toks.cpu().numpy(), lps.cpu().numpy(),
+                      bad.cpu().numpy())
 
     def _run_chain_step(self, dslots: list[int]) -> None:
         """The "chain" speculative schedule: one engine step runs
@@ -900,6 +1038,9 @@ class ServeEngine:
         non-first column as an accepted proposal (rejected on a
         quarantine column)."""
         S, W = self.num_slots, self.spec_k + 1
+        tiered = self.pool.tiers > 1
+        if tiered:
+            self._maybe_poison(dslots)
         for i in dslots:
             self.sched.ensure_blocks(i, W)
         remaining = np.zeros(S, np.int64)
@@ -907,7 +1048,6 @@ class ServeEngine:
             s = self.sched.slots[i]
             remaining[i] = s.request.max_new_tokens - s.generated
         d_lengths, d_last, d_temps, d_seeds = self._slot_rows(dslots)
-        tiered = self.pool.tiers > 1
         if tiered:
             # The whole write window must be hot (the columns write with
             # tables fixed for the window); older pages may be cold.
@@ -920,6 +1060,7 @@ class ServeEngine:
             for i in dslots:
                 tables[i] = self._table_for(self.sched.slots[i])
             d_tables = self._tensor(tables)
+            self._maybe_poison(dslots)
         active = np.arange(W)[:, None] < remaining[None, :]  # (W, S)
         full = active[:, dslots].all(axis=1)                 # (W,)
         cols = []
@@ -987,6 +1128,8 @@ class ServeEngine:
         first and the tables carry hot slot ids (a sequence's whole table
         must fit hot during its speculative step)."""
         S, BPS = self.num_slots, self.blocks_per_seq
+        if self.pool.tiers > 1:
+            self._maybe_poison(dslots)
         for i in dslots:
             self.sched.ensure_blocks(i, self.spec_k + 1)
         if self.pool.tiers > 1:
@@ -1001,6 +1144,8 @@ class ServeEngine:
             row = [self.pool.hot_slot(b) for b in s.blocks]
             tables[i, :len(row)] = row
             limits[i] = len(s.request.prompt) + s.request.max_new_tokens
+        if self.pool.tiers == 1:
+            self._maybe_poison(dslots)
         drafted, toks, lps, bad = spec_step(
             self.model, self.block_size, self._decode_params,
             self._draft_params, self.pool.k, self.pool.v,
@@ -1040,54 +1185,6 @@ class ServeEngine:
                 # blocks is causally masked and the next write at
                 # ``length`` overwrites the frontier.
                 self.sched.trim_blocks(i)
-
-    def _quarantine(self, idx: int) -> None:
-        """Non-finite logits on slot ``idx``: isolate the request, not
-        the bank. Its private pages are scrubbed before they return to
-        the free list (a NaN'd V page re-issued to another request would
-        leak through zero-weight attention), then the slot retires and
-        the request finishes quarantined."""
-        s = self.sched.slots[idx]
-        req = s.request
-        self.pool.scrub([b for b in s.blocks
-                         if self.pool.refcount(b) == 1])
-        self.sched.retire(idx)
-        req.quarantined = True
-        req.done = True
-        req.finished_at = time.perf_counter()
-        self.metrics.inc("serve_quarantined")
-        self._tc(tenant_of(req))["quarantined"] += 1
-        self._tc(tenant_of(req))["completed"] += 1
-        warnings.warn(
-            f"request {req.rid}: non-finite logits at engine step "
-            f"{self._step_n}; request quarantined, pages scrubbed",
-            stacklevel=3)
-
-    def _emit(self, idx: int, tok: int, logprob: float) -> None:
-        """Record one sampled token for slot ``idx``'s request: stream
-        it, stamp TTFT on the first, retire on max_new_tokens/EOS."""
-        s = self.sched.slots[idx]
-        req = s.request
-        s.generated += 1
-        s.pending_token = tok
-        req.tokens.append(tok)
-        req.logprobs.append(logprob)
-        req.token_versions.append(self.param_version)
-        now = time.perf_counter()
-        req.token_times.append(now)
-        if req.first_token_at is None:
-            req.first_token_at = now
-            self.metrics.observe("serve_ttft_ms",
-                                 (now - req.submitted_at) * 1e3)
-        if req.on_token is not None:
-            req.on_token(tok)
-        if s.generated >= req.max_new_tokens \
-                or (req.eos_id is not None and tok == req.eos_id):
-            req.done = True
-            req.finished_at = now
-            self.sched.retire(idx)
-            self.metrics.inc("serve_retired")
-            self._tc(tenant_of(req))["completed"] += 1
 
 
 _MESH_REFUSAL = (

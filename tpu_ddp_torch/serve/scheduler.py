@@ -1,6 +1,7 @@
 """Iteration-level (continuous-batching) scheduler — the port of
-tpu_ddp/serve/scheduler.py (without the disaggregated prefill role and its
-peer schedulers, which are ROADMAP Queue 1 item 11). Pure host code.
+tpu_ddp/serve/scheduler.py, with the disaggregated prefill role, peer
+schedulers on one pool and :meth:`Scheduler.place`, the decode role's
+admission path (fleet/disagg.py). Pure host code.
 
 Batch membership is re-decided every model step: a fixed number of decode
 slots runs one whole-bank decode step per iteration; finished sequences
@@ -120,6 +121,13 @@ def tenant_of(request) -> str:
     return getattr(request, "tenant", DEFAULT_TENANT)
 
 
+def prefill_len(request) -> int:
+    """The prompt tokens a request prefills: all but its ``replay`` tail,
+    the tokens a migrated continuation already streamed, which the engine
+    feeds back through decode passes (fleet/resilience.py)."""
+    return len(request.prompt) - getattr(request, "replay", 0)
+
+
 @dataclasses.dataclass
 class SlotState:
     """Host bookkeeping for one decode slot's live request."""
@@ -133,14 +141,41 @@ class SlotState:
     pending_token: int = 0   # sampled but not yet fed through the model
     blocks: list = dataclasses.field(default_factory=list)
     reserved: int = 0        # worst-case TOTAL blocks for this request
+    replay: int = 0          # samples still to drop: replayed tokens
+
+    def take(self, tok: int) -> int | None:
+        """Settle one sample of this slot, whose cache holds ``length``
+        positions, and set the token fed next. While a migrated
+        continuation replays the tokens another replica streamed, the
+        sample is dropped and the streamed token at ``length`` is fed
+        on: returns None, nothing to emit. Otherwise the sample is fed on
+        and returned, to be emitted. The one place the replay rule
+        lives."""
+        if self.replay:
+            self.replay -= 1
+            self.pending_token = int(self.request.prompt[self.length])
+            return None
+        self.pending_token = int(tok)
+        return self.pending_token
+
+    @property
+    def owed(self) -> int:
+        """Tokens of work still owed: prompt to prefill, replayed tokens
+        to feed, tokens to generate."""
+        r = self.request
+        return (prefill_len(r) - self.prefill_done) + self.replay \
+            + (r.max_new_tokens - self.generated)
 
 
 class Scheduler:
     def __init__(self, pool, num_slots: int, mode: str = "continuous",
-                 prefix=None, tenants=None):
+                 prefix=None, role: str = "serve", tenants=None):
         if mode not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler mode {mode!r}; "
                              "expected 'continuous' or 'static'")
+        if role not in ("serve", "prefill"):
+            raise ValueError(f"unknown scheduler role {role!r}; "
+                             "expected 'serve' or 'prefill'")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.pool = pool
@@ -158,6 +193,16 @@ class Scheduler:
         # shared-prompt requests adopt cached blocks instead of
         # re-prefilling them.
         self.prefix = prefix
+        # "serve": prefill and decode in place. "prefill": the disagg
+        # prefill role, which only ever holds prompts (reservations leave
+        # out the generation tokens: the finished KV ships over the edge
+        # and decodes elsewhere).
+        self.role = role
+        # Other schedulers drawing on the same pool (the disagg degraded-
+        # prefill scheduler shares the decode pool): their unallocated
+        # reservations come off this scheduler's admission budget, so
+        # admitted-always-finish holds jointly.
+        self.peers: list = []
         self.queue: deque = deque()
         self.slots: list[SlotState | None] = [None] * num_slots
         self._admit_seq = 0
@@ -178,10 +223,14 @@ class Scheduler:
     @property
     def pool_budget(self) -> int:
         """Blocks an admission may draw on: the pool's allocatable count
-        minus every outstanding reservation."""
-        return self.pool.allocatable - self.reserved_unallocated
+        minus every outstanding reservation, this scheduler's and its
+        peers' on the same pool."""
+        return self.pool.allocatable - self.reserved_unallocated \
+            - sum(p.reserved_unallocated for p in self.peers)
 
     def worst_case_blocks(self, request) -> int:
+        if self.role == "prefill":
+            return self.pool.blocks_for(len(request.prompt))
         return self.pool.blocks_for(len(request.prompt)
                                     + request.max_new_tokens)
 
@@ -285,7 +334,8 @@ class Scheduler:
         when the pool budget cannot cover the draw (the caller stops
         admitting; the request stays queued)."""
         need = self.worst_case_blocks(req)
-        hit = (self.prefix.plan(req.prompt, ns=tenant_of(req))
+        hit = (self.prefix.plan(req.prompt[:prefill_len(req)],
+                                ns=tenant_of(req))
                if self.prefix is not None else None)
         # Every draw this admission makes on (free + evictable):
         # fresh blocks (need minus cached hits, +1 for the CoW
@@ -300,7 +350,8 @@ class Scheduler:
         if draw > self.pool_budget:
             return False
         slot = SlotState(request=req, admit_seq=self._admit_seq,
-                         phase="prefill", reserved=need)
+                         phase="prefill", reserved=need,
+                         replay=getattr(req, "replay", 0))
         self._admit_seq += 1
         if hit is not None:
             self.prefix.share(hit)  # no-op stats on a miss
@@ -339,13 +390,30 @@ class Scheduler:
     def tenant_live_tokens(self, tenant: str) -> int:
         """Outstanding (unretired) token work tenant ``tenant`` holds
         in live slots — the quantity its token budget caps."""
-        total = 0
-        for s in self.slots:
-            if s is None or tenant_of(s.request) != tenant:
-                continue
-            total += (len(s.request.prompt) - s.prefill_done) \
-                + (s.request.max_new_tokens - s.generated)
-        return total
+        return sum(s.owed for s in self.slots
+                   if s is not None and tenant_of(s.request) == tenant)
+
+    def place(self, request, blocks, length: int,
+              pending_token: int, replay: int = 0) -> int:
+        """Install an externally prefilled sequence into a free slot —
+        the disagg decode role's admission path. ``blocks`` are already
+        allocated from this scheduler's pool (the edge adoption); the slot
+        starts in the decode phase with its first sampled token pending
+        and ``replay`` streamed tokens still to feed (:meth:`SlotState.
+        take`). The caller checks the reservation rule before adopting."""
+        for i in range(self.num_slots):
+            if self.slots[i] is None:
+                self.slots[i] = SlotState(
+                    request=request, admit_seq=self._admit_seq,
+                    phase="decode", length=length, prefill_done=length,
+                    generated=len(request.tokens),
+                    pending_token=pending_token, blocks=list(blocks),
+                    reserved=self.worst_case_blocks(request),
+                    replay=replay)
+                self._admit_seq += 1
+                return i
+        raise RuntimeError("place() called with no free slot — the "
+                           "adopter must check capacity first")
 
     def ensure_block(self, idx: int) -> None:
         """Grow slot ``idx``'s table to cover writing position
@@ -399,8 +467,8 @@ class Scheduler:
     def release(self, idx: int) -> SlotState:
         """Clear slot ``idx`` WITHOUT freeing its blocks — ownership
         transfer, not retirement. The caller must hand the returned
-        state's blocks to another holder on the SAME pool or free them
-        itself."""
+        state's blocks to another scheduler on the SAME pool (the
+        degraded-prefill -> decode handover) or free them itself."""
         s = self.slots[idx]
         self.slots[idx] = None
         return s

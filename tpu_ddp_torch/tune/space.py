@@ -176,11 +176,49 @@ KNOBS: tuple[Knob, ...] = (
          doc="KV-cache storage dtype (memory/policy.py vocabulary): "
              "'bf16' under an f32 compute model halves cache reads but "
              "rounds the attended history — semantic"),
+    # The serving fleet (fleet/): the same goodput objective.
     Knob("prefix_cache", "prefix_cache", "TPU_DDP_PREFIX_CACHE",
          values=(False, True), objective="goodput",
          doc="refcounted shared-prefix KV cache (fleet/prefix.py): "
              "requests sharing a system prompt pay one prefill; "
              "exactness-preserving via copy-on-write"),
+    Knob("router_policy", "router_policy", "TPU_DDP_ROUTER_POLICY",
+         values=("least-loaded", "prefix-affinity"),
+         objective="goodput",
+         doc="multi-replica routing (fleet/router.py): "
+             "'prefix-affinity' sends a request to the replica whose "
+             "prefix cache holds its longest match; needs prefix_cache"),
+    Knob("kv_wire", "kv_wire", "TPU_DDP_KV_WIRE",
+         values=("none", "bf16", "int8"), semantic=True,
+         objective="goodput",
+         doc="the disagg KV edge's wire (parallel/compress.py "
+             "EdgeCodec): 'bf16' and 'int8' shrink the shipped KV but "
+             "round it — semantic"),
+    Knob("fleet_health", "fleet_health", "TPU_DDP_FLEET_HEALTH",
+         values=(False, True), flag="--fleet-health",
+         objective="goodput",
+         doc="replica health in the Router (fleet/router.py): a step "
+             "exception or deadline overrun marks a replica unhealthy, "
+             "its requests migrate, probes re-admit it after a backoff; "
+             "off = fail-fast"),
+    Knob("fleet_probe_backoff_ms", "fleet_probe_backoff_ms",
+         "TPU_DDP_FLEET_HEALTH_BACKOFF_MS",
+         values=(50.0, 200.0, 1000.0), flag="--fleet-probe-backoff-ms",
+         objective="goodput",
+         doc="initial probe backoff of an unhealthy replica, doubling "
+             "per consecutive failure (capped)"),
+    Knob("fleet_step_deadline_ms", "fleet_step_deadline_ms",
+         "TPU_DDP_FLEET_HEALTH_DEADLINE_MS",
+         values=(0.0, 250.0, 1000.0), flag="--fleet-step-deadline-ms",
+         objective="goodput",
+         doc="per-replica step deadline: a slower step counts as a "
+             "failure; 0 disables it"),
+    Knob("fleet_retry_budget", "fleet_retry_budget",
+         "TPU_DDP_FLEET_RETRY_BUDGET",
+         values=(0, 1, 3), flag="--fleet-retry-budget",
+         objective="goodput",
+         doc="migrations allowed per request before the Router sheds "
+             "it"),
     Knob("serve_queue_limit", "serve_queue_limit",
          "TPU_DDP_SERVE_QUEUE_LIMIT",
          values=(0, 64, 256), flag="--serve-queue-limit",
@@ -194,6 +232,20 @@ KNOBS: tuple[Knob, ...] = (
          doc="queue-deadline shedding: a request still waiting (no "
              "prefill started) this many ms after submission is shed; "
              "0 disables"),
+    Knob("fleet_autoscale", "fleet_autoscale", "TPU_DDP_FLEET_AUTOSCALE",
+         values=(False, True), flag="--fleet-autoscale",
+         objective="goodput",
+         doc="the autoscaling replica lifecycle (fleet/autoscale.py): "
+             "scale-up boots replicas from the engine factory, "
+             "scale-down drains through continuation migration; off = "
+             "a static fleet"),
+    Knob("scale_cooldown_ms", "scale_cooldown_ms",
+         "TPU_DDP_SCALE_COOLDOWN_MS",
+         values=(250.0, 1000.0, 5000.0), flag="--scale-cooldown-ms",
+         objective="goodput",
+         doc="minimum ms between autoscaler actions: shorter reacts "
+             "faster to a flash crowd but risks boot/drain thrash; "
+             "must be > 0"),
     Knob("tenant_classes", "tenant_classes", "TPU_DDP_TENANT_CLASSES",
          values=("", "gold=3,silver=2,bronze=1"),
          flag="--tenant-classes", objective="goodput",
@@ -289,13 +341,11 @@ KNOBS: tuple[Knob, ...] = (
 # The JAX package's knobs that the port does not carry yet -> the
 # ROADMAP Queue 1 item that ports them (their env variables are refused
 # by utils/config.py:_UNPORTED_ENV).
-_FLEET = "item 11 (fleet, publish and DiLoCo)"
 _UNPORTED_KNOBS = {
-    **{name: _FLEET for name in (
-        "fleet_roles", "router_policy", "kv_wire", "fleet_health",
-        "fleet_probe_backoff_ms", "fleet_step_deadline_ms",
-        "fleet_retry_budget", "publish_every", "publish_wire",
-        "max_staleness_steps", "fleet_autoscale", "scale_cooldown_ms",
+    "fleet_roles": "item 13 (the port's benchmark)",
+    **{name: "item 11 (11b: weight publishing, publish/)" for name in (
+        "publish_every", "publish_wire", "max_staleness_steps")},
+    **{name: "item 11 (11c: DiLoCo, train/outer.py)" for name in (
         "diloco_h", "outer_lr", "outer_momentum", "outer_wire")},
 }
 

@@ -1,5 +1,6 @@
 """Run configuration: the fields of tpu_ddp/utils/config.py's
-``TrainConfig`` that the port's slices use (serving, the image trainer's
+``TrainConfig`` that the port's slices use (serving and its fleet, the
+image trainer's
 models and datasets, the training ladder with its gradient wires and
 bucketed overlap, checkpoints, the step guard, elastic membership, the
 memory policy, the loop's host side: the dispatch window, K steps per
@@ -33,25 +34,19 @@ _FALSE = ("0", "false", "no", "off")
 
 # Env knobs of the JAX package that the port does not implement yet:
 # name -> (values that mean "off", the ROADMAP Queue 1 item that ports it).
-_FLEET = "item 11 (fleet, publish and DiLoCo)"
+_PUBLISH = "item 11 (11b: weight publishing, publish/)"
+_DILOCO = "item 11 (11c: DiLoCo, train/outer.py)"
 _UNPORTED_ENV = {
     "TPU_DDP_AUDIT": (("off",), "item 12 (analysis/)"),
-    "TPU_DDP_FLEET_ROLES": (("single",), _FLEET),
-    "TPU_DDP_ROUTER_POLICY": (("least-loaded",), _FLEET),
-    "TPU_DDP_KV_WIRE": (("none",), _FLEET),
-    "TPU_DDP_FLEET_HEALTH": (_TRUE, _FLEET),
-    "TPU_DDP_FLEET_HEALTH_BACKOFF_MS": (("200", "200.0"), _FLEET),
-    "TPU_DDP_FLEET_HEALTH_DEADLINE_MS": (("0", "0.0"), _FLEET),
-    "TPU_DDP_FLEET_RETRY_BUDGET": (("3",), _FLEET),
-    "TPU_DDP_FLEET_AUTOSCALE": (_FALSE, _FLEET),
-    "TPU_DDP_SCALE_COOLDOWN_MS": (("1000", "1000.0"), _FLEET),
-    "TPU_DDP_PUBLISH_EVERY": (("0",), _FLEET),
-    "TPU_DDP_PUBLISH_WIRE": (("none",), _FLEET),
-    "TPU_DDP_PUBLISH_MAX_STALENESS": (("0",), _FLEET),
-    "TPU_DDP_DILOCO_H": (("0",), _FLEET),
-    "TPU_DDP_DILOCO_OUTER_LR": (("0.7",), _FLEET),
-    "TPU_DDP_DILOCO_OUTER_MOMENTUM": (("0.9",), _FLEET),
-    "TPU_DDP_DILOCO_OUTER_WIRE": (("none",), _FLEET),
+    # JAX's package never reads it: its benchmark does (bench.py).
+    "TPU_DDP_FLEET_ROLES": (("single",), "item 13 (the port's benchmark)"),
+    "TPU_DDP_PUBLISH_EVERY": (("0",), _PUBLISH),
+    "TPU_DDP_PUBLISH_WIRE": (("none",), _PUBLISH),
+    "TPU_DDP_PUBLISH_MAX_STALENESS": (("0",), _PUBLISH),
+    "TPU_DDP_DILOCO_H": (("0",), _DILOCO),
+    "TPU_DDP_DILOCO_OUTER_LR": (("0.7",), _DILOCO),
+    "TPU_DDP_DILOCO_OUTER_MOMENTUM": (("0.9",), _DILOCO),
+    "TPU_DDP_DILOCO_OUTER_WIRE": (("none",), _DILOCO),
 }
 
 
@@ -258,6 +253,32 @@ class TrainConfig:
     # Refcounted shared-prefix KV cache (fleet/prefix.py): requests that
     # share a system prompt pay one prefill. Env: TPU_DDP_PREFIX_CACHE.
     prefix_cache: bool = False
+    # Multi-replica routing (fleet/router.py): "least-loaded" or
+    # "prefix-affinity" (needs prefix_cache). Env: TPU_DDP_ROUTER_POLICY.
+    router_policy: str = "least-loaded"
+    # The disagg KV edge's wire (parallel/compress.py EdgeCodec): "none",
+    # "bf16" or "int8"; the lossy ones round the shipped KV. Env:
+    # TPU_DDP_KV_WIRE.
+    kv_wire: str = "none"
+    # Replica health in the Router (fleet/resilience.py): a replica
+    # raising out of step() goes unhealthy and its requests migrate. Env:
+    # TPU_DDP_FLEET_HEALTH.
+    fleet_health: bool = True
+    # Probe backoff of an unhealthy replica, doubling per consecutive
+    # failure (capped at 30 s). Env: TPU_DDP_FLEET_HEALTH_BACKOFF_MS.
+    fleet_probe_backoff_ms: float = 200.0
+    # A replica step slower than this counts as a failure (0 = off).
+    # Env: TPU_DDP_FLEET_HEALTH_DEADLINE_MS.
+    fleet_step_deadline_ms: float = 0.0
+    # Replays of one request after replica failures before the Router
+    # sheds it. Env: TPU_DDP_FLEET_RETRY_BUDGET.
+    fleet_retry_budget: int = 3
+    # The autoscaler over the Router (fleet/autoscale.py). Env:
+    # TPU_DDP_FLEET_AUTOSCALE.
+    fleet_autoscale: bool = False
+    # Minimum ms between autoscale actions (> 0). Env:
+    # TPU_DDP_SCALE_COOLDOWN_MS.
+    scale_cooldown_ms: float = 1000.0
     # Bounded admission queue: submits past this depth are shed at the
     # door (0 = unbounded). Env: TPU_DDP_SERVE_QUEUE_LIMIT.
     serve_queue_limit: int = 0
@@ -465,11 +486,62 @@ class TrainConfig:
                 "none|int8 (TPU_DDP_DECODE_QUANT)")
         self._serving_knobs()
 
+    def _fleet_knobs(self) -> None:
+        """The fleet's env knobs (tpu_ddp/utils/config.py's checks and
+        messages)."""
+        self.prefix_cache = _env_bool("TPU_DDP_PREFIX_CACHE",
+                                      self.prefix_cache)
+        env_rp = os.environ.get("TPU_DDP_ROUTER_POLICY")
+        if env_rp:
+            self.router_policy = env_rp
+        if self.router_policy not in ("least-loaded", "prefix-affinity"):
+            raise ValueError(
+                f"router_policy={self.router_policy!r}: expected "
+                "least-loaded|prefix-affinity (TPU_DDP_ROUTER_POLICY)")
+        env_kw = os.environ.get("TPU_DDP_KV_WIRE")
+        if env_kw:
+            self.kv_wire = env_kw
+        if self.kv_wire not in ("none", "bf16", "int8"):
+            raise ValueError(
+                f"kv_wire={self.kv_wire!r}: expected none|bf16|int8 "
+                "(TPU_DDP_KV_WIRE)")
+        self.fleet_health = _env_bool("TPU_DDP_FLEET_HEALTH",
+                                      self.fleet_health)
+        self.fleet_probe_backoff_ms = _env_num(
+            "TPU_DDP_FLEET_HEALTH_BACKOFF_MS", float,
+            self.fleet_probe_backoff_ms)
+        if self.fleet_probe_backoff_ms <= 0:
+            raise ValueError(
+                f"fleet_probe_backoff_ms must be > 0, got "
+                f"{self.fleet_probe_backoff_ms} "
+                "(TPU_DDP_FLEET_HEALTH_BACKOFF_MS)")
+        self.fleet_step_deadline_ms = _env_num(
+            "TPU_DDP_FLEET_HEALTH_DEADLINE_MS", float,
+            self.fleet_step_deadline_ms)
+        if self.fleet_step_deadline_ms < 0:
+            raise ValueError(
+                f"fleet_step_deadline_ms must be >= 0, got "
+                f"{self.fleet_step_deadline_ms} "
+                "(TPU_DDP_FLEET_HEALTH_DEADLINE_MS)")
+        self.fleet_retry_budget = _env_num(
+            "TPU_DDP_FLEET_RETRY_BUDGET", int, self.fleet_retry_budget)
+        if self.fleet_retry_budget < 0:
+            raise ValueError(
+                f"fleet_retry_budget must be >= 0, got "
+                f"{self.fleet_retry_budget} (TPU_DDP_FLEET_RETRY_BUDGET)")
+        self.fleet_autoscale = _env_bool("TPU_DDP_FLEET_AUTOSCALE",
+                                         self.fleet_autoscale)
+        self.scale_cooldown_ms = _env_num(
+            "TPU_DDP_SCALE_COOLDOWN_MS", float, self.scale_cooldown_ms)
+        if self.scale_cooldown_ms <= 0:
+            raise ValueError(
+                f"scale_cooldown_ms must be > 0, got "
+                f"{self.scale_cooldown_ms} (TPU_DDP_SCALE_COOLDOWN_MS)")
+
     def _serving_knobs(self) -> None:
         """The serving extensions' env knobs, validated as the JAX
         package validates them."""
-        self.prefix_cache = _env_bool("TPU_DDP_PREFIX_CACHE",
-                                      self.prefix_cache)
+        self._fleet_knobs()
         self.serve_queue_limit = _env_num(
             "TPU_DDP_SERVE_QUEUE_LIMIT", int, self.serve_queue_limit)
         if self.serve_queue_limit < 0:
